@@ -1,0 +1,170 @@
+"""Tensor form of a model: fixed-width 64-bit rows + a batched transition.
+
+The port's counterpart of ``stateright_tpu/parallel/tensor_model.py``.  A
+:class:`TensorModel` is the device twin of an object-form
+:class:`~stateright_tpu_torch.core.Model`: a static maximum action arity
+``max_actions`` and a validity mask instead of dynamic action lists.
+
+Contract (``B`` = batch, ``W`` = width, ``A`` = max_actions, ``P`` = number
+of properties, in the object model's ``properties()`` order).  Rows are
+int64 tensors holding the 64-bit words' bit patterns (``ops/hashing.py``):
+
+ - ``init_rows() -> numpy uint64[I, W]``
+ - ``step_rows(rows: int64[B, W]) -> (int64[B, A, W], bool[B, A])``;
+   ``valid[b, a]`` iff action ``a`` is enabled in row ``b`` and yields a
+   real successor.  Invalid successor rows may hold garbage.
+ - ``property_masks(rows: int64[B, W]) -> bool[B, P]``
+ - ``encode_state(state) -> tuple[int, ...]`` / ``decode_state(row)``:
+   the host bridge; ``hash_words(encode_state(s))`` equals the device
+   ``row_hash`` of the same row.
+
+Only :class:`FieldWriter`'s eager mode is ported; the coalesced mode
+comes with the hot-op knobs.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..fingerprint import hash_words
+from ..ops.hashing import lshr, to_i64
+
+
+class TensorModel:
+    """Base class for device twins of object-form models."""
+
+    width: int  # 64-bit words per state row
+    max_actions: int  # static action arity A
+    model: Any  # the object-form Model (properties, display, re-execution)
+
+    # -- host-side bridge ----------------------------------------------------
+
+    def init_rows(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def encode_state(self, state) -> tuple:
+        raise NotImplementedError
+
+    def decode_state(self, row) -> Any:
+        raise NotImplementedError
+
+    # -- device-side ---------------------------------------------------------
+
+    def step_rows(self, rows):
+        raise NotImplementedError
+
+    def property_masks(self, rows):
+        raise NotImplementedError
+
+
+class TensorBackedModel:
+    """Mixin for object-form models that have a tensor twin.
+
+    Overrides ``fingerprint_state`` with the row hash so the host and the
+    device agree on state identity.  The twin is resolved once, at the
+    first fingerprint, and cached on the model.
+    """
+
+    _TENSOR_UNRESOLVED = "unresolved"
+
+    def tensor_model(self) -> Optional[TensorModel]:
+        raise NotImplementedError
+
+    def fingerprint_state(self, state) -> int:
+        tm = self._tensor_cached()
+        if tm is None:
+            return super().fingerprint_state(state)
+        return hash_words(tm.encode_state(state))
+
+    def _tensor_cached(self) -> Optional[TensorModel]:
+        tm = getattr(self, "_tensor_model_cache", self._TENSOR_UNRESOLVED)
+        if tm is self._TENSOR_UNRESOLVED:
+            tm = self.tensor_model()
+            object.__setattr__(self, "_tensor_model_cache", tm)
+        return tm
+
+
+class FieldWriter:
+    """Packed-field write accumulator over a :class:`BitPacker` block, eager
+    mode: every ``set`` applies through ``pk.set`` at call time
+    (``stateright_tpu``'s ``FieldWriter(coalesce=False)``; its ``get`` and
+    ``or_field`` come with the first twin that uses them)."""
+
+    def __init__(self, pk: "BitPacker", base):
+        self.pk = pk
+        self.cur = base
+
+    def set(self, name: str, value) -> "FieldWriter":
+        """Write field ``name`` (int64[...] matching the block's leading
+        shape, or a Python int)."""
+        self.cur = self.pk.set(self.cur, name, value)
+        return self
+
+    def done(self):
+        return self.cur
+
+
+class BitPacker:
+    """Packs named bit fields into 64-bit words; fields never straddle words.
+
+    The host side packs/unpacks Python ints; the device side extracts and
+    rebuilds fields with shifts and masks on int64 bit patterns.
+    """
+
+    def __init__(self, fields: Sequence[tuple[str, int]]):
+        self.fields = list(fields)
+        self.layout: dict[str, tuple[int, int, int]] = {}  # name -> (word, off, bits)
+        word, off = 0, 0
+        for name, bits in self.fields:
+            if not 1 <= bits <= 64:
+                raise ValueError(f"field {name!r}: bits must be in 1..64")
+            if off + bits > 64:
+                word, off = word + 1, 0
+            self.layout[name] = (word, off, bits)
+            off += bits
+        self.width = word + 1
+
+    # -- host ----------------------------------------------------------------
+
+    def pack(self, **values: int) -> tuple:
+        words = [0] * self.width
+        for name, (word, off, bits) in self.layout.items():
+            v = values.pop(name, 0)
+            if not 0 <= v < (1 << bits):
+                raise ValueError(f"field {name!r}={v} out of range ({bits} bits)")
+            words[word] |= v << off
+        if values:
+            raise ValueError(f"unknown fields: {sorted(values)}")
+        return tuple(words)
+
+    def unpack(self, row) -> dict[str, int]:
+        return {
+            name: ((int(row[word]) & ((1 << 64) - 1)) >> off) & ((1 << bits) - 1)
+            for name, (word, off, bits) in self.layout.items()
+        }
+
+    # -- device --------------------------------------------------------------
+
+    def get(self, rows, name: str):
+        """Extract field ``name``: ``int64[..., W] -> int64[...]``."""
+        word, off, bits = self.layout[name]
+        v = lshr(rows[..., word], off)
+        if bits < 64:
+            v = v & to_i64((1 << bits) - 1)
+        return v
+
+    def set(self, rows, name: str, value):
+        """Return rows with field ``name`` replaced by ``value``."""
+        word, off, bits = self.layout[name]
+        mask = ((1 << bits) - 1) << off
+        cleared = rows[..., word] & to_i64(~mask)
+        if isinstance(value, torch.Tensor):
+            v = (value.to(torch.int64) << off) & to_i64(mask)
+        else:  # a constant stays a Python scalar: no host-to-device copy
+            v = to_i64((int(value) << off) & mask)
+        out = rows.clone()
+        out[..., word] = cleared | v
+        return out

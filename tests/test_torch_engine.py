@@ -1,0 +1,169 @@
+"""The port's wavefront engine (``spawn_gpu`` on ``device="cpu"``, the plain
+PyTorch path) against the JAX package's ``TpuChecker`` on the same
+capacities: counts, discovery fingerprint traces and the final
+visited-table bytes must be equal (tolerance 0), including a run small
+enough to force growth and runs resumed across the two engines'
+snapshots."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
+import torch
+
+from stateright_tpu.models.two_phase_commit import TwoPhaseSys as JaxSys
+from stateright_tpu_torch import convert
+from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def jax_run(n, builder=None, **kw):
+    b = JaxSys(n).checker() if builder is None else builder(JaxSys(n).checker())
+    if "batch" in kw:
+        kw["frontier_capacity"] = kw.pop("batch")
+    return b.spawn_tpu(sync=True, **kw)
+
+
+def port_run(n, builder=None, **kw):
+    b = TwoPhaseSys(n).checker()
+    if builder is not None:
+        b = builder(b)
+    return b.spawn_gpu(device="cpu", **kw).join()
+
+
+def assert_same_run(j, t):
+    assert t.unique_state_count() == j.unique_state_count()
+    assert t.state_count() == j.state_count()
+    assert t.max_depth() == j.max_depth()
+    jt, tt = j._table_np(), t._table_np()
+    np.testing.assert_array_equal(tt[0], np.asarray(jt[0]))
+    np.testing.assert_array_equal(tt[1], np.asarray(jt[1]))
+    jd = [int(x) for x in np.asarray(j._results["disc"])]
+    td = [int(x) for x in t._results["disc"]]
+    assert td == jd
+    for fp in td:
+        if fp:
+            assert t._trace(fp) == j._trace(fp)
+
+
+@pytest.mark.parametrize(
+    "n,kw,unique",
+    [
+        (3, {}, 288),
+        (5, {}, 8832),
+        # small enough to force queue and table growth mid-run
+        (3, dict(capacity=1 << 6, batch=1 << 3), 288),
+    ],
+)
+def test_counts_tables_and_traces_match_jax_engine(n, kw, unique):
+    j = jax_run(n, **dict(kw))
+    t = port_run(n, **kw)
+    assert t.unique_state_count() == unique
+    if n == 3:
+        assert t.state_count() == 1146
+    assert_same_run(j, t)
+    assert t.growth_events == j.growth_events
+    if kw:
+        assert t.growth_events and t._cap >= 512
+    assert set(t.discoveries()) == {"abort agreement", "commit agreement"}
+    t.assert_properties()
+
+
+def test_discovery_paths_replay_and_are_shortest():
+    t = port_run(3)
+    cpu = JaxSys(3).checker().spawn_bfs().join()
+    for name in ("abort agreement", "commit agreement"):
+        path = t.discovery(name)
+        model = t.model
+        assert model.property_by_name(name).condition(model, path.final_state())
+        assert len(path) == len(cpu.discovery(name))
+
+
+def test_resume_from_jax_snapshot_finishes_the_space():
+    j = jax_run(5, lambda b: b.target_states(1000))
+    assert 1000 <= j.unique_state_count() < 8832
+    snap = j.checkpoint()
+    keep = {k: np.array(v, copy=True) for k, v in snap.items()
+            if isinstance(v, np.ndarray)}
+    t = TwoPhaseSys(5).checker().spawn_gpu(device="cpu", resume=snap).join()
+    assert t.unique_state_count() == 8832
+    # the caller's snapshot is never written through
+    for k, v in keep.items():
+        np.testing.assert_array_equal(snap[k], v)
+    assert_same_run(jax_run(5), t)
+
+
+def test_jax_engine_resumes_from_port_snapshot():
+    t = port_run(5, lambda b: b.target_states(1000))
+    assert 1000 <= t.unique_state_count() < 8832
+    j = JaxSys(5).checker().spawn_tpu(sync=True, resume=t.final_snapshot())
+    assert j.unique_state_count() == 8832
+
+
+def test_timeout_stops_and_snapshot_resumes():
+    t = port_run(5, lambda b: b.timeout(0.0), steps_per_call=1, batch=1 << 6)
+    assert t.unique_state_count() < 8832
+    r = TwoPhaseSys(5).checker().spawn_gpu(
+        device="cpu", steps_per_call=1, batch=1 << 6, resume=t.final_snapshot()
+    ).join()
+    assert r.unique_state_count() == 8832
+
+
+def test_snapshot_round_trip_is_exact():
+    t = port_run(3, lambda b: b.target_states(100))
+    snap = t.final_snapshot()
+    carry = convert.carry_from_snapshot(snap, "cpu")
+    again = convert.carry_to_snapshot(carry, snap["cap"], snap["qcap"],
+                                      snap["batch"], snap["cand"])
+    for k in convert.SNAPSHOT_KEYS:
+        assert np.asarray(again[k]).dtype == np.asarray(snap[k]).dtype, k
+        np.testing.assert_array_equal(again[k], snap[k])
+
+
+def test_resume_rejects_another_models_snapshot():
+    snap = port_run(3, lambda b: b.target_states(100)).final_snapshot()
+    with pytest.raises(ValueError, match="different model"):
+        TwoPhaseSys(4).checker().spawn_gpu(device="cpu", resume=snap)
+
+
+def test_port_run_loads_neither_jax_nor_the_reference():
+    code = (
+        "import sys\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "c = TwoPhaseSys(3).checker().spawn_gpu(device='cpu').join()\n"
+        "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m == 'jax' or m.startswith(('jax.', 'stateright_tpu.'))\n"
+        "       or m == 'stateright_tpu']\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_never_import_jax_or_the_reference():
+    files = sorted((REPO / "stateright_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            for bad in ("import jax", "from jax", "import stateright_tpu\n",
+                        "from stateright_tpu ", "from stateright_tpu.",
+                        "import stateright_tpu."):
+                assert not (s + "\n").startswith(bad), (f, line)
+
+
+def test_spawn_gpu_without_a_device_raises_when_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TwoPhaseSys(3).checker().spawn_gpu()
