@@ -178,7 +178,9 @@ def check_kernels(dev) -> list:
     got, want = row_hash(rows, valid), row_hash_plain(rows, valid)
     n, w = rows.shape
     nv = int(valid.sum())
-    b_ms, b_by = bound(n * w * 8 + n + n * 8, nv * (w + 1) * 10)
+    # every lane reads its valid byte and writes its fingerprint; only the
+    # valid lanes read their row (invalid ones return before it)
+    b_ms, b_by = bound(nv * w * 8 + n + n * 8, nv * (w + 1) * 10)
     out.append(dict(
         name="row_hash", route="cuda",
         source="stateright_tpu_torch/csrc/row_hash.cu",
@@ -199,7 +201,10 @@ def check_kernels(dev) -> list:
     live = sfp != EMPTY
     lines = int(torch.unique(bucket[live]).numel())
     nlive = int(live.sum())
-    c_ms, c_by = bound(m * 16 + lines * SLOTS * 8 + m * 5, nlive * SLOTS * 2)
+    # every lane reads its fingerprint and writes 5 bytes; only live lanes
+    # read their bucket index, and each distinct line is read once
+    c_ms, c_by = bound(m * 8 + nlive * 8 + lines * SLOTS * 8 + m * 5,
+                       nlive * SLOTS * 2)
     out.append(dict(
         name="bucket_probe", route="cuda",
         source="stateright_tpu_torch/csrc/bucket_probe.cu",

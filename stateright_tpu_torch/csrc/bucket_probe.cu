@@ -10,8 +10,9 @@
 // writing (false, 0), and the count of valid lanes never leaves the device.
 //
 // Bound on an H100: memory traffic, and latency of the random line reads.
-// A valid lane reads its 8-byte fingerprint, its 8-byte bucket index and
-// one 128-byte line (four 32-byte sectors, one aligned L2 line) and writes
+// Every lane reads its 8-byte fingerprint; a valid lane also reads its
+// 8-byte bucket index (EMPTY lanes sort last, so the skipped reads are one
+// contiguous tail) and one 128-byte line (four 32-byte sectors, one aligned L2 line) and writes
 // 5 bytes.  Sorted candidates put same-bucket lanes side by side, so
 // repeated lines hit in L1/L2.  The line is read as eight 16-byte vector
 // loads, the widest a thread issues, so a lane costs eight load
@@ -28,19 +29,17 @@ __global__ void bucket_probe_kernel(const unsigned long long* __restrict__ tfp,
                                     const unsigned long long* __restrict__ sfp,
                                     const long long* __restrict__ bucket,
                                     bool* __restrict__ present,
-                                    int* __restrict__ base, long long m,
-                                    long long nbuckets) {
+                                    int* __restrict__ base, long long m) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   const unsigned long long fp = sfp[i];
-  const long long b = bucket[i];
-  if (fp == kEmpty || b < 0 || b >= nbuckets) {
+  if (fp == kEmpty) {
     present[i] = false;
     base[i] = 0;
     return;
   }
   const ulonglong2* line =
-      reinterpret_cast<const ulonglong2*>(tfp + b * kSlots);
+      reinterpret_cast<const ulonglong2*>(tfp + bucket[i] * kSlots);
   bool hit = false;
   int used = 0;
 #pragma unroll
@@ -57,12 +56,11 @@ __global__ void bucket_probe_kernel(const unsigned long long* __restrict__ tfp,
 
 extern "C" int srt_bucket_probe(const void* tfp, const void* sfp,
                                 const void* bucket, void* present, void* base,
-                                int64_t m, int64_t nbuckets, void* stream) {
+                                int64_t m, void* stream) {
   const int threads = 256;
   const long long blocks = (m + threads - 1) / threads;
   bucket_probe_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)tfp, (const unsigned long long*)sfp,
-      (const long long*)bucket, (bool*)present, (int*)base, (long long)m,
-      (long long)nbuckets);
+      (const long long*)bucket, (bool*)present, (int*)base, (long long)m);
   return (int)cudaGetLastError();
 }

@@ -32,11 +32,10 @@ __global__ void insert_write_kernel(long long* __restrict__ tfp,
                                     const long long* __restrict__ cfp,
                                     const long long* __restrict__ cpl,
                                     const long long* __restrict__ n_new,
-                                    long long m, long long nslots) {
+                                    long long m) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m || i >= *n_new) return;
-  long long t = tgt[i];
-  if (t < 0 || t >= nslots) return;  // pad lanes carry t == nslots
+  if (i >= m || i >= *n_new) return;  // pad lanes (tgt == nslots) lie past it
+  const long long t = tgt[i];
   tfp[t] = cfp[i];
   tpl[t] = cpl[i];
 }
@@ -45,13 +44,12 @@ __global__ void insert_write_kernel(long long* __restrict__ tfp,
 
 extern "C" int srt_insert_write(void* tfp, void* tpl, const void* tgt,
                                 const void* cfp, const void* cpl,
-                                const void* n_new, int64_t m, int64_t nslots,
-                                void* stream) {
+                                const void* n_new, int64_t m, void* stream) {
   const int threads = 256;
   const long long blocks = (m + threads - 1) / threads;
   insert_write_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (long long*)tfp, (long long*)tpl, (const long long*)tgt,
       (const long long*)cfp, (const long long*)cpl, (const long long*)n_new,
-      (long long)m, (long long)nslots);
+      (long long)m);
   return (int)cudaGetLastError();
 }

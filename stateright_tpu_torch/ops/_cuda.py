@@ -39,12 +39,12 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C signatures: name -> argtypes (every entry point returns cudaError_t)
 _SIGNATURES = {
-    # tfp, tpl, tgt, cfp, cpl, n_new, m, nslots, stream
-    "srt_insert_write": (_P, _P, _P, _P, _P, _P, _I64, _I64, _P),
+    # tfp, tpl, tgt, cfp, cpl, n_new, m, stream
+    "srt_insert_write": (_P, _P, _P, _P, _P, _P, _I64, _P),
     # rows, valid (nullable), out, n, width, stream
     "srt_row_hash": (_P, _P, _P, _I64, _I32, _P),
-    # tfp, sfp, bucket, present, base, m, nbuckets, stream
-    "srt_bucket_probe": (_P, _P, _P, _P, _P, _I64, _I64, _P),
+    # tfp, sfp, bucket, present, base, m, stream
+    "srt_bucket_probe": (_P, _P, _P, _P, _P, _I64, _P),
 }
 
 

@@ -95,8 +95,7 @@ def bucket_probe(tfp, sfp, bucket):
     if m:
         _cuda.check("bucket_probe", _cuda.library().srt_bucket_probe(
             tfp.data_ptr(), sfp.data_ptr(), bucket.data_ptr(),
-            present.data_ptr(), base.data_ptr(), m, tfp.shape[0] // SLOTS,
-            _cuda.stream_of(tfp),
+            present.data_ptr(), base.data_ptr(), m, _cuda.stream_of(tfp),
         ))
         bucket_probe.launches += 1
     return present, base

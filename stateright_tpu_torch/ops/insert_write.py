@@ -47,7 +47,7 @@ def insert_write(tfp, tpl, tgt, cfp, cpl, n_new):
     if m:
         _cuda.check("insert_write", _cuda.library().srt_insert_write(
             tfp.data_ptr(), tpl.data_ptr(), tgt.data_ptr(), cfp.data_ptr(),
-            cpl.data_ptr(), n_new.data_ptr(), m, nslots, _cuda.stream_of(tfp),
+            cpl.data_ptr(), n_new.data_ptr(), m, _cuda.stream_of(tfp),
         ))
         insert_write.launches += 1
     return tfp, tpl
