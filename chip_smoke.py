@@ -5,11 +5,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``stateright_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card at the shapes the
-2pc-7 run gives it (integer outputs: they must be equal), times both, and
-drives the port's main path through the user's entry point,
-``TwoPhaseSys(n).checker().spawn_gpu()``:
+holds each against its plain PyTorch version on the card (integer outputs:
+they must be equal), times both, and drives the port's main path through
+the user's entry point, ``TwoPhaseSys(n).checker().spawn_gpu()``:
 
+ - kernels at 2pc-7 shapes: the next batch of a 2pc-7 run bounded at
+   100,000 unique states (its table fits in the L2, as on the main path);
  - 2pc-5 on ``cuda`` and on ``cpu`` in one process: 8,832 unique and
    identical visited-table bytes on both devices;
  - 2pc-7, complete: 296,448 unique, both agreement discoveries replayed
@@ -17,11 +18,15 @@ drives the port's main path through the user's entry point,
    kernel launched (each wrapper counts its launches; the counts are reset
    just before this run and read just after it);
  - 2pc-10, bounded by ``target_states``: the visited table in the
-   hundreds of MB, discoveries replayed, peak device memory.
+   hundreds of MB, discoveries replayed, peak device memory;
+ - kernels at 2pc-10 shapes: the next batch of that run's final carry,
+   with the L2 flushed before every timed call (the 512 MiB table is cold
+   there on the main path).
 
 Any failure raises (non-zero exit).  The second-to-last line of standard
-output is the ``{"kernels": [...]}`` record and the last line is
-``{"ok": true, "device": {...}}``.  Everything printed is also written to
+output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
+numbers under ``at_2pc10``) and the last line is ``{"ok": true, "device":
+{...}}``.  Everything printed is also written to
 ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -40,13 +45,17 @@ from stateright_tpu_torch import convert
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.buckets import (
     SLOTS,
-    bucket_probe,
-    bucket_probe_plain,
-    plan_writes,
+    PlanBuffers,
+    bucket_plan,
+    bucket_plan_plain,
     sort_candidates,
 )
 from stateright_tpu_torch.ops.hashing import EMPTY, row_hash, row_hash_plain
-from stateright_tpu_torch.ops.insert_write import insert_write, insert_write_plain
+from stateright_tpu_torch.ops.insert_commit import (
+    QueueAppend,
+    insert_commit,
+    insert_commit_plain,
+)
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -54,8 +63,18 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # integer rate, which the data sheet does not list
 OPS_PER_S = 67e12
 TPC10_TARGET = 4_000_000
+FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
+# about 2 ms of spinning at the H100's clock: longer than the host takes to
+# enqueue any call timed here (the plain versions issue some 50 launches)
+SLEEP_CYCLES = 4_000_000
 OUT = Path("chiprun_out/chip_smoke.json")
 RECORD: dict = {}
+# the keys every kernel record carries in the final line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms", "matched", "device_ms", "plain_device_ms",
+               "device_ms_by", "plain_device_ms_by", "events_device_ms",
+               "plain_events_device_ms", "host_ms", "engine_host_ms", "shape")
 
 
 def emit(key: str, value) -> None:
@@ -64,7 +83,8 @@ def emit(key: str, value) -> None:
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
-    """Mean milliseconds per call, by CUDA events around ``iters`` calls."""
+    """Mean milliseconds per call, by CUDA events around ``iters``
+    back-to-back calls (so the host's issue time between launches counts)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -78,20 +98,105 @@ def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def time_cold_ms(fn, flush, iters: int = 30) -> float:
+    """Mean milliseconds per call, by CUDA events around each call, with
+    the L2 flushed (``flush`` rewritten by one kernel) before each."""
+    for _ in range(3):
+        flush.add_(1)
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.add_(1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def profiler_device_ms(fn, flush=None, iters: int = 20):
     """Mean milliseconds of DEVICE time per call (every kernel and copy the
     call enqueues, summed), from ``torch.profiler``: unlike :func:`time_ms`
-    it leaves out the gaps while the host issues the next launch."""
+    it leaves out the gaps while the host issues the next launch.  With
+    ``flush``, the L2 is flushed before each call and the flush's own
+    kernel is left out of the sum.  ``None`` when the profiler recorded no
+    device time (for the call, or for the flush it must leave out)."""
     from torch.profiler import ProfilerActivity, profile
 
+    def profiled(call, n):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+
+    skip = set()
+    if flush is not None:
+        # the flush's own device operations, by name, are left out
+        skip = set(profiled(lambda: flush.add_(1), 3))
+        if not skip:
+            return None
+        times = profiled(lambda: (flush.add_(1), fn()), iters)
+    else:
+        times = profiled(fn, iters)
+    total = sum(t for k, t in times.items() if k not in skip)
+    return total / 1e3 / iters if total > 0 else None
+
+
+def events_device_ms(fn, flush=None, iters: int = 20) -> float:
+    """Mean milliseconds per call by CUDA events, with the stream held busy
+    (``torch.cuda._sleep``) while the host enqueues the call, so the window
+    holds device time and no host issue gaps, unless the call itself
+    waits for the device.  ``flush``: the L2 is flushed before each call,
+    outside the window."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / iters
+    pairs = []
+    for _ in range(iters):
+        if flush is not None:
+            flush.add_(1)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def device_ms(fn, flush=None) -> tuple[float, str, float]:
+    """Device milliseconds per call, how they were taken, and the events
+    figure: by the profiler, tried three times, and else by CUDA events
+    behind a busy stream (the profiler's device trace is sometimes empty).
+    The events figure is taken every time, as a cross-check."""
+    events = events_device_ms(fn, flush)
+    for _ in range(3):
+        t = profiler_device_ms(fn, flush)
+        if t is not None:
+            return t, "profiler", events
+    return events, "events", events
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """Mean host milliseconds to issue one call (no synchronisation inside
+    the window): what the wrapper itself costs the engine's loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed * 1e3 / iters
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -102,14 +207,14 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def kernel_launches() -> dict:
     return {
-        "insert_write": insert_write.launches,
         "row_hash": row_hash.launches,
-        "bucket_probe": bucket_probe.launches,
+        "bucket_plan": bucket_plan.launches,
+        "insert_commit": insert_commit.launches,
     }
 
 
 def reset_launches() -> None:
-    insert_write.launches = row_hash.launches = bucket_probe.launches = 0
+    row_hash.launches = bucket_plan.launches = insert_commit.launches = 0
 
 
 def check_discoveries(model, checker, expect: set) -> dict:
@@ -136,42 +241,70 @@ def timed_run(n: int, target=None, **kw):
     return checker, time.monotonic() - t0
 
 
-def kernel_inputs(dev):
-    """Real 2pc-7 mid-run inputs for the three kernels: a run bounded at
-    100,000 unique states, then the next batch popped from its queue and
-    pushed through the insert's plain stages up to each kernel."""
-    checker, _ = timed_run(7, target=100_000, device=dev)
-    snap = checker.final_snapshot()
-    carry = convert.carry_from_snapshot(snap, dev)
-    head, tail = int(snap["head"]), int(snap["tail"])
+def next_batch(checker, carry) -> dict:
+    """The next batch popped from a run's carry (device tensors, as the
+    engine's ``_final_carry`` holds them), pushed through the insert's plain
+    stages up to each kernel: real inputs at the shapes the main path
+    gives the three kernels."""
+    head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
     batch, cand = checker._batch, checker._cand
+    arity = checker.tensor.max_actions
     if tail - head < batch:
-        raise AssertionError("bounded run left less than one batch queued")
-    rows = carry[convert.QROWS][head:head + batch]
-    succ, valid = checker.tensor.step_rows(rows)
-    m = succ.shape[0] * succ.shape[1]
+        raise AssertionError("the run left less than one batch queued")
+    span = slice(head, head + batch)
+    succ, valid = checker.tensor.step_rows(carry[convert.QROWS][span])
+    m = batch * arity
     crows, cvalid = succ.reshape(m, -1), valid.reshape(m)
     cfp = row_hash_plain(crows, cvalid)
-    cpar = carry[convert.QFP][head:head + batch][:, None].expand(
-        batch, checker.tensor.max_actions).reshape(m)
+    pfp = carry[convert.QFP][span]
     tfp, tpl = carry[convert.TFP], carry[convert.TPL]
-    sfp, spl, bucket, _order, _cidx, cov = sort_candidates(
-        cfp, cpar, tfp.shape[0] // SLOTS, compact=min(cand, m)
+    sort = sort_candidates(cfp, pfp[:, None].expand(batch, arity).reshape(m),
+                           tfp.shape[0] // SLOTS, compact=min(cand, m))
+    plan = bucket_plan_plain(tfp, *sort)
+    n_new = int(plan[4])
+    if n_new == 0:
+        raise AssertionError(f"captured batch wrote nothing (overflow="
+                             f"{bool(plan[5])}, cand_overflow={bool(sort[5])})")
+    queue = QueueAppend(
+        carry[convert.QROWS], carry[convert.QFP], carry[convert.QEBITS],
+        carry[convert.QDEPTH], carry[convert.TAIL], plan[3], crows,
+        carry[convert.QEBITS][span], carry[convert.QDEPTH][span], arity,
     )
-    present, base = bucket_probe_plain(tfp, sfp, bucket)
-    tgt, wfp, wpl, _perm, n_new, ovf = plan_writes(
-        sfp, spl, bucket, present, base, tfp.shape[0], cov
-    )
-    if int(n_new) == 0:
-        raise AssertionError(f"captured batch wrote nothing (overflow={bool(ovf)}, "
-                             f"cand_overflow={bool(cov)})")
-    return dict(crows=crows, cvalid=cvalid, tfp=tfp, tpl=tpl, sfp=sfp,
-                bucket=bucket, tgt=tgt, wfp=wfp, wpl=wpl, n_new=n_new)
+    return dict(crows=crows, cvalid=cvalid, tfp=tfp, tpl=tpl, sort=sort,
+                plan=plan, queue=queue, n_new=n_new)
 
 
-def check_kernels(dev) -> list:
-    x = kernel_inputs(dev)
-    out = []
+def timings(kernel, plain, cold: bool, engine=None) -> dict:
+    """``ms``/``plain_ms`` by CUDA events, ``device_ms``/``plain_device_ms``
+    by the profiler or else by events behind a busy stream (``*_by`` says
+    which; ``*events_device_ms`` is the events figure, always taken),
+    ``host_ms`` by the host clock over enqueues alone (the
+    public wrapper's own cost, checks included) and ``engine_host_ms`` the
+    same for the engine's call (buffers validated at allocation, no
+    per-call checks).  ``cold`` flushes the L2 before every timed call."""
+    flush = None
+    if cold:
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        t = dict(ms=time_cold_ms(kernel, flush),
+                 plain_ms=time_cold_ms(plain, flush))
+    else:
+        t = dict(ms=time_ms(kernel), plain_ms=time_ms(plain))
+    k_dev, k_by, k_ev = device_ms(kernel, flush)
+    p_dev, p_by, p_ev = device_ms(plain, flush)
+    t.update(device_ms=k_dev, plain_device_ms=p_dev,
+             device_ms_by=k_by, plain_device_ms_by=p_by,
+             events_device_ms=k_ev, plain_events_device_ms=p_ev,
+             host_ms=host_ms(kernel),
+             engine_host_ms=host_ms(engine) if engine is not None else None)
+    return t
+
+
+def check_kernels(checker, carry, cold: bool) -> dict:
+    """Each kernel against its plain version on one real batch; returns
+    ``{name: record}``."""
+    x = next_batch(checker, carry)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
 
     # -- B: row_hash over the batch's B*A successor rows ---------------------
     rows, valid = x["crows"], x["cvalid"]
@@ -181,82 +314,84 @@ def check_kernels(dev) -> list:
     # every lane reads its valid byte and writes its fingerprint; only the
     # valid lanes read their row (invalid ones return before it)
     b_ms, b_by = bound(nv * w * 8 + n + n * 8, nv * (w + 1) * 10)
-    out.append(dict(
+    out["row_hash"] = dict(
         name="row_hash", route="cuda",
         source="stateright_tpu_torch/csrc/row_hash.cu",
         replaces="stateright_tpu/ops/hashing.py:105",
         shape=f"rows int64[{n}, {w}], {nv} valid",
         matched=bool(torch.equal(got, want)),
         max_abs_err=int((got != want).sum()),
-        ms=time_ms(lambda: row_hash(rows, valid)),
-        plain_ms=time_ms(lambda: row_hash_plain(rows, valid)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
+        **timings(lambda: row_hash(rows, valid),
+                  lambda: row_hash_plain(rows, valid), cold),
+    )
 
-    # -- C: bucket_probe over the sorted candidate budget --------------------
-    tfp, sfp, bucket = x["tfp"], x["sfp"], x["bucket"]
-    gp, gb = bucket_probe(tfp, sfp, bucket)
-    wp, wb = bucket_probe_plain(tfp, sfp, bucket)
+    # -- bucket_plan over the sorted candidate budget ------------------------
+    tfp, sort, want = x["tfp"], x["sort"], x["plan"]
+    sfp, bucket, cidx = sort[0], sort[2], sort[4]
+    pbuf = PlanBuffers(sfp.shape[0], sfp.device)
+    got = bucket_plan(tfp, *sort, out=pbuf)
     m = sfp.shape[0]
+    planned = int((want[0] != tfp.shape[0]).sum())  # novel lanes, blocked or not
+    errs = [int((g[:planned] != p[:planned]).sum()) for g, p in zip(got[:4], want[:4])]
+    errs += [abs(int(got[4]) - int(want[4])), int(bool(got[5]) != bool(want[5]))]
     live = sfp != EMPTY
-    lines = int(torch.unique(bucket[live]).numel())
     nlive = int(live.sum())
-    # every lane reads its fingerprint and writes 5 bytes; only live lanes
-    # read their bucket index, and each distinct line is read once
-    c_ms, c_by = bound(m * 8 + nlive * 8 + lines * SLOTS * 8 + m * 5,
-                       nlive * SLOTS * 2)
-    out.append(dict(
-        name="bucket_probe", route="cuda",
-        source="stateright_tpu_torch/csrc/bucket_probe.cu",
-        replaces="stateright_tpu/ops/buckets.py:229",
-        shape=f"cand {m} ({nlive} valid, {lines} lines), table {tfp.shape[0]} slots",
-        matched=bool(torch.equal(gp, wp) and torch.equal(gb, wb)),
-        max_abs_err=int((gb - wb).abs().max()) + int((gp != wp).sum()),
-        ms=time_ms(lambda: bucket_probe(tfp, sfp, bucket)),
-        plain_ms=time_ms(lambda: bucket_probe_plain(tfp, sfp, bucket)),
-        bound_ms=c_ms, bound_by=c_by, library_ms=None,
-    ))
+    lines = int(torch.unique(bucket[live]).numel())
+    # every lane reads its fingerprint; live lanes their bucket index and
+    # each distinct line once; novel lanes their payload, order (and cidx)
+    # entries and write four words; the flags in and out
+    per_novel = 8 * (2 if cidx is None else 3) + 32
+    p_ms, p_by = bound(m * 8 + nlive * 8 + lines * SLOTS * 8
+                       + planned * per_novel + 1 + 9, nlive * SLOTS * 2)
+    out["bucket_plan"] = dict(
+        name="bucket_plan", route="cuda",
+        source="stateright_tpu_torch/csrc/bucket_plan.cu",
+        replaces="stateright_tpu/ops/buckets.py:202",
+        shape=(f"cand {m} ({nlive} valid, {lines} lines, {planned} novel), "
+               f"table {tfp.shape[0]} slots"),
+        matched=sum(errs) == 0, max_abs_err=sum(errs),
+        bound_ms=p_ms, bound_by=p_by, library_ms=None,
+        **timings(lambda: bucket_plan(tfp, *sort, out=pbuf),
+                  lambda: bucket_plan_plain(tfp, *sort), cold,
+                  lambda: bucket_plan(tfp, *sort, out=pbuf, check=False,
+                                      stream=stream)),
+    )
 
-    # -- A: insert_write of the batch's novel candidates ---------------------
-    tpl, tgt, wfp, wpl, n_new = x["tpl"], x["tgt"], x["wfp"], x["wpl"], x["n_new"]
-    ka, kb = tfp.clone(), tpl.clone()
-    pa, pb = tfp.clone(), tpl.clone()
-    insert_write(ka, kb, tgt, wfp, wpl, n_new)
-    insert_write_plain(pa, pb, tgt, wfp, wpl, n_new)
-    nn = int(n_new)
-    t, f, p = tgt[:nn], wfp[:nn], wpl[:nn]
-
-    def library():
-        pa.index_put_((t,), f)
-        pb.index_put_((t,), p)
-
-    a_ms, a_by = bound(nn * 24 + nn * 16 + 8, 0)
-    out.append(dict(
-        name="insert_write", route="cuda",
-        source="stateright_tpu_torch/csrc/insert_write.cu",
+    # -- insert_commit of the batch's novel candidates -----------------------
+    tgt, wfp, wpl, sel, n_new_t = want[0], want[1], want[2], want[3], want[4]
+    q = x["queue"]
+    nn = x["n_new"]
+    kt = (tfp.clone(), x["tpl"].clone())
+    pt = (tfp.clone(), x["tpl"].clone())
+    kq = q._replace(rows=q.rows.clone(), fps=q.fps.clone(),
+                    ebits=q.ebits.clone(), depths=q.depths.clone())
+    pq = q._replace(rows=q.rows.clone(), fps=q.fps.clone(),
+                    ebits=q.ebits.clone(), depths=q.depths.clone())
+    insert_commit(*kt, tgt, wfp, wpl, n_new_t, kq)
+    insert_commit_plain(*pt, tgt, wfp, wpl, n_new_t, pq)
+    c_err = sum(int((a != b).sum()) for a, b in zip(kt + tuple(kq[:4]),
+                                                    pt + tuple(pq[:4])))
+    width = rows.shape[1]
+    parents = int(torch.unique(sel[:nn] // q.arity).numel())
+    # plan lanes, count and tail in; parents' ebits and depth; the rows;
+    # 16 table bytes and a queue row (8W + 16 bytes) out per novel lane
+    c_ms, c_by = bound(nn * 32 + 16 + parents * 8 + nn * 8 * width
+                       + nn * 16 + nn * (8 * width + 16), 0)
+    out["insert_commit"] = dict(
+        name="insert_commit", route="cuda",
+        source="stateright_tpu_torch/csrc/insert_commit.cu",
         replaces="stateright_tpu/ops/pallas_insert.py:85",
-        shape=f"cand {tgt.shape[0]}, n_new {nn}, table {tfp.shape[0]} slots",
-        matched=bool(torch.equal(ka, pa) and torch.equal(kb, pb)),
-        max_abs_err=int((ka != pa).sum() + (kb != pb).sum()),
-        ms=time_ms(lambda: insert_write(ka, kb, tgt, wfp, wpl, n_new)),
-        plain_ms=time_ms(lambda: insert_write_plain(pa, pb, tgt, wfp, wpl, n_new)),
-        bound_ms=a_ms, bound_by=a_by, library_ms=time_ms(library),
-    ))
-    for k, fns in zip(out, (
-        (lambda: row_hash(rows, valid), lambda: row_hash_plain(rows, valid),
-         None),
-        (lambda: bucket_probe(tfp, sfp, bucket),
-         lambda: bucket_probe_plain(tfp, sfp, bucket), None),
-        (lambda: insert_write(ka, kb, tgt, wfp, wpl, n_new),
-         lambda: insert_write_plain(pa, pb, tgt, wfp, wpl, n_new), library),
-    )):
-        k["device_ms"], k["plain_device_ms"] = device_ms(fns[0]), device_ms(fns[1])
-        k["library_device_ms"] = None if fns[2] is None else device_ms(fns[2])
-    for k in out:
-        k["kernel_ms"] = k["ms"]
-        emit(f"kernel_{k['name']}", k)
-        if not k["matched"]:
-            raise AssertionError(f"{k['name']}: kernel disagrees with plain")
+        shape=(f"cand {tgt.shape[0]}, n_new {nn}, table {tfp.shape[0]} slots, "
+               f"queue {q.fps.shape[0]} rows"),
+        matched=c_err == 0, max_abs_err=c_err,
+        bound_ms=c_ms, bound_by=c_by, library_ms=None,
+        **timings(lambda: insert_commit(*kt, tgt, wfp, wpl, n_new_t, kq),
+                  lambda: insert_commit_plain(*pt, tgt, wfp, wpl, n_new_t, pq),
+                  cold,
+                  lambda: insert_commit(*kt, tgt, wfp, wpl, n_new_t, kq,
+                                        check=False, stream=stream)),
+    )
     return out
 
 
@@ -279,7 +414,12 @@ def main() -> int:
                    "sources": [str(s.relative_to(_cuda.CSRC.parent.parent))
                                for s in _cuda.sources()]})
 
-    kernels = check_kernels(dev)
+    # -- kernels at 2pc-7 shapes -------------------------------------------
+    b7, _ = timed_run(7, target=100_000)
+    kernels = check_kernels(b7, b7._final_carry, cold=False)
+    for name, k in kernels.items():
+        emit(f"kernel_{name}", k)
+    del b7
 
     # -- 2pc-5 on cuda and cpu: same counts, same table bytes ---------------
     g5, g5_s = timed_run(5)
@@ -335,14 +475,27 @@ def main() -> int:
     if "consistent" in paths10:
         raise AssertionError("2pc-10: consistent violated")
 
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    # -- kernels at 2pc-10 shapes, L2-cold -----------------------------------
+    kernels10 = check_kernels(g10, g10._final_carry, cold=True)
+    for name, k in kernels10.items():
+        emit(f"kernel_{name}_2pc10", k)
+    bad = [f"{k['name']} at {shape}"
+           for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10))
+           for k in ks.values() if not k["matched"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees with plain: {bad}")
+
+    line = []
+    for name, k in kernels.items():
+        k["launches"] = launches[name]
+        entry = {key: k[key] for key in KERNEL_KEYS}
+        entry["at_2pc10"] = {key: kernels10[name][key] for key in KERNEL_KEYS
+                             if key not in ("name", "route", "source",
+                                            "replaces", "launches")}
+        line.append(entry)
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(RECORD, indent=1))
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "matched",
-            "kernel_ms")
-    print(json.dumps({"kernels": [{k: d[k] for k in keys} for d in kernels]}))
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -6,11 +6,9 @@ A JAX-engine snapshot (``stateright_tpu``'s
 and depths, and scalar cursors and counters — plus ``cap``, ``qcap``,
 ``batch`` and ``cand``.  The port's carry is a list of tensors in the same
 order, with every 64-bit word an int64 bit pattern (``ops/hashing.py``),
-the 32-bit queue lanes as int32, the scalars as 0-d int64, and one extra
-*sink* row at the end of each queue buffer that the append's dead lanes
-write to.  :func:`carry_from_snapshot` and :func:`carry_to_snapshot` are
-inverses: a port run resumes from a JAX snapshot and a JAX run from a port
-snapshot.
+the 32-bit queue lanes as int32 and the scalars as 0-d int64.
+:func:`carry_from_snapshot` and :func:`carry_to_snapshot` are inverses: a
+port run resumes from a JAX snapshot and a JAX run from a port snapshot.
 """
 
 from __future__ import annotations
@@ -63,13 +61,10 @@ def repad_queue(carry_np: list, qalloc: int) -> None:
 
 
 def carry_to_arrays(carry: list) -> list:
-    """The port's carry as numpy arrays in the JAX layout and dtypes (the
-    queue's sink row dropped)."""
+    """The port's carry as numpy arrays in the JAX layout and dtypes."""
     out = []
-    for i, (t, dt) in enumerate(zip(carry, _NP_DTYPES)):
+    for t, dt in zip(carry, _NP_DTYPES):
         arr = t.detach().cpu().numpy()
-        if i in QUEUE:
-            arr = arr[:-1]
         if arr.ndim:
             arr = arr.view(dt)  # same width: int64 -> uint64, int32 -> uint32
         else:
@@ -81,12 +76,11 @@ def carry_to_arrays(carry: list) -> list:
 def carry_from_arrays(arrs: list, device,
                       qalloc: Optional[int] = None) -> list:
     """Numpy arrays in the JAX layout -> the port's carry on ``device``,
-    queue buffers re-padded to ``qalloc`` rows (default: as given) plus
-    the sink row."""
+    queue buffers re-padded to ``qalloc`` rows (default: as given)."""
     arrs = [np.asarray(a) for a in arrs]
     if qalloc is None:
         qalloc = arrs[QFP].shape[0]
-    repad_queue(arrs, qalloc + 1)
+    repad_queue(arrs, qalloc)
     return [_tensor(a, device) for a in arrs]
 
 

@@ -1,0 +1,285 @@
+// Kernel bucket_plan — the visited-set insert's probe and plan, one pass.
+//
+// Replaces: the membership/occupancy `while_loop`, the first-occurrence
+// dedup, the segmented-cumsum ranks, the overflow flags, the novel-first
+// `argsort` compaction and the `sel` remap of `bucket_insert`
+// (stateright_tpu/ops/buckets.py:202-344, all but the write).  In the port
+// it stands where kernel C (`bucket_probe`), the ~40 PyTorch calls of
+// `plan_writes` and the two `sel` gathers stood.  Input: candidates sorted
+// by bucket key (`sort_candidates`).  For sorted lane i:
+//   first   = sfp[i] != sfp[i-1]
+//   present = any(line == sfp[i]), base = count(line != EMPTY) over the
+//             bucket's 16-slot line (slots fill densely and never free)
+//   novel   = valid & first & !present
+//   rank    = novel lanes before i in i's run of equal buckets
+//   pos     = novel lanes before i in the whole batch (table order)
+// and a novel lane writes tgt = bucket*16 + base + rank, its fp, payload
+// and original index (`cidx[order[i]]`) at `pos`.  A novel lane whose
+// slot reaches 16 raises `overflow`; then, or on `cand_overflow`,
+// `n_new` is 0 and the commit kernel writes nothing.
+//
+// Bound on an H100: neither bytes nor operations.  At the engine's shapes
+// (tens of thousands of lanes) the bytes take well under a microsecond, so
+// what the step pays for is launches: the composed PyTorch version is
+// about fifty calls, each at host-issue cost.  The design is one launch:
+//  - one CTA per 256 sorted lanes; sixteen lanes of a half-warp read one
+//    candidate's 128-byte line as one coalesced load (a slot each), and
+//    `__ballot_sync`/`__popc` give `present` and `base`; a half-warp
+//    issues its sixteen candidates' loads before the first ballot;
+//  - both prefix counts are one scan of (segment-start flag, segment
+//    count, total) triples: warp shuffles inside a warp, shared memory
+//    across the tile's warps, and decoupled look-back across tiles in
+//    the same pass.  Tile ids come from an atomic ticket, not from
+//    `blockIdx`, so every tile a CTA waits on has started and is resident.
+//    A tile publishes (status, flag, count, total) as one 64-bit word with
+//    release/acquire ordering: first its aggregate, then its inclusive
+//    prefix; the look-back reads 32 predecessors at once, one per lane of
+//    a warp, and combines them with shuffles.  Runs of equal buckets or
+//    equal fingerprints may span any number of tiles; the segmented
+//    operator carries them;
+//  - the last CTA to finish (a second ticket) writes `n_new` and
+//    `overflow` and zeroes the kernel's scratch for the next launch, so a
+//    step needs no memset.
+// Lanes with an EMPTY fingerprint (a contiguous tail of the sorted order)
+// read no bucket index; their line loads all go to bucket 0's line, so
+// the sixteen loads of a half-warp carry no branch, and the results are
+// masked.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFULL;
+constexpr int kSlots = 16;
+constexpr int kTile = 256;  // sorted lanes per CTA = threads per CTA
+constexpr int kWarps = kTile / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Tile state word: [63:62] status, [61] segment-start flag,
+// [60:31] segment count, [30:0] total.  Counts stay below 2^30 (the
+// wrapper refuses wider batches).
+constexpr unsigned long long kAggregate = 1ULL << 62;
+constexpr unsigned long long kPrefix = 2ULL << 62;
+
+// Scratch words: tile ticket, done ticket, overflow, then one state per tile.
+constexpr int kTileTicket = 0, kDoneTicket = 1, kOverflow = 2, kStates = 3;
+
+struct Scan {
+  unsigned flag, seg, tot;
+};
+
+// `a` precedes `b`: a segment start in `b` cuts off `a`'s segment count.
+__device__ __forceinline__ Scan combine(Scan a, Scan b) {
+  return {a.flag | b.flag, b.flag ? b.seg : a.seg + b.seg, a.tot + b.tot};
+}
+
+__device__ __forceinline__ unsigned long long pack(Scan s) {
+  return ((unsigned long long)s.flag << 61) |
+         ((unsigned long long)s.seg << 31) | (unsigned long long)s.tot;
+}
+
+__device__ __forceinline__ Scan unpack(unsigned long long w) {
+  return {(unsigned)(w >> 61) & 1u, (unsigned)(w >> 31) & 0x3FFFFFFFu,
+          (unsigned)w & 0x7FFFFFFFu};
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ Scan shfl_up(Scan s, int d) {
+  return {__shfl_up_sync(kFull, s.flag, d), __shfl_up_sync(kFull, s.seg, d),
+          __shfl_up_sync(kFull, s.tot, d)};
+}
+
+__device__ __forceinline__ Scan shfl_down(Scan s, int d) {
+  return {__shfl_down_sync(kFull, s.flag, d),
+          __shfl_down_sync(kFull, s.seg, d), __shfl_down_sync(kFull, s.tot, d)};
+}
+
+__device__ __forceinline__ Scan shfl_from(Scan s, int src) {
+  return {__shfl_sync(kFull, s.flag, src), __shfl_sync(kFull, s.seg, src),
+          __shfl_sync(kFull, s.tot, src)};
+}
+
+__global__ void __launch_bounds__(kTile) bucket_plan_kernel(
+    const unsigned long long* __restrict__ tfp,
+    const unsigned long long* __restrict__ sfp,
+    const long long* __restrict__ spl, const long long* __restrict__ bucket,
+    const long long* __restrict__ order,
+    const long long* __restrict__ cidx,  // null: no compaction
+    const bool* __restrict__ cand_overflow, long long* __restrict__ tgt,
+    long long* __restrict__ cfp, long long* __restrict__ cpl,
+    long long* __restrict__ sel, long long* __restrict__ n_new,
+    bool* __restrict__ overflow, unsigned long long* __restrict__ scratch,
+    long long m, int ntiles) {
+  __shared__ int s_tile;
+  __shared__ int s_last;
+  __shared__ Scan s_warp[kWarps];
+  __shared__ Scan s_prefix;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  unsigned long long* state = scratch + kStates;
+
+  if (t == 0) s_tile = (int)atomicAdd(&scratch[kTileTicket], 1ULL);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long i = (long long)tile * kTile + t;
+
+  // -- probe: a half-warp reads each of its 16 candidates' lines ----------
+  const unsigned long long fp = i < m ? sfp[i] : kEmpty;
+  const bool valid = fp != kEmpty;
+  const long long b = valid ? bucket[i] : 0;
+  const int half = lane & 16;  // first lane of this half-warp
+  const int slot_lane = lane & 15;
+  // unconditional loads (an EMPTY lane reads bucket 0's line, and its
+  // result is masked below), so all sixteen are in flight at once
+  unsigned long long v[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const long long bk = __shfl_sync(kFull, b, half | k);
+    v[k] = __ldg(tfp + bk * kSlots + slot_lane);
+  }
+  bool present = false;
+  int base = 0;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const unsigned long long f = __shfl_sync(kFull, fp, half | k);
+    const unsigned hit = (__ballot_sync(kFull, v[k] == f) >> half) & 0xFFFFu;
+    const unsigned used = (__ballot_sync(kFull, v[k] != kEmpty) >> half) & 0xFFFFu;
+    if (slot_lane == k) {
+      present = valid && hit != 0u;
+      base = valid ? __popc(used) : 0;
+    }
+  }
+
+  // -- plan: dedup, novelty, segment starts --------------------------------
+  bool novel = false, bstart = false;
+  if (valid) {
+    novel = !present && (i == 0 || sfp[i - 1] != fp);
+    bstart = i == 0 || bucket[i - 1] != b;
+  }
+  Scan x = {bstart ? 1u : 0u, novel ? 1u : 0u, novel ? 1u : 0u};
+
+  // -- scan inside the tile -------------------------------------------------
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Scan y = shfl_up(x, d);
+    if (lane >= d) x = combine(y, x);
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    Scan w = lane < kWarps ? s_warp[lane] : Scan{0u, 0u, 0u};
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const Scan y = shfl_up(w, d);
+      if (lane >= d) w = combine(y, w);
+    }
+    if (lane < kWarps) s_warp[lane] = w;
+  }
+  __syncthreads();
+  const Scan incl = warp > 0 ? combine(s_warp[warp - 1], x) : x;
+
+  // -- decoupled look-back across tiles, 32 predecessors at a time ---------
+  if (warp == 0) {
+    const Scan agg = s_warp[kWarps - 1];
+    Scan excl = {0u, 0u, 0u};
+    if (tile == 0) {
+      if (lane == 0) st_release(&state[0], kPrefix | pack(agg));
+    } else {
+      if (lane == 0) st_release(&state[tile], kAggregate | pack(agg));
+      for (int top = tile - 1;; top -= 32) {
+        // lane l waits for tile top - l; before tile 0 is an empty prefix
+        const int p = top - lane;
+        unsigned long long w = kPrefix;
+        if (p >= 0) {
+          while (((w = ld_acquire(&state[p])) >> 62) == 0) {
+          }
+        }
+        const unsigned prefixes = __ballot_sync(kFull, (w >> 62) == 2);
+        // the nearest prefix ends the window; older lanes are left out
+        const int lim = prefixes ? __ffs(prefixes) - 1 : 31;
+        Scan x = unpack(w);
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {  // higher lanes are older tiles
+          const Scan y = shfl_down(x, d);
+          if (lane + d <= lim) x = combine(y, x);
+        }
+        excl = combine(shfl_from(x, 0), excl);
+        if (prefixes) break;
+      }
+      if (lane == 0) st_release(&state[tile], kPrefix | pack(combine(excl, agg)));
+    }
+    if (lane == 0) s_prefix = excl;
+  }
+  __syncthreads();
+  const Scan g = combine(s_prefix, incl);
+
+  // -- write the novel lanes at their table-order positions ----------------
+  bool ovf = false;
+  if (novel) {
+    const int slot = base + (int)g.seg - 1;
+    const long long pos = (long long)g.tot - 1;
+    ovf = slot >= kSlots;
+    tgt[pos] = b * kSlots + slot;
+    cfp[pos] = (long long)fp;
+    cpl[pos] = spl[i];
+    const long long o = order[i];
+    sel[pos] = cidx != nullptr ? cidx[o] : o;
+  }
+  const int tile_ovf = __syncthreads_or(ovf);
+
+  // -- the last CTA to finish publishes n_new and resets the scratch -------
+  if (t == 0) {
+    if (tile_ovf) atomicOr(&scratch[kOverflow], 1ULL);
+    __threadfence();
+    s_last = atomicAdd(&scratch[kDoneTicket], 1ULL) ==
+             (unsigned long long)(ntiles - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (t == 0) {
+    const bool any_ovf = ld_acquire(&scratch[kOverflow]) != 0ULL;
+    const Scan total = unpack(ld_acquire(&state[ntiles - 1]));
+    *overflow = any_ovf;
+    *n_new = (any_ovf || *cand_overflow) ? 0LL : (long long)total.tot;
+    scratch[kTileTicket] = 0ULL;
+    scratch[kDoneTicket] = 0ULL;
+    scratch[kOverflow] = 0ULL;
+  }
+  __syncthreads();  // thread 0 has read the last tile's state
+  for (int k = t; k < ntiles; k += kTile) state[k] = 0ULL;
+}
+
+}  // namespace
+
+extern "C" int srt_bucket_plan(const void* tfp, const void* sfp,
+                               const void* spl, const void* bucket,
+                               const void* order, const void* cidx,
+                               const void* cand_overflow, void* tgt, void* cfp,
+                               void* cpl, void* sel, void* n_new,
+                               void* overflow, void* scratch, int64_t m,
+                               void* stream) {
+  const long long ntiles = (m + kTile - 1) / kTile;
+  bucket_plan_kernel<<<(unsigned)ntiles, kTile, 0, (cudaStream_t)stream>>>(
+      (const unsigned long long*)tfp, (const unsigned long long*)sfp,
+      (const long long*)spl, (const long long*)bucket,
+      (const long long*)order, (const long long*)cidx,
+      (const bool*)cand_overflow, (long long*)tgt, (long long*)cfp,
+      (long long*)cpl, (long long*)sel, (long long*)n_new, (bool*)overflow,
+      (unsigned long long*)scratch, (long long)m, (int)ntiles);
+  return (int)cudaGetLastError();
+}

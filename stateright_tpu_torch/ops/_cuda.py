@@ -39,12 +39,15 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C signatures: name -> argtypes (every entry point returns cudaError_t)
 _SIGNATURES = {
-    # tfp, tpl, tgt, cfp, cpl, n_new, m, stream
-    "srt_insert_write": (_P, _P, _P, _P, _P, _P, _I64, _P),
     # rows, valid (nullable), out, n, width, stream
     "srt_row_hash": (_P, _P, _P, _I64, _I32, _P),
-    # tfp, sfp, bucket, present, base, m, stream
-    "srt_bucket_probe": (_P, _P, _P, _P, _P, _I64, _P),
+    # tfp, sfp, spl, bucket, order, cidx (nullable), cand_overflow,
+    # tgt, cfp, cpl, sel, n_new, overflow, scratch, m, stream
+    "srt_bucket_plan": (_P,) * 14 + (_I64, _P),
+    # tfp, tpl, tgt, cfp, cpl, n_new, m, then the queue half (all null
+    # for a table-only commit): qrows, qfp, qebits, qdepth, tail, sel,
+    # crows, pebits, pdepth, width, arity; stream
+    "srt_insert_commit": (_P,) * 6 + (_I64,) + (_P,) * 9 + (_I32, _I32, _P),
 }
 
 
@@ -131,8 +134,9 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def require(t, name: str, dtype, ndim: int, device) -> None:
-    """Validate a kernel argument before its pointer crosses to C."""
+def require(t, name: str, dtype, ndim: int, device, length=None) -> None:
+    """Validate a kernel argument before its pointer crosses to C
+    (``length``: the leading dimension, when given)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim:
@@ -141,3 +145,5 @@ def require(t, name: str, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+    if length is not None and t.shape[0] != length:
+        raise ValueError(f"{name}: length {t.shape[0]}, expected {length}")

@@ -17,14 +17,15 @@ the same table bytes:
    the ``compact`` budget raise ``cand_overflow``, and then nothing is
    written and ``n_new`` is 0.
 
-Values are int64 bit patterns (``ops/hashing.py``).  The JAX version's
-data-dependent ``while_loop`` s (the membership windows and the write
-chunks) become full-width passes masked by counts that stay on the device:
-on CUDA the membership/occupancy pass is kernel C (:func:`bucket_probe`,
-``csrc/bucket_probe.cu``) and the write is kernel A
-(``ops/insert_write.py``).  The sorts, cumsums and gathers stay PyTorch;
-every sort passes ``stable=True`` (``torch.argsort`` is not stable by
-default, and the table and traces depend on it).
+Values are int64 bit patterns (``ops/hashing.py``).  The insert runs in
+three stages: :func:`sort_candidates` (compaction and the stable key sort,
+PyTorch; ``torch.argsort`` is not stable by default, and the table and
+traces depend on it, so every sort passes ``stable=True``), then
+:func:`bucket_plan` (membership, occupancy, dedup, ranks, flags and the
+table-order compaction; on CUDA one launch of ``csrc/bucket_plan.cu``),
+then the commit (``ops/insert_commit.py``).  The JAX version's
+data-dependent ``while_loop`` s become full-width passes masked by counts
+that stay on the device.
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ import torch
 
 from . import _cuda
 from .hashing import EMPTY, EMPTY_U64, SIGN, lshr, mix64, mix64_np
-from .insert_write import insert_write
+from .insert_commit import insert_commit
 
 SLOTS = 16  # fingerprints per bucket (one 128-byte line of 64-bit words)
+PLAN_TILE = 256  # sorted lanes per CTA of csrc/bucket_plan.cu
 
 
 def bucket_key(fps: torch.Tensor) -> torch.Tensor:
@@ -75,33 +77,6 @@ def bucket_probe_plain(tfp, sfp, bucket):
         valid, (lines != EMPTY).sum(dim=1, dtype=torch.int32), 0
     ).to(torch.int32)
     return present, base
-
-
-def bucket_probe(tfp, sfp, bucket):
-    """:func:`bucket_probe_plain`'s function; CUDA tensors launch kernel C."""
-    if tfp.device.type != "cuda":
-        return bucket_probe_plain(tfp, sfp, bucket)
-    dev = tfp.device
-    m = sfp.shape[0]
-    _cuda.require(tfp, "tfp", torch.int64, 1, dev)
-    _cuda.require(sfp, "sfp", torch.int64, 1, dev)
-    _cuda.require(bucket, "bucket", torch.int64, 1, dev)
-    if bucket.shape[0] != m or tfp.shape[0] % SLOTS:
-        raise ValueError("bucket_probe: shapes disagree")
-    if tfp.data_ptr() % 16:
-        raise ValueError("tfp: kernel C reads 16-byte vectors; misaligned")
-    present = torch.empty(m, dtype=torch.bool, device=dev)
-    base = torch.empty(m, dtype=torch.int32, device=dev)
-    if m:
-        _cuda.check("bucket_probe", _cuda.library().srt_bucket_probe(
-            tfp.data_ptr(), sfp.data_ptr(), bucket.data_ptr(),
-            present.data_ptr(), base.data_ptr(), m, _cuda.stream_of(tfp),
-        ))
-        bucket_probe.launches += 1
-    return present, base
-
-
-bucket_probe.launches = 0
 
 
 def sort_candidates(fps: torch.Tensor, payloads: torch.Tensor,
@@ -165,6 +140,89 @@ def plan_writes(sfp, spl, bucket, present, base, nslots: int, cand_overflow):
     return tgt, sfp[perm], spl[perm], perm, n_new, overflow
 
 
+def bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx, cand_overflow):
+    """:func:`bucket_probe_plain`, :func:`plan_writes` and the ``sel`` remap,
+    composed.  Returns ``(tgt, cfp, cpl, sel, n_new, overflow)``: the novel
+    candidates' slots, fingerprints, payloads and ORIGINAL indices in table
+    order (``cidx[order[i]]``, or ``order[i]`` when ``cidx`` is None), the
+    0-d count (0 when blocked) and the 0-d bucket-overflow flag."""
+    present, base = bucket_probe_plain(tfp, sfp, bucket)
+    tgt, cfp, cpl, perm, n_new, overflow = plan_writes(
+        sfp, spl, bucket, present, base, tfp.shape[0], cand_overflow
+    )
+    sel = order[perm]
+    if cidx is not None:
+        sel = cidx[sel]  # map compacted positions back to original indices
+    return tgt, cfp, cpl, sel, n_new, overflow
+
+
+class PlanBuffers:
+    """Outputs and scratch of :func:`bucket_plan` for ``m`` sorted lanes on
+    one CUDA device, allocated and validated once (the engine keeps one per
+    candidate width).  Zero-filled, so the entries past ``n_new`` that a
+    launch leaves alone stay in-range indices; the kernel's last CTA zeroes
+    the scratch (two tickets, the overflow word, one state word per tile)
+    again for the next launch."""
+
+    def __init__(self, m: int, device):
+        if not 0 < m < 1 << 30:
+            raise ValueError(f"bucket_plan: {m} lanes; the kernel takes 1 "
+                             "to 2^30 - 1 (it counts in 30 bits)")
+        i64 = dict(dtype=torch.int64, device=device)
+        self.m, self.device = m, torch.device(device)
+        self.tgt, self.cfp, self.cpl, self.sel = (
+            torch.zeros(m, **i64) for _ in range(4)
+        )
+        self.n_new = torch.zeros((), **i64)
+        self.overflow = torch.zeros((), dtype=torch.bool, device=device)
+        self.scratch = torch.zeros(3 + -(-m // PLAN_TILE), **i64)
+        self.outputs = (self.tgt, self.cfp, self.cpl, self.sel, self.n_new,
+                        self.overflow)
+        self.ptrs = tuple(t.data_ptr() for t in self.outputs + (self.scratch,))
+
+
+def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
+                out: PlanBuffers = None, *, check: bool = True, stream=None):
+    """:func:`bucket_plan_plain`'s function; CUDA tensors launch
+    ``csrc/bucket_plan.cu`` once, into ``out`` (allocated here when None).
+    The outputs are ``out``'s tensors: the next launch into the same
+    buffers overwrites them.  ``check=False`` skips the argument checks:
+    only for a caller that built the inputs itself (the engine, from
+    :func:`sort_candidates`).  ``stream``: the raw CUDA stream (default:
+    the current one)."""
+    if sfp.device.type != "cuda":
+        return bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx,
+                                 cand_overflow)
+    m = sfp.shape[0]
+    dev = sfp.device
+    if check:
+        _cuda.require(tfp, "tfp", torch.int64, 1, dev)
+        if tfp.shape[0] % SLOTS:
+            raise ValueError("tfp: not a whole number of buckets")
+        for t, name in ((sfp, "sfp"), (spl, "spl"), (bucket, "bucket"),
+                        (order, "order")):
+            _cuda.require(t, name, torch.int64, 1, dev, m)
+        if cidx is not None:
+            _cuda.require(cidx, "cidx", torch.int64, 1, dev, m)
+        _cuda.require(cand_overflow, "cand_overflow", torch.bool, 0, dev)
+        if out is not None and (out.m != m or out.device != dev):
+            raise ValueError(f"out: buffers for {out.m} lanes on {out.device}")
+    if out is None:
+        out = PlanBuffers(m, dev)
+    if stream is None:
+        stream = _cuda.stream_of(sfp)
+    _cuda.check("bucket_plan", _cuda.library().srt_bucket_plan(
+        tfp.data_ptr(), sfp.data_ptr(), spl.data_ptr(), bucket.data_ptr(),
+        order.data_ptr(), None if cidx is None else cidx.data_ptr(),
+        cand_overflow.data_ptr(), *out.ptrs, m, stream,
+    ))
+    bucket_plan.launches += 1
+    return out.outputs
+
+
+bucket_plan.launches = 0
+
+
 def bucket_insert(
     table_fp: torch.Tensor,  # int64[nbuckets * SLOTS]; EMPTY = free
     table_payload: torch.Tensor,  # int64[nbuckets * SLOTS]
@@ -190,16 +248,10 @@ def bucket_insert(
     sfp, spl, bucket, order, cidx, cand_overflow = sort_candidates(
         fps, payloads, nslots // SLOTS, compact
     )
-    present, base = bucket_probe(table_fp, sfp, bucket)
-    tgt, cfp, cpl, perm, n_new, overflow = plan_writes(
-        sfp, spl, bucket, present, base, nslots, cand_overflow
+    tgt, cfp, cpl, sel, n_new, overflow = bucket_plan(
+        table_fp, sfp, spl, bucket, order, cidx, cand_overflow
     )
-    table_fp, table_payload = insert_write(
-        table_fp, table_payload, tgt, cfp, cpl, n_new
-    )
-    sel = order[perm]
-    if cidx is not None:
-        sel = cidx[sel]  # map compacted positions back to original indices
+    insert_commit(table_fp, table_payload, tgt, cfp, cpl, n_new)
     return table_fp, table_payload, sel, n_new, overflow, cand_overflow
 
 

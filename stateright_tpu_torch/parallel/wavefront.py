@@ -9,9 +9,14 @@ table (``ops/buckets.py``), and each step pops a batch and
  1. evaluates the property masks, recording first-hit fingerprints;
  2. expands every row through the twin's ``step_rows``;
  3. flushes pending ``eventually`` bits at terminal rows;
- 4. fingerprints the successors (kernel B) and dedups/inserts them into
-    the table (kernels C and A);
- 5. appends the novel rows at the queue tail, in table order.
+ 4. fingerprints the successors (kernel B), sorts them by bucket key, and
+    plans the insert (kernel ``bucket_plan``);
+ 5. writes the novel fingerprints into the table and appends their rows
+    at the queue tail, in table order (kernel ``insert_commit``).
+
+On CUDA, steps 4 and 5 from the sorted candidates to the queue append are
+two launches; the plan's outputs and scratch are allocated once per
+engine (``PlanBuffers``).
 
 Pops are in BFS level order, so parent pointers record shortest paths.
 
@@ -23,9 +28,9 @@ counters and status stay on the device and every step computes that same
 so nothing is inserted, and head, tail, counters and status keep their
 values), so a block runs exactly the steps the JAX loop would, and the host
 reads one packed stats tensor per block.  ``lax.dynamic_slice`` at
-``head``/``tail`` becomes index gathers at ``head + arange(batch)`` and an
-``index_put_`` at ``tail + arange(cand)`` whose dead lanes go to a sink
-row past the queue.  The table and queue are updated in place.
+``head`` becomes an index gather at ``head + arange(batch)``, and the
+append at ``tail`` writes only the ``n_new`` live lanes.  The table and
+queue are updated in place.
 
 **Growth without lost work** is the JAX engine's: at a block boundary
 whose status is not OK the host rehashes the table (``host_bucket_rehash``)
@@ -47,8 +52,13 @@ from ..convert import (
     TFP, TPL, UNIQUE,
 )
 from ..core import Expectation
-from ..ops.buckets import SLOTS, bucket_insert, host_bucket_rehash
+from ..ops import _cuda
+from ..ops.buckets import (
+    SLOTS, PlanBuffers, bucket_insert, bucket_plan, host_bucket_rehash,
+    sort_candidates,
+)
 from ..ops.hashing import EMPTY, row_hash
+from ..ops.insert_commit import QueueAppend, insert_commit
 from ._base import WavefrontChecker
 
 _STATUS_OK = 0
@@ -98,7 +108,7 @@ class _Engine:
         self.m = batch * self.arity
         self.eff_cand = min(cand, self.m) if cand else self.m
         # the queue over-allocates one batch's candidates past the
-        # high-water mark, plus the sink row the dead append lanes write
+        # high-water mark
         self.qalloc = qcap + self.m
         self.ev_idx = [
             i for i, p in enumerate(props)
@@ -109,7 +119,12 @@ class _Engine:
         self.ebit_of = {i: e for e, i in enumerate(self.ev_idx)}
         self.init_ebits = _i32((1 << len(self.ev_idx)) - 1)
         self.lanes = torch.arange(batch, device=device)
-        self.cand_lanes = torch.arange(self.eff_cand, device=device)
+        # the insert's own buffers (validated here, so the step launches
+        # unchecked) and the stream its kernels go to
+        self.plan_out = self.stream = None
+        if self.device.type == "cuda":
+            self.plan_out = PlanBuffers(self.eff_cand, self.device)
+            self.stream = _cuda.stream_of(self.plan_out.tgt)
 
     # -- step pieces ---------------------------------------------------------
 
@@ -145,16 +160,6 @@ class _Engine:
             return torch.zeros((), dtype=torch.bool, device=self.device)
         return (disc != 0).all()
 
-    def append_novel(self, carry, tail0, sel, n_new, crows, cfp, cebt, cdep):
-        """Write the novel-compacted ``sel`` prefix at ``tail0``, in place;
-        lanes at or past ``n_new`` write the sink row."""
-        j = self.cand_lanes
-        dst = torch.where(j < n_new, tail0 + j, self.qalloc)
-        carry[QROWS].index_put_((dst,), crows[sel])
-        carry[QFP].index_put_((dst,), cfp[sel])
-        carry[QEBITS].index_put_((dst,), cebt[sel])
-        carry[QDEPTH].index_put_((dst,), cdep[sel])
-
     def step(self, c: list) -> list:
         """Pop one batch, expand, dedup+insert, append novel rows."""
         batch, arity, m, width = self.batch, self.arity, self.m, self.width
@@ -164,7 +169,7 @@ class _Engine:
         if self.target is not None:
             go &= unique < self.target
         n_avail = torch.where(go, tail - head, 0)
-        pos = (head + self.lanes).clamp_(max=self.qalloc)
+        pos = (head + self.lanes).clamp_(max=self.qalloc - 1)
         rows = c[QROWS][pos]
         fps = c[QFP][pos]
         ebits = c[QEBITS][pos]
@@ -187,14 +192,21 @@ class _Engine:
         cand_rows = succ.reshape(m, width)
         cand_fp = row_hash(cand_rows, valid.reshape(m))
         cand_par = fps[:, None].expand(batch, arity).reshape(m)
-        cand_ebt = ebits[:, None].expand(batch, arity).reshape(m)
-        cand_dep = (depths + 1)[:, None].expand(batch, arity).reshape(m)
 
-        tfp, tpl, sel, n_new, toverflow, coverflow = bucket_insert(
-            c[TFP], c[TPL], cand_fp, cand_par, compact=self.eff_cand,
+        sfp, spl, bucket, order, cidx, coverflow = sort_candidates(
+            cand_fp, cand_par, self.cap // SLOTS, compact=self.eff_cand
         )
-        self.append_novel(c, tail, sel, n_new, cand_rows, cand_fp, cand_ebt,
-                          cand_dep)
+        # the engine built every input itself: the kernels run unchecked
+        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
+            c[TFP], sfp, spl, bucket, order, cidx, coverflow, self.plan_out,
+            check=False, stream=self.stream,
+        )
+        insert_commit(
+            c[TFP], c[TPL], tgt, cfp, cpl, n_new,
+            QueueAppend(c[QROWS], c[QFP], c[QEBITS], c[QDEPTH], tail, sel,
+                        cand_rows, ebits, depths, arity),
+            check=False, stream=self.stream,
+        )
 
         # any overflow means the batch wrote nothing durable: cursors and
         # counters stay so it replays after the host grows
@@ -213,7 +225,6 @@ class _Engine:
             ),
         )
         status = torch.where(go, new_status, status)
-        c[TFP], c[TPL] = tfp, tpl
         c[HEAD], c[TAIL], c[UNIQUE], c[SCOUNT] = head, tail, unique, scount
         c[DISC], c[MAXDEPTH], c[STATUS] = disc, maxdepth, status
         return c
@@ -234,10 +245,10 @@ class _Engine:
         i32 = dict(dtype=torch.int32, device=dev)
         tfp = torch.full((cap,), EMPTY, **i64)
         tpl = torch.zeros((cap,), **i64)
-        qrows = torch.zeros((qalloc + 1, self.width), **i64)
-        qfp = torch.full((qalloc + 1,), EMPTY, **i64)
-        qebits = torch.zeros((qalloc + 1,), **i32)
-        qdepth = torch.zeros((qalloc + 1,), **i32)
+        qrows = torch.zeros((qalloc, self.width), **i64)
+        qfp = torch.full((qalloc,), EMPTY, **i64)
+        qebits = torch.zeros((qalloc,), **i32)
+        qdepth = torch.zeros((qalloc,), **i32)
 
         init_np = np.asarray(self.tensor.init_rows(), np.uint64)
         n_init = init_np.shape[0]
@@ -298,6 +309,7 @@ class GpuChecker(WavefrontChecker):
         self._resume = resume
         # (status, unique-at-boundary) per mid-run growth event
         self.growth_events: list = []
+        self.steps_run = 0  # device steps issued, post-stop no-ops included
         self._final_carry = None
         self._init_common(options)
 
@@ -426,6 +438,7 @@ class GpuChecker(WavefrontChecker):
             if engine is None or engine.key != (cap, qcap, batch, cand):
                 engine = self._engine(cap, qcap, batch, cand)
             carry, stats = engine.run(carry)
+            self.steps_run += engine.steps
 
         self._cap, self._qcap, self._cand = cap, qcap, cand
         self._final_carry = carry

@@ -6,8 +6,9 @@ Runs ``TwoPhaseSys(n).checker().spawn_gpu()`` once to warm up (kernel
 build, allocator), then once under the profiler with CPU and CUDA
 activities, and prints one JSON object: wall seconds, the summed device
 time of all kernels, the device busy share (summed kernel time over wall;
-kernels on one stream do not overlap), the number of kernel launches, and
-the top kernels and host operators by time.  Needs a CUDA device.
+kernels on one stream do not overlap), the number of device operations
+(kernels and copies) in all and per engine step, and the top kernels and
+host operators by time.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -58,6 +59,8 @@ def main(argv=None) -> int:
         "device_kernel_sec": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
         "kernel_launches": launches,
+        "steps": c.steps_run,
+        "device_ops_per_step": launches / max(c.steps_run, 1),
         "top_device": [
             {"name": e.key[:80], "count": e.count,
              "ms": e.self_device_time_total / 1e3}

@@ -132,7 +132,7 @@ def test_probe_plain_matches_line_scan():
     tfp = pair.t[0]
     sfp = as_torch(np.concatenate([fps[:40], [EMPTY] * 8]).astype(np.uint64))
     bucket = torch.from_numpy(tb.bucket_of(as_u64(sfp), 16))
-    present, base = tb.bucket_probe(tfp, sfp, bucket)
+    present, base = tb.bucket_probe_plain(tfp, sfp, bucket)
     lines = as_u64(tfp).reshape(16, jb.SLOTS)
     for i, f in enumerate(as_u64(sfp)):
         if f == EMPTY:
@@ -169,3 +169,68 @@ def test_host_rehash_and_occupancy_match_jax():
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
     assert tb.occupancy_stats(tfp) == jb.occupancy_stats(tfp)
+
+
+def _colliding(nbuckets, count, bucket=0):
+    """``count`` fingerprints that all land in ``bucket``."""
+    out, x = [], 1
+    while len(out) < count:
+        if int(jb.bucket_of(np.uint64(x), nbuckets)) == bucket:
+            out.append(x)
+        x += 1
+    return np.asarray(out, np.uint64)
+
+
+def _plan_case(case):
+    """(nbuckets, prefill batches, fps, payloads, compact) for one case."""
+    rng = np.random.default_rng(len(case))
+    if case == "random":
+        return 64, [random_batch(rng, 160)], *random_batch(rng, 300), None
+    if case == "compact":
+        return 128, [random_batch(rng, 200)], *random_batch(
+            rng, 512, empty_rate=0.85), 128
+    if case == "cand_overflow":  # budget exceeded, buckets fine
+        return 64, [], *random_batch(rng, 256, empty_rate=0.0,
+                                     dup_rate=0.0), 64
+    if case == "overflow":  # one bucket past SLOTS, budget fine
+        fps = np.concatenate([_colliding(4, jb.SLOTS + 1), [EMPTY] * 3])
+        return 4, [], fps, fps ^ np.uint64(9), None
+    if case == "all_present":  # every candidate is in the table: n_new = 0
+        fps, payloads = random_batch(rng, 96)
+        again = fps.copy()
+        rng.shuffle(again)
+        return 32, [(fps, payloads)], again, payloads, None
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize(
+    "case", ["random", "compact", "cand_overflow", "overflow", "all_present"]
+)
+def test_bucket_plan_plain_matches_jax_insert(case):
+    """The plan's slots, fingerprints, payloads and ``sel`` on ``[:n_new]``,
+    ``n_new`` and both flags, against what the JAX ``bucket_insert`` wrote:
+    exactly the planned slots change, to the planned values."""
+    nbuckets, prefill, fps, payloads, compact = _plan_case(case)
+    pair = Pair(nbuckets)
+    for batch in prefill:
+        pair.insert(*batch)
+    before = as_u64(pair.t[0]).copy()
+    plan = tb.bucket_plan_plain(pair.t[0], *tb.sort_candidates(
+        as_torch(fps), as_torch(payloads), nbuckets, compact))
+    tgt, cfp, cpl, sel, n_new, overflow = plan
+    rj = jb.bucket_insert(*pair.j, jnp.asarray(fps), jnp.asarray(payloads),
+                          window=64, compact=compact)
+    n = int(rj[3])
+    assert int(n_new) == n
+    assert bool(overflow) == bool(rj[4])
+    cand_overflow = compact is not None and int((fps != EMPTY).sum()) > compact
+    assert bool(rj[5]) == cand_overflow
+    assert n == 0 if case in ("cand_overflow", "overflow", "all_present") else n > 0
+    assert bool(overflow) == (case == "overflow")
+    np.testing.assert_array_equal(sel.numpy()[:n], np.asarray(rj[2])[:n])
+    t = tgt.numpy()[:n]
+    jfp, jpl = np.asarray(rj[0]), np.asarray(rj[1])
+    np.testing.assert_array_equal(np.sort(t), np.flatnonzero(jfp != before))
+    np.testing.assert_array_equal(jfp[t], as_u64(cfp)[:n])
+    np.testing.assert_array_equal(jpl[t], as_u64(cpl)[:n])
+    np.testing.assert_array_equal(as_u64(cfp)[:n], fps[sel.numpy()[:n]])

@@ -167,3 +167,22 @@ def test_spawn_gpu_without_a_device_raises_when_no_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TwoPhaseSys(3).checker().spawn_gpu()
+
+
+@pytest.mark.parametrize(
+    "n,target",
+    [(5, None), (5, 3000)],  # complete, and stopped with rows still queued
+)
+def test_queue_rows_match_jax_engine(n, target):
+    """Queue rows ``[0, tail)`` (rows, fingerprints, ebits, depths) and the
+    cursors equal the JAX engine's at the same capacities; rows past
+    ``tail`` are scratch in both engines and are not compared."""
+    bound = None if target is None else (lambda b: b.target_states(target))
+    j = jax_run(n, bound).checkpoint()
+    t = port_run(n, bound).final_snapshot()
+    assert int(t["head"]) == int(j["head"]) and int(t["tail"]) == int(j["tail"])
+    tail = int(t["tail"])
+    assert tail > 0 and (target is None or tail > int(t["head"]))
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(np.asarray(t[k])[:tail],
+                                      np.asarray(j[k])[:tail], err_msg=k)

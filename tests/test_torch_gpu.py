@@ -1,6 +1,6 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
 plain PyTorch version on a CUDA device (integer outputs: equal), and the
-engine's table on ``cuda`` against ``cpu``.
+engine's table and queue on ``cuda`` against ``cpu``.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -15,15 +15,24 @@ import torch
 
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops.buckets import (
+    PLAN_TILE,
     SLOTS,
+    PlanBuffers,
     bucket_insert,
-    bucket_probe,
-    bucket_probe_plain,
+    bucket_of,
+    bucket_plan,
+    bucket_plan_plain,
+    sort_candidates,
 )
 from stateright_tpu_torch.ops.hashing import row_hash, row_hash_plain
-from stateright_tpu_torch.ops.insert_write import insert_write, insert_write_plain
+from stateright_tpu_torch.ops.insert_commit import (
+    QueueAppend,
+    insert_commit,
+    insert_commit_plain,
+)
 
 pytestmark = pytest.mark.gpu
+EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 @pytest.fixture
@@ -37,6 +46,10 @@ def rand_i64(rng, *shape):
     return torch.from_numpy(
         rng.integers(0, 1 << 64, size=shape, dtype=np.uint64).view(np.int64)
     )
+
+
+def i64(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.uint64).view(np.int64).copy())
 
 
 @pytest.mark.parametrize("width", [1, 3])
@@ -53,35 +66,126 @@ def test_row_hash_kernel_matches_plain(cuda, width):
         assert torch.equal(got.cpu(), want)
 
 
-def test_bucket_probe_kernel_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    nb = 256
+def in_buckets(rng, nbuckets, keep, count):
+    """``count`` distinct random fingerprints whose bucket satisfies
+    ``keep``."""
+    out = np.empty(0, np.uint64)
+    while out.size < count:
+        f = rng.integers(1, 1 << 64, size=4 * count, dtype=np.uint64)
+        out = np.unique(np.concatenate([out, f[keep(bucket_of(f, nbuckets))]]))
+    return rng.permutation(out)[:count]
+
+
+def plan_case(case, rng):
+    """(table fp, table payload, candidates, payloads, compact)."""
+    nb, compact = 256, None
+    pre = in_buckets(rng, nb, lambda b: b >= 0, 4 * nb)
+    if case == "segment_spans_3_tiles":
+        # one bucket, one fingerprint 600 times and eleven others: the
+        # bucket's run and the fingerprint's run both cross tile edges
+        nb, pre = 1, in_buckets(rng, 1, lambda b: b >= 0, 4)
+        few = in_buckets(rng, 1, lambda b: b >= 0, 12)
+        fps = np.concatenate([np.repeat(few[:1], 600),
+                              rng.choice(few, 3 * PLAN_TILE - 600)])
+    elif case == "overflow_in_last_tile_only":
+        # 17 novel fingerprints in the last bucket sort to the last tile
+        nb = 64
+        pre = in_buckets(rng, nb, lambda b: b < nb - 1, 2 * nb)
+        others = in_buckets(rng, nb, lambda b: b < nb - 1, 150)
+        fps = np.concatenate([
+            rng.choice(others, 2 * PLAN_TILE + 83),
+            in_buckets(rng, nb, lambda b: b == nb - 1, SLOTS + 1),
+        ])
+    elif case == "cand_overflow":
+        fps = in_buckets(rng, nb, lambda b: b >= 0, 700)
+        compact = 512
+    elif case == "n_new_zero":  # every candidate is in the table
+        fps = rng.choice(pre, 900)
+    elif case == "m_1":
+        fps = in_buckets(rng, nb, lambda b: b >= 0, 1)
+    elif case == "m_tile_plus_1":
+        fps = rng.choice(in_buckets(rng, nb, lambda b: b >= 0, 200),
+                         PLAN_TILE + 1)
+        fps[::5] = EMPTY
+    elif case == "many_tiles":  # far more tiles than resident CTAs
+        nb, pre = 1 << 15, np.empty(0, np.uint64)
+        fps = rng.choice(in_buckets(rng, nb, lambda b: b >= 0, 60_000),
+                         300_000)
+        fps[rng.random(fps.size) < 0.3] = EMPTY
+        compact = 250_000
+    else:
+        raise ValueError(case)
     tfp = torch.full((nb * SLOTS,), -1, dtype=torch.int64)
     tpl = torch.zeros_like(tfp)
-    fps = rand_i64(rng, 3000)
-    bucket_insert(tfp, tpl, fps, fps)
-    probe = torch.cat([fps[:1500], rand_i64(rng, 1500)])
-    probe[::5] = -1
-    bucket = torch.from_numpy(rng.integers(0, nb, size=3000))
-    want = bucket_probe_plain(tfp, probe, bucket)
-    got = bucket_probe(tfp.to(cuda), probe.to(cuda), bucket.to(cuda))
-    torch.cuda.synchronize()
-    assert torch.equal(got[0].cpu(), want[0])
-    assert torch.equal(got[1].cpu(), want[1])
+    if pre.size:
+        bucket_insert(tfp, tpl, i64(pre), i64(pre))
+    return tfp, tpl, i64(fps), rand_i64(rng, fps.size), compact
 
 
-def test_insert_write_kernel_matches_plain(cuda):
+PLAN_CASES = ["segment_spans_3_tiles", "overflow_in_last_tile_only",
+              "cand_overflow", "n_new_zero", "m_1", "m_tile_plus_1",
+              "many_tiles"]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_bucket_plan_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(PLAN_CASES.index(case))
+    tfp, _tpl, fps, payloads, compact = plan_case(case, rng)
+    inputs = sort_candidates(fps, payloads, tfp.shape[0] // SLOTS, compact)
+    want = bucket_plan_plain(tfp, *inputs)
+    args = [None if x is None else x.to(cuda) for x in (tfp, *inputs)]
+    out = PlanBuffers(inputs[0].shape[0], cuda)
+    for _ in range(2):  # the second launch finds the scratch reset
+        got = [x.cpu() for x in bucket_plan(*args, out=out)]
+        torch.cuda.synchronize()
+        assert int(got[4]) == int(want[4])  # n_new
+        assert bool(got[5]) == bool(want[5])  # overflow
+        novel = int((want[0] != tfp.shape[0]).sum())  # planned, even if blocked
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g[:novel], w[:novel])
+    expect = {"overflow_in_last_tile_only": (True, 0), "cand_overflow": (False, 0),
+              "n_new_zero": (False, 0), "m_1": (False, 1)}.get(case)
+    if expect is not None:
+        assert (bool(want[5]), int(want[4])) == expect
+    else:
+        assert int(want[4]) > 0
+
+
+@pytest.mark.parametrize("n_new,m", [(3000, 4096), (0, 4096), (1, 1)])
+@pytest.mark.parametrize("with_queue", [False, True])
+def test_insert_commit_kernel_matches_plain(cuda, n_new, m, with_queue):
     rng = np.random.default_rng(2)
-    nslots, m, n_new = 1 << 14, 4096, 3000
+    nslots, arity, width, q, tail = 1 << 14, 4, 2, 9000, 123
     tfp, tpl = rand_i64(rng, nslots), rand_i64(rng, nslots)
     tgt = torch.full((m,), nslots, dtype=torch.int64)
     tgt[:n_new] = torch.from_numpy(rng.choice(nslots, n_new, replace=False))
     cfp, cpl = rand_i64(rng, m), rand_i64(rng, m)
     n = torch.tensor(n_new)
-    pf, pp = insert_write_plain(tfp.clone(), tpl.clone(), tgt, cfp, cpl, n)
-    kf, kp = insert_write(*(t.to(cuda) for t in (tfp, tpl, tgt, cfp, cpl, n)))
+    queue = None
+    if with_queue:
+        b = -(-m // arity)
+        queue = QueueAppend(
+            rand_i64(rng, q, width), rand_i64(rng, q),
+            torch.from_numpy(rng.integers(0, 99, q).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 99, q).astype(np.int32)),
+            torch.tensor(tail), torch.from_numpy(rng.permutation(m)),
+            rand_i64(rng, b * arity, width),
+            torch.from_numpy(rng.integers(-99, 99, b).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 99, b).astype(np.int32)), arity,
+        )
+        cq = QueueAppend(*(x.to(cuda) if torch.is_tensor(x) else x
+                           for x in queue))
+        queue = QueueAppend(*(x.clone() if torch.is_tensor(x) else x
+                              for x in queue))
+    pf, pp = insert_commit_plain(tfp.clone(), tpl.clone(), tgt, cfp, cpl, n,
+                                 queue)
+    kf, kp = insert_commit(*(t.to(cuda) for t in (tfp, tpl, tgt, cfp, cpl, n)),
+                           cq if with_queue else None)
     torch.cuda.synchronize()
     assert torch.equal(kf.cpu(), pf) and torch.equal(kp.cpu(), pp)
+    if with_queue:
+        for g, w in zip(cq[:4], queue[:4]):
+            assert torch.equal(g.cpu(), w)
 
 
 def test_engine_tables_identical_on_cuda_and_cpu(cuda):
@@ -90,3 +194,20 @@ def test_engine_tables_identical_on_cuda_and_cpu(cuda):
     assert g.unique_state_count() == c.unique_state_count()
     for a, b in zip(g._table_np(), c._table_np()):
         np.testing.assert_array_equal(a, b)
+
+
+def test_2pc7_table_and_queue_identical_on_cuda_and_cpu(cuda):
+    """2pc-7 at a small batch, bounded so the CPU side stays short: table
+    bytes, cursors and queue rows ``[0, tail)`` equal on both devices."""
+    def run(device):
+        b = TwoPhaseSys(7).checker().target_states(40_000)
+        return b.spawn_gpu(device=device, batch=256).join().final_snapshot()
+
+    g, c = run(cuda), run("cpu")
+    assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
+    assert int(g["unique"]) == int(c["unique"]) >= 40_000
+    tail = int(g["tail"])
+    for k in ("table_fp", "table_parent"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
