@@ -4,10 +4,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``stateright_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card (integer outputs:
-they must be equal), times both, and drives the port's main path through
-the user's entry point, ``TwoPhaseSys(n).checker().spawn_gpu()``:
+It builds the hand-written CUDA kernels from ``stateright_tpu_torch/csrc``
+(``cand_prep``, ``row_hash``, ``bucket_plan``, ``insert_commit``), holds
+each against its plain PyTorch version on the card (integer outputs: they
+must be equal on every lane), times both, and drives the port's main path
+through the user's entry point, ``TwoPhaseSys(n).checker().spawn_gpu()``:
 
  - kernels at 2pc-7 shapes: the next batch of a 2pc-7 run bounded at
    100,000 unique states (its table fits in the L2, as on the main path);
@@ -18,7 +19,8 @@ the user's entry point, ``TwoPhaseSys(n).checker().spawn_gpu()``:
    kernel launched (each wrapper counts its launches; the counts are reset
    just before this run and read just after it);
  - 2pc-10, bounded by ``target_states``: the visited table in the
-   hundreds of MB, discoveries replayed, peak device memory;
+   hundreds of MB, discoveries replayed, peak device memory, and every
+   kernel launched;
  - kernels at 2pc-10 shapes: the next batch of that run's final carry,
    with the L2 flushed before every timed call (the 512 MiB table is cold
    there on the main path).
@@ -48,7 +50,12 @@ from stateright_tpu_torch.ops.buckets import (
     PlanBuffers,
     bucket_plan,
     bucket_plan_plain,
-    sort_candidates,
+)
+from stateright_tpu_torch.ops.cand_prep import (
+    PrepBuffers,
+    cand_prep,
+    cand_prep_plain,
+    sort_prepared,
 )
 from stateright_tpu_torch.ops.hashing import EMPTY, row_hash, row_hash_plain
 from stateright_tpu_torch.ops.insert_commit import (
@@ -205,16 +212,16 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+KERNELS = (cand_prep, row_hash, bucket_plan, insert_commit)
+
+
 def kernel_launches() -> dict:
-    return {
-        "row_hash": row_hash.launches,
-        "bucket_plan": bucket_plan.launches,
-        "insert_commit": insert_commit.launches,
-    }
+    return {k.__name__: k.launches for k in KERNELS}
 
 
 def reset_launches() -> None:
-    row_hash.launches = bucket_plan.launches = insert_commit.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def check_discoveries(model, checker, expect: set) -> dict:
@@ -243,9 +250,9 @@ def timed_run(n: int, target=None, **kw):
 
 def next_batch(checker, carry) -> dict:
     """The next batch popped from a run's carry (device tensors, as the
-    engine's ``_final_carry`` holds them), pushed through the insert's plain
+    engine's ``_final_carry`` holds them), pushed through the step's plain
     stages up to each kernel: real inputs at the shapes the main path
-    gives the three kernels."""
+    gives the kernels."""
     head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
     batch, cand = checker._batch, checker._cand
     arity = checker.tensor.max_actions
@@ -255,11 +262,13 @@ def next_batch(checker, carry) -> dict:
     succ, valid = checker.tensor.step_rows(carry[convert.QROWS][span])
     m = batch * arity
     crows, cvalid = succ.reshape(m, -1), valid.reshape(m)
-    cfp = row_hash_plain(crows, cvalid)
     pfp = carry[convert.QFP][span]
     tfp, tpl = carry[convert.TFP], carry[convert.TPL]
-    sort = sort_candidates(cfp, pfp[:, None].expand(batch, arity).reshape(m),
-                           tfp.shape[0] // SLOTS, compact=min(cand, m))
+    cb = min(cand, m)
+    prep = cand_prep_plain(crows, cvalid, pfp, arity, cb)
+    # the engine's order: cand_prep, one stable sort, then the plan
+    sort = (*sort_prepared(prep[0], prep[1], prep[3], tfp.shape[0] // SLOTS),
+            prep[2], prep[5])
     plan = bucket_plan_plain(tfp, *sort)
     n_new = int(plan[4])
     if n_new == 0:
@@ -270,8 +279,9 @@ def next_batch(checker, carry) -> dict:
         carry[convert.QDEPTH], carry[convert.TAIL], plan[3], crows,
         carry[convert.QEBITS][span], carry[convert.QDEPTH][span], arity,
     )
-    return dict(crows=crows, cvalid=cvalid, tfp=tfp, tpl=tpl, sort=sort,
-                plan=plan, queue=queue, n_new=n_new)
+    return dict(crows=crows, cvalid=cvalid, pfp=pfp, arity=arity, cb=cb,
+                prep=prep, tfp=tfp, tpl=tpl, sort=sort, plan=plan,
+                queue=queue, n_new=n_new)
 
 
 def timings(kernel, plain, cold: bool, engine=None) -> dict:
@@ -306,11 +316,37 @@ def check_kernels(checker, carry, cold: bool) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
 
-    # -- B: row_hash over the batch's B*A successor rows ---------------------
+    # -- cand_prep over the batch's B*A successor rows ------------------------
     rows, valid = x["crows"], x["cvalid"]
-    got, want = row_hash(rows, valid), row_hash_plain(rows, valid)
+    pfp, arity, cb, want = x["pfp"], x["arity"], x["cb"], x["prep"]
     n, w = rows.shape
-    nv = int(valid.sum())
+    qbuf = PrepBuffers(n, cb, rows.device)
+    got = cand_prep(rows, valid, pfp, arity, cb, out=qbuf)
+    errs = sum(int((g != p).sum()) for g, p in zip(got, want))
+    nv = int(want[4])
+    parents = int(torch.unique(want[2] // arity).numel())
+    # valid lanes read their row, every lane its valid byte, each parent
+    # whose lane is read its fingerprint once; four words per output lane
+    # and the two scalars out
+    q_ms, q_by = bound(nv * w * 8 + n + parents * 8 + cb * 32 + 9,
+                       nv * (w + 2) * 10)
+    out["cand_prep"] = dict(
+        name="cand_prep", route="cuda",
+        source="stateright_tpu_torch/csrc/cand_prep.cu",
+        replaces=("stateright_tpu/parallel/wavefront.py:491 with "
+                  "stateright_tpu/ops/buckets.py:181"),
+        shape=(f"rows int64[{n}, {w}], {nv} valid, budget {cb}, "
+               f"{parents} parents read"),
+        matched=errs == 0, max_abs_err=errs,
+        bound_ms=q_ms, bound_by=q_by, library_ms=None,
+        **timings(lambda: cand_prep(rows, valid, pfp, arity, cb, out=qbuf),
+                  lambda: cand_prep_plain(rows, valid, pfp, arity, cb), cold,
+                  lambda: cand_prep(rows, valid, pfp, arity, cb, qbuf,
+                                    check=False, stream=stream)),
+    )
+
+    # -- B: row_hash over the same rows (the init path's kernel) -------------
+    got, want = row_hash(rows, valid), row_hash_plain(rows, valid)
     # every lane reads its valid byte and writes its fingerprint; only the
     # valid lanes read their row (invalid ones return before it)
     b_ms, b_by = bound(nv * w * 8 + n + n * 8, nv * (w + 1) * 10)
@@ -460,6 +496,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     g10, g10_s = timed_run(10, target=TPC10_TARGET)
     peak = torch.cuda.max_memory_allocated(dev)
+    launches10 = kernel_launches()
     paths10 = check_discoveries(g10.model, g10, set(g10.discovery_fps()))
     emit("2pc10", {"target": TPC10_TARGET, "unique": g10.unique_state_count(),
                    "states": g10.state_count(), "depth": g10.max_depth(),
@@ -468,12 +505,14 @@ def main() -> int:
                    "table_slots": g10._cap,
                    "table_mib": g10._cap * 16 / 2**20,
                    "peak_device_mib": peak / 2**20, "cand": g10._cand,
-                   "discoveries": paths10, "launches": kernel_launches(),
+                   "discoveries": paths10, "launches": launches10,
                    "card": smi})
     if g10.unique_state_count() < TPC10_TARGET:
         raise AssertionError("2pc-10: stopped short of the target")
     if "consistent" in paths10:
         raise AssertionError("2pc-10: consistent violated")
+    if not all(v > 0 for v in launches10.values()):
+        raise AssertionError(f"a kernel never launched on 2pc-10: {launches10}")
 
     # -- kernels at 2pc-10 shapes, L2-cold -----------------------------------
     kernels10 = check_kernels(g10, g10._final_carry, cold=True)

@@ -27,9 +27,9 @@
 //    `__ballot_sync`/`__popc` give `present` and `base`; a half-warp
 //    issues its sixteen candidates' loads before the first ballot;
 //  - both prefix counts are one scan of (segment-start flag, segment
-//    count, total) triples: warp shuffles inside a warp, shared memory
-//    across the tile's warps, and decoupled look-back across tiles in
-//    the same pass.  Tile ids come from an atomic ticket, not from
+//    count, total) triples (`lookback.cuh`): warp shuffles inside a warp,
+//    shared memory across the tile's warps, and decoupled look-back across
+//    tiles in the same pass.  Tile ids come from an atomic ticket, not from
 //    `blockIdx`, so every tile a CTA waits on has started and is resident.
 //    A tile publishes (status, flag, count, total) as one 64-bit word with
 //    release/acquire ordering: first its aggregate, then its inclusive
@@ -47,72 +47,17 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFULL;
 constexpr int kSlots = 16;
 constexpr int kTile = 256;  // sorted lanes per CTA = threads per CTA
 constexpr int kWarps = kTile / 32;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// Tile state word: [63:62] status, [61] segment-start flag,
-// [60:31] segment count, [30:0] total.  Counts stay below 2^30 (the
-// wrapper refuses wider batches).
-constexpr unsigned long long kAggregate = 1ULL << 62;
-constexpr unsigned long long kPrefix = 2ULL << 62;
 
 // Scratch words: tile ticket, done ticket, overflow, then one state per tile.
 constexpr int kTileTicket = 0, kDoneTicket = 1, kOverflow = 2, kStates = 3;
-
-struct Scan {
-  unsigned flag, seg, tot;
-};
-
-// `a` precedes `b`: a segment start in `b` cuts off `a`'s segment count.
-__device__ __forceinline__ Scan combine(Scan a, Scan b) {
-  return {a.flag | b.flag, b.flag ? b.seg : a.seg + b.seg, a.tot + b.tot};
-}
-
-__device__ __forceinline__ unsigned long long pack(Scan s) {
-  return ((unsigned long long)s.flag << 61) |
-         ((unsigned long long)s.seg << 31) | (unsigned long long)s.tot;
-}
-
-__device__ __forceinline__ Scan unpack(unsigned long long w) {
-  return {(unsigned)(w >> 61) & 1u, (unsigned)(w >> 31) & 0x3FFFFFFFu,
-          (unsigned)w & 0x7FFFFFFFu};
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ Scan shfl_up(Scan s, int d) {
-  return {__shfl_up_sync(kFull, s.flag, d), __shfl_up_sync(kFull, s.seg, d),
-          __shfl_up_sync(kFull, s.tot, d)};
-}
-
-__device__ __forceinline__ Scan shfl_down(Scan s, int d) {
-  return {__shfl_down_sync(kFull, s.flag, d),
-          __shfl_down_sync(kFull, s.seg, d), __shfl_down_sync(kFull, s.tot, d)};
-}
-
-__device__ __forceinline__ Scan shfl_from(Scan s, int src) {
-  return {__shfl_sync(kFull, s.flag, src), __shfl_sync(kFull, s.seg, src),
-          __shfl_sync(kFull, s.tot, src)};
-}
 
 __global__ void __launch_bounds__(kTile) bucket_plan_kernel(
     const unsigned long long* __restrict__ tfp,
@@ -172,56 +117,10 @@ __global__ void __launch_bounds__(kTile) bucket_plan_kernel(
   }
   Scan x = {bstart ? 1u : 0u, novel ? 1u : 0u, novel ? 1u : 0u};
 
-  // -- scan inside the tile -------------------------------------------------
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const Scan y = shfl_up(x, d);
-    if (lane >= d) x = combine(y, x);
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
+  // -- scan inside the tile, then across tiles ------------------------------
+  const Scan incl = block_scan<kWarps>(x, s_warp);
   if (warp == 0) {
-    Scan w = lane < kWarps ? s_warp[lane] : Scan{0u, 0u, 0u};
-#pragma unroll
-    for (int d = 1; d < kWarps; d <<= 1) {
-      const Scan y = shfl_up(w, d);
-      if (lane >= d) w = combine(y, w);
-    }
-    if (lane < kWarps) s_warp[lane] = w;
-  }
-  __syncthreads();
-  const Scan incl = warp > 0 ? combine(s_warp[warp - 1], x) : x;
-
-  // -- decoupled look-back across tiles, 32 predecessors at a time ---------
-  if (warp == 0) {
-    const Scan agg = s_warp[kWarps - 1];
-    Scan excl = {0u, 0u, 0u};
-    if (tile == 0) {
-      if (lane == 0) st_release(&state[0], kPrefix | pack(agg));
-    } else {
-      if (lane == 0) st_release(&state[tile], kAggregate | pack(agg));
-      for (int top = tile - 1;; top -= 32) {
-        // lane l waits for tile top - l; before tile 0 is an empty prefix
-        const int p = top - lane;
-        unsigned long long w = kPrefix;
-        if (p >= 0) {
-          while (((w = ld_acquire(&state[p])) >> 62) == 0) {
-          }
-        }
-        const unsigned prefixes = __ballot_sync(kFull, (w >> 62) == 2);
-        // the nearest prefix ends the window; older lanes are left out
-        const int lim = prefixes ? __ffs(prefixes) - 1 : 31;
-        Scan x = unpack(w);
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {  // higher lanes are older tiles
-          const Scan y = shfl_down(x, d);
-          if (lane + d <= lim) x = combine(y, x);
-        }
-        excl = combine(shfl_from(x, 0), excl);
-        if (prefixes) break;
-      }
-      if (lane == 0) st_release(&state[tile], kPrefix | pack(combine(excl, agg)));
-    }
+    const Scan excl = look_back(state, tile, s_warp[kWarps - 1]);
     if (lane == 0) s_prefix = excl;
   }
   __syncthreads();

@@ -3,11 +3,12 @@
 // Replaces: `row_hash` (stateright_tpu/ops/hashing.py:105, with `fold64`
 // and `mix64`) together with the `jnp.where(valid, row_hash(..), EMPTY)`
 // mask the engine applies to it (stateright_tpu/parallel/wavefront.py:491).
-// One thread per row: the splitmix64 fold over the row's W words from the
-// fixed seed, a fold of the length W, then 0 and EMPTY remap to GAMMA, and
-// rows whose `valid` byte is 0 get EMPTY.  Bit-identical to the host's
+// One thread per row: the fold of `splitmix.cuh`, and rows whose `valid`
+// byte is 0 get EMPTY.  Bit-identical to the host's
 // `fingerprint.hash_words` (pinned by tests/test_torch_hashing.py against
-// the JAX package and on the card by chip_smoke.py).
+// the JAX package and on the card by chip_smoke.py).  The engine's step
+// hashes its successors inside `cand_prep.cu`; this kernel serves the
+// init path and every caller outside the step.
 //
 // Bound on an H100: memory traffic.  A row reads 8*W bytes plus one valid
 // byte and writes 8; the fold is 2 64-bit multiplies and 3 shift-xors per
@@ -18,22 +19,9 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "splitmix.cuh"
+
 namespace {
-
-constexpr unsigned long long kGamma = 0x9E3779B97F4A7C15ULL;
-constexpr unsigned long long kM1 = 0xBF58476D1CE4E5B9ULL;
-constexpr unsigned long long kM2 = 0x94D049BB133111EBULL;
-constexpr unsigned long long kSeed = 0x5374617465544655ULL;  // "StateTFU"
-constexpr unsigned long long kEmpty = 0xFFFFFFFFFFFFFFFFULL;
-
-__device__ __forceinline__ unsigned long long mix64(unsigned long long h) {
-  h ^= h >> 30;
-  h *= kM1;
-  h ^= h >> 27;
-  h *= kM2;
-  h ^= h >> 31;
-  return h;
-}
 
 __global__ void row_hash_kernel(const unsigned long long* __restrict__ rows,
                                 const unsigned char* __restrict__ valid,
@@ -45,12 +33,7 @@ __global__ void row_hash_kernel(const unsigned long long* __restrict__ rows,
     out[i] = kEmpty;
     return;
   }
-  const unsigned long long* row = rows + i * (long long)width;
-  unsigned long long h = kSeed;
-  for (int w = 0; w < width; ++w) h = mix64((h ^ row[w]) + kGamma);
-  h = mix64((h ^ (unsigned long long)width) + kGamma);
-  if (h == 0ULL || h == kEmpty) h = kGamma;
-  out[i] = h;
+  out[i] = row_fingerprint(rows + i * (long long)width, width);
 }
 
 }  // namespace

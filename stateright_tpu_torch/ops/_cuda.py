@@ -2,14 +2,16 @@
 
 Every source under ``csrc/`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``-gencode arch=compute_90a,code=sm_90a``); the
-objects link into one shared library that ``ctypes`` loads.  No source
+objects link into one shared library that ``ctypes`` loads.  The headers
+beside them (``csrc/*.cuh``) hold the code two kernels share.  No source
 includes PyTorch's headers, so a cold build takes seconds, not minutes.
 
 The build runs at first use, never at import (the CPU tests import every
 module of the port on hosts without ``nvcc``).  Each source compiles in its
 own ``nvcc`` process, all started together, into ``_build/`` beside this
-package; the library's file name carries a digest of the sources and flags,
-so an edited source rebuilds and an unchanged one loads at once.
+package; the library's file name carries a digest of the sources, the
+headers and the flags, so an edited source or header rebuilds and an
+unchanged tree loads at once.
 
 Every C entry point enqueues its kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code, so
@@ -48,6 +50,9 @@ _SIGNATURES = {
     # for a table-only commit): qrows, qfp, qebits, qdepth, tail, sel,
     # crows, pebits, pdepth, width, arity; stream
     "srt_insert_commit": (_P,) * 6 + (_I64,) + (_P,) * 9 + (_I32, _I32, _P),
+    # rows, valid, pfps, fp, payload, cidx, key, n_valid, cand_overflow,
+    # scratch, m, cb, width, arity, stream
+    "srt_cand_prep": (_P,) * 10 + (_I64, _I64, _I32, _I32, _P),
 }
 
 
@@ -63,6 +68,7 @@ def _nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The compiled sources (``csrc/*.cu``)."""
     return sorted(CSRC.glob("*.cu"))
 
 
@@ -89,11 +95,19 @@ def _run_all(cmds: list[list[str]]) -> None:
             )
 
 
+def library_path() -> Path:
+    """``_build/libsrt_kernels-<digest>.so`` for the current sources,
+    headers and flags.  The shared headers (``csrc/*.cuh``) are not
+    compiled alone, but an edit to one changes the digest."""
+    digest = _digest(sources() + sorted(CSRC.glob("*.cuh")))
+    return BUILD_DIR / f"libsrt_kernels-{digest}.so"
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into ``_build/libsrt_kernels-<digest>.so``
-    (skipped when that file exists) and return its path."""
+    """Compile ``csrc/*.cu`` into :func:`library_path` (skipped when that
+    file exists) and return its path."""
     srcs = sources()
-    lib = BUILD_DIR / f"libsrt_kernels-{_digest(srcs)}.so"
+    lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -23,7 +23,10 @@ PyTorch; ``torch.argsort`` is not stable by default, and the table and
 traces depend on it, so every sort passes ``stable=True``), then
 :func:`bucket_plan` (membership, occupancy, dedup, ranks, flags and the
 table-order compaction; on CUDA one launch of ``csrc/bucket_plan.cu``),
-then the commit (``ops/insert_commit.py``).  The JAX version's
+then the commit (``ops/insert_commit.py``).  The engine's step takes its
+first stage from ``ops/cand_prep.py`` instead (hash, key and compaction
+in one launch, then one sort); :func:`bucket_insert` serves the init rows
+and the tests.  The JAX version's
 data-dependent ``while_loop`` s become full-width passes masked by counts
 that stay on the device.
 """

@@ -9,14 +9,15 @@ table (``ops/buckets.py``), and each step pops a batch and
  1. evaluates the property masks, recording first-hit fingerprints;
  2. expands every row through the twin's ``step_rows``;
  3. flushes pending ``eventually`` bits at terminal rows;
- 4. fingerprints the successors (kernel B), sorts them by bucket key, and
-    plans the insert (kernel ``bucket_plan``);
+ 4. fingerprints, keys and compacts the successors (kernel
+    ``cand_prep``), sorts them by bucket key, and plans the insert (kernel
+    ``bucket_plan``);
  5. writes the novel fingerprints into the table and appends their rows
     at the queue tail, in table order (kernel ``insert_commit``).
 
-On CUDA, steps 4 and 5 from the sorted candidates to the queue append are
-two launches; the plan's outputs and scratch are allocated once per
-engine (``PlanBuffers``).
+On CUDA, steps 4 and 5 are three launches and one stable sort; the
+kernels' outputs and scratch are allocated once per engine
+(``PrepBuffers``, ``PlanBuffers``).
 
 Pops are in BFS level order, so parent pointers record shortest paths.
 
@@ -55,8 +56,8 @@ from ..core import Expectation
 from ..ops import _cuda
 from ..ops.buckets import (
     SLOTS, PlanBuffers, bucket_insert, bucket_plan, host_bucket_rehash,
-    sort_candidates,
 )
+from ..ops.cand_prep import PrepBuffers, cand_prep, sort_prepared
 from ..ops.hashing import EMPTY, row_hash
 from ..ops.insert_commit import QueueAppend, insert_commit
 from ._base import WavefrontChecker
@@ -121,8 +122,9 @@ class _Engine:
         self.lanes = torch.arange(batch, device=device)
         # the insert's own buffers (validated here, so the step launches
         # unchecked) and the stream its kernels go to
-        self.plan_out = self.stream = None
+        self.prep_out = self.plan_out = self.stream = None
         if self.device.type == "cuda":
+            self.prep_out = PrepBuffers(self.m, self.eff_cand, self.device)
             self.plan_out = PlanBuffers(self.eff_cand, self.device)
             self.stream = _cuda.stream_of(self.plan_out.tgt)
 
@@ -190,13 +192,13 @@ class _Engine:
         disc = self.flush_terminal(terminal, fps, ebits, disc)
 
         cand_rows = succ.reshape(m, width)
-        cand_fp = row_hash(cand_rows, valid.reshape(m))
-        cand_par = fps[:, None].expand(batch, arity).reshape(m)
-
-        sfp, spl, bucket, order, cidx, coverflow = sort_candidates(
-            cand_fp, cand_par, self.cap // SLOTS, compact=self.eff_cand
-        )
         # the engine built every input itself: the kernels run unchecked
+        pfp, ppl, cidx, key, n_valid, coverflow = cand_prep(
+            cand_rows, valid.reshape(m), fps, arity, self.eff_cand,
+            self.prep_out, check=False, stream=self.stream,
+        )
+        sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
+                                                self.cap // SLOTS)
         tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
             c[TFP], sfp, spl, bucket, order, cidx, coverflow, self.plan_out,
             check=False, stream=self.stream,
@@ -214,7 +216,7 @@ class _Engine:
         head = torch.where(overflow, head, head + torch.clamp(n_avail, max=batch))
         tail = tail + n_new
         unique = unique + n_new
-        scount = torch.where(overflow, c[SCOUNT], c[SCOUNT] + valid.sum())
+        scount = torch.where(overflow, c[SCOUNT], c[SCOUNT] + n_valid)
         # clean-boundary growth triggers (table target load <= 25%)
         new_status = torch.where(
             toverflow | (unique * 4 > self.cap) | (self.eff_cand * 4 > self.cap),

@@ -15,9 +15,16 @@ import pytest
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import torch
 
+from fixtures_sweep import BoundedCounterSys as JaxCounterSys
 from stateright_tpu.models.two_phase_commit import TwoPhaseSys as JaxSys
 from stateright_tpu_torch import convert
+from stateright_tpu_torch.core import Model, Property
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+from stateright_tpu_torch.parallel.tensor_model import (
+    BitPacker,
+    TensorBackedModel,
+    TensorModel,
+)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -72,6 +79,93 @@ def test_counts_tables_and_traces_match_jax_engine(n, kw, unique):
         assert t.growth_events and t._cap >= 512
     assert set(t.discoveries()) == {"abort agreement", "commit agreement"}
     t.assert_properties()
+
+
+class CounterTensor(TensorModel):
+    """The port's twin of ``tests/fixtures_sweep.py``'s bounded counters:
+    the same row layout, actions and property masks.  Almost every action
+    is enabled, so a batch's valid candidates can pass half its lanes."""
+
+    def __init__(self, model):
+        self.model, self.n, self.bound = model, model.n, model.bound
+        self.pk = BitPacker([(f"c{i}", 6) for i in range(self.n)])
+        self.width, self.max_actions = self.pk.width, self.n
+
+    def init_rows(self) -> np.ndarray:
+        return np.asarray([self.encode_state(s)
+                           for s in self.model.init_states()], np.uint64)
+
+    def encode_state(self, state) -> tuple:
+        return self.pk.pack(**{f"c{i}": v for i, v in enumerate(state)})
+
+    def decode_state(self, row):
+        d = self.pk.unpack(row)
+        return tuple(d[f"c{i}"] for i in range(self.n))
+
+    def step_rows(self, rows):
+        succ, valid = [], []
+        for i in range(self.n):
+            v = self.pk.get(rows, f"c{i}")
+            ok = v < self.bound
+            succ.append(self.pk.set(rows, f"c{i}", torch.where(ok, v + 1, v)))
+            valid.append(ok)
+        return torch.stack(succ, dim=-2), torch.stack(valid, dim=-1)
+
+    def property_masks(self, rows):
+        vals = torch.stack([self.pk.get(rows, f"c{i}") for i in range(self.n)],
+                           dim=-1)
+        maxed = (vals >= self.bound).any(dim=-1)
+        over = (vals > 63).any(dim=-1)
+        return torch.stack([~over, maxed], dim=-1)
+
+
+class CounterSys(TensorBackedModel, Model):
+    def __init__(self, bound: int, counters: int):
+        self.bound, self.n = bound, counters
+
+    def properties(self):
+        return [
+            Property.always("in range",
+                            lambda m, s: all(v <= m.bound for v in s)),
+            Property.sometimes("some counter maxed",
+                               lambda m, s: any(v >= m.bound for v in s)),
+        ]
+
+    def init_states(self):
+        return [(0,) * self.n]
+
+    def actions(self, state):
+        return [i for i in range(self.n) if state[i] < self.bound]
+
+    def next_state(self, state, action):
+        out = list(state)
+        out[action] += 1
+        return tuple(out)
+
+    def tensor_model(self):
+        return CounterTensor(self)
+
+
+def test_cand_full_replays_up_to_full_width_match_jax_engine():
+    """A budget of 6 of a batch's 24 lanes doubles by CAND_FULL replays to
+    12 and then to ``batch * arity``, where the port still compacts (CB ==
+    M): counts, tables, traces, growth events and queue rows ``[0, tail)``
+    equal the JAX engine's, which stops compacting there."""
+    kw = dict(batch=8, cand=6)
+    j = JaxCounterSys(5, 3).checker().spawn_tpu(sync=True, frontier_capacity=8,
+                                                cand=6)
+    t = CounterSys(5, 3).checker().spawn_gpu(device="cpu", **kw).join()
+    assert t.unique_state_count() == 6 ** 3
+    assert t._cand == 8 * 3
+    assert [s for s, _ in t.growth_events].count(3) == 2  # CAND_FULL twice
+    assert_same_run(j, t)
+    assert t.growth_events == j.growth_events
+    js, ts = j.checkpoint(), t.final_snapshot()
+    tail = int(ts["tail"])
+    assert int(js["tail"]) == tail and int(js["head"]) == int(ts["head"])
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(np.asarray(ts[k])[:tail],
+                                      np.asarray(js[k])[:tail], err_msg=k)
 
 
 def test_discovery_paths_replay_and_are_shortest():

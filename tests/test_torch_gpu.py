@@ -1,6 +1,7 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
 plain PyTorch version on a CUDA device (integer outputs: equal), and the
-engine's table and queue on ``cuda`` against ``cpu``.
+engine's table and queue on ``cuda`` against ``cpu`` (2pc-4, 2pc-5 and a
+bounded 2pc-7).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -23,6 +24,12 @@ from stateright_tpu_torch.ops.buckets import (
     bucket_plan,
     bucket_plan_plain,
     sort_candidates,
+)
+from stateright_tpu_torch.ops.cand_prep import (
+    PREP_TILE,
+    PrepBuffers,
+    cand_prep,
+    cand_prep_plain,
 )
 from stateright_tpu_torch.ops.hashing import row_hash, row_hash_plain
 from stateright_tpu_torch.ops.insert_commit import (
@@ -188,9 +195,58 @@ def test_insert_commit_kernel_matches_plain(cuda, n_new, m, with_queue):
             assert torch.equal(g.cpu(), w)
 
 
-def test_engine_tables_identical_on_cuda_and_cpu(cuda):
-    g = TwoPhaseSys(4).checker().spawn_gpu(device=cuda, batch=256).join()
-    c = TwoPhaseSys(4).checker().spawn_gpu(device="cpu", batch=256).join()
+def prep_case(case, rng):
+    """(rows, valid, pfps, arity, cb) for one case."""
+    parents, arity, width, rate, cb = 40, 37, 1, 0.3, None
+    if case == "m_1":
+        parents, arity, rate, cb = 1, 1, 1.0, 1
+    elif case == "m_257":
+        parents, arity, width, rate, cb = 257, 1, 2, 0.5, 200
+    elif case == "many_tiles":  # far more tiles than resident CTAs
+        parents, rate, cb = 6500, 0.29, 1 << 17
+    elif case == "cb_is_m":
+        width = 3
+    m = parents * arity
+    rows = rand_i64(rng, m, width)
+    valid = torch.from_numpy(rng.random(m) < rate)
+    if case == "valid_run_across_3_tiles":
+        valid[:] = False
+        valid[PREP_TILE - 7:3 * PREP_TILE + 9] = True
+    elif case == "n_valid_0":
+        valid[:] = False
+    nv = int(valid.sum())
+    cb = cb or {"n_valid_cb": nv, "n_valid_cb_plus_1": nv - 1,
+                "cb_is_m": m}.get(case, 1000)
+    return rows, valid, rand_i64(rng, parents), arity, cb
+
+
+PREP_CASES = ["m_1", "m_257", "valid_run_across_3_tiles", "many_tiles",
+              "n_valid_0", "n_valid_cb", "n_valid_cb_plus_1", "cb_is_m"]
+
+
+@pytest.mark.parametrize("case", PREP_CASES)
+def test_cand_prep_kernel_matches_plain(cuda, case):
+    """Every output lane (live and dead) and both scalars, bit for bit."""
+    rng = np.random.default_rng(PREP_CASES.index(case))
+    rows, valid, pfps, arity, cb = prep_case(case, rng)
+    want = cand_prep_plain(rows, valid, pfps, arity, cb)
+    args = [x.to(cuda) for x in (rows, valid, pfps)]
+    out = PrepBuffers(rows.shape[0], cb, cuda)
+    for _ in range(2):  # the second launch finds the scratch reset
+        got = [x.cpu() for x in cand_prep(*args, arity, cb, out=out)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    overflow = {"n_valid_cb_plus_1": True, "many_tiles": False,
+                "n_valid_0": False, "n_valid_cb": False}.get(case)
+    if overflow is not None:
+        assert bool(want[5]) == overflow
+
+
+@pytest.mark.parametrize("n", [4, 5])
+def test_engine_tables_identical_on_cuda_and_cpu(cuda, n):
+    g = TwoPhaseSys(n).checker().spawn_gpu(device=cuda, batch=256).join()
+    c = TwoPhaseSys(n).checker().spawn_gpu(device="cpu", batch=256).join()
     assert g.unique_state_count() == c.unique_state_count()
     for a, b in zip(g._table_np(), c._table_np()):
         np.testing.assert_array_equal(a, b)
