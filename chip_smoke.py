@@ -8,7 +8,8 @@ It builds the hand-written CUDA kernels from ``stateright_tpu_torch/csrc``
 (``cand_prep``, ``row_hash``, ``bucket_plan``, ``insert_commit``), holds
 each against its plain PyTorch version on the card (integer outputs: they
 must be equal on every lane), times both, and drives the port's main path
-through the user's entry point, ``TwoPhaseSys(n).checker().spawn_gpu()``:
+through the user's entry points, ``TwoPhaseSys(n).checker().spawn_gpu()``
+and ``paxos_model(n).checker().spawn_gpu()``:
 
  - kernels at 2pc-7 shapes: the next batch of a 2pc-7 run bounded at
    100,000 unique states (its table fits in the L2, as on the main path);
@@ -23,13 +24,23 @@ through the user's entry point, ``TwoPhaseSys(n).checker().spawn_gpu()``:
    kernel launched;
  - kernels at 2pc-10 shapes: the next batch of that run's final carry,
    with the L2 flushed before every timed call (the 512 MiB table is cold
-   there on the main path).
+   there on the main path);
+ - paxos-2 on ``cuda`` and on ``cpu`` in one process, through
+   ``paxos_model(2).checker().spawn_gpu()``: 16,668 unique, "value chosen"
+   discovered, identical table bytes and queue rows ``[0, tail)``;
+ - paxos-3, complete (W = 33 words per row, A = 30 actions): 1,194,428
+   unique, "value chosen" replayed through the object model,
+   "linearizable" never violated, every kernel launched, and the wall
+   time, states/s, peak device memory, table slots, growth events with
+   their host seconds, queue size and steps;
+ - kernels at paxos-3 shapes: the next batch of a paxos-3 run bounded at
+   600,000 unique (a 64 MiB table: L2 flushed before every timed call).
 
 Any failure raises (non-zero exit).  The second-to-last line of standard
 output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
-numbers under ``at_2pc10``) and the last line is ``{"ok": true, "device":
-{...}}``.  Everything printed is also written to
-``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
+numbers under ``at_2pc10`` and the paxos-3 ones under ``at_paxos3``) and
+the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
+also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
 """
 
@@ -63,6 +74,7 @@ from stateright_tpu_torch.ops.insert_commit import (
     insert_commit,
     insert_commit_plain,
 )
+from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -70,6 +82,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # integer rate, which the data sheet does not list
 OPS_PER_S = 67e12
 TPC10_TARGET = 4_000_000
+PAXOS3_UNIQUE = 1_194_428  # the JAX engine's complete paxos-3 count
+PAXOS3_KERNEL_TARGET = 600_000
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -237,8 +251,8 @@ def check_discoveries(model, checker, expect: set) -> dict:
     return {name: len(path) for name, path in paths.items()}
 
 
-def timed_run(n: int, target=None, **kw):
-    builder = TwoPhaseSys(n).checker()
+def timed_run(n: int, target=None, model=TwoPhaseSys, **kw):
+    builder = model(n).checker()
     if target is not None:
         builder = builder.target_states(target)
     torch.cuda.synchronize()
@@ -431,11 +445,77 @@ def check_kernels(checker, carry, cold: bool) -> dict:
     return out
 
 
+def paxos_phases(dev, smi: str) -> None:
+    """Paxos-2 on ``cuda`` and ``cpu``, then paxos-3 complete with the
+    main path's launch counts."""
+    # -- paxos-2 on cuda and cpu: same counts, table bytes and queue rows ---
+    def p2(device):
+        c = paxos_model(2).checker().spawn_gpu(device=device, batch=256)
+        t0 = time.monotonic()
+        c.join()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return c, time.monotonic() - t0
+
+    (g2, g2_s), (c2, c2_s) = p2(dev), p2("cpu")
+    gs, cs = g2.final_snapshot(), c2.final_snapshot()
+    tail = int(gs["tail"])
+    same = (int(gs["head"]) == int(cs["head"]) and tail == int(cs["tail"])
+            and all((gs[k] == cs[k]).all() for k in ("table_fp", "table_parent"))
+            and all((gs[k][:tail] == cs[k][:tail]).all()
+                    for k in ("q_rows", "q_fp", "q_ebits", "q_depth")))
+    disc = check_discoveries(g2.model, g2, {"value chosen"})
+    emit("paxos2", {"unique_cuda": g2.unique_state_count(),
+                    "unique_cpu": c2.unique_state_count(),
+                    "states": g2.state_count(), "tail": tail,
+                    "table_slots": int(gs["table_fp"].size),
+                    "tables_and_queue_identical": bool(same),
+                    "sec_cuda": g2_s, "sec_cpu": c2_s, "path_lengths": disc})
+    if not (same and g2.unique_state_count() == c2.unique_state_count()
+            == 16_668):
+        raise AssertionError("paxos-2: cuda and cpu disagree")
+    del g2, c2
+
+    # -- paxos-3, complete: the main path at paxos width ----------------------
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g3, g3_s = timed_run(3, model=paxos_model)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches3 = kernel_launches()
+    paths3 = check_discoveries(g3.model, g3, {"value chosen"})
+    g3.assert_properties()  # "linearizable" never violated
+    tm = g3.tensor
+    qrows = g3._qcap + g3._batch * tm.max_actions
+    emit("paxos3", {"unique": g3.unique_state_count(),
+                    "states": g3.state_count(), "depth": g3.max_depth(),
+                    "sec": g3_s, "states_per_sec": g3.state_count() / g3_s,
+                    "unique_per_sec": g3.unique_state_count() / g3_s,
+                    "width": tm.width, "arity": tm.max_actions,
+                    "table_slots": g3._cap, "table_mib": g3._cap * 16 / 2**20,
+                    "queue_rows": qrows,
+                    "queue_mib": qrows * (8 * tm.width + 16) / 2**20,
+                    "peak_device_mib": peak / 2**20, "cand": g3._cand,
+                    "steps": g3.steps_run,
+                    "growth_events": [
+                        {"status": st, "unique": u, "host_sec": sec}
+                        for (st, u), sec in zip(g3.growth_events,
+                                                g3.growth_secs)],
+                    "growth_host_sec": sum(g3.growth_secs),
+                    "path_lengths": paths3, "launches": launches3,
+                    "card": smi})
+    if g3.unique_state_count() != PAXOS3_UNIQUE:
+        raise AssertionError(
+            f"paxos-3: {g3.unique_state_count()} unique, not {PAXOS3_UNIQUE}")
+    if not all(v > 0 for v in launches3.values()):
+        raise AssertionError(f"a kernel never launched on paxos-3: {launches3}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    start = time.monotonic()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
@@ -518,8 +598,19 @@ def main() -> int:
     kernels10 = check_kernels(g10, g10._final_carry, cold=True)
     for name, k in kernels10.items():
         emit(f"kernel_{name}_2pc10", k)
+    del g10
+
+    paxos_phases(dev, smi)
+    # -- kernels at paxos-3 shapes, L2-cold ----------------------------------
+    gp, _ = timed_run(3, target=PAXOS3_KERNEL_TARGET, model=paxos_model)
+    kernels_p3 = check_kernels(gp, gp._final_carry, cold=True)
+    for name, k in kernels_p3.items():
+        emit(f"kernel_{name}_paxos3", k)
+    del gp
+
     bad = [f"{k['name']} at {shape}"
-           for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10))
+           for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
+                             ("paxos-3", kernels_p3))
            for k in ks.values() if not k["matched"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -528,10 +619,12 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = launches[name]
         entry = {key: k[key] for key in KERNEL_KEYS}
-        entry["at_2pc10"] = {key: kernels10[name][key] for key in KERNEL_KEYS
-                             if key not in ("name", "route", "source",
-                                            "replaces", "launches")}
+        for tag, ks in (("at_2pc10", kernels10), ("at_paxos3", kernels_p3)):
+            entry[tag] = {key: ks[name][key] for key in KERNEL_KEYS
+                          if key not in ("name", "route", "source",
+                                         "replaces", "launches")}
         line.append(entry)
+    emit("total", {"seconds": time.monotonic() - start})
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(RECORD, indent=1))
     print(json.dumps({"kernels": line}))

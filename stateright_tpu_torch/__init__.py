@@ -4,8 +4,11 @@ A second package beside the JAX reference: the same models, fingerprints,
 visited-table layout and exploration order, run by a wavefront BFS engine
 on an NVIDIA GPU whose device kernels are written by hand in CUDA C++
 (``csrc/``).  It imports ``torch`` and numpy, never ``jax`` and nothing of
-``stateright_tpu``.  This slice carries the plain engine path for the 2pc
-twin: ``TwoPhaseSys(n).checker().spawn_gpu()``.
+``stateright_tpu``.  It carries the plain engine path for the 2pc twin
+(``TwoPhaseSys(n).checker().spawn_gpu()``) and for the paxos benchmark
+model, an actor system on the port's host actor layer (``actor/``,
+``semantics/``) with the hand-written twin ``PaxosTensor``
+(``paxos_model(n).checker().spawn_gpu()``).
 """
 
 from .checker import Checker, CheckerBuilder, Path

@@ -65,7 +65,12 @@ class TensorBackedModel:
 
     Overrides ``fingerprint_state`` with the row hash so the host and the
     device agree on state identity.  The twin is resolved once, at the
-    first fingerprint, and cached on the model.
+    first fingerprint, and cached on the model; ``tensor_model()`` may
+    return None (no twin for this configuration), and fingerprints then
+    fall back to the structural hash.  A builder-style model reports
+    configuration changes through ``_config_mutated``: before the first
+    fingerprint they drop the cached twin, after it they raise, since the
+    fingerprint scheme would silently change mid-run.
     """
 
     _TENSOR_UNRESOLVED = "unresolved"
@@ -79,11 +84,22 @@ class TensorBackedModel:
             return super().fingerprint_state(state)
         return hash_words(tm.encode_state(state))
 
+    def _config_mutated(self) -> None:
+        if getattr(self, "_tensor_fp_used", False):
+            raise RuntimeError(
+                "model configuration changed after states were "
+                "fingerprinted; configure the model fully before checking "
+                "or fingerprinting"
+            )
+        if hasattr(self, "_tensor_model_cache"):
+            object.__delattr__(self, "_tensor_model_cache")
+
     def _tensor_cached(self) -> Optional[TensorModel]:
         tm = getattr(self, "_tensor_model_cache", self._TENSOR_UNRESOLVED)
         if tm is self._TENSOR_UNRESOLVED:
             tm = self.tensor_model()
             object.__setattr__(self, "_tensor_model_cache", tm)
+        object.__setattr__(self, "_tensor_fp_used", True)
         return tm
 
 

@@ -42,6 +42,7 @@ capacities leaves the same table bytes as the JAX engine's.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -309,8 +310,10 @@ class GpuChecker(WavefrontChecker):
         self._qcap = max(self._cap // 2, 4 * self._batch)
         self._steps = steps_per_call
         self._resume = resume
-        # (status, unique-at-boundary) per mid-run growth event
+        # (status, unique-at-boundary) per mid-run growth event, and the
+        # host seconds each took (device sync, host rehash and copies)
         self.growth_events: list = []
+        self.growth_secs: list = []
         self.steps_run = 0  # device steps issued, post-stop no-ops included
         self._final_carry = None
         self._init_common(options)
@@ -416,6 +419,7 @@ class GpuChecker(WavefrontChecker):
             self._live = (scount, unique, maxdepth)
             if status != _STATUS_OK:
                 self.growth_events.append((status, unique))
+                t0 = time.perf_counter()
                 if status == _STATUS_CAND_FULL:
                     # the budget is an engine parameter: double it, clear
                     # the status (the insert wrote nothing), replay
@@ -429,6 +433,7 @@ class GpuChecker(WavefrontChecker):
                     cap, qcap, carry = self._regrow(
                         carry, cap, qcap, batch, status, cand
                     )
+                self.growth_secs.append(time.perf_counter() - t0)
                 stats = None
                 continue
             if self._stop.is_set():

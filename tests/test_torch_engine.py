@@ -229,8 +229,12 @@ def test_port_run_loads_neither_jax_nor_the_reference():
     code = (
         "import sys\n"
         "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.models.paxos import paxos_model\n"
         "c = TwoPhaseSys(3).checker().spawn_gpu(device='cpu').join()\n"
         "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+        "p = paxos_model(1).checker().spawn_gpu(device='cpu').join()\n"
+        "assert p.unique_state_count() == 265, p.unique_state_count()\n"
+        "assert set(p.discoveries()) == {'value chosen'}\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'stateright_tpu.'))\n"
         "       or m == 'stateright_tpu']\n"

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
-plain PyTorch version on a CUDA device (integer outputs: equal), and the
-engine's table and queue on ``cuda`` against ``cpu`` (2pc-4, 2pc-5 and a
-bounded 2pc-7).
+plain PyTorch version on a CUDA device (integer outputs: equal), at the
+2pc widths and at the paxos widths (W = 18 words and A = 16 actions for
+paxos-1, W = 33 and A = 30 for paxos-3), and the engine's table and queue
+on ``cuda`` against ``cpu`` (2pc-4, 2pc-5, a bounded 2pc-7 and paxos-2).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops.buckets import (
     PLAN_TILE,
@@ -262,6 +264,72 @@ def test_2pc7_table_and_queue_identical_on_cuda_and_cpu(cuda):
     g, c = run(cuda), run("cpu")
     assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
     assert int(g["unique"]) == int(c["unique"]) >= 40_000
+    tail = int(g["tail"])
+    for k in ("table_fp", "table_parent"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
+
+
+# (width, arity) of the paxos twins: paxos-1 and paxos-3
+PAXOS_SHAPES = [(18, 16), (33, 30)]
+
+
+@pytest.mark.parametrize("width,arity", PAXOS_SHAPES)
+def test_wide_row_kernels_match_plain(cuda, width, arity):
+    """``cand_prep``, ``row_hash`` and ``insert_commit`` (with its queue
+    half) on rows as wide as the paxos twins', every lane bit for bit."""
+    rng = np.random.default_rng(width)
+    parents = 700
+    m = parents * arity
+    rows = rand_i64(rng, m, width)
+    rows[::5, -3:] = -1  # free slot words, as in a paxos row
+    valid = torch.from_numpy(rng.random(m) < 0.2)
+    pfps = rand_i64(rng, parents)
+    cb = 4096
+    want = cand_prep_plain(rows, valid, pfps, arity, cb)
+    got = cand_prep(*(x.to(cuda) for x in (rows, valid, pfps)), arity, cb,
+                    out=PrepBuffers(m, cb, cuda))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+    assert torch.equal(row_hash(rows.to(cuda), valid.to(cuda)).cpu(),
+                       row_hash_plain(rows, valid))
+
+    nslots, q, n_new = 1 << 15, 20000, 3000
+    tgt = torch.full((cb,), nslots, dtype=torch.int64)
+    tgt[:n_new] = torch.from_numpy(rng.choice(nslots, n_new, replace=False))
+    cfp, cpl = rand_i64(rng, cb), rand_i64(rng, cb)
+    queue = QueueAppend(
+        rand_i64(rng, q, width), rand_i64(rng, q),
+        torch.from_numpy(rng.integers(0, 99, q).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 99, q).astype(np.int32)),
+        torch.tensor(77), torch.from_numpy(rng.choice(m, cb, replace=False)),
+        rows, torch.from_numpy(rng.integers(-99, 99, parents).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, 99, parents).astype(np.int32)), arity,
+    )
+    cq = QueueAppend(*(x.to(cuda) if torch.is_tensor(x) else x for x in queue))
+    tfp, tpl = rand_i64(rng, nslots), rand_i64(rng, nslots)
+    pf, pp = insert_commit_plain(tfp.clone(), tpl.clone(), tgt, cfp, cpl,
+                                 torch.tensor(n_new), queue)
+    kf, kp = insert_commit(*(t.to(cuda) for t in (tfp, tpl, tgt, cfp, cpl,
+                                                  torch.tensor(n_new))), cq)
+    torch.cuda.synchronize()
+    assert torch.equal(kf.cpu(), pf) and torch.equal(kp.cpu(), pp)
+    for g, w in zip(cq[:4], queue[:4]):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_paxos2_table_and_queue_identical_on_cuda_and_cpu(cuda):
+    """Paxos-2 (W = 22 words, A = 20): 16,668 unique on both devices, the
+    same table bytes, cursors and queue rows ``[0, tail)``."""
+    def run(device):
+        c = paxos_model(2).checker().spawn_gpu(device=device, batch=256)
+        return c.join().final_snapshot()
+
+    g, c = run(cuda), run("cpu")
+    assert int(g["unique"]) == int(c["unique"]) == 16668
+    assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
     tail = int(g["tail"])
     for k in ("table_fp", "table_parent"):
         np.testing.assert_array_equal(g[k], c[k], err_msg=k)
