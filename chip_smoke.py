@@ -34,12 +34,25 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    time, states/s, peak device memory, table slots, growth events with
    their host seconds, queue size and steps;
  - kernels at paxos-3 shapes: the next batch of a paxos-3 run bounded at
-   600,000 unique (a 64 MiB table: L2 flushed before every timed call).
+   600,000 unique (a 64 MiB table: L2 flushed before every timed call);
+ - the actor compiler's twins (``parallel/actor_compiler.py``), through
+   ``single_copy_model(4)``, ``abd_model(3, 2, Network.new_ordered())``,
+   ``raft_model(3)`` and ``dining_model(3)`` ``.checker().spawn_gpu()``:
+   single-copy-4 complete (W = 21, A = 20: 400,233 unique, 731,789
+   states, "value chosen" replayed, "linearizable" never violated, every
+   kernel launched); lin-reg-3-ordered on ``cuda`` and on ``cpu`` (36,213
+   unique, identical table bytes and queue rows); raft-3 (5,725 unique,
+   the leader path replayed); dining-3 (the deadlock counterexample, a
+   terminal circular wait); each with its wall time, states/s, steps,
+   growth events and peak device memory;
+ - kernels at single-copy-4 shapes: the next batch of a single-copy-4 run
+   bounded at 200,000 unique, L2 flushed before every timed call.
 
 Any failure raises (non-zero exit).  The second-to-last line of standard
 output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
-numbers under ``at_2pc10`` and the paxos-3 ones under ``at_paxos3``) and
-the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
+numbers under ``at_2pc10``, the paxos-3 ones under ``at_paxos3`` and the
+single-copy-4 ones, with that run's launches, under ``at_singlecopy4``)
+and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -74,7 +87,12 @@ from stateright_tpu_torch.ops.insert_commit import (
     insert_commit,
     insert_commit_plain,
 )
+from stateright_tpu_torch.actor import Network
+from stateright_tpu_torch.models.dining import HAS_LEFT, dining_model
+from stateright_tpu_torch.models.linearizable_register import abd_model
 from stateright_tpu_torch.models.paxos import paxos_model
+from stateright_tpu_torch.models.raft import LEADER, raft_model
+from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -84,6 +102,11 @@ OPS_PER_S = 67e12
 TPC10_TARGET = 4_000_000
 PAXOS3_UNIQUE = 1_194_428  # the JAX engine's complete paxos-3 count
 PAXOS3_KERNEL_TARGET = 600_000
+# the JAX engine's complete counts (unique, states) of the compiled models
+SC4 = (400_233, 731_789)
+LINREG3O = (36_213, 63_053)
+RAFT3 = (5_725, 15_607)
+SC4_KERNEL_TARGET = 200_000
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -510,6 +533,114 @@ def paxos_phases(dev, smi: str) -> None:
         raise AssertionError(f"a kernel never launched on paxos-3: {launches3}")
 
 
+def leg_record(checker, sec: float, peak: int, launches: dict,
+               smi: str) -> dict:
+    """What every compiled leg reports."""
+    tm = checker.tensor
+    return {"unique": checker.unique_state_count(),
+            "states": checker.state_count(), "depth": checker.max_depth(),
+            "sec": sec, "states_per_sec": checker.state_count() / sec,
+            "width": tm.width, "arity": tm.max_actions,
+            "table_slots": checker._cap, "cand": checker._cand,
+            "steps": checker.steps_run,
+            "growth_events": [
+                {"status": st, "unique": u, "host_sec": g}
+                for (st, u), g in zip(checker.growth_events,
+                                      checker.growth_secs)],
+            "growth_host_sec": sum(checker.growth_secs),
+            "peak_device_mib": peak / 2**20, "launches": launches,
+            "card": smi}
+
+
+def compiled_leg(dev, build):
+    """One ``spawn_gpu()`` run of ``build()``'s model with the launch counts
+    reset just before it and read just after; returns the checker, its
+    wall seconds (the twin's host-side compile included), peak device
+    memory and launches."""
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    checker = build().checker().spawn_gpu().join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = kernel_launches()
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return checker, sec, torch.cuda.max_memory_allocated(dev), launches
+
+
+def compiled_phases(dev, smi: str) -> dict:
+    """The actor compiler's twins on the card; returns the single-copy-4
+    run's launches."""
+    # -- single-copy-4, complete ---------------------------------------------
+    sc, sc_s, peak, launches = compiled_leg(dev, lambda: single_copy_model(4))
+    paths = check_discoveries(sc.model, sc, {"value chosen"})
+    sc.assert_properties()  # "linearizable" never violated
+    emit("singlecopy4", dict(leg_record(sc, sc_s, peak, launches, smi),
+                             path_lengths=paths))
+    if (sc.unique_state_count(), sc.state_count()) != SC4:
+        raise AssertionError(f"single-copy-4: not {SC4}")
+    del sc
+
+    # -- lin-reg-3-ordered on cuda and cpu -----------------------------------
+    def linreg():
+        return abd_model(3, 2, Network.new_ordered())
+
+    lg, lg_s, peak, launches_l = compiled_leg(dev, linreg)
+    t0 = time.monotonic()
+    lc = linreg().checker().spawn_gpu(device="cpu").join()
+    lc_s = time.monotonic() - t0
+    gs, cs = lg.final_snapshot(), lc.final_snapshot()
+    tail = int(gs["tail"])
+    same = (int(gs["head"]) == int(cs["head"]) and tail == int(cs["tail"])
+            and all((gs[k] == cs[k]).all() for k in ("table_fp", "table_parent"))
+            and all((gs[k][:tail] == cs[k][:tail]).all()
+                    for k in ("q_rows", "q_fp", "q_ebits", "q_depth")))
+    paths = check_discoveries(lg.model, lg, {"value chosen"})
+    lg.assert_properties()
+    emit("linreg3_ordered", dict(
+        leg_record(lg, lg_s, peak, launches_l, smi),
+        unique_cpu=lc.unique_state_count(), states_cpu=lc.state_count(),
+        sec_cpu=lc_s, tail=tail, tables_and_queue_identical=bool(same),
+        path_lengths=paths))
+    for c in (lg, lc):
+        if (c.unique_state_count(), c.state_count()) != LINREG3O:
+            raise AssertionError(f"lin-reg-3-ordered: not {LINREG3O}")
+    if not same:
+        raise AssertionError("lin-reg-3-ordered: cuda and cpu disagree")
+    del lg, lc
+
+    # -- raft-3: timers and factored pair properties --------------------------
+    rg, rg_s, peak, launches_r = compiled_leg(dev, lambda: raft_model(3))
+    paths = check_discoveries(rg.model, rg, {"a leader is elected"})
+    rg.assert_properties()  # "election safety" never violated
+    path = rg.discovery("a leader is elected")
+    leader = int(path.actions()[-1].dst)
+    if path.final_state().actor_states[leader].role != LEADER:
+        raise AssertionError("raft-3: the replayed path elects no leader")
+    emit("raft3", dict(leg_record(rg, rg_s, peak, launches_r, smi),
+                       path_lengths=paths))
+    if (rg.unique_state_count(), rg.state_count()) != RAFT3:
+        raise AssertionError(f"raft-3: not {RAFT3}")
+    del rg
+
+    # -- dining-3: the deadlock, an eventually counterexample ----------------
+    dg, dg_s, peak, launches_d = compiled_leg(dev, lambda: dining_model(3))
+    path = dg.discovery("everyone eats")
+    if path is None:
+        raise AssertionError("dining-3: the deadlock was not found")
+    final = path.final_state()
+    deadlock = (all(p.phase == HAS_LEFT for p in final.actor_states[:3])
+                and dg.model.next_steps(final) == [])
+    emit("dining3", dict(leg_record(dg, dg_s, peak, launches_d, smi),
+                         deadlock_path_length=len(path),
+                         circular_wait=deadlock))
+    if not deadlock:
+        raise AssertionError("dining-3: the counterexample is no deadlock")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -608,9 +739,18 @@ def main() -> int:
         emit(f"kernel_{name}_paxos3", k)
     del gp
 
+    launches_sc4 = compiled_phases(dev, smi)
+    # -- kernels at single-copy-4 shapes, L2-cold -----------------------------
+    gs4, _ = timed_run(4, target=SC4_KERNEL_TARGET, model=single_copy_model)
+    kernels_sc4 = check_kernels(gs4, gs4._final_carry, cold=True)
+    for name, k in kernels_sc4.items():
+        emit(f"kernel_{name}_singlecopy4", k)
+    del gs4
+
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
-                             ("paxos-3", kernels_p3))
+                             ("paxos-3", kernels_p3),
+                             ("single-copy-4", kernels_sc4))
            for k in ks.values() if not k["matched"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -619,10 +759,12 @@ def main() -> int:
     for name, k in kernels.items():
         k["launches"] = launches[name]
         entry = {key: k[key] for key in KERNEL_KEYS}
-        for tag, ks in (("at_2pc10", kernels10), ("at_paxos3", kernels_p3)):
+        for tag, ks in (("at_2pc10", kernels10), ("at_paxos3", kernels_p3),
+                        ("at_singlecopy4", kernels_sc4)):
             entry[tag] = {key: ks[name][key] for key in KERNEL_KEYS
                           if key not in ("name", "route", "source",
                                          "replaces", "launches")}
+        entry["at_singlecopy4"]["launches"] = launches_sc4[name]
         line.append(entry)
     emit("total", {"seconds": time.monotonic() - start})
     OUT.parent.mkdir(exist_ok=True)

@@ -1,24 +1,25 @@
 """In-model network semantics (reference ``src/actor/network.rs``).
 
-The port's own copy of ``stateright_tpu/actor/network.py``; the ordered
-network and the symmetry ``rewrite`` hooks come with the slices that use
-them.
+The port's own copy of ``stateright_tpu/actor/network.py``; the symmetry
+``rewrite`` hooks come with the slice that uses them.
 
 The network is *state data*, not I/O: pending messages are part of the
 checked system state, and delivery/drop/duplication are state-space actions.
-Two of the reference's semantics (``network.rs:44-64``):
+The reference's three semantics (``network.rs:44-64``):
 
  - **unordered_duplicating** — a set of envelopes; delivery leaves the
    envelope in place (redelivery allowed), drop removes it forever.  It is
    ``ActorModel``'s default, as in the reference.
  - **unordered_nonduplicating** — a multiset (envelope -> count); delivery
    and drop each consume one copy.
+ - **ordered** — per directed ``(src, dst)`` pair, a FIFO queue; only heads
+   are deliverable.
 
-Both are persistent values: mutation returns a new network.  Equality
+All are persistent values: mutation returns a new network.  Equality
 and stable hashing are order-insensitive, mirroring the reference's
-sorted-pre-hash containers (``util.rs:124-145``).  The device twin packs
-the non-duplicating multiset as sorted slot words
-(``parallel/actor_tensor.py``); this module is the object-form oracle.
+sorted-pre-hash containers (``util.rs:124-145``).  The device twins pack
+the network as sorted slot words (``parallel/actor_tensor.py``); this
+module is the object-form oracle.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Iterable, Iterator
 
-from ..fingerprint import stable_hash
+from ..fingerprint import hash_words, stable_hash, stable_words
 
 
 @dataclass(frozen=True)
@@ -45,6 +46,13 @@ class Network:
     """Base class + constructors (reference ``network.rs:66-140``)."""
 
     name: str = ""
+
+    @staticmethod
+    def new_ordered(envelopes: Iterable[Envelope] = ()) -> "OrderedNetwork":
+        n = OrderedNetwork({})
+        for env in envelopes:
+            n = n.send(env)
+        return n
 
     @staticmethod
     def new_unordered_duplicating(
@@ -66,12 +74,13 @@ class Network:
 
     @staticmethod
     def names() -> list[str]:
-        return ["unordered_duplicating", "unordered_nonduplicating"]
+        return ["ordered", "unordered_duplicating", "unordered_nonduplicating"]
 
     @staticmethod
     def from_name(name: str) -> "Network":
         try:
             return {
+                "ordered": Network.new_ordered,
                 "unordered_duplicating": Network.new_unordered_duplicating,
                 "unordered_nonduplicating": Network.new_unordered_nonduplicating,
             }[name]()
@@ -90,7 +99,7 @@ class Network:
         raise NotImplementedError
 
     def iter_deliverable(self) -> Iterator[Envelope]:
-        """Distinct deliverable envelopes."""
+        """Distinct deliverable envelopes (heads only for ordered flows)."""
         raise NotImplementedError
 
     def iter_all(self) -> Iterator[Envelope]:
@@ -217,3 +226,77 @@ class UnorderedNonDuplicatingNetwork(Network):
 
     def __repr__(self):
         return f"UnorderedNonDuplicating({dict(self._counts)!r})"
+
+
+class OrderedNetwork(Network):
+    """Per-directed-pair FIFO flows (reference ``network.rs:53-63``).  Only
+    the head of each flow is deliverable; empty flows are removed so removal
+    is the exact inverse of insertion (``network.rs:219-235``)."""
+
+    name = "ordered"
+    __slots__ = ("_flows",)
+
+    def __init__(self, flows: dict):
+        self._flows = flows  # (src, dst) -> tuple of msgs (non-empty)
+
+    def send(self, env: Envelope) -> "OrderedNetwork":
+        key = (env.src, env.dst)
+        d = dict(self._flows)
+        d[key] = d.get(key, ()) + (env.msg,)
+        return OrderedNetwork(d)
+
+    def _remove(self, env: Envelope) -> "OrderedNetwork":
+        key = (env.src, env.dst)
+        if key not in self._flows:
+            raise KeyError(f"flow not found: {key!r}")
+        flow = self._flows[key]
+        try:
+            i = flow.index(env.msg)
+        except ValueError:
+            raise KeyError(f"message not found in flow: {env!r}") from None
+        d = dict(self._flows)
+        if len(flow) == 1:
+            del d[key]
+        else:
+            d[key] = flow[:i] + flow[i + 1 :]
+        return OrderedNetwork(d)
+
+    on_deliver = _remove
+    on_drop = _remove
+
+    def iter_deliverable(self):
+        # sorted flow order like the reference's BTreeMap for determinism
+        for key in sorted(self._flows):
+            yield Envelope(key[0], key[1], self._flows[key][0])
+
+    def iter_all(self):
+        for key in sorted(self._flows):
+            for msg in self._flows[key]:
+                yield Envelope(key[0], key[1], msg)
+
+    def __len__(self):
+        return sum(len(f) for f in self._flows.values())
+
+    def __eq__(self, other):
+        return isinstance(other, OrderedNetwork) and self._flows == other._flows
+
+    def __hash__(self):
+        return stable_hash(
+            frozenset(
+                (int(k[0]), int(k[1]), stable_hash(tuple(v)))
+                for k, v in self._flows.items()
+            )
+        )
+
+    def stable_words(self, out: list) -> None:
+        out.append(0xD2)
+        out.append(len(self._flows))
+        hashes = []
+        for (src, dst), msgs in self._flows.items():
+            words: list = [int(src), int(dst)]
+            stable_words(tuple(msgs), words)
+            hashes.append(hash_words(words))
+        out.extend(sorted(hashes))
+
+    def __repr__(self):
+        return f"Ordered({dict(self._flows)!r})"

@@ -4,10 +4,12 @@
 The port's counterpart of ``stateright_tpu/models/paxos.py``: the same
 object model (``PaxosState``/``PaxosServer``/``paxos_model``), whose
 benchmark configuration — 3 servers, 1..7 clients doing one put each,
-unordered non-duplicating lossless network — has the device twin
-:class:`~stateright_tpu_torch.models.paxos_tensor.PaxosTensor`.  Other
-configurations have no twin in the port yet (the actor compiler comes
-later): ``tensor_model()`` returns None and ``spawn_gpu()`` raises.
+unordered non-duplicating lossless network — has the hand-written device
+twin :class:`~stateright_tpu_torch.models.paxos_tensor.PaxosTensor`.  Other
+configurations on an ordered or non-duplicating network (lossy, or another
+server count) fall back to the mechanical compiler
+(``parallel/actor_compiler.py``); the duplicating network has no twin:
+``tensor_model()`` returns None and ``spawn_gpu()`` raises.
 
 Each server is simultaneously a potential leader (proposer) and an
 acceptor.  A client ``put`` triggers a new ballot: the leader broadcasts
@@ -19,7 +21,8 @@ once decided.
 
 Pinned counts: 265 unique / 482 states @ 1 client, 16,668 unique @ 2
 clients (reference ``examples/paxos.rs:291,311``), 1,194,428 unique @ 3
-clients (the JAX engine's benchmark run).
+clients (the JAX engine's benchmark run); 99 unique @ 1 client on an
+ordered network (compiled twin).
 
 Run: ``python -m stateright_tpu_torch.models.paxos check-gpu 3``.
 """
@@ -195,8 +198,10 @@ class PaxosModel(TensorBackedModel, ActorModel):
     """ActorModel specialization carrying a tensor (device) twin.
 
     The benchmark configuration uses the hand-written twin
-    (``paxos_tensor.py``); every other configuration has none in the port
-    yet.  Eligibility is derived from the live builder state."""
+    (``paxos_tensor.py``); other configurations fall back to the
+    mechanical compiler (:meth:`_compiled_tensor`), and configurations
+    neither supports have no twin.  Eligibility is derived from the live
+    builder state."""
 
     def tensor_model(self):
         from .paxos_tensor import MAX_CLIENTS, PaxosTensor
@@ -214,7 +219,40 @@ class PaxosModel(TensorBackedModel, ActorModel):
             and isinstance(self.init_network, UnorderedNonDuplicatingNetwork)
         ):
             return PaxosTensor(self, len(clients))
-        return None
+        return self._compiled_tensor(len(clients))
+
+    def _compiled_tensor(self, client_count: int):
+        from ..actor.network import OrderedNetwork
+        from ..parallel.actor_compiler import CompileError, compile_actor_model
+
+        if not isinstance(
+            self.init_network,
+            (UnorderedNonDuplicatingNetwork, OrderedNetwork),
+        ):
+            # the ballot bound below assumes at-most-once delivery; a
+            # redelivered put starts extra ballots, exceeding C in real runs
+            return None
+
+        C = client_count
+
+        def state_bound(i, s):
+            # Each of the C puts starts exactly one new ballot, so ballot
+            # rounds never exceed C in a real run; the bound only cuts the
+            # closure's over-approximation.
+            return not isinstance(s, PaxosState) or s.ballot[0] <= C
+
+        def env_bound(env):
+            m = env.msg
+            if m[0] == "internal":
+                return m[1][1][0] <= C
+            return True
+
+        try:
+            return compile_actor_model(
+                self, state_bound=state_bound, env_bound=env_bound
+            )
+        except (CompileError, ValueError):
+            return None
 
 
 def paxos_model(

@@ -1,0 +1,1082 @@
+"""Mechanical actor-system → tensor-form compiler.
+
+The port's counterpart of ``stateright_tpu/parallel/actor_compiler.py``,
+the slot-multiset encoding: the host half (closure, tables, host bridge)
+is the JAX module's, line for line, so both compilers number local states
+and envelopes alike and produce the same rows; the device half is plain
+PyTorch on int64 bit patterns (``ops/hashing.py``), in eager
+:class:`FieldWriter` mode.  What waits: the per-channel encoding,
+compiled symmetry, ``put_count >= 2`` (``MultiOpLinHistoryCodec``), the
+write-once register, the ``OrderedReliableLink`` hint, the coalesced step
+and ``row_domain``.  A model that needs one of them raises
+:class:`CompileError` naming it.
+
+It compiles Python actor handlers into table-driven ``step_rows`` for two
+fragments (reference transition semantics: ``src/actor/model.rs:187-306``):
+
+ - the **register workload** (reference ``src/actor/register.rs``): protocol
+   servers + ``RegisterClient(put_count=1)`` clients, a
+   linearizability-tester history, and the standard
+   linearizable/value-chosen properties (plus factored extras);
+ - the **general fragment**: any bounded actor system with
+   ``init_history=None`` — including **timeout-driven** actors (timer bits
+   in the row, one Timeout action per armed actor, ``SetTimer``/
+   ``CancelTimer`` effects tabulated with last-command-wins semantics) —
+   whose properties are factored predicates (``actor/device_props.py``),
+   tabulated per actor (or actor pair) over the compiled state universes.
+
+Both support all three network semantics (non-duplicating multiset,
+duplicating set, per-pair ordered FIFO), optionally lossy.
+
+How: a bounded host-side closure co-enumerates
+
+ - per-actor reachable state universes ``S_i`` (states become small integer
+   codes),
+ - the envelope universe ``E`` (envelopes become slot codes for the
+   sorted-slot multiset network of ``actor_tensor.py``), and
+ - the transition relation ``T_i[s, e] -> (s', sends…)`` by *running each
+   actor's real ``on_msg`` handler once per (state, envelope) pair* — the
+   handlers never run on the device, only their tabulated effects do.
+
+The closure over-approximates reachability (it pairs every known state with
+every known envelope), so protocols whose field domains grow with context
+(Paxos ballots, ABD sequencers) need a ``state_bound`` predicate to cut the
+divergent tail.  Transitions that would leave the bound are marked
+*poison*; executing one on the device sets a poison bit in the row, and the
+engine fails the run when it pops a poisoned row.
+
+History (the linearizability tester) is factored into per-thread fields
+updated arithmetically on the device, with the ``linearizable`` verdict
+computed per row (:mod:`.history_tensor`).  The two standard
+register-workload properties are recognized by name: ``linearizable``
+(ALWAYS, history verdict) and ``value chosen`` (SOMETIMES, a non-null
+``get_ok`` in flight — reference ``examples/paxos.rs:255-262``).
+
+**Device gathers stay in range.**  JAX clamps an out-of-range gather
+index; PyTorch raises on the CPU and asserts on the card.  Every table
+gather here indexes with a value put in range first: an envelope code is
+clamped to the universe (a free slot reads code 0), an actor-state field
+to its state count.  Those lanes are masked afterwards, exactly where the
+JAX step masks its clamped ones, so every valid successor is the same.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..actor import CancelTimer, Id, Out, Send, SetTimer
+from ..actor.device_props import FactoredPredicate
+from ..actor.model import ActorModel, ActorModelState, _default_boundary
+from ..actor.network import (
+    Envelope,
+    OrderedNetwork,
+    UnorderedDuplicatingNetwork,
+    UnorderedNonDuplicatingNetwork,
+)
+from ..actor.register import (
+    NULL_VALUE,
+    RegisterClient,
+    record_invocations,
+    record_returns,
+)
+from ..ops.hashing import lshr
+from ..semantics import LinearizabilityTester
+from .actor_tensor import (
+    _EMPTY,
+    COUNT_BITS,
+    COUNT_MASK,
+    SlotCodec,
+    slot_canonicalize,
+    slot_send,
+    slot_send_ordered,
+)
+from .history_tensor import (
+    PHASE_DONE,
+    PHASE_R_INFLIGHT,
+    PHASE_W_INFLIGHT,
+    LinHistoryCodec,
+)
+from .tensor_model import BitPacker, FieldWriter, TensorModel
+
+#: envelope-kind codes for the history/property tables
+_K_OTHER, _K_PUT_OK, _K_GET_OK = 0, 1, 2
+#: closure caps: past these the model needs a tighter state_bound/env_bound
+MAX_STATES_PER_ACTOR = 200_000
+MAX_ENVELOPES = 100_000
+
+
+class CompileError(Exception):
+    """The model is outside the compilable fragment."""
+
+
+def compile_actor_model(
+    model: ActorModel,
+    *,
+    state_bound: Optional[Callable] = None,
+    env_bound: Optional[Callable] = None,
+) -> "CompiledActorTensor":
+    """Compile ``model`` to a :class:`TensorModel`; raises
+    :class:`CompileError` when the model is outside the supported fragment.
+
+    ``state_bound(actor_index, state) -> bool`` /
+    ``env_bound(envelope) -> bool`` cut the closure's over-approximation for
+    protocols with context-dependent domains; transitions crossing the bound
+    poison the row on the device rather than silently diverging.
+    """
+    return CompiledActorTensor(
+        model, state_bound=state_bound, env_bound=env_bound
+    )
+
+
+class CompiledActorTensor(TensorModel):
+    """Table-driven device twin of a bounded ``ActorModel``."""
+
+    def __init__(self, model: ActorModel, *, state_bound, env_bound):
+        self.model = model
+        self._check_fragment()
+        self._state_bound = state_bound or (lambda i, s: True)
+        self._env_bound = env_bound or (lambda e: True)
+
+        self.n_actors = len(model.actors)
+        if self.general:
+            self.clients = []
+            self.C = 0
+            self.hist = None
+        else:
+            self.clients = [
+                i
+                for i, a in enumerate(model.actors)
+                if isinstance(a, RegisterClient)
+            ]
+            self.C = len(self.clients)
+            values = [
+                RegisterClient.put_value(
+                    int(t), model.actors[t].server_count, 0
+                )
+                for t in self.clients
+            ]
+            self.hist = LinHistoryCodec(
+                self.clients,
+                values,
+                NULL_VALUE,
+                tester_factory=lambda: type(model.init_history)(
+                    model.init_history.init_ref_obj
+                ),
+            )
+
+        self._closure()
+        self._tabulate_properties()
+        self._tabulate_boundary()
+
+        self.n_slots = max(16, 4 * self.n_actors)
+        self.max_actions = self.n_slots * (2 if model.lossy else 1) + (
+            self.n_actors if self._has_timers else 0
+        )
+        fields = []
+        for i in range(self.n_actors):
+            bits = max(1, int(np.ceil(np.log2(max(2, len(self._states[i]))))))
+            fields.append((f"a{i}", bits))
+        for c in range(self.C):
+            fields += [
+                (f"h{c}_phase", 2),
+                (f"h{c}_snap", max(1, 2 * (self.C - 1))),
+                (f"h{c}_rval", 3),
+            ]
+        if self._has_timers:
+            fields.append(("timers", self.n_actors))
+        fields.append(("poison", 1))
+        self.pk = BitPacker(fields)
+        self.pw = self.pk.width
+        self.width = self.pw + self.n_slots
+        self.codec = SlotCodec(
+            self.n_slots,
+            lambda env: self._env_code[env],
+            lambda code: self._envs[code],
+        )
+        self._device_consts: dict = {}
+
+    # -- fragment check ------------------------------------------------------
+
+    def _check_fragment(self) -> None:
+        m = self.model
+        if not isinstance(
+            m.init_network,
+            (
+                UnorderedNonDuplicatingNetwork,
+                UnorderedDuplicatingNetwork,
+                OrderedNetwork,
+            ),
+        ):
+            raise CompileError(
+                "unsupported network semantics: "
+                + type(m.init_network).__name__
+            )
+        self.dup = isinstance(m.init_network, UnorderedDuplicatingNetwork)
+        self.ordered = isinstance(m.init_network, OrderedNetwork)
+
+        self._boundary = None
+        if m._within_boundary is not _default_boundary:
+            # a FACTORED boundary compiles (tabulated like the properties;
+            # successors crossing it are masked invalid, mirroring the host
+            # checkers' within_boundary filter); arbitrary closures do not
+            if isinstance(m._within_boundary, FactoredPredicate) and (
+                m._within_boundary.kind in ("forall", "exists")
+            ):
+                self._boundary = m._within_boundary
+            else:
+                raise CompileError(
+                    "within_boundary must be a factored per-actor predicate "
+                    "(forall_actors/exists_actor) to compile"
+                )
+        if m.init_history is None:
+            # GENERAL fragment: no auxiliary history; every property must be
+            # a factored predicate the compiler can tabulate over the
+            # per-actor state universes (``actor/device_props.py``)
+            self.general = True
+            bad = sorted(
+                p.name
+                for p in m.properties()
+                if not isinstance(p.condition, FactoredPredicate)
+            )
+            if bad:
+                raise CompileError(
+                    "history-free models need factored properties "
+                    "(forall_actors/exists_actor/forall_actor_pairs/"
+                    f"exists_actor_pair); non-factored: {bad}"
+                )
+            return
+        self.general = False
+        if not isinstance(m.init_history, LinearizabilityTester):
+            raise CompileError(
+                "history must be a LinearizabilityTester (register "
+                "workload), or None for the general fragment"
+            )
+        std = {"linearizable", "value chosen"}
+        extra_bad = sorted(
+            p.name
+            for p in m.properties()
+            if p.name not in std
+            and not isinstance(p.condition, FactoredPredicate)
+        )
+        names = sorted(p.name for p in m.properties() if p.name in std)
+        if names != ["linearizable", "value chosen"] or extra_bad:
+            raise CompileError(
+                "register workloads compile {'linearizable', 'value "
+                "chosen'} plus any number of factored predicates "
+                "(actor/device_props.py); got standard="
+                + repr(names)
+                + " non-factored extras="
+                + repr(extra_bad)
+            )
+        if (
+            m._record_msg_in is not record_returns
+            or m._record_msg_out is not record_invocations
+        ):
+            # the device history update hard-codes these recorders'
+            # semantics (put_ok/get_ok -> returns, put/get -> invocations)
+            raise CompileError(
+                "history recorders must be the standard register "
+                "record_returns/record_invocations (the write-once "
+                "register's recorders are not ported yet)"
+            )
+        clients = [a for a in m.actors if isinstance(a, RegisterClient)]
+        if not clients or any(c.put_count < 1 for c in clients):
+            raise CompileError(
+                "workload must be RegisterClient actors with put_count >= 1"
+            )
+        put_counts = {c.put_count for c in clients}
+        if len(put_counts) != 1:
+            raise CompileError(
+                f"per-client put_counts must be uniform (got {sorted(put_counts)})"
+            )
+        if put_counts != {1}:
+            raise CompileError(
+                "put_count >= 2 needs the multi-op history codec "
+                "(MultiOpLinHistoryCodec), which is not ported yet; "
+                "the port compiles put_count=1 register workloads"
+            )
+        if any(
+            isinstance(a, RegisterClient)
+            != (i >= len(m.actors) - len(clients))
+            for i, a in enumerate(m.actors)
+        ):
+            raise CompileError("clients must follow servers in the actor list")
+
+    # -- closure -------------------------------------------------------------
+
+    def _closure(self) -> None:
+        """Co-enumerate per-actor state universes, the envelope universe, and
+        the transition tables by running the real handlers host-side.  The
+        order is the JAX compiler's (BFS over one deque, insertion-ordered
+        dicts), so state and envelope codes are the same."""
+        m = self.model
+        n = self.n_actors
+        max_s, max_e = MAX_STATES_PER_ACTOR, MAX_ENVELOPES
+
+        self._states: list[list] = [[] for _ in range(n)]  # code -> state
+        self._state_code: list[dict] = [{} for _ in range(n)]
+        self._envs: list[Envelope] = []  # code -> envelope
+        self._env_code: dict[Envelope, int] = {}
+        # (i, s_code, e_code) -> (new_s_code | -1, sends, poison, timer_eff)
+        # timer_eff: -1 keep, 0 clear, 1 set (last timer command wins,
+        # mirroring sequential _process_commands)
+        trans: dict[tuple, tuple] = {}
+        # (i, s_code) -> (new_s_code, sends, poison, timer_bit) — the
+        # Timeout action: the reference clears the flag, then commands may
+        # re-set it (``model.rs:288-306``); never pruned
+        ttrans: dict[tuple, tuple] = {}
+        work: deque = deque()  # ("s", i, s_code) | ("e", e_code)
+
+        def add_state(i: int, s) -> tuple[int, bool]:
+            code = self._state_code[i].get(s)
+            if code is not None:
+                return code, True
+            if not self._state_bound(i, s):
+                return -1, False
+            code = len(self._states[i])
+            if code >= max_s:
+                raise CompileError(
+                    f"actor {i} state universe exceeded {max_s}; "
+                    "tighten state_bound"
+                )
+            self._states[i].append(s)
+            self._state_code[i][s] = code
+            work.append(("s", i, code))
+            return code, True
+
+        def add_env(env: Envelope) -> tuple[int, bool]:
+            code = self._env_code.get(env)
+            if code is not None:
+                return code, True
+            if not self._env_bound(env):
+                return -1, False
+            code = len(self._envs)
+            if code >= max_e:
+                raise CompileError(
+                    f"envelope universe exceeded {max_e}; tighten env_bound"
+                )
+            self._envs.append(env)
+            self._env_code[env] = code
+            work.append(("e", code))
+            return code, True
+
+        # seed from the real initial system state
+        (init,) = m.init_states()
+        self._init_state = init
+        for i, s in enumerate(init.actor_states):
+            code, ok = add_state(i, s)
+            if not ok:
+                raise CompileError(f"init state of actor {i} violates bound")
+        for env in init.network.iter_deliverable():
+            _, ok = add_env(env)
+            if not ok:
+                raise CompileError(f"init envelope {env!r} violates bound")
+
+        def process(i: int, s_code: int, e_code: int) -> None:
+            if (i, s_code, e_code) in trans:
+                # every pair is queued from both sides; run the handler once
+                return
+            env = self._envs[e_code]
+            s = self._states[i][s_code]
+            out = Out()
+            try:
+                ret = m.actors[i].on_msg(Id(i), s, env.src, env.msg, out)
+            except CompileError:
+                raise
+            except Exception:
+                # The closure pairs every known state with every known
+                # envelope; protocol invariants can make some pairs
+                # impossible, and handlers may crash on them.  Poison: a
+                # device run that ever takes it fails loudly.
+                trans[(i, s_code, e_code)] = (s_code, (), True, -1)
+                return
+            if ret is None and not out.commands:
+                trans[(i, s_code, e_code)] = (-1, (), False, -1)
+                return
+            new_s = s if ret is None else ret
+            poison = False
+            new_code, ok = add_state(i, new_s)
+            if not ok:
+                # bound-crossing successor: a VALID poisoned self-loop, so a
+                # too-tight state_bound fails the run instead of silently
+                # pruning a reachable transition
+                new_code, poison = s_code, True
+            sends, teff, poison = self._effects(i, out, add_env, poison)
+            trans[(i, s_code, e_code)] = (new_code, sends, poison, teff)
+
+        def process_timeout(i: int, s_code: int) -> None:
+            if (i, s_code) in ttrans:
+                return
+            s = self._states[i][s_code]
+            out = Out()
+            try:
+                ret = m.actors[i].on_timeout(Id(i), s, out)
+            except CompileError:
+                raise
+            except Exception:
+                ttrans[(i, s_code)] = (s_code, (), True, 0)
+                return
+            new_s = s if ret is None else ret
+            poison = False
+            new_code, ok = add_state(i, new_s)
+            if not ok:
+                new_code, poison = s_code, True
+            sends, teff, poison = self._effects(i, out, add_env, poison)
+            # flag cleared first; only an explicit SetTimer re-arms
+            ttrans[(i, s_code)] = (new_code, sends, poison, max(teff, 0))
+
+        while work:
+            item = work.popleft()
+            if item[0] == "s":
+                _, i, s_code = item
+                process_timeout(i, s_code)
+                for e_code, env in enumerate(self._envs):
+                    if int(env.dst) == i:
+                        process(i, s_code, e_code)
+            else:
+                _, e_code = item
+                i = int(self._envs[e_code].dst)
+                if i < n:
+                    for s_code in range(len(self._states[i])):
+                        process(i, s_code, e_code)
+
+        # timers exist iff a timer can ever be SET: then (and only then)
+        # the encoding carries timer bits and step_rows emits Timeout actions
+        self._has_timers = any(init.is_timer_set) or any(
+            t[3] == 1 for t in trans.values()
+        ) or any(t[3] == 1 for t in ttrans.values())
+
+        # -- freeze tables ---------------------------------------------------
+        ne = len(self._envs)
+        # a system may send no messages at all: a sentinel env column keeps
+        # the gathers in range (no slot is ever occupied, so it is masked)
+        nep = self._ne_padded = max(ne, 1)
+        self.K = max(
+            (len(snds) for (_, snds, _, _) in trans.values()), default=0
+        )
+        self.Kt = max(
+            (len(snds) for (_, snds, _, _) in ttrans.values()), default=0
+        )
+        self._trans_np = []
+        self._sends_np = []
+        self._poison_np = []
+        self._teff_np = []
+        for i in range(n):
+            ns = len(self._states[i])
+            ti = np.full((ns, nep), -1, np.int32)
+            pi = np.zeros((ns, nep), bool)
+            ki = np.full((ns, nep, max(self.K, 1)), -1, np.int32)
+            ei = np.full((ns, nep), -1, np.int32)
+            for (ai, sc, ec), (nc, snds, poison, teff) in trans.items():
+                if ai != i:
+                    continue
+                ti[sc, ec] = nc
+                pi[sc, ec] = poison
+                ei[sc, ec] = teff
+                for k, s in enumerate(snds):
+                    ki[sc, ec, k] = s
+            self._trans_np.append(ti)
+            self._sends_np.append(ki)
+            self._poison_np.append(pi)
+            self._teff_np.append(ei)
+        # timeout tables: (i, s) -> successor code / sends / poison / new bit
+        self._ttrans_np = []
+        self._tsends_np = []
+        self._tpoison_np = []
+        self._tbit_np = []
+        for i in range(n):
+            ns = len(self._states[i])
+            ti = np.arange(ns, dtype=np.int32)  # default: state unchanged
+            pi = np.zeros(ns, bool)
+            bi = np.zeros(ns, np.int32)
+            ki = np.full((ns, max(self.Kt, 1)), -1, np.int32)
+            for (ai, sc), (nc, snds, poison, tbit) in ttrans.items():
+                if ai != i:
+                    continue
+                ti[sc] = nc
+                pi[sc] = poison
+                bi[sc] = tbit
+                for k, s in enumerate(snds):
+                    ki[sc, k] = s
+            self._ttrans_np.append(ti)
+            self._tsends_np.append(ki)
+            self._tpoison_np.append(pi)
+            self._tbit_np.append(bi)
+
+        # per-envelope metadata (padded to the sentinel width)
+        pad = [0] * (nep - ne)
+        self._env_dst = np.asarray(
+            [int(e.dst) for e in self._envs] + pad, np.int32
+        )
+        # directed flow id (ordered networks): the envelope code determines
+        # (src, dst), so same code implies same flow
+        self._env_pair = np.asarray(
+            [int(e.src) * self.n_actors + int(e.dst) for e in self._envs]
+            + pad,
+            np.int32,
+        )
+        kinds = np.full(nep, _K_OTHER, np.int32)
+        vals = np.zeros(nep, np.int32)
+        chosen = np.zeros(nep, bool)
+        if not self.general:  # register-workload history/property metadata
+            for c, e in enumerate(self._envs):
+                if e.msg[0] == "put_ok":
+                    kinds[c] = _K_PUT_OK
+                elif e.msg[0] == "get_ok":
+                    kinds[c] = _K_GET_OK
+                    vals[c] = self.hist._value_code(e.msg[2])
+                    chosen[c] = e.msg[2] != NULL_VALUE
+        self._env_kind = kinds
+        self._env_val = vals
+        self._env_chosen = chosen
+        self._client_of = np.asarray(
+            [
+                self.clients.index(i) if i in self.clients else -1
+                for i in range(n)
+            ],
+            np.int32,
+        )
+
+    def _effects(self, i: int, out: Out, add_env, poison: bool):
+        """Fold a handler's command list into (send codes, timer effect,
+        poison).  Timer commands apply sequentially — the last one wins —
+        mirroring ``_process_commands``; ``-1`` means no timer command."""
+        sends = []
+        teff = -1
+        for c in out.commands:
+            if isinstance(c, SetTimer):
+                teff = 1
+            elif isinstance(c, CancelTimer):
+                teff = 0
+            else:
+                assert isinstance(c, Send)
+                snd = Envelope(src=Id(i), dst=c.dst, msg=c.msg)
+                if not self.general and snd.msg[0] == "put":
+                    # put_count=1 histories invoke every write at start; a
+                    # mid-run put means the workload isn't the declared
+                    # script
+                    raise CompileError(
+                        "a client declaring put_count=1 sent a put mid-run: "
+                        "its sends do not match the declared one-write "
+                        "script (custom client? declare the real put_count)"
+                    )
+                sc, ok = add_env(snd)
+                poison |= not ok
+                sends.append(sc)
+        return tuple(sends), teff, poison
+
+    def _tabulate_properties(self) -> None:
+        """Freeze each factored property's predicate into per-actor (or
+        per-pair) boolean tables over the compiled state universes.  The
+        host evaluates the same predicate directly, so agreement is by
+        construction.  ``None`` marks the two standard history-driven
+        properties, which ``property_masks`` computes from the history
+        fields."""
+        self._prop_tables = []
+        n = self.n_actors
+        for p in self.model.properties():
+            f = p.condition
+            if not isinstance(f, FactoredPredicate):
+                self._prop_tables.append(None)  # standard register property
+                continue
+            try:
+                if f.kind in ("forall", "exists"):
+                    tables = [
+                        np.asarray(
+                            [bool(f.pred(i, s)) for s in self._states[i]],
+                            bool,
+                        )
+                        for i in range(n)
+                    ]
+                else:
+                    tables = {
+                        (i, j): np.asarray(
+                            [
+                                [
+                                    bool(f.pred(i, si, j, sj))
+                                    for sj in self._states[j]
+                                ]
+                                for si in self._states[i]
+                            ],
+                            bool,
+                        )
+                        for i in range(n)
+                        for j in range(i + 1, n)
+                    }
+            except Exception as e:
+                raise CompileError(
+                    f"property {p.name!r}: predicate failed on an enumerated "
+                    f"state ({type(e).__name__}: {e}); factored predicates "
+                    "must be total over each actor's reachable states"
+                ) from e
+            self._prop_tables.append((f.kind, tables))
+
+    def _tabulate_boundary(self) -> None:
+        """Freeze a factored ``within_boundary`` into per-actor tables; the
+        engine's successor mask then mirrors the host checkers' boundary
+        filter exactly."""
+        if self._boundary is None:
+            self._boundary_np = None
+            return
+        f = self._boundary
+        try:
+            self._boundary_np = [
+                np.asarray(
+                    [bool(f.pred(i, s)) for s in self._states[i]], bool
+                )
+                for i in range(self.n_actors)
+            ]
+        except Exception as e:
+            raise CompileError(
+                f"within_boundary predicate failed on an enumerated state "
+                f"({type(e).__name__}: {e})"
+            ) from e
+        if not f(self.model, self._init_state):
+            raise CompileError(
+                "the initial state is outside within_boundary: the host "
+                "checkers would explore nothing; fix the boundary"
+            )
+
+    # -- host bridge ---------------------------------------------------------
+
+    def encode_state(self, st: ActorModelState) -> tuple:
+        vals: dict[str, int] = {}
+        for i, s in enumerate(st.actor_states):
+            code = self._state_code[i].get(s)
+            if code is None:
+                raise RuntimeError(
+                    f"actor {i} state {s!r} is outside the compiled universe "
+                    "(state_bound too tight, or a closure gap)"
+                )
+            vals[f"a{i}"] = code
+        if not self.general:
+            for c, (phase, snap, rval, _wfail) in enumerate(
+                self.hist.fields_of_tester(st.history)
+            ):
+                vals[f"h{c}_phase"] = phase
+                vals[f"h{c}_snap"] = snap
+                vals[f"h{c}_rval"] = rval
+        if self._has_timers:
+            vals["timers"] = sum(
+                1 << i for i, t in enumerate(st.is_timer_set) if t
+            )
+        vals["poison"] = 0
+        if self.ordered:
+            # slot "count" = 1-based rank within the directed flow (1 = head)
+            pairs = (
+                (Envelope(k[0], k[1], msg), pos + 1)
+                for k, flow in st.network._flows.items()
+                for pos, msg in enumerate(flow)
+            )
+        elif self.dup:
+            pairs = ((env, 1) for env in st.network.iter_all())
+        else:
+            pairs = st.network._counts.items()
+        return self.pk.pack(**vals) + self.codec.pack(pairs)
+
+    def decode_state(self, row) -> ActorModelState:
+        d = self.pk.unpack(row[: self.pw])
+        if d["poison"]:
+            raise RuntimeError(
+                "poisoned row: a transition crossed the compile-time bound "
+                "(state_bound/env_bound too tight for this configuration)"
+            )
+        actors = tuple(
+            self._states[i][d[f"a{i}"]] for i in range(self.n_actors)
+        )
+        if self.general:
+            tester = None
+        else:
+            tester = self.hist.tester_of_fields(
+                [
+                    (d[f"h{c}_phase"], d[f"h{c}_snap"], d[f"h{c}_rval"], 0)
+                    for c in range(self.C)
+                ]
+            )
+        timers = (
+            tuple(
+                bool((d["timers"] >> i) & 1) for i in range(self.n_actors)
+            )
+            if self._has_timers
+            else (False,) * self.n_actors
+        )
+        pairs = self.codec.unpack(row[self.pw :])
+        if self.ordered:
+            flows: dict = {}
+            for env, rank1 in pairs:
+                flows.setdefault((env.src, env.dst), []).append(
+                    (rank1, env.msg)
+                )
+            network = OrderedNetwork(
+                {
+                    k: tuple(
+                        msg for _, msg in sorted(v, key=lambda t: t[0])
+                    )
+                    for k, v in flows.items()
+                }
+            )
+        elif self.dup:
+            network = UnorderedDuplicatingNetwork(
+                {env: None for env, _ in pairs}
+            )
+        else:
+            network = UnorderedNonDuplicatingNetwork(dict(pairs))
+        return ActorModelState(
+            actor_states=actors,
+            network=network,
+            is_timer_set=timers,
+            history=tester,
+        )
+
+    def init_rows(self) -> np.ndarray:
+        return np.asarray([self.encode_state(self._init_state)], np.uint64)
+
+    # -- device --------------------------------------------------------------
+
+    def _consts(self, device) -> dict:
+        """The tables as tensors on ``device``, built once per device (the
+        transition tables flattened to ``[states * envelopes]``)."""
+        c = self._device_consts.get(device)
+        if c is not None:
+            return c
+
+        def t(a, dtype=torch.int64):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=device, dtype=dtype)
+
+        kp = max(self.K, 1)
+        c = {
+            "trans": [t(x.reshape(-1)) for x in self._trans_np],
+            "sends": [t(x.reshape(-1, kp)) for x in self._sends_np],
+            "poison": [t(x.reshape(-1), torch.bool) for x in self._poison_np],
+            "env_dst": t(self._env_dst),
+            "env_pair": t(self._env_pair),
+            "env_kind": t(self._env_kind),
+            "env_val": t(self._env_val),
+            "env_chosen": t(self._env_chosen, torch.bool),
+            "client_of": t(self._client_of),
+            "eye": torch.eye(self.n_slots, dtype=torch.bool, device=device),
+        }
+        if self._has_timers:
+            c.update(
+                teff=[t(x.reshape(-1)) for x in self._teff_np],
+                ttrans=[t(x) for x in self._ttrans_np],
+                tsends=[t(x) for x in self._tsends_np],
+                tpoison=[t(x, torch.bool) for x in self._tpoison_np],
+                tbit=[t(x) for x in self._tbit_np],
+            )
+        if self._boundary_np is not None:
+            c["boundary"] = [t(x, torch.bool) for x in self._boundary_np]
+        c["props"] = [
+            None
+            if entry is None
+            else (
+                entry[0],
+                [t(x, torch.bool) for x in entry[1]]
+                if isinstance(entry[1], list)
+                else {k: t(v, torch.bool) for k, v in entry[1].items()},
+            )
+            for entry in self._prop_tables
+        ]
+        self._device_consts[device] = c
+        return c
+
+    def _codes(self, rows):
+        """Each actor's state field ``[...]``, raw (written back unchanged)
+        and clamped into its universe (a gather index)."""
+        raw = [self.pk.get(rows, f"a{i}") for i in range(self.n_actors)]
+        safe = [
+            r.clamp(max=len(self._states[i]) - 1) for i, r in enumerate(raw)
+        ]
+        return raw, safe
+
+    def _slot_codes(self, slots):
+        """Occupied mask and envelope codes of slot words; a free slot (or a
+        code outside the universe) reads code 0 / the last code."""
+        occupied = slots != _EMPTY
+        ecode = torch.where(occupied, lshr(slots, COUNT_BITS), 0)
+        return occupied, ecode.clamp_(max=self._ne_padded - 1)
+
+    def _send(self, slots, code, enable, cst):
+        if self.ordered:
+            return slot_send_ordered(slots, code, cst["env_pair"], enable)
+        return slot_send(slots, code, enable, set_semantics=self.dup)
+
+    def step_rows(self, rows: torch.Tensor):
+        """``int64[B, W] -> (int64[B, A, W], bool[B, A])``: one deliver
+        action per slot, then (lossy) one drop action per slot, then (with
+        timers) one Timeout action per actor — the JAX compiler's
+        ``_step_rows_multiset`` and ``_append_timeouts``."""
+        cst = self._consts(rows.device)
+        B = rows.shape[0]
+        NS, pw = self.n_slots, self.pw
+        ne = self._ne_padded
+        pk = self.pk
+        dev = rows.device
+        raw, safe = self._codes(rows)
+
+        slots = rows[:, pw:]  # [B, NS]
+        occupied, ecode = self._slot_codes(slots)
+        dst = cst["env_dst"][ecode]  # [B, NS]
+        if self.ordered:
+            # count bits hold the 1-based rank within the directed flow;
+            # only the head (rank 1) of each flow is deliverable
+            # (reference ``model.rs:224-227``)
+            pair = torch.where(occupied, cst["env_pair"][ecode], -1)
+            at_head = occupied & ((slots & COUNT_MASK) == 1)
+
+        # -- deliver actions (slot a delivers the envelope in slot a) -------
+        new_scode = torch.zeros((B, NS), dtype=torch.int64, device=dev)
+        valid = torch.zeros((B, NS), dtype=torch.bool, device=dev)
+        poison = torch.zeros((B, NS), dtype=torch.bool, device=dev)
+        send_codes = torch.full((B, NS, max(self.K, 1)), -1,
+                                dtype=torch.int64, device=dev)
+        to_actor = []
+        for i in range(self.n_actors):
+            mask = occupied & (dst == i)
+            to_actor.append(mask)
+            flat = safe[i][:, None] * ne + ecode  # [B, NS], in range
+            nc = cst["trans"][i][flat]
+            new_scode = torch.where(mask, nc, new_scode)
+            valid = valid | (mask & (nc >= 0))
+            poison = poison | (mask & cst["poison"][i][flat])
+            send_codes = torch.where(mask[..., None], cst["sends"][i][flat],
+                                     send_codes)
+        if self.ordered:
+            valid = valid & at_head
+
+        # -- successor slot arrays ------------------------------------------
+        slots_b = slots[:, None, :].expand(B, NS, NS)
+        diag = cst["eye"][None]
+        if self.ordered:
+            # delivering the head removes it and advances the rest of its
+            # flow by one rank (empty flows vanish with their last slot)
+            same_flow = (pair[:, :, None] >= 0) & (
+                pair[:, :, None] == pair[:, None, :]
+            )
+            advanced = torch.where(same_flow, slots_b - 1, slots_b)
+            slots_d = torch.where(diag, _EMPTY, advanced)
+        else:
+            if self.dup:
+                # a duplicating network leaves the envelope in flight
+                # (reference ``network.rs:203-205``); only drops remove it
+                delivered = slots
+            else:
+                delivered = torch.where(
+                    (slots & COUNT_MASK) <= 1, _EMPTY, slots - 1
+                )
+            slots_d = torch.where(diag, delivered[:, :, None], slots_b)
+        for k in range(self.K):
+            sk = send_codes[..., k]
+            slots_d, of = self._send(slots_d, sk, valid & (sk >= 0), cst)
+            poison = poison | of
+        slots_d = slot_canonicalize(slots_d)
+
+        # -- successor packed words -----------------------------------------
+        # every value below reads from `rows`; the writes start from the
+        # parent's packed words only (the slot words were built above)
+        fw = FieldWriter(pk, rows[:, None, :pw].expand(B, NS, pw))
+        taken = [valid & m for m in to_actor]
+        for i in range(self.n_actors):
+            fw.set(f"a{i}", torch.where(taken[i], new_scode, raw[i][:, None]))
+        if self._has_timers:
+            # a deliver's handler may set/cancel the recipient's timer
+            tnew = pk.get(rows, "timers")[:, None].expand(B, NS)
+            for i in range(self.n_actors):
+                eff = cst["teff"][i][safe[i][:, None] * ne + ecode]
+                tnew = torch.where(
+                    taken[i] & (eff == 1),
+                    tnew | (1 << i),
+                    torch.where(taken[i] & (eff == 0), tnew & ~(1 << i), tnew),
+                )
+            fw.set("timers", tnew)
+
+        # -- history updates (put_count = 1) ---------------------------------
+        if self.C:
+            kind = cst["env_kind"][ecode]  # [B, NS]
+            ci = cst["client_of"][dst.clamp(0, self.n_actors - 1)]
+            is_ret_w = valid & (kind == _K_PUT_OK) & (ci >= 0)
+            is_ret_r = valid & (kind == _K_GET_OK) & (ci >= 0)
+            rv = cst["env_val"][ecode]
+            phases = torch.stack(
+                [pk.get(rows, f"h{c}_phase") for c in range(self.C)], -1
+            )  # [B, C]
+            # completed-op count per thread, derived from its phase
+            comp = torch.where(
+                phases == PHASE_W_INFLIGHT,
+                0,
+                torch.where(phases == PHASE_DONE, 2, 1),
+            )  # [B, C]
+            for c in range(self.C):
+                m_w = is_ret_w & (ci == c)  # write returned + read invoked
+                m_r = is_ret_r & (ci == c)
+                cur_ph = phases[:, c : c + 1]
+                fw.set(
+                    f"h{c}_phase",
+                    torch.where(
+                        m_w,
+                        PHASE_R_INFLIGHT,
+                        torch.where(m_r, PHASE_DONE, cur_ph),
+                    ),
+                )
+                # read-invocation snapshot: other threads' completed counts
+                if self.C > 1:
+                    snap = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+                    for j in range(self.C):
+                        if j == c:
+                            continue
+                        slot = self.hist._snap_slot(c, j)
+                        snap = snap | (comp[:, j : j + 1] << (2 * slot))
+                    cur_snap = pk.get(rows, f"h{c}_snap")[:, None]
+                    fw.set(f"h{c}_snap", torch.where(m_w, snap, cur_snap))
+                cur_rv = pk.get(rows, f"h{c}_rval")[:, None]
+                fw.set(f"h{c}_rval", torch.where(m_r, rv, cur_rv))
+
+        cur_poison = pk.get(rows, "poison")[:, None]
+        fw.set("poison", torch.maximum(poison.to(torch.int64), cur_poison))
+        succ = torch.cat([fw.done(), slots_d], dim=-1)
+
+        if self.model.lossy:
+            # -- drop actions: consume without delivering -------------------
+            if self.ordered:
+                # the object model enumerates Drop over the deliverable
+                # envelopes only — flow heads — so an ordered drop's
+                # network effect is the deliver effect
+                slots_drop = torch.where(diag, _EMPTY, advanced)
+            else:
+                # a duplicating network's drop removes the envelope forever
+                # (reference ``network.rs:242-244``); non-duplicating drops
+                # one copy
+                dropped = torch.full_like(slots, _EMPTY) if self.dup \
+                    else delivered
+                slots_drop = torch.where(diag, dropped[:, :, None], slots_b)
+            drop_rows = torch.cat(
+                [rows[:, None, :pw].expand(B, NS, pw),
+                 slot_canonicalize(slots_drop)],
+                dim=-1,
+            )
+            succ = torch.cat([succ, drop_rows], dim=1)
+            droppable = at_head if self.ordered else occupied
+            valid = torch.cat([valid, droppable], dim=1)
+        if self._has_timers:
+            succ_t, valid_t = self._timeouts(rows, slots, raw, safe, cst)
+            succ = torch.cat([succ, succ_t], dim=1)
+            valid = torch.cat([valid, valid_t], dim=1)
+        return succ, valid
+
+    def _timeouts(self, rows, slots, raw, safe, cst):
+        """One Timeout action column per actor (reference
+        ``model.rs:234-238,288-306``): valid iff the actor's timer bit is
+        set; the tabulated ``on_timeout`` effect updates the actor state,
+        appends its sends, and rewrites the timer bit (cleared unless the
+        handler re-armed it)."""
+        pk = self.pk
+        B = rows.shape[0]
+        n, pw = self.n_actors, self.pw
+        dev = rows.device
+        timers_cur = pk.get(rows, "timers")  # [B]
+        col = torch.arange(n, device=dev)[None, :]  # [1, n]
+        fw_t = FieldWriter(pk, rows[:, None, :pw].expand(B, n, pw))
+        valid_t = ((timers_cur[:, None] >> col) & 1) == 1  # [B, n]
+        poison_t = torch.zeros((B, n), dtype=torch.bool, device=dev)
+        tvals = []
+        send_cols = []
+        for i in range(n):
+            nc = cst["ttrans"][i][safe[i]]
+            nb = cst["tbit"][i][safe[i]]
+            send_cols.append(cst["tsends"][i][safe[i]])  # [B, Kt]
+            fw_t.set(f"a{i}",
+                     torch.where(col == i, nc[:, None], raw[i][:, None]))
+            tvals.append((timers_cur & ~(1 << i)) | (nb << i))
+            poison_t = poison_t | ((col == i) & cst["tpoison"][i][safe[i]][:, None])
+        fw_t.set("timers", torch.stack(tvals, 1))
+        slots_t = slots[:, None, :].expand(B, n, self.n_slots)
+        sk_all = torch.stack(send_cols, dim=1)  # [B, n, Kt]
+        for k in range(self.Kt):
+            sk = sk_all[..., k]
+            slots_t, of = self._send(slots_t, sk, valid_t & (sk >= 0), cst)
+            poison_t = poison_t | of
+        cur_poison = pk.get(rows, "poison")[:, None]
+        fw_t.set("poison", torch.maximum(poison_t.to(torch.int64), cur_poison))
+        succ_t = torch.cat([fw_t.done(), slot_canonicalize(slots_t)], dim=-1)
+        return succ_t, valid_t
+
+    @property
+    def has_boundary(self) -> bool:
+        return self._boundary_np is not None
+
+    def poison_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """True per row iff a compile-time bound was crossed reaching it;
+        the engine turns a poisoned POPPED row into a run failure (poisoned
+        rows would otherwise dedup onto their self-loop and quietly
+        truncate the space)."""
+        return self.pk.get(rows, "poison") == 1
+
+    def boundary_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """``within_boundary`` over encoded rows of any leading shape (the
+        device analogue of the host checkers' boundary filter; ``step_rows``
+        itself mirrors the unfiltered ``next_states``)."""
+        cst = self._consts(rows.device)
+        _, safe = self._codes(rows)
+        b = cst["boundary"][0][safe[0]]
+        for i in range(1, self.n_actors):
+            x = cst["boundary"][i][safe[i]]
+            b = (b & x) if self._boundary.kind == "forall" else (b | x)
+        return b
+
+    def _eval_factored(self, entry, safe, batch, device):
+        kind, tables = entry
+        n = self.n_actors
+        if kind in ("forall", "exists"):
+            v = tables[0][safe[0]]
+            for i in range(1, n):
+                x = tables[i][safe[i]]
+                v = (v & x) if kind == "forall" else (v | x)
+            return v
+        conj = kind == "forall_pairs"
+        v = torch.full((batch,), conj, dtype=torch.bool, device=device)
+        for i in range(n):
+            for j in range(i + 1, n):
+                x = tables[(i, j)][safe[i], safe[j]]
+                v = (v & x) if conj else (v | x)
+        return v
+
+    def property_masks(self, rows: torch.Tensor) -> torch.Tensor:
+        cst = self._consts(rows.device)
+        pk = self.pk
+        B = rows.shape[0]
+        _, safe = self._codes(rows)
+        if self.general:
+            if not cst["props"]:
+                return torch.zeros((B, 0), dtype=torch.bool,
+                                   device=rows.device)
+            return torch.stack(
+                [self._eval_factored(e, safe, B, rows.device)
+                 for e in cst["props"]],
+                dim=-1,
+            )
+
+        def fields(name):  # [B, C]
+            return torch.stack(
+                [pk.get(rows, f"h{c}_{name}") for c in range(self.C)], -1
+            )
+
+        linearizable = self.hist.device_verdict(
+            fields("phase"), fields("snap"), fields("rval")
+        )
+        occ, ecode = self._slot_codes(rows[:, self.pw :])
+        chosen = (occ & cst["env_chosen"][ecode]).any(dim=-1)
+        masks = {"linearizable": linearizable, "value chosen": chosen}
+        return torch.stack(
+            [
+                masks[p.name]
+                if cst["props"][k] is None
+                else self._eval_factored(cst["props"][k], safe, B, rows.device)
+                for k, p in enumerate(self.model.properties())
+            ],
+            dim=-1,
+        )

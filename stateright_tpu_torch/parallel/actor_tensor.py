@@ -2,9 +2,8 @@
 
 The port's counterpart of ``stateright_tpu/parallel/actor_tensor.py``: the
 slot codec and the slot-multiset ops as plain PyTorch on int64 bit
-patterns (``ops/hashing.py``).  The ordered-flow sends
-(``slot_send_ordered``, ``region_send_ordered``) come with the actor
-compiler.
+patterns (``ops/hashing.py``).  The per-channel ordered send
+(``region_send_ordered``) comes with the per-channel encoding.
 
 The reference's unordered non-duplicating network is a multiset of
 envelopes (``src/actor/network.rs:188-190``).  The tensor form packs each
@@ -24,6 +23,8 @@ Device ops (pure, batched over leading axes):
  - :func:`slot_send` — increment an existing code's count or claim the
    first free slot (the caller re-sorts once per step via
    :func:`slot_canonicalize`).
+ - :func:`slot_send_ordered` — append at the tail of the envelope's
+   directed flow (ordered networks: the count bits hold the 1-based rank).
  - :func:`slot_canonicalize` — re-sort so EMPTY slots sink to the end.
 
 Host-side, :class:`SlotCodec` mirrors the packing for ``encode_state`` /
@@ -146,6 +147,44 @@ def slot_send(slots: torch.Tensor, code: torch.Tensor, enable: torch.Tensor,
     neww = (code << COUNT_BITS) | 1
     claimed = torch.where(onehot, neww[..., None], bumped)
     overflow = enable & ((~exists & ~any_free) | maxed)
+    return claimed, overflow
+
+
+def slot_send_ordered(slots: torch.Tensor, code: torch.Tensor,
+                      pair_lookup: torch.Tensor, enable: torch.Tensor):
+    """Append ``code`` at the TAIL of its directed flow (ordered networks):
+    the claimed slot's count bits get rank ``1 + |in-flight same-flow
+    envelopes|``.  No dedup — ordered flows hold duplicates at distinct
+    ranks.  ``pair_lookup`` maps envelope codes to flow ids.  Returns
+    ``(slots, overflow)``; overflow = no free slot, or the flow is already
+    ``COUNT_MASK`` deep (rank would corrupt the code bits).
+
+    The lookups index ``pair_lookup`` only in range: a free slot, or a code
+    outside the table (``-1`` for "no send"), reads entry 0, whose value
+    those lanes never use (free slots are masked, disabled sends claim
+    nothing).
+    """
+    n = slots.shape[-1]
+    top = pair_lookup.shape[0]
+    occ = slot_occupied(slots)
+    sc = slot_codes(slots)
+    pair_s = torch.where(
+        occ, pair_lookup[torch.where(sc < top, sc, 0)], -1
+    )
+    pair_c = pair_lookup[torch.where((code >= 0) & (code < top), code, 0)]
+    in_flow = occ & (pair_s == pair_c[..., None])
+    depth = in_flow.sum(dim=-1)
+
+    free = ~occ
+    first_free = torch.argmax(free.to(torch.int8), dim=-1)
+    any_free = free.any(dim=-1)
+    too_deep = depth >= COUNT_MASK
+    claim = enable & any_free & ~too_deep
+    lanes = torch.arange(n, device=slots.device)
+    onehot = (lanes == first_free[..., None]) & claim[..., None]
+    neww = (code << COUNT_BITS) | (depth + 1)
+    claimed = torch.where(onehot, neww[..., None], slots)
+    overflow = enable & (~any_free | too_deep)
     return claimed, overflow
 
 

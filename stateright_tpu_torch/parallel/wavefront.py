@@ -7,7 +7,8 @@ keeps a device-resident FIFO queue of state rows and a bucketized visited
 table (``ops/buckets.py``), and each step pops a batch and
 
  1. evaluates the property masks, recording first-hit fingerprints;
- 2. expands every row through the twin's ``step_rows``;
+ 2. expands every row through the twin's ``step_rows`` (and, for a twin
+    with a ``within_boundary``, masks the successors outside it);
  3. flushes pending ``eventually`` bits at terminal rows;
  4. fingerprints, keys and compacts the successors (kernel
     ``cand_prep``), sorts them by bucket key, and plans the insert (kernel
@@ -67,6 +68,7 @@ _STATUS_OK = 0
 _STATUS_QUEUE_FULL = 1
 _STATUS_TABLE_FULL = 2
 _STATUS_CAND_FULL = 3  # valid candidates exceeded the compaction budget
+_STATUS_POISON = 4  # a compiled-twin transition crossed its compile bound
 
 # Packed stats layout: [head, tail, unique, scount, maxdepth, status, disc...]
 _ST_STATUS = 5
@@ -121,6 +123,11 @@ class _Engine:
         self.ebit_of = {i: e for e, i in enumerate(self.ev_idx)}
         self.init_ebits = _i32((1 << len(self.ev_idx)) - 1)
         self.lanes = torch.arange(batch, device=device)
+        # the compiled twins' hooks: a tabulated within_boundary, and the
+        # poison bit of a row reached across a compile-time bound
+        self.boundary_fn = (tensor.boundary_rows
+                            if getattr(tensor, "has_boundary", False) else None)
+        self.poison_fn = getattr(tensor, "poison_rows", None)
         # the insert's own buffers (validated here, so the step launches
         # unchecked) and the stream its kernels go to
         self.prep_out = self.plan_out = self.stream = None
@@ -188,6 +195,11 @@ class _Engine:
         # discovery (reference ``bfs.rs:121-128``)
         elive = live & ~self.all_discovered(disc)
         succ, valid = self.tensor.step_rows(rows)  # [B, A, W], [B, A]
+        if self.boundary_fn is not None:
+            # mirror the host checkers: out-of-boundary successors are
+            # neither counted nor enqueued, and a state whose successors
+            # all fall outside IS terminal for the ebits flush
+            valid = valid & self.boundary_fn(succ)
         valid = valid & elive[:, None]
         terminal = elive & ~valid.any(dim=-1)
         disc = self.flush_terminal(terminal, fps, ebits, disc)
@@ -227,6 +239,12 @@ class _Engine:
                 torch.where(tail > self.qcap, _STATUS_QUEUE_FULL, status),
             ),
         )
+        if self.poison_fn is not None:
+            # a poisoned popped row means a reachable transition crossed a
+            # compile-time bound: counts would be silently wrong, and
+            # growing cannot fix a bound, so this status wins
+            new_status = torch.where((self.poison_fn(rows) & live).any(),
+                                     _STATUS_POISON, new_status)
         status = torch.where(go, new_status, status)
         c[HEAD], c[TAIL], c[UNIQUE], c[SCOUNT] = head, tail, unique, scount
         c[DISC], c[MAXDEPTH], c[STATUS] = disc, maxdepth, status
@@ -417,6 +435,14 @@ class GpuChecker(WavefrontChecker):
             )
             disc = stats[_ST_DISC:_ST_DISC + disc_len].view(np.uint64)
             self._live = (scount, unique, maxdepth)
+            if status == _STATUS_POISON:
+                raise RuntimeError(
+                    "poisoned rows reached by the device run: a compiled "
+                    "transition crossed its compile-time state_bound/"
+                    "env_bound, so counts would be silently wrong. Loosen "
+                    "the bounds (they must cover everything the bounded "
+                    "configuration actually reaches)."
+                )
             if status != _STATUS_OK:
                 self.growth_events.append((status, unique))
                 t0 = time.perf_counter()

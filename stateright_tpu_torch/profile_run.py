@@ -1,9 +1,12 @@
-"""Where a GPU run's time goes: 2pc-N or paxos-N under ``torch.profiler``.
+"""Where a GPU run's time goes: 2pc-N, paxos-N or single-copy-N under
+``torch.profiler``.
 
     python -m stateright_tpu_torch.profile_run [RM_COUNT] [TARGET]
     python -m stateright_tpu_torch.profile_run paxos [CLIENT_COUNT] [TARGET]
+    python -m stateright_tpu_torch.profile_run singlecopy [CLIENT_COUNT] [TARGET]
 
-Runs ``TwoPhaseSys(n)`` (or ``paxos_model(n)``) ``.checker().spawn_gpu()``
+Runs ``TwoPhaseSys(n)`` (or ``paxos_model(n)``, or ``single_copy_model(n)``,
+whose twin the actor compiler builds) ``.checker().spawn_gpu()``
 once to warm up (kernel build, allocator), then once under the profiler
 with CPU and CUDA activities, and prints one JSON object: wall seconds, the
 summed device time of all kernels and copies, the device busy share (summed
@@ -23,7 +26,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .models.paxos import paxos_model
+from .models.single_copy_register import single_copy_model
 from .models.two_phase_commit import TwoPhaseSys
+
+MODELS = {"paxos": (paxos_model, 3), "singlecopy": (single_copy_model, 4)}
 
 
 def _run(model, n: int, target):
@@ -39,11 +45,11 @@ def _run(model, n: int, target):
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    model, name = TwoPhaseSys, "2pc"
-    if args and args[0] == "paxos":
-        model, name = paxos_model, "paxos"
-        args = args[1:]
-    n = int(args[0]) if args else (3 if name == "paxos" else 7)
+    model, name, n = TwoPhaseSys, "2pc", 7
+    if args and args[0] in MODELS:
+        name = args.pop(0)
+        model, n = MODELS[name]
+    n = int(args[0]) if args else n
     target = int(args[1]) if len(args) > 1 else None
     if not torch.cuda.is_available():
         print("profile_run: no CUDA device available", file=sys.stderr)

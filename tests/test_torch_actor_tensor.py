@@ -1,8 +1,9 @@
-"""The port's slot-multiset network ops (``parallel/actor_tensor.py``) and
-``closure_verdict`` (``parallel/history_tensor.py``) against the JAX
-package's on seeded random inputs, bit for bit (tolerance 0): sorted slot
-rows with free tails, codes whose top bit (word bit 63) is set, saturated
-counts, full rows, both send semantics."""
+"""The port's slot-multiset network ops (``parallel/actor_tensor.py``),
+``closure_verdict`` and the ``put_count=1`` history codec
+(``parallel/history_tensor.py``) against the JAX package's on seeded random
+inputs, bit for bit (tolerance 0): sorted slot rows with free tails, codes
+whose top bit (word bit 63) is set, saturated counts, full rows, both send
+semantics, ordered appends on deep flows, and both history strategies."""
 
 import numpy as np
 import pytest
@@ -12,10 +13,14 @@ import torch
 
 from stateright_tpu.parallel import actor_tensor as jat
 from stateright_tpu.parallel.history_tensor import (
+    LinHistoryCodec as JaxLinHistoryCodec,
     closure_verdict as jax_closure_verdict,
 )
 from stateright_tpu_torch.parallel import actor_tensor as tat
-from stateright_tpu_torch.parallel.history_tensor import closure_verdict
+from stateright_tpu_torch.parallel.history_tensor import (
+    LinHistoryCodec,
+    closure_verdict,
+)
 
 EMPTY = np.uint64(jat.SLOT_EMPTY)
 CODE_BITS = 64 - jat.COUNT_BITS
@@ -158,3 +163,106 @@ def test_closure_verdict_matches_jax(C):
                           torch.from_numpy(rvals.astype(np.int64))).numpy()
     np.testing.assert_array_equal(got, want)
     assert 0 < want.sum() < B  # both verdicts occur
+
+
+def ordered_slots(rng, rows, n, n_codes, n_flows, pair):
+    """Canonical ordered-network slot rows: in-universe codes, each flow's
+    envelopes at ranks 1..depth, free tails; some rows full, some empty,
+    and a quarter of the rows put every envelope on flow 0, one slot short
+    of full (a flow as deep as the rank field allows at n = 64)."""
+    out = np.full((rows, n), EMPTY, np.uint64)
+    occ = rng.integers(0, n + 1, size=rows)
+    occ[::7] = n
+    occ[1::11] = 0
+    occ[3::4] = n - 1
+    flow0 = np.nonzero(pair == 0)[0]
+    for r in range(rows):
+        deep = r % 4 == 3
+        codes = rng.choice(flow0 if deep else n_codes, occ[r])
+        depth = {}
+        words = []
+        for c in codes:
+            f = pair[c]
+            depth[f] = depth.get(f, 0) + 1
+            words.append((int(c) << jat.COUNT_BITS)
+                         | min(depth[f], jat.COUNT_MASK))
+        out[r, : len(words)] = np.sort(np.asarray(words, np.uint64))
+    return out
+
+
+@pytest.mark.parametrize("n", [8, 64])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_slot_send_ordered_matches_jax(seed, n):
+    """Ordered appends on random rows: full rows, flows as deep as the
+    rank field (n = 64 slots on one flow), and ``-1`` ("no send") codes on
+    the disabled lanes, as the compiled step passes them."""
+    rng = np.random.default_rng(seed)
+    rows, n_codes, n_flows = 500, 40, 6
+    pair = rng.integers(0, n_flows, size=n_codes).astype(np.int32)
+    pair[:8] = 0  # flow 0 has codes enough for deep rows
+    slots = ordered_slots(rng, rows, n, n_codes, n_flows, pair)
+    code = rng.integers(0, n_codes, size=rows).astype(np.int64)
+    code[rng.random(rows) < 0.3] = -1
+    code[3::4] = 0  # appends to the deep flow
+    enable = (code >= 0) & (rng.random(rows) < 0.9)
+    want, wof = jat.slot_send_ordered(
+        jnp.asarray(slots), jnp.asarray(code.astype(np.uint64)),
+        jnp.asarray(pair), jnp.asarray(enable))
+    got, gof = tat.slot_send_ordered(
+        t64(slots), torch.from_numpy(code), torch.from_numpy(pair).long(),
+        torch.from_numpy(enable))
+    np.testing.assert_array_equal(u64(got), np.asarray(want))
+    np.testing.assert_array_equal(gof.numpy(), np.asarray(wof))
+    full = (slots != EMPTY).all(axis=1)
+    assert gof.numpy()[full & enable].all()
+    assert (~gof.numpy() & enable).any()
+    if n == 64:
+        # a 63-deep flow cannot take another envelope
+        depth = ((slots != EMPTY) & (pair[np.where(
+            slots != EMPTY, slots >> np.uint64(jat.COUNT_BITS), 0
+        ).astype(np.int64)] == pair[np.maximum(code, 0)][:, None])).sum(1)
+        assert gof.numpy()[enable & ~full & (depth >= jat.COUNT_MASK)].all()
+        assert (enable & ~full & (depth >= jat.COUNT_MASK)).any()
+
+
+@pytest.mark.parametrize("C", [1, 3, 7])
+def test_lin_history_codec_device_verdict_matches_jax(C):
+    """The closure strategy's device verdict on random packed fields (any
+    phase, snapshot and read value), against the JAX codec's."""
+    rng = np.random.default_rng(C)
+    threads, values = list(range(C)), [chr(65 + i) for i in range(C)]
+    hc = LinHistoryCodec(threads, values, "\0")
+    jc = JaxLinHistoryCodec(threads, values, "\0")
+    B = 3000
+    phase = rng.integers(0, 3, size=(B, C))
+    snap = rng.integers(0, 1 << max(1, 2 * (C - 1)), size=(B, C))
+    rval = rng.integers(0, C + 1, size=(B, C))
+    got = hc.device_verdict(*(torch.from_numpy(x)
+                              for x in (phase, snap, rval))).numpy()
+    want = np.asarray(jc.device_verdict(*(jnp.asarray(x.astype(np.int32))
+                                          for x in (phase, snap, rval))))
+    np.testing.assert_array_equal(got, want)
+    assert want.any() and (C == 1 or not want.all())
+
+
+def test_lin_history_codec_table_keys_and_lookup_match_jax():
+    """The table strategy (writes may fail): ``device_key`` packs random
+    fields like the JAX codec's, and ``device_lookup`` (sorted int64 keys
+    and ``torch.searchsorted``) returns its verdicts, absent keys False."""
+    rets = (("write_ok",), ("write_fail",))
+    hc = LinHistoryCodec([5, 6], list("AB"), "\0", write_rets=rets)
+    jc = JaxLinHistoryCodec([5, 6], list("AB"), "\0", write_rets=rets)
+    np.testing.assert_array_equal(hc.table_keys, jc.table_keys)
+    rng = np.random.default_rng(11)
+    B = 4000
+    fields = [rng.integers(0, 4, size=(B, 2)), rng.integers(0, 4, size=(B, 2)),
+              rng.integers(0, 4, size=(B, 2)), rng.integers(0, 2, size=(B, 2))]
+    keys = hc.device_key(*(torch.from_numpy(f) for f in fields))
+    jkeys = jc.device_key(*(jnp.asarray(f.astype(np.int32)) for f in fields))
+    np.testing.assert_array_equal(keys.numpy(), np.asarray(jkeys))
+    # half the probes are real table keys
+    keys[::2] = torch.from_numpy(rng.choice(hc.table_keys, B // 2))
+    got = hc.device_lookup(keys).numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jc.device_lookup(jnp.asarray(keys.numpy()))))
+    assert got.any() and not got.all()

@@ -235,6 +235,13 @@ def test_port_run_loads_neither_jax_nor_the_reference():
         "p = paxos_model(1).checker().spawn_gpu(device='cpu').join()\n"
         "assert p.unique_state_count() == 265, p.unique_state_count()\n"
         "assert set(p.discoveries()) == {'value chosen'}\n"
+        "from stateright_tpu_torch.models.single_copy_register import "
+        "single_copy_model\n"
+        "from stateright_tpu_torch.models.raft import raft_model\n"
+        "s = single_copy_model(2).checker().spawn_gpu(device='cpu').join()\n"
+        "assert s.unique_state_count() == 93, s.unique_state_count()\n"
+        "r = raft_model(3).checker().spawn_gpu(device='cpu').join()\n"
+        "assert r.unique_state_count() == 5725, r.unique_state_count()\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'stateright_tpu.'))\n"
         "       or m == 'stateright_tpu']\n"

@@ -1,8 +1,10 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
 plain PyTorch version on a CUDA device (integer outputs: equal), at the
-2pc widths and at the paxos widths (W = 18 words and A = 16 actions for
-paxos-1, W = 33 and A = 30 for paxos-3), and the engine's table and queue
-on ``cuda`` against ``cpu`` (2pc-4, 2pc-5, a bounded 2pc-7 and paxos-2).
+2pc widths, at the paxos widths (W = 18 words and A = 16 actions for
+paxos-1, W = 33 and A = 30 for paxos-3) and at the compiled twins' (W = 21
+and A = 20 for single-copy-4 and lin-reg-3-ordered, W = 25 and A = 24 for
+dining-3), and the engine's table and queue on ``cuda`` against ``cpu``
+(2pc-4, 2pc-5, a bounded 2pc-7, paxos-2, lin-reg-3-ordered and raft-3).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -15,7 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch.actor import Network
+from stateright_tpu_torch.models.linearizable_register import abd_model
 from stateright_tpu_torch.models.paxos import paxos_model
+from stateright_tpu_torch.models.raft import raft_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops.buckets import (
     PLAN_TILE,
@@ -271,14 +276,15 @@ def test_2pc7_table_and_queue_identical_on_cuda_and_cpu(cuda):
         np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
 
 
-# (width, arity) of the paxos twins: paxos-1 and paxos-3
-PAXOS_SHAPES = [(18, 16), (33, 30)]
+# (width, arity) of the actor twins: paxos-1 and paxos-3 (hand-written),
+# single-copy-4 / lin-reg-3-ordered and dining-3 (compiled)
+ROW_SHAPES = [(18, 16), (33, 30), (21, 20), (25, 24)]
 
 
-@pytest.mark.parametrize("width,arity", PAXOS_SHAPES)
+@pytest.mark.parametrize("width,arity", ROW_SHAPES)
 def test_wide_row_kernels_match_plain(cuda, width, arity):
     """``cand_prep``, ``row_hash`` and ``insert_commit`` (with its queue
-    half) on rows as wide as the paxos twins', every lane bit for bit."""
+    half) on rows as wide as the actor twins', every lane bit for bit."""
     rng = np.random.default_rng(width)
     parents = 700
     m = parents * arity
@@ -329,6 +335,27 @@ def test_paxos2_table_and_queue_identical_on_cuda_and_cpu(cuda):
 
     g, c = run(cuda), run("cpu")
     assert int(g["unique"]) == int(c["unique"]) == 16668
+    assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
+    tail = int(g["tail"])
+    for k in ("table_fp", "table_parent"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["linreg3_ordered", "raft3"])
+def test_compiled_twin_table_and_queue_identical_on_cuda_and_cpu(cuda, name):
+    """The actor compiler's twins: lin-reg-3-ordered (36,213 unique) and
+    raft-3 (5,725, timers): the same table bytes, cursors and queue rows
+    ``[0, tail)`` on both devices."""
+    def run(device):
+        m = (abd_model(3, 2, Network.new_ordered()) if name != "raft3"
+             else raft_model(3))
+        return m.checker().spawn_gpu(device=device).join().final_snapshot()
+
+    g, c = run(cuda), run("cpu")
+    unique = {"linreg3_ordered": 36213, "raft3": 5725}[name]
+    assert int(g["unique"]) == int(c["unique"]) == unique
     assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
     tail = int(g["tail"])
     for k in ("table_fp", "table_parent"):

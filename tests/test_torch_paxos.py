@@ -11,9 +11,8 @@ twin ``PaxosTensor``) against the JAX package, tolerance 0:
    at the same capacities: counts, discoveries and traces, table bytes and
    queue rows, at paxos-1 (with growth) and paxos-2 (16,668 unique);
  - snapshots carried across the two engines both ways;
- - the object model in configurations without a twin in the port (the
-   duplicating network, a lossy network, four servers), in lockstep with
-   the JAX object model.
+ - the object model off the hand-written twin (the duplicating network,
+   a lossy network, four servers), in lockstep with the JAX object model.
 """
 
 import numpy as np
@@ -119,7 +118,8 @@ def test_host_bridge_and_object_model_match_jax_on_paxos1(p1):
 
 
 def check_twin_against_jax(m, jm, states, rows, object_model: bool):
-    tm, jtm = m.tensor_model(), jm.tensor_model()
+    tm, jtm = m._tensor_cached(), jm._tensor_cached()
+    jtm.init_rows()  # a compiled JAX twin builds its device tables here
     trows = torch.from_numpy(rows.view(np.int64))
     succ, valid = tm.step_rows(trows)
     # jitted as the JAX engine runs it: one compile instead of one per op
@@ -246,11 +246,12 @@ def test_port_resumes_jax_snapshot_and_jax_resumes_port_snapshot(
     ("unordered_nonduplicating", False, 4),
 ])
 def test_object_model_matches_jax_in_lockstep(network, lossy, servers):
-    """Configurations without a twin in the port: the port's and the JAX
+    """Configurations off the hand-written twin: the port's and the JAX
     object model walked in lockstep for 7 BFS levels give the same actions
-    in the same order and the same structural fingerprints (the networks,
-    the tester and the actor states hash alike; the JAX model itself
-    fingerprints through its compiled twin where it has one)."""
+    in the same order and the same fingerprints — structural ones on the
+    duplicating network, which has no twin in either package (the
+    networks, the tester and the actor states hash alike), and the
+    compiled twins' row hashes on the others."""
     from stateright_tpu.actor import Network as JaxNetwork
     from stateright_tpu.fingerprint import fingerprint as jax_fingerprint
 
@@ -259,7 +260,8 @@ def test_object_model_matches_jax_in_lockstep(network, lossy, servers):
     if lossy:
         m.lossy_network(True)
         jm.lossy_network(True)
-    assert m.tensor_model() is None
+    assert (m.tensor_model() is None) == (network == "unordered_duplicating")
+    assert (jm.tensor_model() is None) == (m.tensor_model() is None)
     level = list(zip(m.init_states(), jm.init_states()))
     seen = set()
     for _ in range(7):
@@ -269,7 +271,9 @@ def test_object_model_matches_jax_in_lockstep(network, lossy, servers):
             assert [repr(a) for a, _ in steps] == [repr(a) for a, _ in jsteps]
             for (_, t), (_, jt) in zip(steps, jsteps):
                 fp = m.fingerprint_state(t)
-                assert fp == jax_fingerprint(jt)
+                assert fp == jm.fingerprint_state(jt)
+                if m.tensor_model() is None:
+                    assert fp == jax_fingerprint(jt)
                 for p, jp in zip(m.properties(), jm.properties()):
                     assert p.condition(m, t) == jp.condition(jm, jt)
                 if fp not in seen:
@@ -280,13 +284,20 @@ def test_object_model_matches_jax_in_lockstep(network, lossy, servers):
 
 
 def test_configurations_without_a_twin_raise():
+    """The benchmark configuration has the hand-written twin; four
+    servers and a lossy network compile (``_compiled_tensor``); the
+    duplicating network has no twin, and ``spawn_gpu`` raises."""
+    from stateright_tpu_torch.parallel.actor_compiler import (
+        CompiledActorTensor,
+    )
+
     assert isinstance(paxos_model(2).tensor_model(), PaxosTensor)
-    for m in (paxos_model(1, 4),
-              paxos_model(1, 3, Network.new_unordered_duplicating()),
-              paxos_model(1).lossy_network(True)):
-        assert m.tensor_model() is None
-        with pytest.raises(TypeError, match="no tensor form"):
-            m.checker().spawn_gpu(device="cpu")
+    for m in (paxos_model(1, 4), paxos_model(1).lossy_network(True)):
+        assert isinstance(m.tensor_model(), CompiledActorTensor)
+    m = paxos_model(1, 3, Network.new_unordered_duplicating())
+    assert m.tensor_model() is None
+    with pytest.raises(TypeError, match="no tensor form"):
+        m.checker().spawn_gpu(device="cpu")
     m = paxos_model(1)
     m.fingerprint_state(m.init_states()[0])
     with pytest.raises(RuntimeError, match="configuration changed"):
