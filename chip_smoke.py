@@ -46,12 +46,35 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    terminal circular wait); each with its wall time, states/s, steps,
    growth events and peak device memory;
  - kernels at single-copy-4 shapes: the next batch of a single-copy-4 run
-   bounded at 200,000 unique, L2 flushed before every timed call.
+   bounded at 200,000 unique, L2 flushed before every timed call; before
+   it, a single-copy-4 run bounded at 100,000 unique with a table large
+   enough for no growth event goes under ``torch.profiler`` twice, with
+   blocks of 64 and of 4 steps (1 and 8 blocks), and the
+   ``cudaStreamSynchronize`` count per block (the difference of the two
+   counts over the difference of their blocks) is printed with each run's
+   count (the engine reads one stats tensor per block and
+   nothing inside a step);
+ - the per-channel packing and the multi-op and write-once histories:
+   per-channel paxos-2 at the JAX package's bench configuration
+   (``paxos_model(2).per_channel_()``, ``capacity=1 << 16``, ``batch=512``;
+   W = 83, A = 82), complete on ``cuda`` (16,668 unique, 32,971 states,
+   "value chosen" replayed, "linearizable" never violated, every kernel
+   launched) and again on ``cpu`` with identical table bytes and queue
+   rows; ABD(2,2,put_count=2) (2,980 unique) and the write-once register
+   wo(2,1) (71 unique) on ``cuda`` and ``cpu``, identical likewise;
+ - kernels at per-channel paxos-2 shapes (W = 83): the next batch of a run
+   bounded at 8,000 unique, L2 flushed before every timed call.
+
+Each kernel cell also holds ``row_hash`` on that model's init rows, the
+only rows the main path gives it (``init_rows`` in its record), and the
+``total`` record gives each phase's wall seconds.
 
 Any failure raises (non-zero exit).  The second-to-last line of standard
 output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
-numbers under ``at_2pc10``, the paxos-3 ones under ``at_paxos3`` and the
-single-copy-4 ones, with that run's launches, under ``at_singlecopy4``)
+numbers under ``at_2pc10``, the paxos-3 ones under ``at_paxos3``, the
+single-copy-4 ones, with that run's launches, under ``at_singlecopy4``,
+and the per-channel paxos-2 ones, with that run's launches, under
+``at_paxos2_per_channel``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -65,6 +88,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from stateright_tpu_torch import convert
@@ -94,6 +118,8 @@ from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import LEADER, raft_model
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+from stateright_tpu_torch.models.write_once_register import wo_register_model
+from stateright_tpu_torch.profile_run import host_sync_counts
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # the card's non-tensor-core rate (67 TFLOP/s fp32), standing in for its
@@ -107,6 +133,20 @@ SC4 = (400_233, 731_789)
 LINREG3O = (36_213, 63_053)
 RAFT3 = (5_725, 15_607)
 SC4_KERNEL_TARGET = 200_000
+# the sync count's runs: their bound, table slots that hold it with no
+# growth event, and the two block lengths they compare
+SC4_SYNC_TARGET = 100_000
+SC4_SYNC_CAPACITY = 1 << 21
+SYNC_STEPS_PER_CALL = (64, 4)
+# the JAX package's pins: per-channel paxos-2 (unique, states)
+# (tests/test_per_channel.py:53), ABD(2,2,put_count=2) unique
+# (tests/test_actor_compiler.py:169) and wo(2,1) (unique, states)
+# (tests/test_per_channel.py:166)
+P2_PER_CHANNEL = (16_668, 32_971)
+ABD22_PUT2_UNIQUE = 2_980
+WO21 = (71, 97)
+P2_PER_CHANNEL_KW = dict(capacity=1 << 16, batch=512)  # bench.py:886-918
+P2_PER_CHANNEL_KERNEL_TARGET = 8_000
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -124,6 +164,17 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 def emit(key: str, value) -> None:
     RECORD[key] = value
     print(json.dumps({key: value}), flush=True)
+
+
+PHASES: dict = {}
+_LAP = [time.monotonic()]
+
+
+def lap(name: str) -> None:
+    """Record the wall seconds since the previous lap under ``name``."""
+    now = time.monotonic()
+    PHASES[name] = now - _LAP[0]
+    _LAP[0] = now
 
 
 def time_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -382,7 +433,20 @@ def check_kernels(checker, carry, cold: bool) -> dict:
                                     check=False, stream=stream)),
     )
 
-    # -- B: row_hash over the same rows (the init path's kernel) -------------
+    # -- B: row_hash over the same rows, and over the run's init rows (the
+    # only rows the main path gives it) -------------------------------------
+    init = torch.from_numpy(np.asarray(checker.tensor.init_rows(), np.uint64)
+                            .view(np.int64).copy()).to(rows.device)
+    ni, wi = init.shape
+    got_i, want_i = row_hash(init), row_hash_plain(init)
+    bi_ms, bi_by = bound(ni * wi * 8 + ni * 8, ni * (wi + 1) * 10)
+    init_record = dict(
+        shape=f"init rows int64[{ni}, {wi}]",
+        matched=bool(torch.equal(got_i, want_i)),
+        max_abs_err=int((got_i != want_i).sum()),
+        bound_ms=bi_ms, bound_by=bi_by,
+        **timings(lambda: row_hash(init), lambda: row_hash_plain(init), cold),
+    )
     got, want = row_hash(rows, valid), row_hash_plain(rows, valid)
     # every lane reads its valid byte and writes its fingerprint; only the
     # valid lanes read their row (invalid ones return before it)
@@ -392,8 +456,9 @@ def check_kernels(checker, carry, cold: bool) -> dict:
         source="stateright_tpu_torch/csrc/row_hash.cu",
         replaces="stateright_tpu/ops/hashing.py:105",
         shape=f"rows int64[{n}, {w}], {nv} valid",
-        matched=bool(torch.equal(got, want)),
-        max_abs_err=int((got != want).sum()),
+        matched=bool(torch.equal(got, want)) and init_record["matched"],
+        max_abs_err=int((got != want).sum()) + init_record["max_abs_err"],
+        init_rows=init_record,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         **timings(lambda: row_hash(rows, valid),
                   lambda: row_hash_plain(rows, valid), cold),
@@ -468,6 +533,18 @@ def check_kernels(checker, carry, cold: bool) -> dict:
     return out
 
 
+def same_tables_and_queue(g, c) -> tuple[bool, int]:
+    """Whether two finished runs hold the same table bytes, cursors and
+    queue rows ``[0, tail)``; and the tail."""
+    gs, cs = g.final_snapshot(), c.final_snapshot()
+    tail = int(gs["tail"])
+    same = (int(gs["head"]) == int(cs["head"]) and tail == int(cs["tail"])
+            and all((gs[k] == cs[k]).all() for k in ("table_fp", "table_parent"))
+            and all((gs[k][:tail] == cs[k][:tail]).all()
+                    for k in ("q_rows", "q_fp", "q_ebits", "q_depth")))
+    return bool(same), tail
+
+
 def paxos_phases(dev, smi: str) -> None:
     """Paxos-2 on ``cuda`` and ``cpu``, then paxos-3 complete with the
     main path's launch counts."""
@@ -481,18 +558,13 @@ def paxos_phases(dev, smi: str) -> None:
         return c, time.monotonic() - t0
 
     (g2, g2_s), (c2, c2_s) = p2(dev), p2("cpu")
-    gs, cs = g2.final_snapshot(), c2.final_snapshot()
-    tail = int(gs["tail"])
-    same = (int(gs["head"]) == int(cs["head"]) and tail == int(cs["tail"])
-            and all((gs[k] == cs[k]).all() for k in ("table_fp", "table_parent"))
-            and all((gs[k][:tail] == cs[k][:tail]).all()
-                    for k in ("q_rows", "q_fp", "q_ebits", "q_depth")))
+    same, tail = same_tables_and_queue(g2, c2)
     disc = check_discoveries(g2.model, g2, {"value chosen"})
     emit("paxos2", {"unique_cuda": g2.unique_state_count(),
                     "unique_cpu": c2.unique_state_count(),
                     "states": g2.state_count(), "tail": tail,
-                    "table_slots": int(gs["table_fp"].size),
-                    "tables_and_queue_identical": bool(same),
+                    "table_slots": g2._cap,
+                    "tables_and_queue_identical": same,
                     "sec_cuda": g2_s, "sec_cpu": c2_s, "path_lengths": disc})
     if not (same and g2.unique_state_count() == c2.unique_state_count()
             == 16_668):
@@ -552,16 +624,16 @@ def leg_record(checker, sec: float, peak: int, launches: dict,
             "card": smi}
 
 
-def compiled_leg(dev, build):
-    """One ``spawn_gpu()`` run of ``build()``'s model with the launch counts
-    reset just before it and read just after; returns the checker, its
-    wall seconds (the twin's host-side compile included), peak device
+def compiled_leg(dev, build, **kw):
+    """One ``spawn_gpu(**kw)`` run of ``build()``'s model with the launch
+    counts reset just before it and read just after; returns the checker,
+    its wall seconds (the twin's host-side compile included), peak device
     memory and launches."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    checker = build().checker().spawn_gpu().join()
+    checker = build().checker().spawn_gpu(**kw).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = kernel_launches()
@@ -591,18 +663,13 @@ def compiled_phases(dev, smi: str) -> dict:
     t0 = time.monotonic()
     lc = linreg().checker().spawn_gpu(device="cpu").join()
     lc_s = time.monotonic() - t0
-    gs, cs = lg.final_snapshot(), lc.final_snapshot()
-    tail = int(gs["tail"])
-    same = (int(gs["head"]) == int(cs["head"]) and tail == int(cs["tail"])
-            and all((gs[k] == cs[k]).all() for k in ("table_fp", "table_parent"))
-            and all((gs[k][:tail] == cs[k][:tail]).all()
-                    for k in ("q_rows", "q_fp", "q_ebits", "q_depth")))
+    same, tail = same_tables_and_queue(lg, lc)
     paths = check_discoveries(lg.model, lg, {"value chosen"})
     lg.assert_properties()
     emit("linreg3_ordered", dict(
         leg_record(lg, lg_s, peak, launches_l, smi),
         unique_cpu=lc.unique_state_count(), states_cpu=lc.state_count(),
-        sec_cpu=lc_s, tail=tail, tables_and_queue_identical=bool(same),
+        sec_cpu=lc_s, tail=tail, tables_and_queue_identical=same,
         path_lengths=paths))
     for c in (lg, lc):
         if (c.unique_state_count(), c.state_count()) != LINREG3O:
@@ -641,12 +708,82 @@ def compiled_phases(dev, smi: str) -> dict:
     return launches
 
 
+def per_channel_paxos2():
+    m = paxos_model(2)
+    m.per_channel_()
+    return m
+
+
+def channel_and_history_phases(dev, smi: str) -> dict:
+    """Per-channel paxos-2 at the bench configuration on cuda and cpu, then
+    ABD(2,2,put_count=2) and wo(2,1) on cuda and cpu; returns the
+    per-channel run's launches."""
+    pg, pg_s, peak, launches = compiled_leg(dev, per_channel_paxos2,
+                                            **P2_PER_CHANNEL_KW)
+    if pg.tensor.network_encoding != "per-channel":
+        raise AssertionError("per-channel paxos-2: not the per-channel twin")
+    paths = check_discoveries(pg.model, pg, {"value chosen"})
+    pg.assert_properties()  # "linearizable" never violated
+    t0 = time.monotonic()
+    pc = per_channel_paxos2().checker().spawn_gpu(
+        device="cpu", **P2_PER_CHANNEL_KW).join()
+    pc_s = time.monotonic() - t0
+    same, tail = same_tables_and_queue(pg, pc)
+    emit("paxos2_per_channel", dict(
+        leg_record(pg, pg_s, peak, launches, smi),
+        unique_cpu=pc.unique_state_count(), states_cpu=pc.state_count(),
+        sec_cpu=pc_s, tail=tail, tables_and_queue_identical=same,
+        path_lengths=paths, **P2_PER_CHANNEL_KW))
+    for c in (pg, pc):
+        if (c.unique_state_count(), c.state_count()) != P2_PER_CHANNEL:
+            raise AssertionError(f"per-channel paxos-2: not {P2_PER_CHANNEL}")
+    if not same:
+        raise AssertionError("per-channel paxos-2: cuda and cpu disagree")
+    del pg, pc
+
+    for name, build, want in (
+        ("abd22_put2", lambda: abd_model(2, 2, put_count=2),
+         (ABD22_PUT2_UNIQUE, None)),
+        ("wo21", lambda: wo_register_model(2, 1), WO21),
+    ):
+        g, g_s, peak, leg_launches = compiled_leg(dev, build)
+        c = build().checker().spawn_gpu(device="cpu").join()
+        same, tail = same_tables_and_queue(g, c)
+        paths = check_discoveries(g.model, g, {"value chosen"})
+        g.assert_properties()
+        emit(name, dict(leg_record(g, g_s, peak, leg_launches, smi),
+                        unique_cpu=c.unique_state_count(),
+                        states_cpu=c.state_count(), tail=tail,
+                        tables_and_queue_identical=same,
+                        path_lengths=paths))
+        for x in (g, c):
+            if x.unique_state_count() != want[0] or (
+                    want[1] is not None and x.state_count() != want[1]):
+                raise AssertionError(f"{name}: not {want}")
+        if not same:
+            raise AssertionError(f"{name}: cuda and cpu disagree")
+    return launches
+
+
+def profiled_sync_count(dev, run) -> tuple:
+    """``run()`` under ``torch.profiler`` (CPU and CUDA activities): its
+    result and the count of each CUDA runtime call that waits for the
+    device or copies to the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize(dev)
+    return out, host_sync_counts(prof.key_averages())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    start = time.monotonic()
+    start = _LAP[0] = time.monotonic()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
@@ -660,6 +797,7 @@ def main() -> int:
     emit("build", {"seconds": time.monotonic() - t0,
                    "sources": [str(s.relative_to(_cuda.CSRC.parent.parent))
                                for s in _cuda.sources()]})
+    lap("build")
 
     # -- kernels at 2pc-7 shapes -------------------------------------------
     b7, _ = timed_run(7, target=100_000)
@@ -667,6 +805,7 @@ def main() -> int:
     for name, k in kernels.items():
         emit(f"kernel_{name}", k)
     del b7
+    lap("kernels_2pc7")
 
     # -- 2pc-5 on cuda and cpu: same counts, same table bytes ---------------
     g5, g5_s = timed_run(5)
@@ -679,6 +818,7 @@ def main() -> int:
                   "tables_identical": bool(same), "sec_cuda": g5_s})
     if not (same and g5.unique_state_count() == c5.unique_state_count() == 8832):
         raise AssertionError("2pc-5: cuda and cpu disagree")
+    lap("2pc5")
 
     # -- 2pc-7, complete: the main path's launch counts ----------------------
     reset_launches()
@@ -701,6 +841,7 @@ def main() -> int:
         raise AssertionError("2pc-7: unique count is not 296,448")
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel never launched on 2pc-7: {launches}")
+    lap("2pc7")
 
     # -- 2pc-10, target-bounded ----------------------------------------------
     reset_launches()
@@ -724,33 +865,79 @@ def main() -> int:
         raise AssertionError("2pc-10: consistent violated")
     if not all(v > 0 for v in launches10.values()):
         raise AssertionError(f"a kernel never launched on 2pc-10: {launches10}")
+    lap("2pc10")
 
     # -- kernels at 2pc-10 shapes, L2-cold -----------------------------------
     kernels10 = check_kernels(g10, g10._final_carry, cold=True)
     for name, k in kernels10.items():
         emit(f"kernel_{name}_2pc10", k)
     del g10
+    lap("kernels_2pc10")
 
     paxos_phases(dev, smi)
+    lap("paxos2_and_paxos3")
     # -- kernels at paxos-3 shapes, L2-cold ----------------------------------
     gp, _ = timed_run(3, target=PAXOS3_KERNEL_TARGET, model=paxos_model)
     kernels_p3 = check_kernels(gp, gp._final_carry, cold=True)
     for name, k in kernels_p3.items():
         emit(f"kernel_{name}_paxos3", k)
     del gp
+    lap("kernels_paxos3")
 
     launches_sc4 = compiled_phases(dev, smi)
+    lap("compiled_twins")
+    # -- host syncs per block: single-copy-4 with no growth, profiled -------
+    # the same bounded run at two block lengths: the difference in
+    # cudaStreamSynchronize over the difference in blocks is the count per
+    # block; what is left is the run's constant (the twin's tables and the
+    # init rows going to the card, the first stats read)
+    sync_runs = {}
+    for spc in SYNC_STEPS_PER_CALL:
+        (gsy, gsy_s), syncs = profiled_sync_count(dev, lambda spc=spc: timed_run(
+            4, target=SC4_SYNC_TARGET, model=single_copy_model,
+            capacity=SC4_SYNC_CAPACITY, steps_per_call=spc))
+        if gsy.growth_events:
+            raise AssertionError("the sync count's run grew: it must not")
+        sync_runs[spc] = {
+            "unique": gsy.unique_state_count(), "steps": gsy.steps_run,
+            "blocks": -(-gsy.steps_run // spc), "calls": syncs,
+            "stream_syncs": syncs.get("cudaStreamSynchronize", 0),
+            "sec_profiled": gsy_s}
+        del gsy
+    a, b = (sync_runs[spc] for spc in SYNC_STEPS_PER_CALL)
+    per_block = ((b["stream_syncs"] - a["stream_syncs"])
+                 / (b["blocks"] - a["blocks"]))
+    emit("singlecopy4_host_syncs", {
+        "target": SC4_SYNC_TARGET, "capacity": SC4_SYNC_CAPACITY,
+        "runs": {str(k): v for k, v in sync_runs.items()},
+        "stream_syncs_per_block": per_block,
+        "stream_syncs_per_run": a["stream_syncs"] - per_block * a["blocks"],
+        "card": smi})
+    lap("singlecopy4_host_syncs")
     # -- kernels at single-copy-4 shapes, L2-cold -----------------------------
     gs4, _ = timed_run(4, target=SC4_KERNEL_TARGET, model=single_copy_model)
     kernels_sc4 = check_kernels(gs4, gs4._final_carry, cold=True)
     for name, k in kernels_sc4.items():
         emit(f"kernel_{name}_singlecopy4", k)
     del gs4
+    lap("kernels_singlecopy4")
+
+    launches_p2pc = channel_and_history_phases(dev, smi)
+    lap("per_channel_and_histories")
+    # -- kernels at per-channel paxos-2 shapes (W = 83), L2-cold -------------
+    gp2 = per_channel_paxos2().checker().target_states(
+        P2_PER_CHANNEL_KERNEL_TARGET).spawn_gpu(**P2_PER_CHANNEL_KW).join()
+    kernels_p2pc = check_kernels(gp2, gp2._final_carry, cold=True)
+    for name, k in kernels_p2pc.items():
+        emit(f"kernel_{name}_paxos2_per_channel", k)
+    del gp2
+    lap("kernels_paxos2_per_channel")
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
                              ("paxos-3", kernels_p3),
-                             ("single-copy-4", kernels_sc4))
+                             ("single-copy-4", kernels_sc4),
+                             ("per-channel paxos-2", kernels_p2pc))
            for k in ks.values() if not k["matched"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -760,13 +947,16 @@ def main() -> int:
         k["launches"] = launches[name]
         entry = {key: k[key] for key in KERNEL_KEYS}
         for tag, ks in (("at_2pc10", kernels10), ("at_paxos3", kernels_p3),
-                        ("at_singlecopy4", kernels_sc4)):
+                        ("at_singlecopy4", kernels_sc4),
+                        ("at_paxos2_per_channel", kernels_p2pc)):
             entry[tag] = {key: ks[name][key] for key in KERNEL_KEYS
                           if key not in ("name", "route", "source",
                                          "replaces", "launches")}
         entry["at_singlecopy4"]["launches"] = launches_sc4[name]
+        entry["at_paxos2_per_channel"]["launches"] = launches_p2pc[name]
         line.append(entry)
-    emit("total", {"seconds": time.monotonic() - start})
+    emit("total", {"seconds": time.monotonic() - start,
+                   "phase_seconds": PHASES})
     OUT.parent.mkdir(exist_ok=True)
     OUT.write_text(json.dumps(RECORD, indent=1))
     print(json.dumps({"kernels": line}))

@@ -2,8 +2,8 @@
 (reference ``src/actor/model.rs``, ``src/actor/model_state.rs``).
 
 The port's own copy of ``stateright_tpu/actor/model.py``; the symmetry
-``representative``, the per-channel packing switch and the sequence-diagram
-``as_svg`` come with the slices that use them.
+``representative`` and the sequence-diagram ``as_svg`` come with the slices
+that use them.
 
 ``cfg`` is an arbitrary config value, ``history`` an auxiliary history kept
 TLA-style alongside the system (e.g. a linearizability tester); both are
@@ -22,6 +22,7 @@ precisely (they determine the pinned state-space counts):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence
 
@@ -117,6 +118,9 @@ class ActorModel(Model):
         self.init_history = init_history
         self.init_network: Network = Network.new_unordered_duplicating()
         self.lossy: bool = False
+        # None = unset (the STATERIGHT_TPU_PER_CHANNEL env knob decides),
+        # else the per_channel_() builder's explicit choice
+        self.per_channel: Optional[bool] = None
         self._properties: list[Property] = []
         self._record_msg_in: Callable = lambda cfg, h, env: None
         self._record_msg_out: Callable = lambda cfg, h, env: None
@@ -138,6 +142,33 @@ class ActorModel(Model):
         self._config_mutated()
         self.lossy = lossy
         return self
+
+    def per_channel_(self, enabled: bool = True) -> "ActorModel":
+        """Request the per-(src, dst)-channel network packing for the
+        compiled device twin (``parallel/actor_compiler.py``): the row
+        holds one slot region per directed channel instead of one global
+        slot multiset, so a delivery's writes are statically confined.
+        It changes row fingerprints (an encoding choice, like the twin
+        itself); unique/total counts and property verdicts equal the
+        slot-multiset packing's.  An ORDERED flow holding the same
+        message at more ranks than its channel's distinct-code count
+        poisons loudly: raise the region size with
+        ``compile_actor_model(per_channel_depth=...)``.  CLI flag:
+        ``--per-channel`` on the ``check-gpu`` verbs; env knob:
+        ``STATERIGHT_TPU_PER_CHANNEL=1``."""
+        self._config_mutated()
+        self.per_channel = bool(enabled)
+        return self
+
+    def per_channel_resolved(self) -> bool:
+        """The effective per-channel choice: the builder flag when set,
+        else the ``STATERIGHT_TPU_PER_CHANNEL=1`` env knob.  The one
+        resolution rule, shared by the compiler and by ``tensor_model``
+        implementations that route between a hand-written slot-multiset
+        twin and the compiled per-channel one (``models/paxos.py``)."""
+        if self.per_channel is not None:
+            return bool(self.per_channel)
+        return os.environ.get("STATERIGHT_TPU_PER_CHANNEL", "") == "1"
 
     def property(
         self, expectation: Expectation, name: str, condition: Callable

@@ -25,7 +25,7 @@ module is the object-form oracle.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Iterable, Iterator
+from typing import Any, Iterable, Iterator, Tuple
 
 from ..fingerprint import hash_words, stable_hash, stable_words
 
@@ -37,6 +37,14 @@ class Envelope:
     src: Any  # Id
     dst: Any  # Id
     msg: Any
+
+    @property
+    def channel(self) -> Tuple[int, int]:
+        """The directed ``(src, dst)`` channel this envelope travels on:
+        the unit of the per-channel device packing
+        (``parallel/actor_compiler.py``) and, for ordered networks, the
+        FIFO flow key."""
+        return (int(self.src), int(self.dst))
 
     def __repr__(self):
         return f"Envelope(src={self.src!r}, dst={self.dst!r}, msg={self.msg!r})"
@@ -105,6 +113,13 @@ class Network:
     def iter_all(self) -> Iterator[Envelope]:
         """Every envelope, with multiplicity."""
         raise NotImplementedError
+
+    def channels(self) -> list:
+        """Sorted directed ``(src, dst)`` channels currently carrying
+        traffic: for ordered networks the FIFO flows, for the unordered
+        semantics the per-destination confinement the per-channel device
+        packing relies on."""
+        return sorted({env.channel for env in self.iter_all()})
 
     def __len__(self) -> int:
         raise NotImplementedError

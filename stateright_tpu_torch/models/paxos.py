@@ -198,10 +198,11 @@ class PaxosModel(TensorBackedModel, ActorModel):
     """ActorModel specialization carrying a tensor (device) twin.
 
     The benchmark configuration uses the hand-written twin
-    (``paxos_tensor.py``); other configurations fall back to the
-    mechanical compiler (:meth:`_compiled_tensor`), and configurations
-    neither supports have no twin.  Eligibility is derived from the live
-    builder state."""
+    (``paxos_tensor.py``); other configurations, and every configuration
+    that asks for the per-channel packing (``per_channel_()``, which only
+    the compiler implements), fall back to the mechanical compiler
+    (:meth:`_compiled_tensor`), and configurations neither supports have no
+    twin.  Eligibility is derived from the live builder state."""
 
     def tensor_model(self):
         from .paxos_tensor import MAX_CLIENTS, PaxosTensor
@@ -217,6 +218,7 @@ class PaxosModel(TensorBackedModel, ActorModel):
             )
             and not self.lossy
             and isinstance(self.init_network, UnorderedNonDuplicatingNetwork)
+            and not self.per_channel_resolved()
         ):
             return PaxosTensor(self, len(clients))
         return self._compiled_tensor(len(clients))
@@ -282,17 +284,15 @@ def paxos_model(
 
 
 def main(argv=None) -> int:
-    usage = "usage: python -m stateright_tpu_torch.models.paxos " \
-            "check-gpu [CLIENT_COUNT]"
-    args = list(sys.argv[1:] if argv is None else argv)
-    if not args or args[0] != "check-gpu" or len(args) > 2:
-        print(usage, file=sys.stderr)
-        return 2
-    client_count = int(args[1]) if len(args) > 1 else 2
-    print(f"Model checking Single Decree Paxos with {client_count} clients "
-          "on the GPU.")
-    paxos_model(client_count, 3).checker().spawn_gpu().report()
-    return 0
+    from ._cli import check_gpu_main
+
+    return check_gpu_main(
+        "paxos", "[CLIENT_COUNT]", argv,
+        lambda rest: paxos_model(int(rest[0]) if rest else 2, 3),
+        lambda rest: ("Model checking Single Decree Paxos with "
+                      f"{int(rest[0]) if rest else 2} clients on the GPU."),
+        max_args=1,
+    )
 
 
 if __name__ == "__main__":

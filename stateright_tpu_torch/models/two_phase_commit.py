@@ -295,16 +295,15 @@ class TwoPhaseTensor(TensorModel):
 
 
 def main(argv=None) -> int:
-    usage = "usage: python -m stateright_tpu_torch.models.two_phase_commit " \
-            "check-gpu [RESOURCE_MANAGER_COUNT]"
-    args = list(sys.argv[1:] if argv is None else argv)
-    if not args or args[0] != "check-gpu" or len(args) > 2:
-        print(usage, file=sys.stderr)
-        return 2
-    rm_count = int(args[1]) if len(args) > 1 else 2
-    print(f"Checking two phase commit with {rm_count} RMs on the GPU.")
-    TwoPhaseSys(rm_count).checker().spawn_gpu().report()
-    return 0
+    from ._cli import check_gpu_main
+
+    return check_gpu_main(
+        "two_phase_commit", "[RESOURCE_MANAGER_COUNT]", argv,
+        lambda rest: TwoPhaseSys(int(rest[0]) if rest else 2),
+        lambda rest: ("Checking two phase commit with "
+                      f"{int(rest[0]) if rest else 2} RMs on the GPU."),
+        max_args=1,
+    )
 
 
 if __name__ == "__main__":

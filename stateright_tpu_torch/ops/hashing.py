@@ -81,6 +81,11 @@ def fold64(h: torch.Tensor, w) -> torch.Tensor:
     return mix64((h ^ w) + GAMMA)
 
 
+# the widest row kernel B stages: one row at an odd stride of W | 1 words
+# in its 48 KiB tile (less its 64 valid bytes)
+ROW_HASH_MAX_WIDTH = (48 * 1024 - 64) // 8 - 1
+
+
 def row_hash_plain(rows: torch.Tensor, valid=None) -> torch.Tensor:
     """Plain PyTorch fingerprint of each row: ``int64[..., W] -> int64[...]``
     (EMPTY where ``valid`` is False)."""
@@ -103,6 +108,9 @@ def row_hash(rows: torch.Tensor, valid=None) -> torch.Tensor:
         return row_hash_plain(rows, valid)
     lead = rows.shape[:-1]
     width = rows.shape[-1]
+    if width > ROW_HASH_MAX_WIDTH:
+        raise ValueError(f"row_hash: rows of {width} words; the kernel "
+                         f"stages at most {ROW_HASH_MAX_WIDTH} in shared memory")
     flat = rows.reshape(-1, width)
     n = flat.shape[0]
     _cuda.require(flat, "rows", torch.int64, 2, rows.device)

@@ -1,23 +1,24 @@
 """Mechanical actor-system → tensor-form compiler.
 
-The port's counterpart of ``stateright_tpu/parallel/actor_compiler.py``,
-the slot-multiset encoding: the host half (closure, tables, host bridge)
-is the JAX module's, line for line, so both compilers number local states
-and envelopes alike and produce the same rows; the device half is plain
-PyTorch on int64 bit patterns (``ops/hashing.py``), in eager
-:class:`FieldWriter` mode.  What waits: the per-channel encoding,
-compiled symmetry, ``put_count >= 2`` (``MultiOpLinHistoryCodec``), the
-write-once register, the ``OrderedReliableLink`` hint, the coalesced step
-and ``row_domain``.  A model that needs one of them raises
-:class:`CompileError` naming it.
+The port's counterpart of ``stateright_tpu/parallel/actor_compiler.py``:
+the host half (closure and its fail-fast estimate, tables, channel layout,
+host bridge) is the JAX module's, line for line, so both compilers number
+local states and envelopes alike and produce the same rows; the device
+half is plain PyTorch on int64 bit patterns (``ops/hashing.py``), in eager
+:class:`FieldWriter` mode.  Both network packings are here: the global
+slot multiset and the per-channel layout (``per_channel``).  What waits:
+compiled symmetry, the ``OrderedReliableLink`` hint, the coalesced step
+and ``row_domain``.
 
 It compiles Python actor handlers into table-driven ``step_rows`` for two
 fragments (reference transition semantics: ``src/actor/model.rs:187-306``):
 
- - the **register workload** (reference ``src/actor/register.rs``): protocol
-   servers + ``RegisterClient(put_count=1)`` clients, a
-   linearizability-tester history, and the standard
-   linearizable/value-chosen properties (plus factored extras);
+ - the **register workload** (reference ``src/actor/register.rs`` and
+   ``src/actor/write_once_register.rs``): protocol servers +
+   ``RegisterClient`` clients with any uniform ``put_count`` (write-once
+   clients with ``put_count=1``), a linearizability-tester history, and
+   the standard linearizable/value-chosen properties (plus factored
+   extras);
  - the **general fragment**: any bounded actor system with
    ``init_history=None`` — including **timeout-driven** actors (timer bits
    in the row, one Timeout action per armed actor, ``SetTimer``/
@@ -47,7 +48,9 @@ engine fails the run when it pops a poisoned row.
 
 History (the linearizability tester) is factored into per-thread fields
 updated arithmetically on the device, with the ``linearizable`` verdict
-computed per row (:mod:`.history_tensor`).  The two standard
+computed per row (:mod:`.history_tensor`): by the closure verdict for
+``put_count=1`` registers, by a sorted-table lookup for write-once and
+``put_count >= 2`` workloads.  The two standard
 register-workload properties are recognized by name: ``linearizable``
 (ALWAYS, history verdict) and ``value chosen`` (SOMETIMES, a non-null
 ``get_ok`` in flight — reference ``examples/paxos.rs:255-262``).
@@ -55,13 +58,15 @@ register-workload properties are recognized by name: ``linearizable``
 **Device gathers stay in range.**  JAX clamps an out-of-range gather
 index; PyTorch raises on the CPU and asserts on the card.  Every table
 gather here indexes with a value put in range first: an envelope code is
-clamped to the universe (a free slot reads code 0), an actor-state field
-to its state count.  Those lanes are masked afterwards, exactly where the
-JAX step masks its clamped ones, so every valid successor is the same.
+clamped to the universe (a free slot reads code 0, or its channel's first
+code in the per-channel layout), an actor-state field to its state count.
+Those lanes are masked afterwards, exactly where the JAX step masks its
+clamped ones, so every valid successor is the same.
 """
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import Callable, Optional
 
@@ -83,13 +88,17 @@ from ..actor.register import (
     record_invocations,
     record_returns,
 )
+from ..actor.write_once_register import record_returns as wo_record_returns
+from ..fingerprint import MASK64
 from ..ops.hashing import lshr
 from ..semantics import LinearizabilityTester
 from .actor_tensor import (
     _EMPTY,
     COUNT_BITS,
     COUNT_MASK,
+    SLOT_EMPTY,
     SlotCodec,
+    region_send_ordered,
     slot_canonicalize,
     slot_send,
     slot_send_ordered,
@@ -99,14 +108,18 @@ from .history_tensor import (
     PHASE_R_INFLIGHT,
     PHASE_W_INFLIGHT,
     LinHistoryCodec,
+    MultiOpLinHistoryCodec,
 )
 from .tensor_model import BitPacker, FieldWriter, TensorModel
 
 #: envelope-kind codes for the history/property tables
-_K_OTHER, _K_PUT_OK, _K_GET_OK = 0, 1, 2
-#: closure caps: past these the model needs a tighter state_bound/env_bound
+_K_OTHER, _K_PUT_OK, _K_GET_OK, _K_PUT_FAIL = 0, 1, 2, 3
+#: default closure caps: past these the model needs a tighter
+#: state_bound/env_bound (``compile_actor_model``'s arguments)
 MAX_STATES_PER_ACTOR = 200_000
 MAX_ENVELOPES = 100_000
+#: handler calls between two checks of the closure's fail-fast estimate
+_CHECK_EVERY = 2048
 
 
 class CompileError(Exception):
@@ -118,6 +131,10 @@ def compile_actor_model(
     *,
     state_bound: Optional[Callable] = None,
     env_bound: Optional[Callable] = None,
+    max_states_per_actor: int = MAX_STATES_PER_ACTOR,
+    max_envelopes: int = MAX_ENVELOPES,
+    per_channel: Optional[bool] = None,
+    per_channel_depth: Optional[int] = None,
 ) -> "CompiledActorTensor":
     """Compile ``model`` to a :class:`TensorModel`; raises
     :class:`CompileError` when the model is outside the supported fragment.
@@ -126,20 +143,53 @@ def compile_actor_model(
     ``env_bound(envelope) -> bool`` cut the closure's over-approximation for
     protocols with context-dependent domains; transitions crossing the bound
     poison the row on the device rather than silently diverging.
+    ``max_states_per_actor``/``max_envelopes`` cap the closure (a closure
+    on course to pass the state cap fails fast, with an estimate; escape
+    hatch ``STATERIGHT_TPU_CLOSURE_ESTIMATE=off``).
+
+    ``per_channel`` selects the network packing (None: the model's
+    ``per_channel_resolved()``): False = the global sorted-slot multiset;
+    True = one slot region per directed ``(src, dst)`` channel, sized to
+    that channel's envelope universe.  ``per_channel_depth`` raises each
+    ORDERED channel's region capacity to at least this many slots: an
+    ordered flow can hold the same message at several ranks, which needs
+    more slots than the channel's distinct-code count.  The default poisons
+    loudly when exceeded; unordered regions ignore the knob.
     """
     return CompiledActorTensor(
-        model, state_bound=state_bound, env_bound=env_bound
+        model,
+        state_bound=state_bound,
+        env_bound=env_bound,
+        max_states_per_actor=max_states_per_actor,
+        max_envelopes=max_envelopes,
+        per_channel=per_channel,
+        per_channel_depth=per_channel_depth,
     )
 
 
 class CompiledActorTensor(TensorModel):
     """Table-driven device twin of a bounded ``ActorModel``."""
 
-    def __init__(self, model: ActorModel, *, state_bound, env_bound):
+    def __init__(self, model: ActorModel, *, state_bound, env_bound,
+                 max_states_per_actor: int, max_envelopes: int,
+                 per_channel: Optional[bool],
+                 per_channel_depth: Optional[int]):
         self.model = model
+        if per_channel is None:
+            per_channel = model.per_channel_resolved()
+        self.per_channel = bool(per_channel)
+        self._per_channel_depth = per_channel_depth
+        #: which row layout packs the network
+        self.network_encoding = (
+            "per-channel" if self.per_channel else "slot-multiset"
+        )
         self._check_fragment()
+        # multi-op register workload (put_count >= 2): per-thread op-index
+        # history fields and the MultiOpLinHistoryCodec table strategy
+        self._multi = not self.general and self._put_count > 1
         self._state_bound = state_bound or (lambda i, s: True)
         self._env_bound = env_bound or (lambda e: True)
+        self._caps = (max_states_per_actor, max_envelopes)
 
         self.n_actors = len(model.actors)
         if self.general:
@@ -153,39 +203,93 @@ class CompiledActorTensor(TensorModel):
                 if isinstance(a, RegisterClient)
             ]
             self.C = len(self.clients)
-            values = [
-                RegisterClient.put_value(
-                    int(t), model.actors[t].server_count, 0
-                )
-                for t in self.clients
-            ]
-            self.hist = LinHistoryCodec(
-                self.clients,
-                values,
-                NULL_VALUE,
-                tester_factory=lambda: type(model.init_history)(
+
+            def tester_factory():
+                return type(model.init_history)(
                     model.init_history.init_ref_obj
-                ),
-            )
+                )
+
+            if self._put_count > 1:
+                # per-client write scripts, from the value scheme the real
+                # workload uses (RegisterClient.put_value)
+                scripts = [
+                    [
+                        RegisterClient.put_value(
+                            int(t), model.actors[t].server_count, k
+                        )
+                        for k in range(self._put_count)
+                    ]
+                    for t in self.clients
+                ]
+                self.hist = MultiOpLinHistoryCodec(
+                    self.clients,
+                    scripts,
+                    NULL_VALUE,
+                    tester_factory=tester_factory,
+                )
+            else:
+                values = [
+                    RegisterClient.put_value(
+                        int(t), model.actors[t].server_count, 0
+                    )
+                    for t in self.clients
+                ]
+                self.hist = LinHistoryCodec(
+                    self.clients,
+                    values,
+                    # the write-once spec models the unset register as
+                    # None; the wire protocol's null stays NULL_VALUE
+                    # (translated at the get_ok boundary, as the
+                    # write-once record_returns does)
+                    None if self._wo else NULL_VALUE,
+                    tester_factory=tester_factory,
+                    write_rets=(("write_ok",), ("write_fail",))
+                    if self._wo
+                    else (("write_ok",),),
+                )
 
         self._closure()
         self._tabulate_properties()
         self._tabulate_boundary()
 
-        self.n_slots = max(16, 4 * self.n_actors)
-        self.max_actions = self.n_slots * (2 if model.lossy else 1) + (
-            self.n_actors if self._has_timers else 0
-        )
+        if self.per_channel:
+            self._build_channel_layout()
+            self.n_slots = int(sum(self._ch_cap))
+            deliver = sum(
+                self._ch_cap[ci]
+                for ci, (_s, d) in enumerate(self._channels)
+                if d < self.n_actors
+            )
+            self.max_actions = max(
+                deliver
+                + (self.n_slots if model.lossy else 0)
+                + (self.n_actors if self._has_timers else 0),
+                1,  # a message-less, timer-less system still needs a
+                #     (never-valid) action column for the engine shapes
+            )
+        else:
+            self.n_slots = max(16, 4 * self.n_actors)
+            self.max_actions = self.n_slots * (2 if model.lossy else 1) + (
+                self.n_actors if self._has_timers else 0
+            )
         fields = []
         for i in range(self.n_actors):
             bits = max(1, int(np.ceil(np.log2(max(2, len(self._states[i]))))))
             fields.append((f"a{i}", bits))
         for c in range(self.C):
-            fields += [
-                (f"h{c}_phase", 2),
-                (f"h{c}_snap", max(1, 2 * (self.C - 1))),
-                (f"h{c}_rval", 3),
-            ]
+            if self._multi:
+                fields.append((f"h{c}_phase", self.hist.phase_bits))
+                for m in range(self.hist.K):
+                    fields.append((f"h{c}_snap{m}", self.hist.snap_bits))
+                fields.append((f"h{c}_rval", self.hist.rval_bits))
+            else:
+                fields += [
+                    (f"h{c}_phase", 2),
+                    (f"h{c}_snap", max(1, 2 * (self.C - 1))),
+                    (f"h{c}_rval", 3),
+                ]
+                if self.hist.wfail_bits:
+                    fields.append((f"h{c}_wfail", 1))
         if self._has_timers:
             fields.append(("timers", self.n_actors))
         fields.append(("poison", 1))
@@ -237,6 +341,8 @@ class CompiledActorTensor(TensorModel):
             # a factored predicate the compiler can tabulate over the
             # per-actor state universes (``actor/device_props.py``)
             self.general = True
+            self._wo = False
+            self._put_count = 0
             bad = sorted(
                 p.name
                 for p in m.properties()
@@ -272,16 +378,24 @@ class CompiledActorTensor(TensorModel):
                 + " non-factored extras="
                 + repr(extra_bad)
             )
-        if (
-            m._record_msg_in is not record_returns
-            or m._record_msg_out is not record_invocations
-        ):
+        if m._record_msg_in is record_returns:
+            self._wo = False
+        elif m._record_msg_in is wo_record_returns:
+            # write-once workload: put_fail completes the write with
+            # ("write_fail",) and a null read maps to the spec's None
+            self._wo = True
+        else:
             # the device history update hard-codes these recorders'
-            # semantics (put_ok/get_ok -> returns, put/get -> invocations)
+            # semantics (put_ok/put_fail/get_ok -> returns, put/get sends ->
+            # invocations)
+            raise CompileError(
+                "history recorders must be the standard register (or "
+                "write-once register) record_returns/record_invocations"
+            )
+        if m._record_msg_out is not record_invocations:
             raise CompileError(
                 "history recorders must be the standard register "
-                "record_returns/record_invocations (the write-once "
-                "register's recorders are not ported yet)"
+                "record_returns/record_invocations"
             )
         clients = [a for a in m.actors if isinstance(a, RegisterClient)]
         if not clients or any(c.put_count < 1 for c in clients):
@@ -293,11 +407,12 @@ class CompiledActorTensor(TensorModel):
             raise CompileError(
                 f"per-client put_counts must be uniform (got {sorted(put_counts)})"
             )
-        if put_counts != {1}:
+        self._put_count = put_counts.pop()
+        if self._wo and self._put_count != 1:
             raise CompileError(
-                "put_count >= 2 needs the multi-op history codec "
-                "(MultiOpLinHistoryCodec), which is not ported yet; "
-                "the port compiles put_count=1 register workloads"
+                "write-once workloads compile with put_count=1 only (a "
+                "failed write changes which op takes effect; the multi-op "
+                "codec models write_ok returns)"
             )
         if any(
             isinstance(a, RegisterClient)
@@ -315,7 +430,7 @@ class CompiledActorTensor(TensorModel):
         dicts), so state and envelope codes are the same."""
         m = self.model
         n = self.n_actors
-        max_s, max_e = MAX_STATES_PER_ACTOR, MAX_ENVELOPES
+        max_s, max_e = self._caps
 
         self._states: list[list] = [[] for _ in range(n)]  # code -> state
         self._state_code: list[dict] = [{} for _ in range(n)]
@@ -363,6 +478,76 @@ class CompiledActorTensor(TensorModel):
             self._env_code[env] = code
             work.append(("e", code))
             return code, True
+
+        # -- fail-fast cap estimate ------------------------------------------
+        # The eager closure can run minutes of handler calls before an
+        # actor's universe hits max_s.  Every _CHECK_EVERY handler calls,
+        # once the largest universe holds an eighth of the cap, the recent
+        # states-per-call rate is extrapolated over the deliveries already
+        # queued; when that estimate passes twice the cap at two
+        # consecutive checkpoints with a rate that has not halved, the cap
+        # error is raised at once.  A converging closure's rate decays as
+        # its universe fills, so it never trips.  Escape hatch:
+        # STATERIGHT_TPU_CLOSURE_ESTIMATE=off (``debug`` prints each check).
+        est_env = os.environ.get(
+            "STATERIGHT_TPU_CLOSURE_ESTIMATE", ""
+        ).lower()
+        est_on = est_env not in ("off", "0")
+        est_debug = est_env == "debug"
+        calls = 0
+        next_check = _CHECK_EVERY
+        # (calls, states) at the previous checkpoint; previous window rate;
+        # consecutive over-bar checkpoints
+        last_state = [0, 0, 0.0, 0]
+
+        def _estimate_check() -> None:
+            sizes = [len(s) for s in self._states]
+            big = max(range(n), key=lambda i: sizes[i])
+            d_calls = calls - last_state[0]
+            d_states = sizes[big] - last_state[1]
+            prev_rate = last_state[2]
+            rate = d_states / max(d_calls, 1)
+            last_state[0], last_state[1] = calls, sizes[big]
+            last_state[2] = rate
+            if sizes[big] * 8 < max_s:
+                last_state[3] = 0
+                return
+            pending = 0
+            env_by_dst = [0] * n
+            for env in self._envs:
+                d = int(env.dst)
+                if d < n:
+                    env_by_dst[d] += 1
+            for item in work:
+                if item[0] == "s":
+                    pending += env_by_dst[item[1]]
+                else:
+                    d = int(self._envs[item[1]].dst)
+                    if d < n:
+                        pending += sizes[d]
+            estimate = sizes[big] + int(rate * pending)
+            decaying = prev_rate > 0 and rate < 0.5 * prev_rate
+            if est_debug:
+                print(
+                    f"closure-estimate: states={sizes[big]} calls={calls} "
+                    f"rate={rate:.3f} pending={pending} "
+                    f"estimate={estimate} decaying={decaying} "
+                    f"streak={last_state[3]}"
+                )
+            if estimate > 2 * max_s and not decaying:
+                last_state[3] += 1
+            else:
+                last_state[3] = 0
+            if last_state[3] >= 2:
+                raise CompileError(
+                    f"actor {big} state universe is on course to exceed "
+                    f"the {max_s}-state cap: {sizes[big]} states after "
+                    f"{calls} handler calls with {pending} deliveries "
+                    f"already queued, production rate undiminished "
+                    f"(pre-closure estimate ≥ {estimate}); "
+                    "tighten state_bound, or raise max_states_per_actor "
+                    "(escape hatch: STATERIGHT_TPU_CLOSURE_ESTIMATE=off)"
+                )
 
         # seed from the real initial system state
         (init,) = m.init_states()
@@ -434,15 +619,21 @@ class CompiledActorTensor(TensorModel):
             if item[0] == "s":
                 _, i, s_code = item
                 process_timeout(i, s_code)
+                calls += 1
                 for e_code, env in enumerate(self._envs):
                     if int(env.dst) == i:
                         process(i, s_code, e_code)
+                        calls += 1
             else:
                 _, e_code = item
                 i = int(self._envs[e_code].dst)
                 if i < n:
                     for s_code in range(len(self._states[i])):
                         process(i, s_code, e_code)
+                        calls += 1
+            if est_on and calls >= next_check:
+                next_check = calls + _CHECK_EVERY
+                _estimate_check()
 
         # timers exist iff a timer can ever be SET: then (and only then)
         # the encoding carries timer bits and step_rows emits Timeout actions
@@ -526,9 +717,14 @@ class CompiledActorTensor(TensorModel):
             for c, e in enumerate(self._envs):
                 if e.msg[0] == "put_ok":
                     kinds[c] = _K_PUT_OK
+                elif e.msg[0] == "put_fail":
+                    kinds[c] = _K_PUT_FAIL
                 elif e.msg[0] == "get_ok":
                     kinds[c] = _K_GET_OK
-                    vals[c] = self.hist._value_code(e.msg[2])
+                    v = e.msg[2]
+                    if self._wo and v == NULL_VALUE:
+                        v = None
+                    vals[c] = self.hist._value_code(v)
                     chosen[c] = e.msg[2] != NULL_VALUE
         self._env_kind = kinds
         self._env_val = vals
@@ -555,10 +751,16 @@ class CompiledActorTensor(TensorModel):
             else:
                 assert isinstance(c, Send)
                 snd = Envelope(src=Id(i), dst=c.dst, msg=c.msg)
-                if not self.general and snd.msg[0] == "put":
+                if (
+                    not self.general
+                    and snd.msg[0] == "put"
+                    and self._put_count == 1
+                ):
                     # put_count=1 histories invoke every write at start; a
                     # mid-run put means the workload isn't the declared
-                    # script
+                    # script (multi-op workloads send their later puts
+                    # mid-run by design: the multi-op codec's phase indices
+                    # model exactly that)
                     raise CompileError(
                         "a client declaring put_count=1 sent a put mid-run: "
                         "its sends do not match the declared one-write "
@@ -568,6 +770,142 @@ class CompiledActorTensor(TensorModel):
                 poison |= not ok
                 sends.append(sc)
         return tuple(sends), teff, poison
+
+    # -- per-channel layout --------------------------------------------------
+
+    def _build_channel_layout(self) -> None:
+        """Freeze the per-(src, dst)-channel row layout: one slot region per
+        directed channel of the envelope universe, capacity = that
+        channel's distinct-code count (so the unordered semantics can never
+        overflow a region), plus the static per-channel metadata the
+        channel step keys its Python-level structure on: which channels
+        can poison, which carry register-workload return kinds to a client,
+        which touch the recipient's timer, and the per-send-slot target
+        channel sets."""
+        chans: dict = {}
+        for c, e in enumerate(self._envs):
+            chans.setdefault(e.channel, []).append(c)
+        self._channels = sorted(chans)
+        self._ch_codes = [
+            np.asarray(chans[k], np.int32) for k in self._channels
+        ]
+        if self.ordered and self._per_channel_depth:
+            # ordered flows hold duplicates at distinct ranks, so a flow
+            # can outgrow its code universe; the knob buys headroom,
+            # bounded by the rank field's width
+            self._ch_cap = [
+                min(
+                    max(len(chans[k]), int(self._per_channel_depth)),
+                    COUNT_MASK,
+                )
+                for k in self._channels
+            ]
+        else:
+            self._ch_cap = [len(chans[k]) for k in self._channels]
+        self._ch_base = []
+        base = 0
+        for cap in self._ch_cap:
+            self._ch_base.append(base)
+            base += cap
+        self._chan_of = np.full(self._ne_padded, -1, np.int32)
+        for ci, codes in enumerate(self._ch_codes):
+            self._chan_of[codes] = ci
+        n = self.n_actors
+        self._ch_poison_any = []
+        self._ch_ret_kind = []
+        self._ch_timer = []
+        self._ch_targets = []  # per channel: per send slot k, sorted cis
+        for ci, (_s, d) in enumerate(self._channels):
+            codes = self._ch_codes[ci]
+            if d >= n:  # undeliverable destination: no deliver action
+                self._ch_poison_any.append(False)
+                self._ch_ret_kind.append(False)
+                self._ch_timer.append(False)
+                self._ch_targets.append([])
+                continue
+            self._ch_poison_any.append(
+                bool(self._poison_np[d][:, codes].any())
+            )
+            # history updates apply only when the DESTINATION is a client
+            # (the multiset step's `ci >= 0` guard): a ret-kind envelope
+            # relayed to a server must not touch the history fields
+            self._ch_ret_kind.append(
+                bool((self._env_kind[codes] != _K_OTHER).any())
+                and int(self._client_of[d]) >= 0
+            )
+            self._ch_timer.append(
+                bool((self._teff_np[d][:, codes] != -1).any())
+            )
+            ks = self._sends_np[d][:, codes, :]
+            self._ch_targets.append([
+                sorted({
+                    int(self._chan_of[c])
+                    for c in np.unique(ks[..., k][ks[..., k] >= 0])
+                })
+                for k in range(max(self.K, 1))
+            ])
+        if self._has_timers:
+            self._t_targets = [
+                [
+                    sorted({
+                        int(self._chan_of[c])
+                        for c in np.unique(
+                            self._tsends_np[i][:, k][
+                                self._tsends_np[i][:, k] >= 0
+                            ]
+                        )
+                    })
+                    for k in range(max(self.Kt, 1))
+                ]
+                for i in range(n)
+            ]
+        #: channels whose codes include a chosen-capable (non-null get_ok)
+        #: envelope: the only regions the per-channel "value chosen"
+        #: property reads
+        self._chosen_channels = [
+            ci
+            for ci, codes in enumerate(self._ch_codes)
+            if bool(self._env_chosen[codes].any())
+        ]
+
+    def _pack_network(self, pairs) -> tuple:
+        """``[(envelope, count_or_rank), ...] -> slot words`` under the
+        active layout (the per-channel analogue of ``SlotCodec.pack``:
+        sorted per region, EMPTY-padded to each region's capacity)."""
+        if not self.per_channel:
+            return self.codec.pack(pairs)
+        per: list = [[] for _ in self._channels]
+        for env, count in pairs:
+            if not 1 <= count <= COUNT_MASK:
+                raise ValueError(f"count {count} out of range for {env!r}")
+            code = self._env_code[env]  # KeyError = outside the universe
+            per[int(self._chan_of[code])].append(
+                (code << COUNT_BITS) | count
+            )
+        words: list = []
+        for ci, lst in enumerate(per):
+            cap = self._ch_cap[ci]
+            if len(lst) > cap:
+                raise ValueError(
+                    f"channel {self._channels[ci]} holds {len(lst)} "
+                    f"envelopes, exceeding its region capacity {cap}"
+                )
+            lst.sort()
+            words += lst + [SLOT_EMPTY] * (cap - len(lst))
+        return tuple(words)
+
+    def _unpack_network(self, slot_words) -> list:
+        """``slot words -> [(envelope, count_or_rank), ...]`` under the
+        active layout; words may be int64 bit patterns."""
+        if not self.per_channel:
+            return self.codec.unpack(slot_words)
+        out = []
+        for w in slot_words:
+            w = int(w) & MASK64
+            if w == SLOT_EMPTY:
+                continue
+            out.append((self._envs[w >> COUNT_BITS], w & COUNT_MASK))
+        return out
 
     def _tabulate_properties(self) -> None:
         """Freeze each factored property's predicate into per-actor (or
@@ -653,13 +991,23 @@ class CompiledActorTensor(TensorModel):
                     "(state_bound too tight, or a closure gap)"
                 )
             vals[f"a{i}"] = code
-        if not self.general:
-            for c, (phase, snap, rval, _wfail) in enumerate(
+        if self._multi:
+            for c, (phase, snaps, rval) in enumerate(
+                self.hist.fields_of_tester(st.history)
+            ):
+                vals[f"h{c}_phase"] = phase
+                for m in range(self.hist.K):
+                    vals[f"h{c}_snap{m}"] = snaps[m]
+                vals[f"h{c}_rval"] = rval
+        elif not self.general:
+            for c, (phase, snap, rval, wfail) in enumerate(
                 self.hist.fields_of_tester(st.history)
             ):
                 vals[f"h{c}_phase"] = phase
                 vals[f"h{c}_snap"] = snap
                 vals[f"h{c}_rval"] = rval
+                if self.hist.wfail_bits:
+                    vals[f"h{c}_wfail"] = wfail
         if self._has_timers:
             vals["timers"] = sum(
                 1 << i for i, t in enumerate(st.is_timer_set) if t
@@ -676,7 +1024,7 @@ class CompiledActorTensor(TensorModel):
             pairs = ((env, 1) for env in st.network.iter_all())
         else:
             pairs = st.network._counts.items()
-        return self.pk.pack(**vals) + self.codec.pack(pairs)
+        return self.pk.pack(**vals) + self._pack_network(pairs)
 
     def decode_state(self, row) -> ActorModelState:
         d = self.pk.unpack(row[: self.pw])
@@ -690,10 +1038,22 @@ class CompiledActorTensor(TensorModel):
         )
         if self.general:
             tester = None
+        elif self._multi:
+            tester = self.hist.tester_of_fields(
+                [
+                    (
+                        d[f"h{c}_phase"],
+                        tuple(d[f"h{c}_snap{m}"] for m in range(self.hist.K)),
+                        d[f"h{c}_rval"],
+                    )
+                    for c in range(self.C)
+                ]
+            )
         else:
             tester = self.hist.tester_of_fields(
                 [
-                    (d[f"h{c}_phase"], d[f"h{c}_snap"], d[f"h{c}_rval"], 0)
+                    (d[f"h{c}_phase"], d[f"h{c}_snap"], d[f"h{c}_rval"],
+                     d.get(f"h{c}_wfail", 0))
                     for c in range(self.C)
                 ]
             )
@@ -704,7 +1064,7 @@ class CompiledActorTensor(TensorModel):
             if self._has_timers
             else (False,) * self.n_actors
         )
-        pairs = self.codec.unpack(row[self.pw :])
+        pairs = self._unpack_network(row[self.pw :])
         if self.ordered:
             flows: dict = {}
             for env, rank1 in pairs:
@@ -771,6 +1131,8 @@ class CompiledActorTensor(TensorModel):
             )
         if self._boundary_np is not None:
             c["boundary"] = [t(x, torch.bool) for x in self._boundary_np]
+        if self.per_channel:
+            c["chan_of"] = t(self._chan_of)
         c["props"] = [
             None
             if entry is None
@@ -807,10 +1169,16 @@ class CompiledActorTensor(TensorModel):
         return slot_send(slots, code, enable, set_semantics=self.dup)
 
     def step_rows(self, rows: torch.Tensor):
-        """``int64[B, W] -> (int64[B, A, W], bool[B, A])``: one deliver
-        action per slot, then (lossy) one drop action per slot, then (with
-        timers) one Timeout action per actor — the JAX compiler's
-        ``_step_rows_multiset`` and ``_append_timeouts``."""
+        """``int64[B, W] -> (int64[B, A, W], bool[B, A])`` under the active
+        network packing."""
+        if self.per_channel:
+            return self._step_rows_per_channel(rows)
+        return self._step_rows_multiset(rows)
+
+    def _step_rows_multiset(self, rows: torch.Tensor):
+        """One deliver action per slot, then (lossy) one drop action per
+        slot, then (with timers) one Timeout action per actor — the JAX
+        compiler's ``_step_rows_multiset`` and ``_append_timeouts``."""
         cst = self._consts(rows.device)
         B = rows.shape[0]
         NS, pw = self.n_slots, self.pw
@@ -895,46 +1263,23 @@ class CompiledActorTensor(TensorModel):
                 )
             fw.set("timers", tnew)
 
-        # -- history updates (put_count = 1) ---------------------------------
+        # -- history updates -------------------------------------------------
         if self.C:
             kind = cst["env_kind"][ecode]  # [B, NS]
             ci = cst["client_of"][dst.clamp(0, self.n_actors - 1)]
-            is_ret_w = valid & (kind == _K_PUT_OK) & (ci >= 0)
+            if self._multi:
+                is_ret_w = valid & (kind == _K_PUT_OK) & (ci >= 0)
+            else:
+                is_ret_w = valid & ((kind == _K_PUT_OK)
+                                    | (kind == _K_PUT_FAIL)) & (ci >= 0)
             is_ret_r = valid & (kind == _K_GET_OK) & (ci >= 0)
             rv = cst["env_val"][ecode]
-            phases = torch.stack(
-                [pk.get(rows, f"h{c}_phase") for c in range(self.C)], -1
-            )  # [B, C]
-            # completed-op count per thread, derived from its phase
-            comp = torch.where(
-                phases == PHASE_W_INFLIGHT,
-                0,
-                torch.where(phases == PHASE_DONE, 2, 1),
-            )  # [B, C]
+            parents = self._history_parents(rows)
             for c in range(self.C):
-                m_w = is_ret_w & (ci == c)  # write returned + read invoked
-                m_r = is_ret_r & (ci == c)
-                cur_ph = phases[:, c : c + 1]
-                fw.set(
-                    f"h{c}_phase",
-                    torch.where(
-                        m_w,
-                        PHASE_R_INFLIGHT,
-                        torch.where(m_r, PHASE_DONE, cur_ph),
-                    ),
+                self._client_history(
+                    fw, rows, parents, is_ret_w & (ci == c),
+                    is_ret_r & (ci == c), kind, rv, c, (B, NS),
                 )
-                # read-invocation snapshot: other threads' completed counts
-                if self.C > 1:
-                    snap = torch.zeros((B, 1), dtype=torch.int64, device=dev)
-                    for j in range(self.C):
-                        if j == c:
-                            continue
-                        slot = self.hist._snap_slot(c, j)
-                        snap = snap | (comp[:, j : j + 1] << (2 * slot))
-                    cur_snap = pk.get(rows, f"h{c}_snap")[:, None]
-                    fw.set(f"h{c}_snap", torch.where(m_w, snap, cur_snap))
-                cur_rv = pk.get(rows, f"h{c}_rval")[:, None]
-                fw.set(f"h{c}_rval", torch.where(m_r, rv, cur_rv))
 
         cur_poison = pk.get(rows, "poison")[:, None]
         fw.set("poison", torch.maximum(poison.to(torch.int64), cur_poison))
@@ -967,6 +1312,73 @@ class CompiledActorTensor(TensorModel):
             succ = torch.cat([succ, succ_t], dim=1)
             valid = torch.cat([valid, valid_t], dim=1)
         return succ, valid
+
+    def _history_parents(self, rows):
+        """The parent rows' phase fields ``[B, C]`` and each thread's
+        completed-op count derived from them (what a newly invoked op's
+        snapshot records), computed once per step."""
+        phases = torch.stack(
+            [self.pk.get(rows, f"h{c}_phase") for c in range(self.C)], -1
+        )
+        if self._multi:
+            comp = phases >> 1
+        elif self.C > 1:
+            comp = torch.where(
+                phases == PHASE_W_INFLIGHT,
+                0,
+                torch.where(phases == PHASE_DONE, 2, 1),
+            )
+        else:
+            comp = None
+        return phases, comp
+
+    def _client_history(self, fw, rows, parents, m_w, m_r, kind, rv, c,
+                        shape):
+        """Client ``c``'s history update where ``m_w`` (a write returned)
+        or ``m_r`` (the read returned) holds, over one action block of
+        ``shape``: the JAX compiler's history loops, shared by both
+        packings.  ``parents`` is :meth:`_history_parents` of ``rows``;
+        every current field value is the parent row's (the block's rows are
+        copies of its parent's)."""
+        pk = self.pk
+        phases, comp = parents
+        cur_ph = phases[:, c:c + 1]
+
+        def cur(name):
+            return pk.get(rows, f"h{c}_{name}")[:, None]
+
+        def peer_snap(entry_bits):
+            snap = torch.zeros(shape, dtype=torch.int64, device=rows.device)
+            for j in range(self.C):
+                if j != c:
+                    slot = self.hist._snap_slot(c, j)
+                    snap = snap | (comp[:, j:j + 1] << (entry_bits * slot))
+            return snap
+
+        if self._multi:
+            # phase = 2*completed + in_flight: a put_ok return invokes the
+            # next op in the same transition (+2); the read's return just
+            # completes (+1).  The newly invoked op's snapshot (the peers'
+            # completed counts) goes to the snap field of the op it
+            # belongs to.
+            fw.set(f"h{c}_phase", torch.where(
+                m_w, cur_ph + 2, torch.where(m_r, cur_ph + 1, cur_ph)))
+            snap = peer_snap(self.hist.snap_entry_bits)
+            cur_comp = comp[:, c:c + 1]
+            for m in range(self.hist.K):
+                fw.set(f"h{c}_snap{m}", torch.where(
+                    m_w & (cur_comp == m), snap, cur(f"snap{m}")))
+            fw.set(f"h{c}_rval", torch.where(m_r, rv, cur("rval")))
+            return
+        fw.set(f"h{c}_phase", torch.where(
+            m_w, PHASE_R_INFLIGHT, torch.where(m_r, PHASE_DONE, cur_ph)))
+        if self.C > 1:
+            # read-invocation snapshot: other threads' completed counts
+            fw.set(f"h{c}_snap", torch.where(m_w, peer_snap(2), cur("snap")))
+        fw.set(f"h{c}_rval", torch.where(m_r, rv, cur("rval")))
+        if self.hist.wfail_bits:
+            fw.set(f"h{c}_wfail", torch.where(
+                m_w & (kind == _K_PUT_FAIL), 1, cur("wfail")))
 
     def _timeouts(self, rows, slots, raw, safe, cst):
         """One Timeout action column per actor (reference
@@ -1004,6 +1416,201 @@ class CompiledActorTensor(TensorModel):
         fw_t.set("poison", torch.maximum(poison_t.to(torch.int64), cur_poison))
         succ_t = torch.cat([fw_t.done(), slot_canonicalize(slots_t)], dim=-1)
         return succ_t, valid_t
+
+    # -- per-channel step ----------------------------------------------------
+
+    def _region(self, rows, ci: int):
+        """Channel ``ci``'s slot region: a static last-axis slice."""
+        base = self.pw + self._ch_base[ci]
+        return rows[..., base: base + self._ch_cap[ci]]
+
+    def _region_codes(self, reg, ci: int):
+        """Occupied mask and envelope codes of a region's words; a free
+        slot reads the channel's first code, a code past the universe the
+        last code."""
+        occ = reg != _EMPTY
+        ecode = torch.where(occ, lshr(reg, COUNT_BITS),
+                            int(self._ch_codes[ci][0]))
+        return occ, ecode.clamp_(max=self._ne_padded - 1)
+
+    def _broadcast_region(self, rows, t: int, lead: int):
+        B = rows.shape[0]
+        return self._region(rows, t)[:, None, :].expand(
+            B, lead, self._ch_cap[t])
+
+    def _assemble_piece(self, outp, rows, lead, work):
+        """One action family's row piece ``[B, lead, W]``: the updated
+        packed words plus every slot region — touched regions (members of
+        ``work``, re-canonicalized) in place, untouched regions as
+        broadcast copies of the input slice."""
+        parts = [outp]
+        for t in range(len(self._channels)):
+            if t in work:
+                parts.append(slot_canonicalize(work[t]))
+            else:
+                parts.append(self._broadcast_region(rows, t, lead))
+        return torch.cat(parts, dim=-1)
+
+    def _apply_sends(self, work, rows, valid, send_codes, targets, cst,
+                     lead):
+        """Apply one action family's sends, confined per static target
+        channel: ``send_codes`` ``[B, lead, K]``; ``targets[k]`` lists the
+        channels send slot ``k`` can reach (from the frozen tables).
+        Returns the overflow mask ``[B, lead]``, or None where overflow is
+        statically impossible (duplicating regions sized to their code
+        universe)."""
+        overflow = None
+        for k in range(min(send_codes.shape[-1], len(targets))):
+            sk = send_codes[..., k]  # [B, lead]
+            for t in targets[k]:
+                cur = work.get(t)
+                if cur is None:
+                    cur = self._broadcast_region(rows, t, lead)
+                en = valid & (sk >= 0) & (cst["chan_of"][sk.clamp(min=0)] == t)
+                if self.ordered:
+                    cur, of = region_send_ordered(cur, sk, en)
+                else:
+                    cur, of = slot_send(cur, sk, en, set_semantics=self.dup)
+                work[t] = cur
+                if not self.dup:  # set-semantics regions cannot overflow
+                    overflow = of if overflow is None else (overflow | of)
+        return overflow
+
+    def _consumed(self, reg, occ):
+        """``[B, cap(action), cap(word)]``: the region after consuming slot
+        ``a`` (one copy, or the flow head and the rest of the flow
+        advanced by one rank): the non-duplicating deliver and drop
+        effect."""
+        B, cap = reg.shape
+        reg_b = reg[:, None, :].expand(B, cap, cap)
+        diag = torch.eye(cap, dtype=torch.bool, device=reg.device)[None]
+        if self.ordered:
+            occ_b = occ[:, None, :].expand(B, cap, cap)
+            return torch.where(diag, _EMPTY,
+                               torch.where(occ_b, reg_b - 1, reg_b))
+        gone = torch.where((reg & COUNT_MASK) <= 1, _EMPTY, reg - 1)
+        return torch.where(diag, gone[:, :, None], reg_b)
+
+    def _step_rows_per_channel(self, rows: torch.Tensor):
+        """The per-channel twin's step (the JAX compiler's
+        ``_step_rows_per_channel``): the successor stack is one action-axis
+        concatenation of per-channel pieces — the deliveries of each
+        channel, then (lossy) the drops of each channel, then (with timers)
+        one Timeout action per actor — whose writes are confined to the
+        channel's own region, the recipient's packed fields and the send
+        target regions."""
+        cst = self._consts(rows.device)
+        B = rows.shape[0]
+        ne = self._ne_padded
+        pk = self.pk
+        n = self.n_actors
+        raw, safe = self._codes(rows)
+        packed = rows[:, : self.pw]
+
+        def packed_broadcast(lead):
+            return packed[:, None, :].expand(B, lead, self.pw)
+
+        pieces, valids = [], []
+        parents = self._history_parents(rows) if self.C else None
+
+        # -- deliver actions: one per (channel, slot) -----------------------
+        for ci, (_s, d) in enumerate(self._channels):
+            if d >= n:
+                continue
+            cap = self._ch_cap[ci]
+            reg = self._region(rows, ci)  # [B, cap]
+            occ, ecode = self._region_codes(reg, ci)
+            flat = safe[d][:, None] * ne + ecode  # [B, cap], in range
+            nc = cst["trans"][d][flat]
+            valid = occ & (nc >= 0)
+            if self.ordered:
+                valid = valid & ((reg & COUNT_MASK) == 1)
+            poison = None
+            if self._ch_poison_any[ci]:
+                poison = occ & cst["poison"][d][flat]
+
+            work = {} if self.dup else {ci: self._consumed(reg, occ)}
+            of = self._apply_sends(work, rows, valid, cst["sends"][d][flat],
+                                   self._ch_targets[ci], cst, cap)
+            if of is not None:
+                poison = of if poison is None else (poison | of)
+
+            fw = FieldWriter(pk, packed_broadcast(cap))
+            fw.set(f"a{d}", torch.where(valid, nc, raw[d][:, None]))
+            if self._ch_ret_kind[ci] and self.C:
+                kind = cst["env_kind"][ecode]
+                if self._multi:
+                    m_w = valid & (kind == _K_PUT_OK)
+                else:
+                    m_w = valid & ((kind == _K_PUT_OK) | (kind == _K_PUT_FAIL))
+                self._client_history(
+                    fw, rows, parents, m_w, valid & (kind == _K_GET_OK), kind,
+                    cst["env_val"][ecode], int(self._client_of[d]), (B, cap),
+                )
+            if self._has_timers and self._ch_timer[ci]:
+                eff = cst["teff"][d][flat]  # [B, cap]
+                tcur = pk.get(rows, "timers")[:, None]
+                bit = (tcur >> d) & 1
+                nb = torch.where(valid & (eff == 1), 1,
+                                 torch.where(valid & (eff == 0), 0, bit))
+                fw.set("timers", (tcur & ~(1 << d)) | (nb << d))
+            if poison is not None:
+                fw.or_field("poison", poison)
+            pieces.append(self._assemble_piece(fw.done(), rows, cap, work))
+            valids.append(valid)
+
+        # -- drop actions (lossy): every channel, network-only effect -------
+        if self.model.lossy:
+            for ci in range(len(self._channels)):
+                cap = self._ch_cap[ci]
+                reg = self._region(rows, ci)
+                occ = reg != _EMPTY
+                if self.dup:
+                    # only drops remove from a duplicating network
+                    diag = torch.eye(cap, dtype=torch.bool,
+                                     device=rows.device)[None]
+                    dropped = torch.where(
+                        diag, _EMPTY, reg[:, None, :].expand(B, cap, cap))
+                    droppable = occ
+                else:
+                    # a drop's network effect IS the deliver consume
+                    dropped = self._consumed(reg, occ)
+                    droppable = (occ & ((reg & COUNT_MASK) == 1)
+                                 if self.ordered else occ)
+                pieces.append(self._assemble_piece(
+                    packed_broadcast(cap), rows, cap, {ci: dropped}))
+                valids.append(droppable)
+
+        # -- timeout actions: one per actor ---------------------------------
+        if self._has_timers:
+            tcur_all = pk.get(rows, "timers")  # [B]
+            for i in range(n):
+                nc = cst["ttrans"][i][safe[i]]
+                nb = cst["tbit"][i][safe[i]]
+                valid_i = (((tcur_all >> i) & 1) == 1)[:, None]  # [B, 1]
+                fw = FieldWriter(pk, packed_broadcast(1))
+                fw.set(f"a{i}",
+                       torch.where(valid_i, nc[:, None], raw[i][:, None]))
+                fw.set("timers",
+                       (tcur_all[:, None] & ~(1 << i)) | (nb[:, None] << i))
+                work: dict = {}
+                ks = cst["tsends"][i][safe[i]][:, None, :]  # [B, 1, Kt]
+                of = self._apply_sends(work, rows, valid_i, ks,
+                                       self._t_targets[i], cst, 1)
+                poison = None
+                if bool(self._tpoison_np[i].any()):
+                    poison = valid_i & cst["tpoison"][i][safe[i]][:, None]
+                if of is not None:
+                    poison = of if poison is None else (poison | of)
+                if poison is not None:
+                    fw.or_field("poison", poison)
+                pieces.append(self._assemble_piece(fw.done(), rows, 1, work))
+                valids.append(valid_i)
+
+        if not pieces:  # message-less, timer-less: one never-valid column
+            return (rows[:, None, :],
+                    torch.zeros((B, 1), dtype=torch.bool, device=rows.device))
+        return torch.cat(pieces, dim=1), torch.cat(valids, dim=-1)
 
     @property
     def has_boundary(self) -> bool:
@@ -1065,11 +1672,39 @@ class CompiledActorTensor(TensorModel):
                 [pk.get(rows, f"h{c}_{name}") for c in range(self.C)], -1
             )
 
-        linearizable = self.hist.device_verdict(
-            fields("phase"), fields("snap"), fields("rval")
-        )
-        occ, ecode = self._slot_codes(rows[:, self.pw :])
-        chosen = (occ & cst["env_chosen"][ecode]).any(dim=-1)
+        phases, rvals = fields("phase"), fields("rval")
+        if self._multi:
+            snaps = torch.stack(
+                [
+                    torch.stack(
+                        [pk.get(rows, f"h{c}_snap{m}")
+                         for m in range(self.hist.K)],
+                        -1,
+                    )
+                    for c in range(self.C)
+                ],
+                -2,
+            )  # [B, C, K]
+            linearizable = self.hist.device_lookup(
+                self.hist.device_key(phases, snaps, rvals))
+        elif self.hist.strategy == "closure":
+            linearizable = self.hist.device_verdict(
+                phases, fields("snap"), rvals)
+        else:
+            wfails = fields("wfail") if self.hist.wfail_bits else None
+            linearizable = self.hist.device_lookup(
+                self.hist.device_key(phases, fields("snap"), rvals, wfails))
+
+        if self.per_channel:
+            # only the chosen-capable channels' regions: get_ok envelopes
+            # live on statically known server→client channels
+            chosen = torch.zeros((B,), dtype=torch.bool, device=rows.device)
+            for ci in self._chosen_channels:
+                occ, ecode = self._region_codes(self._region(rows, ci), ci)
+                chosen = chosen | (occ & cst["env_chosen"][ecode]).any(dim=-1)
+        else:
+            occ, ecode = self._slot_codes(rows[:, self.pw :])
+            chosen = (occ & cst["env_chosen"][ecode]).any(dim=-1)
         masks = {"linearizable": linearizable, "value chosen": chosen}
         return torch.stack(
             [

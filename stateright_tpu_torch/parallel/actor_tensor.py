@@ -1,9 +1,8 @@
 """Device encoding of the in-model network: a sorted-slot multiset.
 
 The port's counterpart of ``stateright_tpu/parallel/actor_tensor.py``: the
-slot codec and the slot-multiset ops as plain PyTorch on int64 bit
-patterns (``ops/hashing.py``).  The per-channel ordered send
-(``region_send_ordered``) comes with the per-channel encoding.
+slot codec, the slot-multiset ops and the per-channel ordered send as
+plain PyTorch on int64 bit patterns (``ops/hashing.py``).
 
 The reference's unordered non-duplicating network is a multiset of
 envelopes (``src/actor/network.rs:188-190``).  The tensor form packs each
@@ -25,6 +24,8 @@ Device ops (pure, batched over leading axes):
    :func:`slot_canonicalize`).
  - :func:`slot_send_ordered` — append at the tail of the envelope's
    directed flow (ordered networks: the count bits hold the 1-based rank).
+ - :func:`region_send_ordered` — the same append inside one channel's
+   slot region of the per-channel packing, where the region IS the flow.
  - :func:`slot_canonicalize` — re-sort so EMPTY slots sink to the end.
 
 Host-side, :class:`SlotCodec` mirrors the packing for ``encode_state`` /
@@ -192,3 +193,28 @@ def slot_canonicalize(slots: torch.Tensor) -> torch.Tensor:
     """Sort slots ascending as unsigned words; EMPTY (all ones) sinks to
     the end."""
     return torch.sort(slots ^ SIGN, dim=-1).values ^ SIGN
+
+
+def region_send_ordered(reg: torch.Tensor, code: torch.Tensor,
+                        enable: torch.Tensor):
+    """Ordered append for the per-channel packing: ``reg`` is one directed
+    channel's slot region, which under that layout IS a single FIFO flow,
+    so no ``pair_lookup`` is needed (contrast :func:`slot_send_ordered`).
+    Appends ``code`` at the tail: the claimed slot's count bits get rank
+    ``1 + |occupied slots in the region|``.  Returns ``(reg, overflow)``;
+    overflow = no free slot, or the flow is already ``COUNT_MASK`` deep
+    (the rank would corrupt the code bits)."""
+    n = reg.shape[-1]
+    occ = slot_occupied(reg)
+    depth = occ.sum(dim=-1)
+    free = ~occ
+    first_free = torch.argmax(free.to(torch.int8), dim=-1)
+    any_free = free.any(dim=-1)
+    too_deep = depth >= COUNT_MASK
+    claim = enable & any_free & ~too_deep
+    lanes = torch.arange(n, device=reg.device)
+    onehot = (lanes == first_free[..., None]) & claim[..., None]
+    neww = (code << COUNT_BITS) | (depth + 1)
+    claimed = torch.where(onehot, neww[..., None], reg)
+    overflow = enable & (~any_free | too_deep)
+    return claimed, overflow

@@ -2,10 +2,9 @@
 
 The port's counterpart of ``stateright_tpu/parallel/history_tensor.py``:
 :func:`closure_verdict`, the verdict the paxos twin evaluates on every
-popped row, and :class:`LinHistoryCodec`, the ``put_count=1`` history
-codec the actor compiler (``parallel/actor_compiler.py``) packs into its
-rows.  ``MultiOpLinHistoryCodec`` (``put_count >= 2``) comes with the
-multi-op register workload.
+popped row, :class:`LinHistoryCodec`, the ``put_count=1`` history codec
+the actor compiler (``parallel/actor_compiler.py``) packs into its rows,
+and :class:`MultiOpLinHistoryCodec`, its ``put_count >= 2`` counterpart.
 
 The joint tester state of the ``put_count=1`` register workload is small
 and enumerable.  Per thread it is three fields (2 + 2·(C−1) + 3 bits):
@@ -400,3 +399,235 @@ class LinHistoryCodec(_TableCodecBase):
             for i in range(C)
         ], dim=-2)
         return closure_verdict(done, s, rvals)
+
+
+class MultiOpLinHistoryCodec(_TableCodecBase):
+    """Host+device codec for ``put_count >= 2`` register workloads
+    (reference ``src/actor/register.rs:96,178-186``: each client performs
+    ``put_count`` writes then one read, every op invoked in the same
+    transition that returns its predecessor).
+
+    Per-thread packed fields:
+
+     - ``phase`` = ``2*completed + in_flight``: ``completed`` ops have
+       returned (0..K+1) and the next op is in flight or not.  Stored
+       states always have an op in flight until the read returns, so
+       stored phases are odd, plus the final ``2*(K+1)``; even
+       intermediates appear only inside the event enumeration.
+     - ``snap[m]`` for ``m`` in ``0..K-1``: the invocation snapshot of op
+       ``m+2`` (op 1 is invoked at start with an empty snapshot): per
+       peer, how many ops it had completed, ``ceil(log2(K+2))`` bits
+       each.  Write invocations carry real-time snapshots here too.
+     - ``rval``: index of the value the read returned (0 = null).
+
+    Only the table strategy exists: every reachable joint tester state is
+    enumerated on the host through the real
+    :class:`~stateright_tpu_torch.semantics.LinearizabilityTester`, and the
+    sorted keys with their exact verdicts go to the device
+    (:meth:`device_lookup`)."""
+
+    def __init__(
+        self,
+        threads: list,
+        scripts: list,
+        null_value,
+        tester_factory=None,
+        max_states: int = 2_000_000,
+    ):
+        self.threads = [int(t) for t in threads]
+        self.scripts = [list(s) for s in scripts]  # per-thread write values
+        if not self.scripts or any(len(s) < 1 for s in self.scripts):
+            raise ValueError("every thread needs at least one write")
+        self.null_value = null_value
+        self.C = C = len(threads)
+        self.K = K = max(len(s) for s in self.scripts)
+        if any(len(s) != K for s in self.scripts):
+            raise ValueError("per-thread put_counts must be uniform")
+        # distinct written values, first-appearance order, code 1..V
+        self.values: list = []
+        for s in self.scripts:
+            for v in s:
+                if v not in self.values:
+                    self.values.append(v)
+        self.phase_bits = max(1, int(np.ceil(np.log2(2 * (K + 1) + 1))))
+        self.snap_entry_bits = max(1, int(np.ceil(np.log2(K + 2))))
+        self.snap_bits = self.snap_entry_bits * max(1, C - 1)
+        self.rval_bits = max(3, int(np.ceil(np.log2(len(self.values) + 2))))
+        self.thread_bits = self.phase_bits + K * self.snap_bits + self.rval_bits
+        if C * self.thread_bits > 62:
+            raise ValueError(
+                f"joint key needs {C * self.thread_bits} bits (> 62): "
+                f"too many clients/ops for the table strategy "
+                f"(C={C}, put_count={K})"
+            )
+        self.strategy = "table"
+        self.wfail_bits = 0  # write-once workloads are K=1-only
+        if tester_factory is None:
+            tester_factory = lambda: LinearizabilityTester(Register(null_value))
+        self._tester_factory = tester_factory
+        self._max_states = max_states
+        self._table_dev: dict = {}
+        self._table_built = False
+        self.ensure_table()
+
+    def _ops(self, i: int) -> list:
+        """Thread ``i``'s full op script: K writes then the read."""
+        return [write(v) for v in self.scripts[i]] + [READ]
+
+    # -- packing -------------------------------------------------------------
+
+    def pack_thread(self, phase: int, snaps: tuple, rval: int) -> int:
+        word = phase
+        off = self.phase_bits
+        for m in range(self.K):
+            word |= (snaps[m] if m < len(snaps) else 0) << off
+            off += self.snap_bits
+        word |= rval << off
+        return word
+
+    def _snap_of(self, i: int, snap_src) -> int:
+        snap = 0
+        for peer, idx in snap_src:
+            j = self._thread_index(peer)
+            snap |= (idx + 1) << (
+                self.snap_entry_bits * self._snap_slot(i, j)
+            )
+        return snap
+
+    # -- tester <-> fields ---------------------------------------------------
+
+    def fields_of_tester(self, tester: LinearizabilityTester) -> list:
+        """Per-thread ``(phase, snaps, rval)`` of a tester state."""
+        if not tester.valid:
+            raise ValueError("invalid (protocol-misuse) tester state")
+        fields = []
+        for i, t in enumerate(self.threads):
+            ops = self._ops(i)
+            completed = tester.history_by_thread.get(t, ())
+            in_flight = tester.in_flight_by_thread.get(t)
+            j = len(completed)
+            snaps = [0] * self.K
+            rval = 0
+            for m, (snap_src, op, ret) in enumerate(completed):
+                if op != ops[m]:
+                    raise ValueError(f"thread {t}: op {m} mismatch")
+                if m >= 1:
+                    snaps[m - 1] = self._snap_of(i, snap_src)
+                if op == READ:
+                    if ret[0] != "read_ok":
+                        raise ValueError(f"thread {t}: bad read return")
+                    rval = self._value_code(ret[1])
+                elif ret != ("write_ok",):
+                    raise ValueError(f"thread {t}: bad write return")
+            if in_flight is not None:
+                if j >= len(ops) or in_flight[1] != ops[j]:
+                    raise ValueError(f"thread {t}: unexpected in-flight op")
+                if j >= 1:
+                    snaps[j - 1] = self._snap_of(i, in_flight[0])
+                phase = 2 * j + 1
+            else:
+                phase = 2 * j
+            fields.append((phase, tuple(snaps), rval))
+        return fields
+
+    def _snap_tuple(self, i: int, snaps: tuple, m: int) -> tuple:
+        """The invocation snapshot of thread ``i``'s op ``m`` (0-based; op
+        0 is invoked at start with an empty snapshot)."""
+        if m == 0:
+            return ()
+        raw = snaps[m - 1]
+        eb = self.snap_entry_bits
+        out = []
+        for p in range(self.C):
+            if p == i:
+                continue
+            v = (raw >> (eb * self._snap_slot(i, p))) & ((1 << eb) - 1)
+            if v:
+                out.append((self.threads[p], v - 1))
+        return tuple(sorted(out))
+
+    def tester_of_fields(self, fields: list) -> LinearizabilityTester:
+        history: dict = {}
+        in_flight: dict = {}
+        for i, (phase, snaps, rval) in enumerate(fields):
+            t = self.threads[i]
+            ops = self._ops(i)
+            j, fl = phase >> 1, phase & 1
+            hist = []
+            for m in range(j):
+                op = ops[m]
+                ret = (
+                    ("read_ok", self._value_decode(rval))
+                    if op == READ
+                    else ("write_ok",)
+                )
+                hist.append((self._snap_tuple(i, snaps, m), op, ret))
+            history[t] = tuple(hist)
+            if fl:
+                in_flight[t] = (self._snap_tuple(i, snaps, j), ops[j])
+        tester = self._tester_factory()
+        return type(tester)(
+            tester.init_ref_obj, history, in_flight, valid=True
+        )
+
+    # -- enumeration ---------------------------------------------------------
+
+    def _enumerate(self, max_states: int) -> None:
+        init = self._tester_factory()
+        for i, t in enumerate(self.threads):
+            init = init.on_invoke(t, write(self.scripts[i][0]))
+        seen = {init}
+        queue = deque([init])
+        read_rets = [("read_ok", self.null_value)] + [
+            ("read_ok", v) for v in self.values
+        ]
+        while queue:
+            tester = queue.popleft()
+            if len(seen) > max_states:
+                raise RuntimeError(
+                    f"joint tester enumeration exceeded {max_states} states"
+                )
+            for i, t in enumerate(self.threads):
+                ops = self._ops(i)
+                in_flight = tester.in_flight_by_thread.get(t)
+                completed = tester.history_by_thread.get(t, ())
+                if in_flight is not None:
+                    rets = (
+                        read_rets if in_flight[1] == READ else [("write_ok",)]
+                    )
+                    succs = [tester.on_return(t, r) for r in rets]
+                elif len(completed) < len(ops):
+                    succs = [tester.on_invoke(t, ops[len(completed)])]
+                else:
+                    continue
+                for s in succs:
+                    if s not in seen:
+                        seen.add(s)
+                        queue.append(s)
+        keys = np.empty(len(seen), np.int64)
+        oks = np.empty(len(seen), bool)
+        for n, tester in enumerate(seen):
+            keys[n] = self.key_of_fields(self.fields_of_tester(tester))
+            oks[n] = tester.is_consistent()
+        order = np.argsort(keys)
+        self.table_keys = keys[order]
+        self.table_ok = oks[order]
+
+    # -- device --------------------------------------------------------------
+
+    def device_key(self, phases, snaps, rvals, wfails=None) -> torch.Tensor:
+        """``phases``/``rvals``: ``[..., C]`` int64; ``snaps``:
+        ``[..., C, K]`` int64.  Packs int64 keys mirroring
+        :meth:`key_of_fields` (at most 62 bits, so signed order is the
+        table's order)."""
+        key = torch.zeros(phases.shape[:-1], dtype=torch.int64,
+                          device=phases.device)
+        for i in range(self.C):
+            word = phases[..., i]
+            off = self.phase_bits
+            for m in range(self.K):
+                word = word | (snaps[..., i, m] << off)
+                off += self.snap_bits
+            word = word | (rvals[..., i] << off)
+            key = key | (word << (i * self.thread_bits))
+        return key

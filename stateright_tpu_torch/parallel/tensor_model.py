@@ -106,8 +106,7 @@ class TensorBackedModel:
 class FieldWriter:
     """Packed-field write accumulator over a :class:`BitPacker` block, eager
     mode: every ``set`` applies through ``pk.set`` at call time
-    (``stateright_tpu``'s ``FieldWriter(coalesce=False)``; its ``get`` and
-    ``or_field`` come with the first twin that uses them)."""
+    (``stateright_tpu``'s ``FieldWriter(coalesce=False)``)."""
 
     def __init__(self, pk: "BitPacker", base):
         self.pk = pk
@@ -117,6 +116,19 @@ class FieldWriter:
         """Write field ``name`` (int64[...] matching the block's leading
         shape, or a Python int)."""
         self.cur = self.pk.set(self.cur, name, value)
+        return self
+
+    def get(self, name: str):
+        """Current value of field ``name`` in the running block."""
+        return self.pk.get(self.cur, name)
+
+    def or_field(self, name: str, flag) -> "FieldWriter":
+        """OR ``flag`` (bool[...]) into the 1-bit packed field ``name``
+        without reading the field back: the word keeps every other bit."""
+        word, off, _bits = self.pk.layout[name]
+        out = self.cur.clone()
+        out[..., word] = self.cur[..., word] | (flag.to(torch.int64) << off)
+        self.cur = out
         return self
 
     def done(self):

@@ -139,8 +139,12 @@ class _Engine:
     # -- step pieces ---------------------------------------------------------
 
     def _record_first(self, cur, hit, fps):
-        """First-wins discovery at the first hit row."""
-        fp = fps[torch.argmax(hit.to(torch.int8))]
+        """First-wins discovery at the first hit row.  The first row is
+        gathered with ``index_select`` on a one-element index: indexing
+        with a 0-d tensor would read the index on the host (a
+        device-to-host copy and a stream sync per property per step)."""
+        first = torch.argmax(hit.to(torch.int8)).reshape(1)
+        fp = fps.index_select(0, first).squeeze(0)
         take = (cur == 0) & hit.any()
         return torch.where(take, fp, cur)
 

@@ -1,9 +1,9 @@
 """Consistency semantics (reference L7: ``src/semantics.rs`` + ``src/semantics/``).
 
 The port's own copy of ``stateright_tpu/semantics/__init__.py``, cut to
-what the paxos slice needs: :class:`SequentialSpec`,
-:class:`ConsistencyTester`, the register spec and the linearizability
-tester.  The vector spec, the write-once register and the sequential
+what the ported models check: :class:`SequentialSpec`,
+:class:`ConsistencyTester`, the register and write-once register specs and
+the linearizability tester.  The vector spec and the sequential
 consistency tester come with the slices that check them.
 
 Correctness of a concurrent system is defined against a *sequential
@@ -29,6 +29,7 @@ __all__ = [
     "SequentialSpec",
     "ConsistencyTester",
     "Register",
+    "WORegister",
     "LinearizabilityTester",
 ]
 
@@ -72,3 +73,4 @@ class ConsistencyTester:
 
 from .register import Register  # noqa: E402
 from .linearizability import LinearizabilityTester  # noqa: E402
+from .write_once_register import WORegister  # noqa: E402

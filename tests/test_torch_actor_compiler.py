@@ -11,7 +11,7 @@ and its register workloads against the JAX package, tolerance 0:
  - the engine (``spawn_gpu(device="cpu")``) against
    ``spawn_tpu(sync=True)`` at the same capacities: counts, discoveries and
    traces, table bytes and queue rows;
- - the models and arguments whose parts wait raise ``CompileError``.
+ - the models outside the compilable fragment raise ``CompileError``.
 """
 
 import numpy as np
@@ -423,11 +423,19 @@ def test_register_workload_accepts_extra_factored_properties():
 
 
 def test_what_waits_raises_compile_error():
-    with pytest.raises(CompileError, match="MultiOpLinHistoryCodec"):
-        compile_actor_model(single_copy_model(2, 1, put_count=2))
+    """put_count >= 2 and the write-once recorders compile now
+    (``test_torch_multi_op.py``, ``test_torch_write_once.py``); any other
+    recorder, an opaque property and an opaque boundary still raise."""
+    assert isinstance(compile_actor_model(single_copy_model(2, 1,
+                                                            put_count=2)),
+                      CompiledActorTensor)
     m = single_copy_model(2, 1)
     m.record_msg_in(lambda cfg, h, env: None)
     with pytest.raises(CompileError, match="write-once"):
+        compile_actor_model(m)
+    m = single_copy_model(2, 1)
+    m.record_msg_out(lambda cfg, h, env: None)
+    with pytest.raises(CompileError, match="record_invocations"):
         compile_actor_model(m)
     m = single_copy_model(2, 1)
     m.property(Expectation.ALWAYS, "opaque", lambda mm, s: True)
@@ -440,7 +448,9 @@ def test_what_waits_raises_compile_error():
 
 
 def test_models_without_a_twin_raise():
-    for m in (single_copy_model(2, 1, put_count=2),
+    mixed = single_copy_model(2, 1)
+    mixed.actors[-1].put_count = 2  # put counts must be uniform
+    for m in (mixed,
               abd_model(1, 2, Network.new_unordered_duplicating()),
               paxos_model(1, 3, Network.new_unordered_duplicating())):
         assert m.tensor_model() is None

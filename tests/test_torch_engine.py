@@ -14,12 +14,16 @@ import pytest
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from fixtures_sweep import BoundedCounterSys as JaxCounterSys
 from stateright_tpu.models.two_phase_commit import TwoPhaseSys as JaxSys
 from stateright_tpu_torch import convert
 from stateright_tpu_torch.core import Model, Property
-from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+from stateright_tpu_torch.models.two_phase_commit import (
+    TwoPhaseSys,
+    TwoPhaseTensor,
+)
 from stateright_tpu_torch.parallel.tensor_model import (
     BitPacker,
     TensorBackedModel,
@@ -242,6 +246,18 @@ def test_port_run_loads_neither_jax_nor_the_reference():
         "assert s.unique_state_count() == 93, s.unique_state_count()\n"
         "r = raft_model(3).checker().spawn_gpu(device='cpu').join()\n"
         "assert r.unique_state_count() == 5725, r.unique_state_count()\n"
+        "from stateright_tpu_torch.models.write_once_register import "
+        "wo_register_model\n"
+        "w = wo_register_model(2).checker().spawn_gpu(device='cpu').join()\n"
+        "assert w.unique_state_count() == 71, w.unique_state_count()\n"
+        "s2 = single_copy_model(2, 1, put_count=2).checker().spawn_gpu(\n"
+        "    device='cpu').join()\n"
+        "assert s2.unique_state_count() == 369, s2.unique_state_count()\n"
+        "pc = paxos_model(1)\n"
+        "pc.per_channel_()\n"
+        "assert pc.tensor_model().network_encoding == 'per-channel'\n"
+        "pc = pc.checker().spawn_gpu(device='cpu').join()\n"
+        "assert pc.unique_state_count() == 265, pc.unique_state_count()\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'stateright_tpu.'))\n"
         "       or m == 'stateright_tpu']\n"
@@ -291,3 +307,68 @@ def test_queue_rows_match_jax_engine(n, target):
     for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
         np.testing.assert_array_equal(np.asarray(t[k])[:tail],
                                       np.asarray(j[k])[:tail], err_msg=k)
+
+
+class SyncProbe(TorchDispatchMode):
+    """Counts the dispatched operations that read a tensor on the host:
+    on a CUDA tensor each is a device-to-host copy and a stream sync."""
+
+    HOST_READS = (
+        torch.ops.aten._local_scalar_dense.default,
+        torch.ops.aten.is_nonzero.default,
+        torch.ops.aten.nonzero.default,
+        torch.ops.aten.masked_select.default,
+    )
+
+    def __init__(self):
+        super().__init__()
+        self.hits: list = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.HOST_READS:
+            self.hits.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def sync_free_model(name):
+    from stateright_tpu_torch.models.paxos import paxos_model
+    from stateright_tpu_torch.models.paxos_tensor import PaxosTensor
+
+    if name == "2pc":
+        return TwoPhaseSys(3), TwoPhaseTensor
+    m = paxos_model(1)
+    if name == "per-channel":
+        m.per_channel_()
+        from stateright_tpu_torch.parallel.actor_compiler import (
+            CompiledActorTensor,
+        )
+        return m, CompiledActorTensor
+    return m, PaxosTensor
+
+
+@pytest.mark.parametrize("name", ["2pc", "paxos", "per-channel"])
+def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
+    """Every block of ``steps_per_call`` steps, post-stop no-ops included,
+    runs under a ``TorchDispatchMode`` probe: no operation that reads a
+    tensor on the host (``aten._local_scalar_dense`` and kin) is
+    dispatched, for 2pc, ``PaxosTensor`` and a per-channel compiled twin.
+    The host reads one packed stats tensor per block, outside the block."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    blocks = []
+    run = wavefront._Engine.run
+
+    def probed(self, carry):
+        probe = SyncProbe()
+        with probe:
+            out = run(self, carry)
+        blocks.append(probe.hits)
+        return out
+
+    monkeypatch.setattr(wavefront._Engine, "run", probed)
+    m, twin = sync_free_model(name)
+    assert isinstance(m.tensor_model(), twin)
+    c = m.checker().spawn_gpu(device="cpu", steps_per_call=4).join()
+    assert c.unique_state_count() == (288 if name == "2pc" else 265)
+    assert len(blocks) > 2
+    assert blocks == [[]] * len(blocks)

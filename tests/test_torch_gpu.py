@@ -3,8 +3,11 @@ plain PyTorch version on a CUDA device (integer outputs: equal), at the
 2pc widths, at the paxos widths (W = 18 words and A = 16 actions for
 paxos-1, W = 33 and A = 30 for paxos-3) and at the compiled twins' (W = 21
 and A = 20 for single-copy-4 and lin-reg-3-ordered, W = 25 and A = 24 for
-dining-3), and the engine's table and queue on ``cuda`` against ``cpu``
-(2pc-4, 2pc-5, a bounded 2pc-7, paxos-2, lin-reg-3-ordered and raft-3).
+dining-3, W = 83 and A = 82 for per-channel paxos-2), ``row_hash`` from W = 1
+to its widest row, and the engine's table and queue on
+``cuda`` against ``cpu`` (2pc-4, 2pc-5, a bounded 2pc-7, paxos-2,
+lin-reg-3-ordered, raft-3, per-channel paxos-1, single-copy(2,1) with two
+puts in both packings, and wo(2,1)).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -21,6 +24,8 @@ from stateright_tpu_torch.actor import Network
 from stateright_tpu_torch.models.linearizable_register import abd_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import raft_model
+from stateright_tpu_torch.models.single_copy_register import single_copy_model
+from stateright_tpu_torch.models.write_once_register import wo_register_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops.buckets import (
     PLAN_TILE,
@@ -38,7 +43,11 @@ from stateright_tpu_torch.ops.cand_prep import (
     cand_prep,
     cand_prep_plain,
 )
-from stateright_tpu_torch.ops.hashing import row_hash, row_hash_plain
+from stateright_tpu_torch.ops.hashing import (
+    ROW_HASH_MAX_WIDTH,
+    row_hash,
+    row_hash_plain,
+)
 from stateright_tpu_torch.ops.insert_commit import (
     QueueAppend,
     insert_commit,
@@ -66,7 +75,10 @@ def i64(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.uint64).view(np.int64).copy())
 
 
-@pytest.mark.parametrize("width", [1, 3])
+# 1 and 3 (2pc's and narrow rows), 21, 33 and 83 (the compiled twins' and
+# paxos widths), and 191, 192 and 200, whose tiles hold 32, 31 and 30 rows:
+# less than a warp, not a multiple of 32
+@pytest.mark.parametrize("width", [1, 3, 21, 33, 83, 191, 192, 200])
 def test_row_hash_kernel_matches_plain(cuda, width):
     rng = np.random.default_rng(width)
     rows = rand_i64(rng, 5000, width)
@@ -78,6 +90,19 @@ def test_row_hash_kernel_matches_plain(cuda, width):
         got = row_hash(rows.to(cuda), None if v is None else v.to(cuda))
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
+
+
+def test_row_hash_kernel_widest_row(cuda):
+    """At the widest row the tile holds one row; one word more raises."""
+    rng = np.random.default_rng(0)
+    rows = rand_i64(rng, 70, ROW_HASH_MAX_WIDTH)
+    valid = torch.from_numpy(rng.random(70) < 0.5)
+    got = row_hash(rows.to(cuda), valid.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), row_hash_plain(rows, valid))
+    wide = torch.zeros((2, ROW_HASH_MAX_WIDTH + 1), dtype=torch.int64)
+    with pytest.raises(ValueError, match="row_hash"):
+        row_hash(wide.to(cuda))
 
 
 def in_buckets(rng, nbuckets, keep, count):
@@ -277,8 +302,9 @@ def test_2pc7_table_and_queue_identical_on_cuda_and_cpu(cuda):
 
 
 # (width, arity) of the actor twins: paxos-1 and paxos-3 (hand-written),
-# single-copy-4 / lin-reg-3-ordered and dining-3 (compiled)
-ROW_SHAPES = [(18, 16), (33, 30), (21, 20), (25, 24)]
+# single-copy-4 / lin-reg-3-ordered, dining-3 and per-channel paxos-2
+# (compiled)
+ROW_SHAPES = [(18, 16), (33, 30), (21, 20), (25, 24), (83, 82)]
 
 
 @pytest.mark.parametrize("width,arity", ROW_SHAPES)
@@ -355,6 +381,41 @@ def test_compiled_twin_table_and_queue_identical_on_cuda_and_cpu(cuda, name):
 
     g, c = run(cuda), run("cpu")
     unique = {"linreg3_ordered": 36213, "raft3": 5725}[name]
+    assert int(g["unique"]) == int(c["unique"]) == unique
+    assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
+    tail = int(g["tail"])
+    for k in ("table_fp", "table_parent"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
+
+
+def per_channel(m):
+    m.per_channel_()
+    return m
+
+
+CHANNEL_AND_HISTORY_MODELS = {
+    "paxos1_per_channel": (lambda: per_channel(paxos_model(1)), 265),
+    "singlecopy_put2": (lambda: single_copy_model(2, 1, put_count=2), 369),
+    "singlecopy_put2_per_channel": (
+        lambda: per_channel(single_copy_model(2, 1, put_count=2)), 369),
+    "wo21": (lambda: wo_register_model(2, 1), 71),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHANNEL_AND_HISTORY_MODELS))
+def test_channel_and_history_twins_table_and_queue_identical_on_cuda_and_cpu(cuda, name):
+    """The per-channel packing and the write-once and multi-op histories:
+    the JAX engine's unique counts, and the same table bytes, cursors and
+    queue rows ``[0, tail)`` on both devices."""
+    build, unique = CHANNEL_AND_HISTORY_MODELS[name]
+
+    def run(device):
+        c = build().checker().spawn_gpu(device=device, batch=64)
+        return c.join().final_snapshot()
+
+    g, c = run(cuda), run("cpu")
     assert int(g["unique"]) == int(c["unique"]) == unique
     assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
     tail = int(g["tail"])
