@@ -63,7 +63,21 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    rows; ABD(2,2,put_count=2) (2,980 unique) and the write-once register
    wo(2,1) (71 unique) on ``cuda`` and ``cpu``, identical likewise;
  - kernels at per-channel paxos-2 shapes (W = 83): the next batch of a run
-   bounded at 8,000 unique, L2 flushed before every timed call.
+   bounded at 8,000 unique, L2 flushed before every timed call;
+ - symmetry reduction (``.symmetry().spawn_gpu()``: canonical keys through
+   ``representative_rows``, ``bucket_plan`` in generation order, two
+   launches a step): 2pc-15 complete on ``cuda`` (654,198 classes,
+   10,982,530 states, both agreement discoveries replayed through the
+   class-matching walk, ``consistent`` never violated, every kernel
+   launched, with its wall time, states/s, steps and launches per step);
+   2pc-7 (2,326 / 19,758) and raft-3 (2,926 / 7,917, the compiler's
+   mechanical symmetry) on ``cuda`` and on ``cpu``, with identical table
+   bytes and queue rows; the ``two_phase_commit check-sym-gpu 5`` verb
+   (508 classes);
+ - the generation-order ``bucket_plan`` at 2pc-15 symmetry shapes: the next
+   batch of a 2pc-15 symmetry run bounded at 300,000 classes (canonical
+   rows through ``cand_prep``), L2 flushed before every timed call, and the
+   table-order plan on the same batch beside it.
 
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
 only rows the main path gives it (``init_rows`` in its record), and the
@@ -74,7 +88,9 @@ output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
 numbers under ``at_2pc10``, the paxos-3 ones under ``at_paxos3``, the
 single-copy-4 ones, with that run's launches, under ``at_singlecopy4``,
 and the per-channel paxos-2 ones, with that run's launches, under
-``at_paxos2_per_channel``)
+``at_paxos2_per_channel``; then one more entry, ``bucket_plan`` in
+generation order at 2pc-15 symmetry shapes, with the 2pc-15 symmetry
+run's launches)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -82,6 +98,8 @@ CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -116,6 +134,7 @@ from stateright_tpu_torch.models.dining import HAS_LEFT, dining_model
 from stateright_tpu_torch.models.linearizable_register import abd_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import LEADER, raft_model
+from stateright_tpu_torch.models import two_phase_commit
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
@@ -147,6 +166,16 @@ ABD22_PUT2_UNIQUE = 2_980
 WO21 = (71, 97)
 P2_PER_CHANNEL_KW = dict(capacity=1 << 16, batch=512)  # bench.py:886-918
 P2_PER_CHANNEL_KERNEL_TARGET = 8_000
+# symmetry runs (classes, states), as the JAX engine gives them:
+# TwoPhaseSys(n).checker().symmetry().spawn_tpu(sync=True) on the CPU for
+# 2pc-7 and 2pc-15; raft-3 from
+# tests/test_raft.py:110 and tests/test_per_channel.py:201; 2pc-5's 508
+# from tests/test_tensor_models.py:191-207
+SYM_2PC7 = (2_326, 19_758)
+SYM_2PC15 = (654_198, 10_982_530)
+SYM_RAFT3 = (2_926, 7_917)
+SYM_2PC5_UNIQUE = 508
+SYM_2PC15_KERNEL_TARGET = 300_000
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -336,11 +365,12 @@ def timed_run(n: int, target=None, model=TwoPhaseSys, **kw):
     return checker, time.monotonic() - t0
 
 
-def next_batch(checker, carry) -> dict:
+def next_batch(checker, carry, sym: bool = False) -> dict:
     """The next batch popped from a run's carry (device tensors, as the
     engine's ``_final_carry`` holds them), pushed through the step's plain
     stages up to each kernel: real inputs at the shapes the main path
-    gives the kernels."""
+    gives the kernels.  ``sym``: as a symmetry run's step, the canonical
+    rows go to ``cand_prep`` and the plan is in generation order."""
     head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
     batch, cand = checker._batch, checker._cand
     arity = checker.tensor.max_actions
@@ -350,14 +380,16 @@ def next_batch(checker, carry) -> dict:
     succ, valid = checker.tensor.step_rows(carry[convert.QROWS][span])
     m = batch * arity
     crows, cvalid = succ.reshape(m, -1), valid.reshape(m)
+    krows = (checker.tensor.representative_rows(succ).reshape(m, -1)
+             if sym else crows)
     pfp = carry[convert.QFP][span]
     tfp, tpl = carry[convert.TFP], carry[convert.TPL]
     cb = min(cand, m)
-    prep = cand_prep_plain(crows, cvalid, pfp, arity, cb)
+    prep = cand_prep_plain(krows, cvalid, pfp, arity, cb)
     # the engine's order: cand_prep, one stable sort, then the plan
     sort = (*sort_prepared(prep[0], prep[1], prep[3], tfp.shape[0] // SLOTS),
             prep[2], prep[5])
-    plan = bucket_plan_plain(tfp, *sort)
+    plan = bucket_plan_plain(tfp, *sort, generation_order=sym)
     n_new = int(plan[4])
     if n_new == 0:
         raise AssertionError(f"captured batch wrote nothing (overflow="
@@ -367,8 +399,8 @@ def next_batch(checker, carry) -> dict:
         carry[convert.QDEPTH], carry[convert.TAIL], plan[3], crows,
         carry[convert.QEBITS][span], carry[convert.QDEPTH][span], arity,
     )
-    return dict(crows=crows, cvalid=cvalid, pfp=pfp, arity=arity, cb=cb,
-                prep=prep, tfp=tfp, tpl=tpl, sort=sort, plan=plan,
+    return dict(crows=crows, krows=krows, cvalid=cvalid, pfp=pfp,
+                arity=arity, cb=cb, prep=prep, tfp=tfp, tpl=tpl, sort=sort, plan=plan,
                 queue=queue, n_new=n_new)
 
 
@@ -397,15 +429,59 @@ def timings(kernel, plain, cold: bool, engine=None) -> dict:
     return t
 
 
-def check_kernels(checker, carry, cold: bool) -> dict:
+def plan_record(x: dict, cold: bool, stream, sym: bool = False) -> dict:
+    """``bucket_plan`` (in generation order with ``sym``) against its plain
+    version on the batch ``x`` of :func:`next_batch`."""
+    tfp, sort, want = x["tfp"], x["sort"], x["plan"]
+    sfp, bucket, cidx = sort[0], sort[2], sort[4]
+    pbuf = PlanBuffers(sfp.shape[0], sfp.device, sym)
+    got = bucket_plan(tfp, *sort, out=pbuf, generation_order=sym)
+    m = sfp.shape[0]
+    planned = int((want[0] != tfp.shape[0]).sum())  # novel lanes, blocked or not
+    errs = [int((g[:planned] != p[:planned]).sum()) for g, p in zip(got[:4], want[:4])]
+    errs += [abs(int(got[4]) - int(want[4])), int(bool(got[5]) != bool(want[5]))]
+    live = sfp != EMPTY
+    nlive = int(live.sum())
+    lines = int(torch.unique(bucket[live]).numel())
+    # every lane reads its fingerprint; live lanes their bucket index and
+    # each distinct line once; novel lanes their payload, order (and cidx)
+    # entries and write four words; the flags in and out.  Generation
+    # order moves the same bytes in and out (its staging area is the
+    # kernel's own scratch)
+    per_novel = 8 * (2 if cidx is None else 3) + 32
+    p_ms, p_by = bound(m * 8 + nlive * 8 + lines * SLOTS * 8
+                       + planned * per_novel + 1 + 9, nlive * SLOTS * 2)
+    return dict(
+        name="bucket_plan_generation_order" if sym else "bucket_plan",
+        route="cuda", source="stateright_tpu_torch/csrc/bucket_plan.cu",
+        replaces=("stateright_tpu/ops/buckets.py:282" if sym
+                  else "stateright_tpu/ops/buckets.py:202"),
+        shape=(f"cand {m} ({nlive} valid, {lines} lines, {planned} novel), "
+               f"table {tfp.shape[0]} slots"),
+        matched=sum(errs) == 0, max_abs_err=sum(errs),
+        bound_ms=p_ms, bound_by=p_by, library_ms=None,
+        **timings(lambda: bucket_plan(tfp, *sort, out=pbuf,
+                                      generation_order=sym),
+                  lambda: bucket_plan_plain(tfp, *sort, generation_order=sym),
+                  cold,
+                  lambda: bucket_plan(tfp, *sort, out=pbuf,
+                                      generation_order=sym, check=False,
+                                      stream=stream)),
+    )
+
+
+def check_kernels(checker, carry, cold: bool, sym: bool = False) -> dict:
     """Each kernel against its plain version on one real batch; returns
-    ``{name: record}``."""
-    x = next_batch(checker, carry)
+    ``{name: record}``.  ``sym``: the batch as a symmetry run's step gives
+    it to the kernels (canonical rows to ``cand_prep`` and ``row_hash``,
+    the plan and the insert in generation order), with the table-order
+    plan on the same batch as one more record."""
+    x = next_batch(checker, carry, sym)
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
 
-    # -- cand_prep over the batch's B*A successor rows ------------------------
-    rows, valid = x["crows"], x["cvalid"]
+    # -- cand_prep over the batch's B*A successor (or canonical) rows --------
+    rows, valid = x["krows"], x["cvalid"]
     pfp, arity, cb, want = x["pfp"], x["arity"], x["cb"], x["prep"]
     n, w = rows.shape
     qbuf = PrepBuffers(n, cb, rows.device)
@@ -437,6 +513,8 @@ def check_kernels(checker, carry, cold: bool) -> dict:
     # only rows the main path gives it) -------------------------------------
     init = torch.from_numpy(np.asarray(checker.tensor.init_rows(), np.uint64)
                             .view(np.int64).copy()).to(rows.device)
+    if sym:
+        init = checker.tensor.representative_rows(init).contiguous()
     ni, wi = init.shape
     got_i, want_i = row_hash(init), row_hash_plain(init)
     bi_ms, bi_by = bound(ni * wi * 8 + ni * 8, ni * (wi + 1) * 10)
@@ -465,38 +543,13 @@ def check_kernels(checker, carry, cold: bool) -> dict:
     )
 
     # -- bucket_plan over the sorted candidate budget ------------------------
-    tfp, sort, want = x["tfp"], x["sort"], x["plan"]
-    sfp, bucket, cidx = sort[0], sort[2], sort[4]
-    pbuf = PlanBuffers(sfp.shape[0], sfp.device)
-    got = bucket_plan(tfp, *sort, out=pbuf)
-    m = sfp.shape[0]
-    planned = int((want[0] != tfp.shape[0]).sum())  # novel lanes, blocked or not
-    errs = [int((g[:planned] != p[:planned]).sum()) for g, p in zip(got[:4], want[:4])]
-    errs += [abs(int(got[4]) - int(want[4])), int(bool(got[5]) != bool(want[5]))]
-    live = sfp != EMPTY
-    nlive = int(live.sum())
-    lines = int(torch.unique(bucket[live]).numel())
-    # every lane reads its fingerprint; live lanes their bucket index and
-    # each distinct line once; novel lanes their payload, order (and cidx)
-    # entries and write four words; the flags in and out
-    per_novel = 8 * (2 if cidx is None else 3) + 32
-    p_ms, p_by = bound(m * 8 + nlive * 8 + lines * SLOTS * 8
-                       + planned * per_novel + 1 + 9, nlive * SLOTS * 2)
-    out["bucket_plan"] = dict(
-        name="bucket_plan", route="cuda",
-        source="stateright_tpu_torch/csrc/bucket_plan.cu",
-        replaces="stateright_tpu/ops/buckets.py:202",
-        shape=(f"cand {m} ({nlive} valid, {lines} lines, {planned} novel), "
-               f"table {tfp.shape[0]} slots"),
-        matched=sum(errs) == 0, max_abs_err=sum(errs),
-        bound_ms=p_ms, bound_by=p_by, library_ms=None,
-        **timings(lambda: bucket_plan(tfp, *sort, out=pbuf),
-                  lambda: bucket_plan_plain(tfp, *sort), cold,
-                  lambda: bucket_plan(tfp, *sort, out=pbuf, check=False,
-                                      stream=stream)),
-    )
+    out["bucket_plan"] = plan_record(x, cold, stream, sym)
+    if sym:  # what the second launch costs: table order on the same batch
+        tab = dict(x, plan=bucket_plan_plain(x["tfp"], *x["sort"]))
+        out["bucket_plan_table_order"] = plan_record(tab, cold, stream)
 
     # -- insert_commit of the batch's novel candidates -----------------------
+    tfp, want = x["tfp"], x["plan"]
     tgt, wfp, wpl, sel, n_new_t = want[0], want[1], want[2], want[3], want[4]
     q = x["queue"]
     nn = x["n_new"]
@@ -510,7 +563,7 @@ def check_kernels(checker, carry, cold: bool) -> dict:
     insert_commit_plain(*pt, tgt, wfp, wpl, n_new_t, pq)
     c_err = sum(int((a != b).sum()) for a, b in zip(kt + tuple(kq[:4]),
                                                     pt + tuple(pq[:4])))
-    width = rows.shape[1]
+    width = x["crows"].shape[1]  # the queue keeps the successor rows
     parents = int(torch.unique(sel[:nn] // q.arity).numel())
     # plan lanes, count and tail in; parents' ebits and depth; the rows;
     # 16 table bytes and a queue row (8W + 16 bytes) out per novel lane
@@ -624,16 +677,20 @@ def leg_record(checker, sec: float, peak: int, launches: dict,
             "card": smi}
 
 
-def compiled_leg(dev, build, **kw):
-    """One ``spawn_gpu(**kw)`` run of ``build()``'s model with the launch
-    counts reset just before it and read just after; returns the checker,
-    its wall seconds (the twin's host-side compile included), peak device
-    memory and launches."""
+def compiled_leg(dev, build, sym: bool = False, **kw):
+    """One ``spawn_gpu(**kw)`` run of ``build()``'s model (under
+    ``.symmetry()`` with ``sym``) with the launch counts reset just before
+    it and read just after; returns the checker, its wall seconds (the
+    twin's host-side compile included), peak device memory and
+    launches."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    checker = build().checker().spawn_gpu(**kw).join()
+    builder = build().checker()
+    if sym:
+        builder = builder.symmetry()
+    checker = builder.spawn_gpu(**kw).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = kernel_launches()
@@ -762,6 +819,59 @@ def channel_and_history_phases(dev, smi: str) -> dict:
                 raise AssertionError(f"{name}: not {want}")
         if not same:
             raise AssertionError(f"{name}: cuda and cpu disagree")
+    return launches
+
+
+def symmetry_phases(dev, smi: str) -> dict:
+    """2pc-15 under symmetry on cuda, the slice's full-size path; 2pc-7 and
+    raft-3 under symmetry on cuda and cpu; the ``check-sym-gpu 5`` verb.
+    Returns the 2pc-15 run's launches."""
+    g, g_s, peak, launches = compiled_leg(dev, lambda: TwoPhaseSys(15),
+                                          sym=True)
+    paths = check_discoveries(g.model, g, {"abort agreement",
+                                           "commit agreement"})
+    g.assert_properties()  # "consistent" never violated
+    # a symmetry step launches bucket_plan twice (plan, then the
+    # generation-order compaction), the init's insert too
+    if launches["bucket_plan"] != 2 * launches["insert_commit"]:
+        raise AssertionError(f"2pc-15 symmetry: launches {launches}")
+    emit("2pc15_symmetry", dict(
+        leg_record(g, g_s, peak, launches, smi), path_lengths=paths,
+        unique_per_sec=g.unique_state_count() / g_s,
+        launches_per_step={k: v / g.steps_run for k, v in launches.items()}))
+    if (g.unique_state_count(), g.state_count()) != SYM_2PC15:
+        raise AssertionError(f"2pc-15 symmetry: not {SYM_2PC15}")
+    del g
+
+    for name, build, want in (
+        ("2pc7_symmetry", lambda: TwoPhaseSys(7), SYM_2PC7),
+        ("raft3_symmetry", lambda: raft_model(3), SYM_RAFT3),
+    ):
+        g, g_s, peak, leg_launches = compiled_leg(dev, build, sym=True)
+        t0 = time.monotonic()
+        c = build().checker().symmetry().spawn_gpu(device="cpu").join()
+        c_s = time.monotonic() - t0
+        same, tail = same_tables_and_queue(g, c)
+        paths = check_discoveries(g.model, g, set(g.discovery_fps()))
+        g.assert_properties()
+        emit(name, dict(leg_record(g, g_s, peak, leg_launches, smi),
+                        unique_cpu=c.unique_state_count(),
+                        states_cpu=c.state_count(), sec_cpu=c_s, tail=tail,
+                        tables_and_queue_identical=same, path_lengths=paths))
+        for x in (g, c):
+            if (x.unique_state_count(), x.state_count()) != want:
+                raise AssertionError(f"{name}: not {want}")
+        if not same:
+            raise AssertionError(f"{name}: cuda and cpu disagree")
+
+    # -- the user's verb: two_phase_commit check-sym-gpu 5 ------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = two_phase_commit.main(["check-sym-gpu", "5"])
+    done = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Done.")]
+    emit("cli_check_sym_gpu_5", {"rc": rc, "done": done})
+    if rc != 0 or not done or f"unique={SYM_2PC5_UNIQUE}," not in done[0]:
+        raise AssertionError(f"check-sym-gpu 5: rc {rc}, {done}")
     return launches
 
 
@@ -933,11 +1043,23 @@ def main() -> int:
     del gp2
     lap("kernels_paxos2_per_channel")
 
+    launches_sym = symmetry_phases(dev, smi)
+    lap("symmetry")
+    # -- kernels at 2pc-15 symmetry shapes, L2-cold ---------------------------
+    gs15 = TwoPhaseSys(15).checker().symmetry().target_states(
+        SYM_2PC15_KERNEL_TARGET).spawn_gpu().join()
+    kernels_sym = check_kernels(gs15, gs15._final_carry, cold=True, sym=True)
+    for name, k in kernels_sym.items():
+        emit(f"kernel_{name}_2pc15_symmetry", k)
+    del gs15
+    lap("kernels_2pc15_symmetry")
+
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
                              ("paxos-3", kernels_p3),
                              ("single-copy-4", kernels_sc4),
-                             ("per-channel paxos-2", kernels_p2pc))
+                             ("per-channel paxos-2", kernels_p2pc),
+                             ("2pc-15 symmetry", kernels_sym))
            for k in ks.values() if not k["matched"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -954,7 +1076,16 @@ def main() -> int:
                                          "replaces", "launches")}
         entry["at_singlecopy4"]["launches"] = launches_sc4[name]
         entry["at_paxos2_per_channel"]["launches"] = launches_p2pc[name]
+        # the slice's main path: 2pc-15 under symmetry, its own launches
+        entry["at_2pc15_symmetry"] = dict(
+            {key: kernels_sym[name][key] for key in KERNEL_KEYS
+             if key not in ("route", "source", "launches")},
+            launches=launches_sym[name])
         line.append(entry)
+    gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
+    line.append(dict({key: gen[key] for key in KERNEL_KEYS
+                      if key != "launches"},
+                     launches=launches_sym["bucket_plan"]))
     emit("total", {"seconds": time.monotonic() - start,
                    "phase_seconds": PHASES})
     OUT.parent.mkdir(exist_ok=True)

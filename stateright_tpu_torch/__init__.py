@@ -8,7 +8,10 @@ on an NVIDIA GPU whose device kernels are written by hand in CUDA C++
 (``TwoPhaseSys(n).checker().spawn_gpu()``) and for the paxos benchmark
 model, an actor system on the port's host actor layer (``actor/``,
 ``semantics/``) with the hand-written twin ``PaxosTensor``
-(``paxos_model(n).checker().spawn_gpu()``).
+(``paxos_model(n).checker().spawn_gpu()``), the other actor systems
+through the actor compiler, symmetry reduction
+(``.symmetry().spawn_gpu()``), and the host BFS/DFS checkers
+(``spawn_bfs()``, ``spawn_dfs()``).
 """
 
 from .checker import Checker, CheckerBuilder, Path

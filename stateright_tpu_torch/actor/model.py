@@ -1,9 +1,9 @@
 """ActorModel: compile actors + network + properties into a checkable Model
 (reference ``src/actor/model.rs``, ``src/actor/model_state.rs``).
 
-The port's own copy of ``stateright_tpu/actor/model.py``; the symmetry
-``representative`` and the sequence-diagram ``as_svg`` come with the slices
-that use them.
+The port's own copy of ``stateright_tpu/actor/model.py``, with the
+symmetry ``ActorModelState.representative``; the sequence-diagram
+``as_svg`` comes with the slice that uses it.
 
 ``cfg`` is an arbitrary config value, ``history`` an auxiliary history kept
 TLA-style alongside the system (e.g. a linearizability tester); both are
@@ -83,6 +83,24 @@ class ActorModelState:
         self.network.stable_words(out)
         stable_words(tuple(self.is_timer_set), out)
         stable_words(self.history, out)
+
+    def representative(self) -> "ActorModelState":
+        """Canonical member of this state's symmetry class: actor states
+        sorted by their stable hash, ids rewritten across the states, the
+        network and the history (reference ``model_state.rs:103-118``)."""
+        from ..symmetry import RewritePlan, rewrite_value
+
+        plan = RewritePlan.from_values_to_sort(
+            [stable_hash(s) for s in self.actor_states]
+        )
+        return ActorModelState(
+            actor_states=tuple(
+                rewrite_value(s, plan) for s in plan.reindex(self.actor_states)
+            ),
+            network=rewrite_value(self.network, plan),
+            is_timer_set=tuple(plan.reindex(self.is_timer_set)),
+            history=rewrite_value(self.history, plan),
+        )
 
 
 class _Draft:

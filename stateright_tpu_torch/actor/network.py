@@ -1,7 +1,7 @@
 """In-model network semantics (reference ``src/actor/network.rs``).
 
-The port's own copy of ``stateright_tpu/actor/network.py``; the symmetry
-``rewrite`` hooks come with the slice that uses them.
+The port's own copy of ``stateright_tpu/actor/network.py``, with the
+symmetry ``rewrite(plan)`` hook of each network (``symmetry.py``).
 
 The network is *state data*, not I/O: pending messages are part of the
 checked system state, and delivery/drop/duplication are state-space actions.
@@ -176,6 +176,14 @@ class UnorderedDuplicatingNetwork(Network):
         out.append(len(self._envs))
         out.extend(sorted(stable_hash(e) for e in self._envs))
 
+    def rewrite(self, plan):
+        from ..symmetry import rewrite_value
+
+        n = UnorderedDuplicatingNetwork({})
+        for env in self._envs:
+            n = n.send(rewrite_value(env, plan))
+        return n
+
     def __repr__(self):
         return f"UnorderedDuplicating({list(self._envs)!r})"
 
@@ -238,6 +246,15 @@ class UnorderedNonDuplicatingNetwork(Network):
                 stable_hash((stable_hash(e), c)) for e, c in self._counts.items()
             )
         )
+
+    def rewrite(self, plan):
+        from ..symmetry import rewrite_value
+
+        d: dict = {}
+        for env, count in self._counts.items():
+            key = rewrite_value(env, plan)
+            d[key] = d.get(key, 0) + count
+        return UnorderedNonDuplicatingNetwork(d)
 
     def __repr__(self):
         return f"UnorderedNonDuplicating({dict(self._counts)!r})"
@@ -312,6 +329,18 @@ class OrderedNetwork(Network):
             stable_words(tuple(msgs), words)
             hashes.append(hash_words(words))
         out.extend(sorted(hashes))
+
+    def rewrite(self, plan):
+        from ..symmetry import rewrite_value
+
+        return OrderedNetwork(
+            {
+                (plan.rewrite_id(k[0]), plan.rewrite_id(k[1])): tuple(
+                    rewrite_value(m, plan) for m in v
+                )
+                for k, v in self._flows.items()
+            }
+        )
 
     def __repr__(self):
         return f"Ordered({dict(self._flows)!r})"

@@ -1,20 +1,28 @@
 """Checker result surface + builder (reference ``src/checker.rs``).
 
-The port's counterpart of ``stateright_tpu/checker/base.py``, cut to what
-the GPU wavefront engine needs: ``CheckerBuilder`` carries
-``target_states`` and ``timeout`` and spawns the engine with
-:meth:`CheckerBuilder.spawn_gpu`; ``Checker`` is the result surface
-(counts, discoveries, assertions, and the ``Done. states=..`` report line).
+The port's counterpart of ``stateright_tpu/checker/base.py``:
+``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
+``visitor`` and ``timeout``, and spawns the host checkers
+(:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`) and the
+GPU wavefront engine (:meth:`CheckerBuilder.spawn_gpu`); ``Checker`` is the
+result surface (counts, discoveries, assertions, and the ``Done.
+states=..`` report line).  The multi-process BFS, ``spawn_auto`` and the
+telemetry, report, sweep and service options come with their slices.
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
-from ..core import Expectation, Model
+from ..core import Expectation, Model, Property
 from .path import Path
+from .visitor import CheckerVisitor, FnVisitor
+
+# States processed per lock round, as in the reference's job market
+# (reference ``bfs.rs:120``, ``dfs.rs:126``).
+JOB_BLOCK_SIZE = 1500
 
 
 class CheckerBuilder:
@@ -22,8 +30,28 @@ class CheckerBuilder:
 
     def __init__(self, model: Model):
         self.model = model
+        self.symmetry_fn: Optional[Callable] = None
+        self.symmetry_is_default = False
         self.target_state_count: Optional[int] = None
+        self.thread_count: int = 1
+        self.visitor_obj: Optional[CheckerVisitor] = None
         self.timeout_secs: Optional[float] = None
+
+    def symmetry(self) -> "CheckerBuilder":
+        """Dedup on symmetry-class representatives; states must define
+        ``representative()`` (reference ``checker.rs:150-154``).  The host
+        DFS and the GPU engine honour it; the host BFS ignores it, as the
+        reference's does."""
+        self.symmetry_fn = lambda s: s.representative()
+        self.symmetry_is_default = True
+        return self
+
+    def symmetry_with(self, fn: Callable) -> "CheckerBuilder":
+        """Dedup on ``fn(state)``: the host DFS only (the GPU engine refuses
+        it, since its canonicalizer mirrors ``representative()``)."""
+        self.symmetry_fn = fn
+        self.symmetry_is_default = False
+        return self
 
     def target_states(self, count: int) -> "CheckerBuilder":
         """Stop after roughly ``count`` unique states
@@ -31,9 +59,35 @@ class CheckerBuilder:
         self.target_state_count = count
         return self
 
+    def threads(self, count: int) -> "CheckerBuilder":
+        """Worker threads of the host checkers."""
+        self.thread_count = max(1, count)
+        return self
+
+    def visitor(self, v) -> "CheckerBuilder":
+        """Call ``v`` (a :class:`CheckerVisitor` or a plain callable of
+        ``(model, path)``) on every state the host checkers evaluate."""
+        self.visitor_obj = v if isinstance(v, CheckerVisitor) else FnVisitor(v)
+        return self
+
     def timeout(self, secs: float) -> "CheckerBuilder":
         self.timeout_secs = secs
         return self
+
+    # -- strategies ----------------------------------------------------------
+
+    def spawn_bfs(self) -> "Checker":
+        """Breadth-first search on host threads (``checker/bfs.py``)."""
+        from .bfs import BfsChecker
+
+        return BfsChecker(self)
+
+    def spawn_dfs(self) -> "Checker":
+        """Depth-first search on host threads (``checker/dfs.py``); the
+        host checker that honours ``symmetry()``."""
+        from .dfs import DfsChecker
+
+        return DfsChecker(self)
 
     def spawn_gpu(
         self,
@@ -145,3 +199,67 @@ class Checker:
                 f"Unexpected \"{name}\" "
                 f"{self.discovery_classification(name)} {path!r}"
             )
+
+
+class ParentPointerTrace:
+    """Path reconstruction for checkers whose visited map stores
+    ``child_fp -> parent_fp`` with root sentinel 0 (the host BFS;
+    reference ``bfs.rs:314-342``).  Requires ``self.model``,
+    ``self._generated`` (the parent-pointer map) and ``self._discoveries``
+    (property name -> discovery fp)."""
+
+    def _trace(self, fp: int) -> list[int]:
+        fps = [fp]
+        while True:
+            parent = self._generated.get(fps[-1], 0)
+            if parent == 0:
+                break
+            fps.append(parent)
+        fps.reverse()
+        return fps
+
+    def discoveries(self) -> dict[str, Path]:
+        return {
+            name: Path.from_fingerprints(self.model, self._trace(fp))
+            for name, fp in dict(self._discoveries).items()
+        }
+
+
+def evaluate_properties(
+    model, props: Sequence[Property], discoveries: dict, state, ebits, token
+):
+    """Per-state property evaluation (reference ``bfs.rs:192-227``): record
+    always-counterexamples and sometimes-examples under ``token`` (first
+    writer wins), clear satisfied eventually bits.  Returns the updated
+    ebits."""
+    for i, prop in enumerate(props):
+        if prop.expectation is Expectation.ALWAYS:
+            if prop.name not in discoveries and not prop.condition(model, state):
+                discoveries.setdefault(prop.name, token)
+        elif prop.expectation is Expectation.SOMETIMES:
+            if prop.name not in discoveries and prop.condition(model, state):
+                discoveries.setdefault(prop.name, token)
+        elif i in ebits and prop.condition(model, state):
+            ebits = ebits - {i}
+    return ebits
+
+
+def flush_terminal_ebits(
+    props: Sequence[Property], discoveries: dict, ebits, token
+) -> None:
+    """Liveness bits still set at a terminal state are counterexamples
+    (reference ``bfs.rs:265-272``)."""
+    for i in ebits:
+        discoveries.setdefault(props[i].name, token)
+
+
+def init_ebits(properties: Sequence[Property]) -> frozenset[int]:
+    """Initial liveness bits: one per ``eventually`` property, set at path
+    start, cleared when satisfied; bits still set at a terminal state flush
+    as counterexamples (reference ``checker.rs:341-348``).  As in the
+    reference, the bits are not part of the fingerprint, which can miss
+    counterexamples on DAG joins and cycles (``bfs.rs:239-257``)."""
+    return frozenset(
+        i for i, p in enumerate(properties)
+        if p.expectation == Expectation.EVENTUALLY
+    )

@@ -2,13 +2,15 @@
 
 The port's counterpart of ``stateright_tpu/checker/path.py``.  A
 :class:`Path` is a sequence ``state --action--> state --action--> ... state``.
-The GPU engine stores only ``fp -> parent fp``, so materializing a path
-*re-executes* the object-form model and matches successor fingerprints
-(reference ``path.rs:20-86``).  Exact fingerprints are injective along a
-trace, so the greedy first-match walk is exhaustive; the backtracking walk
-that symmetry keys need comes with the symmetry slice.  If re-execution
-cannot reproduce a recorded fingerprint the model is nondeterministic and
-the walk raises with a diagnostic, as the reference does.
+The GPU engine and the host BFS store only ``fp -> parent fp``, so
+materializing a path *re-executes* the object-form model and matches
+successor fingerprints (reference ``path.rs:20-86``).  Exact fingerprints
+are injective along a trace, so the greedy first-match walk is exhaustive;
+a symmetry key (canonical fingerprints) takes the backtracking walk, with a
+per-depth dead-end memo.  If re-execution cannot reproduce a recorded
+fingerprint the model is nondeterministic (or its representative disagrees
+with the device canonicalizer) and the walk raises with a diagnostic, as
+the reference does.
 """
 
 from __future__ import annotations
@@ -39,34 +41,104 @@ class Path(Generic[State, Action]):
     # -- construction --------------------------------------------------------
 
     @staticmethod
-    def from_fingerprints(model, fingerprints: Sequence[int]) -> "Path":
-        """Re-execute ``model`` along a fingerprint trace (greedy walk)."""
-        fps = list(fingerprints)
-        if not fps:
+    def from_fingerprints(model, fingerprints: Sequence[int], key=None) -> "Path":
+        """Re-execute ``model`` along a fingerprint trace
+        (reference ``path.rs:20-86``).
+
+        ``key`` overrides the per-state fingerprint used for matching:
+        symmetry-reduced GPU runs pass the canonical fingerprint
+        (``fingerprint_state(representative(s))``, or a twin's
+        ``representative_key``), so the walk picks, at each step, an actual
+        successor of the previously chosen member whose symmetry class
+        matches the trace.  The result is a genuine path of the model."""
+        if not fingerprints:
             raise ValueError("empty fingerprint path")
-        key = model.fingerprint_state
-        state = next((s for s in model.init_states() if key(s) == fps[0]), None)
-        if state is None:
+        fps = list(fingerprints)
+        if key is None:
+            # exact fingerprints are injective along the trace: the greedy
+            # first-match walk is exhaustive, no backtracking needed
+            key = model.fingerprint_state
+            greedy = True
+        else:
+            # a symmetry key maps whole classes to one fingerprint, and the
+            # representative need not be class-invariant: committing to the
+            # wrong member can dead-end even though the trace is valid, so
+            # the walk backtracks over matching members
+            greedy = False
+
+        # members proven to dead-end, per depth: whether a member can match
+        # the remaining suffix depends only on (member, depth), never on the
+        # prefix that reached it, so a dead end holds across alternatives,
+        # and skipping it bounds the walk at O(members x depth)
+        dead: dict[int, set] = {}
+
+        def matches(state, want, depth):
+            out = []
+            seen_members = set()
+            blocked = dead.get(depth, ())
+            for action in model.actions(state):
+                nxt = model.next_state(state, action)
+                if nxt is not None and key(nxt) == want:
+                    if greedy:
+                        return [(action, nxt)]
+                    # distinct actions often give the identical successor;
+                    # keep one per member, or backtracking re-explores the
+                    # same dead-end subtree per duplicate
+                    member = model.fingerprint_state(nxt)
+                    if member not in seen_members and member not in blocked:
+                        seen_members.add(member)
+                        out.append((action, nxt))
+            return out
+
+        init_matches = [
+            (None, s) for s in model.init_states() if key(s) == fps[0]
+        ]
+        if not init_matches:
             raise RuntimeError(_NONDETERMINISM_MSG.format(fp=fps[0], n=0))
-        pairs: list[tuple[State, Optional[Action]]] = []
-        for depth, want in enumerate(fps[1:], start=1):
-            step = next(
-                (
-                    (action, nxt)
-                    for action in model.actions(state)
-                    if (nxt := model.next_state(state, action)) is not None
-                    and key(nxt) == want
-                ),
-                None,
+        # DFS over (depth, chosen member) with an explicit alternatives stack
+        stack = [(0, init_matches)]  # depth i: candidates matching fps[i]
+        chosen: list[tuple[Optional[Action], State]] = []
+        deepest = 0  # deepest matched depth, for the failure diagnostic
+        while stack:
+            depth, cands = stack[-1]
+            if not cands:
+                stack.pop()
+                if chosen:
+                    popped = chosen.pop()
+                    if not greedy:  # every continuation failed: dead end
+                        dead.setdefault(depth - 1, set()).add(
+                            model.fingerprint_state(popped[1])
+                        )
+                continue
+            act_nxt = cands.pop(0)
+            chosen.append(act_nxt)
+            deepest = max(deepest, depth)
+            if depth + 1 == len(fps):
+                pairs: list[tuple[State, Optional[Action]]] = []
+                for i in range(len(chosen) - 1):
+                    pairs.append((chosen[i][1], chosen[i + 1][0]))
+                pairs.append((chosen[-1][1], None))
+                return Path(pairs)
+            nxt_cands = matches(act_nxt[1], fps[depth + 1], depth + 1)
+            if nxt_cands:
+                stack.append((depth + 1, nxt_cands))
+            else:
+                chosen.pop()
+                if not greedy:  # no viable continuation at all: dead end
+                    dead.setdefault(depth, set()).add(
+                        model.fingerprint_state(act_nxt[1])
+                    )
+        if not greedy:
+            raise RuntimeError(
+                "Failed to reconstruct a symmetry-reduced path: no sequence "
+                "of class members matches the recorded canonical "
+                f"fingerprints (failed past step {deepest} of {len(fps)}). "
+                "This indicates the model's representative() disagrees with "
+                "the device canonicalizer, or the model is nondeterministic."
             )
-            if step is None:
-                raise RuntimeError(
-                    _NONDETERMINISM_MSG.format(fp=want, n=depth - 1)
-                )
-            pairs.append((state, step[0]))
-            state = step[1]
-        pairs.append((state, None))
-        return Path(pairs)
+        raise RuntimeError(
+            _NONDETERMINISM_MSG.format(fp=fps[deepest + 1], n=deepest)
+        )
 
     # -- accessors -----------------------------------------------------------
 
@@ -86,6 +158,20 @@ class Path(Generic[State, Action]):
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Path) and self._pairs == other._pairs
+
+    def __hash__(self) -> int:
+        from ..fingerprint import stable_hash
+
+        try:
+            return stable_hash(
+                tuple(
+                    (stable_hash(s), 0 if a is None else stable_hash(a))
+                    for s, a in self._pairs
+                )
+            )
+        except TypeError:
+            # exotic unhashable actions: a weak but eq-consistent hash
+            return len(self._pairs)
 
     def __repr__(self) -> str:
         return "Path[" + ", ".join(repr(a) for a in self.actions()) + "]"

@@ -44,6 +44,26 @@
 // read no bucket index; their line loads all go to bucket 0's line, so
 // the sixteen loads of a half-warp carry no branch, and the results are
 // masked.
+//
+// Generation order (symmetry runs; `generation_order=True` of
+// `bucket_insert`, stateright_tpu/ops/buckets.py:282-297 and :341-343).
+// The novel lanes are compacted in candidate order, not sorted order: a
+// novel lane's position is the count of novel lanes j with
+// order[j] < order[i], its rank in the order `cand_prep` compacted the
+// candidates in.  Slots and `n_new` do not change.  No scan over sorted
+// lanes gives that rank, so the mode is two launches:
+//  - the plan above, where each novel lane writes (tgt, fp, payload) to
+//    position order[i] of a staging area of three CB-wide int64 arrays
+//    instead of to the outputs.  `order` is a permutation, so no two lanes
+//    meet; a staged slot of -1 means "no novel lane here";
+//  - `bucket_compact`: one CTA per 256 staging positions reads the staged
+//    slots, scans the live flags (the same look-back scan, a plain count
+//    {0, 0, live}) and writes each live record at its count, with
+//    sel = cidx[p] (or p), then puts the -1 back.  Its last CTA zeroes
+//    the scratch again, so neither launch needs a memset.
+// Bound: the same bytes as the table-order plan (the staging area is
+// internal), plus a launch; at the engine's shapes both are well under a
+// microsecond, so the mode costs one more launch a step.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -69,6 +89,7 @@ __global__ void __launch_bounds__(kTile) bucket_plan_kernel(
     long long* __restrict__ cfp, long long* __restrict__ cpl,
     long long* __restrict__ sel, long long* __restrict__ n_new,
     bool* __restrict__ overflow, unsigned long long* __restrict__ scratch,
+    long long* __restrict__ stage,  // null: table order
     long long m, int ntiles) {
   __shared__ int s_tile;
   __shared__ int s_last;
@@ -126,17 +147,24 @@ __global__ void __launch_bounds__(kTile) bucket_plan_kernel(
   __syncthreads();
   const Scan g = combine(s_prefix, incl);
 
-  // -- write the novel lanes at their table-order positions ----------------
+  // -- write the novel lanes at their table-order positions, or stage
+  // them at their candidate positions ---------------------------------------
   bool ovf = false;
   if (novel) {
     const int slot = base + (int)g.seg - 1;
-    const long long pos = (long long)g.tot - 1;
     ovf = slot >= kSlots;
-    tgt[pos] = b * kSlots + slot;
-    cfp[pos] = (long long)fp;
-    cpl[pos] = spl[i];
     const long long o = order[i];
-    sel[pos] = cidx != nullptr ? cidx[o] : o;
+    if (stage != nullptr) {
+      stage[o] = b * kSlots + slot;
+      stage[m + o] = (long long)fp;
+      stage[2 * m + o] = spl[i];
+    } else {
+      const long long pos = (long long)g.tot - 1;
+      tgt[pos] = b * kSlots + slot;
+      cfp[pos] = (long long)fp;
+      cpl[pos] = spl[i];
+      sel[pos] = cidx != nullptr ? cidx[o] : o;
+    }
   }
   const int tile_ovf = __syncthreads_or(ovf);
 
@@ -163,6 +191,60 @@ __global__ void __launch_bounds__(kTile) bucket_plan_kernel(
   for (int k = t; k < ntiles; k += kTile) state[k] = 0ULL;
 }
 
+// Generation order's second launch: compact the staged records in
+// candidate order (see the note at the top).
+__global__ void __launch_bounds__(kTile) bucket_compact_kernel(
+    long long* __restrict__ stage, const long long* __restrict__ cidx,
+    long long* __restrict__ tgt, long long* __restrict__ cfp,
+    long long* __restrict__ cpl, long long* __restrict__ sel,
+    unsigned long long* __restrict__ scratch, long long m, int ntiles) {
+  __shared__ int s_tile;
+  __shared__ int s_last;
+  __shared__ Scan s_warp[kWarps];
+  __shared__ Scan s_prefix;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  unsigned long long* state = scratch + kStates;
+
+  if (t == 0) s_tile = (int)atomicAdd(&scratch[kTileTicket], 1ULL);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long p = (long long)tile * kTile + t;
+
+  const long long staged = p < m ? stage[p] : -1LL;
+  const bool live = staged >= 0;
+  const Scan x = {0u, 0u, live ? 1u : 0u};
+  const Scan incl = block_scan<kWarps>(x, s_warp);
+  if (warp == 0) {
+    const Scan excl = look_back(state, tile, s_warp[kWarps - 1]);
+    if (lane == 0) s_prefix = excl;
+  }
+  __syncthreads();
+  const Scan g = combine(s_prefix, incl);
+  if (live) {
+    const long long pos = (long long)g.tot - 1;
+    tgt[pos] = staged;
+    cfp[pos] = stage[m + p];
+    cpl[pos] = stage[2 * m + p];
+    sel[pos] = cidx != nullptr ? cidx[p] : p;
+    stage[p] = -1LL;  // the area is all -1 again for the next launch
+  }
+
+  // -- the last CTA to finish resets the scratch ---------------------------
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(&scratch[kDoneTicket], 1ULL) ==
+             (unsigned long long)(ntiles - 1);
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (t == 0) {
+    scratch[kTileTicket] = 0ULL;
+    scratch[kDoneTicket] = 0ULL;
+  }
+  for (int k = t; k < ntiles; k += kTile) state[k] = 0ULL;
+}
+
 }  // namespace
 
 extern "C" int srt_bucket_plan(const void* tfp, const void* sfp,
@@ -170,8 +252,8 @@ extern "C" int srt_bucket_plan(const void* tfp, const void* sfp,
                                const void* order, const void* cidx,
                                const void* cand_overflow, void* tgt, void* cfp,
                                void* cpl, void* sel, void* n_new,
-                               void* overflow, void* scratch, int64_t m,
-                               void* stream) {
+                               void* overflow, void* scratch, void* stage,
+                               int64_t m, void* stream) {
   const long long ntiles = (m + kTile - 1) / kTile;
   bucket_plan_kernel<<<(unsigned)ntiles, kTile, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)tfp, (const unsigned long long*)sfp,
@@ -179,6 +261,13 @@ extern "C" int srt_bucket_plan(const void* tfp, const void* sfp,
       (const long long*)order, (const long long*)cidx,
       (const bool*)cand_overflow, (long long*)tgt, (long long*)cfp,
       (long long*)cpl, (long long*)sel, (long long*)n_new, (bool*)overflow,
+      (unsigned long long*)scratch, (long long*)stage, (long long)m,
+      (int)ntiles);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || stage == nullptr) return (int)err;
+  bucket_compact_kernel<<<(unsigned)ntiles, kTile, 0, (cudaStream_t)stream>>>(
+      (long long*)stage, (const long long*)cidx, (long long*)tgt,
+      (long long*)cfp, (long long*)cpl, (long long*)sel,
       (unsigned long long*)scratch, (long long)m, (int)ntiles);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,20 @@
-"""The ``check-gpu`` verb of the example models.
+"""The ``check-gpu`` verbs of the example models.
 
 The port's counterpart of the ``check-tpu`` verbs of
 ``stateright_tpu/models/_cli.py``'s users: the same positional arguments
 and the ``--per-channel`` flag (``pop_perf``/``apply_encoding`` there), on
-``spawn_gpu()``.  The other verbs and flags (``explore``, ``spawn``,
-``--perf``, ``--checked``, ``--watch``, ``--por``) come with the modules
-they drive.
+``spawn_gpu()``; and, for the models with symmetry (2pc, raft),
+``check-sym-gpu`` (``.symmetry().spawn_gpu()``) and ``check-sym`` (the
+host DFS with symmetry, on ``default_threads()`` threads).  The other
+verbs and flags (``explore``, ``spawn``, ``--perf``, ``--checked``,
+``--watch``, ``--por``) come with the modules they drive.
 """
 
 from __future__ import annotations
 
+import os
 import sys
-from typing import Callable
+from typing import Callable, Optional
 
 PER_CHANNEL_FLAG = "--per-channel"
 
@@ -42,25 +45,41 @@ def apply_encoding(model, per_channel: bool):
     return model
 
 
+def default_threads() -> int:
+    return os.cpu_count() or 1
+
+
 def check_gpu_main(prog: str, arg_usage: str, argv, build: Callable,
-                   banner: Callable, max_args: int) -> int:
-    """``python -m stateright_tpu_torch.models.<prog> check-gpu ARGS
-    [--per-channel]``: build the model from the positional arguments, and
-    check it with ``spawn_gpu()`` when it has a device twin (exit 1 when it
-    has none, 2 on a usage error)."""
+                   banner: Callable, max_args: int,
+                   sym_banners: Optional[dict] = None) -> int:
+    """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
+    [--per-channel]``: build the model from the positional arguments and
+    check it.  ``check-gpu`` runs ``spawn_gpu()`` when the model has a
+    device twin (exit 1 when it has none); ``sym_banners`` maps the
+    symmetry verbs the model offers (``check-sym``: the host DFS,
+    ``check-sym-gpu``: the GPU engine) to their banners.  Exit 2 on a
+    usage error."""
+    sym_banners = sym_banners or {}
+    verbs = ["check-gpu", *sym_banners]
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
-             f"check-gpu {arg_usage} [{PER_CHANNEL_FLAG}]")
+             f"{'|'.join(verbs)} {arg_usage} [{PER_CHANNEL_FLAG}]")
     per_channel, args = pop_per_channel(
         list(sys.argv[1:] if argv is None else argv))
-    if not args or args[0] != "check-gpu" or len(args) > 1 + max_args:
+    if not args or args[0] not in verbs or len(args) > 1 + max_args:
         print(usage, file=sys.stderr)
         return 2
-    rest = args[1:]
-    print(banner(rest))
+    verb, rest = args[0], args[1:]
+    print((sym_banners.get(verb) or banner)(rest))
     model = apply_encoding(build(rest), per_channel)
+    builder = model.checker()
+    if verb != "check-gpu":
+        builder = builder.symmetry()
+    if verb == "check-sym":
+        builder.threads(default_threads()).spawn_dfs().report()
+        return 0
     if model._tensor_cached() is None:
         print("this configuration has no device twin in the port",
               file=sys.stderr)
         return 1
-    model.checker().spawn_gpu().report()
+    builder.spawn_gpu().report()
     return 0

@@ -18,9 +18,12 @@ Checked properties:
    ``forall_actor_pairs`` predicate;
  - **liveness witness** (sometimes): some execution elects a leader.
 
-Pinned count: 5,725 unique / 15,607 states for ``raft_model(3)``.
+Pinned counts: 5,725 unique / 15,607 states for ``raft_model(3)``; 2,926
+classes / 7,917 states under symmetry on the GPU engine.
 
-Run: ``python -m stateright_tpu_torch.models.raft check-gpu 3``.
+Run: ``python -m stateright_tpu_torch.models.raft check-gpu 3``; with
+symmetry, ``... check-sym-gpu 3`` (the GPU engine, through the compiler's
+mechanical symmetry) and ``... check-sym 3`` (the host DFS).
 """
 
 from __future__ import annotations
@@ -186,14 +189,25 @@ def raft_model(
 
 
 def main(argv=None) -> int:
+    def n(rest):
+        return int(rest[0]) if rest else 3
+
     return check_gpu_main(
         "raft", "[SERVER_COUNT] [NETWORK]", argv,
         lambda rest: raft_model(
-            int(rest[0]) if rest else 3,
+            n(rest),
             network=Network.from_name(rest[1]) if len(rest) > 1 else None),
         lambda rest: ("Model checking Raft leader election with "
-                      f"{int(rest[0]) if rest else 3} servers on the GPU."),
+                      f"{n(rest)} servers on the GPU."),
         max_args=2,
+        sym_banners={
+            "check-sym": lambda rest: (
+                f"Model checking Raft leader election with {n(rest)} "
+                "servers (symmetry-reduced DFS)."),
+            "check-sym-gpu": lambda rest: (
+                f"Model checking Raft leader election with {n(rest)} "
+                "servers on the GPU (mechanical symmetry reduction)."),
+        },
     )
 
 

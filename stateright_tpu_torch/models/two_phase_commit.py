@@ -7,9 +7,13 @@ encoding, with the device twin :class:`TwoPhaseTensor` written in PyTorch.
 Both forms agree on fingerprints bit for bit, and with the JAX twin.
 
 Pinned counts (reference ``examples/2pc.rs:125-140``): 288 unique / 1,146
-states @ 3 RMs, 8,832 unique @ 5 RMs, 296,448 unique @ 7 RMs.
+states @ 3 RMs, 8,832 unique @ 5 RMs, 296,448 unique @ 7 RMs; 665 @ 5 RMs
+with symmetry reduction on the host DFS, and 508 on the GPU engine, whose
+BFS order gives another count (the representative is not class-invariant).
 
-Run: ``python -m stateright_tpu_torch.models.two_phase_commit check-gpu 7``.
+Run: ``python -m stateright_tpu_torch.models.two_phase_commit check-gpu 7``;
+with symmetry, ``... check-sym-gpu 15`` (the GPU engine) and
+``... check-sym 5`` (the host DFS).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core import Model, Property
+from ..symmetry import RewritePlan
 from ..parallel.tensor_model import (
     BitPacker,
     FieldWriter,
@@ -29,7 +34,7 @@ from ..parallel.tensor_model import (
     TensorModel,
 )
 
-# RM states
+# RM states, ordered so sorting gives a canonical symmetry representative
 WORKING = "working"
 PREPARED = "prepared"
 COMMITTED = "committed"
@@ -47,6 +52,20 @@ class TwoPhaseState:
     tm_state: str
     tm_prepared: tuple  # bool per RM
     msgs: frozenset  # ("prepared", rm) | ("commit",) | ("abort",)
+
+    def representative(self) -> "TwoPhaseState":
+        """Sort RM states (with their tm_prepared flags) and rewrite RM
+        indices inside messages (reference ``2pc.rs:165-182``)."""
+        plan = RewritePlan.from_values_to_sort(self.rm_state)
+        return TwoPhaseState(
+            rm_state=tuple(plan.reindex(self.rm_state)),
+            tm_state=self.tm_state,
+            tm_prepared=tuple(plan.reindex(self.tm_prepared)),
+            msgs=frozenset(
+                ("prepared", plan.mapping[m[1]]) if m[0] == "prepared" else m
+                for m in self.msgs
+            ),
+        )
 
 
 @dataclass
@@ -223,6 +242,28 @@ class TwoPhaseTensor(TensorModel):
         rows = [self.encode_state(s) for s in self.model.init_states()]
         return np.asarray(rows, dtype=np.uint64)
 
+    def representative_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Vectorized symmetry canonicalizer, any leading shape: the device
+        form of :meth:`TwoPhaseState.representative` (stable sort of the RM
+        sub-states, ``tm_prepared`` and the ``prepared`` message bits
+        permuted alike), as ``TwoPhaseTensor.representative_rows`` of the
+        JAX package.  The host sorts the RM state strings ("aborted" <
+        "committed" < "prepared" < "working"), the reverse of the 2-bit
+        codes, so the sort key is ``3 - code``; the stable argsort then
+        gives the host's permutation."""
+        n, pk = self.n, self.packer
+        sh = torch.arange(n, dtype=torch.int64, device=rows.device)
+        rmv = (pk.get(rows, "rm")[..., None] >> (2 * sh)) & 3  # [..., n]
+        tpv = (pk.get(rows, "tm_prepared")[..., None] >> sh) & 1
+        mpv = (pk.get(rows, "msg_prepared")[..., None] >> sh) & 1
+        order = torch.argsort(3 - rmv, dim=-1, stable=True)  # new -> old
+        # the fields' bits are disjoint, so a sum is their OR
+        rm_new = (torch.gather(rmv, -1, order) << (2 * sh)).sum(-1)
+        tp_new = (torch.gather(tpv, -1, order) << sh).sum(-1)
+        mp_new = (torch.gather(mpv, -1, order) << sh).sum(-1)
+        return (FieldWriter(pk, rows).set("rm", rm_new)
+                .set("tm_prepared", tp_new).set("msg_prepared", mp_new).done())
+
     # -- device --------------------------------------------------------------
 
     def step_rows(self, rows: torch.Tensor):
@@ -297,12 +338,22 @@ class TwoPhaseTensor(TensorModel):
 def main(argv=None) -> int:
     from ._cli import check_gpu_main
 
+    def n(rest):
+        return int(rest[0]) if rest else 2
+
     return check_gpu_main(
         "two_phase_commit", "[RESOURCE_MANAGER_COUNT]", argv,
-        lambda rest: TwoPhaseSys(int(rest[0]) if rest else 2),
-        lambda rest: ("Checking two phase commit with "
-                      f"{int(rest[0]) if rest else 2} RMs on the GPU."),
+        lambda rest: TwoPhaseSys(n(rest)),
+        lambda rest: f"Checking two phase commit with {n(rest)} RMs on the GPU.",
         max_args=1,
+        sym_banners={
+            "check-sym": lambda rest: (
+                f"Checking two phase commit with {n(rest)} resource "
+                "managers using symmetry reduction."),
+            "check-sym-gpu": lambda rest: (
+                f"Checking two phase commit with {n(rest)} RMs on the GPU "
+                "using symmetry reduction."),
+        },
     )
 
 

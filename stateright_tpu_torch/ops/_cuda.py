@@ -44,8 +44,9 @@ _SIGNATURES = {
     # rows, valid (nullable), out, n, width, stream
     "srt_row_hash": (_P, _P, _P, _I64, _I32, _P),
     # tfp, sfp, spl, bucket, order, cidx (nullable), cand_overflow,
-    # tgt, cfp, cpl, sel, n_new, overflow, scratch, m, stream
-    "srt_bucket_plan": (_P,) * 14 + (_I64, _P),
+    # tgt, cfp, cpl, sel, n_new, overflow, scratch, stage (nullable: table
+    # order; else generation order, two launches), m, stream
+    "srt_bucket_plan": (_P,) * 15 + (_I64, _P),
     # tfp, tpl, tgt, cfp, cpl, n_new, m, then the queue half (all null
     # for a table-only commit): qrows, qfp, qebits, qdepth, tail, sel,
     # crows, pebits, pdepth, width, arity; stream

@@ -22,13 +22,23 @@ three stages: :func:`sort_candidates` (compaction and the stable key sort,
 PyTorch; ``torch.argsort`` is not stable by default, and the table and
 traces depend on it, so every sort passes ``stable=True``), then
 :func:`bucket_plan` (membership, occupancy, dedup, ranks, flags and the
-table-order compaction; on CUDA one launch of ``csrc/bucket_plan.cu``),
-then the commit (``ops/insert_commit.py``).  The engine's step takes its
-first stage from ``ops/cand_prep.py`` instead (hash, key and compaction
-in one launch, then one sort); :func:`bucket_insert` serves the init rows
-and the tests.  The JAX version's
-data-dependent ``while_loop`` s become full-width passes masked by counts
-that stay on the device.
+compaction of the novel candidates; on CUDA one launch of
+``csrc/bucket_plan.cu``, two in generation order), then the commit
+(``ops/insert_commit.py``).
+
+The novel candidates are compacted in one of two orders.  Plain runs use
+table order (sorted key order).  Symmetry runs use **generation order**
+(``generation_order=True``, JAX ``ops/buckets.py:282-297``, :341-343): the
+order of the candidates themselves, so the queue, and with it which
+member of a symmetry class is explored, follows the order the successors
+were generated in, as a host FIFO search would.  Table slots are the same
+in both orders; only the order of the compacted lists changes.
+
+The engine's step takes its first stage from ``ops/cand_prep.py`` instead
+(hash, key and compaction in one launch, then one sort);
+:func:`bucket_insert` serves the init rows and the tests.  The JAX
+version's data-dependent ``while_loop`` s become full-width passes masked
+by counts that stay on the device.
 """
 
 from __future__ import annotations
@@ -113,10 +123,12 @@ def sort_candidates(fps: torch.Tensor, payloads: torch.Tensor,
     return fps[order], payloads[order], bucket, order, cidx, cand_overflow
 
 
-def plan_writes(sfp, spl, bucket, present, base, nslots: int, cand_overflow):
+def plan_writes(sfp, spl, bucket, present, base, nslots: int, cand_overflow,
+                order=None):
     """The insert's rank pass over sorted candidates: first-occurrence
     dedup, novelty, per-bucket ranks by segmented cumsum, the overflow
-    flags, and the novel candidates compacted to the front in table order.
+    flags, and the novel candidates compacted to the front, in table order,
+    or in generation order when the sort permutation ``order`` is given.
     Returns ``(tgt, cfp, cpl, perm, n_new, overflow)``; ``tgt`` is
     ``nslots`` on non-novel lanes and ``n_new`` is 0 when blocked."""
     m = sfp.shape[0]
@@ -138,20 +150,26 @@ def plan_writes(sfp, spl, bucket, present, base, nslots: int, cand_overflow):
     slot = base + rank
     overflow = (novel & (slot >= SLOTS)).any()
     n_new = torch.where(overflow | cand_overflow, 0, csum[m - 1])
-    perm = torch.argsort(torch.where(novel, idx, m), stable=True)
+    # novel lanes first: in sorted order, or in the order of the lanes the
+    # sort drew them from (generation order)
+    perm = torch.argsort(torch.where(novel, idx if order is None else order, m),
+                         stable=True)
     tgt = torch.where(novel, bucket * SLOTS + slot, nslots)[perm]
     return tgt, sfp[perm], spl[perm], perm, n_new, overflow
 
 
-def bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx, cand_overflow):
+def bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
+                      generation_order: bool = False):
     """:func:`bucket_probe_plain`, :func:`plan_writes` and the ``sel`` remap,
     composed.  Returns ``(tgt, cfp, cpl, sel, n_new, overflow)``: the novel
-    candidates' slots, fingerprints, payloads and ORIGINAL indices in table
-    order (``cidx[order[i]]``, or ``order[i]`` when ``cidx`` is None), the
-    0-d count (0 when blocked) and the 0-d bucket-overflow flag."""
+    candidates' slots, fingerprints, payloads and ORIGINAL indices
+    (``cidx[order[i]]``, or ``order[i]`` when ``cidx`` is None), in table
+    order or, with ``generation_order``, in candidate order; then the 0-d
+    count (0 when blocked) and the 0-d bucket-overflow flag."""
     present, base = bucket_probe_plain(tfp, sfp, bucket)
     tgt, cfp, cpl, perm, n_new, overflow = plan_writes(
-        sfp, spl, bucket, present, base, tfp.shape[0], cand_overflow
+        sfp, spl, bucket, present, base, tfp.shape[0], cand_overflow,
+        order if generation_order else None,
     )
     sel = order[perm]
     if cidx is not None:
@@ -165,9 +183,16 @@ class PlanBuffers:
     candidate width).  Zero-filled, so the entries past ``n_new`` that a
     launch leaves alone stay in-range indices; the kernel's last CTA zeroes
     the scratch (two tickets, the overflow word, one state word per tile)
-    again for the next launch."""
+    again for the next launch.
 
-    def __init__(self, m: int, device):
+    ``generation_order`` adds the staging area of that mode: three int64
+    words (slot, fingerprint, payload) per candidate, indexed by the
+    candidate's position, with slot -1 for "no novel lane here".  The
+    compaction launch puts the -1 back wherever it read a record, so the
+    slot words are all -1 again between launches, as they are allocated
+    (the other two words are read only under a staged slot)."""
+
+    def __init__(self, m: int, device, generation_order: bool = False):
         if not 0 < m < 1 << 30:
             raise ValueError(f"bucket_plan: {m} lanes; the kernel takes 1 "
                              "to 2^30 - 1 (it counts in 30 bits)")
@@ -179,15 +204,22 @@ class PlanBuffers:
         self.n_new = torch.zeros((), **i64)
         self.overflow = torch.zeros((), dtype=torch.bool, device=device)
         self.scratch = torch.zeros(3 + -(-m // PLAN_TILE), **i64)
+        self.generation_order = generation_order
+        self.stage = (torch.full((3 * m,), -1, **i64) if generation_order
+                      else None)
         self.outputs = (self.tgt, self.cfp, self.cpl, self.sel, self.n_new,
                         self.overflow)
         self.ptrs = tuple(t.data_ptr() for t in self.outputs + (self.scratch,))
+        self.stage_ptr = None if self.stage is None else self.stage.data_ptr()
 
 
 def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
-                out: PlanBuffers = None, *, check: bool = True, stream=None):
+                out: PlanBuffers = None, *, generation_order: bool = False,
+                check: bool = True, stream=None):
     """:func:`bucket_plan_plain`'s function; CUDA tensors launch
-    ``csrc/bucket_plan.cu`` once, into ``out`` (allocated here when None).
+    ``csrc/bucket_plan.cu`` into ``out`` (allocated here when None): once
+    in table order, and with ``generation_order`` twice (the plan, then
+    the compaction in candidate order; the launch count counts both).
     The outputs are ``out``'s tensors: the next launch into the same
     buffers overwrites them.  ``check=False`` skips the argument checks:
     only for a caller that built the inputs itself (the engine, from
@@ -195,7 +227,7 @@ def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
     the current one)."""
     if sfp.device.type != "cuda":
         return bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx,
-                                 cand_overflow)
+                                 cand_overflow, generation_order)
     m = sfp.shape[0]
     dev = sfp.device
     if check:
@@ -208,18 +240,25 @@ def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
         if cidx is not None:
             _cuda.require(cidx, "cidx", torch.int64, 1, dev, m)
         _cuda.require(cand_overflow, "cand_overflow", torch.bool, 0, dev)
-        if out is not None and (out.m != m or out.device != dev):
-            raise ValueError(f"out: buffers for {out.m} lanes on {out.device}")
+        if out is not None and (out.m, out.device) != (m, dev):
+            raise ValueError(
+                f"out: buffers for {out.m} lanes on {out.device}")
     if out is None:
-        out = PlanBuffers(m, dev)
+        out = PlanBuffers(m, dev, generation_order)
+    elif out.generation_order != generation_order:
+        # the buffers decide the launches (a staging area is the second
+        # one's), so the two must agree even unchecked
+        raise ValueError(f"out: buffers for generation_order="
+                         f"{out.generation_order}")
     if stream is None:
         stream = _cuda.stream_of(sfp)
     _cuda.check("bucket_plan", _cuda.library().srt_bucket_plan(
         tfp.data_ptr(), sfp.data_ptr(), spl.data_ptr(), bucket.data_ptr(),
         order.data_ptr(), None if cidx is None else cidx.data_ptr(),
-        cand_overflow.data_ptr(), *out.ptrs, m, stream,
+        cand_overflow.data_ptr(), *out.ptrs,
+        out.stage_ptr, m, stream,
     ))
-    bucket_plan.launches += 1
+    bucket_plan.launches += 1 if out.stage is None else 2
     return out.outputs
 
 
@@ -232,12 +271,14 @@ def bucket_insert(
     fps: torch.Tensor,  # int64[M] candidates (EMPTY = invalid lane)
     payloads: torch.Tensor,  # int64[M]
     compact: int = None,  # optional valid-candidate budget CB
+    generation_order: bool = False,
 ):
     """Insert all valid candidates; returns ``(table_fp, table_payload,
     sel, n_new, overflow, cand_overflow)``, the tables updated IN PLACE.
 
     ``sel[:n_new]`` holds the ORIGINAL indices (into ``fps``) of the
-    inserted candidates in table order; later entries are arbitrary
+    inserted candidates, in table order, or in their own order with
+    ``generation_order`` (symmetry runs); later entries are arbitrary
     in-range indices.  On ``overflow`` (a bucket past SLOTS) or
     ``cand_overflow`` (more valid candidates than ``compact``) nothing was
     written and ``n_new`` is 0.  ``n_new``, ``overflow`` and
@@ -252,7 +293,8 @@ def bucket_insert(
         fps, payloads, nslots // SLOTS, compact
     )
     tgt, cfp, cpl, sel, n_new, overflow = bucket_plan(
-        table_fp, sfp, spl, bucket, order, cidx, cand_overflow
+        table_fp, sfp, spl, bucket, order, cidx, cand_overflow,
+        generation_order=generation_order,
     )
     insert_commit(table_fp, table_payload, tgt, cfp, cpl, n_new)
     return table_fp, table_payload, sel, n_new, overflow, cand_overflow

@@ -1,13 +1,14 @@
 """Host-side surface shared by the port's device wavefront engines.
 
 The port's counterpart of ``stateright_tpu/parallel/_base.py``
-(``WavefrontChecker``), cut to the plain path: resolve the model's tensor
-twin, check that host and device fingerprints agree, run the engine on a
-background thread (exceptions re-raise at :meth:`join`), honour the
-builder's ``timeout`` with a cooperative stop at the next host sync, and
-rebuild discovery traces on the host from the table's parent
-fingerprints, replayed through the object model
-(``Path.from_fingerprints``).
+(``WavefrontChecker``), cut to the single-device engine: resolve the
+model's tensor twin (and, under ``symmetry()``, check that it has a
+vectorized canonicalizer), check that host and device fingerprints agree,
+run the engine on a background thread (exceptions re-raise at
+:meth:`join`), honour the builder's ``timeout`` with a cooperative stop at
+the next host sync, and rebuild discovery traces on the host from the
+table's parent fingerprints, replayed through the object model
+(``Path.from_fingerprints``, with the class-matching key under symmetry).
 """
 
 from __future__ import annotations
@@ -35,7 +36,31 @@ class WavefrontChecker(Checker):
         if tensor is None:
             raise TypeError(
                 f"{type(self.model).__name__} has no tensor form: implement "
-                "tensor_model() (see parallel/tensor_model.py)"
+                "tensor_model() (see parallel/tensor_model.py) or use "
+                "spawn_bfs()/spawn_dfs()"
+            )
+        self._symmetry = options.symmetry_fn
+        if options.symmetry_fn is not None:
+            if not hasattr(tensor, "representative_rows"):
+                raise NotImplementedError(
+                    f"{type(tensor).__name__} has no representative_rows(): "
+                    "device symmetry reduction needs a vectorized "
+                    "canonicalizer (see TwoPhaseTensor.representative_rows); "
+                    "use spawn_dfs()"
+                )
+            if not options.symmetry_is_default:
+                # representative_rows mirrors state.representative(); a
+                # custom symmetry_with fn would silently disagree with the
+                # device dedup and break trace reconstruction
+                raise NotImplementedError(
+                    "the GPU engine supports .symmetry() (the "
+                    "representative() protocol) only; custom symmetry_with "
+                    "functions require spawn_dfs()"
+                )
+        if options.visitor_obj is not None:
+            raise NotImplementedError(
+                "per-state visitors require host materialization; use "
+                "spawn_bfs() (the GPU engine never materializes states)"
             )
         self.tensor = tensor
         self._props = list(self.model.properties())
@@ -180,8 +205,22 @@ class WavefrontChecker(Checker):
             if int(disc[i]) != 0
         }
 
+    def _symmetry_key(self):
+        """None, or under symmetry the host key of a state's class: the
+        twin's own ``representative_key`` where it has one (a compiled
+        twin hashes a virtual canonical row, not an encodable state), else
+        the fingerprint of the representative."""
+        if self._symmetry is None:
+            return None
+        tkey = getattr(self.tensor, "representative_key", None)
+        if tkey is not None:
+            return tkey
+        sym, model = self._symmetry, self.model
+        return lambda s: model.fingerprint_state(sym(s))
+
     def discoveries(self) -> dict[str, Path]:
+        key = self._symmetry_key()
         return {
-            name: Path.from_fingerprints(self.model, self._trace(fp))
+            name: Path.from_fingerprints(self.model, self._trace(fp), key=key)
             for name, fp in self.discovery_fps().items()
         }

@@ -2,13 +2,15 @@
 
 The port's counterpart of ``stateright_tpu/parallel/actor_compiler.py``:
 the host half (closure and its fail-fast estimate, tables, channel layout,
-host bridge) is the JAX module's, line for line, so both compilers number
-local states and envelopes alike and produce the same rows; the device
-half is plain PyTorch on int64 bit patterns (``ops/hashing.py``), in eager
-:class:`FieldWriter` mode.  Both network packings are here: the global
-slot multiset and the per-channel layout (``per_channel``).  What waits:
-compiled symmetry, the ``OrderedReliableLink`` hint, the coalesced step
-and ``row_domain``.
+symmetry tables, host bridge) is the JAX module's, line for line, so both
+compilers number local states and envelopes alike and produce the same
+rows; the device half is plain PyTorch on int64 bit patterns
+(``ops/hashing.py``), in eager :class:`FieldWriter` mode.  Both network
+packings are here: the global slot multiset and the per-channel layout
+(``per_channel``), and the mechanical symmetry of the general fragment
+(``representative_rows``/``representative_key``, built on demand).  What
+waits: the ``OrderedReliableLink`` hint, the coalesced step and
+``row_domain``.
 
 It compiles Python actor handlers into table-driven ``step_rows`` for two
 fragments (reference transition semantics: ``src/actor/model.rs:187-306``):
@@ -89,8 +91,8 @@ from ..actor.register import (
     record_returns,
 )
 from ..actor.write_once_register import record_returns as wo_record_returns
-from ..fingerprint import MASK64
-from ..ops.hashing import lshr
+from ..fingerprint import MASK64, stable_hash
+from ..ops.hashing import SIGN, lshr, row_hash
 from ..semantics import LinearizabilityTester
 from .actor_tensor import (
     _EMPTY,
@@ -251,6 +253,11 @@ class CompiledActorTensor(TensorModel):
         self._closure()
         self._tabulate_properties()
         self._tabulate_boundary()
+        # the symmetry tables are built lazily (see __getattr__): an
+        # n!-sized tabulation costs nothing on runs without .symmetry()
+        self._sym_tables = None
+        self._sym_attempted = False
+        self._sym_dev: dict = {}
 
         if self.per_channel:
             self._build_channel_layout()
@@ -978,6 +985,202 @@ class CompiledActorTensor(TensorModel):
                 "the initial state is outside within_boundary: the host "
                 "checkers would explore nothing; fix the boundary"
             )
+
+    # -- mechanical device symmetry (general fragment) -----------------------
+
+    _SYM_MAX_PERMS = 720  # n! cap: the tables are [n!, |universe|]
+
+    def __getattr__(self, name):
+        # ``representative_rows``/``representative_key`` appear on demand:
+        # the engine probes them with hasattr only when .symmetry() was
+        # asked for, which is when the permutation tables are first built.
+        # (``__getattr__`` runs only after normal lookup fails, so once
+        # built the instance attributes take over.)
+        if name in ("representative_rows", "representative_key"):
+            d = self.__dict__
+            if (
+                not d.get("_sym_attempted", True)
+                and d.get("_sym_tables") is None
+                and d.get("general")
+            ):
+                self._sym_attempted = True
+                self._try_build_symmetry()
+            if name in self.__dict__:
+                return self.__dict__[name]
+        raise AttributeError(name)
+
+    def _try_build_symmetry(self) -> None:
+        """Mechanical symmetry reduction for compiled models whose actors
+        share ONE state universe (fully interchangeable actors, e.g. Raft
+        servers), as ``_try_build_symmetry`` of the JAX compiler.  It
+        mirrors the host ``ActorModelState.representative``: the
+        permutation is the stable sort of the actors' state
+        ``stable_hash`` keys, and states and envelopes are rewritten
+        through the real ``rewrite_value``, tabulated per permutation, so
+        the device canonicalizes a whole batch with gathers.  The
+        canonical output is a *virtual* row (universe codes, the permuted
+        timer word, the remapped slots), only ever hashed; rewritten values
+        outside the reachable universe are interned for coding.  On success
+        the instance gains ``representative_rows`` (device) and
+        ``representative_key`` (host)."""
+        import math
+        from itertools import permutations
+
+        from ..symmetry import RewritePlan, rewrite_value
+
+        n = self.n_actors
+        if n < 2 or math.factorial(n) > self._SYM_MAX_PERMS:
+            return
+        # the UNION of the per-actor universes: symmetric systems reach
+        # per-actor value sets that are permuted images of each other, so
+        # canonical codes live in the union (virtual rows are never
+        # decoded, only hashed)
+        universe: list = []
+        ucode: dict = {}
+
+        def intern(v) -> int:
+            c = ucode.get(v)
+            if c is None:
+                c = len(universe)
+                universe.append(v)
+                ucode[v] = c
+            return c
+
+        for i in range(n):
+            for s in self._states[i]:
+                intern(s)
+        real_u = len(universe)
+
+        umaps = [
+            np.asarray([ucode[s] for s in self._states[i]], np.int64)
+            for i in range(n)
+        ]
+        perms = list(permutations(range(n)))  # lexicographic mapping order
+        rw = np.zeros((len(perms), real_u), np.int64)
+        # the transition tables' padded envelope width, so the symmetry
+        # gathers cannot desync from them
+        ev = np.zeros((len(perms), self._ne_padded), np.int64)
+        env_intern: dict = dict(self._env_code)
+
+        def env_code_of(e: Envelope) -> int:
+            c = env_intern.get(e)
+            if c is None:
+                c = len(env_intern)
+                env_intern[e] = c
+            return c
+
+        try:
+            for pi, mapping in enumerate(perms):
+                plan = RewritePlan(list(mapping))
+                for u in range(real_u):
+                    rw[pi, u] = intern(rewrite_value(universe[u], plan))
+                for ec, e in enumerate(self._envs):
+                    ev[pi, ec] = env_code_of(
+                        Envelope(
+                            src=plan.rewrite_id(e.src),
+                            dst=plan.rewrite_id(e.dst),
+                            msg=rewrite_value(e.msg, plan),
+                        )
+                    )
+        except Exception:
+            return  # a state or message resists rewriting: no symmetry
+        self._sym_tables = {
+            "umaps": umaps,
+            # uint64 stable hashes as int64 bit patterns
+            "keys": np.asarray(
+                [stable_hash(v) for v in universe[:real_u]], np.uint64
+            ).view(np.int64),
+            "rw": rw,
+            "ev": ev,
+            "fact": [math.factorial(n - 1 - k) for k in range(n)],
+        }
+        self.representative_rows = self._representative_rows_impl
+        self.representative_key = self._representative_key_impl
+
+    def _sym_consts(self, device) -> dict:
+        """The symmetry tables as tensors on ``device``, built once per
+        device (``rw`` and ``ev`` flattened, gathered at
+        ``perm * width + code``)."""
+        c = self._sym_dev.get(device)
+        if c is None:
+            t = self._sym_tables
+
+            def dev(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+            c = {
+                "umaps": [dev(u) for u in t["umaps"]],
+                "keys": dev(t["keys"]),
+                "rw": dev(t["rw"].reshape(-1)),
+                "ev": dev(t["ev"].reshape(-1)),
+                "fact": dev(np.asarray(t["fact"], np.int64)),
+                # [k, j]: j > k, the pairs of the mapping's inversion count
+                "upper": torch.ones(
+                    (self.n_actors, self.n_actors), dtype=torch.bool,
+                    device=device,
+                ).triu_(1),
+            }
+            self._sym_dev[device] = c
+        return c
+
+    def _representative_rows_impl(self, rows: torch.Tensor) -> torch.Tensor:
+        """Canonical VIRTUAL rows, for hashing only: ``int64[..., n + 1 +
+        NS]``, the universe codes of the plan-rewritten sorted actor
+        states, the permuted timer word and the envelope-remapped sorted
+        slots (the JAX ``_representative_rows_impl``).  Any leading shape
+        (the engine passes ``[B, A, W]``).  Every gather index is put in
+        range first (JAX clamps; PyTorch would raise), which changes
+        nothing on a valid row; nothing is read on the host."""
+        cst = self._sym_consts(rows.device)
+        pk, n = self.pk, self.n_actors
+        ar = torch.arange(n, dtype=torch.int64, device=rows.device)
+
+        ucodes = torch.stack(
+            [
+                cst["umaps"][i][
+                    pk.get(rows, f"a{i}").clamp(max=len(self._states[i]) - 1)
+                ]
+                for i in range(n)
+            ],
+            dim=-1,
+        )  # [..., n]
+        keys = cst["keys"][ucodes]
+        # unsigned key order is the signed order of key ^ SIGN
+        order = torch.argsort(keys ^ SIGN, dim=-1, stable=True)  # new -> old
+        mapping = torch.argsort(order, dim=-1)  # old -> new (plan.mapping)
+        # lexicographic rank of the mapping tuple = the table's permutation:
+        # sum over k of fact[k] * #{j > k : mapping[j] < mapping[k]}
+        inv = (mapping[..., None, :] < mapping[..., :, None]) & cst["upper"]
+        perm_id = (inv.sum(-1) * cst["fact"]).sum(-1)  # [...]
+
+        usorted = torch.gather(ucodes, -1, order)
+        real_u = self._sym_tables["rw"].shape[1]
+        codes2 = cst["rw"][perm_id[..., None] * real_u + usorted]  # [..., n]
+
+        if self._has_timers:
+            bits = (pk.get(rows, "timers")[..., None] >> ar) & 1
+            tword = (torch.gather(bits, -1, order) << ar).sum(-1)
+        else:
+            tword = torch.zeros_like(perm_id)
+
+        slots = rows[..., self.pw:]
+        occ = slots != _EMPTY
+        e = torch.where(occ, lshr(slots, COUNT_BITS), 0).clamp_(
+            max=self._ne_padded - 1)
+        cnt = slots & COUNT_MASK
+        e2 = cst["ev"][perm_id[..., None] * self._ne_padded + e]
+        slot2 = torch.where(occ, (e2 << COUNT_BITS) | cnt, _EMPTY)
+        return torch.cat(
+            [codes2, tword[..., None], slot_canonicalize(slot2)], dim=-1
+        )
+
+    def _representative_key_impl(self, state: ActorModelState) -> int:
+        """Host-side symmetry key: the (unsigned) fingerprint the device
+        stores for ``state``'s class, which trace reconstruction matches
+        steps by."""
+        row = np.asarray([self.encode_state(state)], np.uint64).view(np.int64)
+        virt = self._representative_rows_impl(torch.from_numpy(row))
+        return int(row_hash(virt)[0]) & MASK64
 
     # -- host bridge ---------------------------------------------------------
 

@@ -1,10 +1,11 @@
 """The GPU wavefront BFS engine — ``spawn_gpu()``.
 
 The port's counterpart of ``stateright_tpu/parallel/wavefront.py``
-(``_build_engine`` and ``TpuChecker``), plain path only: no symmetry, POR,
-spill, cartography, checked mode, hot-op knobs or prewarm.  The engine
-keeps a device-resident FIFO queue of state rows and a bucketized visited
-table (``ops/buckets.py``), and each step pops a batch and
+(``_build_engine`` and ``TpuChecker``), single device, with symmetry
+reduction; no POR, spill, cartography, checked mode, hot-op knobs or
+prewarm.  The engine keeps a device-resident FIFO queue of state rows and
+a bucketized visited table (``ops/buckets.py``), and each step pops a
+batch and
 
  1. evaluates the property masks, recording first-hit fingerprints;
  2. expands every row through the twin's ``step_rows`` (and, for a twin
@@ -14,11 +15,23 @@ table (``ops/buckets.py``), and each step pops a batch and
     ``cand_prep``), sorts them by bucket key, and plans the insert (kernel
     ``bucket_plan``);
  5. writes the novel fingerprints into the table and appends their rows
-    at the queue tail, in table order (kernel ``insert_commit``).
+    at the queue tail (kernel ``insert_commit``).
 
-On CUDA, steps 4 and 5 are three launches and one stable sort; the
-kernels' outputs and scratch are allocated once per engine
-(``PrepBuffers``, ``PlanBuffers``).
+On CUDA, steps 4 and 5 are three launches and one stable sort (four
+launches under symmetry); the kernels' outputs and scratch are allocated
+once per engine (``PrepBuffers``, ``PlanBuffers``).
+
+**Symmetry reduction** (``.symmetry()``, JAX wavefront.py:469-473, :776):
+the search still explores ORIGINAL rows, but the table is keyed on the
+canonical class member's hash, the device form of the host DFS's
+``_dedup_key``.  ``cand_prep`` hashes ``tensor.representative_rows(succ)``
+(a twin's canonical rows may be wider or narrower than its rows: the
+compiled twin's are a virtual row of ``n + 1 + NS`` words), while the
+queue append copies ``succ``; the queue's fingerprints are the canonical
+ones.  ``bucket_plan`` compacts the novel candidates in generation order,
+so the reduced search is the one a host FIFO search over original states
+with representative dedup makes, and so the JAX engine's.  Traces are
+rebuilt by matching classes (``Path.from_fingerprints(key=...)``).
 
 Pops are in BFS level order, so parent pointers record shortest paths.
 
@@ -103,11 +116,11 @@ class _Engine:
 
     def __init__(self, tensor, props, cap: int, qcap: int, batch: int,
                  steps: int, target: Optional[int], cand: Optional[int],
-                 device):
+                 device, sym: bool = False):
         self.tensor, self.props = tensor, props
         self.cap, self.qcap, self.batch, self.steps = cap, qcap, batch, steps
-        self.target, self.device = target, device
-        self.key = (cap, qcap, batch, cand)
+        self.target, self.device, self.sym = target, device, sym
+        self.key = (cap, qcap, batch, cand, sym)
         self.width, self.arity = tensor.width, tensor.max_actions
         self.m = batch * self.arity
         self.eff_cand = min(cand, self.m) if cand else self.m
@@ -133,7 +146,7 @@ class _Engine:
         self.prep_out = self.plan_out = self.stream = None
         if self.device.type == "cuda":
             self.prep_out = PrepBuffers(self.m, self.eff_cand, self.device)
-            self.plan_out = PlanBuffers(self.eff_cand, self.device)
+            self.plan_out = PlanBuffers(self.eff_cand, self.device, sym)
             self.stream = _cuda.stream_of(self.plan_out.tgt)
 
     # -- step pieces ---------------------------------------------------------
@@ -209,16 +222,20 @@ class _Engine:
         disc = self.flush_terminal(terminal, fps, ebits, disc)
 
         cand_rows = succ.reshape(m, width)
+        # under symmetry the table is keyed on the canonical rows' hash,
+        # while the queue keeps the original rows
+        krows = (self.tensor.representative_rows(succ).reshape(m, -1)
+                 .contiguous() if self.sym else cand_rows)
         # the engine built every input itself: the kernels run unchecked
         pfp, ppl, cidx, key, n_valid, coverflow = cand_prep(
-            cand_rows, valid.reshape(m), fps, arity, self.eff_cand,
+            krows, valid.reshape(m), fps, arity, self.eff_cand,
             self.prep_out, check=False, stream=self.stream,
         )
         sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
                                                 self.cap // SLOTS)
         tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
             c[TFP], sfp, spl, bucket, order, cidx, coverflow, self.plan_out,
-            check=False, stream=self.stream,
+            generation_order=self.sym, check=False, stream=self.stream,
         )
         insert_commit(
             c[TFP], c[TPL], tgt, cfp, cpl, n_new,
@@ -278,9 +295,11 @@ class _Engine:
         init_np = np.asarray(self.tensor.init_rows(), np.uint64)
         n_init = init_np.shape[0]
         irows = torch.from_numpy(init_np.view(np.int64).copy()).to(dev)
-        ifp = row_hash(irows)
+        ifp = row_hash(self.tensor.representative_rows(irows).contiguous()
+                       if self.sym else irows)
         tfp, tpl, sel, n_new, overflow, _ = bucket_insert(
             tfp, tpl, ifp, torch.zeros((n_init,), **i64),  # parent 0 = init
+            generation_order=self.sym,
         )
         qrows[:n_init] = irows[sel]
         qfp[:n_init] = ifp[sel]
@@ -342,7 +361,8 @@ class GpuChecker(WavefrontChecker):
 
     def _engine(self, cap, qcap, batch, cand) -> _Engine:
         return _Engine(self.tensor, self._props, cap, qcap, batch,
-                       self._steps, self._target, cand, self.device)
+                       self._steps, self._target, cand, self.device,
+                       sym=self._symmetry is not None)
 
     def _pre_run_validate(self) -> None:
         if self._resume is not None:
@@ -429,6 +449,7 @@ class GpuChecker(WavefrontChecker):
                     cap *= 2  # guarantee progress on a clustered init set
 
         disc_len = max(len(self._props), 1)
+        sym = self._symmetry is not None
         engine = None
         while True:
             if stats is None:
@@ -472,7 +493,7 @@ class GpuChecker(WavefrontChecker):
             target_hit = self._target is not None and unique >= self._target
             if tail <= head or all_disc or target_hit:
                 break
-            if engine is None or engine.key != (cap, qcap, batch, cand):
+            if engine is None or engine.key != (cap, qcap, batch, cand, sym):
                 engine = self._engine(cap, qcap, batch, cand)
             carry, stats = engine.run(carry)
             self.steps_run += engine.steps

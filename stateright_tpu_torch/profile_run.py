@@ -1,15 +1,19 @@
 """Where a GPU run's time goes: 2pc-N, paxos-N, single-copy-N or
-per-channel paxos-N under ``torch.profiler``.
+per-channel paxos-N, or 2pc-N and raft-N under symmetry, under
+``torch.profiler``.
 
     python -m stateright_tpu_torch.profile_run [RM_COUNT] [TARGET]
     python -m stateright_tpu_torch.profile_run paxos [CLIENT_COUNT] [TARGET]
     python -m stateright_tpu_torch.profile_run singlecopy [CLIENT_COUNT] [TARGET]
     python -m stateright_tpu_torch.profile_run paxos-per-channel [CLIENT_COUNT] [TARGET]
+    python -m stateright_tpu_torch.profile_run 2pc-sym [RM_COUNT] [TARGET]
+    python -m stateright_tpu_torch.profile_run raft-sym [SERVER_COUNT] [TARGET]
 
 Runs ``TwoPhaseSys(n)`` (or ``paxos_model(n)``, or ``single_copy_model(n)``,
 whose twin the actor compiler builds, or ``paxos_model(n).per_channel_()``
 at the JAX package's bench configuration, ``capacity=1 << 16``,
-``batch=512``) ``.checker().spawn_gpu()`` once to warm up (kernel build,
+``batch=512``; or ``TwoPhaseSys(n)``/``raft_model(n)`` under
+``.symmetry()``) ``.checker().spawn_gpu()`` once to warm up (kernel build,
 allocator), then once under the profiler with CPU and CUDA activities, and
 prints one JSON object: wall seconds, the summed device time of all kernels
 and copies, the device busy share (summed device time over wall; kernels on
@@ -30,6 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .models.paxos import paxos_model
+from .models.raft import raft_model
 from .models.single_copy_register import single_copy_model
 from .models.two_phase_commit import TwoPhaseSys
 
@@ -50,17 +55,21 @@ def _paxos_per_channel(n: int):
     return m
 
 
-# name: (builder, default size, spawn_gpu arguments)
+# name: (builder, default size, spawn_gpu arguments, under symmetry)
 MODELS = {
-    "paxos": (paxos_model, 3, {}),
-    "singlecopy": (single_copy_model, 4, {}),
+    "paxos": (paxos_model, 3, {}, False),
+    "singlecopy": (single_copy_model, 4, {}, False),
     "paxos-per-channel": (_paxos_per_channel, 2,
-                          dict(capacity=1 << 16, batch=512)),
+                          dict(capacity=1 << 16, batch=512), False),
+    "2pc-sym": (TwoPhaseSys, 15, {}, True),
+    "raft-sym": (raft_model, 3, {}, True),
 }
 
 
-def _run(model, n: int, target, kw=None):
+def _run(model, n: int, target, kw=None, sym: bool = False):
     b = model(n).checker()
+    if sym:
+        b = b.symmetry()
     if target:
         b = b.target_states(target)
     torch.cuda.synchronize()
@@ -72,18 +81,18 @@ def _run(model, n: int, target, kw=None):
 
 def main(argv=None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
-    model, name, n, kw = TwoPhaseSys, "2pc", 7, {}
+    model, name, n, kw, sym = TwoPhaseSys, "2pc", 7, {}, False
     if args and args[0] in MODELS:
         name = args.pop(0)
-        model, n, kw = MODELS[name]
+        model, n, kw, sym = MODELS[name]
     n = int(args[0]) if args else n
     target = int(args[1]) if len(args) > 1 else None
     if not torch.cuda.is_available():
         print("profile_run: no CUDA device available", file=sys.stderr)
         return 2
-    _run(model, n, target, kw)  # warm-up
+    _run(model, n, target, kw, sym)  # warm-up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        c, wall = _run(model, n, target, kw)
+        c, wall = _run(model, n, target, kw, sym)
     events = prof.key_averages()
     blocks = -(-c.steps_run // c._steps)
     kernels = sorted(

@@ -5,6 +5,7 @@ visited-table bytes must be equal (tolerance 0), including a run small
 enough to force growth and runs resumed across the two engines'
 snapshots."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -229,43 +230,86 @@ def test_resume_rejects_another_models_snapshot():
         TwoPhaseSys(4).checker().spawn_gpu(device="cpu", resume=snap)
 
 
-def test_port_run_loads_neither_jax_nor_the_reference():
-    code = (
-        "import sys\n"
+# One case per model family, each in a subprocess of its own: with the
+# suite on six xdist workers, one subprocess with all eight runs in it,
+# on as many intra-op threads as the machine has cores, took more than
+# its 300 s limit (34 s alone).  Each case runs on one thread, so six of
+# them load six cores, not 48 threads on 8.
+ISOLATION_CASES = {
+    "2pc": (
         "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
-        "from stateright_tpu_torch.models.paxos import paxos_model\n"
         "c = TwoPhaseSys(3).checker().spawn_gpu(device='cpu').join()\n"
         "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+    ),
+    "paxos": (
+        "from stateright_tpu_torch.models.paxos import paxos_model\n"
         "p = paxos_model(1).checker().spawn_gpu(device='cpu').join()\n"
         "assert p.unique_state_count() == 265, p.unique_state_count()\n"
         "assert set(p.discoveries()) == {'value chosen'}\n"
+    ),
+    "single-copy": (
         "from stateright_tpu_torch.models.single_copy_register import "
         "single_copy_model\n"
-        "from stateright_tpu_torch.models.raft import raft_model\n"
         "s = single_copy_model(2).checker().spawn_gpu(device='cpu').join()\n"
         "assert s.unique_state_count() == 93, s.unique_state_count()\n"
+        "s2 = single_copy_model(2, 1, put_count=2).checker().spawn_gpu(\n"
+        "    device='cpu').join()\n"
+        "assert s2.unique_state_count() == 369, s2.unique_state_count()\n"
+    ),
+    "raft": (
+        "from stateright_tpu_torch.models.raft import raft_model\n"
         "r = raft_model(3).checker().spawn_gpu(device='cpu').join()\n"
         "assert r.unique_state_count() == 5725, r.unique_state_count()\n"
+    ),
+    "write-once": (
         "from stateright_tpu_torch.models.write_once_register import "
         "wo_register_model\n"
         "w = wo_register_model(2).checker().spawn_gpu(device='cpu').join()\n"
         "assert w.unique_state_count() == 71, w.unique_state_count()\n"
-        "s2 = single_copy_model(2, 1, put_count=2).checker().spawn_gpu(\n"
-        "    device='cpu').join()\n"
-        "assert s2.unique_state_count() == 369, s2.unique_state_count()\n"
+    ),
+    "per-channel": (
+        "from stateright_tpu_torch.models.paxos import paxos_model\n"
         "pc = paxos_model(1)\n"
         "pc.per_channel_()\n"
         "assert pc.tensor_model().network_encoding == 'per-channel'\n"
         "pc = pc.checker().spawn_gpu(device='cpu').join()\n"
         "assert pc.unique_state_count() == 265, pc.unique_state_count()\n"
-        "bad = [m for m in sys.modules\n"
+    ),
+    "symmetry": (
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.models.raft import raft_model\n"
+        "g = TwoPhaseSys(5).checker().symmetry().spawn_gpu(device='cpu')\n"
+        "assert g.join().unique_state_count() == 508, g.unique_state_count()\n"
+        "assert set(g.discoveries()) == {'abort agreement', "
+        "'commit agreement'}\n"
+        "d = TwoPhaseSys(5).checker().symmetry().spawn_dfs().join()\n"
+        "assert d.unique_state_count() == 665, d.unique_state_count()\n"
+        "b = TwoPhaseSys(3).checker().spawn_bfs().join()\n"
+        "assert b.unique_state_count() == 288, b.unique_state_count()\n"
+        "r = raft_model(3).checker().symmetry().spawn_gpu(device='cpu')\n"
+        "assert r.join().unique_state_count() == 2926, r.unique_state_count()\n"
+        "assert set(r.discoveries()) == {'a leader is elected'}\n"
+    ),
+}
+
+
+@pytest.mark.parametrize("family", list(ISOLATION_CASES))
+def test_port_run_loads_neither_jax_nor_the_reference(family):
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        + ISOLATION_CASES[family]
+        + "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'stateright_tpu.'))\n"
         "       or m == 'stateright_tpu']\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    # alone each case takes 3-15 s on one thread
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
@@ -333,26 +377,36 @@ class SyncProbe(TorchDispatchMode):
 def sync_free_model(name):
     from stateright_tpu_torch.models.paxos import paxos_model
     from stateright_tpu_torch.models.paxos_tensor import PaxosTensor
+    from stateright_tpu_torch.models.raft import raft_model
+    from stateright_tpu_torch.parallel.actor_compiler import (
+        CompiledActorTensor,
+    )
 
-    if name == "2pc":
+    if name.startswith("2pc"):
         return TwoPhaseSys(3), TwoPhaseTensor
+    if name == "raft-sym":
+        return raft_model(3), CompiledActorTensor
     m = paxos_model(1)
     if name == "per-channel":
         m.per_channel_()
-        from stateright_tpu_torch.parallel.actor_compiler import (
-            CompiledActorTensor,
-        )
         return m, CompiledActorTensor
     return m, PaxosTensor
 
 
-@pytest.mark.parametrize("name", ["2pc", "paxos", "per-channel"])
+# unique states of each probed run; "-sym" runs under .symmetry()
+SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
+                    "2pc-sym": 94, "raft-sym": 2926}
+
+
+@pytest.mark.parametrize("name", list(SYNC_FREE_UNIQUE))
 def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     """Every block of ``steps_per_call`` steps, post-stop no-ops included,
     runs under a ``TorchDispatchMode`` probe: no operation that reads a
     tensor on the host (``aten._local_scalar_dense`` and kin) is
-    dispatched, for 2pc, ``PaxosTensor`` and a per-channel compiled twin.
-    The host reads one packed stats tensor per block, outside the block."""
+    dispatched, for 2pc, ``PaxosTensor`` and a per-channel compiled twin,
+    and under symmetry for 2pc (``representative_rows``) and raft (the
+    compiler's mechanical symmetry).  The host reads one packed stats
+    tensor per block, outside the block."""
     from stateright_tpu_torch.parallel import wavefront
 
     blocks = []
@@ -368,7 +422,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     monkeypatch.setattr(wavefront._Engine, "run", probed)
     m, twin = sync_free_model(name)
     assert isinstance(m.tensor_model(), twin)
-    c = m.checker().spawn_gpu(device="cpu", steps_per_call=4).join()
-    assert c.unique_state_count() == (288 if name == "2pc" else 265)
+    b = m.checker()
+    if name.endswith("-sym"):
+        b = b.symmetry()
+    c = b.spawn_gpu(device="cpu", steps_per_call=4).join()
+    assert c.unique_state_count() == SYNC_FREE_UNIQUE[name]
     assert len(blocks) > 2
     assert blocks == [[]] * len(blocks)

@@ -1,13 +1,14 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
 plain PyTorch version on a CUDA device (integer outputs: equal), at the
-2pc widths, at the paxos widths (W = 18 words and A = 16 actions for
+2pc widths, ``bucket_plan`` in generation order (the symmetry runs' mode)
+on the seeded cases of the CPU tests and at the 2pc-15 symmetry cell, at the paxos widths (W = 18 words and A = 16 actions for
 paxos-1, W = 33 and A = 30 for paxos-3) and at the compiled twins' (W = 21
 and A = 20 for single-copy-4 and lin-reg-3-ordered, W = 25 and A = 24 for
 dining-3, W = 83 and A = 82 for per-channel paxos-2), ``row_hash`` from W = 1
 to its widest row, and the engine's table and queue on
 ``cuda`` against ``cpu`` (2pc-4, 2pc-5, a bounded 2pc-7, paxos-2,
 lin-reg-3-ordered, raft-3, per-channel paxos-1, single-copy(2,1) with two
-puts in both packings, and wo(2,1)).
+puts in both packings, and wo(2,1); 2pc-7 and raft-3 under symmetry).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch import convert
 from stateright_tpu_torch.actor import Network
 from stateright_tpu_torch.models.linearizable_register import abd_model
 from stateright_tpu_torch.models.paxos import paxos_model
@@ -32,7 +34,6 @@ from stateright_tpu_torch.ops.buckets import (
     SLOTS,
     PlanBuffers,
     bucket_insert,
-    bucket_of,
     bucket_plan,
     bucket_plan_plain,
     sort_candidates,
@@ -42,6 +43,7 @@ from stateright_tpu_torch.ops.cand_prep import (
     PrepBuffers,
     cand_prep,
     cand_prep_plain,
+    sort_prepared,
 )
 from stateright_tpu_torch.ops.hashing import (
     ROW_HASH_MAX_WIDTH,
@@ -53,6 +55,7 @@ from stateright_tpu_torch.ops.insert_commit import (
     insert_commit,
     insert_commit_plain,
 )
+from test_torch_plan_cases import GEN_CASES, gen_case, in_buckets
 
 pytestmark = pytest.mark.gpu
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -103,16 +106,6 @@ def test_row_hash_kernel_widest_row(cuda):
     wide = torch.zeros((2, ROW_HASH_MAX_WIDTH + 1), dtype=torch.int64)
     with pytest.raises(ValueError, match="row_hash"):
         row_hash(wide.to(cuda))
-
-
-def in_buckets(rng, nbuckets, keep, count):
-    """``count`` distinct random fingerprints whose bucket satisfies
-    ``keep``."""
-    out = np.empty(0, np.uint64)
-    while out.size < count:
-        f = rng.integers(1, 1 << 64, size=4 * count, dtype=np.uint64)
-        out = np.unique(np.concatenate([out, f[keep(bucket_of(f, nbuckets))]]))
-    return rng.permutation(out)[:count]
 
 
 def plan_case(case, rng):
@@ -188,6 +181,93 @@ def test_bucket_plan_kernel_matches_plain(cuda, case):
         assert (bool(want[5]), int(want[4])) == expect
     else:
         assert int(want[4]) > 0
+
+
+def check_generation_order(cuda, tfp, inputs):
+    """The generation-order kernel against its plain version on one input,
+    twice into the same buffers (the second launch finds the scratch and
+    the staged slots reset); each call is two launches."""
+    want = bucket_plan_plain(tfp, *inputs, generation_order=True)
+    args = [None if x is None else x.to(cuda) for x in (tfp, *inputs)]
+    out = PlanBuffers(inputs[0].shape[0], cuda, generation_order=True)
+    before = bucket_plan.launches
+    planned = int((want[0] != tfp.shape[0]).sum())
+    for _ in range(2):
+        got = [x.cpu() for x in bucket_plan(*args, out=out,
+                                            generation_order=True)]
+        torch.cuda.synchronize()
+        assert int(got[4]) == int(want[4])  # n_new
+        assert bool(got[5]) == bool(want[5])  # overflow
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g[:planned], w[:planned])
+    assert bucket_plan.launches - before == 4
+    assert bool((out.stage[:out.m] == -1).all())  # no slot left staged
+    return want, planned
+
+
+@pytest.mark.parametrize("case", PLAN_CASES + GEN_CASES)
+def test_bucket_plan_generation_order_kernel_matches_plain(cuda, case):
+    if case in PLAN_CASES:
+        rng = np.random.default_rng(PLAN_CASES.index(case))
+        tfp, _tpl, fps, payloads, compact = plan_case(case, rng)
+    else:
+        rng = np.random.default_rng(GEN_CASES.index(case))
+        nb, pre, fps, compact = gen_case(case, rng)
+        payloads = rand_i64(rng, fps.size)
+        tfp = torch.full((nb * SLOTS,), -1, dtype=torch.int64)
+        bucket_insert(tfp, torch.zeros_like(tfp), i64(pre), i64(pre))
+        fps = i64(fps)
+    inputs = sort_candidates(fps, payloads, tfp.shape[0] // SLOTS, compact)
+    want, planned = check_generation_order(cuda, tfp, inputs)
+    # the same slots as table order (an overflowing lane of the last bucket
+    # plans slot nslots, so the whole lists are compared), listed in
+    # candidate order
+    tab = bucket_plan_plain(tfp, *inputs)
+    assert torch.equal(torch.sort(want[0]).values, torch.sort(tab[0]).values)
+    assert torch.equal(torch.sort(want[3][:planned]).values, want[3][:planned])
+
+
+def test_bucket_plan_generation_order_at_the_2pc15_symmetry_cell(cuda):
+    """The next batch of a 2pc-15 symmetry run bounded at 200,000 classes:
+    the engine's inputs to ``bucket_plan`` (canonical rows through
+    ``cand_prep``, the stable sort), generation order on the card equal to
+    the plain version."""
+    c = TwoPhaseSys(15).checker().symmetry().target_states(200_000).spawn_gpu(
+        device=cuda).join()
+    carry, tm = c._final_carry, c.tensor
+    head = int(carry[convert.HEAD])
+    rows = carry[convert.QROWS][head:head + c._batch]
+    succ, valid = tm.step_rows(rows)
+    m = succ.shape[0] * tm.max_actions
+    krows = tm.representative_rows(succ).reshape(m, -1)
+    prep = cand_prep_plain(krows, valid.reshape(m),
+                           carry[convert.QFP][head:head + c._batch],
+                           tm.max_actions, min(c._cand, m))
+    tfp = carry[convert.TFP]
+    sort = (*sort_prepared(prep[0], prep[1], prep[3], tfp.shape[0] // SLOTS),
+            prep[2], prep[5])
+    want, planned = check_generation_order(cuda, tfp.cpu(),
+                                           [x.cpu() for x in sort])
+    assert int(want[4]) > 1000 and planned == int(want[4])
+
+
+@pytest.mark.parametrize("name,unique", [("2pc7", 2326), ("raft3", 2926)])
+def test_symmetry_table_and_queue_identical_on_cuda_and_cpu(cuda, name, unique):
+    """Symmetry runs (canonical keys, generation-order inserts): the same
+    table bytes, cursors and queue rows ``[0, tail)`` on both devices."""
+    def run(device):
+        m = TwoPhaseSys(7) if name == "2pc7" else raft_model(3)
+        c = m.checker().symmetry().spawn_gpu(device=device, batch=256)
+        return c.join().final_snapshot()
+
+    g, c = run(cuda), run("cpu")
+    assert int(g["unique"]) == int(c["unique"]) == unique
+    assert int(g["head"]) == int(c["head"]) and int(g["tail"]) == int(c["tail"])
+    tail = int(g["tail"])
+    for k in ("table_fp", "table_parent"):
+        np.testing.assert_array_equal(g[k], c[k], err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
 
 
 @pytest.mark.parametrize("n_new,m", [(3000, 4096), (0, 4096), (1, 1)])
