@@ -79,6 +79,30 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    rows through ``cand_prep``), L2 flushed before every timed call, and the
    table-order plan on the same batch beside it.
 
+The last three legs drive the checkpoint protocol, ``spawn_auto`` and an
+ORL-wrapped system, each with its launch counts reset just before it and
+read just after:
+
+ - ``checkpoint_sc4``: single-copy-4 at the uninterrupted leg's capacity,
+   batch and budget, ``steps_per_call=4``, autosaving every 0.5 s (keep 2):
+   a live ``checkpoint()`` mid-run, a generation on disk, then ``stop()``;
+   the run resumed on ``cuda`` from the live snapshot (after an
+   ``np.savez`` round trip) and from the newest generation, each ending at
+   400,233 / 731,789 with the uninterrupted leg's discoveries, table bytes
+   and queue rows ``[0, tail)``; the seconds of each save (the snapshot
+   off the card, then the write) and the bytes of a generation;
+ - ``auto_2pc7``: ``TwoPhaseSys(7).checker().spawn_auto(probe_secs=0.5)``
+   escalates to the GPU engine on ``cuda`` (296,448 unique, every kernel
+   launched), while ``TwoPhaseSys(3).checker().spawn_auto()`` stays on the
+   host probe (288 unique, no kernel launched);
+ - ``orl``: the ORL sender/receiver (``models/orl.py``) on ``cuda`` and
+   ``cpu``: 148 unique, "delivered" found and replayed on the host model
+   through ``assert_discovery``, neither ``always`` property violated, and
+   identical table bytes and queue rows; then every kernel against its
+   plain version (L2-cold) on the next batch of a ``cuda`` run bounded at
+   60 states (W = 17, 34 actions: a partial batch, as all of that model's
+   are).
+
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
 only rows the main path gives it (``init_rows`` in its record), and the
 ``total`` record gives each phase's wall seconds.
@@ -90,7 +114,9 @@ single-copy-4 ones, with that run's launches, under ``at_singlecopy4``,
 and the per-channel paxos-2 ones, with that run's launches, under
 ``at_paxos2_per_channel``; then one more entry, ``bucket_plan`` in
 generation order at 2pc-15 symmetry shapes, with the 2pc-15 symmetry
-run's launches)
+run's launches; every kernel entry also gives the launches of the last
+three legs under ``at_checkpoint_sc4``, ``at_auto_2pc7`` and ``at_orl``,
+the last with the ORL kernel records beside them)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -101,15 +127,19 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from stateright_tpu_torch import checkpoint as ckpt
 from stateright_tpu_torch import convert
+from stateright_tpu_torch.checker.bfs import BfsChecker
 from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.buckets import (
     SLOTS,
@@ -132,12 +162,14 @@ from stateright_tpu_torch.ops.insert_commit import (
 from stateright_tpu_torch.actor import Network
 from stateright_tpu_torch.models.dining import HAS_LEFT, dining_model
 from stateright_tpu_torch.models.linearizable_register import abd_model
+from stateright_tpu_torch.models.orl import ORL_UNIQUE, orl_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import LEADER, raft_model
 from stateright_tpu_torch.models import two_phase_commit
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
+from stateright_tpu_torch.parallel.wavefront import GpuChecker
 from stateright_tpu_torch.profile_run import host_sync_counts
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -176,6 +208,17 @@ SYM_2PC15 = (654_198, 10_982_530)
 SYM_RAFT3 = (2_926, 7_917)
 SYM_2PC5_UNIQUE = 508
 SYM_2PC15_KERNEL_TARGET = 300_000
+# stops the ORL run at 73 of 148 states, 34 queued: its next batch is a
+# partial one, as every batch of that model is
+ORL_KERNEL_TARGET = 60
+# the checkpoint leg: the block length, the autosave cadence and how
+# many generations are kept, and the live unique count past which the
+# live checkpoint is asked for
+CKPT_STEPS_PER_CALL = 4
+CKPT_EVERY_SECS = 0.5
+CKPT_KEEP = 2
+CKPT_AT_UNIQUE = 100_000
+TPC7_UNIQUE = 296_448
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -374,10 +417,14 @@ def next_batch(checker, carry, sym: bool = False) -> dict:
     head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
     batch, cand = checker._batch, checker._cand
     arity = checker.tensor.max_actions
-    if tail - head < batch:
-        raise AssertionError("the run left less than one batch queued")
-    span = slice(head, head + batch)
+    if tail == head:
+        raise AssertionError("the run left nothing queued")
+    # the engine's pop: lanes past the tail read a clamped row and are
+    # masked off (a small model's every batch is such a partial one)
+    lanes = torch.arange(batch, device=carry[convert.QROWS].device)
+    span = (head + lanes).clamp_(max=carry[convert.QROWS].shape[0] - 1)
     succ, valid = checker.tensor.step_rows(carry[convert.QROWS][span])
+    valid = valid & (lanes < tail - head)[:, None]
     m = batch * arity
     crows, cvalid = succ.reshape(m, -1), valid.reshape(m)
     krows = (checker.tensor.representative_rows(succ).reshape(m, -1)
@@ -589,7 +636,12 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False) -> dict:
 def same_tables_and_queue(g, c) -> tuple[bool, int]:
     """Whether two finished runs hold the same table bytes, cursors and
     queue rows ``[0, tail)``; and the tail."""
-    gs, cs = g.final_snapshot(), c.final_snapshot()
+    return same_snapshots(g.final_snapshot(), c.final_snapshot())
+
+
+def same_snapshots(gs: dict, cs: dict) -> tuple[bool, int]:
+    """Whether two snapshots hold the same table bytes, cursors and queue
+    rows ``[0, tail)``; and the tail."""
     tail = int(gs["tail"])
     same = (int(gs["head"]) == int(cs["head"]) and tail == int(cs["tail"])
             and all((gs[k] == cs[k]).all() for k in ("table_fp", "table_parent"))
@@ -701,7 +753,7 @@ def compiled_leg(dev, build, sym: bool = False, **kw):
 
 def compiled_phases(dev, smi: str) -> dict:
     """The actor compiler's twins on the card; returns the single-copy-4
-    run's launches."""
+    run's launches, and its final snapshot and discoveries."""
     # -- single-copy-4, complete ---------------------------------------------
     sc, sc_s, peak, launches = compiled_leg(dev, lambda: single_copy_model(4))
     paths = check_discoveries(sc.model, sc, {"value chosen"})
@@ -710,6 +762,8 @@ def compiled_phases(dev, smi: str) -> dict:
                              path_lengths=paths))
     if (sc.unique_state_count(), sc.state_count()) != SC4:
         raise AssertionError(f"single-copy-4: not {SC4}")
+    # what the checkpoint leg's resumed runs must end with
+    sc4_ref = (sc.final_snapshot(), sc.discovery_fps())
     del sc
 
     # -- lin-reg-3-ordered on cuda and cpu -----------------------------------
@@ -762,7 +816,7 @@ def compiled_phases(dev, smi: str) -> dict:
                          circular_wait=deadlock))
     if not deadlock:
         raise AssertionError("dining-3: the counterexample is no deadlock")
-    return launches
+    return launches, sc4_ref
 
 
 def per_channel_paxos2():
@@ -873,6 +927,180 @@ def symmetry_phases(dev, smi: str) -> dict:
     if rc != 0 or not done or f"unique={SYM_2PC5_UNIQUE}," not in done[0]:
         raise AssertionError(f"check-sym-gpu 5: rc {rc}, {done}")
     return launches
+
+
+def add_launches(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in more.items()}
+
+
+def checkpoint_phase(dev, smi: str, ref) -> dict:
+    """single-copy-4 with autosave and a live checkpoint, stopped, then
+    resumed twice on ``cuda``; each resume must end with the uninterrupted
+    leg's snapshot ``ref`` (table bytes, cursors, queue rows) and
+    discoveries.  Returns the leg's launches (the interrupted run and both
+    resumes)."""
+    ref_snap, ref_disc = ref
+    with tempfile.TemporaryDirectory(prefix="autosave-sc4-") as root:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.monotonic()
+        run = single_copy_model(4).checker().autosave(
+            root, every_secs=CKPT_EVERY_SECS, keep=CKPT_KEEP,
+        ).spawn_gpu(steps_per_call=CKPT_STEPS_PER_CALL)
+        deadline = time.monotonic() + 120
+        while run.unique_state_count() < CKPT_AT_UNIQUE:
+            if run.is_done() or time.monotonic() > deadline:
+                raise AssertionError("checkpoint_sc4: no mid-run sync seen")
+            time.sleep(0.01)
+        t_ask = time.monotonic()
+        live = run.checkpoint(timeout=120)
+        t_live = time.monotonic() - t_ask
+        if not (0 < int(live["unique"]) < SC4[0]
+                and int(live["head"]) < int(live["tail"])):
+            raise AssertionError("checkpoint_sc4: the live snapshot is not "
+                                 "mid-run")
+        while ckpt.latest_gen_number(root) is None:
+            if run.is_done() or time.monotonic() > deadline:
+                raise AssertionError("checkpoint_sc4: no generation on disk")
+            time.sleep(0.01)
+        run.stop().join()
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+        launches = kernel_launches()
+        if not all(v > 0 for v in launches.values()):
+            raise AssertionError(f"checkpoint_sc4: a kernel never launched: "
+                                 f"{launches}")
+        gens = ckpt.list_generations(root)
+        if not gens or len(gens) > CKPT_KEEP:
+            raise AssertionError(f"checkpoint_sc4: {len(gens)} generations")
+        latest = ckpt.latest_generation(root)
+        gen_bytes = os.path.getsize(os.path.join(gens[-1]["path"],
+                                                 "snapshot.npz"))
+        stopped_at = (run.unique_state_count(), run.state_count())
+        buf = io.BytesIO()
+        np.savez(buf, **live)
+        buf.seek(0)
+        with np.load(buf) as z:
+            live_loaded = {k: z[k] for k in z.files}
+        resumes = {}
+        for name, snap in (("live", live_loaded), ("generation", latest[0])):
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            r = single_copy_model(4).checker().spawn_gpu(resume=snap).join()
+            torch.cuda.synchronize()
+            r_s = time.monotonic() - t1
+            r_launches = kernel_launches()
+            launches = add_launches(launches, r_launches)
+            same, tail = same_snapshots(r.final_snapshot(), ref_snap)
+            resumes[name] = {
+                "from_unique": int(snap["unique"]),
+                "unique": r.unique_state_count(), "states": r.state_count(),
+                "sec": r_s, "tail": tail,
+                "tables_and_queue_identical": same,
+                "discoveries_identical": r.discovery_fps() == ref_disc,
+                "launches": r_launches}
+            if (r.unique_state_count(), r.state_count()) != SC4:
+                raise AssertionError(f"checkpoint_sc4 ({name}): not {SC4}")
+            if not same or r.discovery_fps() != ref_disc:
+                raise AssertionError(f"checkpoint_sc4 ({name}): the resumed "
+                                     "run differs from the uninterrupted one")
+            if not all(r_launches[k] > 0 for k in
+                       ("cand_prep", "bucket_plan", "insert_commit")):
+                raise AssertionError(f"checkpoint_sc4 ({name}): a step kernel "
+                                     f"never launched: {r_launches}")
+            del r
+    saves = run.autosave_secs
+    emit("checkpoint_sc4", {
+        "steps_per_call": CKPT_STEPS_PER_CALL,
+        "every_secs": CKPT_EVERY_SECS, "keep": CKPT_KEEP,
+        "table_slots": run._cap, "batch": run._batch, "cand": run._cand,
+        "interrupted": {"sec": run_s, "stopped_at": stopped_at,
+                        "live_unique": int(live["unique"]),
+                        "live_head": int(live["head"]),
+                        "live_tail": int(live["tail"]),
+                        "live_checkpoint_sec": t_live,
+                        "generations_written": len(saves),
+                        "generations_left": [g["gen"] for g in gens],
+                        "peak_device_mib":
+                            torch.cuda.max_memory_allocated(dev) / 2**20},
+        "save_snapshot_sec": [a for a, _ in saves],
+        "save_write_sec": [b for _, b in saves],
+        "save_sec_mean": sum(a + b for a, b in saves) / len(saves),
+        "generation_bytes": gen_bytes,
+        "generation_table_slots": int(latest[0]["cap"]),
+        "generation_queue_rows": int(latest[0]["q_rows"].shape[0]),
+        "generation_unique": int(latest[0]["unique"]),
+        "resumed": resumes, "launches": launches, "card": smi})
+    return launches
+
+
+def auto_phase(dev, smi: str) -> dict:
+    """``spawn_auto`` escalating to the card at 2pc-7 and staying on the
+    host probe at 2pc-3; returns the 2pc-7 run's launches."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    g = TwoPhaseSys(7).checker().spawn_auto(probe_secs=0.5)
+    if not isinstance(g, GpuChecker) or g.device.type != "cuda":
+        raise AssertionError(f"auto_2pc7: stayed on {type(g).__name__}")
+    g.join()
+    torch.cuda.synchronize()
+    g_s = time.monotonic() - t0
+    launches = kernel_launches()
+    paths = check_discoveries(g.model, g, {"abort agreement",
+                                           "commit agreement"})
+    g.assert_properties()
+    reset_launches()
+    h = TwoPhaseSys(3).checker().spawn_auto()
+    host_launches = kernel_launches()
+    emit("auto_2pc7", {
+        "engine": type(g).__name__, "device": str(g.device),
+        "unique": g.unique_state_count(), "states": g.state_count(),
+        "sec": g_s, "path_lengths": paths, "launches": launches,
+        "small": {"engine": type(h).__name__,
+                  "unique": h.unique_state_count(),
+                  "launches": host_launches},
+        "card": smi})
+    if g.unique_state_count() != TPC7_UNIQUE:
+        raise AssertionError(f"auto_2pc7: not {TPC7_UNIQUE}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"auto_2pc7: a kernel never launched: {launches}")
+    if not isinstance(h, BfsChecker) or h.unique_state_count() != 288:
+        raise AssertionError("auto 2pc-3: did not finish on the host probe")
+    if any(host_launches.values()):
+        raise AssertionError(f"auto 2pc-3 launched kernels: {host_launches}")
+    return launches
+
+
+def orl_phase(dev, smi: str) -> tuple[dict, dict]:
+    """The ORL sender/receiver on ``cuda`` and ``cpu``; returns the cuda
+    run's launches, and each kernel against its plain version on the next
+    batch of a cuda run bounded at ``ORL_KERNEL_TARGET``."""
+    g, g_s, peak, launches = compiled_leg(dev, orl_model)
+    c = orl_model().checker().spawn_gpu(device="cpu").join()
+    same, tail = same_tables_and_queue(g, c)
+    paths = check_discoveries(g.model, g, {"delivered"})
+    g.assert_properties()  # neither "no redelivery" nor "ordered" violated
+    h = orl_model().checker().spawn_bfs().join()
+    h.assert_discovery("delivered",
+                       list(g.discovery("delivered").actions()))
+    emit("orl", dict(leg_record(g, g_s, peak, launches, smi),
+                     unique_cpu=c.unique_state_count(),
+                     states_cpu=c.state_count(), unique_host_bfs=
+                     h.unique_state_count(), tail=tail,
+                     tables_and_queue_identical=same, path_lengths=paths))
+    for x in (g, c, h):
+        if x.unique_state_count() != ORL_UNIQUE:
+            raise AssertionError(f"orl: not {ORL_UNIQUE}")
+    if not same:
+        raise AssertionError("orl: cuda and cpu disagree")
+    gk = orl_model().checker().target_states(ORL_KERNEL_TARGET).spawn_gpu()
+    gk.join()
+    kernels = check_kernels(gk, gk._final_carry, cold=True)
+    for name, k in kernels.items():
+        emit(f"kernel_{name}_orl", k)
+    return launches, kernels
 
 
 def profiled_sync_count(dev, run) -> tuple:
@@ -994,7 +1222,7 @@ def main() -> int:
     del gp
     lap("kernels_paxos3")
 
-    launches_sc4 = compiled_phases(dev, smi)
+    launches_sc4, sc4_ref = compiled_phases(dev, smi)
     lap("compiled_twins")
     # -- host syncs per block: single-copy-4 with no growth, profiled -------
     # the same bounded run at two block lengths: the difference in
@@ -1054,12 +1282,21 @@ def main() -> int:
     del gs15
     lap("kernels_2pc15_symmetry")
 
+    launches_ckpt = checkpoint_phase(dev, smi, sc4_ref)
+    del sc4_ref
+    lap("checkpoint_sc4")
+    launches_auto = auto_phase(dev, smi)
+    lap("auto_2pc7")
+    launches_orl, kernels_orl = orl_phase(dev, smi)
+    lap("orl")
+
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
                              ("paxos-3", kernels_p3),
                              ("single-copy-4", kernels_sc4),
                              ("per-channel paxos-2", kernels_p2pc),
-                             ("2pc-15 symmetry", kernels_sym))
+                             ("2pc-15 symmetry", kernels_sym),
+                             ("orl", kernels_orl))
            for k in ks.values() if not k["matched"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -1081,6 +1318,14 @@ def main() -> int:
             {key: kernels_sym[name][key] for key in KERNEL_KEYS
              if key not in ("route", "source", "launches")},
             launches=launches_sym[name])
+        for tag, leg in (("at_checkpoint_sc4", launches_ckpt),
+                         ("at_auto_2pc7", launches_auto)):
+            entry[tag] = {"launches": leg[name]}
+        entry["at_orl"] = dict(
+            {key: kernels_orl[name][key] for key in KERNEL_KEYS
+             if key not in ("name", "route", "source", "replaces",
+                            "launches")},
+            launches=launches_orl[name])
         line.append(entry)
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS

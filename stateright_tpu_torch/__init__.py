@@ -9,9 +9,12 @@ on an NVIDIA GPU whose device kernels are written by hand in CUDA C++
 model, an actor system on the port's host actor layer (``actor/``,
 ``semantics/``) with the hand-written twin ``PaxosTensor``
 (``paxos_model(n).checker().spawn_gpu()``), the other actor systems
-through the actor compiler, symmetry reduction
-(``.symmetry().spawn_gpu()``), and the host BFS/DFS checkers
-(``spawn_bfs()``, ``spawn_dfs()``).
+through the actor compiler (ORL-wrapped systems among them), symmetry
+reduction (``.symmetry().spawn_gpu()``), live checkpoints, ``stop()`` and
+autosave of a GPU run (``checkpoint.py``), the host checkers
+(``spawn_bfs()``, ``spawn_dfs()``, the process-parallel ``spawn_mp_bfs()``)
+and ``spawn_auto()``, which sizes the space with a bounded host probe
+before it escalates to the GPU engine.
 """
 
 from .checker import Checker, CheckerBuilder, Path

@@ -2,9 +2,9 @@
 
 The port's own copy of ``stateright_tpu/actor/__init__.py``, cut to what
 the model checker needs: ids, commands, the ``Out`` buffer, the ``Actor``
-interface and the model helpers.  The UDP runtime (``spawn``), the
-``Choice`` combinator and ``ScriptedActor`` come with the slices that use
-them.
+interface, the ``Choice`` combinator (``choice.py``), ``ScriptedActor``
+and the model helpers.  The UDP runtime (``spawn``) and the actors'
+wire serialization come with the service layers.
 
 An :class:`Actor` is an event-driven state machine: ``on_start`` produces
 the initial state, ``on_msg``/``on_timeout`` react to events by returning an
@@ -19,7 +19,7 @@ the no-op transitions the model prunes (reference ``actor.rs:238-240``).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Iterable, Tuple
+from typing import Any, Iterable, Sequence, Tuple
 
 __all__ = [
     "Id",
@@ -28,6 +28,9 @@ __all__ = [
     "CancelTimer",
     "Out",
     "Actor",
+    "Choice",
+    "ChoiceState",
+    "ScriptedActor",
     "majority",
     "model_peers",
     "model_timeout",
@@ -124,6 +127,29 @@ class Actor:
         return None  # no-op by default
 
 
+@dataclass
+class ScriptedActor(Actor):
+    """Sends a scripted series of messages, one after each delivery it
+    receives: useful for testing actor systems (reference
+    ``actor.rs:440-469``, ``impl Actor for Vec<(Id, Msg)>``)."""
+
+    script: Sequence[Tuple[Id, Any]]
+
+    def on_start(self, id: Id, out: Out):
+        if self.script:
+            dst, msg = self.script[0]
+            out.send(dst, msg)
+            return 1
+        return 0
+
+    def on_msg(self, id: Id, state, src: Id, msg, out: Out):
+        if state < len(self.script):
+            dst, m = self.script[state]
+            out.send(dst, m)
+            return state + 1
+        return None
+
+
 def majority(cluster_size: int) -> int:
     """Number of nodes constituting a majority (reference ``actor.rs:472-474``)."""
     return cluster_size // 2 + 1
@@ -136,3 +162,4 @@ def model_peers(self_ix: int, count: int) -> list[Id]:
 
 from .network import Envelope, Network  # noqa: E402
 from .model import ActorModel, ActorModelState, Deliver, Drop, Timeout  # noqa: E402
+from .choice import Choice, ChoiceState  # noqa: E402

@@ -2,12 +2,14 @@
 
 The port's counterpart of ``stateright_tpu/checker/base.py``:
 ``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
-``visitor`` and ``timeout``, and spawns the host checkers
-(:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`) and the
-GPU wavefront engine (:meth:`CheckerBuilder.spawn_gpu`); ``Checker`` is the
-result surface (counts, discoveries, assertions, and the ``Done.
-states=..`` report line).  The multi-process BFS, ``spawn_auto`` and the
-telemetry, report, sweep and service options come with their slices.
+``visitor``, ``timeout`` and ``autosave``, and spawns the host checkers
+(:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
+:meth:`CheckerBuilder.spawn_mp_bfs`), the GPU wavefront engine
+(:meth:`CheckerBuilder.spawn_gpu`) and the engine chosen by a bounded host
+probe (:meth:`CheckerBuilder.spawn_auto`); ``Checker`` is the result
+surface (counts, discoveries, assertions, and the ``Done. states=..``
+report line).  The telemetry, report, sweep and service options come with
+their slices.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ class CheckerBuilder:
         self.thread_count: int = 1
         self.visitor_obj: Optional[CheckerVisitor] = None
         self.timeout_secs: Optional[float] = None
+        self.autosave_opts: Optional[dict] = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Dedup on symmetry-class representatives; states must define
@@ -74,6 +77,29 @@ class CheckerBuilder:
         self.timeout_secs = secs
         return self
 
+    def autosave(self, path: str, every_secs: float = 60.0,
+                 keep: int = 3) -> "CheckerBuilder":
+        """Autosave a GPU engine run to rotating snapshot generations under
+        ``path`` (``checkpoint.py``): at a host sync, once ``every_secs``
+        has passed since the last save (``0`` = every host sync), the
+        engine writes its resume snapshot as ``gen-NNNNNN/snapshot.npz``
+        and then a ``MANIFEST.json``, both atomically (temp file, fsync,
+        ``os.replace``), so a crash mid-save leaves a torn generation that
+        resume skips.  The newest ``keep`` complete generations are kept,
+        and a stopped run (``stop()``, ``timeout()``) writes one last
+        generation.  Resume with ``spawn_gpu(resume=
+        checkpoint.latest_generation(path)[0])``; the JAX engine resumes
+        from the same files.  Env equivalent:
+        ``STATERIGHT_TPU_AUTOSAVE=DIR`` (cadence and keep through
+        ``STATERIGHT_TPU_AUTOSAVE_SECS``/``_KEEP``).  With autosave off a
+        block still makes exactly one host read."""
+        self.autosave_opts = {
+            "dir": str(path),
+            "every_secs": float(every_secs),
+            "keep": int(keep),
+        }
+        return self
+
     # -- strategies ----------------------------------------------------------
 
     def spawn_bfs(self) -> "Checker":
@@ -88,6 +114,90 @@ class CheckerBuilder:
         from .dfs import DfsChecker
 
         return DfsChecker(self)
+
+    def spawn_mp_bfs(self, processes: Optional[int] = None) -> "Checker":
+        """Process-parallel BFS: real multi-core checking (the thread pool
+        is GIL-bound).  Fingerprint-ownership sharding over forked workers,
+        with symmetry and visitors (``checker/mp.py``).  ``processes``
+        defaults to ``threads(N)`` if set above 1, else all cores."""
+        from .mp import MpBfsChecker
+
+        return MpBfsChecker(self, processes=processes)
+
+    def spawn_auto(self, probe_secs: float = 2.0, **gpu_kw) -> "Checker":
+        """Pick the engine by *measured* space size: the GPU engine pays a
+        fixed cost per run (kernel builds, table setup, a host sync per
+        block) that a small space never earns back on the host BFS.
+
+        (1) A host probe runs first, bounded by ``probe_secs``: if the
+        space exhausts within the budget, the finished checker IS the
+        result.  (2) A space that outlives the probe escalates to
+        :meth:`spawn_gpu` (``gpu_kw`` passes through; with no CUDA device
+        and no ``device="cpu"`` that raises, as ``spawn_gpu`` does: the
+        probe's partial result is never returned in its place), with the
+        probe's wall-clock deducted from any ``timeout()``.  With a
+        visitor, which the GPU engine rejects, the heavier engine is
+        :meth:`spawn_mp_bfs`, where ``fork`` exists and there is more
+        than one core.  A model with no twin (or whose twin fails to
+        build) checks on the host engines outright.  With ``symmetry()``
+        the probe is the host DFS, the host engine that honours it
+        (JAX ``checker/base.py:660-749``)."""
+        import time as _time
+
+        cpu_spawn = self.spawn_dfs if self.symmetry_fn else self.spawn_bfs
+
+        def probe_then(escalate, small=None):
+            """A visitor-free sizing probe on the host engine, then either
+            the ``small`` outcome (default: the finished probe itself) or
+            ``escalate``.  Without a visitor the probe's wall-clock is
+            deducted from the user ``timeout()``; with one the final
+            engine gets the full timeout, so callbacks fire exactly once,
+            on a fully budgeted run."""
+            if (self.timeout_secs is not None
+                    and self.timeout_secs <= probe_secs):
+                return cpu_spawn()  # the whole run fits in the probe budget
+            saved = self.timeout_secs
+            vis, self.visitor_obj = self.visitor_obj, None
+            self.timeout_secs = probe_secs
+            t0 = _time.monotonic()
+            try:
+                probe = cpu_spawn().join()
+            finally:
+                self.timeout_secs = saved
+                self.visitor_obj = vis
+            if not probe.timed_out:
+                return probe if small is None else small()
+            if saved is None or vis is not None:
+                return escalate()
+            remaining = saved - (_time.monotonic() - t0)
+            if remaining <= 0:
+                return probe  # budget gone: the partial probe result is it
+            self.timeout_secs = remaining
+            try:
+                return escalate()
+            finally:
+                self.timeout_secs = saved
+
+        if self.visitor_obj is not None:
+            # the GPU engine rejects visitors (it never materializes
+            # states), so a big space escalates to the process-parallel
+            # BFS (visitors by replay), where there are cores to win and
+            # fork exists; a small one re-runs the host engine with the
+            # visitor attached
+            import multiprocessing as _mp
+            import os as _os
+
+            can_mp = (_os.cpu_count() or 1) > 1 and (
+                "fork" in _mp.get_all_start_methods()
+            )
+            if not can_mp:
+                return cpu_spawn()
+            return probe_then(self.spawn_mp_bfs, small=cpu_spawn)
+        from ..parallel.tensor_model import twin_or_none
+
+        if twin_or_none(self.model) is None:
+            return cpu_spawn()
+        return probe_then(lambda: self.spawn_gpu(**gpu_kw))
 
     def spawn_gpu(
         self,
@@ -199,6 +309,40 @@ class Checker:
                 f"Unexpected \"{name}\" "
                 f"{self.discovery_classification(name)} {path!r}"
             )
+
+    def assert_discovery(self, name: str, actions: Sequence) -> None:
+        """Assert a discovery exists and that ``actions`` is one valid witness
+        trace, by re-executing the model (reference ``checker.rs:293-338``)."""
+        self.assert_any_discovery(name)
+        prop = self.model.property_by_name(name)
+        model = self.model
+        last_err = f"no init state admits the action sequence {list(actions)!r}"
+        for init in model.init_states():
+            path = Path.from_actions(model, init, actions)
+            if path is None:
+                continue
+            final = path.final_state()
+            if prop.expectation == Expectation.ALWAYS:
+                if prop.condition(model, final):
+                    raise AssertionError(
+                        f"path does not violate always property {name!r}")
+                return
+            if prop.expectation == Expectation.SOMETIMES:
+                if not prop.condition(model, final):
+                    raise AssertionError(
+                        f"path does not satisfy sometimes property {name!r}")
+                return
+            # an EVENTUALLY counterexample: no state along the maximal path
+            # satisfies the condition, and the path ends in a terminal state
+            if any(prop.condition(model, s) for s in path.states()):
+                raise AssertionError(
+                    f"path satisfies eventually property {name!r}")
+            if model.next_steps(final):
+                raise AssertionError(
+                    f"path for eventually property {name!r} does not end "
+                    "terminal")
+            return
+        raise AssertionError(last_err)
 
 
 class ParentPointerTrace:

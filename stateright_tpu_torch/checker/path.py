@@ -15,7 +15,7 @@ the reference does.
 
 from __future__ import annotations
 
-from typing import Generic, Optional, Sequence, TypeVar
+from typing import Generic, Iterable, Optional, Sequence, TypeVar
 
 State = TypeVar("State")
 Action = TypeVar("Action")
@@ -139,6 +139,25 @@ class Path(Generic[State, Action]):
         raise RuntimeError(
             _NONDETERMINISM_MSG.format(fp=fps[deepest + 1], n=deepest)
         )
+
+    @staticmethod
+    def from_actions(
+        model, init_state: State, actions: Iterable[Action]
+    ) -> Optional["Path"]:
+        """Follow an action sequence from ``init_state``; ``None`` if any
+        action is unavailable (reference ``path.rs:90-112``)."""
+        pairs: list[tuple[State, Optional[Action]]] = []
+        state = init_state
+        for action in actions:
+            if action not in list(model.actions(state)):
+                return None
+            nxt = model.next_state(state, action)
+            if nxt is None:
+                return None
+            pairs.append((state, action))
+            state = nxt
+        pairs.append((state, None))
+        return Path(pairs)
 
     # -- accessors -----------------------------------------------------------
 

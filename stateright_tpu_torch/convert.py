@@ -92,7 +92,12 @@ def carry_from_snapshot(snap: dict, device, qalloc: Optional[int] = None):
 def carry_to_snapshot(carry: list, cap: int, qcap: int, batch: int,
                       cand: int, **extra) -> dict:
     """The port's carry -> a snapshot in the JAX engine's layout
-    (``extra`` adds manifest keys such as ``model_sig``)."""
-    snap = dict(zip(SNAPSHOT_KEYS, carry_to_arrays(carry)))
+    (``extra`` adds manifest keys such as ``model_sig``).  The snapshot
+    never shares memory with the carry: on the CPU ``.numpy()`` would alias
+    the tensors, which a running engine updates in place."""
+    arrs = carry_to_arrays(carry)
+    if carry[TFP].device.type == "cpu":
+        arrs = [a.copy() for a in arrs]
+    snap = dict(zip(SNAPSHOT_KEYS, arrs))
     snap.update(cap=cap, qcap=qcap, batch=batch, cand=cand, **extra)
     return snap

@@ -1,20 +1,25 @@
-"""The ``check-gpu`` verbs of the example models.
+"""The ``check`` verbs of the example models.
 
-The port's counterpart of the ``check-tpu`` verbs of
-``stateright_tpu/models/_cli.py``'s users: the same positional arguments
-and the ``--per-channel`` flag (``pop_perf``/``apply_encoding`` there), on
-``spawn_gpu()``; and, for the models with symmetry (2pc, raft),
-``check-sym-gpu`` (``.symmetry().spawn_gpu()``) and ``check-sym`` (the
-host DFS with symmetry, on ``default_threads()`` threads).  The other
-verbs and flags (``explore``, ``spawn``, ``--perf``, ``--checked``,
-``--watch``, ``--por``) come with the modules they drive.
+The port's counterpart of the ``check``, ``check-tpu`` and ``check-auto``
+verbs of ``stateright_tpu/models/_cli.py``'s users: the same positional
+arguments and the ``--per-channel`` flag (``pop_perf``/``apply_encoding``
+there).  :func:`check_main` is the one dispatcher: each model gives it a
+table from the verbs it offers to their banners and to one of the spawns
+here: :func:`host_bfs` and :func:`host_dfs` (on ``default_threads()``
+threads), :func:`host_sym_dfs` (the host DFS with symmetry),
+:func:`auto` (``spawn_auto()``: a bounded host probe, then the GPU
+engine), :func:`gpu` (``spawn_gpu()``) and :func:`sym_gpu`
+(``.symmetry().spawn_gpu()``).  A model with no tensor form leaves the GPU
+verbs out.  The other verbs and flags (``explore``, ``spawn``,
+``--perf``, ``--checked``, ``--watch``, ``--por``) come with the modules
+they drive.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Callable, Optional
+from typing import Callable
 
 PER_CHANNEL_FLAG = "--per-channel"
 
@@ -49,18 +54,44 @@ def default_threads() -> int:
     return os.cpu_count() or 1
 
 
-def check_gpu_main(prog: str, arg_usage: str, argv, build: Callable,
-                   banner: Callable, max_args: int,
-                   sym_banners: Optional[dict] = None) -> int:
+def host_bfs(model):
+    return model.checker().threads(default_threads()).spawn_bfs()
+
+
+def host_dfs(model):
+    return model.checker().threads(default_threads()).spawn_dfs()
+
+
+def host_sym_dfs(model):
+    return model.checker().threads(default_threads()).symmetry().spawn_dfs()
+
+
+def auto(model):
+    return model.checker().threads(default_threads()).spawn_auto()
+
+
+def gpu(model):
+    """``spawn_gpu()``, or None when the model has no device twin."""
+    if model._tensor_cached() is None:
+        return None
+    return model.checker().spawn_gpu()
+
+
+def sym_gpu(model):
+    if model._tensor_cached() is None:
+        return None
+    return model.checker().symmetry().spawn_gpu()
+
+
+def check_main(prog: str, arg_usage: str, argv, build: Callable,
+               verbs: dict[str, tuple[Callable, Callable]],
+               max_args: int) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
-    [--per-channel]``: build the model from the positional arguments and
-    check it.  ``check-gpu`` runs ``spawn_gpu()`` when the model has a
-    device twin (exit 1 when it has none); ``sym_banners`` maps the
-    symmetry verbs the model offers (``check-sym``: the host DFS,
-    ``check-sym-gpu``: the GPU engine) to their banners.  Exit 2 on a
-    usage error."""
-    sym_banners = sym_banners or {}
-    verbs = ["check-gpu", *sym_banners]
+    [--per-channel]``: build the model from the positional arguments,
+    print the verb's banner and check it.  ``verbs`` maps each verb the
+    model offers to ``(banner, spawn)``: ``banner(args)`` is the line
+    printed first, ``spawn(model)`` one of this module's spawns.  Exit 1
+    when a GPU verb finds no device twin, 2 on a usage error."""
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(verbs)} {arg_usage} [{PER_CHANNEL_FLAG}]")
     per_channel, args = pop_per_channel(
@@ -68,18 +99,12 @@ def check_gpu_main(prog: str, arg_usage: str, argv, build: Callable,
     if not args or args[0] not in verbs or len(args) > 1 + max_args:
         print(usage, file=sys.stderr)
         return 2
-    verb, rest = args[0], args[1:]
-    print((sym_banners.get(verb) or banner)(rest))
-    model = apply_encoding(build(rest), per_channel)
-    builder = model.checker()
-    if verb != "check-gpu":
-        builder = builder.symmetry()
-    if verb == "check-sym":
-        builder.threads(default_threads()).spawn_dfs().report()
-        return 0
-    if model._tensor_cached() is None:
+    (banner, spawn), rest = verbs[args[0]], args[1:]
+    print(banner(rest))
+    checker = spawn(apply_encoding(build(rest), per_channel))
+    if checker is None:
         print("this configuration has no device twin in the port",
               file=sys.stderr)
         return 1
-    builder.spawn_gpu().report()
+    checker.report()
     return 0

@@ -29,7 +29,7 @@ from ..actor import Actor, ActorModel, Id, Network, Out
 from ..actor.device_props import exists_actor, forall_actors
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
-from ._cli import check_gpu_main
+from ._cli import auto, check_main, gpu, host_bfs
 
 HUNGRY, HAS_LEFT, DONE = 0, 1, 2
 
@@ -132,11 +132,17 @@ def dining_model(n: int = 3, network: Optional[Network] = None) -> DiningModel:
 
 
 def main(argv=None) -> int:
-    return check_gpu_main(
+    def what(rest):
+        return (f"Model checking {int(rest[0]) if rest else 3} dining "
+                "philosophers")
+
+    return check_main(
         "dining", "[PHILOSOPHER_COUNT]", argv,
-        lambda rest: dining_model(int(rest[0]) if rest else 3),
-        lambda rest: (f"Model checking {int(rest[0]) if rest else 3} "
-                      "dining philosophers on the GPU."),
+        lambda rest: dining_model(int(rest[0]) if rest else 3), {
+            "check": (lambda rest: f"{what(rest)} (host BFS).", host_bfs),
+            "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
+            "check-auto": (lambda rest: f"{what(rest)} (auto engine).", auto),
+        },
         max_args=1,
     )
 

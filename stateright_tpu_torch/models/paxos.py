@@ -284,13 +284,20 @@ def paxos_model(
 
 
 def main(argv=None) -> int:
-    from ._cli import check_gpu_main
+    from ._cli import auto, check_main, gpu, host_bfs
 
-    return check_gpu_main(
+    def what(rest):
+        return ("Model checking Single Decree Paxos with "
+                f"{int(rest[0]) if rest else 2} clients")
+
+    return check_main(
         "paxos", "[CLIENT_COUNT]", argv,
-        lambda rest: paxos_model(int(rest[0]) if rest else 2, 3),
-        lambda rest: ("Model checking Single Decree Paxos with "
-                      f"{int(rest[0]) if rest else 2} clients on the GPU."),
+        lambda rest: paxos_model(int(rest[0]) if rest else 2, 3), {
+            "check": (lambda rest: f"{what(rest)} (host BFS).", host_bfs),
+            "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
+            "check-auto": (lambda rest: (
+                f"{what(rest)} (auto engine selection)."), auto),
+        },
         max_args=1,
     )
 

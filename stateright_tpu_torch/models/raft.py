@@ -36,7 +36,7 @@ from ..actor import Actor, ActorModel, Id, Network, Out, majority, model_peers
 from ..actor.device_props import exists_actor, forall_actor_pairs
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
-from ._cli import check_gpu_main
+from ._cli import auto, check_main, gpu, host_bfs, host_sym_dfs, sym_gpu
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 
@@ -192,22 +192,25 @@ def main(argv=None) -> int:
     def n(rest):
         return int(rest[0]) if rest else 3
 
-    return check_gpu_main(
+    def what(rest):
+        return f"Model checking Raft leader election with {n(rest)} servers"
+
+    return check_main(
         "raft", "[SERVER_COUNT] [NETWORK]", argv,
         lambda rest: raft_model(
             n(rest),
-            network=Network.from_name(rest[1]) if len(rest) > 1 else None),
-        lambda rest: ("Model checking Raft leader election with "
-                      f"{n(rest)} servers on the GPU."),
-        max_args=2,
-        sym_banners={
-            "check-sym": lambda rest: (
-                f"Model checking Raft leader election with {n(rest)} "
-                "servers (symmetry-reduced DFS)."),
-            "check-sym-gpu": lambda rest: (
-                f"Model checking Raft leader election with {n(rest)} "
-                "servers on the GPU (mechanical symmetry reduction)."),
+            network=Network.from_name(rest[1]) if len(rest) > 1 else None), {
+            "check": (lambda rest: f"{what(rest)} (host BFS).", host_bfs),
+            "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
+            "check-auto": (lambda rest: (
+                f"{what(rest)} (auto engine selection)."), auto),
+            "check-sym": (lambda rest: (
+                f"{what(rest)} (symmetry-reduced DFS)."), host_sym_dfs),
+            "check-sym-gpu": (lambda rest: (
+                f"{what(rest)} on the GPU (mechanical symmetry "
+                "reduction)."), sym_gpu),
         },
+        max_args=2,
     )
 
 

@@ -35,7 +35,7 @@ from ..actor.register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, Register
-from ._cli import check_gpu_main
+from ._cli import auto, check_main, gpu, host_bfs
 
 
 class SingleCopyServer(Actor):
@@ -96,13 +96,20 @@ def single_copy_model(
 
 
 def main(argv=None) -> int:
-    return check_gpu_main(
+    def what(rest):
+        return ("Model checking a single-copy register with "
+                f"{int(rest[0]) if rest else 2} clients")
+
+    return check_main(
         "single_copy_register", "[CLIENT_COUNT] [NETWORK]", argv,
         lambda rest: single_copy_model(
             int(rest[0]) if rest else 2, 1,
-            Network.from_name(rest[1]) if len(rest) > 1 else None),
-        lambda rest: ("Model checking a single-copy register with "
-                      f"{int(rest[0]) if rest else 2} clients on the GPU."),
+            Network.from_name(rest[1]) if len(rest) > 1 else None), {
+            "check": (lambda rest: f"{what(rest)} (host BFS).", host_bfs),
+            "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
+            "check-auto": (lambda rest: (
+                f"{what(rest)} (auto engine selection)."), auto),
+        },
         max_args=2,
     )
 

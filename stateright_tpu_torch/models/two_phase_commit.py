@@ -336,24 +336,31 @@ class TwoPhaseTensor(TensorModel):
 
 
 def main(argv=None) -> int:
-    from ._cli import check_gpu_main
+    from ._cli import auto, check_main, gpu, host_bfs, host_sym_dfs, sym_gpu
 
     def n(rest):
         return int(rest[0]) if rest else 2
 
-    return check_gpu_main(
+    return check_main(
         "two_phase_commit", "[RESOURCE_MANAGER_COUNT]", argv,
-        lambda rest: TwoPhaseSys(n(rest)),
-        lambda rest: f"Checking two phase commit with {n(rest)} RMs on the GPU.",
-        max_args=1,
-        sym_banners={
-            "check-sym": lambda rest: (
+        lambda rest: TwoPhaseSys(n(rest)), {
+            "check": (lambda rest: (
+                f"Checking two phase commit with {n(rest)} RMs (host BFS)."),
+                host_bfs),
+            "check-gpu": (lambda rest: (
+                f"Checking two phase commit with {n(rest)} RMs on the GPU."),
+                gpu),
+            "check-auto": (lambda rest: (
+                f"Checking two phase commit with {n(rest)} RMs (auto "
+                "engine selection)."), auto),
+            "check-sym": (lambda rest: (
                 f"Checking two phase commit with {n(rest)} resource "
-                "managers using symmetry reduction."),
-            "check-sym-gpu": lambda rest: (
+                "managers using symmetry reduction."), host_sym_dfs),
+            "check-sym-gpu": (lambda rest: (
                 f"Checking two phase commit with {n(rest)} RMs on the GPU "
-                "using symmetry reduction."),
+                "using symmetry reduction."), sym_gpu),
         },
+        max_args=1,
     )
 
 

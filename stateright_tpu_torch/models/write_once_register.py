@@ -36,7 +36,7 @@ from ..actor.write_once_register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, WORegister
-from ._cli import check_gpu_main
+from ._cli import auto, check_main, gpu, host_bfs
 
 
 class WOServer(Actor):
@@ -103,13 +103,19 @@ def main(argv=None) -> int:
             Network.from_name(rest[2]) if len(rest) > 2 else None,
         )
 
-    return check_gpu_main(
+    def what(rest):
+        return ("Model checking a write-once register with "
+                f"{int(rest[0]) if rest else 2} clients and "
+                f"{int(rest[1]) if len(rest) > 1 else 1} servers")
+
+    return check_main(
         "write_once_register", "[CLIENT_COUNT] [SERVER_COUNT] [NETWORK]",
-        argv, build,
-        lambda rest: ("Model checking a write-once register with "
-                      f"{int(rest[0]) if rest else 2} clients and "
-                      f"{int(rest[1]) if len(rest) > 1 else 1} servers on "
-                      "the GPU."),
+        argv, build, {
+            "check": (lambda rest: f"{what(rest)} (host BFS).", host_bfs),
+            "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
+            "check-auto": (lambda rest: (
+                f"{what(rest)} (auto engine selection)."), auto),
+        },
         max_args=3,
     )
 

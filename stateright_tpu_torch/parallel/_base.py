@@ -5,22 +5,36 @@ The port's counterpart of ``stateright_tpu/parallel/_base.py``
 model's tensor twin (and, under ``symmetry()``, check that it has a
 vectorized canonicalizer), check that host and device fingerprints agree,
 run the engine on a background thread (exceptions re-raise at
-:meth:`join`), honour the builder's ``timeout`` with a cooperative stop at
-the next host sync, and rebuild discovery traces on the host from the
-table's parent fingerprints, replayed through the object model
-(``Path.from_fingerprints``, with the class-matching key under symmetry).
+:meth:`join`), honour the builder's ``timeout`` and :meth:`stop` with a
+cooperative stop at the next host sync, serve a live :meth:`checkpoint`
+and the autosave cadence there (``checkpoint.py``), and rebuild discovery
+traces on the host from the table's parent fingerprints, replayed through
+the object model (``Path.from_fingerprints``, with the class-matching key
+under symmetry).
+
+**The checkpoint protocol** (JAX ``parallel/_base.py:606-772``, without
+spans, faults, the heartbeat and the run identity): the caller thread
+raises a request and waits on an event; the engine thread serves it at
+its next host sync, right after the block's one stats read and before a
+growth event, by building the snapshot itself (the caller never reads a
+device tensor).  A snapshot taken at a growth boundary carries
+``status != OK``, and resume re-applies the growth.  With no request and
+autosave off, the sync adds no device read.
 """
 
 from __future__ import annotations
 
+import datetime
 import threading
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..checker.base import Checker, CheckerBuilder
 from ..checker.path import Path
+from ..checkpoint import CKPT_V, AutosaveService, resolve_autosave
 from ..fingerprint import MASK64
 from ..ops.hashing import row_hash
 
@@ -71,8 +85,23 @@ class WavefrontChecker(Checker):
         self._parent_map: Optional[dict[int, int]] = None
         self._run_error: Optional[BaseException] = None
         self._done = threading.Event()
-        # builder ``timeout()``: a cooperative stop at the next host sync
+        # builder ``timeout()`` and :meth:`stop`: a cooperative stop at the
+        # next host sync
         self._stop = threading.Event()
+        # a live checkpoint request, served by the engine thread; the lock
+        # serializes concurrent callers, which share the request, ready
+        # and result slots
+        self._ckpt_req = threading.Event()
+        self._ckpt_ready = threading.Event()
+        self._ckpt_out: Optional[dict] = None
+        self._ckpt_lock = threading.Lock()
+        self._autosave: Optional[AutosaveService] = None
+        aopts = resolve_autosave(options.autosave_opts)
+        if aopts is not None:
+            self._autosave = AutosaveService(
+                aopts["dir"], aopts["every_secs"], aopts["keep"])
+        # (snapshot seconds, write seconds) of each autosave generation
+        self.autosave_secs: list = []
         if options.timeout_secs is not None:
             timer = threading.Timer(options.timeout_secs, self._stop.set)
             timer.daemon = True
@@ -141,6 +170,114 @@ class WavefrontChecker(Checker):
                     "resume snapshot carries spill-tier contents, which the "
                     "port does not support yet"
                 )
+
+    # -- stop, checkpoint and autosave ---------------------------------------
+
+    def final_snapshot(self) -> dict:  # engine-specific
+        raise NotImplementedError
+
+    def stop(self) -> "WavefrontChecker":
+        """Ask the engine to stop at the next host sync (with autosave on,
+        it writes one last generation there)."""
+        self._stop.set()
+        return self
+
+    def checkpoint(self, timeout: Optional[float] = 60.0) -> dict:
+        """Snapshot the run state (numpy arrays, serializable with
+        ``np.savez``).  Mid-run the snapshot is taken at the next host
+        sync; after completion it is the final state.  Continue with
+        ``spawn_gpu(resume=snapshot)``, or the JAX engine's
+        ``spawn_tpu(resume=snapshot)``."""
+        if self._done.is_set():
+            return self.final_snapshot()
+        with self._ckpt_lock:
+            self._ckpt_ready.clear()
+            self._ckpt_req.set()
+            # poll: the run can finish between the request and its next
+            # sync, and then the final snapshot is the answer
+            deadline = None if timeout is None else time.monotonic() + timeout
+            while not self._ckpt_ready.wait(0.2):
+                if self._done.is_set():
+                    self._ckpt_req.clear()
+                    return self.final_snapshot()
+                if deadline is not None and time.monotonic() > deadline:
+                    self._ckpt_req.clear()
+                    raise TimeoutError("checkpoint request not served")
+            out, self._ckpt_out = self._ckpt_out, None
+        return out
+
+    def _at_host_sync(self, snap_fn: Callable[[], dict]) -> bool:
+        """The engine thread's seam at each host sync: serve a pending
+        :meth:`checkpoint` and write an autosave generation when one is
+        due.  ``snap_fn`` builds the snapshot, at most once per sync, and
+        only when one is asked for.  Returns whether a generation was
+        written."""
+        snap = None
+        if self._ckpt_req.is_set():
+            snap = snap_fn()
+            # the caller's own dict: it may edit keys while the autosave
+            # below writes this snapshot
+            self._ckpt_out = dict(snap)
+            self._ckpt_req.clear()
+            self._ckpt_ready.set()
+        return self._maybe_autosave(snap_fn if snap is None else lambda: snap)
+
+    def _maybe_autosave(self, snap_fn: Callable[[], dict],
+                        force: bool = False) -> bool:
+        """Write one autosave generation when the cadence is due (or
+        ``force``: the stop path saves unless this sync already has, so a
+        stopped run loses at most the current block); returns whether one
+        was written.  A failure never kills the run: ``OSError`` is
+        accounted inside ``save()``, anything else here."""
+        svc = self._autosave
+        if svc is None or not (force or svc.due()):
+            return False
+        t0 = time.monotonic()
+        try:
+            snap = snap_fn()
+            t1 = time.monotonic()
+            if svc.save(snap, self._autosave_manifest(snap)) is not None:
+                self.autosave_secs.append((t1 - t0, time.monotonic() - t1))
+                return True
+        except Exception as e:  # noqa: BLE001 - see the docstring
+            svc._clock = time.monotonic()  # a failing path must not turn
+            # every later sync into a fresh attempt
+            svc.note_failure(svc._gen, e)
+        return False
+
+    def _autosave_manifest(self, snap: dict) -> dict:
+        """The generation manifest: the model, the engine, the progress at
+        the checkpoint and each property's discovery flag, so resume picks
+        a generation without loading its npz."""
+        disc = np.asarray(snap.get("disc", np.zeros(0))).reshape(-1)
+        return {
+            "model": type(self.model).__name__,
+            "engine": ("wavefront" if self._engine_tag == "single"
+                       else self._engine_tag),
+            "totals": {
+                "states": int(np.asarray(snap.get("scount", 0))),
+                "unique": int(np.asarray(snap.get("unique", 0))),
+                "max_depth": int(np.asarray(snap.get("maxdepth", 0))),
+            },
+            "properties": [
+                {"name": p.name,
+                 "expectation": p.expectation.name.lower(),
+                 "discovery": bool(i < disc.size and int(disc[i]) != 0)}
+                for i, p in enumerate(self._props)
+            ],
+            "restarts": 0,  # no supervisor restarts a port run yet
+            "written_at": datetime.datetime.now(datetime.timezone.utc)
+            .isoformat(timespec="seconds"),
+        }
+
+    def durability_status(self) -> Optional[dict]:
+        """The live durability block (the cadence, the generations written
+        and failed, the age of the last one), or None when autosave is
+        off."""
+        if self._autosave is None:
+            return None
+        return {"v": CKPT_V, "restarts": 0,
+                "autosave": self._autosave.status()}
 
     # -- Checker surface -----------------------------------------------------
 

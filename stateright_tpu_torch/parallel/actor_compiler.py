@@ -8,9 +8,9 @@ rows; the device half is plain PyTorch on int64 bit patterns
 (``ops/hashing.py``), in eager :class:`FieldWriter` mode.  Both network
 packings are here: the global slot multiset and the per-channel layout
 (``per_channel``), and the mechanical symmetry of the general fragment
-(``representative_rows``/``representative_key``, built on demand).  What
-waits: the ``OrderedReliableLink`` hint, the coalesced step and
-``row_domain``.
+(``representative_rows``/``representative_key``, built on demand), and
+the ``OrderedReliableLink`` hint of the cap errors (:func:`_orl_hint`).
+What waits: the coalesced step and ``row_domain``.
 
 It compiles Python actor handlers into table-driven ``step_rows`` for two
 fragments (reference transition semantics: ``src/actor/model.rs:187-306``):
@@ -126,6 +126,26 @@ _CHECK_EVERY = 2048
 
 class CompileError(Exception):
     """The model is outside the compilable fragment."""
+
+
+def _orl_hint(state) -> str:
+    """The cap-error hint for OrderedReliableLink wrapper states: name the
+    actually-unbounded fields instead of leaving the user to diff 200k
+    closure states (the ORL sequencers grow forever unless capped).
+    Shared by the exact-cap error and the pre-closure estimate's fail-fast
+    error (JAX ``parallel/actor_compiler.py:91-107``)."""
+    from ..actor.ordered_reliable_link import LinkState
+
+    if not isinstance(state, LinkState):
+        return ""
+    return (
+        "; this is an OrderedReliableLink wrapper state — "
+        "next_send_seq/msgs_pending_ack/last_delivered_seqs "
+        "grow without bound when the wrapped actor keeps "
+        "sending; cap them with state_bound (worked recipe: "
+        "docs/compiling-actor-systems.md, 'Compiling "
+        "ORL-wrapped systems')"
+    )
 
 
 def compile_actor_model(
@@ -463,7 +483,7 @@ class CompiledActorTensor(TensorModel):
             if code >= max_s:
                 raise CompileError(
                     f"actor {i} state universe exceeded {max_s}; "
-                    "tighten state_bound"
+                    "tighten state_bound" + _orl_hint(s)
                 )
             self._states[i].append(s)
             self._state_code[i][s] = code
@@ -554,6 +574,7 @@ class CompiledActorTensor(TensorModel):
                     f"(pre-closure estimate ≥ {estimate}); "
                     "tighten state_bound, or raise max_states_per_actor "
                     "(escape hatch: STATERIGHT_TPU_CLOSURE_ESTIMATE=off)"
+                    + _orl_hint(self._states[big][-1])
                 )
 
         # seed from the real initial system state

@@ -33,6 +33,28 @@ from ..fingerprint import hash_words
 from ..ops.hashing import lshr, to_i64
 
 
+def twin_or_none(model):
+    """The model's device twin with host-fallback semantics: None when the
+    model declares no twin, or when building it fails in one of the ways
+    that mean "no twin for this configuration" (``CompileError``,
+    ``NotImplementedError``, ``ValueError``).  Any other error is a fault
+    in the twin and raises.  Used by ``spawn_auto``; the GPU spawn path
+    itself resolves the twin directly, so construction errors surface
+    there instead (JAX ``parallel/tensor_model.py:40``, which host-falls
+    back on any error)."""
+    from .actor_compiler import CompileError
+
+    try:
+        cached = getattr(model, "_tensor_cached", None)
+        return (
+            cached()
+            if cached is not None
+            else getattr(model, "tensor_model", lambda: None)()
+        )
+    except (CompileError, NotImplementedError, ValueError):
+        return None
+
+
 class TensorModel:
     """Base class for device twins of object-form models."""
 

@@ -52,6 +52,13 @@ whose status is not OK the host rehashes the table (``host_bucket_rehash``)
 or compacts/extends the queue in numpy, or doubles the candidate budget,
 and resumes exactly where the device stopped.  A run with the same
 capacities leaves the same table bytes as the JAX engine's.
+
+**Checkpoints** (JAX wavefront.py:2253-2268, :2386-2392): at each block
+boundary, after the stats read and before any growth, the host loop
+serves a pending ``checkpoint()`` and the autosave cadence
+(``_base.WavefrontChecker._at_host_sync``), and a stopped run writes one
+forced last generation.  A run resumed from any of these snapshots ends
+with the uninterrupted run's table bytes and queue rows.
 """
 
 from __future__ import annotations
@@ -468,6 +475,14 @@ class GpuChecker(WavefrontChecker):
                     "the bounds (they must cover everything the bounded "
                     "configuration actually reaches)."
                 )
+
+            def snap_fn():
+                return self._snapshot(carry, cap, qcap, batch, cand)
+
+            # a pending checkpoint and the autosave cadence are served
+            # BEFORE growing: a boundary snapshot carries status != OK, and
+            # resume re-applies the growth
+            saved = self._at_host_sync(snap_fn)
             if status != _STATUS_OK:
                 self.growth_events.append((status, unique))
                 t0 = time.perf_counter()
@@ -488,6 +503,11 @@ class GpuChecker(WavefrontChecker):
                 stats = None
                 continue
             if self._stop.is_set():
+                # stop()/timeout(): one forced last generation (unless this
+                # sync wrote one), so a stopped run loses at most the
+                # current block
+                if not saved:
+                    self._maybe_autosave(snap_fn, force=True)
                 break
             all_disc = bool(self._props) and bool((disc != 0).all())
             target_hit = self._target is not None and unique >= self._target
@@ -513,13 +533,17 @@ class GpuChecker(WavefrontChecker):
             for i in (TFP, TPL)
         )
 
-    def final_snapshot(self) -> dict:
-        """The finished run's carry as a snapshot in the JAX engine's layout:
-        either engine resumes from it."""
-        self.join()
+    def _snapshot(self, carry, cap, qcap, batch, cand) -> dict:
+        """A carry as a snapshot in the JAX engine's layout (numpy, copied
+        off the device): either engine resumes from it."""
         return convert.carry_to_snapshot(
-            self._final_carry, self._cap, self._qcap, self._batch, self._cand,
-            width=self.tensor.width, engine=self._engine_tag,
-            model_sig=self._model_sig(),
+            carry, cap, qcap, batch, cand, width=self.tensor.width,
+            engine=self._engine_tag, model_sig=self._model_sig(),
         )
+
+    def final_snapshot(self) -> dict:
+        """The finished run's carry as a snapshot (:meth:`_snapshot`)."""
+        self.join()
+        return self._snapshot(self._final_carry, self._cap, self._qcap,
+                              self._batch, self._cand)
 

@@ -1,10 +1,9 @@
 """Consistency semantics (reference L7: ``src/semantics.rs`` + ``src/semantics/``).
 
-The port's own copy of ``stateright_tpu/semantics/__init__.py``, cut to
-what the ported models check: :class:`SequentialSpec`,
-:class:`ConsistencyTester`, the register and write-once register specs and
-the linearizability tester.  The vector spec and the sequential
-consistency tester come with the slices that check them.
+The port's own copy of ``stateright_tpu/semantics/__init__.py``:
+:class:`SequentialSpec`, :class:`ConsistencyTester`, the register,
+write-once register and vector specs, and the linearizability and
+sequential-consistency testers.
 
 Correctness of a concurrent system is defined against a *sequential
 reference object* (:class:`SequentialSpec`): "this system should behave like
@@ -31,6 +30,8 @@ __all__ = [
     "Register",
     "WORegister",
     "LinearizabilityTester",
+    "SequentialConsistencyTester",
+    "VecSpec",
 ]
 
 
@@ -74,3 +75,5 @@ class ConsistencyTester:
 from .register import Register  # noqa: E402
 from .linearizability import LinearizabilityTester  # noqa: E402
 from .write_once_register import WORegister  # noqa: E402
+from .sequential_consistency import SequentialConsistencyTester  # noqa: E402
+from .vec import VecSpec  # noqa: E402

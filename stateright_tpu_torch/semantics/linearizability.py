@@ -159,12 +159,17 @@ def _serialize(
     ref_obj: SequentialSpec,
     remaining: dict,  # thread -> tuple of (orig_idx, Complete)
     in_flight: dict,  # thread -> InFlight
+    real_time: bool = True,
 ) -> Optional[list]:
-    """Exhaustive interleaving search (reference ``linearizability.rs:178-240``)."""
+    """Exhaustive interleaving search (reference ``linearizability.rs:178-240``).
+    ``real_time=False`` drops the prerequisite checks, yielding sequential
+    consistency (reference ``sequential_consistency.rs``)."""
     if all(not h for h in remaining.values()):
         return valid_history  # in-flight ops may legally remain unserialized
 
     def violates(last_completed) -> bool:
+        if not real_time:
+            return False
         for peer, min_peer_time in last_completed:
             ops = remaining.get(peer)
             if ops and ops[0][0] <= min_peer_time:
@@ -186,7 +191,7 @@ def _serialize(
             del next_in_flight[thread_id]
             result = _serialize(
                 valid_history + [(op, ret)], next_ref, remaining,
-                next_in_flight,
+                next_in_flight, real_time,
             )
         else:
             # Case 2: completed op next in this thread's program order.
@@ -200,7 +205,7 @@ def _serialize(
             next_remaining[thread_id] = history[1:]
             result = _serialize(
                 valid_history + [(op, ret)], next_ref, next_remaining,
-                in_flight,
+                in_flight, real_time,
             )
         if result is not None:
             return result

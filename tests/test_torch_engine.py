@@ -290,6 +290,26 @@ ISOLATION_CASES = {
         "assert r.join().unique_state_count() == 2926, r.unique_state_count()\n"
         "assert set(r.discoveries()) == {'a leader is elected'}\n"
     ),
+    "checkpoint-auto-orl": (
+        "import tempfile\n"
+        "from stateright_tpu_torch import checkpoint\n"
+        "from stateright_tpu_torch.models.orl import orl_model\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "d = tempfile.mkdtemp()\n"
+        "c = TwoPhaseSys(3).checker().autosave(d, every_secs=0.0).spawn_gpu(\n"
+        "    device='cpu', batch=32, steps_per_call=2).join()\n"
+        "snap = c.checkpoint()\n"
+        "mid = checkpoint.list_generations(d)[0]['path']\n"
+        "r = TwoPhaseSys(3).checker().spawn_gpu(device='cpu', resume=dict(\n"
+        "    __import__('numpy').load(mid + '/snapshot.npz'))).join()\n"
+        "assert r.unique_state_count() == int(snap['unique']) == 288\n"
+        "a = TwoPhaseSys(4).checker().spawn_auto(probe_secs=0.001,\n"
+        "                                        device='cpu').join()\n"
+        "assert type(a).__name__ == 'GpuChecker', type(a)\n"
+        "assert a.unique_state_count() == 1568, a.unique_state_count()\n"
+        "o = orl_model().checker().spawn_gpu(device='cpu').join()\n"
+        "assert o.unique_state_count() == 148, o.unique_state_count()\n"
+    ),
 }
 
 

@@ -8,7 +8,9 @@ dining-3, W = 83 and A = 82 for per-channel paxos-2), ``row_hash`` from W = 1
 to its widest row, and the engine's table and queue on
 ``cuda`` against ``cpu`` (2pc-4, 2pc-5, a bounded 2pc-7, paxos-2,
 lin-reg-3-ordered, raft-3, per-channel paxos-1, single-copy(2,1) with two
-puts in both packings, and wo(2,1); 2pc-7 and raft-3 under symmetry).
+puts in both packings, and wo(2,1); 2pc-7 and raft-3 under symmetry; the
+ORL sender/receiver), and a live checkpoint and an autosave generation
+resumed on ``cuda`` against an uninterrupted ``cuda`` run.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -17,13 +19,18 @@ card has none), so on that machine it runs without the suite's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import io
+import time
+
 import numpy as np
 import pytest
 import torch
 
+from stateright_tpu_torch import checkpoint as ckpt
 from stateright_tpu_torch import convert
 from stateright_tpu_torch.actor import Network
 from stateright_tpu_torch.models.linearizable_register import abd_model
+from stateright_tpu_torch.models.orl import orl_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import raft_model
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
@@ -503,3 +510,54 @@ def test_channel_and_history_twins_table_and_queue_identical_on_cuda_and_cpu(cud
         np.testing.assert_array_equal(g[k], c[k], err_msg=k)
     for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
         np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
+
+
+def assert_same_snapshot(a, b):
+    """Equal table bytes, cursors and queue rows ``[0, tail)``."""
+    assert int(a["head"]) == int(b["head"]) and int(a["tail"]) == int(b["tail"])
+    tail = int(a["tail"])
+    for k in ("table_fp", "table_parent"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(a[k][:tail], b[k][:tail], err_msg=k)
+
+
+def test_orl_table_and_queue_identical_on_cuda_and_cpu(cuda):
+    """The ORL system compiled for the card: 148 unique and "delivered" on
+    both devices, neither always property violated, the same tables."""
+    def run(device):
+        return orl_model().checker().spawn_gpu(device=device).join()
+
+    g, c = run(cuda), run("cpu")
+    assert g.unique_state_count() == c.unique_state_count() == 148
+    assert set(g.discoveries()) == {"delivered"}
+    g.assert_properties()
+    assert_same_snapshot(g.final_snapshot(), c.final_snapshot())
+
+
+def test_live_checkpoint_and_autosave_resume_on_cuda(cuda, tmp_path):
+    """A live ``checkpoint()`` (after an ``np.savez`` round trip) and the
+    newest autosave generation of a stopped 2pc-5 run each resume on
+    ``cuda`` to the uninterrupted ``cuda`` run's tables and queue."""
+    full = TwoPhaseSys(5).checker().spawn_gpu(
+        device=cuda, batch=64, steps_per_call=2).join()
+    running = TwoPhaseSys(5).checker().autosave(
+        str(tmp_path), every_secs=0.0, keep=2,
+    ).spawn_gpu(device=cuda, batch=64, steps_per_call=2)
+    live = running.checkpoint(timeout=120.0)
+    deadline = time.monotonic() + 120
+    while ckpt.latest_gen_number(str(tmp_path)) is None:
+        assert time.monotonic() < deadline and not running.is_done()
+        time.sleep(0.01)
+    running.stop().join()
+    assert 0 < int(live["unique"]) < 8832
+    assert int(live["head"]) < int(live["tail"])
+    assert 1 <= len(ckpt.list_generations(str(tmp_path))) <= 2
+    buf = io.BytesIO()
+    np.savez(buf, **live)
+    buf.seek(0)
+    for snap in (dict(np.load(buf)), ckpt.latest_generation(str(tmp_path))[0]):
+        r = TwoPhaseSys(5).checker().spawn_gpu(device=cuda, resume=snap).join()
+        assert (r.unique_state_count(), r.state_count()) == (8832, 58146)
+        assert r.discovery_fps() == full.discovery_fps()
+        assert_same_snapshot(r.final_snapshot(), full.final_snapshot())
