@@ -103,9 +103,27 @@ read just after:
    60 states (W = 17, 34 actions: a partial batch, as all of that model's
    are).
 
+The pre-dedup (``.prededup()``, through the CLI's ``--prededup``; each
+leg's launch counts reset just before it and read just after), right
+after the plain paxos legs:
+
+ - ``paxos3_prededup``: paxos-3 complete under ``.prededup()`` (the
+   dedup's ``row_hash`` launch every step, ``window_unique``):
+   1,194,428 unique, 2,420,477 states and the plain leg's discoveries,
+   with the share of valid lanes the pre-dedup took out and the launches
+   per step;
+ - paxos-2 and per-channel paxos-2 (``capacity=1 << 16``, ``batch=512``)
+   under the flag on ``cuda`` and ``cpu``: identical table bytes and
+   queue rows ``[0, tail)``;
+ - 2pc-7 under ``.symmetry().prededup()`` on ``cuda`` and ``cpu``: 2,326 /
+   19,758, identical likewise;
+ - the paxos-3 kernel cell's batch again as a prededup step gives it
+   (``row_hash`` on the step's valid rows, ``cand_prep`` on their first
+   occurrences), every kernel against its plain version.
+
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
-only rows the main path gives it (``init_rows`` in its record), and the
-``total`` record gives each phase's wall seconds.
+only rows an unflagged main path gives it (``init_rows`` in its record),
+and the ``total`` record gives each phase's wall seconds.
 
 Any failure raises (non-zero exit).  The second-to-last line of standard
 output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
@@ -116,7 +134,10 @@ and the per-channel paxos-2 ones, with that run's launches, under
 generation order at 2pc-15 symmetry shapes, with the 2pc-15 symmetry
 run's launches; every kernel entry also gives the launches of the last
 three legs under ``at_checkpoint_sc4``, ``at_auto_2pc7`` and ``at_orl``,
-the last with the ORL kernel records beside them)
+the last with the ORL kernel records beside them, and the prededup legs'
+under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
+``at_paxos2_prededup``, ``at_paxos2_per_channel_prededup`` and
+``at_2pc7_symmetry_prededup``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -146,6 +167,7 @@ from stateright_tpu_torch.ops.buckets import (
     PlanBuffers,
     bucket_plan,
     bucket_plan_plain,
+    window_unique,
 )
 from stateright_tpu_torch.ops.cand_prep import (
     PrepBuffers,
@@ -166,6 +188,7 @@ from stateright_tpu_torch.models.orl import ORL_UNIQUE, orl_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import LEADER, raft_model
 from stateright_tpu_torch.models import two_phase_commit
+from stateright_tpu_torch.models._cli import with_step_flags
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
@@ -178,6 +201,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12
 TPC10_TARGET = 4_000_000
 PAXOS3_UNIQUE = 1_194_428  # the JAX engine's complete paxos-3 count
+PAXOS3_STATES = 2_420_477
+# the step flag of the prededup legs (models/_cli.py's STEP_FLAGS)
+PREDEDUP = ("--prededup",)
 PAXOS3_KERNEL_TARGET = 600_000
 # the JAX engine's complete counts (unique, states) of the compiled models
 SC4 = (400_233, 731_789)
@@ -408,12 +434,15 @@ def timed_run(n: int, target=None, model=TwoPhaseSys, **kw):
     return checker, time.monotonic() - t0
 
 
-def next_batch(checker, carry, sym: bool = False) -> dict:
+def next_batch(checker, carry, sym: bool = False, flags=()) -> dict:
     """The next batch popped from a run's carry (device tensors, as the
     engine's ``_final_carry`` holds them), pushed through the step's plain
     stages up to each kernel: real inputs at the shapes the main path
     gives the kernels.  ``sym``: as a symmetry run's step, the canonical
-    rows go to ``cand_prep`` and the plan is in generation order."""
+    rows go to ``cand_prep`` and the plan is in generation order.
+    ``flags`` (:data:`PREDEDUP`): as a prededup run's step, ``row_hash``
+    hashes the valid rows (``hvalid``) and ``cand_prep`` gets the first
+    occurrences only (``cvalid``)."""
     head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
     batch, cand = checker._batch, checker._cand
     arity = checker.tensor.max_actions
@@ -429,6 +458,9 @@ def next_batch(checker, carry, sym: bool = False) -> dict:
     crows, cvalid = succ.reshape(m, -1), valid.reshape(m)
     krows = (checker.tensor.representative_rows(succ).reshape(m, -1)
              if sym else crows)
+    hvalid = cvalid
+    if "--prededup" in flags:
+        cvalid = window_unique(row_hash_plain(krows, hvalid)) != EMPTY
     pfp = carry[convert.QFP][span]
     tfp, tpl = carry[convert.TFP], carry[convert.TPL]
     cb = min(cand, m)
@@ -446,7 +478,8 @@ def next_batch(checker, carry, sym: bool = False) -> dict:
         carry[convert.QDEPTH], carry[convert.TAIL], plan[3], crows,
         carry[convert.QEBITS][span], carry[convert.QDEPTH][span], arity,
     )
-    return dict(crows=crows, krows=krows, cvalid=cvalid, pfp=pfp,
+    return dict(crows=crows, krows=krows, cvalid=cvalid, hvalid=hvalid,
+                pfp=pfp,
                 arity=arity, cb=cb, prep=prep, tfp=tfp, tpl=tpl, sort=sort, plan=plan,
                 queue=queue, n_new=n_new)
 
@@ -517,13 +550,16 @@ def plan_record(x: dict, cold: bool, stream, sym: bool = False) -> dict:
     )
 
 
-def check_kernels(checker, carry, cold: bool, sym: bool = False) -> dict:
+def check_kernels(checker, carry, cold: bool, sym: bool = False,
+                  flags=()) -> dict:
     """Each kernel against its plain version on one real batch; returns
     ``{name: record}``.  ``sym``: the batch as a symmetry run's step gives
     it to the kernels (canonical rows to ``cand_prep`` and ``row_hash``,
     the plan and the insert in generation order), with the table-order
-    plan on the same batch as one more record."""
-    x = next_batch(checker, carry, sym)
+    plan on the same batch as one more record.  ``flags``: as a run with
+    those step flags gives it (:func:`next_batch`): under ``--prededup``
+    ``row_hash`` runs on the step's valid rows, as the step calls it."""
+    x = next_batch(checker, carry, sym, flags)
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
 
@@ -556,8 +592,9 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False) -> dict:
                                     check=False, stream=stream)),
     )
 
-    # -- B: row_hash over the same rows, and over the run's init rows (the
-    # only rows the main path gives it) -------------------------------------
+    # -- B: row_hash over the same rows (under prededup: the step's own
+    # call, on the valid rows before the dedup), and over the run's init
+    # rows (without prededup, the only rows the main path gives it) -------
     init = torch.from_numpy(np.asarray(checker.tensor.init_rows(), np.uint64)
                             .view(np.int64).copy()).to(rows.device)
     if sym:
@@ -572,22 +609,29 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False) -> dict:
         bound_ms=bi_ms, bound_by=bi_by,
         **timings(lambda: row_hash(init), lambda: row_hash_plain(init), cold),
     )
-    got, want = row_hash(rows, valid), row_hash_plain(rows, valid)
+    hvalid = x["hvalid"]
+    nh = int(hvalid.sum())
+    got, want = row_hash(rows, hvalid), row_hash_plain(rows, hvalid)
     # every lane reads its valid byte and writes its fingerprint; only the
     # valid lanes read their row (invalid ones return before it)
-    b_ms, b_by = bound(nv * w * 8 + n + n * 8, nv * (w + 1) * 10)
+    b_ms, b_by = bound(nh * w * 8 + n + n * 8, nh * (w + 1) * 10)
     out["row_hash"] = dict(
         name="row_hash", route="cuda",
         source="stateright_tpu_torch/csrc/row_hash.cu",
         replaces="stateright_tpu/ops/hashing.py:105",
-        shape=f"rows int64[{n}, {w}], {nv} valid",
+        shape=f"rows int64[{n}, {w}], {nh} valid",
         matched=bool(torch.equal(got, want)) and init_record["matched"],
         max_abs_err=int((got != want).sum()) + init_record["max_abs_err"],
         init_rows=init_record,
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        **timings(lambda: row_hash(rows, valid),
-                  lambda: row_hash_plain(rows, valid), cold),
+        **timings(lambda: row_hash(rows, hvalid),
+                  lambda: row_hash_plain(rows, hvalid), cold),
     )
+    if "--prededup" in flags:
+        # the plain stage between the step's row_hash and cand_prep
+        fps = row_hash_plain(rows, hvalid)
+        out["row_hash"]["window_unique"] = dict(
+            kept=nv, ms=time_ms(lambda: window_unique(fps)))
 
     # -- bucket_plan over the sorted candidate budget ------------------------
     out["bucket_plan"] = plan_record(x, cold, stream, sym)
@@ -650,9 +694,10 @@ def same_snapshots(gs: dict, cs: dict) -> tuple[bool, int]:
     return bool(same), tail
 
 
-def paxos_phases(dev, smi: str) -> None:
+def paxos_phases(dev, smi: str) -> tuple:
     """Paxos-2 on ``cuda`` and ``cpu``, then paxos-3 complete with the
-    main path's launch counts."""
+    main path's launch counts; returns paxos-3's discovery fingerprints
+    and path lengths."""
     # -- paxos-2 on cuda and cpu: same counts, table bytes and queue rows ---
     def p2(device):
         c = paxos_model(2).checker().spawn_gpu(device=device, batch=256)
@@ -708,6 +753,96 @@ def paxos_phases(dev, smi: str) -> None:
             f"paxos-3: {g3.unique_state_count()} unique, not {PAXOS3_UNIQUE}")
     if not all(v > 0 for v in launches3.values()):
         raise AssertionError(f"a kernel never launched on paxos-3: {launches3}")
+    return g3.discovery_fps(), paths3
+
+
+def flag_phases(dev, smi: str, p3_ref) -> tuple:
+    """The pre-dedup on the card: paxos-3 under ``.prededup()`` complete,
+    with the plain leg's counts and discoveries ``p3_ref``; paxos-2 and
+    per-channel paxos-2 under the flag on ``cuda`` and ``cpu``; 2pc-7
+    under ``.symmetry().prededup()`` on both.  Returns each leg's
+    launches."""
+    # -- paxos-3, complete, prededup: the slice's main path ------------------
+    g, g_s, peak, launches = compiled_leg(dev, lambda: paxos_model(3),
+                                          flags=PREDEDUP)
+    paths = check_discoveries(g.model, g, {"value chosen"})
+    g.assert_properties()  # "linearizable" never violated
+    removed = g.prededup_removed()
+    rec = dict(leg_record(g, g_s, peak, launches, smi), path_lengths=paths,
+               flags=list(PREDEDUP),
+               unique_per_sec=g.unique_state_count() / g_s,
+               prededup_removed=removed,
+               prededup_removed_share=removed / g.state_count(),
+               launches_per_step={k: v / g.steps_run
+                                  for k, v in launches.items()},
+               discoveries_identical=(g.discovery_fps() == p3_ref[0]
+                                      and paths == p3_ref[1]))
+    emit("paxos3_prededup", rec)
+    if (g.unique_state_count(), g.state_count()) != (PAXOS3_UNIQUE,
+                                                     PAXOS3_STATES):
+        raise AssertionError("paxos-3 prededup: not "
+                             f"{(PAXOS3_UNIQUE, PAXOS3_STATES)}")
+    if not rec["discoveries_identical"]:
+        raise AssertionError("paxos-3 prededup: discoveries differ from the "
+                             "plain leg's")
+    # the step hashes its candidates once more under prededup
+    if launches["row_hash"] < g.steps_run:
+        raise AssertionError(f"paxos-3 prededup: row_hash {launches}")
+    del g
+
+    # -- paxos-2 in both packings, prededup, on cuda and cpu -----------------
+    leg_launches = {}
+    for name, build, kw in (
+        ("paxos2_prededup", lambda: paxos_model(2), dict(batch=256)),
+        ("paxos2_per_channel_prededup", per_channel_paxos2,
+         P2_PER_CHANNEL_KW),
+    ):
+        g, g_s, peak, leg_launches[name] = compiled_leg(
+            dev, build, flags=PREDEDUP, **kw)
+        t0 = time.monotonic()
+        c = with_step_flags(build().checker(), PREDEDUP).spawn_gpu(
+            device="cpu", **kw).join()
+        c_s = time.monotonic() - t0
+        same, tail = same_tables_and_queue(g, c)
+        paths = check_discoveries(g.model, g, {"value chosen"})
+        g.assert_properties()
+        emit(name, dict(leg_record(g, g_s, peak, leg_launches[name], smi),
+                        unique_cpu=c.unique_state_count(),
+                        states_cpu=c.state_count(), sec_cpu=c_s, tail=tail,
+                        tables_and_queue_identical=same, path_lengths=paths,
+                        network_encoding=getattr(g.tensor, "network_encoding",
+                                                 "hand-written"),
+                        prededup_removed=g.prededup_removed(),
+                        prededup_removed_cpu=c.prededup_removed(), **kw))
+        for x in (g, c):  # paxos-2's counts are the same in both packings
+            if (x.unique_state_count(), x.state_count()) != P2_PER_CHANNEL:
+                raise AssertionError(f"{name}: not {P2_PER_CHANNEL}")
+        if not same or g.prededup_removed() != c.prededup_removed():
+            raise AssertionError(f"{name}: cuda and cpu disagree")
+        del g, c
+
+    # -- 2pc-7 under symmetry with prededup, on cuda and cpu ------------------
+    g, g_s, peak, sym_launches = compiled_leg(
+        dev, lambda: TwoPhaseSys(7), sym=True, flags=PREDEDUP)
+    c = TwoPhaseSys(7).checker().symmetry().prededup().spawn_gpu(
+        device="cpu").join()
+    same, tail = same_tables_and_queue(g, c)
+    paths = check_discoveries(g.model, g, {"abort agreement",
+                                           "commit agreement"})
+    g.assert_properties()
+    emit("2pc7_symmetry_prededup", dict(
+        leg_record(g, g_s, peak, sym_launches, smi),
+        unique_cpu=c.unique_state_count(), states_cpu=c.state_count(),
+        tail=tail, tables_and_queue_identical=same, path_lengths=paths,
+        prededup_removed=g.prededup_removed()))
+    for x in (g, c):
+        if (x.unique_state_count(), x.state_count()) != SYM_2PC7:
+            raise AssertionError(f"2pc-7 symmetry prededup: not {SYM_2PC7}")
+    if not same:
+        raise AssertionError("2pc-7 symmetry prededup: cuda and cpu disagree")
+    if sym_launches["bucket_plan"] != 2 * sym_launches["insert_commit"]:
+        raise AssertionError(f"2pc-7 symmetry prededup: {sym_launches}")
+    return launches, leg_launches, sym_launches
 
 
 def leg_record(checker, sec: float, peak: int, launches: dict,
@@ -729,12 +864,12 @@ def leg_record(checker, sec: float, peak: int, launches: dict,
             "card": smi}
 
 
-def compiled_leg(dev, build, sym: bool = False, **kw):
+def compiled_leg(dev, build, sym: bool = False, flags=(), **kw):
     """One ``spawn_gpu(**kw)`` run of ``build()``'s model (under
-    ``.symmetry()`` with ``sym``) with the launch counts reset just before
-    it and read just after; returns the checker, its wall seconds (the
-    twin's host-side compile included), peak device memory and
-    launches."""
+    ``.symmetry()`` with ``sym``, with the step ``flags`` on) with the
+    launch counts reset just before it and read just after; returns the
+    checker, its wall seconds (the twin's host-side compile included),
+    peak device memory and launches."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
@@ -742,6 +877,7 @@ def compiled_leg(dev, build, sym: bool = False, **kw):
     builder = build().checker()
     if sym:
         builder = builder.symmetry()
+    builder = with_step_flags(builder, flags)
     checker = builder.spawn_gpu(**kw).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
@@ -1212,13 +1348,21 @@ def main() -> int:
     del g10
     lap("kernels_2pc10")
 
-    paxos_phases(dev, smi)
+    p3_ref = paxos_phases(dev, smi)
     lap("paxos2_and_paxos3")
-    # -- kernels at paxos-3 shapes, L2-cold ----------------------------------
+    launches_p3f, launches_p2f, launches_sym7f = flag_phases(dev, smi, p3_ref)
+    lap("step_flags")
+    # -- kernels at paxos-3 shapes, L2-cold: plain, and the same batch as a
+    # .prededup() step gives it (the queue holds the same rows with the
+    # flag on or off) ---------------------------------------------------------
     gp, _ = timed_run(3, target=PAXOS3_KERNEL_TARGET, model=paxos_model)
     kernels_p3 = check_kernels(gp, gp._final_carry, cold=True)
     for name, k in kernels_p3.items():
         emit(f"kernel_{name}_paxos3", k)
+    kernels_p3f = check_kernels(gp, gp._final_carry, cold=True,
+                                flags=PREDEDUP)
+    for name, k in kernels_p3f.items():
+        emit(f"kernel_{name}_paxos3_prededup", k)
     del gp
     lap("kernels_paxos3")
 
@@ -1293,6 +1437,7 @@ def main() -> int:
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
                              ("paxos-3", kernels_p3),
+                             ("paxos-3 prededup", kernels_p3f),
                              ("single-copy-4", kernels_sc4),
                              ("per-channel paxos-2", kernels_p2pc),
                              ("2pc-15 symmetry", kernels_sym),
@@ -1326,6 +1471,16 @@ def main() -> int:
              if key not in ("name", "route", "source", "replaces",
                             "launches")},
             launches=launches_orl[name])
+        # the pre-dedup: paxos-3 under .prededup() with its kernel cell,
+        # and the other prededup legs' launches
+        entry["at_paxos3_prededup"] = dict(
+            {key: kernels_p3f[name][key] for key in KERNEL_KEYS
+             if key not in ("name", "route", "source", "replaces",
+                            "launches")},
+            launches=launches_p3f[name])
+        for leg, ls in launches_p2f.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+        entry["at_2pc7_symmetry_prededup"] = {"launches": launches_sym7f[name]}
         line.append(entry)
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS

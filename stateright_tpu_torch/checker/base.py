@@ -2,8 +2,9 @@
 
 The port's counterpart of ``stateright_tpu/checker/base.py``:
 ``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
-``visitor``, ``timeout`` and ``autosave``, and spawns the host checkers
-(:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
+``visitor``, ``timeout``, ``autosave`` and the GPU engine's ``prededup``
+(``mxu`` is accepted for parity and has no effect), and spawns the host
+checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
 :meth:`CheckerBuilder.spawn_mp_bfs`), the GPU wavefront engine
 (:meth:`CheckerBuilder.spawn_gpu`) and the engine chosen by a bounded host
 probe (:meth:`CheckerBuilder.spawn_auto`); ``Checker`` is the result
@@ -39,6 +40,8 @@ class CheckerBuilder:
         self.visitor_obj: Optional[CheckerVisitor] = None
         self.timeout_secs: Optional[float] = None
         self.autosave_opts: Optional[dict] = None
+        # the GPU engine's pre-dedup; None = the env knob decides
+        self.prededup_mode: Optional[bool] = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Dedup on symmetry-class representatives; states must define
@@ -98,6 +101,32 @@ class CheckerBuilder:
             "every_secs": float(every_secs),
             "keep": int(keep),
         }
+        return self
+
+    def prededup(self, enabled: bool = True) -> "CheckerBuilder":
+        """Intra-window candidate pre-dedup on the GPU engine
+        (``ops/buckets.window_unique``; JAX ``checker/base.py:325``): within
+        one step, every later occurrence of a successor's fingerprint is
+        masked off before the insert, the first kept, so the candidate
+        budget sees only the step's unique successors.  Counts, verdicts,
+        traces and table bytes are the run's without the flag at the same
+        capacities (the budget's overflow can only come later, so growth
+        may differ); the state count still counts duplicates.  Under the
+        flag the step hashes its candidates once more (the ``row_hash``
+        kernel).  Default off; env override
+        ``STATERIGHT_TPU_PREDEDUP=1``."""
+        self.prededup_mode = bool(enabled)
+        return self
+
+    def mxu(self, enabled: bool = True, *, coalesce: bool = True,
+            slim_queue: bool = True, probe: bool = True) -> "CheckerBuilder":
+        """Accepted for parity with the JAX builder (``checker/base.py:379``)
+        and without effect in the port, as is ``STATERIGHT_TPU_MXU``: every
+        twin always assembles its packed words with the coalesced
+        :class:`~stateright_tpu_torch.parallel.tensor_model.FieldWriter`
+        (``coalesce``), the queue append already writes only the novel rows
+        (``slim_queue``), and ``csrc/bucket_plan.cu``'s ballots give the
+        probe's two counts without a product (``probe``)."""
         return self
 
     # -- strategies ----------------------------------------------------------

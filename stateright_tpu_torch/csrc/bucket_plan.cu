@@ -40,6 +40,13 @@
 //  - the last CTA to finish (a second ticket) writes `n_new` and
 //    `overflow` and zeroes the kernel's scratch for the next launch, so a
 //    step needs no memset.
+// The JAX `.mxu(probe=True)` knob (`bucket_insert(probe_dot=True)`,
+// stateright_tpu/ops/mxu.py:118) recasts this probe as one product of the
+// candidate x slot comparison tile with a block-diagonal ones matrix.  The
+// port has no such form: one half-warp line load and two
+// `__ballot_sync`/`__popc` per lane already give `present` and `base`, and
+// a tensor-core product would add a conversion of the tile and an `mma`
+// for the same two numbers.
 // Lanes with an EMPTY fingerprint (a contiguous tail of the sorted order)
 // read no bucket index; their line loads all go to bucket 0's line, so
 // the sixteen loads of a half-warp carry no branch, and the results are

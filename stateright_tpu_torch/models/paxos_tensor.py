@@ -2,9 +2,9 @@
 
 The port's counterpart of ``stateright_tpu/models/paxos_tensor.py``: the
 same row layout, envelope codes and transition, word for word, with
-``step_rows`` in eager :class:`FieldWriter` mode written in PyTorch on
-int64 bit patterns (``ops/hashing.py``).  The coalesced step comes with the
-hot-op knobs.
+``step_rows`` written in PyTorch on int64 bit patterns
+(``ops/hashing.py``), its packed words assembled by the coalesced
+:class:`FieldWriter` (JAX ``step_rows_coalesced``, :403 and :642).
 
 Encodes the full :class:`~stateright_tpu_torch.actor.model.ActorModelState`
 of ``paxos_model(C, 3)`` — three server actor states, C register clients,

@@ -36,7 +36,9 @@ in both orders; only the order of the compacted lists changes.
 
 The engine's step takes its first stage from ``ops/cand_prep.py`` instead
 (hash, key and compaction in one launch, then one sort);
-:func:`bucket_insert` serves the init rows and the tests.  The JAX
+:func:`bucket_insert` serves the init rows and the tests.  Under
+``.prededup()`` the step first masks a window's repeated fingerprints
+(:func:`window_unique`).  The JAX
 version's data-dependent ``while_loop`` s become full-width passes masked
 by counts that stay on the device.
 """
@@ -77,6 +79,21 @@ def bucket_of(fps, nbuckets: int) -> np.ndarray:
     if bits == 0:
         return np.zeros(k.shape, np.int64)
     return (k >> np.uint64(64 - bits)).astype(np.int64)
+
+
+def window_unique(fps: torch.Tensor) -> torch.Tensor:
+    """Intra-window pre-dedup (JAX ``ops/buckets.py:73-102``): every later
+    occurrence of a fingerprint becomes EMPTY, the first (lowest lane)
+    stays; EMPTY lanes stay EMPTY.  The kept lane is the one the insert's
+    stable sort keeps, so the inserted set, ``sel`` and ``n_new`` do not
+    change; only the candidate budget sees fewer lanes.  One stable sort
+    in unsigned order, and the first-occurrence flags scattered back (a
+    boolean-mask index would read a count on the host)."""
+    sfp, order = torch.sort(fps ^ SIGN, stable=True)
+    first = torch.ones_like(fps, dtype=torch.bool)
+    first[1:] = sfp[1:] != sfp[:-1]
+    keep = torch.zeros_like(first).scatter_(0, order, first)
+    return torch.where(keep, fps, EMPTY)
 
 
 def bucket_probe_plain(tfp, sfp, bucket):

@@ -3,7 +3,8 @@
 The port's counterpart of ``stateright_tpu/parallel/_base.py``
 (``WavefrontChecker``), cut to the single-device engine: resolve the
 model's tensor twin (and, under ``symmetry()``, check that it has a
-vectorized canonicalizer), check that host and device fingerprints agree,
+vectorized canonicalizer), resolve ``prededup()`` against its env knob,
+check that host and device fingerprints agree,
 run the engine on a background thread (exceptions re-raise at
 :meth:`join`), honour the builder's ``timeout`` and :meth:`stop` with a
 cooperative stop at the next host sync, serve a live :meth:`checkpoint`
@@ -25,6 +26,7 @@ autosave off, the sync adds no device read.
 from __future__ import annotations
 
 import datetime
+import os
 import threading
 import time
 from typing import Callable, Optional
@@ -37,6 +39,16 @@ from ..checker.path import Path
 from ..checkpoint import CKPT_V, AutosaveService, resolve_autosave
 from ..fingerprint import MASK64
 from ..ops.hashing import row_hash
+
+ENV_PREDEDUP = "STATERIGHT_TPU_PREDEDUP"
+
+
+def resolve_flag(mode: Optional[bool], env: str) -> bool:
+    """A builder flag: an explicit setting wins, else the env knob ``=1``
+    decides (JAX ``parallel/prewarm.py:226``)."""
+    if mode is not None:
+        return bool(mode)
+    return os.environ.get(env, "") == "1"
 
 
 class WavefrontChecker(Checker):
@@ -79,6 +91,8 @@ class WavefrontChecker(Checker):
         self.tensor = tensor
         self._props = list(self.model.properties())
         self._target = options.target_state_count
+        # JAX ``parallel/_base.py:100-108``: the builder wins over the env
+        self._prededup = resolve_flag(options.prededup_mode, ENV_PREDEDUP)
         self._verify_fingerprint_bridge()
         self._results: Optional[dict] = None
         self._live = (0, 0, 0)  # states, unique, maxdepth at the last sync

@@ -5,12 +5,13 @@ the host half (closure and its fail-fast estimate, tables, channel layout,
 symmetry tables, host bridge) is the JAX module's, line for line, so both
 compilers number local states and envelopes alike and produce the same
 rows; the device half is plain PyTorch on int64 bit patterns
-(``ops/hashing.py``), in eager :class:`FieldWriter` mode.  Both network
-packings are here: the global slot multiset and the per-channel layout
+(``ops/hashing.py``), its packed words assembled by the coalesced
+:class:`FieldWriter` (the JAX compiler's ``step_rows_coalesced``).  Both
+network packings are here: the global slot multiset and the per-channel layout
 (``per_channel``), and the mechanical symmetry of the general fragment
 (``representative_rows``/``representative_key``, built on demand), and
 the ``OrderedReliableLink`` hint of the cap errors (:func:`_orl_hint`).
-What waits: the coalesced step and ``row_domain``.
+What waits: ``row_domain``.
 
 It compiles Python actor handlers into table-driven ``step_rows`` for two
 fragments (reference transition semantics: ``src/actor/model.rs:187-306``):

@@ -18,8 +18,8 @@ int64 tensors holding the 64-bit words' bit patterns (``ops/hashing.py``):
    the host bridge; ``hash_words(encode_state(s))`` equals the device
    ``row_hash`` of the same row.
 
-Only :class:`FieldWriter`'s eager mode is ported; the coalesced mode
-comes with the hot-op knobs.
+:class:`FieldWriter` is the JAX writer's coalesced mode, the only one the
+port has.
 """
 
 from __future__ import annotations
@@ -126,35 +126,108 @@ class TensorBackedModel:
 
 
 class FieldWriter:
-    """Packed-field write accumulator over a :class:`BitPacker` block, eager
-    mode: every ``set`` applies through ``pk.set`` at call time
-    (``stateright_tpu``'s ``FieldWriter(coalesce=False)``)."""
+    """Packed-field write accumulator over a :class:`BitPacker` block: the
+    JAX writer's coalesced mode
+    (``stateright_tpu/parallel/tensor_model.py:236-360``).  Writes collect
+    per word in call order, and :meth:`done` builds each written word once
+    from the base word and stacks the block once; untouched words pass
+    through.  Consecutive writes to disjoint fields of one word share one
+    clear of the word.  The base (often an ``expand()`` view shared by
+    every action) is only read, never written.  It gives the JAX eager
+    mode's block (the same masks, writes in call order) without a clone
+    and an indexed write of the whole block per field.
+    """
 
     def __init__(self, pk: "BitPacker", base):
         self.pk = pk
-        self.cur = base
+        self.base = base
+        # word -> ops in call order; name -> pending value; and name -> the
+        # flags OR-ed into it since, so get() after or_field sees the write
+        self._word_ops: dict[int, list] = {}
+        self._pending: dict[str, object] = {}
+        self._or_pending: dict[str, list] = {}
 
     def set(self, name: str, value) -> "FieldWriter":
         """Write field ``name`` (int64[...] matching the block's leading
         shape, or a Python int)."""
-        self.cur = self.pk.set(self.cur, name, value)
+        word, off, bits = self.pk.layout[name]
+        self._word_ops.setdefault(word, []).append(("set", off, bits, value))
+        self._pending[name] = value
+        self._or_pending.pop(name, None)  # a set supersedes earlier ORs
         return self
 
     def get(self, name: str):
-        """Current value of field ``name`` in the running block."""
-        return self.pk.get(self.cur, name)
+        """Current value of field ``name``: the pending write (or the
+        base's field) with the later ORs applied."""
+        v = self._pending.get(name)
+        if v is None:
+            v = self.pk.get(self.base, name)
+        else:
+            _w, _off, bits = self.pk.layout[name]
+            low = to_i64((1 << bits) - 1)
+            if isinstance(v, torch.Tensor):
+                v = v.to(torch.int64)
+                if bits < 64:
+                    v = v & low
+            else:
+                v = torch.full(self.base.shape[:-1], to_i64(int(v)) & low,
+                               dtype=torch.int64, device=self.base.device)
+        for flag in self._or_pending.get(name, ()):
+            v = v | flag.to(torch.int64)
+        return v
 
     def or_field(self, name: str, flag) -> "FieldWriter":
         """OR ``flag`` (bool[...]) into the 1-bit packed field ``name``
         without reading the field back: the word keeps every other bit."""
         word, off, _bits = self.pk.layout[name]
-        out = self.cur.clone()
-        out[..., word] = self.cur[..., word] | (flag.to(torch.int64) << off)
-        self.cur = out
+        self._word_ops.setdefault(word, []).append(
+            ("or", flag.to(torch.int64) << off))
+        self._or_pending.setdefault(name, []).append(flag)
         return self
 
+    @staticmethod
+    def _build_word(col, ops):
+        """Apply one word's ops in call order; a run of sets to disjoint
+        fields becomes one clear and one OR of the masked values."""
+        clear, vals, const = 0, None, 0
+
+        def flush(col):
+            if clear:
+                col = col & to_i64(~clear)
+                if const:
+                    col = col | to_i64(const)
+                if vals is not None:
+                    col = col | vals
+            return col
+
+        for op in ops:
+            if op[0] == "or":
+                col = flush(col) | op[1]
+                clear, vals, const = 0, None, 0
+                continue
+            _, off, bits, v = op
+            mask = ((1 << bits) - 1) << off
+            if clear & mask:  # the same field again: apply what came before
+                col = flush(col)
+                clear, vals, const = 0, None, 0
+            clear |= mask
+            if isinstance(v, torch.Tensor):
+                t = v.to(torch.int64) << off
+                if bits < 64:
+                    t = t & to_i64(mask)
+                vals = t if vals is None else vals | t
+            else:
+                const |= (int(v) << off) & mask
+        return flush(col)
+
     def done(self):
-        return self.cur
+        """The written block: one stack of the per-word columns."""
+        cols = [self._build_word(self.base[..., w], self._word_ops[w])
+                if w in self._word_ops else self.base[..., w]
+                for w in range(self.pk.width)]
+        shape = self.base.shape[:-1]
+        cols = [c if c.shape == shape else c.expand(shape) for c in cols]
+        return torch.stack(cols, dim=-1)
 
 
 class BitPacker:

@@ -2,8 +2,8 @@
 
 The port's counterpart of ``stateright_tpu/parallel/wavefront.py``
 (``_build_engine`` and ``TpuChecker``), single device, with symmetry
-reduction; no POR, spill, cartography, checked mode, hot-op knobs or
-prewarm.  The engine keeps a device-resident FIFO queue of state rows and
+reduction and intra-window pre-dedup (``.prededup()``); no POR, spill,
+cartography, checked mode or prewarm.  The engine keeps a device-resident FIFO queue of state rows and
 a bucketized visited table (``ops/buckets.py``), and each step pops a
 batch and
 
@@ -32,6 +32,18 @@ ones.  ``bucket_plan`` compacts the novel candidates in generation order,
 so the reduced search is the one a host FIFO search over original states
 with representative dedup makes, and so the JAX engine's.  Traces are
 rebuilt by matching classes (``Path.from_fingerprints(key=...)``).
+
+**Pre-dedup** (``.prededup()``, JAX wavefront.py:484-497): duplicate
+fingerprints within one step's candidates are masked off before the
+insert, the first occurrence kept (``ops/buckets.window_unique``).  The JAX
+step dedups the hashed candidates before the budget compaction; here
+``cand_prep`` fuses the hash with that compaction, so under the flag the
+step hashes the candidate (or canonical) rows once more with the
+``row_hash`` kernel, runs ``window_unique``, and gives ``cand_prep`` the
+first-occurrence mask.  The state count still adds every generated state,
+duplicates included (a device sum of the valid mask), and the candidate
+budget's overflow is judged on the unique lanes, as in JAX.  With the
+flag off the step issues none of these operations.
 
 Pops are in BFS level order, so parent pointers record shortest paths.
 
@@ -78,6 +90,7 @@ from ..core import Expectation
 from ..ops import _cuda
 from ..ops.buckets import (
     SLOTS, PlanBuffers, bucket_insert, bucket_plan, host_bucket_rehash,
+    window_unique,
 )
 from ..ops.cand_prep import PrepBuffers, cand_prep, sort_prepared
 from ..ops.hashing import EMPTY, row_hash
@@ -123,7 +136,8 @@ class _Engine:
 
     def __init__(self, tensor, props, cap: int, qcap: int, batch: int,
                  steps: int, target: Optional[int], cand: Optional[int],
-                 device, sym: bool = False):
+                 device, sym: bool = False, prededup: bool = False,
+                 removed: Optional[torch.Tensor] = None):
         self.tensor, self.props = tensor, props
         self.cap, self.qcap, self.batch, self.steps = cap, qcap, batch, steps
         self.target, self.device, self.sym = target, device, sym
@@ -134,6 +148,9 @@ class _Engine:
         # the queue over-allocates one batch's candidates past the
         # high-water mark
         self.qalloc = qcap + self.m
+        self.prededup = prededup
+        # under prededup, a device count of the lanes it took out
+        self.removed = removed
         self.ev_idx = [
             i for i, p in enumerate(props)
             if p.expectation is Expectation.EVENTUALLY
@@ -233,11 +250,16 @@ class _Engine:
         # while the queue keeps the original rows
         krows = (self.tensor.representative_rows(succ).reshape(m, -1)
                  .contiguous() if self.sym else cand_rows)
+        cvalid = kept = valid.reshape(m)
+        if self.prededup:  # only each fingerprint's first lane goes on
+            kept = window_unique(row_hash(krows, cvalid)) != EMPTY
         # the engine built every input itself: the kernels run unchecked
         pfp, ppl, cidx, key, n_valid, coverflow = cand_prep(
-            krows, valid.reshape(m), fps, arity, self.eff_cand,
+            krows, kept, fps, arity, self.eff_cand,
             self.prep_out, check=False, stream=self.stream,
         )
+        # the state count adds every generated state, repeats included
+        n_gen = cvalid.sum() if self.prededup else n_valid
         sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
                                                 self.cap // SLOTS)
         tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
@@ -257,7 +279,9 @@ class _Engine:
         head = torch.where(overflow, head, head + torch.clamp(n_avail, max=batch))
         tail = tail + n_new
         unique = unique + n_new
-        scount = torch.where(overflow, c[SCOUNT], c[SCOUNT] + n_valid)
+        scount = torch.where(overflow, c[SCOUNT], c[SCOUNT] + n_gen)
+        if self.prededup:
+            self.removed.add_(torch.where(overflow, 0, n_gen - n_valid))
         # clean-boundary growth triggers (table target load <= 25%)
         new_status = torch.where(
             toverflow | (unique * 4 > self.cap) | (self.eff_cand * 4 > self.cap),
@@ -364,12 +388,16 @@ class GpuChecker(WavefrontChecker):
         self.growth_secs: list = []
         self.steps_run = 0  # device steps issued, post-stop no-ops included
         self._final_carry = None
+        # under prededup, the lanes it took out since this process started
+        self._removed = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
         self._init_common(options)
 
     def _engine(self, cap, qcap, batch, cand) -> _Engine:
         return _Engine(self.tensor, self._props, cap, qcap, batch,
                        self._steps, self._target, cand, self.device,
-                       sym=self._symmetry is not None)
+                       sym=self._symmetry is not None,
+                       prededup=self._prededup, removed=self._removed)
 
     def _pre_run_validate(self) -> None:
         if self._resume is not None:
@@ -526,6 +554,18 @@ class GpuChecker(WavefrontChecker):
             "disc": np.asarray(disc),
             "depth": maxdepth,
         }
+
+    def prededup_removed(self) -> Optional[int]:
+        """Under ``.prededup()``, the valid successor lanes the pre-dedup
+        took out of this run's committed steps (each a repeat of an earlier
+        lane's fingerprint in its step).  The count lives in this process,
+        outside the carry and its snapshots, so a resumed run, whose state
+        count covers the steps before the resume too, has none: None then,
+        and when the flag is off."""
+        self.join()
+        if not self._prededup or self._resume is not None:
+            return None
+        return int(self._removed)
 
     def _table_np(self):
         return tuple(

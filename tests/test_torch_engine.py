@@ -290,6 +290,27 @@ ISOLATION_CASES = {
         "assert r.join().unique_state_count() == 2926, r.unique_state_count()\n"
         "assert set(r.discoveries()) == {'a leader is elected'}\n"
     ),
+    # the step flags (prededup; mxu, accepted without effect) on the
+    # hand-written and the compiled twins, under symmetry too
+    "step-flags": (
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.models.paxos import paxos_model\n"
+        "from stateright_tpu_torch.models.single_copy_register import "
+        "single_copy_model\n"
+        "t = TwoPhaseSys(3).checker().prededup().mxu().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert t.unique_state_count() == 288, t.unique_state_count()\n"
+        "p = paxos_model(1).checker().prededup().mxu().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert p.unique_state_count() == 265, p.unique_state_count()\n"
+        "assert set(p.discoveries()) == {'value chosen'}\n"
+        "s = single_copy_model(2).checker().mxu().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert s.unique_state_count() == 93, s.unique_state_count()\n"
+        "y = TwoPhaseSys(5).checker().symmetry().prededup().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert y.unique_state_count() == 508, y.unique_state_count()\n"
+    ),
     "checkpoint-auto-orl": (
         "import tempfile\n"
         "from stateright_tpu_torch import checkpoint\n"
@@ -413,9 +434,11 @@ def sync_free_model(name):
     return m, PaxosTensor
 
 
-# unique states of each probed run; "-sym" runs under .symmetry()
+# unique states of each probed run; "-sym" runs under .symmetry(),
+# "-flags" under .prededup().mxu()
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
-                    "2pc-sym": 94, "raft-sym": 2926}
+                    "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
+                    "paxos-flags": 265}
 
 
 @pytest.mark.parametrize("name", list(SYNC_FREE_UNIQUE))
@@ -424,9 +447,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     runs under a ``TorchDispatchMode`` probe: no operation that reads a
     tensor on the host (``aten._local_scalar_dense`` and kin) is
     dispatched, for 2pc, ``PaxosTensor`` and a per-channel compiled twin,
-    and under symmetry for 2pc (``representative_rows``) and raft (the
-    compiler's mechanical symmetry).  The host reads one packed stats
-    tensor per block, outside the block."""
+    under symmetry for 2pc (``representative_rows``) and raft (the
+    compiler's mechanical symmetry), and with ``.prededup().mxu()`` for 2pc
+    and ``PaxosTensor`` (``window_unique``).  The
+    host reads one packed stats tensor per block, outside the block."""
     from stateright_tpu_torch.parallel import wavefront
 
     blocks = []
@@ -445,7 +469,66 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     b = m.checker()
     if name.endswith("-sym"):
         b = b.symmetry()
+    if name.endswith("-flags"):
+        b = b.prededup().mxu()
     c = b.spawn_gpu(device="cpu", steps_per_call=4).join()
+    assert c._prededup == name.endswith("-flags")
     assert c.unique_state_count() == SYNC_FREE_UNIQUE[name]
     assert len(blocks) > 2
     assert blocks == [[]] * len(blocks)
+
+
+class OpCount(TorchDispatchMode):
+    """Counts every dispatched operation by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func)] = self.ops.get(str(func), 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+# dispatched operations per step with the pre-dedup off, the twins' packed
+# words built by the coalesced writer (a paxos twin's two counts differ by
+# six ``aten.view`` calls, which a step makes or not as its intermediates'
+# layouts fall)
+FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
+                          "per-channel": {1702, 1742}, "2pc-sym": {501}}
+
+
+@pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
+@pytest.mark.parametrize("explicit", [False, True])
+def test_step_flags_off_dispatch_the_same_operations(name, explicit,
+                                                    monkeypatch):
+    """With ``prededup`` off, unset or turned off explicitly against its
+    env knob (and ``mxu``, which has no effect, likewise), every step
+    dispatches exactly the pinned operations: no pre-dedup, and no clone of
+    the block per field write."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    steps = []
+    step = wavefront._Engine.step
+
+    def counted(self, c):
+        probe = OpCount()
+        with probe:
+            out = step(self, c)
+        steps.append(probe.ops)
+        return out
+
+    monkeypatch.setattr(wavefront._Engine, "step", counted)
+    m, _ = sync_free_model(name)
+    b = m.checker()
+    if name.endswith("-sym"):
+        b = b.symmetry()
+    if explicit:
+        monkeypatch.setenv("STATERIGHT_TPU_PREDEDUP", "1")
+        monkeypatch.setenv("STATERIGHT_TPU_MXU", "1")
+        b = b.prededup(False).mxu(False)
+    c = b.spawn_gpu(device="cpu", batch=64, steps_per_call=4).join()
+    assert not c._prededup
+    assert steps
+    assert {sum(ops.values()) for ops in steps} <= FLAGS_OFF_OPS_PER_STEP[name]
+    assert all("aten.clone.default" not in ops for ops in steps)

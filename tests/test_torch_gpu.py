@@ -9,8 +9,10 @@ to its widest row, and the engine's table and queue on
 ``cuda`` against ``cpu`` (2pc-4, 2pc-5, a bounded 2pc-7, paxos-2,
 lin-reg-3-ordered, raft-3, per-channel paxos-1, single-copy(2,1) with two
 puts in both packings, and wo(2,1); 2pc-7 and raft-3 under symmetry; the
-ORL sender/receiver), and a live checkpoint and an autosave generation
-resumed on ``cuda`` against an uninterrupted ``cuda`` run.
+ORL sender/receiver; 2pc-7 and paxos-2 under ``.prededup()``), a
+prededup step's ``row_hash`` launch and ``window_unique`` against their
+plain versions, and a live checkpoint and an autosave generation resumed
+on ``cuda`` against an uninterrupted ``cuda`` run.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -44,6 +46,7 @@ from stateright_tpu_torch.ops.buckets import (
     bucket_plan,
     bucket_plan_plain,
     sort_candidates,
+    window_unique,
 )
 from stateright_tpu_torch.ops.cand_prep import (
     PREP_TILE,
@@ -561,3 +564,71 @@ def test_live_checkpoint_and_autosave_resume_on_cuda(cuda, tmp_path):
         assert (r.unique_state_count(), r.state_count()) == (8832, 58146)
         assert r.discovery_fps() == full.discovery_fps()
         assert_same_snapshot(r.final_snapshot(), full.final_snapshot())
+
+
+# -- the step-transform flags ------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["2pc7", "paxos2"])
+def test_flagged_table_and_queue_identical_on_cuda_and_cpu(cuda, name):
+    """``.prededup()`` (the dedup's ``row_hash`` launch and
+    ``window_unique`` on the card): the same counts, removed lanes, table
+    bytes, cursors and queue rows ``[0, tail)`` on both devices, and the
+    unflagged run's counts and queue rows."""
+    def run(device, flags=True):
+        if name == "2pc7":
+            b = TwoPhaseSys(7).checker().target_states(40_000)
+        else:
+            b = paxos_model(2).checker()
+        if flags:
+            b = b.prededup()
+        return b.spawn_gpu(device=device, batch=256).join()
+
+    g, c, plain = run(cuda), run("cpu"), run(cuda, flags=False)
+    assert g.prededup_removed() == c.prededup_removed() > 0
+    assert g.state_count() == c.state_count() == plain.state_count()
+    gs, ps = g.final_snapshot(), plain.final_snapshot()
+    assert_same_snapshot(gs, c.final_snapshot())
+    tail = int(gs["tail"])
+    assert tail == int(ps["tail"])
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(gs[k][:tail], ps[k][:tail], err_msg=k)
+
+
+def test_prededup_step_row_hash_matches_plain(cuda):
+    """The next batch of a prededup paxos-2 run as its step meets it: the
+    expand (the coalesced writer) on the card equals it on the CPU, the
+    ``row_hash`` launch on the
+    successor rows equals ``row_hash_plain``, ``window_unique`` on the
+    card equals it on the CPU, and ``cand_prep`` on the first occurrences
+    equals its plain version."""
+    run = paxos_model(2).checker().target_states(5_000).prededup()
+    run = run.spawn_gpu(device=cuda, batch=256).join()
+    carry = run._final_carry
+    head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
+    assert tail > head
+    pos = (head + torch.arange(256, device=cuda)).clamp_(
+        max=carry[convert.QROWS].shape[0] - 1)
+    tm = run.tensor
+    succ, valid = tm.step_rows(carry[convert.QROWS][pos])
+    csucc, cvalid = tm.step_rows(carry[convert.QROWS][pos].cpu())
+    assert torch.equal(succ.cpu(), csucc) and torch.equal(valid.cpu(), cvalid)
+    valid = valid & (torch.arange(256, device=cuda) < tail - head)[:, None]
+    m = succ.shape[0] * succ.shape[1]
+    rows, cvalid = succ.reshape(m, -1), valid.reshape(m)
+    before = row_hash.launches
+    fps = row_hash(rows, cvalid)
+    assert row_hash.launches == before + 1
+    assert torch.equal(fps.cpu(), row_hash_plain(rows.cpu(), cvalid.cpu()))
+    kept = window_unique(fps)
+    assert torch.equal(kept.cpu(), window_unique(fps.cpu()))
+    mask = kept != -1
+    assert 0 < int(mask.sum()) < int(cvalid.sum())
+    pfps = carry[convert.QFP][pos]
+    cb = run._cand
+    got = cand_prep(rows, mask, pfps, tm.max_actions, cb,
+                    out=PrepBuffers(m, cb, cuda))
+    want = cand_prep_plain(rows.cpu(), mask.cpu(), pfps.cpu(),
+                           tm.max_actions, cb)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
