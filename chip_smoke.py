@@ -121,6 +121,37 @@ after the plain paxos legs:
    (``row_hash`` on the step's valid rows, ``cand_prep`` on their first
    occurrences), every kernel against its plain version.
 
+The telemetry slice (``stateright_tpu_torch/telemetry/``, the
+cartography counters in the step), right after the plain paxos legs, each
+leg's launch counts reset just before it and read just after:
+
+ - ``telemetry_paxos3``: paxos-3 complete under ``.telemetry(capacity=
+   2048, cartography=True, memory=True).report(PATH).runs(DIR)`` (the
+   JAX package's bench configuration, ``bench.py:767-771``, without the
+   roofline): 1,194,428 / 2,420,477; ``sum(depth_hist) == unique``,
+   ``sum(action_hist) == states - 1`` and every property evaluated
+   ``unique`` times; the memory ledger's analytic bytes equal to the live
+   tensors' ``nbytes`` at the final rung, and each growth's forecast
+   transient at least the peak measured across it (in tensor bytes
+   against ``requested_bytes``, and the allocator's bound against
+   ``max_memory_allocated``), for every growth that raised the process's
+   peak, and at least one did (the engine never resets the counters);
+   every
+   kernel launched; its wall, stages, growth seconds and the
+   ``torch.cuda.memory_stats`` peak beside the plain paxos-3 leg's wall,
+   and the dispatched operations a step with cartography off and on
+   (bounded paxos-3 runs); then the same bounded paxos-3 run with
+   telemetry on at two block lengths under ``torch.profiler``: one
+   ``cudaStreamSynchronize`` a block;
+ - ``telemetry_2pc7``: 2pc-7 with ``.report()`` twice on ``cuda`` and
+   once on ``cpu``: the two ``cuda`` bodies byte-equal outside
+   ``VOLATILE_KEYS``, and the ``cpu``/``cuda`` pair diffing
+   ``IDENTICAL`` or ``PERF-ONLY`` with no violation;
+ - ``profile_2pc7``: 2pc-7 under ``.telemetry(profile_steps=2)`` (blocks
+   of 8 steps): the
+   ``torch.profiler`` trace holds the kernels ``cand_prep_kernel``,
+   ``bucket_plan_kernel`` and ``insert_commit_kernel`` on the device.
+
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
 only rows an unflagged main path gives it (``init_rows`` in its record),
 and the ``total`` record gives each phase's wall seconds.
@@ -137,7 +168,8 @@ three legs under ``at_checkpoint_sc4``, ``at_auto_2pc7`` and ``at_orl``,
 the last with the ORL kernel records beside them, and the prededup legs'
 under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
 ``at_paxos2_prededup``, ``at_paxos2_per_channel_prededup`` and
-``at_2pc7_symmetry_prededup``)
+``at_2pc7_symmetry_prededup``, and the telemetry legs' under
+``at_telemetry_paxos3``, ``at_telemetry_2pc7`` and ``at_profile_2pc7``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -194,6 +226,11 @@ from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
 from stateright_tpu_torch.parallel.wavefront import GpuChecker
 from stateright_tpu_torch.profile_run import host_sync_counts
+from stateright_tpu_torch.telemetry.diff import (
+    IDENTICAL, PERF_ONLY, diff_reports,
+)
+from stateright_tpu_torch.telemetry.memory import device_memory_stats
+from stateright_tpu_torch.telemetry.report import VOLATILE_KEYS
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # the card's non-tensor-core rate (67 TFLOP/s fp32), standing in for its
@@ -245,6 +282,18 @@ CKPT_EVERY_SECS = 0.5
 CKPT_KEEP = 2
 CKPT_AT_UNIQUE = 100_000
 TPC7_UNIQUE = 296_448
+# the telemetry legs: the JAX package's bench configuration of the
+# recorder (bench.py:767-771, without the roofline), the bounded paxos-3
+# runs that count operations a step, and the sync count's paxos-3 runs
+# (a table that holds them with no growth event)
+TELEMETRY_KW = dict(capacity=2048, cartography=True, memory=True)
+OPS_TARGET = 20_000
+OPS_STEPS = 8
+P3_SYNC_TARGET = 100_000
+P3_SYNC_CAPACITY = 1 << 21
+# the kernels a profiled 2pc-7 block must show on the device
+PROFILED_KERNELS = ("cand_prep_kernel", "bucket_plan_kernel",
+                    "insert_commit_kernel")
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -753,7 +802,8 @@ def paxos_phases(dev, smi: str) -> tuple:
             f"paxos-3: {g3.unique_state_count()} unique, not {PAXOS3_UNIQUE}")
     if not all(v > 0 for v in launches3.values()):
         raise AssertionError(f"a kernel never launched on paxos-3: {launches3}")
-    return g3.discovery_fps(), paths3
+    return g3.discovery_fps(), paths3, {"sec": g3_s, "steps": g3.steps_run,
+                                        "peak_device_mib": peak / 2**20}
 
 
 def flag_phases(dev, smi: str, p3_ref) -> tuple:
@@ -843,6 +893,213 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
     if sym_launches["bucket_plan"] != 2 * sym_launches["insert_commit"]:
         raise AssertionError(f"2pc-7 symmetry prededup: {sym_launches}")
     return launches, leg_launches, sym_launches
+
+
+def ops_per_step(dev, cartography: bool) -> dict:
+    """Dispatched operations per step, over the first :data:`OPS_STEPS`
+    steps of a paxos-3 run bounded at :data:`OPS_TARGET` (a
+    ``TorchDispatchMode`` count around ``_Engine.step``), and those of the
+    block's stats packing on the run's final carry."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from stateright_tpu_torch.parallel import wavefront
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = []
+    step = wavefront._Engine.step
+
+    def counted(self, c):
+        if len(counts) >= OPS_STEPS:
+            return step(self, c)
+        probe = Count()
+        with probe:
+            out = step(self, c)
+        counts.append(probe.n)
+        return out
+
+    wavefront._Engine.step = counted
+    try:
+        b = paxos_model(3).checker().target_states(OPS_TARGET)
+        c = (b.cartography() if cartography else b).spawn_gpu(
+            device=dev, steps_per_call=4).join()
+    finally:
+        wavefront._Engine.step = step
+    probe = Count()
+    with probe:
+        wavefront.stats_of(c._final_carry)
+    return {"ops_per_step": sum(counts) / len(counts), "steps": len(counts),
+            "stats_ops_per_block": probe.n}
+
+
+def telemetry_phases(dev, smi: str, p3_ref) -> dict:
+    """The telemetry legs (module docstring): returns each leg's
+    launches."""
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-telemetry-")
+    legs = {}
+    # -- paxos-3 complete under the bench telemetry configuration -----------
+    report = os.path.join(tmp, "paxos3.json")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    c = (paxos_model(3).checker().telemetry(**TELEMETRY_KW).report(report)
+         .runs(os.path.join(tmp, "runs")).spawn_gpu())
+    c._done.wait()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    c.join()  # writes the report and the registry entry
+    report_sec = time.monotonic() - t0 - sec
+    legs["telemetry_paxos3"] = launches = kernel_launches()
+    rec = c.flight_recorder
+    cart = c.cartography()
+    states, unique = c.state_count(), c.unique_state_count()
+    live = {n: t.nbytes for n, t in c.live_buffers().items()}
+    spec = {b.name: b.nbytes for b in c._memory_spec_fn()(c._memory_caps())}
+    off, on = ops_per_step(dev, False), ops_per_step(dev, True)
+    emit("telemetry_paxos3", {
+        "unique": unique, "states": states, "sec": sec,
+        "report_and_registry_sec": report_sec,
+        "plain_paxos3_sec": p3_ref[2]["sec"], "wall_over_plain": sec
+        / p3_ref[2]["sec"], "steps": c.steps_run,
+        "plain_paxos3_steps": p3_ref[2]["steps"],
+        "ops_per_step_off": off, "ops_per_step_cartography": on,
+        "stages": rec.stages(), "growth_secs": c.growth_secs,
+        "growth_host_sec": sum(c.growth_secs),
+        "growth_memory": c.growth_memory,
+        "peak_allocated_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+        "plain_paxos3_peak_device_mib": p3_ref[2]["peak_device_mib"],
+        "memory_stats": device_memory_stats(dev),
+        "analytic_bytes": sum(spec.values()), "live_bytes": sum(live.values()),
+        "buffers": spec, "health": c.health(),
+        "summary": {k: v for k, v in rec.summary().items()
+                    if k not in ("cartography", "memory", "stages")},
+        "cartography": cart, "launches": launches, "card": smi})
+    if (unique, states) != (PAXOS3_UNIQUE, PAXOS3_STATES):
+        raise AssertionError(f"telemetry paxos-3: {(unique, states)}")
+    if c.discovery_fps() != p3_ref[0]:
+        raise AssertionError("telemetry paxos-3: discoveries differ")
+    if not (sum(cart["depth_hist"]) == unique
+            and sum(cart["action_hist"]) == states - 1
+            and all(p["evaluated"] == unique for p in cart["props"])):
+        raise AssertionError(f"telemetry paxos-3: cartography {cart}")
+    if live != spec:
+        raise AssertionError(f"memory ledger: analytic {spec} != live {live}")
+    measured = [g for g in c.growth_memory
+                if g["peak_requested_bytes"] is not None
+                or g["peak_bytes"] is not None]
+    if not measured or any(
+            g["transient_bytes"] < (g["peak_requested_bytes"] or 0)
+            or g["transient_alloc_bytes"] < (g["peak_bytes"] or 0)
+            for g in measured):
+        raise AssertionError(f"growth forecast below the measured peak: "
+                             f"{c.growth_memory}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    with open(report) as f:
+        if json.load(f)["totals"]["unique"] != PAXOS3_UNIQUE:
+            raise AssertionError("telemetry paxos-3: report totals")
+    del c
+    lap("telemetry_paxos3")
+
+    # -- one stream sync a block with telemetry on ----------------------------
+    sync_runs = {}
+    for spc in SYNC_STEPS_PER_CALL:
+        def run(spc=spc):
+            return (paxos_model(3).checker().telemetry(**TELEMETRY_KW)
+                    .target_states(P3_SYNC_TARGET)
+                    .spawn_gpu(capacity=P3_SYNC_CAPACITY,
+                               steps_per_call=spc).join())
+        g, syncs = profiled_sync_count(dev, run)
+        if g.growth_events:
+            raise AssertionError("the sync count's run grew: it must not")
+        sync_runs[spc] = {"unique": g.unique_state_count(),
+                          "steps": g.steps_run,
+                          "blocks": -(-g.steps_run // spc),
+                          "stream_syncs": syncs.get("cudaStreamSynchronize", 0),
+                          "calls": syncs}
+        del g
+    a, b = (sync_runs[spc] for spc in SYNC_STEPS_PER_CALL)
+    per_block = ((b["stream_syncs"] - a["stream_syncs"])
+                 / (b["blocks"] - a["blocks"]))
+    emit("telemetry_paxos3_host_syncs", {
+        "target": P3_SYNC_TARGET, "capacity": P3_SYNC_CAPACITY,
+        "runs": {str(k): v for k, v in sync_runs.items()},
+        "stream_syncs_per_block": per_block, "card": smi})
+    if per_block != 1.0:
+        raise AssertionError(f"telemetry on: {per_block} stream syncs a block")
+    lap("telemetry_paxos3_host_syncs")
+
+    # -- 2pc-7 reports: cuda twice, cpu once ----------------------------------
+    paths = [os.path.join(tmp, f"2pc7-{tag}.json")
+             for tag in ("cuda0", "cuda1", "cpu")]
+    reset_launches()
+    t0 = time.monotonic()
+    for p in paths[:2]:
+        TwoPhaseSys(7).checker().report(p).spawn_gpu().join()
+    cuda_sec = (time.monotonic() - t0) / 2
+    legs["telemetry_2pc7"] = kernel_launches()
+    t0 = time.monotonic()
+    TwoPhaseSys(7).checker().report(paths[2]).spawn_gpu(device="cpu").join()
+    cpu_sec = time.monotonic() - t0
+    docs = []
+    for p in paths:
+        with open(p) as f:
+            docs.append(json.load(f))
+    bodies = [json.dumps({k: v for k, v in d.items()
+                          if k not in VOLATILE_KEYS}) for d in docs]
+    d = diff_reports(docs[2], docs[0])
+    emit("telemetry_2pc7", {
+        "unique": [x["totals"]["unique"] for x in docs],
+        "cuda_bodies_byte_equal": bodies[0] == bodies[1],
+        "verdict": d["verdict"], "violations": d["violations"],
+        "config_delta": d["config_delta"], "sec_cuda": cuda_sec,
+        "sec_cpu": cpu_sec, "launches": legs["telemetry_2pc7"],
+        "card": smi})
+    if bodies[0] != bodies[1]:
+        raise AssertionError("2pc-7: the two cuda report bodies differ")
+    if d["verdict"] not in (IDENTICAL, PERF_ONLY) or d["violations"]:
+        raise AssertionError(f"2pc-7 cpu/cuda diff: {d['verdict']} "
+                             f"{d['violations']}")
+    if any(x["totals"]["unique"] != TPC7_UNIQUE for x in docs):
+        raise AssertionError("2pc-7 reports: unique counts")
+    lap("telemetry_2pc7")
+
+    # -- 2pc-7 profiled: the hand-written kernels in the trace ----------------
+    # (blocks of 8 steps keep the two profiled blocks' trace small)
+    reset_launches()
+    c = (TwoPhaseSys(7).checker()
+         .telemetry(profile_steps=2, profile_dir=os.path.join(tmp, "prof"))
+         .spawn_gpu(steps_per_call=8).join())
+    legs["profile_2pc7"] = kernel_launches()
+    events = c.flight_recorder.records("profile")
+    stop = [e for e in events if e["event"] == "stop"]
+    if not stop:
+        raise AssertionError(f"2pc-7 profile: no trace written: {events}")
+    with open(stop[0]["trace"]) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    found = {k: sum(k in str(e.get("name")) for e in kernels)
+             for k in PROFILED_KERNELS}
+    emit("profile_2pc7", {"unique": c.unique_state_count(),
+                          "profiled_steps": stop[0]["profiled_steps"],
+                          "kernel_events": len(kernels),
+                          "events_per_kernel": found,
+                          "trace_bytes": os.path.getsize(stop[0]["trace"]),
+                          "launches": legs["profile_2pc7"], "card": smi})
+    if not kernels or not all(found.values()):
+        raise AssertionError(f"2pc-7 profile: kernels in the trace {found}")
+    if c.unique_state_count() != TPC7_UNIQUE:
+        raise AssertionError("2pc-7 profile: unique count")
+    lap("profile_2pc7")
+    return legs
 
 
 def leg_record(checker, sec: float, peak: int, launches: dict,
@@ -1350,6 +1607,7 @@ def main() -> int:
 
     p3_ref = paxos_phases(dev, smi)
     lap("paxos2_and_paxos3")
+    launches_tel = telemetry_phases(dev, smi, p3_ref)
     launches_p3f, launches_p2f, launches_sym7f = flag_phases(dev, smi, p3_ref)
     lap("step_flags")
     # -- kernels at paxos-3 shapes, L2-cold: plain, and the same batch as a
@@ -1481,6 +1739,8 @@ def main() -> int:
         for leg, ls in launches_p2f.items():
             entry[f"at_{leg}"] = {"launches": ls[name]}
         entry["at_2pc7_symmetry_prededup"] = {"launches": launches_sym7f[name]}
+        for leg, ls in launches_tel.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
         line.append(entry)
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS

@@ -2,19 +2,22 @@
 
 The port's counterpart of ``stateright_tpu/checker/base.py``:
 ``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
-``visitor``, ``timeout``, ``autosave`` and the GPU engine's ``prededup``
-(``mxu`` is accepted for parity and has no effect), and spawns the host
+``visitor``, ``timeout``, ``autosave``, the telemetry options
+(``telemetry``, ``cartography``, ``memory_ledger``, ``report``, ``runs``)
+and the GPU engine's ``prededup`` (``mxu`` is accepted for parity and has
+no effect), and spawns the host
 checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
 :meth:`CheckerBuilder.spawn_mp_bfs`), the GPU wavefront engine
 (:meth:`CheckerBuilder.spawn_gpu`) and the engine chosen by a bounded host
 probe (:meth:`CheckerBuilder.spawn_auto`); ``Checker`` is the result
 surface (counts, discoveries, assertions, and the ``Done. states=..``
-report line).  The telemetry, report, sweep and service options come with
-their slices.
+report line, the flight recorder, the run identity and the run report).
+The sweep and service options come with their slices.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 from typing import Callable, Optional, Sequence
@@ -42,6 +45,11 @@ class CheckerBuilder:
         self.autosave_opts: Optional[dict] = None
         # the GPU engine's pre-dedup; None = the env knob decides
         self.prededup_mode: Optional[bool] = None
+        # telemetry (telemetry/): None = off
+        self.telemetry_opts: Optional[dict] = None
+        self.report_path: Optional[str] = None
+        # the run registry's root; None = the STATERIGHT_TPU_RUN_DIR knob
+        self.run_dir: Optional[str] = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Dedup on symmetry-class representatives; states must define
@@ -102,6 +110,129 @@ class CheckerBuilder:
             "keep": int(keep),
         }
         return self
+
+    def telemetry(
+        self,
+        enabled: bool = True,
+        *,
+        capacity: int = 4096,
+        occupancy_every: int = 0,
+        profile_steps: int = 0,
+        profile_dir: Optional[str] = None,
+        cartography: bool = False,
+        memory: bool = False,
+        memory_every: int = 32,
+    ) -> "CheckerBuilder":
+        """Attach a flight recorder to the spawned checker
+        (``stateright_tpu_torch/telemetry/``; JAX ``checker/base.py:
+        103-228``, without ``roofline``).
+
+        Every strategy then streams structured records into a bounded ring
+        (``capacity`` records) exposed as ``checker.flight_recorder``: the
+        GPU engine one ``step`` per host sync (one per ``steps_per_call``
+        block) plus ``growth``, ``occupancy``, ``memory``,
+        ``cartography``, ``checkpoint``, ``profile`` and ``span`` records;
+        the host checkers one per job block or mp round.
+
+        ``occupancy_every=N`` samples the visited table's bucket occupancy
+        every N host syncs on the GPU engine (each a device-to-host table
+        pull), plus a closing ``final`` sample; growth boundaries are
+        always sampled, free.  ``profile_steps=N`` traces the first N
+        blocks of a GPU run with ``torch.profiler`` into ``profile_dir``
+        (a Chrome trace).  ``memory=True`` attaches the memory ledger
+        (``telemetry/memory.py``: analytic bytes per device buffer, the
+        growth-transient forecast, ``torch.cuda.memory_stats`` readings,
+        a ``memory`` record at each rung change and every
+        ``memory_every`` syncs; on ``cuda`` it also measures each
+        growth's allocation peak from the process's peak counters, which
+        it reads and never resets).  The JAX option ``metrics=`` waits
+        for a reader of the metrics bus (the Explorer's ``/.metrics``).
+        ``cartography=True`` folds the search-cartography counters into
+        the device step (``ops/cartography.py``): the one option that adds
+        device work, a few reductions a step riding the same stats read.
+
+        Telemetry off (the default) is exactly the engine without it: no
+        recorder, and the step dispatches the same operations.  Flags
+        implied earlier (``report()``, ``cartography()``,
+        ``memory_ledger()``) stay on when this is called again."""
+        if not enabled:
+            self.telemetry_opts = None
+            return self
+        prev = self.telemetry_opts or {}
+        implied_mem = bool(prev.get("memory"))
+        every = (prev.get("memory_every")
+                 if implied_mem and memory_every == 32 else None)
+        self.telemetry_opts = {
+            "capacity": capacity,
+            "occupancy_every": occupancy_every,
+            "profile_steps": profile_steps,
+            "profile_dir": profile_dir,
+            "cartography": bool(cartography) or bool(prev.get("cartography")),
+            "memory": bool(memory) or implied_mem,
+            "memory_every": int(every if every is not None else memory_every),
+        }
+        return self
+
+    def cartography(self, enabled: bool = True) -> "CheckerBuilder":
+        """Fold the search-cartography counters into the run: a
+        ``.telemetry(cartography=True)`` shorthand that keeps an existing
+        telemetry config.  ``report()`` and ``--watch`` imply it."""
+        if not enabled:
+            return self
+        if self.telemetry_opts is None:
+            self.telemetry()
+        self.telemetry_opts["cartography"] = True
+        return self
+
+    def memory_ledger(self, enabled: bool = True) -> "CheckerBuilder":
+        """Attach the memory ledger (``telemetry/memory.py``): a
+        ``.telemetry(memory=True)`` shorthand that keeps an existing
+        telemetry config.  ``report()`` and ``--watch`` imply it."""
+        if not enabled:
+            return self
+        if self.telemetry_opts is None:
+            self.telemetry()
+        self.telemetry_opts["memory"] = True
+        self.telemetry_opts.setdefault("memory_every", 32)
+        return self
+
+    def report(self, path: str) -> "CheckerBuilder":
+        """Write a post-run report to ``path`` (JSON, with a sibling
+        ``.md`` rendering) at the first ``join()`` after the run completes
+        (``telemetry/report.py``).  Implies telemetry with cartography and
+        the memory ledger.  The JSON body is deterministic for a fixed
+        model and configuration; the volatile fields are exactly
+        ``telemetry.report.VOLATILE_KEYS`` (``generated_at``, ``run_id``,
+        ``parent_run_id``)."""
+        if os.path.splitext(str(path))[1] == ".md":
+            raise ValueError(
+                f"report path {path!r} ends in .md — pass the JSON path; "
+                "the markdown rendering lands next to it as <path-stem>.md"
+            )
+        self.report_path = str(path)
+        return self.cartography().memory_ledger()
+
+    def runs(self, path: str) -> "CheckerBuilder":
+        """Archive this run into the run registry rooted at ``path``
+        (``telemetry/registry.py``): at the first ``join()`` after
+        completion the report body lands under ``<path>/runs/<run_id>.json``
+        and one index record appends to ``<path>/index.jsonl``.  Host-side
+        post-run I/O only.  Env equivalent: ``STATERIGHT_TPU_RUN_DIR=DIR``
+        (archives every run in the process)."""
+        self.run_dir = str(path)
+        return self
+
+    def _make_recorder(self, engine: str):
+        """A FlightRecorder per the telemetry options (None when telemetry
+        is off), shared by every spawn path."""
+        if self.telemetry_opts is None:
+            return None
+        from ..telemetry import FlightRecorder
+
+        return FlightRecorder(
+            capacity=self.telemetry_opts["capacity"],
+            meta={"engine": engine, "model": type(self.model).__name__},
+        )
 
     def prededup(self, enabled: bool = True) -> "CheckerBuilder":
         """Intra-window candidate pre-dedup on the GPU engine
@@ -236,18 +367,21 @@ class CheckerBuilder:
         steps_per_call: int = 64,
         device=None,
         resume: Optional[dict] = None,
+        queue_capacity: Optional[int] = None,
     ) -> "Checker":
         """Wavefront BFS on the GPU (``parallel/wavefront.py``).
 
         ``device=None`` means ``cuda``: with no CUDA device this raises and
         never falls back to the CPU.  Tests pass ``device="cpu"``, which
         runs every kernel's plain PyTorch version.  ``resume`` takes a
-        snapshot from either engine (``convert.py``)."""
+        snapshot from either engine (``convert.py``); ``queue_capacity``
+        sets the queue's first high-water mark (JAX ``spawn_tpu``'s)."""
         from ..parallel.wavefront import GpuChecker
 
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
             steps_per_call=steps_per_call, device=device, resume=resume,
+            queue_capacity=queue_capacity,
         )
 
 
@@ -255,6 +389,85 @@ class Checker:
     """Uniform result surface (reference ``checker.rs:185-338``)."""
 
     model: Model
+    # the flight recorder (telemetry/), when the builder asked for one
+    flight_recorder = None
+    # the builder's report(PATH) and runs(DIR) (or STATERIGHT_TPU_RUN_DIR),
+    # honoured at the first join() after completion on every strategy
+    _report_path: Optional[str] = None
+    _report_written = False
+    _run_dir: Optional[str] = None
+    _run_recorded = False
+    _report_reentry = False
+    # run identity: minted lazily, stamped into the report header, the
+    # snapshot manifests and the registry index; parent_run_id is set by
+    # a resume from a snapshot
+    _run_id: Optional[str] = None
+    parent_run_id: Optional[str] = None
+
+    @property
+    def run_id(self) -> str:
+        """Stable unique id of this run (16 hex chars)."""
+        if self._run_id is None:
+            import uuid
+
+            self._run_id = uuid.uuid4().hex[:16]
+        return self._run_id
+
+    def _maybe_write_report(self) -> None:
+        """Write the builder's run report and archive the run into the
+        registry, each exactly once, at the first join() after completion
+        (JAX ``checker/base.py:881-931``).  Building the report
+        reconstructs discovery paths, which joins and re-enters here: the
+        registry waits for the body and reuses it."""
+        if not self.is_done():
+            return
+        body = None
+        if self._report_path and not self._report_written:
+            self._report_written = True  # before writing: never retry a crash
+            from ..telemetry.report import write_report
+
+            self._report_reentry = True
+            try:
+                body = write_report(self, self._report_path)
+            finally:
+                self._report_reentry = False
+        self._maybe_record_run(body)
+
+    def _maybe_record_run(self, body=None) -> None:
+        """Archive the completed run into the registry when one is
+        configured; exactly once, never fatal to the join."""
+        if self._run_recorded or self._report_reentry:
+            return
+        from ..telemetry.registry import RunRegistry, resolve_run_dir
+
+        root = resolve_run_dir(self._run_dir)
+        if not root:
+            return
+        self._run_recorded = True  # before writing: never retry a crash
+        try:
+            RunRegistry(root).record(self, body=body)
+        except Exception as e:  # noqa: BLE001 - the ledger never breaks a join
+            print(f"stateright-tpu-torch: run-registry write failed: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr)
+
+    def cartography(self) -> Optional[dict]:
+        """The search-cartography snapshot; None on the host checkers."""
+        return None
+
+    def memory(self, live: bool = True) -> Optional[dict]:
+        """The memory-ledger snapshot; None on the host checkers."""
+        return None
+
+    def health(self) -> Optional[dict]:
+        """The live health snapshot (``telemetry/health.py``), or None
+        without telemetry."""
+        rec = self.flight_recorder
+        return None if rec is None else rec.health()
+
+    def occupancy_stats(self) -> Optional[dict]:
+        """The visited table's bucket occupancy; None on the host
+        checkers."""
+        return None
 
     # -- strategy-provided ---------------------------------------------------
 

@@ -42,6 +42,8 @@ from .pool import WorkerPoolChecker
 
 class BfsChecker(ParentPointerTrace, WorkerPoolChecker):
 
+    _telemetry_tag = "bfs"
+
     def __init__(self, options: CheckerBuilder):
         self.model = options.model
         self._props = list(self.model.properties())

@@ -44,6 +44,8 @@ def _fps(node) -> list[int]:
 
 class DfsChecker(WorkerPoolChecker):
 
+    _telemetry_tag = "dfs"
+
     def __init__(self, options: CheckerBuilder):
         self.model = options.model
         self._symmetry = options.symmetry_fn

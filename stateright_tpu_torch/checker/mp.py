@@ -1,8 +1,10 @@
 """Process-parallel BFS — the honest multi-core CPU baseline.
 
-The port's own copy of ``stateright_tpu/checker/mp.py``, without the
-flight-recorder and run-report hooks (telemetry comes with its slice).
-This module imports no ``torch``: its workers are ``fork``-ed and run host
+The port's own copy of ``stateright_tpu/checker/mp.py``, with its
+flight-recorder and run-report hooks (JAX ``mp.py:98``, :192-201): worker 0
+logs one (wall time, frontier, unique, states) tuple per round, from the
+barrier snapshot every worker agrees on, and the parent replays them as
+``step`` records after the merge.  This module imports no ``torch``: its workers are ``fork``-ed and run host
 model code only (a forked child of a process that has started CUDA cannot
 use CUDA), and the parent resolves the model's fingerprint scheme (its
 tensor twin, where it has one) before it forks.
@@ -101,6 +103,11 @@ class MpBfsChecker(ParentPointerTrace, Checker):
         self.model = options.model
         self._props = list(self.model.properties())
         self._target = options.target_state_count
+        # workers cannot share a recorder across the fork: the parent
+        # replays worker 0's per-round history into this one
+        self.flight_recorder = options._make_recorder("mp")
+        self._report_path = options.report_path
+        self._run_dir = options.run_dir
         # the fingerprint scheme resolves here, before the fork: every
         # worker inherits the model's twin instead of building its own
         for s in self.model.init_states():
@@ -184,7 +191,7 @@ class MpBfsChecker(ParentPointerTrace, Checker):
         # both discovered a property, the surviving witness fingerprint (and
         # therefore the reconstructed trace) must not depend on OS scheduling
         for who in sorted(results):
-            visited, disc, count, _ = results[who]
+            visited, disc, count, _, _ = results[who]
             for fp, pfp in visited.values():
                 self._generated[fp] = pfp
             for name, fp in disc.items():
@@ -195,6 +202,13 @@ class MpBfsChecker(ParentPointerTrace, Checker):
             if w.is_alive():
                 w.terminate()
                 w.join(timeout=5)
+        if self.flight_recorder is not None and 0 in results:
+            rec = self.flight_recorder
+            for rnd, (t_abs, frontier, unique, count) in enumerate(
+                    results[0][4]):
+                rec.step(engine="mp", states=count, unique=unique,
+                         frontier=frontier, round=rnd, t=rec.rel(t_abs))
+            rec.close_run(done=True)
         if want_visits:
             self._replay_visits(options.visitor_obj, results)
 
@@ -227,6 +241,7 @@ class MpBfsChecker(ParentPointerTrace, Checker):
         return len(self._generated)
 
     def join(self) -> "MpBfsChecker":
+        self._maybe_write_report()
         return self
 
     def is_done(self) -> bool:
@@ -298,6 +313,9 @@ def _worker_loop(
     # per-round visit order (fps only — the parent replays them through
     # the visitor after the merge; see MpBfsChecker._replay_visits)
     visit_log: list[list[int]] = []
+    # per-round (wall, frontier, unique, states) history for the parent's
+    # flight recorder; worker 0 only (every worker sees the same snapshot)
+    round_log: list[tuple] = []
     rnd = 0
     while True:
         if want_visits:
@@ -363,6 +381,11 @@ def _worker_loop(
         barrier.wait()
         tot_frontier = sum(stats[j * _NCOL + _FRONTIER] for j in range(n))
         tot_unique = sum(stats[j * _NCOL + _UNIQUE] for j in range(n))
+        if me == 0:
+            tot_count = sum(stats[j * _NCOL + _COUNT] for j in range(n))
+            round_log.append(
+                (time.monotonic(), tot_frontier, tot_unique, tot_count)
+            )
         or_mask = 0
         stop = False
         for j in range(n):
@@ -382,7 +405,8 @@ def _worker_loop(
         rnd += 1
 
     result_q.put(
-        ("done", me, (visited, discoveries, local_count, visit_log))
+        ("done", me, (visited, discoveries, local_count, visit_log,
+                      round_log))
     )
 
 

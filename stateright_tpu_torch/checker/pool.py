@@ -1,7 +1,7 @@
 """Shared work-sharing worker pool of the host checkers.
 
-The port's own copy of ``stateright_tpu/checker/pool.py``, without the
-flight-recorder and run-report hooks (telemetry comes with its slice).  One
+The port's own copy of ``stateright_tpu/checker/pool.py``, with its
+flight-recorder and run-report hooks (JAX ``pool.py:47``, :117-179).  One
 implementation of the job-market protocol (idle-count termination
 detection, surplus splitting, error propagation, deadline enforcement),
 shared by BFS and DFS (the reference duplicates it per strategy:
@@ -40,8 +40,15 @@ class _JobMarket:
 class WorkerPoolChecker(Checker):
     """Checker strategy backed by a pool of work-sharing threads."""
 
+    _telemetry_tag = "pool"  # overridden: "bfs" / "dfs"
+
     def _start_pool(self, options: CheckerBuilder, initial_job) -> None:
         self._options = options
+        # the flight recorder (JAX ``pool.py:47``): one "step" record per
+        # processed job block, from whichever worker thread ran it
+        self.flight_recorder = options._make_recorder(self._telemetry_tag)
+        self._report_path = options.report_path
+        self._run_dir = options.run_dir
         self._count_lock = threading.Lock()
         self._state_count_shared = 0
         self._stop = threading.Event()
@@ -109,6 +116,18 @@ class WorkerPoolChecker(Checker):
                 if not pending:
                     continue
             self._check_block(pending)
+            if self.flight_recorder is not None:
+                # queue = the market's REMAINING blocks; busy=False opts
+                # out of the zero-novelty stall rule (a job block holds
+                # un-deduped successors, so an all-duplicates block is a
+                # converging run, not a spinning one)
+                self.flight_recorder.step(
+                    engine=self._telemetry_tag,
+                    states=self._state_count_shared,
+                    unique=self.unique_state_count(),
+                    queue=len(self._market.jobs),
+                    busy=False,
+                )
             if self._deadline is not None and time.monotonic() > self._deadline:
                 # "timed out" means cut short: a run whose last block
                 # exhausted the space just past the deadline completed
@@ -148,6 +167,11 @@ class WorkerPoolChecker(Checker):
             t.join()
         if self._error is not None:
             raise self._error
+        if self.flight_recorder is not None:
+            # close the health timeline (idempotent); a deadline-cut run
+            # stays in the phase where it was cut
+            self.flight_recorder.close_run(done=not self._timed_out)
+        self._maybe_write_report()
         return self
 
     def is_done(self) -> bool:

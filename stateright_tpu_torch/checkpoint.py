@@ -1,10 +1,10 @@
 """Crash-safe autosave checkpoints: rotating snapshot generations.
 
-The port's own copy of ``stateright_tpu/checkpoint.py:42-312``, with the
-atomic npz and json writes of ``stateright_tpu/telemetry/_atomic.py``.
-Left out: the fault-injection seam (``testing/faults.py``, which comes
-with the service layers), and the stub run report, the progress heartbeat
-and the flight-recorder records (they come with telemetry).
+The port's own copy of ``stateright_tpu/checkpoint.py:42-312``; its
+atomic npz and json writes are ``telemetry/_atomic.py``'s, the port's
+one write discipline.  Left out: the fault-injection seam
+(``testing/faults.py``, which comes with the service layers), the stub
+run report and the progress heartbeat.
 
 The GPU engine's whole run state is a host-serializable snapshot dict
 (``GpuChecker.checkpoint()``, ``convert.carry_to_snapshot``, in the JAX
@@ -31,17 +31,17 @@ save lands.
 
 from __future__ import annotations
 
-import io
 import json
 import os
 import re
 import shutil
 import sys
-import tempfile
 import time
 from typing import Optional
 
 import numpy as np
+
+from .telemetry._atomic import atomic_write_json, atomic_write_npz
 
 CKPT_V = 1
 
@@ -53,64 +53,6 @@ DEFAULT_EVERY_SECS = 60.0
 DEFAULT_KEEP = 3
 
 _GEN_RE = re.compile(r"^gen-(\d{6,})$")
-
-
-# -- atomic writes (JAX ``telemetry/_atomic.py``) -----------------------------
-
-
-def _fsync_dir(path: str) -> None:
-    """fsync the directory holding ``path`` so a completed ``os.replace``
-    survives power loss; best-effort on filesystems without directory
-    fds."""
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    try:
-        fd = os.open(d, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
-
-
-def atomic_write_bytes(path: str, data: bytes) -> None:
-    """Write ``data`` to ``path`` atomically: a temp file in the same
-    directory, fsync, ``os.replace``.  Raises ``OSError`` on failure with
-    the target untouched (old contents, if any, stay intact)."""
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    fd, tmp = tempfile.mkstemp(
-        prefix=os.path.basename(path) + ".", suffix=".tmp", dir=d
-    )
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-    _fsync_dir(path)
-
-
-def atomic_write_json(path: str, obj, indent: int = 1) -> None:
-    """``json.dump``'s shape (insertion order, trailing newline), landed
-    atomically."""
-    atomic_write_bytes(path, (json.dumps(obj, indent=indent) + "\n")
-                       .encode("utf-8"))
-
-
-def atomic_write_npz(path: str, arrays: dict) -> None:
-    """Atomic ``np.savez``: the npz is assembled in memory first
-    (snapshots are carry-sized), so the file on disk is all or nothing."""
-    buf = io.BytesIO()
-    np.savez(buf, **arrays)
-    atomic_write_bytes(path, buf.getvalue())
 
 
 # -- the generation store -----------------------------------------------------
@@ -271,10 +213,14 @@ class AutosaveService:
     write degrades loudly (warn once, keep running): losing a checkpoint
     must never kill the run the checkpoints exist to protect."""
 
-    def __init__(self, root: str, every_secs: float, keep: int):
+    def __init__(self, root: str, every_secs: float, keep: int,
+                 recorder=None):
         self.root = str(root)
         self.every_secs = float(every_secs)
         self.keep = int(keep)
+        # the run's flight recorder: one ``checkpoint`` record per
+        # generation written or failed
+        self.recorder = recorder
         self.generations_written = 0
         self.failures = 0
         self.last_gen: Optional[int] = None
@@ -293,10 +239,11 @@ class AutosaveService:
         return time.monotonic() - self.last_save_monotonic
 
     def note_failure(self, gen: int, e: BaseException) -> None:
-        """Account one failed generation write: warn ONCE and bump the
-        failure counter.  Shared by :meth:`save` (an OSError from the
-        atomic write) and the engine's outer guard (any other failure,
-        e.g. while building the snapshot)."""
+        """Account one failed generation write: warn ONCE, bump the
+        failure counter and record an ``ok=false`` checkpoint record.
+        Shared by :meth:`save` (an OSError from the atomic write) and the
+        engine's outer guard (any other failure, e.g. while building the
+        snapshot)."""
         self.failures += 1
         if not self._warned:
             self._warned = True
@@ -306,12 +253,17 @@ class AutosaveService:
                 "WITHOUT fresh checkpoints (durability degraded)",
                 file=sys.stderr,
             )
+        if self.recorder is not None:
+            self.recorder.record(
+                "checkpoint", v=CKPT_V, gen=gen, ok=False,
+                error=f"{type(e).__name__}: {e}",
+            )
 
     def save(self, snap: dict, manifest: dict) -> Optional[str]:
         """Write one generation; returns its path, or None on a degraded
         (failed) write.  Resets the cadence clock either way: a failing
         disk must not turn every later sync into a write attempt."""
-        self._clock = time.monotonic()
+        t0 = self._clock = time.monotonic()
         gen = self._gen
         try:
             path = save_generation(
@@ -324,6 +276,14 @@ class AutosaveService:
         self.generations_written += 1
         self.last_gen = gen
         self.last_save_monotonic = time.monotonic()
+        if self.recorder is not None:
+            totals = manifest.get("totals", {})
+            self.recorder.record(
+                "checkpoint", v=CKPT_V, gen=gen, ok=True,
+                unique=int(totals.get("unique") or 0),
+                states=int(totals.get("states") or 0),
+                secs=round(self.last_save_monotonic - t0, 6),
+            )
         return path
 
     def status(self) -> dict:

@@ -90,14 +90,28 @@ def carry_from_snapshot(snap: dict, device, qalloc: Optional[int] = None):
 
 
 def carry_to_snapshot(carry: list, cap: int, qcap: int, batch: int,
-                      cand: int, **extra) -> dict:
+                      cand: int, cart_depth_base=None, **extra) -> dict:
     """The port's carry -> a snapshot in the JAX engine's layout
     (``extra`` adds manifest keys such as ``model_sig``).  The snapshot
     never shares memory with the carry: on the CPU ``.numpy()`` would alias
-    the tensors, which a running engine updates in place."""
-    arrs = carry_to_arrays(carry)
+    the tensors, which a running engine updates in place.
+    ``cart_depth_base`` is the cartography depth bank (the depth lanes of
+    queue prefixes growth reclaimed, JAX wavefront.py:1896-1900): without
+    it a resumed depth histogram forgets every state popped before a
+    pre-snapshot growth."""
+    arrs = carry_to_arrays(carry[:len(SNAPSHOT_KEYS)])
     if carry[TFP].device.type == "cpu":
         arrs = [a.copy() for a in arrs]
     snap = dict(zip(SNAPSHOT_KEYS, arrs))
     snap.update(cap=cap, qcap=qcap, batch=batch, cand=cand, **extra)
+    if cart_depth_base is not None:
+        snap["cart_depth_base"] = np.array(cart_depth_base, np.int64)
     return snap
+
+
+def cart_depth_base(snap: dict) -> Optional[np.ndarray]:
+    """A snapshot's cartography depth bank as a fresh int64 array, or None
+    (JAX wavefront.py:1961-1963): either engine's snapshot resumes with
+    ``sum(depth_hist) == unique``."""
+    base = snap.get("cart_depth_base")
+    return None if base is None else np.array(base, np.int64)

@@ -13,8 +13,20 @@ threads), :func:`host_sym_dfs` (the host DFS with symmetry),
 :func:`auto` (``spawn_auto()``: a bounded host probe, then the GPU
 engine), :func:`gpu` (``spawn_gpu()``) and :func:`sym_gpu`
 (``.symmetry().spawn_gpu()``).  A model with no tensor form leaves the GPU
-verbs out.  The other verbs and flags (``explore``, ``spawn``,
-``--perf``, ``--checked``, ``--watch``, ``--por``, ``--spill``,
+verbs out.
+
+Beside a model's own verbs, every model with a GPU verb takes the
+telemetry verbs (JAX ``_cli.py:71-85``): ``profile`` (a telemetry run,
+written as flight-recorder JSONL, ``--out=F``, and optionally a Chrome
+trace, ``--chrome=F``), ``report`` (the post-run report, JSON and
+markdown, ``--out=F``), ``capacity`` (the memory ledger's capacity
+plan) and ``compare A B`` (the contract-aware diff of two reports or
+registry run ids, ``--registry=DIR``, ``--expect=VERDICT``).  The GPU
+verbs take ``--watch`` (a live status line, JAX ``_cli.py:230-370``).
+``--device=cpu`` runs the GPU verbs and the telemetry verbs on the plain
+PyTorch path instead of the CUDA device, and ``--batch=N`` sets their
+rows per device step.  The other verbs and flags
+(``explore``, ``spawn``, ``--checked``, ``--por``, ``--spill``,
 ``--prewarm``) come with the modules they drive.
 """
 
@@ -22,9 +34,14 @@ from __future__ import annotations
 
 import os
 import sys
+import time
 from typing import Callable
 
 PER_CHANNEL_FLAG = "--per-channel"
+WATCH_FLAG = "--watch"
+# ``--name=value`` options: the device, and the telemetry verbs' own
+VALUE_OPTS = ("device", "batch", "out", "chrome", "registry", "expect")
+TELEMETRY_VERBS = ("profile", "report", "capacity", "compare")
 # the GPU engine's step-transform flags: builder method per flag (``mxu``
 # is accepted for parity with the JAX CLI and has no effect in the port)
 STEP_FLAGS = {"--prededup": "prededup", "--mxu": "mxu"}
@@ -83,18 +100,31 @@ def auto(model):
     return model.checker().threads(default_threads()).spawn_auto()
 
 
-def gpu(model, flags=()):
-    """``spawn_gpu()`` with the step ``flags`` (:data:`STEP_FLAGS`) on, or
-    None when the model has no device twin."""
+def gpu(model, flags=(), opts=None, watch=False):
+    """``spawn_gpu()`` with the step ``flags`` (:data:`STEP_FLAGS`) on, on
+    the ``--device``/``--batch`` of ``opts`` (default ``cuda``, 2,048
+    rows), with the live status line under ``watch``; None when the model
+    has no device twin."""
     if model._tensor_cached() is None:
         return None
-    return with_step_flags(model.checker(), flags).spawn_gpu()
+    b = apply_watch(with_step_flags(model.checker(), flags), watch)
+    return spawn_watched(b.spawn_gpu(**gpu_kw(opts)), watch)
 
 
-def sym_gpu(model, flags=()):
+def sym_gpu(model, flags=(), opts=None, watch=False):
     if model._tensor_cached() is None:
         return None
-    return with_step_flags(model.checker().symmetry(), flags).spawn_gpu()
+    b = apply_watch(with_step_flags(model.checker().symmetry(), flags), watch)
+    return spawn_watched(b.spawn_gpu(**gpu_kw(opts)), watch)
+
+
+def gpu_kw(opts) -> dict:
+    """``spawn_gpu`` keywords from the ``--device=``/``--batch=`` options."""
+    opts = opts or {}
+    kw = {"device": opts.get("device")}
+    if opts.get("batch"):
+        kw["batch"] = int(opts["batch"])
+    return kw
 
 
 def with_step_flags(builder, flags):
@@ -104,34 +134,315 @@ def with_step_flags(builder, flags):
     return builder
 
 
+def pop_values(args: list) -> tuple:
+    """``(opts, args without them)``: the :data:`VALUE_OPTS` given as
+    ``--name=value``, which may stand anywhere after the verb."""
+    opts, kept = {}, []
+    for a in args:
+        name = a[2:].split("=", 1)[0] if a.startswith("--") else None
+        if name in VALUE_OPTS and "=" in a:
+            opts[name] = a.split("=", 1)[1]
+        else:
+            kept.append(a)
+    return opts, kept
+
+
+# -- the live watch view (--watch on the GPU verbs) ---------------------------
+
+
+def pop_watch(args: list) -> tuple:
+    """``(watch, args without --watch)``."""
+    kept = [a for a in args if a != WATCH_FLAG]
+    return len(kept) != len(args), kept
+
+
+def apply_watch(builder, watch: bool):
+    """Arm a builder for the live watch view: the line reads the health
+    model, the cartography block and the memory ledger, so ``--watch``
+    implies ``.cartography().memory_ledger()``."""
+    return builder.cartography().memory_ledger() if watch else builder
+
+
+def watch_line(checker) -> str:
+    """One live status line: depth, cumulative counters, smoothed
+    throughput, table load, device bytes (against the device's memory
+    when it is known), the health phase (with stall and OOM-risk flags),
+    the checkpoint age and the drain ETA."""
+    rec = checker.flight_recorder
+    h = rec.health() if rec is not None else {}
+    last = (rec.last_step() if rec is not None else None) or {}
+    sps = h.get("ewma_states_per_sec")
+    load = last.get("load_factor")
+    parts = [
+        f"depth={last.get('depth', checker.max_depth())}",
+        f"states={checker.state_count()}",
+        f"unique={checker.unique_state_count()}",
+        f"states/s={sps if sps is not None else '-'}",
+        f"load={load if load is not None else '-'}",
+        f"mem={_watch_mem(rec)}",
+        f"phase={h.get('phase', '-')}",
+    ]
+    dur_fn = getattr(checker, "durability_status", None)
+    dur = dur_fn() if callable(dur_fn) else None
+    auto = (dur or {}).get("autosave")
+    if auto:
+        age = auto.get("last_checkpoint_age_secs")
+        parts.append("ckpt=" + ("-" if age is None else f"{age:.0f}s"))
+    if h.get("stalled"):
+        parts.append(f"STALLED({h.get('stall_reason') or '?'})")
+    if h.get("oom_risk"):
+        parts.append("OOM-RISK(next growth rung does not fit)")
+    if h.get("eta_secs") is not None:
+        parts.append(f"eta={h['eta_secs']}s")
+    return " ".join(parts)
+
+
+def _watch_mem(rec) -> str:
+    """The ``mem=`` column: the device's allocated bytes when it reports
+    them, else the ledger's analytic bytes; ``/limit (x%)`` when the
+    device's memory is known; '-' without a memory ledger."""
+    mem = rec.memory() if rec is not None else None
+    if not mem:
+        return "-"
+    from ..telemetry.memory import fmt_bytes
+
+    used = (mem.get("device") or {}).get("bytes_in_use", mem.get("total_bytes"))
+    budget = mem.get("budget_bytes")
+    if budget:
+        return (f"{fmt_bytes(used)}/{fmt_bytes(budget)}"
+                f"({100.0 * used / budget:.1f}%)")
+    return fmt_bytes(used)
+
+
+def watch_checker(checker, stream=None, interval: float = 0.25,
+                  plain_every: float = 2.0):
+    """Render the live status until the run completes, then one final
+    line.  On a TTY the line rewrites in place (``\r`` and padding, no
+    ANSI sequences); on any other stream it is one plain line every
+    ``plain_every`` seconds."""
+    stream = stream or sys.stderr
+    tty = bool(getattr(stream, "isatty", lambda: False)())
+    last_plain = -plain_every  # the first line comes at once
+    width = 0
+
+    def put(txt: str, end: str = "") -> None:
+        nonlocal width
+        if tty:
+            stream.write("\r" + txt + " " * max(width - len(txt), 0) + end)
+            width = len(txt)
+        else:
+            stream.write(txt + "\n")
+        stream.flush()
+
+    t0 = time.monotonic()
+    while not checker.is_done():
+        now = time.monotonic() - t0
+        if tty or now - last_plain >= plain_every:
+            put(watch_line(checker))
+            last_plain = now
+        time.sleep(interval)
+    put(watch_line(checker), end="\n")
+    return checker
+
+
+def spawn_watched(checker, watch: bool):
+    """``checker`` after the live view rendered it to completion, under
+    ``watch``; else as it is (the caller's ``report()`` joins it)."""
+    return watch_checker(checker) if watch else checker
+
+
+# -- the telemetry verbs ---------------------------------------------------------
+
+
+def _spawn_telemetry_run(model, builder, opts):
+    """The GPU engine on ``device`` where the model has a twin, else the
+    host BFS (its report simply carries no cartography block)."""
+    if model._tensor_cached() is None:
+        return builder.spawn_bfs().join()
+    return builder.spawn_gpu(**gpu_kw(opts)).join()
+
+
+def profile_verb(model, opts: dict, flags=(), stream=None) -> dict:
+    """``profile``: one run under ``.telemetry(cartography=True,
+    memory=True)``, written as flight-recorder JSONL (``--out``, default
+    ``telemetry.jsonl``) and, with ``--chrome=F``, a Chrome trace; prints
+    and returns the recorder's summary."""
+    import json
+
+    stream = stream or sys.stdout
+    out = opts.get("out") or "telemetry.jsonl"
+    b = with_step_flags(model.checker(), flags).telemetry(
+        cartography=True, memory=True)
+    rec = _spawn_telemetry_run(model, b, opts).flight_recorder
+    rec.to_jsonl(out)
+    if opts.get("chrome"):
+        rec.to_chrome_trace(opts["chrome"])
+    summary = rec.summary()
+    print(json.dumps(summary, default=str), file=stream)
+    print(f"telemetry JSONL written to {out}"
+          + (f", Chrome trace to {opts['chrome']}" if opts.get("chrome")
+             else ""), file=stream)
+    return summary
+
+
+def report_verb(model, opts: dict, flags=(), stream=None) -> str:
+    """``report``: one run with ``.report(PATH)`` (``--out``, default
+    ``run-report.json``; the markdown lands beside it); returns the
+    path."""
+    stream = stream or sys.stdout
+    out = opts.get("out") or "run-report.json"
+    b = with_step_flags(model.checker(), flags).report(out)
+    _spawn_telemetry_run(model, b, opts)
+    print(f"report written to {out} (and {os.path.splitext(out)[0]}.md)",
+          file=stream)
+    return out
+
+
+def capacity_verb(model, opts: dict, stream=None, sym: bool = False) -> int:
+    """``capacity``: the memory ledger's capacity plan for the model's GPU
+    run at the capacities ``spawn_gpu`` starts from, on the ``--batch=``
+    of ``opts`` (``parallel/wavefront.default_caps``,
+    ``telemetry/memory.py``): per table rung the steady bytes, the growth
+    transient, and whether it fits the device's memory
+    (``STATERIGHT_TPU_DEVICE_BYTES`` overrides it; with neither, the
+    analytic ladder alone).  ``sym`` plans the symmetric verb's buffers,
+    the larger footprint, so the plan holds for every GPU verb of the
+    model.  Exit 1 without a twin."""
+    from ..parallel.wavefront import default_caps, memory_spec_fn
+    from ..telemetry.memory import capacity_plan, device_budget, fmt_bytes
+
+    stream = stream or sys.stdout
+    tensor = model._tensor_cached()
+    if tensor is None:
+        print("capacity: this configuration has no device twin in the port "
+              "(the host checkers keep nothing on the device)", file=stream)
+        return 1
+    kw = gpu_kw(opts)
+    device = kw.pop("device") or "cuda"
+    cuda = device.startswith("cuda")
+    spec_fn = memory_spec_fn(tensor, len(model.properties()), sym=sym,
+                             cuda=cuda)
+    caps = default_caps(**kw)
+    budget, src = device_budget(device if cuda else "cpu")
+    plan = capacity_plan(spec_fn, caps, budget=budget)
+    where = (f"device memory {fmt_bytes(budget)}, {src}" if budget
+             else "no device memory known: the analytic footprint alone")
+    print(f"capacity plan ({where}):", file=stream)
+    print(f"  {'capacity':>12}  {'buffers':>9}  {'transient':>9}  fits",
+          file=stream)
+    for r in plan["rungs"]:
+        fits = r.get("fits")
+        print(f"  {r['capacity']:>12}  {fmt_bytes(r['total_bytes']):>9}  "
+              f"{fmt_bytes(r['transient_bytes']):>9}  "
+              f"{'-' if fits is None else ('yes' if fits else 'NO')}",
+              file=stream)
+    if plan.get("max_unique") is not None:
+        print(f"on this device the run reaches ~{plan['max_unique']:,} "
+              "unique states (the largest rung whose growth transient "
+              "fits)", file=stream)
+    return 0
+
+
+def _load_report_arg(arg: str, registry_dir):
+    """``(document, headline)`` for a report path or a registry run id."""
+    import json
+
+    from ..telemetry.registry import RunRegistry, resolve_run_dir
+
+    if os.path.isfile(arg):
+        with open(arg) as f:
+            return json.load(f), None
+    root = resolve_run_dir(registry_dir)
+    if root is None:
+        raise SystemExit(
+            f"compare: {arg!r} is neither a report file nor a resolvable "
+            "run id (pass --registry=DIR or set STATERIGHT_TPU_RUN_DIR)")
+    reg = RunRegistry(root)
+    doc = reg.find(arg)
+    if doc is None:
+        raise SystemExit(f"compare: run {arg!r} not found in {root}")
+    return doc, reg.headline(arg)
+
+
+def compare_verb(args: list, opts: dict, stream=None) -> int:
+    """``compare A B``: the contract-aware diff of two run reports (files
+    or registry run ids; ``telemetry/diff.py``).  Prints the rendering and
+    one JSON line; exit 0 unless the pair is DIVERGENT, or
+    ``--expect=VERDICT`` names another verdict."""
+    import json
+
+    from ..telemetry.diff import DIVERGENT, diff_reports, render_diff
+
+    stream = stream or sys.stdout
+    if len(args) != 2:
+        print("usage: compare A B [--registry=DIR] [--expect=IDENTICAL|"
+              "ISOMORPHIC|PERF-ONLY|DIVERGENT]", file=stream)
+        return 2
+    a_doc, a_head = _load_report_arg(args[0], opts.get("registry"))
+    b_doc, b_head = _load_report_arg(args[1], opts.get("registry"))
+    d = diff_reports(a_doc, b_doc, a_headline=a_head, b_headline=b_head)
+    print(render_diff(d, label_a=args[0], label_b=args[1]), file=stream)
+    print(json.dumps(d), file=stream)
+    expect = (opts.get("expect") or "").upper().replace("_", "-")
+    if expect:
+        if d["verdict"] != expect:
+            print(f"compare: verdict {d['verdict']} != expected {expect}",
+                  file=stream)
+            return 1
+        return 0
+    return 1 if d["verdict"] == DIVERGENT else 0
+
+
 def check_main(prog: str, arg_usage: str, argv, build: Callable,
                verbs: dict[str, tuple[Callable, Callable]],
                max_args: int) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
-    [--per-channel] [--prededup] [--mxu]``: build the model from the
-    positional arguments, print the verb's banner and check it.  ``verbs``
-    maps each verb the model offers to ``(banner, spawn)``:
-    ``banner(args)`` is the line printed first, ``spawn(model)`` one of
-    this module's spawns.  The step flags are for the GPU verbs
-    (:func:`gpu`, :func:`sym_gpu`).  Exit 1 when a GPU verb finds no
-    device twin, 2 on a usage error."""
+    [--per-channel] [--prededup] [--mxu] [--watch] [--device=cpu]``: build
+    the model from the positional arguments, print the verb's banner and
+    check it.  ``verbs`` maps each verb the model offers to ``(banner,
+    spawn)``: ``banner(args)`` is the line printed first, ``spawn(model)``
+    one of this module's spawns.  The step flags, ``--watch`` and
+    ``--device``/``--batch`` are for the GPU verbs (:func:`gpu`, :func:`sym_gpu`); a
+    model with a GPU verb also takes :data:`TELEMETRY_VERBS`.  Exit 1 when
+    a GPU verb finds no device twin, 2 on a usage error."""
+    has_gpu = any(sp in (gpu, sym_gpu) for _, sp in verbs.values())
+    names = list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
-             f"{'|'.join(verbs)} {arg_usage} [{PER_CHANNEL_FLAG}] "
-             f"[{'] ['.join(STEP_FLAGS)}]")
+             f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
+             f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
+             + ("  (compare A B [--registry=DIR] [--expect=VERDICT]; "
+                "profile/report [--out=F] [--chrome=F])" if has_gpu else ""))
     per_channel, args = pop_per_channel(
         list(sys.argv[1:] if argv is None else argv))
     flags, args = pop_step_flags(args)
-    if not args or args[0] not in verbs or len(args) > 1 + max_args:
+    watch, args = pop_watch(args)
+    opts, args = pop_values(args)
+    if has_gpu and args and args[0] == "compare":
+        return compare_verb(args[1:], opts)
+    if (not args or args[0] not in names or len(args) > 1 + max_args):
         print(usage, file=sys.stderr)
         return 2
-    (banner, spawn), rest = verbs[args[0]], args[1:]
-    if flags and spawn not in (gpu, sym_gpu):
-        print(f"{' '.join(flags)}: only the GPU verbs take the step flags",
+    verb, rest = args[0], args[1:]
+    if verb in TELEMETRY_VERBS:
+        model = apply_encoding(build(rest), per_channel)
+        if verb == "capacity":
+            return capacity_verb(model, opts, sym=any(
+                sp is sym_gpu for _, sp in verbs.values()))
+        (profile_verb if verb == "profile" else report_verb)(
+            model, opts, flags)
+        return 0
+    banner, spawn = verbs[verb]
+    if (flags or watch or opts) and spawn not in (gpu, sym_gpu):
+        print("the step flags, --watch, --device= and --batch= are for the "
+              "GPU verbs",
               file=sys.stderr)
         return 2
     print(banner(rest))
     model = apply_encoding(build(rest), per_channel)
-    checker = spawn(model, flags) if flags else spawn(model)
+    if spawn in (gpu, sym_gpu):
+        checker = spawn(model, flags, opts, watch=watch)
+    else:
+        checker = spawn(model)
     if checker is None:
         print("this configuration has no device twin in the port",
               file=sys.stderr)

@@ -13,8 +13,17 @@ traces on the host from the table's parent fingerprints, replayed through
 the object model (``Path.from_fingerprints``, with the class-matching key
 under symmetry).
 
+**Telemetry** (JAX ``parallel/_base.py:196-335``): the builder's
+``telemetry()`` options attach a flight recorder
+(``checker.flight_recorder``), the memory ledger (``memory()``), the
+cartography counters (``cartography()``) and the scoped profiler; the run
+executes inside an ``engine_run`` span; the run report and the run
+registry are written at the first :meth:`join` after completion
+(``Checker._maybe_write_report``).  None of it adds a device operation
+to a block, and cartography's few reductions ride the same stats read.
+
 **The checkpoint protocol** (JAX ``parallel/_base.py:606-772``, without
-spans, faults, the heartbeat and the run identity): the caller thread
+faults and the heartbeat): the caller thread
 raises a request and waits on an event; the engine thread serves it at
 its next host sync, right after the block's one stats read and before a
 growth event, by building the snapshot itself (the caller never reads a
@@ -39,6 +48,7 @@ from ..checker.path import Path
 from ..checkpoint import CKPT_V, AutosaveService, resolve_autosave
 from ..fingerprint import MASK64
 from ..ops.hashing import row_hash
+from ..telemetry.spans import span, start_span
 
 ENV_PREDEDUP = "STATERIGHT_TPU_PREDEDUP"
 
@@ -96,6 +106,7 @@ class WavefrontChecker(Checker):
         self._verify_fingerprint_bridge()
         self._results: Optional[dict] = None
         self._live = (0, 0, 0)  # states, unique, maxdepth at the last sync
+        self._live_cart: Optional[dict] = None
         self._parent_map: Optional[dict[int, int]] = None
         self._run_error: Optional[BaseException] = None
         self._done = threading.Event()
@@ -109,15 +120,20 @@ class WavefrontChecker(Checker):
         self._ckpt_ready = threading.Event()
         self._ckpt_out: Optional[dict] = None
         self._ckpt_lock = threading.Lock()
+        self._init_telemetry(options)
         self._autosave: Optional[AutosaveService] = None
+        self._autosave_config: Optional[dict] = None  # build_config, cached
         aopts = resolve_autosave(options.autosave_opts)
         if aopts is not None:
             self._autosave = AutosaveService(
-                aopts["dir"], aopts["every_secs"], aopts["keep"])
+                aopts["dir"], aopts["every_secs"], aopts["keep"],
+                recorder=self.flight_recorder)
+        self._refresh_durability()
         # (snapshot seconds, write seconds) of each autosave generation
         self.autosave_secs: list = []
+        self._timed_out = False
         if options.timeout_secs is not None:
-            timer = threading.Timer(options.timeout_secs, self._stop.set)
+            timer = threading.Timer(options.timeout_secs, self._deadline_stop)
             timer.daemon = True
             timer.start()
         # caller errors (a snapshot from another model) raise here, in the
@@ -126,13 +142,162 @@ class WavefrontChecker(Checker):
         self._thread = threading.Thread(target=self._run_guarded, daemon=True)
         self._thread.start()
 
+    def _init_telemetry(self, options: CheckerBuilder) -> None:
+        """The builder's telemetry options (JAX ``parallel/_base.py:
+        196-335``): the recorder, the cartography flag, the report and
+        registry targets, the memory ledger, the preflight capacity guard
+        and the scoped profiler."""
+        opts = self._telemetry_opts = options.telemetry_opts or {}
+        # the one option that adds device work (ops/cartography.py)
+        self._cartography = bool(opts.get("cartography"))
+        # depth lanes banked from the queue prefixes growth reclaims
+        self._cart_depth_base: Optional[np.ndarray] = None
+        self._report_path = options.report_path
+        self._run_dir = options.run_dir
+        self._run_span_ctx = None
+        self.flight_recorder = options._make_recorder(self._telemetry_tag)
+        self._mem_ledger = None
+        if self.flight_recorder is not None and opts.get("memory"):
+            from ..telemetry.memory import MemoryLedger
+
+            self._mem_ledger = MemoryLedger(
+                self._telemetry_tag, self._memory_spec_fn(),
+                recorder=self.flight_recorder,
+                every=int(opts.get("memory_every") or 0),
+            )
+        self._preflight_capacity_guard()
+        self._profiler = None
+        if self.flight_recorder is not None and opts.get("profile_steps"):
+            import tempfile
+
+            from ..telemetry.profile import ScopedProfiler
+
+            self._profiler = ScopedProfiler(
+                opts.get("profile_dir")
+                or tempfile.mkdtemp(prefix="stateright-tpu-torch-profile-"),
+                int(opts["profile_steps"]), self.flight_recorder,
+            )
+
     def _run_guarded(self) -> None:
+        """The run inside its ``engine_run`` span (JAX
+        ``parallel/_base.py:374-416``): the span closes, with ``error``
+        set on the exception path, and the profiler stops either way."""
+        rec = self.flight_recorder
+        sp = None
+        if rec is not None:
+            sp = start_span("engine_run")
+            self._run_span_ctx = sp.ctx
+            rec.bind_span(sp.ctx.span_id)
+        error: Optional[BaseException] = None
         try:
             self._run()
         except BaseException as e:  # noqa: BLE001 - re-raised at join()
-            self._run_error = e
+            self._run_error = error = e
         finally:
+            if self._profiler is not None:
+                self._profiler.stop()
+            if sp is not None:
+                sp.end(rec, engine=self._telemetry_tag,
+                       error=type(error).__name__ if error else None)
+                rec.bind_span(None)
             self._done.set()
+
+    def _deadline_stop(self) -> None:
+        """The builder ``timeout()`` fired: flag the cut (unless the run
+        already finished) and ask for a cooperative stop."""
+        if not self._done.is_set():
+            self._timed_out = True
+        self._stop.set()
+
+    @property
+    def timed_out(self) -> bool:
+        """True when the builder ``timeout()`` cut the run short: the run
+        report must not present such a run as complete."""
+        return self._timed_out
+
+    # -- telemetry (JAX parallel/_base.py:435-603) ---------------------------
+
+    def _memory_spec_fn(self):  # engine-specific
+        """``caps -> [BufferSpec]``, the engine's analytic memory model."""
+        raise NotImplementedError
+
+    def _memory_caps(self) -> dict:  # engine-specific
+        """The engine's configured capacities as a spec-fn caps dict."""
+        raise NotImplementedError
+
+    def _analytic_footprint_bytes(self, caps: Optional[dict] = None):
+        """Total analytic device bytes at ``caps`` (default: the
+        configured capacities); None when the model cannot be built
+        (accounting never breaks a run)."""
+        from ..telemetry.memory import total_bytes
+
+        try:
+            return int(total_bytes(
+                self._memory_spec_fn()(caps or self._memory_caps())))
+        except Exception:  # noqa: BLE001 - accounting only
+            return None
+
+    def _preflight_capacity_guard(self) -> None:
+        from ..telemetry.memory import preflight_guard
+
+        total = self._analytic_footprint_bytes()
+        if total is not None:
+            preflight_guard(f"spawn_gpu({type(self.model).__name__})", total,
+                            warn_once_obj=self.model)
+
+    def _stage(self, name: str, secs: float) -> None:
+        """Accumulate one per-stage wall-time counter (the recorder's
+        ``stages()`` view); host-side only."""
+        if self.flight_recorder is not None and secs >= 0:
+            self.flight_recorder.add(f"stage_{name}_secs", secs)
+
+    def _telemetry_occupancy(self, table_fp, *, at: str,
+                             transferred: bool = False) -> None:
+        """One visited-table occupancy sample (``ops/buckets.
+        occupancy_stats``); ``transferred`` prices a device table's pull
+        into the recorder's byte counters (growth boundaries pass a host
+        table)."""
+        rec = self.flight_recorder
+        if rec is None:
+            return
+        from ..ops.buckets import occupancy_stats
+
+        if isinstance(table_fp, torch.Tensor):
+            table_fp = table_fp.cpu().numpy()
+        if transferred:
+            rec.add_bytes(d2h=table_fp.nbytes)
+        rec.record("occupancy", at=at, **occupancy_stats(table_fp))
+
+    def memory(self, live: bool = True) -> Optional[dict]:
+        """Latest memory-ledger snapshot (``telemetry/memory.py``), or None
+        without ``.telemetry(memory=True)``.  ``live=False`` is the
+        deterministic analytic subset the run report embeds."""
+        if self._mem_ledger is None:
+            return None
+        return (self._mem_ledger.snapshot() if live
+                else self._mem_ledger.analytic_block())
+
+    def cartography(self) -> Optional[dict]:
+        """Latest search-cartography snapshot (``ops/cartography.py``), or
+        None without ``.cartography()``: mid-run the last host sync's,
+        after completion the final one."""
+        if self._results and "cartography" in self._results:
+            return dict(self._results["cartography"])
+        live = self._live_cart
+        return dict(live) if live else None
+
+    def occupancy_stats(self) -> Optional[dict]:
+        """Bucket-occupancy counters of the finished run's table
+        (``ops/buckets.occupancy_stats``), or None while it runs."""
+        if not self._results:
+            return None
+        cached = getattr(self, "_occupancy_cache", None)
+        if cached is None or cached[0] is not self._results:
+            from ..ops.buckets import occupancy_stats
+
+            cached = (self._results, occupancy_stats(self._table_np()[0]))
+            self._occupancy_cache = cached
+        return cached[1]
 
     def _run(self) -> None:  # engine-specific
         raise NotImplementedError
@@ -178,12 +343,20 @@ class WavefrontChecker(Checker):
                 "resume snapshot was taken from a different model "
                 "(init fingerprints / tensor signature disagree)"
             )
+        # lineage: the snapshot's run becomes this run's parent (npz keeps
+        # a string as a 0-d unicode array)
+        rid = snap.get("run_id")
+        if rid is not None and self.parent_run_id is None:
+            self.parent_run_id = str(np.asarray(rid).item())
         for key in ("spill_base", "spill_fp", "spill_q_fp", "spill_pend_fp"):
             if key in snap and (key != "spill_base" or int(snap[key]) > 0):
                 raise ValueError(
                     "resume snapshot carries spill-tier contents, which the "
                     "port does not support yet"
                 )
+        from ..telemetry.memory import snapshot_fits_guard
+
+        snapshot_fits_guard(snap, f"resume({type(self.model).__name__})")
 
     # -- stop, checkpoint and autosave ---------------------------------------
 
@@ -247,24 +420,39 @@ class WavefrontChecker(Checker):
         if svc is None or not (force or svc.due()):
             return False
         t0 = time.monotonic()
+        written = False
         try:
-            snap = snap_fn()
-            t1 = time.monotonic()
-            if svc.save(snap, self._autosave_manifest(snap)) is not None:
-                self.autosave_secs.append((t1 - t0, time.monotonic() - t1))
-                return True
+            with span("autosave", self.flight_recorder,
+                      parent=self._run_span_ctx, gen=svc._gen):
+                snap = snap_fn()
+                t1 = time.monotonic()
+                if svc.save(snap, self._autosave_manifest(snap)) is not None:
+                    self.autosave_secs.append((t1 - t0,
+                                               time.monotonic() - t1))
+                    written = True
         except Exception as e:  # noqa: BLE001 - see the docstring
             svc._clock = time.monotonic()  # a failing path must not turn
             # every later sync into a fresh attempt
             svc.note_failure(svc._gen, e)
-        return False
+        self._stage("checkpoint", time.monotonic() - t0)
+        self._refresh_durability()
+        return written
 
     def _autosave_manifest(self, snap: dict) -> dict:
-        """The generation manifest: the model, the engine, the progress at
-        the checkpoint and each property's discovery flag, so resume picks
-        a generation without loading its npz."""
+        """The generation manifest: the run's identity and canonical
+        config (``telemetry/report.build_config``), the model, the engine,
+        the progress at the checkpoint and each property's discovery flag,
+        so resume picks a generation without loading its npz."""
+        if self._autosave_config is None:
+            from ..telemetry.report import build_config
+
+            try:
+                self._autosave_config = build_config(self)
+            except Exception:  # noqa: BLE001 - identity never breaks a save
+                self._autosave_config = {}
         disc = np.asarray(snap.get("disc", np.zeros(0))).reshape(-1)
-        return {
+        man = {
+            "run_id": self.run_id,
             "model": type(self.model).__name__,
             "engine": ("wavefront" if self._engine_tag == "single"
                        else self._engine_tag),
@@ -279,19 +467,30 @@ class WavefrontChecker(Checker):
                  "discovery": bool(i < disc.size and int(disc[i]) != 0)}
                 for i, p in enumerate(self._props)
             ],
+            "config": self._autosave_config,
             "restarts": 0,  # no supervisor restarts a port run yet
             "written_at": datetime.datetime.now(datetime.timezone.utc)
             .isoformat(timespec="seconds"),
         }
+        if self.parent_run_id:
+            man["parent_run_id"] = self.parent_run_id
+        return man
 
-    def durability_status(self) -> Optional[dict]:
-        """The live durability block (the cadence, the generations written
-        and failed, the age of the last one), or None when autosave is
-        off."""
-        if self._autosave is None:
+    def durability_status(self, live: bool = True) -> Optional[dict]:
+        """The durability block (the cadence, the generations written and
+        failed, the age of the last one), or None when autosave is off.
+        ``live=False`` is the deterministic subset the run report embeds:
+        the cadence and the kept count."""
+        svc = self._autosave
+        if svc is None:
             return None
-        return {"v": CKPT_V, "restarts": 0,
-                "autosave": self._autosave.status()}
+        auto = (svc.status() if live
+                else {"every_secs": svc.every_secs, "keep": svc.keep})
+        return {"v": CKPT_V, "restarts": 0, "autosave": auto}
+
+    def _refresh_durability(self) -> None:
+        if self.flight_recorder is not None:
+            self.flight_recorder.set_durability(self.durability_status())
 
     # -- Checker surface -----------------------------------------------------
 
@@ -302,6 +501,7 @@ class WavefrontChecker(Checker):
         self._thread.join()
         if self._run_error is not None:
             raise self._run_error
+        self._maybe_write_report()
         return self
 
     def state_count(self) -> int:

@@ -331,6 +331,27 @@ ISOLATION_CASES = {
         "o = orl_model().checker().spawn_gpu(device='cpu').join()\n"
         "assert o.unique_state_count() == 148, o.unique_state_count()\n"
     ),
+    # telemetry: the recorder, cartography, the memory ledger, the report
+    # and the run registry on the GPU engine and the host BFS
+    "telemetry": (
+        "import json, tempfile\n"
+        "from stateright_tpu_torch.models.paxos import paxos_model\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "d = tempfile.mkdtemp()\n"
+        "c = TwoPhaseSys(3).checker().report(d + '/r.json').runs(d).spawn_gpu(\n"
+        "    device='cpu', batch=32, queue_capacity=64, steps_per_call=4)\n"
+        "c = c.join()\n"
+        "cart = c.cartography()\n"
+        "assert sum(cart['depth_hist']) == 288, cart\n"
+        "assert json.load(open(d + '/r.json'))['totals']['unique'] == 288\n"
+        "assert c.memory()['total_bytes'] > 0\n"
+        "assert c.flight_recorder.records('growth')\n"
+        "p = paxos_model(1).checker().cartography().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert p.cartography()['fresh_inserts'] == 265\n"
+        "b = TwoPhaseSys(3).checker().telemetry().spawn_bfs().join()\n"
+        "assert b.flight_recorder.summary()['unique'] == 288\n"
+    ),
 }
 
 
@@ -435,10 +456,11 @@ def sync_free_model(name):
 
 
 # unique states of each probed run; "-sym" runs under .symmetry(),
-# "-flags" under .prededup().mxu()
+# "-flags" under .prededup().mxu(), "-cart" under .cartography() (its
+# counters and the queue-derived depth histogram ride the block)
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
                     "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
-                    "paxos-flags": 265}
+                    "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265}
 
 
 @pytest.mark.parametrize("name", list(SYNC_FREE_UNIQUE))
@@ -449,8 +471,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     dispatched, for 2pc, ``PaxosTensor`` and a per-channel compiled twin,
     under symmetry for 2pc (``representative_rows``) and raft (the
     compiler's mechanical symmetry), and with ``.prededup().mxu()`` for 2pc
-    and ``PaxosTensor`` (``window_unique``).  The
-    host reads one packed stats tensor per block, outside the block."""
+    and ``PaxosTensor`` (``window_unique``), and with ``.cartography()``
+    for both (the counters, and the depth histogram's bounded search once
+    a block).  The host reads one packed stats tensor per block, outside
+    the block."""
     from stateright_tpu_torch.parallel import wavefront
 
     blocks = []
@@ -471,7 +495,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
         b = b.symmetry()
     if name.endswith("-flags"):
         b = b.prededup().mxu()
+    if name.endswith("-cart"):
+        b = b.cartography()
     c = b.spawn_gpu(device="cpu", steps_per_call=4).join()
+    assert (c.cartography() is not None) == name.endswith("-cart")
     assert c._prededup == name.endswith("-flags")
     assert c.unique_state_count() == SYNC_FREE_UNIQUE[name]
     assert len(blocks) > 2

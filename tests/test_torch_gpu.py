@@ -632,3 +632,60 @@ def test_prededup_step_row_hash_matches_plain(cuda):
                            tm.max_actions, cb)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+def test_cartography_and_growth_records_identical_on_cuda_and_cpu(cuda):
+    """2pc-7 under ``.telemetry(cartography=True)`` from a small table:
+    the cartography block, the growth records' ``(status, unique, cap)``
+    sequence and the health timeline are the same on both devices."""
+    from stateright_tpu_torch.telemetry.health import phase_timeline
+
+    def run(device):
+        return (TwoPhaseSys(7).checker().telemetry(cartography=True)
+                .spawn_gpu(device=device, capacity=1 << 12, batch=512,
+                           steps_per_call=16).join())
+
+    g, c = run(cuda), run("cpu")
+    assert g.unique_state_count() == c.unique_state_count() == 296_448
+    assert g.cartography() == c.cartography()
+    assert sum(g.cartography()["depth_hist"]) == 296_448
+
+    def ladder(x):
+        return [(r["status"], r["unique"], r["cap"])
+                for r in x.flight_recorder.records("growth")]
+
+    assert ladder(g) == ladder(c) and ladder(g)
+    assert (phase_timeline(g.flight_recorder.records("step"))
+            == phase_timeline(c.flight_recorder.records("step")))
+
+
+def test_memory_ledger_analytic_bytes_equal_live_bytes_on_cuda(cuda):
+    """On the card the ledger counts the kernels' resident buffers too:
+    its analytic bytes equal the live tensors' at the final rung, each
+    growth's forecast transient is at least the run's measured peak across
+    it (tensor bytes against the requested bytes, the allocator's bound
+    against the allocated ones) wherever the growth raised the process's
+    peak, at least one does, and the device readings are there."""
+    from stateright_tpu_torch.telemetry.memory import device_memory_stats
+
+    # the engine never resets the process's peak counters: the test owns
+    # them, and starts them here, so the earlier tests' peaks are not in
+    # the way of this run's growths
+    torch.cuda.reset_peak_memory_stats(cuda)
+    c = (TwoPhaseSys(6).checker().telemetry(cartography=True, memory=True)
+         .spawn_gpu(device=cuda, capacity=1 << 12, batch=256).join())
+    live = {n: t.nbytes for n, t in c.live_buffers().items()}
+    spec = {s.name: s.nbytes for s in c._memory_spec_fn()(c._memory_caps())}
+    assert live == spec
+    assert any(n.startswith("prep_") for n in live)
+    assert c.growth_memory
+    assert any(g["peak_requested_bytes"] is not None
+               for g in c.growth_memory), c.growth_memory
+    for g in c.growth_memory:
+        if g["peak_requested_bytes"] is not None:
+            assert g["transient_bytes"] >= g["peak_requested_bytes"] > 0, g
+        if g["peak_bytes"] is not None:
+            assert g["transient_alloc_bytes"] >= g["peak_bytes"], g
+    stats = device_memory_stats(cuda)
+    assert stats is not None and stats["bytes_limit"] > 0
+    assert c.memory()["device"]["bytes_in_use"] > 0
