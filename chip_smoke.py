@@ -152,6 +152,38 @@ leg's launch counts reset just before it and read just after:
    ``torch.profiler`` trace holds the kernels ``cand_prep_kernel``,
    ``bucket_plan_kernel`` and ``insert_commit_kernel`` on the device.
 
+Checked mode and the spill tier (``.checked()``, ``.spill()``), right
+after the pre-dedup legs, each leg's launch counts reset just before it
+and read just after:
+
+ - ``checked_2pc7``: 2pc-7 complete under ``.checked()`` (the guard around
+   the twin's kernels): 296,448 unique with the plain leg's state count
+   and discoveries, its wall beside the plain leg's, and one
+   ``cudaStreamSynchronize`` a block (2pc-7 bounded at 100,000 under the
+   profiler at two block lengths);
+ - ``checked_paxos2``: paxos-2 under ``.checked()`` on ``cuda`` and
+   ``cpu``: 16,668 / 32,971, identical table bytes and queue rows (no
+   false flag through ``PaxosTensor``'s gathers);
+ - ``checked_oob``: the JAX sanitizer tests' out-of-range twin under
+   ``.checked()`` raises ``CheckedExecutionError`` naming state 4 and
+   "out-of-bounds", and a 2pc-3 run afterwards in the same process still
+   gives 288: no device-side assert fired;
+ - ``spill_2pc7``: the JAX acceptance run (``tests/test_spill.py:
+   643-689``: batch 1,024, queue 2^17, a 2^14-bit Bloom filter, blocks of
+   64, cartography and the memory ledger) under a budget of ``tot(2^20)
+   + tot(2^21) - 1`` from the port's own analytic buffers: 296,448 unique
+   with the plain leg's state count and discoveries, at least one
+   eviction, hot + spilled = unique, cartography reconciled; the same run
+   on ``cpu`` (its own budget) with identical tables, queue rows, store
+   and tallies; a live ``checkpoint()`` after the first eviction resumed
+   on ``cuda`` to the uninterrupted run's tables and store;
+ - ``spill_paxos3``: paxos-3 under ``.spill()`` with a budget that blocks
+   the 2^21 -> 2^22 table growth: 1,194,428 / 2,420,477, "value chosen"
+   replayed, "linearizable" never violated, at least one eviction, with
+   its tallies, inject calls and wall beside the plain paxos-3 leg's;
+ - the dispatched operations a step at 2pc-7 and paxos-3 with each flag
+   off and on.
+
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
 only rows an unflagged main path gives it (``init_rows`` in its record),
 and the ``total`` record gives each phase's wall seconds.
@@ -169,7 +201,10 @@ the last with the ORL kernel records beside them, and the prededup legs'
 under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
 ``at_paxos2_prededup``, ``at_paxos2_per_channel_prededup`` and
 ``at_2pc7_symmetry_prededup``, and the telemetry legs' under
-``at_telemetry_paxos3``, ``at_telemetry_2pc7`` and ``at_profile_2pc7``)
+``at_telemetry_paxos3``, ``at_telemetry_2pc7`` and ``at_profile_2pc7``,
+and the checked and spill legs' under ``at_checked_2pc7``,
+``at_checked_paxos2``, ``at_spill_2pc7`` and ``at_spill_paxos3``, the spill
+inject's own launches beside them as ``inject_launches``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -224,6 +259,11 @@ from stateright_tpu_torch.models._cli import with_step_flags
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
+from stateright_tpu_torch.analysis import CheckedExecutionError
+from stateright_tpu_torch.core import Model, Property
+from stateright_tpu_torch.parallel.tensor_model import (
+    BitPacker, TensorBackedModel, TensorModel,
+)
 from stateright_tpu_torch.parallel.wavefront import GpuChecker
 from stateright_tpu_torch.profile_run import host_sync_counts
 from stateright_tpu_torch.telemetry.diff import (
@@ -291,6 +331,20 @@ OPS_TARGET = 20_000
 OPS_STEPS = 8
 P3_SYNC_TARGET = 100_000
 P3_SYNC_CAPACITY = 1 << 21
+# checked mode and the spill tier: the step flags (models/_cli.py's
+# STEP_FLAGS), the JAX acceptance run's settings (tests/test_spill.py:
+# 643-689: 2pc-7, batch 1024, queue 2^17, a 2^14-bit Bloom filter, blocks
+# of 64), and paxos-3's queue, sized so it never grows
+CHECKED = ("--checked",)
+SPILL = ("--spill",)
+SPILL_BLOOM = 1 << 14
+SPILL_2PC7_KW = dict(batch=1024, queue_capacity=1 << 17,
+                     spill_bloom_bits=SPILL_BLOOM, steps_per_call=64)
+SPILL_P3_QCAP = 1 << 20
+SPILL_P3_BLOOM = 1 << 23  # the engine's default width
+# the checked sync count's 2pc-7 runs: a candidate budget no batch of
+# theirs overflows, so they never grow
+CHECKED_SYNC_CAND = 1 << 15
 # the kernels a profiled 2pc-7 block must show on the device
 PROFILED_KERNELS = ("cand_prep_kernel", "bucket_plan_kernel",
                     "insert_commit_kernel")
@@ -895,11 +949,13 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
     return launches, leg_launches, sym_launches
 
 
-def ops_per_step(dev, cartography: bool) -> dict:
+def ops_per_step(dev, cartography: bool, flags=(),
+                 build=lambda: paxos_model(3)) -> dict:
     """Dispatched operations per step, over the first :data:`OPS_STEPS`
-    steps of a paxos-3 run bounded at :data:`OPS_TARGET` (a
-    ``TorchDispatchMode`` count around ``_Engine.step``), and those of the
-    block's stats packing on the run's final carry."""
+    steps of a run of ``build()`` (default paxos-3) bounded at
+    :data:`OPS_TARGET` with the step ``flags`` on (a ``TorchDispatchMode``
+    count around ``_Engine.step``), and those of the block's stats packing
+    on the run's final carry."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from stateright_tpu_torch.parallel import wavefront
@@ -927,14 +983,15 @@ def ops_per_step(dev, cartography: bool) -> dict:
 
     wavefront._Engine.step = counted
     try:
-        b = paxos_model(3).checker().target_states(OPS_TARGET)
+        b = with_step_flags(build().checker().target_states(OPS_TARGET),
+                            flags)
         c = (b.cartography() if cartography else b).spawn_gpu(
             device=dev, steps_per_call=4).join()
     finally:
         wavefront._Engine.step = step
     probe = Count()
     with probe:
-        wavefront.stats_of(c._final_carry)
+        wavefront.stats_of(c._final_carry, c._layout)
     return {"ops_per_step": sum(counts) / len(counts), "steps": len(counts),
             "stats_ops_per_block": probe.n}
 
@@ -1509,6 +1566,355 @@ def profiled_sync_count(dev, run) -> tuple:
     return out, host_sync_counts(prof.key_averages())
 
 
+class OOBTwin(TensorModel):
+    """The JAX sanitizer tests' out-of-range gather twin
+    (``tests/test_sanitizer.py:64-80``): a 3-bit count indexes a 4-entry
+    table, so counts 4..7 escape it."""
+
+    width, max_actions = 1, 1
+    pk = BitPacker([("count", 3)])
+
+    def __init__(self, model):
+        self.model = model
+
+    def init_rows(self):
+        return np.zeros((1, 1), np.uint64)
+
+    def encode_state(self, s):
+        return (int(s),)
+
+    def decode_state(self, row):
+        return int(row[0])
+
+    def property_masks(self, rows):
+        return torch.ones((rows.shape[0], 1), dtype=torch.bool,
+                          device=rows.device)
+
+    def step_rows(self, rows):
+        c = self.pk.get(rows, "count")
+        tbl = torch.tensor([1, 2, 3, 4], dtype=torch.int64,
+                           device=rows.device)
+        succ = rows.clone()
+        succ[..., 0] = tbl[c]
+        return succ[:, None, :], (c < 7)[:, None]
+
+
+class OOBModel(TensorBackedModel, Model):
+    """A counter 0..7 whose twin is :class:`OOBTwin`."""
+
+    def tensor_model(self):
+        return OOBTwin(self)
+
+    def init_states(self):
+        return [0]
+
+    def actions(self, s):
+        return [0] if s < 7 else []
+
+    def next_state(self, s, a):
+        return s + 1
+
+    def properties(self):
+        return [Property.always("ok", lambda m, s: True)]
+
+
+@contextlib.contextmanager
+def device_bytes(budget: int):
+    """``STATERIGHT_TPU_DEVICE_BYTES`` (the memory ledger's budget, which
+    the spill tier evicts on) set for the block, the capacity guard off."""
+    keys = ("STATERIGHT_TPU_DEVICE_BYTES", "STATERIGHT_TPU_CAPACITY_GUARD")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(zip(keys, (str(budget), "off")))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def spill_budget(model, cuda: bool, fit: int, qcap: int, batch: int,
+                 cartography: bool = False, bits: int = SPILL_BLOOM) -> int:
+    """The device budget that takes the ``fit`` table rung's growth from
+    ``fit / 2`` but not the growth to ``2 * fit``: ``tot(fit) + tot(2 *
+    fit) - 1`` on the port's own analytic buffers (on the card, the
+    kernels' scratch included) at the run's first candidate budget."""
+    from stateright_tpu_torch.parallel.wavefront import memory_spec_fn
+    from stateright_tpu_torch.telemetry.memory import total_bytes
+
+    tensor = model.tensor_model()
+    m = batch * tensor.max_actions
+    spec = memory_spec_fn(tensor, len(model.properties()),
+                          cartography=cartography, cuda=cuda,
+                          spill=(bits, 4 * m))
+
+    def tot(cap):
+        return total_bytes(spec(dict(cap=cap, qcap=qcap, batch=batch,
+                                     cand=min(max(4 * batch, 4096), m))))
+
+    return tot(fit) + tot(2 * fit) - 1
+
+
+def spill_2pc7_builder():
+    """2pc-7 under ``.spill()`` with cartography and the memory ledger
+    (the configuration its budget is computed for: a run without the
+    counters would fit the growth by their bytes)."""
+    return (TwoPhaseSys(7).checker().spill()
+            .telemetry(cartography=True, memory=True))
+
+
+def spill_run(device, budget: int, **kw):
+    """:func:`spill_2pc7_builder`'s run at :data:`SPILL_2PC7_KW` and
+    ``budget``; joined."""
+    with device_bytes(budget):
+        return spill_2pc7_builder().spawn_gpu(
+            device=device, **dict(SPILL_2PC7_KW, **kw)).join()
+
+
+def reconciles(c, n_init: int = 1) -> bool:
+    cart = c.cartography()
+    return (sum(cart["depth_hist"]) == c.unique_state_count()
+            == cart["fresh_inserts"]
+            and sum(cart["action_hist"]) == c.state_count() - n_init)
+
+
+def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> dict:
+    """Checked mode and the spill tier on the card (module docstring);
+    returns each leg's launches (the spill legs' inject launches apart,
+    under ``inject``)."""
+    legs = {}
+    # -- checked_2pc7: 2pc-7 complete under .checked() -------------------------
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    g = TwoPhaseSys(7).checker().checked().spawn_gpu().join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    legs["checked_2pc7"] = launches = kernel_launches()
+    paths = check_discoveries(g.model, g, {"abort agreement",
+                                           "commit agreement"})
+    g.assert_properties()
+    if (g.unique_state_count() != TPC7_UNIQUE
+            or g.state_count() != ref7["states"]
+            or g.discovery_fps() != ref7["disc"]):
+        raise AssertionError("checked 2pc-7: not the plain leg's run")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    sync_runs = {}
+    for spc in SYNC_STEPS_PER_CALL:
+        def run(spc=spc):
+            return (TwoPhaseSys(7).checker().checked()
+                    .target_states(SC4_SYNC_TARGET)
+                    .spawn_gpu(capacity=SC4_SYNC_CAPACITY,
+                               cand=CHECKED_SYNC_CAND,
+                               steps_per_call=spc).join())
+        gs, syncs = profiled_sync_count(dev, run)
+        if gs.growth_events:
+            raise AssertionError("the sync count's run grew: it must not")
+        sync_runs[spc] = {"unique": gs.unique_state_count(),
+                          "steps": gs.steps_run,
+                          "blocks": -(-gs.steps_run // spc),
+                          "stream_syncs": syncs.get("cudaStreamSynchronize", 0)}
+    a, b = (sync_runs[spc] for spc in SYNC_STEPS_PER_CALL)
+    per_block = ((b["stream_syncs"] - a["stream_syncs"])
+                 / (b["blocks"] - a["blocks"]))
+    emit("checked_2pc7", {
+        "unique": g.unique_state_count(), "states": g.state_count(),
+        "sec": sec, "plain_2pc7_sec": ref7["sec"],
+        "wall_over_plain": sec / ref7["sec"], "steps": g.steps_run,
+        "plain_2pc7_steps": ref7["steps"], "path_lengths": paths,
+        "launches": launches, "host_syncs": {str(k): v for k, v in
+                                             sync_runs.items()},
+        "stream_syncs_per_block": per_block, "card": smi})
+    if per_block != 1.0:
+        raise AssertionError(f"checked: {per_block} stream syncs a block")
+    del g
+    lap("checked_2pc7")
+
+    # -- checked_paxos2: cuda and cpu, PaxosTensor's gathers guarded ---------
+    def p2(device):
+        t0 = time.monotonic()
+        c = paxos_model(2).checker().checked().spawn_gpu(
+            device=device, batch=256).join()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return c, time.monotonic() - t0
+
+    reset_launches()
+    (g2, g2_s) = p2(dev)
+    legs["checked_paxos2"] = kernel_launches()
+    c2, c2_s = p2("cpu")
+    same, tail = same_tables_and_queue(g2, c2)
+    emit("checked_paxos2", {
+        "unique_cuda": g2.unique_state_count(),
+        "unique_cpu": c2.unique_state_count(), "states": g2.state_count(),
+        "tables_and_queue_identical": same, "tail": tail,
+        "sec_cuda": g2_s, "sec_cpu": c2_s,
+        "launches": legs["checked_paxos2"], "card": smi})
+    if not (same and (g2.unique_state_count(), g2.state_count())
+            == P2_PER_CHANNEL == (c2.unique_state_count(), c2.state_count())):
+        raise AssertionError("checked paxos-2: not 16,668 / 32,971 on both")
+    del g2, c2
+    lap("checked_paxos2")
+
+    # -- checked_oob: the out-of-range twin raises; the context survives -----
+    try:
+        OOBModel().checker().checked().spawn_gpu(
+            batch=8, capacity=1 << 10).join()
+    except CheckedExecutionError as e:
+        err = e
+    else:
+        raise AssertionError("checked OOB twin: no CheckedExecutionError")
+    torch.cuda.synchronize()
+    after = TwoPhaseSys(3).checker().spawn_gpu().join()
+    emit("checked_oob", {"state": err.state, "row_index": err.row_index,
+                         "message": str(err).splitlines()[-1],
+                         "unique_2pc3_after": after.unique_state_count()})
+    if err.state != 4 or "out-of-bounds" not in str(err):
+        raise AssertionError(f"checked OOB twin: {err}")
+    if after.unique_state_count() != 288:
+        raise AssertionError("2pc-3 after the OOB twin: not 288")
+    lap("checked_oob")
+
+    # -- spill_2pc7: the JAX acceptance pin, cuda and cpu, and a resume -------
+    kw7 = SPILL_2PC7_KW
+    budgets = {
+        kind: spill_budget(TwoPhaseSys(7), on_card, 1 << 20,
+                           kw7["queue_capacity"], kw7["batch"],
+                           cartography=True)
+        for kind, on_card in (("cuda", dev.type == "cuda"), ("cpu", False))}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    g = spill_run(dev, budgets["cuda"])
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = kernel_launches()
+    legs["spill_2pc7"] = dict(launches, inject=dict(g.inject_launches))
+    sp = g.spill_status()
+    hot = int((g._final_carry[convert.TFP] != EMPTY).sum())
+    live = {n: t.nbytes for n, t in g.live_buffers().items()}
+    spec = {b.name: b.nbytes for b in g._memory_spec_fn()(g._memory_caps())}
+    t0 = time.monotonic()
+    c = spill_run("cpu", budgets["cpu"])
+    c_s = time.monotonic() - t0
+    gs, cs = g.final_snapshot(), c.final_snapshot()
+    same, tail = same_snapshots(gs, cs)
+    same_store = all(np.array_equal(gs[k], cs[k])
+                     for k in ("spill_fp", "spill_parent"))
+    # a live checkpoint after the first eviction, resumed on the card
+    with device_bytes(budgets["cuda"]):
+        running = spill_2pc7_builder().spawn_gpu(device=dev, **SPILL_2PC7_KW)
+        snap = None
+        while not running.is_done():
+            s = running.checkpoint(timeout=600.0)
+            if int(s.get("spill_base", 0)) > 0 and int(s["tail"]) > int(
+                    s["head"]):
+                snap = s
+                break
+        running.stop().join()
+        if snap is None:
+            raise AssertionError("spill 2pc-7: no checkpoint after an "
+                                 "eviction")
+        r = spill_2pc7_builder().spawn_gpu(device=dev, resume=snap,
+                                           **SPILL_2PC7_KW).join()
+    rs = r.final_snapshot()
+    resumed_same, _ = same_snapshots(gs, rs)
+    resumed_store = all(np.array_equal(gs[k], rs[k])
+                        for k in ("spill_fp", "spill_parent"))
+    emit("spill_2pc7", {
+        "unique": g.unique_state_count(), "states": g.state_count(),
+        "sec": sec, "plain_2pc7_sec": ref7["sec"],
+        "wall_over_plain": sec / ref7["sec"], "steps": g.steps_run,
+        "budget_bytes": budgets, "spill": sp, "hot_fps": hot,
+        "inject_calls": g.inject_calls, "launches": legs["spill_2pc7"],
+        "growth_events": g.growth_events, "stages": g.flight_recorder.stages(),
+        "cpu": {"unique": c.unique_state_count(), "sec": c_s,
+                "spill": c.spill_status()},
+        "tables_and_queue_identical": same, "store_identical": same_store,
+        "analytic_equals_live_bytes": live == spec,
+        "resume": {"snap_unique": int(snap["unique"]),
+                   "snap_spill_base": int(snap["spill_base"]),
+                   "unique": r.unique_state_count(),
+                   "tables_and_queue_identical": resumed_same,
+                   "store_identical": resumed_store},
+        "card": smi})
+    if (g.unique_state_count() != TPC7_UNIQUE
+            or g.state_count() != ref7["states"]
+            or g.discovery_fps() != ref7["disc"]):
+        raise AssertionError("spill 2pc-7: not the plain leg's run")
+    if sp["evictions"] < 1 or hot + sp["spilled_fps"] != TPC7_UNIQUE:
+        raise AssertionError(f"spill 2pc-7: tiers do not partition: {sp}")
+    if live != spec:
+        raise AssertionError("spill 2pc-7: analytic bytes are not the live "
+                             "tensors'")
+    if not (reconciles(g) and reconciles(c)):
+        raise AssertionError("spill 2pc-7: cartography does not reconcile")
+    if not (same and same_store and c.spill_status() == sp):
+        raise AssertionError("spill 2pc-7: cuda and cpu disagree")
+    if not (resumed_same and resumed_store
+            and r.unique_state_count() == TPC7_UNIQUE):
+        raise AssertionError("spill 2pc-7: the resumed run differs")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if not all(v > 0 for v in g.inject_launches.values()):
+        raise AssertionError(f"the inject never ran: {g.inject_launches}")
+    del g, c, r, gs, cs, rs
+    lap("spill_2pc7")
+
+    # -- spill_paxos3: the benchmark model, the 2^21 -> 2^22 growth blocked --
+    budget3 = spill_budget(paxos_model(3), dev.type == "cuda", 1 << 21,
+                           SPILL_P3_QCAP, 2048, bits=SPILL_P3_BLOOM)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with device_bytes(budget3):
+        g3 = paxos_model(3).checker().spill().spawn_gpu(
+            queue_capacity=SPILL_P3_QCAP,
+            spill_bloom_bits=SPILL_P3_BLOOM).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = kernel_launches()
+    legs["spill_paxos3"] = dict(launches, inject=dict(g3.inject_launches))
+    paths3 = check_discoveries(g3.model, g3, {"value chosen"})
+    g3.assert_properties()  # "linearizable" never violated
+    sp3 = g3.spill_status()
+    emit("spill_paxos3", {
+        "unique": g3.unique_state_count(), "states": g3.state_count(),
+        "sec": sec, "plain_paxos3_sec": p3_ref[2]["sec"],
+        "wall_over_plain": sec / p3_ref[2]["sec"], "steps": g3.steps_run,
+        "plain_paxos3_steps": p3_ref[2]["steps"], "budget_bytes": budget3,
+        "table_slots": g3._cap, "spill": sp3,
+        "inject_calls": g3.inject_calls, "launches": legs["spill_paxos3"],
+        "growth_events": g3.growth_events,
+        "peak_device_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+        "path_lengths": paths3, "card": smi})
+    if (g3.unique_state_count(), g3.state_count()) != (PAXOS3_UNIQUE,
+                                                       PAXOS3_STATES):
+        raise AssertionError("spill paxos-3: not 1,194,428 / 2,420,477")
+    if sp3["evictions"] < 1 or g3._cap != 1 << 21:
+        raise AssertionError(f"spill paxos-3: {sp3['evictions']} evictions, "
+                             f"{g3._cap} slots (the budget pins 2^21)")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    del g3
+    lap("spill_paxos3")
+
+    # -- dispatched operations a step under the two flags --------------------
+    ops = {}
+    for model, build in (("2pc7", lambda: TwoPhaseSys(7)),
+                         ("paxos3", lambda: paxos_model(3))):
+        for tag, flags in (("off", ()), ("checked", CHECKED),
+                           ("spill", SPILL)):
+            ops[f"{model}_{tag}"] = ops_per_step(dev, False, flags, build)
+    emit("checked_spill_ops_per_step", dict(ops, card=smi))
+    lap("checked_spill_ops")
+    return legs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1572,6 +1978,9 @@ def main() -> int:
         raise AssertionError("2pc-7: unique count is not 296,448")
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel never launched on 2pc-7: {launches}")
+    # what the checked and spill 2pc-7 legs must give
+    ref7 = {"sec": g7_s, "states": g7.state_count(), "steps": g7.steps_run,
+            "disc": g7.discovery_fps()}
     lap("2pc7")
 
     # -- 2pc-10, target-bounded ----------------------------------------------
@@ -1610,6 +2019,7 @@ def main() -> int:
     launches_tel = telemetry_phases(dev, smi, p3_ref)
     launches_p3f, launches_p2f, launches_sym7f = flag_phases(dev, smi, p3_ref)
     lap("step_flags")
+    launches_cs = checked_spill_phases(dev, smi, ref7, p3_ref)
     # -- kernels at paxos-3 shapes, L2-cold: plain, and the same batch as a
     # .prededup() step gives it (the queue holds the same rows with the
     # flag on or off) ---------------------------------------------------------
@@ -1741,6 +2151,13 @@ def main() -> int:
         entry["at_2pc7_symmetry_prededup"] = {"launches": launches_sym7f[name]}
         for leg, ls in launches_tel.items():
             entry[f"at_{leg}"] = {"launches": ls[name]}
+        # checked mode and the spill tier: the step's launches, and the
+        # spill inject's apart
+        for leg, ls in launches_cs.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+            if "inject" in ls:
+                entry[f"at_{leg}"]["inject_launches"] = ls["inject"].get(
+                    name, 0)
         line.append(entry)
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS

@@ -4,8 +4,9 @@ The port's counterpart of ``stateright_tpu/checker/base.py``:
 ``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
 ``visitor``, ``timeout``, ``autosave``, the telemetry options
 (``telemetry``, ``cartography``, ``memory_ledger``, ``report``, ``runs``)
-and the GPU engine's ``prededup`` (``mxu`` is accepted for parity and has
-no effect), and spawns the host
+and the GPU engine's ``prededup``, ``checked`` and ``spill`` (``mxu`` and
+``skip_audit`` are accepted for parity and have no effect), and spawns the
+host
 checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
 :meth:`CheckerBuilder.spawn_mp_bfs`), the GPU wavefront engine
 (:meth:`CheckerBuilder.spawn_gpu`) and the engine chosen by a bounded host
@@ -43,8 +44,12 @@ class CheckerBuilder:
         self.visitor_obj: Optional[CheckerVisitor] = None
         self.timeout_secs: Optional[float] = None
         self.autosave_opts: Optional[dict] = None
-        # the GPU engine's pre-dedup; None = the env knob decides
+        # the GPU engine's pre-dedup and spill tier; None = the env knob
+        # decides
         self.prededup_mode: Optional[bool] = None
+        self.spill_mode: Optional[bool] = None
+        # the GPU engine's checked execution mode
+        self.checked_mode = False
         # telemetry (telemetry/): None = off
         self.telemetry_opts: Optional[dict] = None
         self.report_path: Optional[str] = None
@@ -260,6 +265,50 @@ class CheckerBuilder:
         probe's two counts without a product (``probe``)."""
         return self
 
+    def checked(self, enabled: bool = True) -> "CheckerBuilder":
+        """Checked execution mode on the GPU engine, the sanitizer's
+        dynamic guard (``analysis/sanitizer.py``; JAX ``checker/base.py:
+        547-565``): the twin's ``property_masks`` and ``step_rows`` run
+        under a ``TorchDispatchMode`` that flags an out-of-range index, an
+        integer or float division by zero and a NaN on the device, clamps
+        the index (divides by 1) and runs the operation, so the step never
+        trips a CUDA device-side assert.  The block stops at the first
+        failing step, and the run raises a
+        :class:`~stateright_tpu_torch.analysis.CheckedExecutionError`
+        naming the offending row (its index in the replayed window, its
+        words, the decoded state).  A debugging mode: the guard adds
+        operations to every step; off (the default) the step dispatches
+        the same operations as before.  The host checkers ignore the flag
+        (Python raises eagerly there)."""
+        self.checked_mode = bool(enabled)
+        return self
+
+    def skip_audit(self) -> "CheckerBuilder":
+        """Accepted for parity with the JAX builder (``checker/base.py:
+        601``), without effect: the port has no spawn preflight audit to
+        skip until the ROADMAP item "the analysis stack" ports it."""
+        return self
+
+    def spill(self, enabled: bool = True) -> "CheckerBuilder":
+        """Arm the spill tier on the GPU engine (``spill/``; JAX
+        ``checker/base.py:457-484``): the visited set becomes a tiered
+        store, the device table as the hot tier, a host-RAM fingerprint
+        store behind a hash index, and an mmap'd disk tier behind that.
+        When the memory ledger's forecast says the next table rung's
+        growth does not fit the device's memory (``torch.cuda``'s, or
+        ``STATERIGHT_TPU_DEVICE_BYTES``), the engine evicts the hot table
+        to the host tier instead of growing it, and a device Bloom filter
+        over the spilled fingerprints defers only the candidates that may
+        have been spilled, to be resolved against the host index at the
+        next host sync.  Counts, verdicts and traces are the run's without
+        the tier; snapshots carry the host tiers, so a run resumes in the
+        middle of a spill.  Env override ``STATERIGHT_TPU_SPILL=1``.
+        ``spawn_gpu``'s ``spill_bloom_bits``, ``spill_dir`` and
+        ``spill_host_bytes`` (env ``STATERIGHT_TPU_HOST_BYTES``) size it.
+        The host checkers ignore the flag."""
+        self.spill_mode = bool(enabled)
+        return self
+
     # -- strategies ----------------------------------------------------------
 
     def spawn_bfs(self) -> "Checker":
@@ -368,6 +417,9 @@ class CheckerBuilder:
         device=None,
         resume: Optional[dict] = None,
         queue_capacity: Optional[int] = None,
+        spill_bloom_bits: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        spill_host_bytes: Optional[int] = None,
     ) -> "Checker":
         """Wavefront BFS on the GPU (``parallel/wavefront.py``).
 
@@ -375,13 +427,15 @@ class CheckerBuilder:
         never falls back to the CPU.  Tests pass ``device="cpu"``, which
         runs every kernel's plain PyTorch version.  ``resume`` takes a
         snapshot from either engine (``convert.py``); ``queue_capacity``
-        sets the queue's first high-water mark (JAX ``spawn_tpu``'s)."""
+        sets the queue's first high-water mark (JAX ``spawn_tpu``'s); the
+        ``spill_*`` knobs size the tier of :meth:`spill`."""
         from ..parallel.wavefront import GpuChecker
 
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
             steps_per_call=steps_per_call, device=device, resume=resume,
-            queue_capacity=queue_capacity,
+            queue_capacity=queue_capacity, spill_bloom_bits=spill_bloom_bits,
+            spill_dir=spill_dir, spill_host_bytes=spill_host_bytes,
         )
 
 

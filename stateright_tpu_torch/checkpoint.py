@@ -2,9 +2,9 @@
 
 The port's own copy of ``stateright_tpu/checkpoint.py:42-312``; its
 atomic npz and json writes are ``telemetry/_atomic.py``'s, the port's
-one write discipline.  Left out: the fault-injection seam
-(``testing/faults.py``, which comes with the service layers), the stub
-run report and the progress heartbeat.
+one write discipline.  Left out, for the ROADMAP item "fault injection
+and the supervisor": the fault-injection seam (``testing/faults.py``),
+the stub run report and the progress heartbeat.
 
 The GPU engine's whole run state is a host-serializable snapshot dict
 (``GpuChecker.checkpoint()``, ``convert.carry_to_snapshot``, in the JAX

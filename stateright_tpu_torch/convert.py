@@ -35,7 +35,7 @@ _NP_DTYPES = (
 _SIGNED = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
 
 
-def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+def signed_tensor(arr: np.ndarray, device) -> torch.Tensor:
     """A fresh tensor (never sharing the caller's memory: the engine
     updates its carry in place) holding ``arr``'s bits."""
     arr = np.array(arr, copy=True, order="C")
@@ -81,7 +81,7 @@ def carry_from_arrays(arrs: list, device,
     if qalloc is None:
         qalloc = arrs[QFP].shape[0]
     repad_queue(arrs, qalloc)
-    return [_tensor(a, device) for a in arrs]
+    return [signed_tensor(a, device) for a in arrs]
 
 
 def carry_from_snapshot(snap: dict, device, qalloc: Optional[int] = None):
@@ -107,6 +107,30 @@ def carry_to_snapshot(carry: list, cap: int, qcap: int, batch: int,
     if cart_depth_base is not None:
         snap["cart_depth_base"] = np.array(cart_depth_base, np.int64)
     return snap
+
+
+# the spill tier's pending buffers in a snapshot (JAX wavefront.py:1920-
+# 1932): key suffix and the JAX dtype of each
+PEND_KEYS = (("fp", np.uint64), ("rows", np.uint64), ("parent", np.uint64),
+             ("ebits", np.uint32), ("depth", np.uint32))
+
+
+def pend_to_snapshot(pend: list, n: int) -> dict:
+    """The first ``n`` entries of the spill tier's pending buffers (device
+    tensors in :data:`PEND_KEYS` order) as ``spill_pend_*`` snapshot
+    arrays in the JAX layout, copied off the device."""
+    return {f"spill_pend_{k}": t[:n].cpu().numpy().view(dt).copy()
+            for (k, dt), t in zip(PEND_KEYS, pend)}
+
+
+def pend_from_snapshot(snap: dict, cap: int) -> Optional[dict]:
+    """A snapshot's pending entries (at most ``cap``) as numpy arrays
+    under :data:`PEND_KEYS`'s names, or None when it holds none."""
+    if "spill_pend_fp" not in snap:
+        return None
+    n = min(int(np.asarray(snap["spill_pend_fp"]).shape[0]), cap)
+    return {k: np.asarray(snap[f"spill_pend_{k}"], dt)[:n]
+            for k, dt in PEND_KEYS}
 
 
 def cart_depth_base(snap: dict) -> Optional[np.ndarray]:

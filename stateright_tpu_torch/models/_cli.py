@@ -3,9 +3,10 @@
 The port's counterpart of the ``check``, ``check-tpu`` and ``check-auto``
 verbs of ``stateright_tpu/models/_cli.py``'s users: the same positional
 arguments, the ``--per-channel`` flag (``pop_perf``/``apply_encoding``
-there) and, on the GPU verbs, ``--prededup`` and ``--mxu``
-(``pop_perf``/``apply_perf`` there; :func:`pop_step_flags`,
-:func:`with_step_flags`; ``--mxu`` has no effect in the port).
+there) and, on the GPU verbs, ``--prededup``, ``--mxu``, ``--spill``
+(``pop_perf``/``apply_perf`` there) and ``--checked`` (``pop_checked``
+there; :func:`pop_step_flags`, :func:`with_step_flags`; ``--mxu`` has no
+effect in the port).
 :func:`check_main` is the one dispatcher: each model gives it a table
 from the verbs it offers to their banners and to one of the spawns here:
 :func:`host_bfs` and :func:`host_dfs` (on ``default_threads()``
@@ -26,8 +27,8 @@ verbs take ``--watch`` (a live status line, JAX ``_cli.py:230-370``).
 ``--device=cpu`` runs the GPU verbs and the telemetry verbs on the plain
 PyTorch path instead of the CUDA device, and ``--batch=N`` sets their
 rows per device step.  The other verbs and flags
-(``explore``, ``spawn``, ``--checked``, ``--por``, ``--spill``,
-``--prewarm``) come with the modules they drive.
+(``explore``, ``spawn``, ``--por``, ``--prewarm``) come with the modules
+they drive.  ``capacity --spill`` plans with the spill tier armed.
 """
 
 from __future__ import annotations
@@ -42,9 +43,10 @@ WATCH_FLAG = "--watch"
 # ``--name=value`` options: the device, and the telemetry verbs' own
 VALUE_OPTS = ("device", "batch", "out", "chrome", "registry", "expect")
 TELEMETRY_VERBS = ("profile", "report", "capacity", "compare")
-# the GPU engine's step-transform flags: builder method per flag (``mxu``
-# is accepted for parity with the JAX CLI and has no effect in the port)
-STEP_FLAGS = {"--prededup": "prededup", "--mxu": "mxu"}
+# the GPU engine's step flags: builder method per flag (``mxu`` is
+# accepted for parity with the JAX CLI and has no effect in the port)
+STEP_FLAGS = {"--prededup": "prededup", "--mxu": "mxu",
+              "--checked": "checked", "--spill": "spill"}
 
 
 def pop_per_channel(args: list) -> tuple:
@@ -298,7 +300,8 @@ def report_verb(model, opts: dict, flags=(), stream=None) -> str:
     return out
 
 
-def capacity_verb(model, opts: dict, stream=None, sym: bool = False) -> int:
+def capacity_verb(model, opts: dict, stream=None, sym: bool = False,
+                  spill: bool = False) -> int:
     """``capacity``: the memory ledger's capacity plan for the model's GPU
     run at the capacities ``spawn_gpu`` starts from, on the ``--batch=``
     of ``opts`` (``parallel/wavefront.default_caps``,
@@ -307,7 +310,10 @@ def capacity_verb(model, opts: dict, stream=None, sym: bool = False) -> int:
     (``STATERIGHT_TPU_DEVICE_BYTES`` overrides it; with neither, the
     analytic ladder alone).  ``sym`` plans the symmetric verb's buffers,
     the larger footprint, so the plan holds for every GPU verb of the
-    model.  Exit 1 without a twin."""
+    model.  ``spill`` (``capacity --spill``) plans with the spill tier
+    armed: its device buffers count, and past the largest affordable rung
+    the host tier's reach extends the headline (JAX ``_cli.py:738-770``).
+    Exit 1 without a twin."""
     from ..parallel.wavefront import default_caps, memory_spec_fn
     from ..telemetry.memory import capacity_plan, device_budget, fmt_bytes
 
@@ -320,11 +326,13 @@ def capacity_verb(model, opts: dict, stream=None, sym: bool = False) -> int:
     kw = gpu_kw(opts)
     device = kw.pop("device") or "cuda"
     cuda = device.startswith("cuda")
-    spec_fn = memory_spec_fn(tensor, len(model.properties()), sym=sym,
-                             cuda=cuda)
     caps = default_caps(**kw)
+    sp = ((1 << 23, 4 * caps["batch"] * tensor.max_actions) if spill
+          else None)
+    spec_fn = memory_spec_fn(tensor, len(model.properties()), sym=sym,
+                             cuda=cuda, spill=sp)
     budget, src = device_budget(device if cuda else "cpu")
-    plan = capacity_plan(spec_fn, caps, budget=budget)
+    plan = capacity_plan(spec_fn, caps, budget=budget, spill=spill)
     where = (f"device memory {fmt_bytes(budget)}, {src}" if budget
              else "no device memory known: the analytic footprint alone")
     print(f"capacity plan ({where}):", file=stream)
@@ -336,10 +344,19 @@ def capacity_verb(model, opts: dict, stream=None, sym: bool = False) -> int:
               f"{fmt_bytes(r['transient_bytes']):>9}  "
               f"{'-' if fits is None else ('yes' if fits else 'NO')}",
               file=stream)
-    if plan.get("max_unique") is not None:
+    block = plan.get("spill")
+    if block is not None:
+        print(f"with --spill the hot tier holds ~{block['hot_max_unique']:,} "
+              f"unique states and the host tier "
+              f"~{block.get('host_max_unique', 0):,} more "
+              f"({fmt_bytes(block['host_budget_bytes'])} at "
+              f"{block['bytes_per_spilled']} bytes a state), the disk tier "
+              "unbounded behind it", file=stream)
+    elif plan.get("max_unique") is not None:
         print(f"on this device the run reaches ~{plan['max_unique']:,} "
               "unique states (the largest rung whose growth transient "
-              "fits)", file=stream)
+              "fits)" + ("" if spill else "; extend past it with --spill"),
+              file=stream)
     return 0
 
 
@@ -397,7 +414,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
                verbs: dict[str, tuple[Callable, Callable]],
                max_args: int) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
-    [--per-channel] [--prededup] [--mxu] [--watch] [--device=cpu]``: build
+    [--per-channel] [--prededup] [--mxu] [--checked] [--spill] [--watch]
+    [--device=cpu]``: build
     the model from the positional arguments, print the verb's banner and
     check it.  ``verbs`` maps each verb the model offers to ``(banner,
     spawn)``: ``banner(args)`` is the line printed first, ``spawn(model)``
@@ -427,7 +445,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
         model = apply_encoding(build(rest), per_channel)
         if verb == "capacity":
             return capacity_verb(model, opts, sym=any(
-                sp is sym_gpu for _, sp in verbs.values()))
+                sp is sym_gpu for _, sp in verbs.values()),
+                spill="--spill" in flags)
         (profile_verb if verb == "profile" else report_verb)(
             model, opts, flags)
         return 0

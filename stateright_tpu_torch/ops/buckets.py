@@ -96,6 +96,25 @@ def window_unique(fps: torch.Tensor) -> torch.Tensor:
     return torch.where(keep, fps, EMPTY)
 
 
+def lane_compact(mask: torch.Tensor, width: int):
+    """Order-preserving lane compaction (JAX ``ops/buckets.py:105-123``):
+    ``(idx, live, count)`` such that ``x[idx]`` gathers the first
+    ``width`` True lanes of ``mask`` to the front, ``live`` flags the
+    output lanes that are real, and ``count`` is the 0-d number of True
+    lanes.  A cumsum and a binary search per output lane, the budget
+    compaction's idiom: nothing reads the count on the host (no
+    ``nonzero``, no ``masked_select``).  Dead lanes' ``idx`` is clamped
+    to ``m - 1``, so a gather through it stays in range."""
+    m = mask.shape[0]
+    dev = mask.device
+    csum = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32)
+    count = csum[m - 1]
+    want = torch.arange(1, width + 1, dtype=torch.int32, device=dev)
+    idx = torch.searchsorted(csum, want, side="left").clamp_(max=m - 1)
+    live = torch.arange(width, device=dev) < count
+    return idx, live, count
+
+
 def bucket_probe_plain(tfp, sfp, bucket):
     """Membership and occupancy of each candidate's bucket line:
     ``present = any(line == fp)``, ``base = count(line != EMPTY)``; EMPTY

@@ -146,7 +146,7 @@ def trim_hist(values) -> list:
 def shard_imbalance(loads) -> dict:
     """Imbalance summary over per-shard table loads: max/mean plus their
     ratio (1.0 = perfectly balanced).  Kept for the snapshot schema; its
-    producer is the sharded engine (ROADMAP Queue 1 item 14)."""
+    producer is the sharded engine (the ROADMAP item "multi-GPU")."""
     arr = np.asarray(loads, dtype=np.float64).reshape(-1)
     if arr.size == 0:
         return {"max": 0, "mean": 0.0, "ratio": 1.0}

@@ -3,7 +3,8 @@
 The port's counterpart of ``stateright_tpu/parallel/_base.py``
 (``WavefrontChecker``), cut to the single-device engine: resolve the
 model's tensor twin (and, under ``symmetry()``, check that it has a
-vectorized canonicalizer), resolve ``prededup()`` against its env knob,
+vectorized canonicalizer), resolve ``prededup()`` and ``spill()`` against
+their env knobs and arm the spill tier, take ``checked()``,
 check that host and device fingerprints agree,
 run the engine on a background thread (exceptions re-raise at
 :meth:`join`), honour the builder's ``timeout`` and :meth:`stop` with a
@@ -51,6 +52,7 @@ from ..ops.hashing import row_hash
 from ..telemetry.spans import span, start_span
 
 ENV_PREDEDUP = "STATERIGHT_TPU_PREDEDUP"
+ENV_SPILL = "STATERIGHT_TPU_SPILL"
 
 
 def resolve_flag(mode: Optional[bool], env: str) -> bool:
@@ -103,6 +105,13 @@ class WavefrontChecker(Checker):
         self._target = options.target_state_count
         # JAX ``parallel/_base.py:100-108``: the builder wins over the env
         self._prededup = resolve_flag(options.prededup_mode, ENV_PREDEDUP)
+        # checked mode (the sanitizer's dynamic guard) and the spill tier
+        # (JAX ``parallel/_base.py:145-170``), both resolved before the
+        # memory ledger, whose buffers they add to
+        self._checked = bool(options.checked_mode)
+        self._spill = resolve_flag(options.spill_mode, ENV_SPILL)
+        if self._spill:
+            self._init_spill()
         self._verify_fingerprint_bridge()
         self._results: Optional[dict] = None
         self._live = (0, 0, 0)  # states, unique, maxdepth at the last sync
@@ -156,6 +165,10 @@ class WavefrontChecker(Checker):
         self._run_dir = options.run_dir
         self._run_span_ctx = None
         self.flight_recorder = options._make_recorder(self._telemetry_tag)
+        if self._spill and self.flight_recorder is not None:
+            # the health model's growth_oom_risk becomes the informational
+            # spill forecast: the run will evict, not fail
+            self.flight_recorder.set_spill_armed(True)
         self._mem_ledger = None
         if self.flight_recorder is not None and opts.get("memory"):
             from ..telemetry.memory import MemoryLedger
@@ -302,6 +315,9 @@ class WavefrontChecker(Checker):
     def _run(self) -> None:  # engine-specific
         raise NotImplementedError
 
+    def _init_spill(self) -> None:  # engine-specific
+        raise NotImplementedError
+
     def _pre_run_validate(self) -> None:  # engine-specific, optional
         pass
 
@@ -348,12 +364,18 @@ class WavefrontChecker(Checker):
         rid = snap.get("run_id")
         if rid is not None and self.parent_run_id is None:
             self.parent_run_id = str(np.asarray(rid).item())
-        for key in ("spill_base", "spill_fp", "spill_q_fp", "spill_pend_fp"):
-            if key in snap and (key != "spill_base" or int(snap[key]) > 0):
-                raise ValueError(
-                    "resume snapshot carries spill-tier contents, which the "
-                    "port does not support yet"
-                )
+        if not self._spill and (
+                int(snap.get("spill_base", 0) or 0) > 0
+                or any(k in snap for k in ("spill_fp", "spill_q_fp",
+                                           "spill_pend_fp"))):
+            # part of the visited set lives in the snapshot's host tier:
+            # resuming without the tier would count every spilled state
+            # as fresh (JAX parallel/_base.py:548-561)
+            raise ValueError(
+                "resume snapshot carries spill-tier contents (host/disk "
+                "visited overflow); resume with CheckerBuilder.spill() / "
+                "--spill / STATERIGHT_TPU_SPILL=1"
+            )
         from ..telemetry.memory import snapshot_fits_guard
 
         snapshot_fits_guard(snap, f"resume({type(self.model).__name__})")

@@ -1,10 +1,11 @@
 """The GPU wavefront BFS engine — ``spawn_gpu()``.
 
 The port's counterpart of ``stateright_tpu/parallel/wavefront.py``
-(``_build_engine`` and ``TpuChecker``), single device, with symmetry
-reduction, intra-window pre-dedup (``.prededup()``) and search
-cartography (``.cartography()``); no POR, spill, checked mode or
-prewarm.  The engine keeps a device-resident FIFO queue of state rows and
+(``_build_engine``, ``_build_inject`` and ``TpuChecker``), single device,
+with symmetry reduction, intra-window pre-dedup (``.prededup()``), search
+cartography (``.cartography()``), checked mode (``.checked()``) and the
+spill tier (``.spill()``); no POR or prewarm.  The engine keeps a
+device-resident FIFO queue of state rows and
 a bucketized visited table (``ops/buckets.py``), and each step pops a
 batch and
 
@@ -67,7 +68,7 @@ and resumes exactly where the device stopped.  A run with the same
 capacities leaves the same table bytes as the JAX engine's.
 
 **Cartography** (``.cartography()``, JAX wavefront.py:633-649, :735-745):
-three counters ride the carry after its 13 snapshot buffers (the
+three counters ride the carry's tail (the
 per-action successor histogram, property evaluations and property hits),
 updated each step with the state count's replay rule (an overflowed batch
 counts nothing), and the queue-derived depth histogram joins them in the
@@ -76,6 +77,34 @@ is still one copy.  Growth reclaims the popped queue prefix on the host:
 its depth lanes are banked first (``_bank_depth_lanes``), and the bank
 travels in snapshots as ``cart_depth_base``.  With the flag off the step
 issues none of these operations.
+
+**The carry's optional tail** (:class:`CarryLayout`, JAX wavefront.py:
+300-306) follows its 13 snapshot buffers: the checked error word, the
+spill tail, the cartography counters, each only under its flag.
+
+**Checked mode** (``.checked()``, JAX wavefront.py:426-458, :690-710):
+the twin's ``property_masks`` and ``step_rows`` run under the guard of
+``analysis/sanitizer.py`` on rows whose dead lanes hold the first init
+row; the flag is ORed into the carry's error word, ``go`` takes ``&
+~err``, so the steps after a failure are no-ops, and the word rides the
+block's stats read.  The host loop then replays the failing window one
+row at a time and raises ``CheckedExecutionError``.
+
+**The spill tier** (``.spill()``, ``spill/``, JAX wavefront.py:498-511,
+:575-607, :652-678, :904-965, :1211-1685): at a growth whose next table
+rung does not fit the device budget (``telemetry/memory.device_budget``,
+this engine's own analytic buffers and growth transient), the host
+evicts the hot table to the spill store and folds its fingerprints into
+a Bloom filter the step reads; the step hashes its candidates once more
+(``row_hash``, sharing the pre-dedup's launch), defers the lanes the
+filter may hold to a pending buffer (``_Engine._defer``), and stops the
+block (``spill_sync``) before the buffer can overflow; the table trigger
+reads hot occupancy.  At the next sync the host resolves the pending
+lanes against the store and inserts the novel ones through
+:meth:`_Engine.inject` (``sort_candidates``, ``bucket_plan``,
+``insert_commit``); a queue doubling the budget blocks moves the queue's
+tail to a host FIFO, refilled as the queue drains.  Snapshots carry every
+tier.
 
 **Telemetry** (``.telemetry()``, JAX wavefront.py:2159-2473): the host loop
 records one ``step`` per block from the stats it already read, ``growth``
@@ -95,7 +124,7 @@ with the uninterrupted run's table bytes and queue rows.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,15 +138,16 @@ from ..core import Expectation
 from ..ops import _cuda
 from ..ops.buckets import (
     SLOTS, PlanBuffers, bucket_insert, bucket_plan, host_bucket_rehash,
-    window_unique,
+    lane_compact, sort_candidates, window_unique,
 )
 from ..ops.cand_prep import PrepBuffers, cand_prep, sort_prepared
 from ..ops.cartography import (
     DEPTH_BINS, action_hist_delta, cart_carry_shapes, prop_tally_delta,
     queue_depth_hist, queue_depth_hist_exact, queue_depth_hist_np, snapshot,
 )
-from ..ops.hashing import EMPTY, row_hash
+from ..ops.hashing import EMPTY, EMPTY_U64, row_hash
 from ..ops.insert_commit import QueueAppend, insert_commit
+from ..spill.bloom import bloom_test
 from ..telemetry.spans import span as tel_span
 from ._base import WavefrontChecker
 
@@ -126,6 +156,8 @@ _STATUS_QUEUE_FULL = 1
 _STATUS_TABLE_FULL = 2
 _STATUS_CAND_FULL = 3  # valid candidates exceeded the compaction budget
 _STATUS_POISON = 4  # a compiled-twin transition crossed its compile bound
+_STATUS_SPILL_SYNC = 5  # spill tier: the pending buffer is near full, the
+#                         host must resolve it against the host index
 
 # growth-record names for the flight recorder (telemetry.STATUS_NAMES)
 _STATUS_TELEMETRY_NAMES = {
@@ -134,15 +166,48 @@ _STATUS_TELEMETRY_NAMES = {
     _STATUS_TABLE_FULL: "table_full",
     _STATUS_CAND_FULL: "cand_full",
     _STATUS_POISON: "poison",
+    _STATUS_SPILL_SYNC: "spill_sync",
 }
 
 # Packed stats layout: [head, tail, unique, scount, maxdepth, status, disc...]
-# and, under cartography, [depth_hist, action_hist, prop_evals, prop_hits]
+# then, each only when its flag is on, the checked error word, the spill
+# section [pend_count, spill_base, deferred, on_device] and the
+# cartography section [depth_hist, action_hist, prop_evals, prop_hits]
 _ST_STATUS = 5
 _ST_DISC = 6
 _STATS_CARRY_ORDER = (HEAD, TAIL, UNIQUE, SCOUNT, MAXDEPTH, STATUS)
-# the cartography counters ride the carry after its snapshot buffers
-CART = len(convert.SNAPSHOT_KEYS)
+_SPILL_STATS_SECTION = 4
+# the carry's 13 snapshot buffers; the optional tail follows them
+BASE = len(convert.SNAPSHOT_KEYS)
+# the spill tail (JAX wavefront.py:119-131), offsets from its start: the
+# Bloom words over the spilled fingerprints, the spill base (unique states
+# off the device), the pending buffers of Bloom-positive candidates
+# deferred to the host, the pending count and the deferred/on-device tally
+_SPILL_LEN = 9
+(_SP_BLOOM, _SP_BASE, _SP_PFP, _SP_PROWS, _SP_PPAR, _SP_PEBT, _SP_PDEP,
+ _SP_PCOUNT, _SP_STATS) = range(_SPILL_LEN)
+
+
+class CarryLayout(NamedTuple):
+    """Which optional parts ride the carry after its :data:`BASE`
+    snapshot buffers, in the JAX order (wavefront.py:300-306): the checked
+    error word, the spill tail, the cartography counters."""
+
+    checked: bool = False
+    spill: bool = False
+    cart: bool = False
+
+    @property
+    def err(self) -> int:
+        return BASE
+
+    @property
+    def spill_start(self) -> int:
+        return BASE + int(self.checked)
+
+    @property
+    def cart_start(self) -> int:
+        return self.spill_start + (_SPILL_LEN if self.spill else 0)
 
 
 def _pow2(n: int) -> int:
@@ -169,10 +234,12 @@ def default_caps(capacity: int = DEFAULT_CAPACITY, batch: int = DEFAULT_BATCH,
 
 
 def memory_spec_fn(tensor, n_props: int, *, cartography: bool = False,
-                   sym: bool = False, cuda: bool = True):
+                   sym: bool = False, cuda: bool = True, checked: bool = False,
+                   spill: Optional[tuple] = None):
     """``caps -> [BufferSpec]``: the memory ledger's analytic buffers of a
     run of ``tensor`` at the capacities ``caps`` (``telemetry/memory.
-    wavefront_specs``)."""
+    wavefront_specs``); ``spill`` is the tier's ``(bloom_bits,
+    pend_cap)`` when it is armed."""
     from ..telemetry.memory import wavefront_specs
 
     width, arity = tensor.width, tensor.max_actions
@@ -181,7 +248,7 @@ def memory_spec_fn(tensor, n_props: int, *, cartography: bool = False,
         return wavefront_specs(
             width, arity, n_props, int(caps["cap"]), int(caps["qcap"]),
             int(caps["batch"]), int(caps["cand"]), cartography=cartography,
-            sym=sym, cuda=cuda,
+            sym=sym, cuda=cuda, checked=checked, spill=spill,
         )
 
     return spec_fn
@@ -193,18 +260,26 @@ def _i32(x: int) -> int:
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
-def stats_of(carry: list, exact: bool = False) -> torch.Tensor:
+def stats_of(carry: list, layout: CarryLayout,
+             exact: bool = False) -> torch.Tensor:
     """Every scalar the host loop reads, packed into one int64 tensor, so
-    a host sync is a single device-to-host copy.  A carry with the
-    cartography counters (past :data:`CART`) appends the queue-derived
-    depth histogram and the counters (JAX ``stats_of``'s layout);
+    a host sync is a single device-to-host copy.  ``layout`` says which
+    optional sections the carry holds: the checked error word, the spill
+    section (JAX ``stats_of``'s, wavefront.py:726-734) and the
+    queue-derived depth histogram with the cartography counters;
     ``exact`` takes the exact histogram the JAX engine's host-side stats
     give after a growth or a resume (``ops/cartography.py``)."""
     parts = [torch.stack([carry[i] for i in _STATS_CARRY_ORDER]), carry[DISC]]
-    if len(carry) > CART:
+    if layout.checked:
+        parts.append(carry[layout.err].to(torch.int64).reshape(1))
+    if layout.spill:
+        sp = layout.spill_start
+        parts.append(torch.stack([carry[sp + _SP_PCOUNT], carry[sp + _SP_BASE]]))
+        parts.append(carry[sp + _SP_STATS])
+    if layout.cart:
         hist = queue_depth_hist_exact if exact else queue_depth_hist
         parts.append(hist(carry[QDEPTH], carry[TAIL]))
-        parts += carry[CART:]
+        parts += carry[layout.cart_start:]
     return torch.cat(parts)
 
 
@@ -215,14 +290,18 @@ def zero_counters(arity: int, n_props: int, device) -> list:
             for s in cart_carry_shapes(arity, n_props)]
 
 
-def stats_host(carry_np: list, counters: np.ndarray) -> np.ndarray:
+def stats_host(carry_np: list, mid: np.ndarray,
+               counters: np.ndarray) -> np.ndarray:
     """:func:`stats_of` of a numpy carry (the JAX engine's ``_stats_np``):
     the sync that follows a growth reads the carry the host just grew, not
-    the device.  ``counters`` is the cartography counter section (empty
+    the device.  ``mid`` is the section between the discoveries and the
+    cartography section (the checked error word; a spill run re-reads the
+    device instead), ``counters`` the cartography counter section (empty
     when the counters are off)."""
     vals = [int(np.asarray(carry_np[i])) for i in _STATS_CARRY_ORDER]
     parts = [np.asarray(vals, np.int64),
              np.asarray(carry_np[DISC]).view(np.int64).reshape(-1)]
+    parts.append(np.asarray(mid, np.int64))
     if counters.size:
         parts.append(queue_depth_hist_np(carry_np[QDEPTH],
                                          int(carry_np[TAIL])))
@@ -232,24 +311,28 @@ def stats_host(carry_np: list, counters: np.ndarray) -> np.ndarray:
 
 class _Engine:
     """The device program for fixed capacities: :meth:`init` builds the
-    initial carry, :meth:`run` advances it by up to ``steps`` steps."""
+    initial carry, :meth:`run` advances it by up to ``steps`` steps, and
+    under ``.spill()`` :meth:`inject` inserts a host-verified batch."""
 
     def __init__(self, tensor, props, cap: int, qcap: int, batch: int,
                  steps: int, target: Optional[int], cand: Optional[int],
                  device, sym: bool = False, prededup: bool = False,
                  removed: Optional[torch.Tensor] = None,
-                 cartography: bool = False):
+                 cartography: bool = False, checked: bool = False,
+                 spill: Optional[tuple] = None):
         self.tensor, self.props = tensor, props
         self.cap, self.qcap, self.batch, self.steps = cap, qcap, batch, steps
         self.target, self.device, self.sym = target, device, sym
-        self.cart = cartography
-        self.key = (cap, qcap, batch, cand, sym, cartography)
+        self.cart, self.checked, self.spill = cartography, checked, spill
+        self.layout = CarryLayout(checked, spill is not None, cartography)
+        self.key = (cap, qcap, batch, cand, sym, cartography, checked, spill)
         self.width, self.arity = tensor.width, tensor.max_actions
         self.m = batch * self.arity
         self.eff_cand = min(cand, self.m) if cand else self.m
         # the queue over-allocates one batch's candidates past the
-        # high-water mark
-        self.qalloc = qcap + self.m
+        # high-water mark, or the inject's pend_cap rows when it is wider
+        # (JAX wavefront.py:272-277)
+        self.qalloc = qcap + (max(spill[1], self.m) if spill else self.m)
         self.prededup = prededup
         # under prededup, a device count of the lanes it took out
         self.removed = removed
@@ -267,13 +350,30 @@ class _Engine:
         self.boundary_fn = (tensor.boundary_rows
                             if getattr(tensor, "has_boundary", False) else None)
         self.poison_fn = getattr(tensor, "poison_rows", None)
+        if checked:
+            from ..analysis.sanitizer import checked_kernels
+
+            # the guarded model kernels, and the known-good row that stands
+            # in for the dead lanes (JAX wavefront.py:436-446)
+            self.kernels = checked_kernels(tensor)
+            init_np = np.asarray(tensor.init_rows(), np.uint64)[0]
+            self.init_row = torch.from_numpy(
+                init_np.view(np.int64).copy()).to(device)
+        if spill:
+            self.spill_bits, self.pend_cap = spill
+            self.palloc = self.pend_cap + self.m
+            # a step's pending window, added to the pending cursor
+            self.pend_lanes = torch.arange(self.m, device=device)
         # the insert's own buffers (validated here, so the step launches
-        # unchecked) and the stream its kernels go to
-        self.prep_out = self.plan_out = self.stream = None
+        # unchecked) and the stream its kernels go to; under spill also
+        # the inject's plan buffers
+        self.prep_out = self.plan_out = self.stream = self.inject_out = None
         if self.device.type == "cuda":
             self.prep_out = PrepBuffers(self.m, self.eff_cand, self.device)
             self.plan_out = PlanBuffers(self.eff_cand, self.device, sym)
             self.stream = _cuda.stream_of(self.plan_out.tgt)
+            if spill:
+                self.inject_out = PlanBuffers(self.pend_cap, self.device, sym)
 
     # -- step pieces ---------------------------------------------------------
 
@@ -321,6 +421,9 @@ class _Engine:
         go = (status == _STATUS_OK) & (tail > head) & ~self.all_discovered(disc)
         if self.target is not None:
             go &= unique < self.target
+        if self.checked:
+            # a failed check stops the block: the host raises from it
+            go &= ~c[self.layout.err]
         n_avail = torch.where(go, tail - head, 0)
         pos = (head + self.lanes).clamp_(max=self.qalloc - 1)
         rows = c[QROWS][pos]
@@ -329,7 +432,16 @@ class _Engine:
         depths = c[QDEPTH][pos]
         live = self.lanes < n_avail
 
-        masks = self.tensor.property_masks(rows)  # [B, P] bool
+        if self.checked:
+            # both model kernels under the guard, the flag sticky in the
+            # carry; dead lanes hold queue padding the guard would check,
+            # so the first init row stands in for them (their outputs are
+            # discarded by the live mask below)
+            safe = torch.where(live[:, None], rows, self.init_row)
+            err, (masks, succ, valid) = self.kernels(safe, c[self.layout.err])
+            c[self.layout.err] = err
+        else:
+            masks = self.tensor.property_masks(rows)  # [B, P] bool
         ebits, disc = self.eval_props(masks, fps, live, ebits, disc)
         maxdepth = torch.maximum(
             c[MAXDEPTH], torch.where(live, depths, 0).max().to(torch.int64)
@@ -337,7 +449,8 @@ class _Engine:
         # mid-run early exit: stop expanding once every property has a
         # discovery (reference ``bfs.rs:121-128``)
         elive = live & ~self.all_discovered(disc)
-        succ, valid = self.tensor.step_rows(rows)  # [B, A, W], [B, A]
+        if not self.checked:
+            succ, valid = self.tensor.step_rows(rows)  # [B, A, W], [B, A]
         if self.boundary_fn is not None:
             # mirror the host checkers: out-of-boundary successors are
             # neither counted nor enqueued, and a state whose successors
@@ -353,15 +466,30 @@ class _Engine:
         krows = (self.tensor.representative_rows(succ).reshape(m, -1)
                  .contiguous() if self.sym else cand_rows)
         cvalid = kept = valid.reshape(m)
-        if self.prededup:  # only each fingerprint's first lane goes on
-            kept = window_unique(row_hash(krows, cvalid)) != EMPTY
+        if self.prededup or self.spill:
+            # the successors' fingerprints before the budget compaction
+            # (one launch serves both flags)
+            fph = row_hash(krows, cvalid)
+            if self.prededup:  # only each fingerprint's first lane goes on
+                fph = window_unique(fph)
+            kept = fph != EMPTY
+            if self.spill:
+                # Bloom pre-filter (JAX wavefront.py:498-511): a candidate
+                # that may be spilled leaves the device insert for the
+                # pending buffer; before the first eviction the filter is
+                # all-zero and nothing defers
+                maybe = kept & bloom_test(c[self.layout.spill_start
+                                            + _SP_BLOOM], fph,
+                                          self.spill_bits)
+                kept = kept & ~maybe
         # the engine built every input itself: the kernels run unchecked
         pfp, ppl, cidx, key, n_valid, coverflow = cand_prep(
             krows, kept, fps, arity, self.eff_cand,
             self.prep_out, check=False, stream=self.stream,
         )
-        # the state count adds every generated state, repeats included
-        n_gen = cvalid.sum() if self.prededup else n_valid
+        # the state count adds every generated state, repeats and deferred
+        # candidates included
+        n_gen = cvalid.sum() if (self.prededup or self.spill) else n_valid
         sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
                                                 self.cap // SLOTS)
         tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
@@ -382,24 +510,41 @@ class _Engine:
         tail = tail + n_new
         unique = unique + n_new
         scount = torch.where(overflow, c[SCOUNT], c[SCOUNT] + n_gen)
+        if self.spill:
+            n_def = self._defer(c, maybe, fph, cand_rows, fps, ebits, depths,
+                                cvalid, overflow)
         if self.prededup:
-            self.removed.add_(torch.where(overflow, 0, n_gen - n_valid))
+            removed = n_gen - n_valid
+            if self.spill:  # the deferred lanes were not taken out
+                removed = removed - n_def
+            self.removed.add_(torch.where(overflow, 0, removed))
         if self.cart:
             # the state count's replay rule: an overflowed batch counts
             # nothing (the depth histogram reads the queue, which an
             # overflowed insert did not append to)
             d_evals, d_hits = prop_tally_delta(live, masks, len(self.props))
+            cs = self.layout.cart_start
             for i, d in enumerate((action_hist_delta(valid), d_evals, d_hits)):
-                c[CART + i] = c[CART + i] + torch.where(overflow, 0, d)
-        # clean-boundary growth triggers (table target load <= 25%)
+                c[cs + i] = c[cs + i] + torch.where(overflow, 0, d)
+        # clean-boundary growth triggers (table target load <= 25%); under
+        # spill the trigger reads HOT occupancy (JAX wavefront.py:652-660)
+        hot = (unique - c[self.layout.spill_start + _SP_BASE] if self.spill
+               else unique)
         new_status = torch.where(
-            toverflow | (unique * 4 > self.cap) | (self.eff_cand * 4 > self.cap),
+            toverflow | (hot * 4 > self.cap) | (self.eff_cand * 4 > self.cap),
             _STATUS_TABLE_FULL,
             torch.where(
                 coverflow, _STATUS_CAND_FULL,
                 torch.where(tail > self.qcap, _STATUS_QUEUE_FULL, status),
             ),
         )
+        if self.spill:
+            # the pending buffer cannot take another window: stop at this
+            # clean boundary so the host resolves it; a growth status wins
+            pcount = c[self.layout.spill_start + _SP_PCOUNT]
+            new_status = torch.where(
+                (new_status == _STATUS_OK) & (pcount + m > self.pend_cap),
+                _STATUS_SPILL_SYNC, new_status)
         if self.poison_fn is not None:
             # a poisoned popped row means a reachable transition crossed a
             # compile-time bound: counts would be silently wrong, and
@@ -411,6 +556,31 @@ class _Engine:
         c[DISC], c[MAXDEPTH], c[STATUS] = disc, maxdepth, status
         return c
 
+    def _defer(self, c, maybe, fph, cand_rows, fps, ebits, depths, cvalid,
+               overflow):
+        """Append the deferred lanes, compacted in lane order, at the
+        pending cursor (JAX wavefront.py:575-607), and count the spill
+        tallies.  The writes run even on an overflowed batch; the cursor
+        and the tallies then stay, so the replay overwrites the same
+        window.  Returns the 0-d count of deferred lanes."""
+        sp = self.layout.spill_start
+        pcount = c[sp + _SP_PCOUNT]
+        didx, dlive, n_def = lane_compact(maybe, self.m)
+        n_def = n_def.to(torch.int64)
+        parent = torch.div(didx, self.arity, rounding_mode="floor")
+        dst = pcount + self.pend_lanes
+        c[sp + _SP_PFP].index_copy_(
+            0, dst, torch.where(dlive, fph.index_select(0, didx), EMPTY))
+        c[sp + _SP_PROWS].index_copy_(0, dst, cand_rows.index_select(0, didx))
+        c[sp + _SP_PPAR].index_copy_(0, dst, fps.index_select(0, parent))
+        c[sp + _SP_PEBT].index_copy_(0, dst, ebits.index_select(0, parent))
+        c[sp + _SP_PDEP].index_copy_(0, dst, depths.index_select(0, parent)
+                                     + 1)
+        c[sp + _SP_PCOUNT] = pcount + torch.where(overflow, 0, n_def)
+        d_sp = torch.stack([n_def, cvalid.sum() - n_def])
+        c[sp + _SP_STATS] = c[sp + _SP_STATS] + torch.where(overflow, 0, d_sp)
+        return n_def
+
     # -- programs ------------------------------------------------------------
 
     def run(self, carry: list):
@@ -419,7 +589,7 @@ class _Engine:
         carry = list(carry)
         for _ in range(self.steps):
             carry = self.step(carry)
-        return carry, stats_of(carry)
+        return carry, stats_of(carry, self.layout)
 
     def init(self):
         dev, cap, qalloc = self.device, self.cap, self.qalloc
@@ -457,9 +627,85 @@ class _Engine:
             torch.zeros((max(len(self.props), 1),), **i64),
             zero.clone(), status,
         ]
+        if self.checked:
+            carry.append(torch.zeros((), dtype=torch.bool, device=dev))
+        if self.spill:
+            # an all-zero filter (nothing spilled, nothing defers), empty
+            # pending buffers, spill base 0
+            carry += spill_tail(self.spill_bits, self.palloc, self.width,
+                                dev)
         if self.cart:
             carry += zero_counters(self.arity, len(self.props), dev)
-        return carry, stats_of(carry)
+        return carry, stats_of(carry, self.layout)
+
+    def inject(self, carry: list, ifp, irows, ipar, iebt, ipdep) -> tuple:
+        """Insert one host-verified batch of ``pend_cap`` lanes into the
+        hot table and the queue, in place (JAX ``_build_inject``,
+        wavefront.py:904-965): fingerprints ``ifp`` as given (EMPTY on dead
+        lanes; never rehashed, since under symmetry a fingerprint is the
+        canonical row's), rows ``irows``, parents ``ipar``, ebits
+        ``iebt`` and parent depths ``ipdep``.  The insert is the step's:
+        the stable key sort, ``bucket_plan`` (generation order under
+        symmetry) and ``insert_commit`` with the queue append, so a Bloom
+        false positive that is hot-resident drops out as a duplicate.  It
+        bumps ``unique`` and ``tail``, clears ``spill_sync`` and the
+        pending count, and sets the growth statuses the step would; on a
+        table overflow nothing is written.  Returns ``(carry, io)``,
+        ``io`` the 0-d count inserted and the overflow flag, packed."""
+        c = list(carry)
+        sp = self.layout.spill_start
+        tail = c[TAIL]
+        sfp, spl, bucket, order, cidx, cov = sort_candidates(
+            ifp, ipar, self.cap // SLOTS)
+        tgt, cfp, cpl, sel, n_new, tovf = bucket_plan(
+            c[TFP], sfp, spl, bucket, order, cidx, cov, self.inject_out,
+            generation_order=self.sym, stream=self.stream,
+        )
+        insert_commit(
+            c[TFP], c[TPL], tgt, cfp, cpl, n_new,
+            QueueAppend(c[QROWS], c[QFP], c[QEBITS], c[QDEPTH], tail, sel,
+                        irows, iebt, ipdep, 1),
+            stream=self.stream,
+        )
+        tail = tail + n_new
+        unique = c[UNIQUE] + n_new
+        status = c[STATUS]
+        status = torch.where(status == _STATUS_SPILL_SYNC, _STATUS_OK, status)
+        status = torch.where(
+            tovf | ((unique - c[sp + _SP_BASE]) * 4 > self.cap),
+            _STATUS_TABLE_FULL,
+            torch.where(tail > self.qcap, _STATUS_QUEUE_FULL, status),
+        )
+        c[TAIL], c[UNIQUE], c[STATUS] = tail, unique, status
+        c[sp + _SP_PCOUNT] = torch.zeros_like(c[sp + _SP_PCOUNT])
+        return c, torch.stack([n_new, tovf.to(torch.int64)])
+
+
+def spill_tail(bits: int, palloc: int, width: int, device,
+               bloom: Optional[np.ndarray] = None, base: int = 0,
+               pend: Optional[dict] = None) -> list:
+    """The spill tail of the carry (JAX wavefront.py:813-826): the Bloom
+    words (``bloom``, a ``uint32`` host mirror, or zeros), the spill base,
+    the pending buffers of ``palloc`` lanes holding ``pend``'s entries
+    (``spill_pend_*`` snapshot arrays, or none), the pending count and the
+    zeroed tallies."""
+    i64 = dict(dtype=torch.int64, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    words = convert.signed_tensor(
+        np.zeros(bits // 32, np.uint32) if bloom is None else bloom, device)
+    pfp = torch.full((palloc,), EMPTY, **i64)
+    prows = torch.zeros((palloc, width), **i64)
+    ppar = torch.zeros((palloc,), **i64)
+    pebt = torch.zeros((palloc,), **i32)
+    pdep = torch.zeros((palloc,), **i32)
+    pn = 0
+    if pend:
+        pn = int(pend["fp"].shape[0])
+        for t, k in ((pfp, "fp"), (prows, "rows"), (ppar, "parent"),
+                     (pebt, "ebits"), (pdep, "depth")):
+            t[:pn] = convert.signed_tensor(pend[k], device)
+    return [words, torch.tensor(base, **i64), pfp, prows, ppar, pebt, pdep,
+            torch.tensor(pn, **i64), torch.zeros((2,), **i64)]
 
 
 class GpuChecker(WavefrontChecker):
@@ -473,6 +719,11 @@ class GpuChecker(WavefrontChecker):
     on demand).  ``steps_per_call`` — device steps per host sync.
     ``device`` — ``None`` means ``cuda``, and raises when there is no CUDA
     device.  ``resume`` — a snapshot (``convert.py``) to continue from.
+    ``spill_bloom_bits``, ``spill_dir``, ``spill_host_bytes`` — the spill
+    tier's Bloom width (default ``STATERIGHT_TPU_SPILL_BLOOM_BITS``, else
+    2^23), disk-tier directory and host-tier budget (default
+    ``STATERIGHT_TPU_HOST_BYTES``, else half the host's RAM), used under
+    ``.spill()``.
     """
 
     # the engine's name in telemetry, reports and the run registry (the
@@ -484,7 +735,10 @@ class GpuChecker(WavefrontChecker):
                  batch: int = DEFAULT_BATCH,
                  cand: Optional[int] = None, steps_per_call: int = 64,
                  device=None, resume: Optional[dict] = None,
-                 queue_capacity: Optional[int] = None):
+                 queue_capacity: Optional[int] = None,
+                 spill_bloom_bits: Optional[int] = None,
+                 spill_dir: Optional[str] = None,
+                 spill_host_bytes: Optional[int] = None):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -501,6 +755,10 @@ class GpuChecker(WavefrontChecker):
         self._batch, self._cand = caps["batch"], caps["cand"]
         self._steps = steps_per_call
         self._resume = resume
+        # the spill tier's knobs, read by _init_spill when .spill() is on
+        self._spill_bloom_bits = spill_bloom_bits
+        self._spill_dir = spill_dir
+        self._spill_host_bytes = spill_host_bytes
         # (status, unique-at-boundary) per mid-run growth event, and the
         # host seconds each took (device sync, host rehash and copies)
         self.growth_events: list = []
@@ -512,6 +770,9 @@ class GpuChecker(WavefrontChecker):
         # are the caller's and are never reset here)
         self.growth_memory: list = []
         self.steps_run = 0  # device steps issued, post-stop no-ops included
+        # under spill: inject calls, and the kernel launches they made
+        self.inject_calls = 0
+        self.inject_launches = {"bucket_plan": 0, "insert_commit": 0}
         self._final_carry = None
         self._last_engine: Optional[_Engine] = None
         # under prededup, the lanes it took out since this process started
@@ -519,19 +780,27 @@ class GpuChecker(WavefrontChecker):
                                     device=self.device)
         self._init_common(options)
 
+    @property
+    def _layout(self) -> CarryLayout:
+        return CarryLayout(self._checked, self._spill, self._cartography)
+
     def _engine(self, cap, qcap, batch, cand) -> _Engine:
         return _Engine(self.tensor, self._props, cap, qcap, batch,
                        self._steps, self._target, cand, self.device,
                        sym=self._symmetry is not None,
                        prededup=self._prededup, removed=self._removed,
-                       cartography=self._cartography)
+                       cartography=self._cartography, checked=self._checked,
+                       spill=self._spill_cfg if self._spill else None)
 
     def _pre_run_validate(self) -> None:
         if self._resume is not None:
             self._check_snapshot_sig(self._resume)
 
     def _qalloc(self, qcap: int, batch: int) -> int:
-        return qcap + batch * self.tensor.max_actions
+        """The queue's rows at these capacities, as the engine allocates
+        them (JAX ``_qalloc``, wavefront.py:1939-1948)."""
+        m = batch * self.tensor.max_actions
+        return qcap + (max(self._spill_cfg[1], m) if self._spill else m)
 
     # -- memory-ledger hooks (telemetry/memory.py) ---------------------------
 
@@ -539,6 +808,8 @@ class GpuChecker(WavefrontChecker):
         return memory_spec_fn(
             self.tensor, len(self._props), cartography=self._cartography,
             sym=self._symmetry is not None, cuda=self.device.type == "cuda",
+            checked=self._checked,
+            spill=self._spill_cfg if self._spill else None,
         )
 
     def _memory_caps(self, cap=None, qcap=None, batch=None, cand=None) -> dict:
@@ -554,23 +825,37 @@ class GpuChecker(WavefrontChecker):
     def live_buffers(self) -> dict:
         """The finished run's device-resident buffers, ``name -> tensor``
         under the memory ledger's names (``telemetry/memory.py``): the
-        carry, the cartography counters, and the last engine's lane index
-        and kernel buffers.  What the ledger's analytic bytes are held
-        against."""
-        from ..telemetry.memory import _CARRY_NAMES, _CART_NAMES
+        carry with its optional tail, and the last engine's own buffers
+        (the lane index, the checked stand-in row, the pending window, the
+        kernels' outputs and scratch).  What the ledger's analytic bytes
+        are held against."""
+        from ..telemetry.memory import (
+            _CARRY_NAMES, _CART_NAMES, _SPILL_NAMES,
+        )
 
         self.join()
-        c = self._final_carry
-        out = dict(zip(_CARRY_NAMES, c[:CART]))
-        out.update(zip(_CART_NAMES, c[CART:]))
+        c, lay = self._final_carry, self._layout
+        out = dict(zip(_CARRY_NAMES, c[:BASE]))
+        if lay.checked:
+            out["checked_err"] = c[lay.err]
+        if lay.spill:
+            out.update(zip(_SPILL_NAMES, c[lay.spill_start:lay.cart_start]))
+        out.update(zip(_CART_NAMES, c[lay.cart_start:]))
         eng = self._last_engine
         if eng is not None:
             out["lanes"] = eng.lanes
+            if eng.checked:
+                out["checked_init_row"] = eng.init_row
+            if eng.spill:
+                out["pend_lanes"] = eng.pend_lanes
             for pre, buf, names in (
                 ("prep", eng.prep_out,
                  ("fp", "payload", "cidx", "key", "n_valid",
                   "cand_overflow", "scratch")),
                 ("plan", eng.plan_out,
+                 ("tgt", "cfp", "cpl", "sel", "n_new", "overflow",
+                  "scratch", "stage")),
+                ("inject", eng.inject_out,
                  ("tgt", "cfp", "cpl", "sel", "n_new", "overflow",
                   "scratch", "stage")),
             ):
@@ -582,16 +867,17 @@ class GpuChecker(WavefrontChecker):
 
     # -- cartography (ops/cartography.py) ------------------------------------
 
-    def _bank_depth_lanes(self, qdepth, n: int) -> None:
-        """Fold the depth lanes of ``qdepth[:n]`` (the queue prefix a
-        growth reclaims) into the depth bank (JAX wavefront.py:1167-1179),
-        so ``sum(depth_hist) == unique`` survives the reclaim.  No-op with
-        cartography off."""
+    def _bank_depth_lanes(self, qdepth, n: int, sign: int = 1) -> None:
+        """Fold the depth lanes of ``qdepth[:n]`` (a queue prefix a growth
+        reclaims, or rows the spill tier offloads) into the depth bank, or
+        out of it with ``sign=-1`` (rows refilled; JAX wavefront.py:
+        1167-1179), so ``sum(depth_hist) == unique`` survives both.  No-op
+        with cartography off."""
         if not self._cartography or n <= 0:
             return
         if self._cart_depth_base is None:
             self._cart_depth_base = np.zeros(DEPTH_BINS, np.int64)
-        self._cart_depth_base += queue_depth_hist_np(qdepth, n)
+        self._cart_depth_base += sign * queue_depth_hist_np(qdepth, n)
 
     def _sync_cartography(self, tail, *, states: int, unique: int) -> None:
         """Parse the cartography section of the packed stats (the part
@@ -619,10 +905,16 @@ class GpuChecker(WavefrontChecker):
     def _grow(self, carry_np: list, cap: int, qcap: int, batch: int,
               status: int, cand: int):
         """Grow whatever is (near) full; returns ``(cap, qcap, carry_np)``.
-        Both conditions are re-checked whichever status fired."""
+        Both conditions are re-checked whichever status fired.  Under
+        spill the table trigger reads HOT occupancy (``unique`` less the
+        spilled states) and a queue doubling the device budget blocks
+        offloads the queue's tail to the host instead (JAX
+        wavefront.py:1984-2035)."""
+        spill_base = len(self._spill_store) if self._spill else 0
 
         def table_small():
-            return int(carry_np[UNIQUE]) * 4 > cap or cand * 4 > cap
+            return ((int(carry_np[UNIQUE]) - spill_base) * 4 > cap
+                    or cand * 4 > cap)
 
         if table_small() or status == _STATUS_TABLE_FULL:
             if table_small():
@@ -644,23 +936,37 @@ class GpuChecker(WavefrontChecker):
         carry_np[HEAD] = np.int32(0)
         carry_np[TAIL] = np.int32(pending)
         while pending * 2 > qcap:
+            if self._spill and not self._spill_fits_transient(
+                    self._memory_caps(cap, qcap, batch, cand),
+                    self._memory_caps(cap, qcap * 2, batch, cand)):
+                pending = self._offload_queue_tail(carry_np, pending, qcap)
+                break
             qcap *= 2
         carry_np[STATUS] = np.int32(_STATUS_OK)
         convert.repad_queue(carry_np, self._qalloc(qcap, batch))
         return cap, qcap, carry_np
 
-    def _regrow(self, carry, cap, qcap, batch, status, cand, at=None):
+    def _regrow(self, carry, cap, qcap, batch, status, cand, at=None,
+                evict: bool = False):
         """:meth:`_grow` over a device carry (through the host); returns
         ``(cap, qcap, carry, carry_np)``, the grown carry on the device and
         as numpy.  ``at`` names a growth boundary the recorder samples:
         the carry's bytes both ways and the table's occupancy (free: the
-        table is on the host here).  The cartography counters past
-        :data:`CART` are not part of the transform and stay as they are."""
+        table is on the host here).  ``evict`` first sweeps the hot table
+        into the spill tier (:meth:`_evict_hot_table`), in place of the
+        table's growth.  The carry's tail past :data:`BASE` (the checked
+        word, the spill tail, the cartography counters) is not part of the
+        transform and stays as it is, but for the eviction's Bloom words
+        and spill base."""
         rec = self.flight_recorder
-        carry_np = convert.carry_to_arrays(carry[:CART])
+        carry_np = convert.carry_to_arrays(carry[:BASE])
+        tail = list(carry[BASE:])
         if rec is not None and at is not None:
             rec.add_bytes(d2h=sum(a.nbytes for a in carry_np if a.ndim))
             self._telemetry_occupancy(carry_np[TFP], at=at)
+        if evict:
+            tail = self._evict_hot_table(carry_np, tail)
+            status = _STATUS_OK
         cap, qcap, carry_np = self._grow(carry_np, cap, qcap, batch, status,
                                          cand)
         if rec is not None and at is not None:
@@ -668,7 +974,383 @@ class GpuChecker(WavefrontChecker):
         grown = convert.carry_from_arrays(
             carry_np, self.device, self._qalloc(qcap, batch)
         )
-        return cap, qcap, grown + list(carry[CART:]), carry_np
+        return cap, qcap, grown + tail, carry_np
+
+    # -- the spill tier (spill/; JAX wavefront.py:1211-1685) -----------------
+
+    def _init_spill(self) -> None:
+        """Arm the host and disk tiers for this run (JAX wavefront.py:
+        1213-1259): the Bloom width (``spill_bloom_bits``, else
+        ``STATERIGHT_TPU_SPILL_BLOOM_BITS``, else 2^23, as a power of two
+        in ``[2^10, 2^31]``), the pending capacity (four expansion windows,
+        so several deferring steps run per host sync), the store and the
+        Bloom words' host mirror.  The device half is the carry's spill
+        tail, which the engine builds."""
+        import os
+        import sys
+
+        from ..spill import SpillStore
+        from ..spill.bloom import MAX_BLOOM_BITS, MIN_BLOOM_BITS
+
+        bits = self._spill_bloom_bits
+        if not bits:
+            env = os.environ.get("STATERIGHT_TPU_SPILL_BLOOM_BITS",
+                                 "").strip()
+            if env and not env.isdigit():
+                print("stateright-tpu-torch: spill: ignoring malformed "
+                      f"STATERIGHT_TPU_SPILL_BLOOM_BITS={env!r} (want plain "
+                      "bits, e.g. 8388608); using the default",
+                      file=sys.stderr)
+            bits = int(env) if env.isdigit() else (1 << 23)
+        bits = min(max(_pow2(int(bits)), MIN_BLOOM_BITS), MAX_BLOOM_BITS)
+        self._spill_cfg = (bits, 4 * self._batch * self.tensor.max_actions)
+        self._spill_store = SpillStore(directory=self._spill_dir,
+                                       host_budget=self._spill_host_bytes)
+        self._spill_bloom_np = np.zeros(bits // 32, np.uint32)
+        self._spill_qrows: list = []  # host FIFO of offloaded queue chunks
+        self._spill_tally = {
+            "evictions": 0, "resolved_dups": 0, "resolved_novel": 0,
+            "queue_offloaded": 0, "queue_refilled": 0, "deferred": 0,
+            "on_device": 0,
+        }
+
+    def _spill_snapshot(self) -> dict:
+        """The live spill status (JSON-safe; JAX wavefront.py:1261-1298):
+        tier bytes, Bloom load, deferral and resolution tallies."""
+        from ..spill import SPILL_V
+        from ..spill.bloom import BLOOM_K, bloom_est_false_pos
+
+        bits, pend_cap = self._spill_cfg
+        store, t = self._spill_store, self._spill_tally
+        out = {
+            "v": SPILL_V,
+            "enabled": True,
+            "evictions": t["evictions"],
+            "spilled_fps": len(store),
+            "host_bytes": store.host_bytes,
+            "disk_bytes": store.disk_bytes,
+            "index_bytes": store.index_bytes,
+            "bloom_bits": bits,
+            "bloom_k": BLOOM_K,
+            "bloom_est_false_pos": round(
+                bloom_est_false_pos(len(store), bits), 6),
+            "pend_cap": pend_cap,
+            "deferred": t["deferred"],
+            "on_device": t["on_device"],
+            "resolved_dups": t["resolved_dups"],
+            "resolved_novel": t["resolved_novel"],
+            "queue_offloaded": t["queue_offloaded"],
+            "queue_refilled": t["queue_refilled"],
+            "queue_host_rows": sum(int(c[1].shape[0])
+                                   for c in self._spill_qrows),
+        }
+        if store.degraded:
+            out.update(degraded=True, degraded_reason=store.degraded_reason)
+        return out
+
+    def _refresh_spill(self) -> None:
+        rec = self.flight_recorder
+        if rec is not None:
+            rec.set_spill(self._spill_snapshot())
+            if self._spill_store.degraded:
+                # the disk tier is lost: the sticky health transition
+                rec.set_spill_degraded()
+
+    def spill_status(self) -> Optional[dict]:
+        """The spill tier's status (evictions, bytes per tier, the Bloom
+        width and estimated false-positive rate, the deferral and
+        resolution tallies), or None without ``.spill()``."""
+        return self._spill_snapshot() if self._spill else None
+
+    def _spill_fits_transient(self, cur_caps: dict, new_caps: dict) -> bool:
+        """Does the growth ``cur -> new`` fit the device budget
+        (``telemetry/memory.device_budget``), with both rungs' buffers
+        live together as the port's :meth:`_regrow` holds them?  No budget
+        known, or no analytic model, means growth proceeds as ever."""
+        from ..telemetry.memory import device_budget
+
+        budget, _ = device_budget(self.device)
+        if budget is None:
+            return True
+        cur = self._analytic_footprint_bytes(cur_caps)
+        nxt = self._analytic_footprint_bytes(new_caps)
+        if cur is None or nxt is None:
+            return True
+        return cur + nxt <= budget
+
+    def _spill_should_evict(self, cap, qcap, batch, cand) -> bool:
+        """Evict instead of growing iff the next table rung's growth
+        transient exceeds the device budget."""
+        return not self._spill_fits_transient(
+            self._memory_caps(cap, qcap, batch, cand),
+            self._memory_caps(cap * 2, qcap, batch, cand))
+
+    def _evict_hot_table(self, carry_np: list, tail: list) -> list:
+        """Sweep the hot table into the host tier at a growth boundary
+        (JAX wavefront.py:1341-1380): every occupied ``(fp, parent)`` goes
+        to the store and its bits to the Bloom mirror, the hot table is
+        cleared in place, and the carry tail's Bloom words and spill base
+        are refreshed.  Evicted fingerprints stay reachable through the
+        Bloom, the pending buffer and the host index, and their parents
+        merge back at trace reconstruction (:meth:`_parents`)."""
+        from ..spill import SPILL_V
+        from ..spill.bloom import bloom_est_false_pos, bloom_set_np
+
+        tfp, tpl = carry_np[TFP], carry_np[TPL]
+        occ = tfp != np.uint64(EMPTY_U64)
+        fps, pars = tfp[occ], tpl[occ]
+        self._spill_store.append(fps, pars)
+        bloom_set_np(self._spill_bloom_np, fps)
+        carry_np[TFP] = np.full(tfp.shape, EMPTY_U64, np.uint64)
+        carry_np[TPL] = np.zeros(tpl.shape, np.uint64)
+        sp = self._layout.spill_start - BASE
+        tail = list(tail)
+        tail[sp + _SP_BLOOM] = convert.signed_tensor(self._spill_bloom_np,
+                                                     self.device)
+        tail[sp + _SP_BASE] = torch.tensor(len(self._spill_store),
+                                           dtype=torch.int64,
+                                           device=self.device)
+        self._spill_tally["evictions"] += 1
+        rec = self.flight_recorder
+        if rec is not None:
+            bits = self._spill_cfg[0]
+            rec.add("spill_evictions")
+            rec.record(
+                "spill", v=SPILL_V, event="evict", evicted=int(fps.size),
+                spilled_fps=len(self._spill_store),
+                host_bytes=self._spill_store.host_bytes,
+                disk_bytes=self._spill_store.disk_bytes, bloom_bits=bits,
+                bloom_est_false_pos=round(
+                    bloom_est_false_pos(len(self._spill_store), bits), 6),
+            )
+            self._refresh_spill()
+        return tail
+
+    def _resolve_pending(self, carry, cap, qcap, batch, cand, pend: int):
+        """Resolve the device pending buffer against the host index (JAX
+        wavefront.py:1401-1506): fingerprints the store holds are
+        duplicates (Bloom true positives) and drop out; the rest (false
+        positives) are novel and re-enter the hot table and the queue
+        through :meth:`_Engine.inject`.  A hot table too full to take them
+        evicts or grows, re-filters against the store and retries, so
+        nothing is lost.  Returns ``(cap, qcap, carry)``."""
+        from ..spill import SPILL_V
+
+        sp = self._layout.spill_start
+        pend_cap = self._spill_cfg[1]
+        arrs = convert.pend_to_snapshot(
+            carry[sp + _SP_PFP:sp + _SP_PCOUNT], pend)
+        pfp, prows, ppar, pebt, pdep = (
+            arrs[f"spill_pend_{k}"] for k, _ in convert.PEND_KEYS)
+        rec = self.flight_recorder
+        if rec is not None:
+            rec.add_bytes(d2h=sum(a.nbytes for a in arrs.values()))
+        valid = pfp != EMPTY_U64
+        pfp, prows = pfp[valid], prows[valid]
+        ppar, pebt, pdep = ppar[valid], pebt[valid], pdep[valid]
+        # intra-batch dedup, keep-FIRST occurrence: the earliest generation
+        # wins the parent, ebits and depth, the lane the insert's stable
+        # sort would keep
+        _, first = np.unique(pfp, return_index=True)
+        first.sort()
+        seen = self._spill_store.contains(pfp[first])
+        novel = first[~seen]
+        nfp, nrows, npar, nebt, ndep = (a[novel] for a in
+                                        (pfp, prows, ppar, pebt, pdep))
+        k = int(nfp.size)
+        dups = pend - k
+        injected = 0
+        carry = list(carry)
+        if k == 0:
+            # nothing to inject: clear the count and the stop
+            carry[sp + _SP_PCOUNT] = torch.zeros_like(carry[sp + _SP_PCOUNT])
+            carry[STATUS] = torch.where(carry[STATUS] == _STATUS_SPILL_SYNC,
+                                        _STATUS_OK, carry[STATUS])
+        while k:
+            eng = self._engine_for(cap, qcap, batch, cand)
+            lanes = (np.full(pend_cap, EMPTY_U64, np.uint64),
+                     np.zeros((pend_cap, self.tensor.width), np.uint64),
+                     np.zeros(pend_cap, np.uint64),
+                     np.zeros(pend_cap, np.uint32),
+                     np.zeros(pend_cap, np.uint32))
+            # the queue append adds one to a parent depth
+            for a, b in zip(lanes, (nfp, nrows, npar, nebt, ndep - 1)):
+                a[:k] = b
+            args = [convert.signed_tensor(a, self.device) for a in lanes]
+            launches = (bucket_plan.launches, insert_commit.launches)
+            carry, io = eng.inject(carry, *args)
+            io = io.cpu().numpy()
+            self.inject_calls += 1
+            self.inject_launches["bucket_plan"] += (bucket_plan.launches
+                                                    - launches[0])
+            self.inject_launches["insert_commit"] += (
+                insert_commit.launches - launches[1])
+            if int(io[1]) == 0:
+                # what entered the hot table: the inject's dedup drops the
+                # hot-resident false positives, which count as duplicates
+                injected = int(io[0])
+                dups += k - injected
+                break
+            # the hot table cannot take the batch: evict or grow, then
+            # re-filter against the store (an eviction moved hot-resident
+            # false positives there) and retry
+            cap, qcap, carry, _ = self._regrow(
+                carry, cap, qcap, batch, _STATUS_TABLE_FULL, cand,
+                evict=self._spill_should_evict(cap, qcap, batch, cand))
+            seen2 = self._spill_store.contains(nfp)
+            if seen2.any():
+                keep = ~seen2
+                dups += int(seen2.sum())
+                nfp, nrows, npar, nebt, ndep = (
+                    a[keep] for a in (nfp, nrows, npar, nebt, ndep))
+                k = int(nfp.size)
+        self._spill_tally["resolved_dups"] += dups
+        self._spill_tally["resolved_novel"] += injected
+        if rec is not None:
+            rec.record("spill", v=SPILL_V, event="resolve", pending=pend,
+                       dups=dups, novel=injected)
+            self._refresh_spill()
+        return cap, qcap, carry
+
+    def _offload_queue_tail(self, carry_np: list, pending: int,
+                            qcap: int) -> int:
+        """The queue outgrew a doubling the budget blocks: move the rows
+        furthest from being popped to the host FIFO, whence
+        :meth:`_queue_refill` brings them back as the device queue drains
+        (JAX wavefront.py:1525-1559).  Runs after the growth's prefix
+        reclaim, so the live rows are ``[0, pending)``."""
+        from ..spill import SPILL_V
+
+        keep = max(qcap // 2, 1)
+        if pending <= keep:
+            return pending
+        chunk = tuple(np.asarray(carry_np[i][keep:pending]).copy()
+                      for i in convert.QUEUE)
+        self._spill_qrows.append(chunk)
+        # the offloaded rows leave qdepth[:tail], which the depth histogram
+        # is computed from: bank their lanes (un-banked at refill)
+        self._bank_depth_lanes(chunk[3], int(chunk[3].shape[0]))
+        carry_np[TAIL] = np.int32(keep)
+        moved = pending - keep
+        self._spill_tally["queue_offloaded"] += moved
+        rec = self.flight_recorder
+        if rec is not None:
+            rec.record("spill", v=SPILL_V, event="queue_offload", rows=moved,
+                       host_rows=sum(int(c[1].shape[0])
+                                     for c in self._spill_qrows))
+            self._refresh_spill()
+        return keep
+
+    def _queue_refill(self, carry, qcap, batch) -> list:
+        """The device queue drained while offloaded rows remain: reclaim
+        the popped prefix and append up to the high-water mark's worth
+        from the host FIFO (JAX wavefront.py:1561-1610)."""
+        from ..spill import SPILL_V
+
+        carry_np = convert.carry_to_arrays(carry[:BASE])
+        head, tail = int(carry_np[HEAD]), int(carry_np[TAIL])
+        self._bank_depth_lanes(carry_np[QDEPTH], head)
+        for i in convert.QUEUE:
+            carry_np[i] = carry_np[i][head:tail].copy()
+        pending = tail - head
+        room = qcap - pending
+        taken = [[], [], [], []]
+        moved = 0
+        while self._spill_qrows and room > 0:
+            chunk = self._spill_qrows[0]
+            if int(chunk[1].shape[0]) <= room:
+                take = self._spill_qrows.pop(0)
+            else:
+                take = tuple(a[:room] for a in chunk)
+                self._spill_qrows[0] = tuple(a[room:] for a in chunk)
+            for j in range(4):
+                taken[j].append(take[j])
+            cn = int(take[1].shape[0])
+            # the refilled rows re-enter qdepth[:tail]: un-bank them
+            self._bank_depth_lanes(take[3], cn, sign=-1)
+            moved += cn
+            room -= cn
+        for j, i in enumerate(convert.QUEUE):
+            carry_np[i] = np.concatenate([carry_np[i]] + taken[j])
+        carry_np[HEAD] = np.int32(0)
+        carry_np[TAIL] = np.int32(pending + moved)
+        self._spill_tally["queue_refilled"] += moved
+        rec = self.flight_recorder
+        if rec is not None:
+            rec.record("spill", v=SPILL_V, event="queue_refill", rows=moved,
+                       host_rows=sum(int(c[1].shape[0])
+                                     for c in self._spill_qrows))
+            self._refresh_spill()
+        return convert.carry_from_arrays(
+            carry_np, self.device, self._qalloc(qcap, batch)) + carry[BASE:]
+
+    def _restore_spill_host(self, snap: dict) -> None:
+        """Restore the host half of the tier from a snapshot (JAX
+        wavefront.py:1612-1640): the Bloom width, the store and its Bloom
+        mirror, the offloaded-queue FIFO.  Runs before any boundary growth
+        of the resume, which reads the store's length as the spill
+        base."""
+        from ..spill.bloom import MAX_BLOOM_BITS, bloom_set_np
+
+        bits = self._spill_cfg[0]
+        if "spill_bloom_bits" in snap:
+            bits = min(_pow2(int(snap["spill_bloom_bits"])), MAX_BLOOM_BITS)
+            if bits != self._spill_cfg[0]:
+                self._spill_bloom_np = np.zeros(bits // 32, np.uint32)
+        # the snapshot's batch governs the window, so the pending capacity
+        self._spill_cfg = (bits, 4 * self._batch * self.tensor.max_actions)
+        f = snap.get("spill_fp")
+        if f is not None:
+            f = np.asarray(f, np.uint64)
+            self._spill_store.append(
+                f, np.asarray(snap["spill_parent"], np.uint64))
+            bloom_set_np(self._spill_bloom_np, f)
+        if "spill_q_fp" in snap:
+            self._spill_qrows.append(tuple(
+                np.asarray(snap[k]) for k in (
+                    "spill_q_rows", "spill_q_fp", "spill_q_ebits",
+                    "spill_q_depth")))
+
+    def _spill_resume_tail(self, snap: dict, batch: int) -> list:
+        """The carry's spill tail at a resume (JAX wavefront.py:1642-1672):
+        the Bloom words and the base from the restored store, the pending
+        entries from the snapshot (a checkpoint at a growth boundary can
+        hold deferred candidates)."""
+        bits, pend_cap = self._spill_cfg
+        return spill_tail(
+            bits, pend_cap + batch * self.tensor.max_actions,
+            self.tensor.width, self.device, bloom=self._spill_bloom_np,
+            base=len(self._spill_store),
+            pend=convert.pend_from_snapshot(snap, pend_cap))
+
+    def _parents(self) -> dict:
+        """Trace reconstruction merges every tier: the spilled parents
+        first, then the hot table's (the sets are disjoint: an eviction
+        removes what it spills)."""
+        if self._parent_map is None:
+            parents: dict = {}
+            if self._spill and len(self._spill_store):
+                for fps, pars in self._spill_store.iter_segments():
+                    parents.update(zip(fps.tolist(), pars.tolist()))
+            parents.update(self._parents_from_table(*self._table_np()))
+            self._parent_map = parents
+        return self._parent_map
+
+    def _raise_on_checked_error(self, carry, head: int, tail: int,
+                                batch: int) -> None:
+        """Checked mode: the block's error word is set.  Replay the
+        failing step's window one row at a time on the host's side of the
+        guard (JAX wavefront.py:1848-1867) and raise
+        :class:`~stateright_tpu_torch.analysis.CheckedExecutionError`.
+        The window is ``[head - batch, head)`` after a normal pop, or
+        ``[head, head + batch)`` when an overflow kept the cursor: their
+        union, clipped at ``tail``."""
+        from ..analysis.sanitizer import localize_checked_failure
+
+        qrows = carry[QROWS].cpu().numpy().view(np.uint64)
+        lo = max(0, head - batch)
+        hi = min(qrows.shape[0], max(head, tail), head + batch)
+        localize_checked_failure(self.tensor, qrows[lo:hi], self.device)
 
     def _peaks(self) -> tuple:
         """The device's peak counters now: requested and allocated bytes."""
@@ -704,12 +1386,60 @@ class GpuChecker(WavefrontChecker):
 
     # -- the host loop ---------------------------------------------------------
 
+    def _engine_for(self, cap, qcap, batch, cand) -> _Engine:
+        """The engine of these capacities: the last one when they match,
+        else a new one."""
+        eng = self._last_engine
+        if eng is None or eng.key[:4] != (cap, qcap, batch, cand):
+            eng = self._last_engine = self._engine(cap, qcap, batch, cand)
+        return eng
+
+    def _resume_carry(self, snap: dict, arity: int):
+        """A snapshot's carry on the device, grown when it was taken at a
+        growth boundary, with its tail re-seeded: an all-clear checked
+        word (JAX wavefront.py:2114-2116), the spill tail from the
+        snapshot's host-tier manifest (restored first: the growth reads
+        the store's length as the spill base) and zeroed cartography
+        counters (JAX wavefront.py:2129-2139; the depth histogram comes
+        back whole, since the snapshot kept the queue and the bank).
+        Returns ``(cap, qcap, batch, cand, carry)``."""
+        cap, qcap = int(snap["cap"]), int(snap["qcap"])
+        batch = self._batch = int(snap.get("batch", self._batch))
+        cand = min(int(snap.get("cand", self._cand)), batch * arity)
+        base = convert.cart_depth_base(snap)
+        if base is not None:
+            self._cart_depth_base = base
+        if self._spill:
+            self._restore_spill_host(snap)
+        carry = convert.carry_from_snapshot(
+            snap, self.device, self._qalloc(qcap, batch)
+        )
+        st = int(carry[STATUS])
+        if st != _STATUS_OK:
+            if st == _STATUS_CAND_FULL:
+                cand = min(cand * 2, batch * arity)
+            # the growth the run would have made here, eviction included
+            # (the JAX resume always grows), so a resumed run ends with the
+            # uninterrupted run's tables
+            evict = (self._spill and st == _STATUS_TABLE_FULL
+                     and self._spill_should_evict(cap, qcap, batch, cand))
+            cap, qcap, carry, _ = self._regrow(carry, cap, qcap, batch, st,
+                                               cand, evict=evict)
+        if self._checked:
+            carry.append(torch.zeros((), dtype=torch.bool,
+                                     device=self.device))
+        if self._spill:
+            carry += self._spill_resume_tail(snap, batch)
+        if self._cartography:
+            carry += zero_counters(arity, len(self._props), self.device)
+        return cap, qcap, batch, cand, carry
+
     def _run(self) -> None:
         cap, qcap, batch = self._cap, self._qcap, self._batch
         arity = self.tensor.max_actions
         cand = min(self._cand, batch * arity)
         rec = self.flight_recorder
-        cart = self._cartography
+        cart, lay = self._cartography, self._layout
         # the growth memory measurement (memory ledger on cuda): the run's
         # own allocations are counted above what the process held before
         measure = self._mem_ledger is not None and self.device.type == "cuda"
@@ -727,33 +1457,12 @@ class GpuChecker(WavefrontChecker):
         self._cap, self._qcap, self._cand = cap, qcap, cand
         t_dev = time.perf_counter()
         if self._resume is not None:
-            snap = self._resume
-            cap, qcap = int(snap["cap"]), int(snap["qcap"])
-            batch = self._batch = int(snap.get("batch", batch))
-            cand = min(int(snap.get("cand", cand)), batch * arity)
-            base = convert.cart_depth_base(snap)
-            if base is not None:
-                self._cart_depth_base = base
-            carry = convert.carry_from_snapshot(
-                snap, self.device, self._qalloc(qcap, batch)
-            )
+            cap, qcap, batch, cand, carry = self._resume_carry(self._resume,
+                                                               arity)
             stats = None
-            # a snapshot taken at a growth boundary still carries the flag
-            st = int(carry[STATUS])
-            if st != _STATUS_OK:
-                if st == _STATUS_CAND_FULL:
-                    cand = min(cand * 2, batch * arity)
-                cap, qcap, carry, _ = self._regrow(carry, cap, qcap, batch,
-                                                   st, cand)
-            if cart:
-                # a resumed run restarts its counters at zero (JAX
-                # wavefront.py:2129-2139); the depth histogram comes back
-                # whole: the snapshot kept the queue and the bank
-                carry = carry + zero_counters(arity, len(self._props),
-                                              self.device)
         else:
             while True:
-                carry, stats = self._engine(cap, qcap, batch, cand).init()
+                carry, stats = self._engine_for(cap, qcap, batch, cand).init()
                 # a table-full init wrote nothing: grow and re-init
                 if int(stats[_ST_STATUS]) != _STATUS_TABLE_FULL:
                     break
@@ -764,20 +1473,32 @@ class GpuChecker(WavefrontChecker):
                     cap *= 2  # guarantee progress on a clustered init set
 
         disc_len = max(len(self._props), 1)
-        cart_off = _ST_DISC + disc_len
-        sym = self._symmetry is not None
+        mid_off = _ST_DISC + disc_len  # the checked word, the spill section
+        cart_off = (mid_off + int(self._checked)
+                    + (_SPILL_STATS_SECTION if self._spill else 0))
         occ_every = int(self._telemetry_opts.get("occupancy_every") or 0)
         syncs = 0
         if rec is not None:
             rec.update_meta(batch=batch, steps_per_call=self._steps)
-        engine = None
+            if self._spill:
+                from ..spill import SPILL_V
+                from ..telemetry.memory import device_budget
+
+                budget, _ = device_budget(self.device)
+                rec.record("spill", v=SPILL_V, event="arm",
+                           bloom_bits=self._spill_cfg[0],
+                           pend_cap=self._spill_cfg[1],
+                           **({"budget_bytes": int(budget)} if budget
+                              else {}))
+                self._refresh_spill()
         ran_block = False
         peak_from = None  # (caps, peaks) as a measured growth began
         while True:
             if stats is None:
-                # after a resume or a budget doubling: the exact depth
-                # histogram, as the JAX engine's host-side stats give
-                stats = stats_of(carry, exact=True)
+                # after a resume, a budget doubling or a spill-tier step:
+                # the exact depth histogram, as the JAX engine's host-side
+                # stats give
+                stats = stats_of(carry, lay, exact=True)
             if isinstance(stats, torch.Tensor):
                 stats = stats.cpu().numpy()  # the block's one host sync
             self._stage("device", time.perf_counter() - t_dev)
@@ -786,11 +1507,21 @@ class GpuChecker(WavefrontChecker):
             head, tail, unique, scount, maxdepth, status = (
                 int(x) for x in stats[:_ST_DISC]
             )
-            disc = stats[_ST_DISC:cart_off].view(np.uint64)
+            disc = stats[_ST_DISC:mid_off].view(np.uint64)
             self._live = (scount, unique, maxdepth)
+            pend_live = spilled_live = 0
+            if self._spill:
+                sp = stats[cart_off - _SPILL_STATS_SECTION:cart_off]
+                pend_live, spilled_live = int(sp[0]), int(sp[1])
+                self._spill_tally["deferred"] = int(sp[2])
+                self._spill_tally["on_device"] = int(sp[3])
             if cart:
                 self._sync_cartography(stats[cart_off:], states=scount,
                                        unique=unique)
+            if self._checked and stats[mid_off]:
+                # a failed check raises here, before any growth or
+                # checkpoint touches the carry
+                self._raise_on_checked_error(carry, head, tail, batch)
             if rec is not None:
                 # host values this sync already read: the telemetry cost
                 # is a few dict appends per block
@@ -799,7 +1530,9 @@ class GpuChecker(WavefrontChecker):
                 rec.step(
                     engine=self._telemetry_tag, states=scount, unique=unique,
                     depth=maxdepth, status=status, queue=max(tail - head, 0),
-                    cap=cap, cand=cand, load_factor=round(unique / cap, 6),
+                    cap=cap, cand=cand,
+                    # HOT occupancy under spill (spilled_live is 0 off)
+                    load_factor=round((unique - spilled_live) / cap, 6),
                 )
                 if occ_every and syncs % occ_every == 0:
                     self._telemetry_occupancy(carry[TFP], at=f"sync{syncs}",
@@ -823,9 +1556,24 @@ class GpuChecker(WavefrontChecker):
                 return self._snapshot(carry, cap, qcap, batch, cand)
 
             # a pending checkpoint and the autosave cadence are served
-            # BEFORE growing: a boundary snapshot carries status != OK, and
-            # resume re-applies the growth
+            # BEFORE growing or resolving: a boundary snapshot carries
+            # status != OK and resume re-applies the growth; one taken
+            # mid-deferral carries the pending buffer
             saved = self._at_host_sync(snap_fn)
+            if pend_live and status in (_STATUS_OK, _STATUS_SPILL_SYNC):
+                # spill: look the deferred candidates up in the host index
+                # and inject the Bloom false positives (a growth boundary
+                # resolves at the next sync)
+                t0 = time.perf_counter()
+                with tel_span("spill_drain", rec, parent=self._run_span_ctx,
+                              pending=pend_live):
+                    cap, qcap, carry = self._resolve_pending(
+                        carry, cap, qcap, batch, cand, pend_live)
+                self._stage("spill", time.perf_counter() - t0)
+                stats = None
+                t_dev = time.perf_counter()
+                ran_block = False
+                continue
             if status != _STATUS_OK:
                 self.growth_events.append((status, unique))
                 if measure:
@@ -860,14 +1608,23 @@ class GpuChecker(WavefrontChecker):
                                 cand,
                             )
                     else:
+                        # under spill, a table rung the device budget
+                        # cannot take evicts the hot table instead of
+                        # growing it (JAX wavefront.py:2364-2375)
+                        evict = (self._spill
+                                 and status == _STATUS_TABLE_FULL
+                                 and self._spill_should_evict(cap, qcap,
+                                                              batch, cand))
                         cap, qcap, carry, carry_np = self._regrow(
                             carry, cap, qcap, batch, status, cand,
-                            at="growth",
+                            at="growth", evict=evict,
                         )
                         # the next sync reads the carry the host just grew
-                        stats = stats_host(carry_np, stats[cart_off
-                                                           + DEPTH_BINS:]
-                                           if cart else stats[:0])
+                        # (a spill run's section re-reads the device)
+                        stats = None if self._spill else stats_host(
+                            carry_np, stats[mid_off:cart_off],
+                            stats[cart_off + DEPTH_BINS:] if cart
+                            else stats[:0])
                 secs = time.perf_counter() - t0
                 self.growth_secs.append(secs)
                 self._stage("growth", secs)
@@ -883,11 +1640,20 @@ class GpuChecker(WavefrontChecker):
                 break
             all_disc = bool(self._props) and bool((disc != 0).all())
             target_hit = self._target is not None and unique >= self._target
+            if (self._spill and tail <= head and self._spill_qrows
+                    and not all_disc and not target_hit):
+                # the device queue drained with offloaded rows left on the
+                # host: refill; the search ends when every tier is empty
+                t0 = time.perf_counter()
+                carry = self._queue_refill(carry, qcap, batch)
+                self._stage("spill", time.perf_counter() - t0)
+                stats = None
+                t_dev = time.perf_counter()
+                ran_block = False
+                continue
             if tail <= head or all_disc or target_hit:
                 break
-            if engine is None or engine.key != (cap, qcap, batch, cand, sym,
-                                                cart):
-                engine = self._engine(cap, qcap, batch, cand)
+            engine = self._engine_for(cap, qcap, batch, cand)
             if peak_from is not None:
                 self._growth_peak(peak_from, self._memory_caps(
                     cap, qcap, batch, cand), mem_base)
@@ -904,7 +1670,6 @@ class GpuChecker(WavefrontChecker):
                 cap, qcap, batch, cand), mem_base)
         self._cap, self._qcap, self._cand = cap, qcap, cand
         self._final_carry = carry
-        self._last_engine = engine
         if self._profiler is not None:
             self._profiler.stop()
         if rec is not None and occ_every:
@@ -917,6 +1682,19 @@ class GpuChecker(WavefrontChecker):
             "disc": np.asarray(disc),
             "depth": maxdepth,
         }
+        if self._spill:
+            from ..spill import SPILL_V
+
+            snap_sp = self._results["spill"] = self._spill_snapshot()
+            if rec is not None:
+                rec.record(
+                    "spill", v=SPILL_V, event="final",
+                    spilled_fps=snap_sp["spilled_fps"],
+                    host_bytes=snap_sp["host_bytes"],
+                    disk_bytes=snap_sp["disk_bytes"],
+                    dups=snap_sp["resolved_dups"],
+                    novel=snap_sp["resolved_novel"])
+                self._refresh_spill()
         if cart:
             self._results["cartography"] = self._live_cart
             if rec is not None:
@@ -949,19 +1727,38 @@ class GpuChecker(WavefrontChecker):
         """A carry as a snapshot in the JAX engine's layout (numpy, copied
         off the device): either engine resumes from it.  It carries the
         run's id (a resumed run records it as its parent), the analytic
-        footprint at these capacities (``telemetry/memory.py``) and the
-        cartography depth bank."""
+        footprint at these capacities (``telemetry/memory.py``; the hot
+        tier only), the cartography depth bank and, under spill, the
+        host and disk tiers' contents with the offloaded queue rows and
+        the pending entries (JAX wavefront.py:1901-1932), so that a
+        resumed run rebuilds the whole tiered visited set."""
         extra = {}
         fb = self._analytic_footprint_bytes(
             self._memory_caps(cap, qcap, batch, cand))
         if fb is not None:
             extra["footprint_bytes"] = np.int64(fb)
-        return convert.carry_to_snapshot(
-            carry[:CART], cap, qcap, batch, cand, width=self.tensor.width,
+        snap = convert.carry_to_snapshot(
+            carry[:BASE], cap, qcap, batch, cand, width=self.tensor.width,
             engine=self._engine_tag, model_sig=self._model_sig(),
             run_id=self.run_id, cart_depth_base=self._cart_depth_base,
             **extra,
         )
+        if self._spill:
+            snap["spill_bloom_bits"] = np.int64(self._spill_cfg[0])
+            snap["spill_base"] = np.int64(len(self._spill_store))
+            f, p = self._spill_store.to_arrays()
+            if f.size:
+                snap["spill_fp"], snap["spill_parent"] = f, p
+            if self._spill_qrows:
+                for j, k in enumerate(("spill_q_rows", "spill_q_fp",
+                                       "spill_q_ebits", "spill_q_depth")):
+                    snap[k] = np.concatenate([c[j] for c in self._spill_qrows])
+            sp = self._layout.spill_start
+            pn = int(carry[sp + _SP_PCOUNT])
+            if pn > 0:
+                snap.update(convert.pend_to_snapshot(
+                    carry[sp + _SP_PFP:sp + _SP_PCOUNT], pn))
+        return snap
 
     def final_snapshot(self) -> dict:
         """The finished run's carry as a snapshot (:meth:`_snapshot`)."""

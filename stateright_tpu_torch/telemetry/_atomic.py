@@ -2,10 +2,11 @@
 
 The port's own copy of ``stateright_tpu/telemetry/_atomic.py``, without
 its fault-injection seam (``testing/faults.py``, which comes with the
-service layers).  Every durable artifact the port writes (run reports,
-registry archives, the ``index.jsonl`` ledger, autosave snapshot
-generations) goes through these helpers, so the crash contract lives in
-one place:
+ROADMAP item "fault injection and the supervisor").  Every durable
+artifact the port writes (run reports, registry archives, the
+``index.jsonl`` ledger, autosave snapshot generations, spill-tier disk
+segments) goes through these helpers, so the crash contract lives in one
+place:
 
  - **Replace writes** (:func:`atomic_write_bytes` and friends): the
    payload lands in a same-directory temp file, is fsynced, and then
@@ -50,13 +51,21 @@ def atomic_write_bytes(path: str, data: bytes) -> None:
     """Write ``data`` to ``path`` atomically: same-dir temp file, fsync,
     ``os.replace``.  Raises ``OSError`` on failure with the target
     untouched (old contents, if any, stay intact)."""
+    atomic_write_stream(path, (data,))
+
+
+def atomic_write_stream(path: str, chunks) -> None:
+    """:func:`atomic_write_bytes` of an iterable of byte chunks, written
+    one by one: the large-payload form (spill disk segments), which never
+    holds the whole payload in one buffer."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(
         prefix=os.path.basename(path) + ".", suffix=".tmp", dir=d
     )
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            for chunk in chunks:
+                f.write(chunk)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)

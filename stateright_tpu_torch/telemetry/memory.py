@@ -133,26 +133,35 @@ _CARRY_NAMES = (
     "head", "tail", "unique", "scount", "disc", "maxdepth", "status",
 )
 _CART_NAMES = ("cart_action_hist", "cart_prop_evals", "cart_prop_hits")
+# the spill tier's carry tail, under the JAX ledger's names (JAX
+# telemetry/memory.py:148-151)
+_SPILL_NAMES = ("spill_bloom", "spill_base", "pend_fp", "pend_rows",
+                "pend_parent", "pend_ebits", "pend_depth", "pend_count",
+                "spill_stats")
 
 
 def wavefront_specs(
     width: int, arity: int, n_props: int, cap: int, qcap: int, batch: int,
     cand: int, *, cartography: bool = False, sym: bool = False,
-    cuda: bool = True,
+    cuda: bool = True, checked: bool = False, spill=None,
 ) -> list:
     """Per-buffer specs of the GPU engine's device-resident buffers at
     these capacities: the carry (``_Engine.init``; the queue is
-    over-allocated by one batch's candidates), the cartography counters,
-    the lane index, and on ``cuda`` the kernels' outputs and scratch
-    (``PrepBuffers(m, eff_cand)``, ``PlanBuffers(eff_cand, sym)``).  On
-    the CPU the plain versions allocate per call, so nothing else stays
-    resident."""
+    over-allocated by one batch's candidates, or by the spill inject's
+    ``pend_cap`` rows when wider), the checked error word, the spill tail
+    (``spill`` is the tier's ``(bloom_bits, pend_cap)``; the host and disk
+    tiers are what the budget is traded against and do not count), the
+    cartography counters, the engine's own index buffers, and on ``cuda``
+    the kernels' outputs and scratch (``PrepBuffers(m, eff_cand)``,
+    ``PlanBuffers(eff_cand, sym)``, and under spill the inject's
+    ``PlanBuffers(pend_cap, sym)``).  On the CPU the plain versions
+    allocate per call, so nothing else stays resident."""
     from ..ops.buckets import PLAN_TILE
     from ..ops.cand_prep import PREP_TILE
 
     i64, i32 = np.int64, np.int32
     m = batch * arity
-    qalloc = qcap + m
+    qalloc = qcap + (max(spill[1], m) if spill else m)
     cb = min(cand, m) if cand else m
     p = max(n_props, 1)
     shapes = (
@@ -161,10 +170,24 @@ def wavefront_specs(
         ((), i64), ((p,), i64), ((), i64), ((), i64),
     )
     specs = [BufferSpec(n, s, d) for n, (s, d) in zip(_CARRY_NAMES, shapes)]
+    if checked:
+        specs.append(BufferSpec("checked_err", (), np.bool_))
+    if spill:
+        bits, pend_cap = spill
+        palloc = pend_cap + m
+        specs += [BufferSpec(n, s, d) for n, (s, d) in zip(_SPILL_NAMES, (
+            ((bits // 32,), i32), ((), i64), ((palloc,), i64),
+            ((palloc, width), i64), ((palloc,), i64), ((palloc,), i32),
+            ((palloc,), i32), ((), i64), ((2,), i64),
+        ))]
     if cartography:
         specs += [BufferSpec(n, s, i64) for n, s in
                   zip(_CART_NAMES, ((max(arity, 1),), (p,), (p,)))]
     specs.append(BufferSpec("lanes", (batch,), i64))
+    if checked:
+        specs.append(BufferSpec("checked_init_row", (width,), i64))
+    if spill:
+        specs.append(BufferSpec("pend_lanes", (m,), i64))
     if cuda:
         specs += [BufferSpec(f"prep_{n}", (cb,), i64)
                   for n in ("fp", "payload", "cidx", "key")]
@@ -173,15 +196,17 @@ def wavefront_specs(
             BufferSpec("prep_cand_overflow", (), np.bool_),
             BufferSpec("prep_scratch", (2 + -(-m // PREP_TILE),), i64),
         ]
-        specs += [BufferSpec(f"plan_{n}", (cb,), i64)
-                  for n in ("tgt", "cfp", "cpl", "sel")]
-        specs += [
-            BufferSpec("plan_n_new", (), i64),
-            BufferSpec("plan_overflow", (), np.bool_),
-            BufferSpec("plan_scratch", (3 + -(-cb // PLAN_TILE),), i64),
-        ]
-        if sym:
-            specs.append(BufferSpec("plan_stage", (3 * cb,), i64))
+        plans = [("plan", cb)] + ([("inject", spill[1])] if spill else [])
+        for pre, n in plans:
+            specs += [BufferSpec(f"{pre}_{k}", (n,), i64)
+                      for k in ("tgt", "cfp", "cpl", "sel")]
+            specs += [
+                BufferSpec(f"{pre}_n_new", (), i64),
+                BufferSpec(f"{pre}_overflow", (), np.bool_),
+                BufferSpec(f"{pre}_scratch", (3 + -(-n // PLAN_TILE),), i64),
+            ]
+            if sym:
+                specs.append(BufferSpec(f"{pre}_stage", (3 * n,), i64))
     return specs
 
 
@@ -262,14 +287,21 @@ def next_rung_block(spec_fn: Callable, caps: dict) -> dict:
 
 def capacity_plan(
     spec_fn: Callable, caps: dict, *, budget: Optional[int] = None,
-    rungs: int = 24,
+    rungs: int = 24, spill: bool = False,
+    spill_host_bytes: Optional[int] = None,
 ) -> dict:
     """The capacity ladder from ``caps`` upward: per rung, steady bytes,
     the growth transient (previous rung + this rung live), and — when a
     ``budget`` is known — whether it fits.  ``max_unique`` is the planning
     headline: the largest rung whose TRANSIENT fits holds at most
     ``capacity / 4`` unique states before the next (unfitting) growth.
-    (The JAX plan's ``spill`` extension comes with the spill tier.)"""
+
+    ``spill=True`` plans with the spill tier armed (JAX
+    ``telemetry/memory.py:309-372``): the ladder still caps the HOT tier
+    at the largest affordable rung, and ``max_unique`` extends by the host
+    tier's reach (``spill_host_bytes``, else ``STATERIGHT_TPU_HOST_BYTES``,
+    else half the host's RAM, at 16 bytes a spilled state), with the
+    mmap'd disk tier unbounded behind it, in the ``spill`` block."""
     ladder = []
     cur = dict(caps)
     prev_total = None
@@ -298,6 +330,21 @@ def capacity_plan(
     }
     if max_unique is not None:
         out["max_unique"] = max_unique
+    if spill and budget is not None and max_unique is not None:
+        from ..spill.store import BYTES_PER_ENTRY, default_host_budget
+
+        hb = (int(spill_host_bytes) if spill_host_bytes is not None
+              else default_host_budget())
+        block: dict = {
+            "hot_max_unique": max_unique,
+            "bytes_per_spilled": BYTES_PER_ENTRY,
+            "host_budget_bytes": hb,
+            "disk": "unbounded (mmap tier; bounded by disk capacity)",
+        }
+        if hb:
+            block["host_max_unique"] = hb // BYTES_PER_ENTRY
+            out["max_unique"] = max_unique + block["host_max_unique"]
+        out["spill"] = block
     return out
 
 
@@ -513,9 +560,11 @@ def snapshot_fits_guard(snap: dict, context: str) -> None:
         return
     total = snap.get("footprint_bytes")
     if total is None:
+        # the hot tier only: the spill_* arrays are host-resident tier
+        # contents and never compete for device memory
         total = sum(
             int(v.nbytes) for k, v in snap.items()
-            if isinstance(v, np.ndarray)
+            if isinstance(v, np.ndarray) and not str(k).startswith("spill_")
         )
     total = int(total)
     if total <= budget:

@@ -3,7 +3,7 @@ families, rendered in Prometheus text exposition for ``GET /metrics``.
 
 The port's own copy of ``stateright_tpu/telemetry/metrics.py``, with the
 engine families; the fleet's families and the Explorer's ``/metrics``
-endpoint come with ROADMAP Queue 1 item 13.
+endpoint come with the ROADMAP item "the service layers".
 
 The bus is the LIVE aggregation layer over telemetry the engines already
 collect at host syncs: :meth:`FlightRecorder.step` publishes the engine

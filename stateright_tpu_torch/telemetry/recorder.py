@@ -2,8 +2,8 @@
 
 The port's own copy of ``stateright_tpu/telemetry/recorder.py``.  The
 schema keeps every record kind and feature block of the JAX package (the
-``sweep``/``fleet``/``spill``/``roofline`` producers are not ported yet),
-so a JSONL written by either package reads in the other.
+``sweep``/``fleet``/``roofline`` producers are not ported yet), so a JSONL
+written by either package reads in the other.
 
 Record schema (every record):
 
@@ -13,7 +13,8 @@ Record schema (every record):
  - ``kind`` — ``"step"`` | ``"growth"`` | ``"occupancy"`` | ``"compile"``
    | ``"profile"`` | ``"health"`` | ``"cartography"`` | ``"memory"``
    | ``"roofline"`` | ``"checkpoint"`` | ``"fault"`` | ``"restart"``
-   | ``"sweep"`` | ``"fleet"`` | ``"job"`` | ``"span"`` | ``"note"``
+   | ``"sweep"`` | ``"fleet"`` | ``"job"`` | ``"span"`` | ``"spill"``
+   | ``"note"``
 
 ``step`` records additionally carry the engine tag and cumulative counters
 (``states``, ``unique``) plus derived per-step deltas (``d_states``,
@@ -41,11 +42,10 @@ from .health import HealthTracker
 
 # Growth-record status vocabulary: the port's GPU engine's status words
 # (``parallel/wavefront.py``, which maps its numeric codes onto these
-# names next to their definitions).  The JAX package's sharded and spill
-# words (``frontier_full``, ``bucket_full``, ``spill_sync``) come with
-# those engines.
+# names next to their definitions).  The JAX package's sharded words
+# (``frontier_full``, ``bucket_full``) come with that engine.
 STATUS_NAMES = frozenset({
-    "ok", "queue_full", "table_full", "cand_full", "poison",
+    "ok", "queue_full", "table_full", "cand_full", "poison", "spill_sync",
 })
 
 

@@ -323,6 +323,15 @@ def build_report(checker) -> dict:
         mem = mem_fn(live=False)
         if mem is not None:
             out["memory"] = mem
+    # spill tier (spill/): count-derived for a fixed model, configuration
+    # and budget (evictions fire at deterministic growth boundaries and the
+    # Bloom words are a function of the spilled set), so the block stays
+    # as deterministic as the cartography
+    sp_fn = getattr(checker, "spill_status", None)
+    if callable(sp_fn):
+        sp = sp_fn()
+        if sp is not None:
+            out["spill"] = sp
     # durability (stateright_tpu/checkpoint.py + supervisor.py,
     # docs/robustness.md): the DETERMINISTIC subset only — the autosave
     # cadence config, the supervised restart count, and the degradation
@@ -448,6 +457,35 @@ def render_markdown(report: dict, rec=None) -> str:
             lines.append(
                 "- largest buffers: "
                 + ", ".join(f"{k}={fmt_bytes(v)}" for k, v in top)
+            )
+    sp = report.get("spill")
+    if sp:
+        from .memory import fmt_bytes
+
+        lines += ["", "## Spill tier", ""]
+        lines.append(
+            f"- evictions: **{sp.get('evictions')}** — "
+            f"{sp.get('spilled_fps')} fingerprints off-device "
+            f"(host {fmt_bytes(sp.get('host_bytes'))}, "
+            f"disk {fmt_bytes(sp.get('disk_bytes'))}, "
+            f"index {fmt_bytes(sp.get('index_bytes'))})"
+        )
+        lines.append(
+            f"- Bloom filter: {sp.get('bloom_bits')} bits, "
+            f"k={sp.get('bloom_k')}, est. false-positive rate "
+            f"{sp.get('bloom_est_false_pos')}"
+        )
+        lines.append(
+            f"- deferred to host resolution: {sp.get('deferred')} "
+            f"candidates ({sp.get('resolved_dups')} true duplicates, "
+            f"{sp.get('resolved_novel')} Bloom false positives "
+            "re-injected)"
+        )
+        if sp.get("queue_offloaded"):
+            lines.append(
+                f"- queue overflow: {sp.get('queue_offloaded')} frontier "
+                f"rows offloaded to host, {sp.get('queue_refilled')} "
+                "refilled"
             )
     dur = report.get("durability")
     if dur:

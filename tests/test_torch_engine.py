@@ -331,6 +331,62 @@ ISOLATION_CASES = {
         "o = orl_model().checker().spawn_gpu(device='cpu').join()\n"
         "assert o.unique_state_count() == 148, o.unique_state_count()\n"
     ),
+    # checked mode: a clean run, and the out-of-range twin's error
+    "checked": (
+        "import numpy as np, torch\n"
+        "from stateright_tpu_torch.analysis import CheckedExecutionError\n"
+        "from stateright_tpu_torch.core import Model, Property\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.parallel.tensor_model import (\n"
+        "    BitPacker, TensorBackedModel, TensorModel)\n"
+        "c = TwoPhaseSys(3).checker().checked().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+        "class T(TensorModel):\n"
+        "    width = max_actions = 1\n"
+        "    pk = BitPacker([('n', 3)])\n"
+        "    def __init__(self, m): self.model = m\n"
+        "    def init_rows(self): return np.zeros((1, 1), np.uint64)\n"
+        "    def encode_state(self, s): return (int(s),)\n"
+        "    def decode_state(self, r): return int(r[0])\n"
+        "    def property_masks(self, rows):\n"
+        "        return torch.ones((rows.shape[0], 1), dtype=torch.bool)\n"
+        "    def step_rows(self, rows):\n"
+        "        n = self.pk.get(rows, 'n')\n"
+        "        s = rows.clone(); s[..., 0] = torch.tensor([1, 2, 3, 4])[n]\n"
+        "        return s[:, None, :], (n < 7)[:, None]\n"
+        "class M(TensorBackedModel, Model):\n"
+        "    def tensor_model(self): return T(self)\n"
+        "    def init_states(self): return [0]\n"
+        "    def actions(self, s): return [0] if s < 7 else []\n"
+        "    def next_state(self, s, a): return s + 1\n"
+        "    def properties(self):\n"
+        "        return [Property.always('ok', lambda m, s: True)]\n"
+        "try:\n"
+        "    M().checker().checked().spawn_gpu(device='cpu', batch=8).join()\n"
+        "    raise SystemExit('no error')\n"
+        "except CheckedExecutionError as e:\n"
+        "    assert e.state == 4, e\n"
+    ),
+    # the spill tier, evicting under a budget
+    "spill": (
+        "import os\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.parallel.wavefront import memory_spec_fn\n"
+        "from stateright_tpu_torch.telemetry.memory import total_bytes\n"
+        "tm = TwoPhaseSys(5).tensor_model()\n"
+        "f = memory_spec_fn(tm, 3, cuda=False,\n"
+        "                   spill=(1 << 14, 4 * 128 * tm.max_actions))\n"
+        "tot = lambda cap: total_bytes(f(dict(cap=cap, qcap=4096, batch=128,\n"
+        "                                     cand=4096)))\n"
+        "os.environ['STATERIGHT_TPU_DEVICE_BYTES'] = str(\n"
+        "    tot(1 << 13) + tot(1 << 14) - 1)\n"
+        "c = TwoPhaseSys(5).checker().spill().spawn_gpu(\n"
+        "    device='cpu', capacity=1 << 12, batch=128, queue_capacity=4096,\n"
+        "    spill_bloom_bits=1 << 14, steps_per_call=8).join()\n"
+        "assert c.unique_state_count() == 8832, c.unique_state_count()\n"
+        "assert c.spill_status()['evictions'] >= 1\n"
+    ),
     # telemetry: the recorder, cartography, the memory ledger, the report
     # and the run registry on the GPU engine and the host BFS
     "telemetry": (
@@ -444,6 +500,8 @@ def sync_free_model(name):
         CompiledActorTensor,
     )
 
+    if name == "2pc-spill":
+        return TwoPhaseSys(5), TwoPhaseTensor
     if name.startswith("2pc"):
         return TwoPhaseSys(3), TwoPhaseTensor
     if name == "raft-sym":
@@ -457,10 +515,29 @@ def sync_free_model(name):
 
 # unique states of each probed run; "-sym" runs under .symmetry(),
 # "-flags" under .prededup().mxu(), "-cart" under .cartography() (its
-# counters and the queue-derived depth histogram ride the block)
+# counters and the queue-derived depth histogram ride the block),
+# "-checked" under .checked() (the guard's flags), "-spill" under .spill()
+# with a device budget that evicts (the Bloom test and the pending append)
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
                     "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
-                    "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265}
+                    "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265,
+                    "2pc-checked": 288, "2pc-spill": 8832}
+
+
+def spill_budget(model, batch: int, bits: int) -> int:
+    """A device budget under which a 2pc-5 run evicts at the 2^13 rung."""
+    from stateright_tpu_torch.parallel.wavefront import memory_spec_fn
+    from stateright_tpu_torch.telemetry.memory import total_bytes
+
+    tm = model.tensor_model()
+    spec = memory_spec_fn(tm, len(model.properties()), cuda=False,
+                          spill=(bits, 4 * batch * tm.max_actions))
+
+    def tot(cap):
+        return total_bytes(spec(dict(cap=cap, qcap=4096, batch=batch,
+                                     cand=4096)))
+
+    return tot(1 << 13) + tot(1 << 14) - 1
 
 
 @pytest.mark.parametrize("name", list(SYNC_FREE_UNIQUE))
@@ -497,9 +574,24 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
         b = b.prededup().mxu()
     if name.endswith("-cart"):
         b = b.cartography()
-    c = b.spawn_gpu(device="cpu", steps_per_call=4).join()
+    if name.endswith("-checked"):
+        b = b.checked()
+    kw = {}
+    if name.endswith("-spill"):
+        b = b.spill()
+        monkeypatch.setenv("STATERIGHT_TPU_DEVICE_BYTES",
+                           str(spill_budget(m, 128, 1 << 14)))
+        monkeypatch.setenv("STATERIGHT_TPU_CAPACITY_GUARD", "off")
+        kw = dict(capacity=1 << 12, batch=128, queue_capacity=4096,
+                  spill_bloom_bits=1 << 14)
+    c = b.spawn_gpu(device="cpu", steps_per_call=4, **kw).join()
     assert (c.cartography() is not None) == name.endswith("-cart")
     assert c._prededup == name.endswith("-flags")
+    assert c._checked == name.endswith("-checked")
+    if c._spill:
+        # blocks ran after an eviction, with deferred candidates appended
+        sp = c.spill_status()
+        assert sp["evictions"] >= 1 and sp["deferred"] > 0
     assert c.unique_state_count() == SYNC_FREE_UNIQUE[name]
     assert len(blocks) > 2
     assert blocks == [[]] * len(blocks)
@@ -526,13 +618,15 @@ FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
 
 
 @pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
-@pytest.mark.parametrize("explicit", [False, True])
+@pytest.mark.parametrize("explicit", [False, True, "checked", "spill"])
 def test_step_flags_off_dispatch_the_same_operations(name, explicit,
                                                     monkeypatch):
     """With ``prededup`` off, unset or turned off explicitly against its
-    env knob (and ``mxu``, which has no effect, likewise), every step
-    dispatches exactly the pinned operations: no pre-dedup, and no clone of
-    the block per field write."""
+    env knob (and ``mxu``, which has no effect, likewise), and with
+    ``checked(False)`` and ``spill(False)`` (the latter against its env
+    knob), every step dispatches exactly the pinned operations: no
+    pre-dedup, no guard, no Bloom test, and no clone of the block per
+    field write."""
     from stateright_tpu_torch.parallel import wavefront
 
     steps = []
@@ -550,12 +644,17 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     b = m.checker()
     if name.endswith("-sym"):
         b = b.symmetry()
-    if explicit:
+    if explicit is True:
         monkeypatch.setenv("STATERIGHT_TPU_PREDEDUP", "1")
         monkeypatch.setenv("STATERIGHT_TPU_MXU", "1")
         b = b.prededup(False).mxu(False)
+    elif explicit == "checked":
+        b = b.checked(False)
+    elif explicit == "spill":
+        monkeypatch.setenv("STATERIGHT_TPU_SPILL", "1")
+        b = b.spill(False)
     c = b.spawn_gpu(device="cpu", batch=64, steps_per_call=4).join()
-    assert not c._prededup
+    assert not c._prededup and not c._checked and not c._spill
     assert steps
     assert {sum(ops.values()) for ops in steps} <= FLAGS_OFF_OPS_PER_STEP[name]
     assert all("aten.clone.default" not in ops for ops in steps)

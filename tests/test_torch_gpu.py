@@ -11,8 +11,12 @@ lin-reg-3-ordered, raft-3, per-channel paxos-1, single-copy(2,1) with two
 puts in both packings, and wo(2,1); 2pc-7 and raft-3 under symmetry; the
 ORL sender/receiver; 2pc-7 and paxos-2 under ``.prededup()``), a
 prededup step's ``row_hash`` launch and ``window_unique`` against their
-plain versions, and a live checkpoint and an autosave generation resumed
-on ``cuda`` against an uninterrupted ``cuda`` run.
+plain versions, a live checkpoint and an autosave generation resumed
+on ``cuda`` against an uninterrupted ``cuda`` run, and checked mode and the
+spill tier: 2pc-5 under ``.spill()`` and a budget that evicts (tables,
+queue rows, store and tallies) and under ``.checked()`` on ``cuda`` against
+``cpu``, and the out-of-range twin's error on the card with the CUDA
+context still usable after it.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -689,3 +693,86 @@ def test_memory_ledger_analytic_bytes_equal_live_bytes_on_cuda(cuda):
     stats = device_memory_stats(cuda)
     assert stats is not None and stats["bytes_limit"] > 0
     assert c.memory()["device"]["bytes_in_use"] > 0
+
+
+# -- checked mode and the spill tier on the card ------------------------------
+
+SPILL_KW = dict(capacity=1 << 12, batch=128, queue_capacity=4096,
+                spill_bloom_bits=1 << 14, steps_per_call=8)
+
+
+def spill_budget(n: int, cuda: bool, cap_fit: int = 1 << 13) -> int:
+    """A device budget under which a 2pc-n run on ``cuda`` (or the CPU)
+    evicts at the ``cap_fit`` rung: each device's own analytic buffers
+    (the card's include the kernels' scratch), so both evict at the same
+    growth."""
+    from stateright_tpu_torch.parallel.wavefront import memory_spec_fn
+    from stateright_tpu_torch.telemetry.memory import total_bytes
+
+    model = TwoPhaseSys(n)
+    tm = model.tensor_model()
+    batch = SPILL_KW["batch"]
+    m = batch * tm.max_actions
+    spec = memory_spec_fn(tm, len(model.properties()), cuda=cuda,
+                          spill=(SPILL_KW["spill_bloom_bits"], 4 * m))
+
+    def tot(cap):
+        return total_bytes(spec(dict(cap=cap, qcap=SPILL_KW["queue_capacity"],
+                                     batch=batch, cand=min(4096, m))))
+
+    return tot(cap_fit) + tot(2 * cap_fit) - 1
+
+
+def test_spill_2pc5_identical_on_cuda_and_cpu(cuda, monkeypatch):
+    """2pc-5 under a budget that evicts at the 2^13 rung on each device:
+    8,832 unique, and the same tables, queue rows, store arrays and spill
+    tallies on ``cuda`` and ``cpu``; on the card the ledger's analytic
+    bytes (the inject's plan buffers included) equal the live tensors'."""
+    monkeypatch.setenv("STATERIGHT_TPU_CAPACITY_GUARD", "off")
+    runs = []
+    for device in (cuda, "cpu"):
+        monkeypatch.setenv("STATERIGHT_TPU_DEVICE_BYTES", str(
+            spill_budget(5, device != "cpu")))
+        runs.append(TwoPhaseSys(5).checker().spill().spawn_gpu(
+            device=device, **SPILL_KW).join())
+    g, c = runs
+    assert g.unique_state_count() == c.unique_state_count() == 8832
+    assert g.state_count() == c.state_count()
+    assert g.spill_status()["evictions"] >= 1
+    assert g.spill_status() == c.spill_status()
+    assert g.inject_calls == c.inject_calls > 0
+    live = {n: t.nbytes for n, t in g.live_buffers().items()}
+    assert live == {s.name: s.nbytes
+                    for s in g._memory_spec_fn()(g._memory_caps())}
+    assert any(n.startswith("inject_") for n in live)
+    gs, cs = g.final_snapshot(), c.final_snapshot()
+    assert_same_snapshot(gs, cs)
+    for k in ("spill_fp", "spill_parent"):
+        np.testing.assert_array_equal(gs[k], cs[k], err_msg=k)
+
+
+def test_checked_2pc5_identical_on_cuda_and_cpu(cuda):
+    """Under ``.checked()`` the guard raises no flag on 2pc-5 on either
+    device, and the tables and queue rows are the same."""
+    g, c = (TwoPhaseSys(5).checker().checked().spawn_gpu(
+        device=d, batch=256).join() for d in (cuda, "cpu"))
+    assert g.unique_state_count() == c.unique_state_count() == 8832
+    assert_same_snapshot(g.final_snapshot(), c.final_snapshot())
+
+
+def test_checked_oob_twin_raises_and_the_context_survives(cuda):
+    """The out-of-range twin under ``.checked()`` on the card raises
+    ``CheckedExecutionError`` naming state 4: the guard clamped the gather,
+    so no device-side assert fired, and a 2pc-3 run on the card afterwards
+    still gives 288."""
+    from test_torch_oob_twin import OOBModel
+
+    from stateright_tpu_torch.analysis import CheckedExecutionError
+
+    with pytest.raises(CheckedExecutionError) as exc:
+        OOBModel().checker().checked().spawn_gpu(
+            device=cuda, batch=8, capacity=1 << 10).join()
+    assert exc.value.state == 4 and "out-of-bounds" in str(exc.value)
+    torch.cuda.synchronize(cuda)
+    c = TwoPhaseSys(3).checker().spawn_gpu(device=cuda, batch=64).join()
+    assert c.unique_state_count() == 288

@@ -25,10 +25,10 @@ KW = dict(device="cpu", batch=32, queue_capacity=64, capacity=1 << 10,
 
 def live_bytes(checker, carry, eng):
     """name -> nbytes of a carry and an engine, under the ledger's names."""
-    from stateright_tpu_torch.parallel.wavefront import CART
+    from stateright_tpu_torch.parallel.wavefront import BASE
 
-    out = {n: t.nbytes for n, t in zip(mem._CARRY_NAMES, carry[:CART])}
-    out.update({n: t.nbytes for n, t in zip(mem._CART_NAMES, carry[CART:])})
+    out = {n: t.nbytes for n, t in zip(mem._CARRY_NAMES, carry[:BASE])}
+    out.update({n: t.nbytes for n, t in zip(mem._CART_NAMES, carry[BASE:])})
     out["lanes"] = eng.lanes.nbytes
     return out
 
@@ -48,9 +48,11 @@ def test_analytic_bytes_equal_live_bytes_at_every_rung(flags, monkeypatch):
                                             self.batch, self.eff_cand)))
         return run(self, carry)
 
-    def spy_regrow(self, carry, cap, qcap, batch, status, cand, at=None):
+    def spy_regrow(self, carry, cap, qcap, batch, status, cand, at=None,
+                   **kw):
         seen.append(("growth", None, carry, (cap, qcap, batch, cand)))
-        return regrow(self, carry, cap, qcap, batch, status, cand, at=at)
+        return regrow(self, carry, cap, qcap, batch, status, cand, at=at,
+                      **kw)
 
     monkeypatch.setattr(wavefront._Engine, "run", spy_run)
     monkeypatch.setattr(wavefront.GpuChecker, "_regrow", spy_regrow)
