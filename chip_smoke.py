@@ -181,6 +181,12 @@ and read just after:
    the 2^21 -> 2^22 table growth: 1,194,428 / 2,420,477, "value chosen"
    replayed, "linearizable" never violated, at least one eviction, with
    its tallies, inject calls and wall beside the plain paxos-3 leg's;
+ - on the first spill inject of each spill leg's ``cuda`` run that
+   inserts something (its inputs kept by :func:`first_inject`: the hot
+   table before it and the ``pend_cap`` lanes), ``bucket_plan`` and
+   ``insert_commit`` against their plain versions, L2-cold, with their
+   times and bounds (``kernel_*_spill_2pc7_inject``,
+   ``kernel_*_spill_paxos3_inject``);
  - the dispatched operations a step at 2pc-7 and paxos-3 with each flag
    off and on.
 
@@ -204,7 +210,10 @@ under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
 ``at_telemetry_paxos3``, ``at_telemetry_2pc7`` and ``at_profile_2pc7``,
 and the checked and spill legs' under ``at_checked_2pc7``,
 ``at_checked_paxos2``, ``at_spill_2pc7`` and ``at_spill_paxos3``, the spill
-inject's own launches beside them as ``inject_launches``)
+inject's own launches beside them as ``inject_launches``, and for
+``bucket_plan`` and ``insert_commit`` the inject cells' records, with the
+inject's launches, under ``at_spill_2pc7_inject`` and
+``at_spill_paxos3_inject``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -234,6 +243,7 @@ from stateright_tpu_torch.ops.buckets import (
     PlanBuffers,
     bucket_plan,
     bucket_plan_plain,
+    sort_candidates,
     window_unique,
 )
 from stateright_tpu_torch.ops.cand_prep import (
@@ -264,7 +274,7 @@ from stateright_tpu_torch.core import Model, Property
 from stateright_tpu_torch.parallel.tensor_model import (
     BitPacker, TensorBackedModel, TensorModel,
 )
-from stateright_tpu_torch.parallel.wavefront import GpuChecker
+from stateright_tpu_torch.parallel.wavefront import GpuChecker, _Engine
 from stateright_tpu_torch.profile_run import host_sync_counts
 from stateright_tpu_torch.telemetry.diff import (
     IDENTICAL, PERF_ONLY, diff_reports,
@@ -743,6 +753,14 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
         out["bucket_plan_table_order"] = plan_record(tab, cold, stream)
 
     # -- insert_commit of the batch's novel candidates -----------------------
+    out["insert_commit"] = commit_record(x, cold, stream)
+    return out
+
+
+def commit_record(x: dict, cold: bool, stream) -> dict:
+    """``insert_commit`` against its plain version on the batch ``x`` of
+    :func:`next_batch` (or :func:`inject_batch`): each on its own copy of
+    the table and the queue."""
     tfp, want = x["tfp"], x["plan"]
     tgt, wfp, wpl, sel, n_new_t = want[0], want[1], want[2], want[3], want[4]
     q = x["queue"]
@@ -763,7 +781,7 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
     # 16 table bytes and a queue row (8W + 16 bytes) out per novel lane
     c_ms, c_by = bound(nn * 32 + 16 + parents * 8 + nn * 8 * width
                        + nn * 16 + nn * (8 * width + 16), 0)
-    out["insert_commit"] = dict(
+    return dict(
         name="insert_commit", route="cuda",
         source="stateright_tpu_torch/csrc/insert_commit.cu",
         replaces="stateright_tpu/ops/pallas_insert.py:85",
@@ -777,7 +795,64 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
                   lambda: insert_commit(*kt, tgt, wfp, wpl, n_new_t, kq,
                                         check=False, stream=stream)),
     )
-    return out
+
+
+@contextlib.contextmanager
+def first_inject(into: dict):
+    """Keep, in ``into``, the inputs of the first spill inject (JAX
+    ``_build_inject``) of the runs inside the block that inserts
+    something: copies of the hot table before it and of its ``pend_cap``
+    lanes, the queue's tail, the queue buffers' shapes (the append reads
+    nothing of the queue) and the count it inserted.  The copies are device-to-device and
+    launch no kernel of the four."""
+    run = _Engine.inject
+
+    def inject(eng, carry, *lanes):
+        if into:
+            return run(eng, carry, *lanes)
+        before = dict(
+            tfp=carry[convert.TFP].clone(), tpl=carry[convert.TPL].clone(),
+            tail=carry[convert.TAIL].clone(), sym=eng.sym,
+            lanes=[a.clone() for a in lanes],
+            queue=[(carry[i].shape, carry[i].dtype) for i in (
+                convert.QROWS, convert.QFP, convert.QEBITS,
+                convert.QDEPTH)])
+        carry, io = run(eng, carry, *lanes)
+        n_new, overflow = io.tolist()
+        if n_new > 0 and not overflow:
+            into.update(before, n_new=n_new)
+        return carry, io
+
+    _Engine.inject = inject
+    try:
+        yield into
+    finally:
+        _Engine.inject = run
+
+
+def inject_kernels(kept: dict, leg: str) -> dict:
+    """``bucket_plan`` and ``insert_commit`` against their plain versions,
+    L2-cold, on the inject batch :func:`first_inject` kept: the inject's
+    sort, its plan (generation order under symmetry) and its queue append
+    (arity 1: each lane is its own parent)."""
+    if not kept:
+        raise AssertionError(f"{leg}: no spill inject inserted anything")
+    ifp, irows, ipar, iebt, ipdep = kept["lanes"]
+    tfp, sym = kept["tfp"], kept["sym"]
+    sort = sort_candidates(ifp, ipar, tfp.shape[0] // SLOTS)
+    plan = bucket_plan_plain(tfp, *sort, generation_order=sym)
+    queue = QueueAppend(
+        *(torch.zeros(shape, dtype=dt, device=tfp.device)
+          for shape, dt in kept["queue"]),
+        kept["tail"], plan[3], irows, iebt, ipdep, 1)
+    x = dict(tfp=tfp, tpl=kept["tpl"], sort=sort, plan=plan, queue=queue,
+             crows=irows, n_new=int(plan[4]))
+    if x["n_new"] != kept["n_new"]:
+        raise AssertionError(f"{leg}: the kept inject inserted "
+                             f"{kept['n_new']}, its plain plan {x['n_new']}")
+    stream = torch.cuda.current_stream().cuda_stream
+    return {"bucket_plan": plan_record(x, True, stream, sym),
+            "insert_commit": commit_record(x, True, stream)}
 
 
 def same_tables_and_queue(g, c) -> tuple[bool, int]:
@@ -1680,11 +1755,11 @@ def reconciles(c, n_init: int = 1) -> bool:
             and sum(cart["action_hist"]) == c.state_count() - n_init)
 
 
-def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> dict:
+def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
     """Checked mode and the spill tier on the card (module docstring);
     returns each leg's launches (the spill legs' inject launches apart,
-    under ``inject``)."""
-    legs = {}
+    under ``inject``) and each spill leg's inject kernel cell."""
+    legs, cells = {}, {}
     # -- checked_2pc7: 2pc-7 complete under .checked() -------------------------
     reset_launches()
     torch.cuda.synchronize()
@@ -1788,11 +1863,14 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> dict:
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    g = spill_run(dev, budgets["cuda"])
+    with first_inject({}) as kept:
+        g = spill_run(dev, budgets["cuda"])
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = kernel_launches()
     legs["spill_2pc7"] = dict(launches, inject=dict(g.inject_launches))
+    cells["spill_2pc7"] = inject_kernels(kept, "spill 2pc-7")
+    del kept
     sp = g.spill_status()
     hot = int((g._final_carry[convert.TFP] != EMPTY).sum())
     live = {n: t.nbytes for n, t in g.live_buffers().items()}
@@ -1871,14 +1949,17 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with device_bytes(budget3):
+    with device_bytes(budget3), first_inject({}) as kept:
         g3 = paxos_model(3).checker().spill().spawn_gpu(
             queue_capacity=SPILL_P3_QCAP,
             spill_bloom_bits=SPILL_P3_BLOOM).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev)  # before the kernel cell
     legs["spill_paxos3"] = dict(launches, inject=dict(g3.inject_launches))
+    cells["spill_paxos3"] = inject_kernels(kept, "spill paxos-3")
+    del kept
     paths3 = check_discoveries(g3.model, g3, {"value chosen"})
     g3.assert_properties()  # "linearizable" never violated
     sp3 = g3.spill_status()
@@ -1890,8 +1971,8 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> dict:
         "table_slots": g3._cap, "spill": sp3,
         "inject_calls": g3.inject_calls, "launches": legs["spill_paxos3"],
         "growth_events": g3.growth_events,
-        "peak_device_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
-        "path_lengths": paths3, "card": smi})
+        "peak_device_mib": peak / 2**20, "path_lengths": paths3,
+        "card": smi})
     if (g3.unique_state_count(), g3.state_count()) != (PAXOS3_UNIQUE,
                                                        PAXOS3_STATES):
         raise AssertionError("spill paxos-3: not 1,194,428 / 2,420,477")
@@ -1912,7 +1993,10 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> dict:
             ops[f"{model}_{tag}"] = ops_per_step(dev, False, flags, build)
     emit("checked_spill_ops_per_step", dict(ops, card=smi))
     lap("checked_spill_ops")
-    return legs
+    for leg, cell in cells.items():
+        for name, k in cell.items():
+            emit(f"kernel_{name}_{leg}_inject", k)
+    return legs, cells
 
 
 def main() -> int:
@@ -2019,7 +2103,8 @@ def main() -> int:
     launches_tel = telemetry_phases(dev, smi, p3_ref)
     launches_p3f, launches_p2f, launches_sym7f = flag_phases(dev, smi, p3_ref)
     lap("step_flags")
-    launches_cs = checked_spill_phases(dev, smi, ref7, p3_ref)
+    launches_cs, kernels_inject = checked_spill_phases(dev, smi, ref7,
+                                                       p3_ref)
     # -- kernels at paxos-3 shapes, L2-cold: plain, and the same batch as a
     # .prededup() step gives it (the queue holds the same rows with the
     # flag on or off) ---------------------------------------------------------
@@ -2109,7 +2194,9 @@ def main() -> int:
                              ("single-copy-4", kernels_sc4),
                              ("per-channel paxos-2", kernels_p2pc),
                              ("2pc-15 symmetry", kernels_sym),
-                             ("orl", kernels_orl))
+                             ("orl", kernels_orl),
+                             *((f"{leg} inject", cell) for leg, cell
+                               in kernels_inject.items()))
            for k in ks.values() if not k["matched"]]
     if bad:
         raise AssertionError(f"kernel disagrees with plain: {bad}")
@@ -2158,6 +2245,13 @@ def main() -> int:
             if "inject" in ls:
                 entry[f"at_{leg}"]["inject_launches"] = ls["inject"].get(
                     name, 0)
+            if name in kernels_inject.get(leg, {}):
+                entry[f"at_{leg}_inject"] = dict(
+                    {key: kernels_inject[leg][name][key]
+                     for key in KERNEL_KEYS
+                     if key not in ("name", "route", "source", "replaces",
+                                    "launches")},
+                    launches=ls["inject"][name])
         line.append(entry)
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS

@@ -82,17 +82,24 @@ class CheckedExecutionError(RuntimeError):
         super().__init__(message)
 
 
-_PACKETS: dict = {}
+_KINDS: dict = {}
 
 
-def _packet(func) -> str:
-    """The operation's name with an in-place underscore dropped (cached:
-    the guard asks for every operation)."""
-    name = _PACKETS.get(func)
-    if name is None:
-        name = func.overloadpacket.__name__
-        name = _PACKETS[func] = name[:-1] if name.endswith("_") else name
-    return name
+def _kind(func) -> tuple:
+    """``(op, kind)`` of an operation, cached (the guard asks for every
+    operation): ``op`` its name with an in-place underscore dropped,
+    ``kind`` the check its arguments get (``"list"``, ``"take"``,
+    ``"dim"``, ``"div"``), or None for one that runs as it is."""
+    got = _KINDS.get(func)
+    if got is None:
+        op = func.overloadpacket.__name__
+        op = op[:-1] if op.endswith("_") else op
+        kind = ("list" if op in _INDEX_LIST_OPS else
+                "take" if op == "take" else
+                "dim" if op in _DIM_INDEX_OPS else
+                "div" if op in _DIV_OPS else None)
+        got = _KINDS[func] = (op, kind)
+    return got
 
 
 class CheckedGuard(TorchDispatchMode):
@@ -180,20 +187,24 @@ class CheckedGuard(TorchDispatchMode):
                            lambda: f"nan generated by aten.{op}")
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        op = _packet(func)
-        if op in _INDEX_LIST_OPS:
+        op, kind = _KINDS.get(func) or _kind(func)
+        if kind == "list":
             args = self._index_list(op, args)
-        elif op == "take":
+        elif kind == "take":
             n = args[0].numel()
             args = (args[0], self._checked_index(op, args[1], n, 0, True,
                                                  (n,)))
-        elif op in _DIM_INDEX_OPS:
+        elif kind == "dim":
             args = self._dim_index(op, args, _DIM_INDEX_OPS[op])
-        elif op in _DIV_OPS and len(args) > 1:
+        elif kind == "div" and len(args) > 1:
             args = self._divisor(op, args)
-        out = func(*args, **kwargs)
-        self._nan(op, out)
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, torch.Tensor):
+            # the twins' operations are integer: one dtype test each
+            if out.is_floating_point():
+                self._nan(op, out)
+        elif isinstance(out, (tuple, list)):
+            self._nan(op, out)
         return out
 
 

@@ -1395,9 +1395,9 @@ class GpuChecker(WavefrontChecker):
         return eng
 
     def _resume_carry(self, snap: dict, arity: int):
-        """A snapshot's carry on the device, grown when it was taken at a
-        growth boundary, with its tail re-seeded: an all-clear checked
-        word (JAX wavefront.py:2114-2116), the spill tail from the
+        """A snapshot's carry on the device, with its tail re-seeded and
+        then grown when it was taken at a growth boundary: an all-clear
+        checked word (JAX wavefront.py:2114-2116), the spill tail from the
         snapshot's host-tier manifest (restored first: the growth reads
         the store's length as the spill base) and zeroed cartography
         counters (JAX wavefront.py:2129-2139; the depth histogram comes
@@ -1414,6 +1414,15 @@ class GpuChecker(WavefrontChecker):
         carry = convert.carry_from_snapshot(
             snap, self.device, self._qalloc(qcap, batch)
         )
+        # the whole carry before any growth: an eviction at the boundary
+        # writes its Bloom words and spill base into the spill tail
+        if self._checked:
+            carry.append(torch.zeros((), dtype=torch.bool,
+                                     device=self.device))
+        if self._spill:
+            carry += self._spill_resume_tail(snap, batch)
+        if self._cartography:
+            carry += zero_counters(arity, len(self._props), self.device)
         st = int(carry[STATUS])
         if st != _STATUS_OK:
             if st == _STATUS_CAND_FULL:
@@ -1425,13 +1434,6 @@ class GpuChecker(WavefrontChecker):
                      and self._spill_should_evict(cap, qcap, batch, cand))
             cap, qcap, carry, _ = self._regrow(carry, cap, qcap, batch, st,
                                                cand, evict=evict)
-        if self._checked:
-            carry.append(torch.zeros((), dtype=torch.bool,
-                                     device=self.device))
-        if self._spill:
-            carry += self._spill_resume_tail(snap, batch)
-        if self._cartography:
-            carry += zero_counters(arity, len(self._props), self.device)
         return cap, qcap, batch, cand, carry
 
     def _run(self) -> None:

@@ -333,37 +333,16 @@ ISOLATION_CASES = {
     ),
     # checked mode: a clean run, and the out-of-range twin's error
     "checked": (
-        "import numpy as np, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from test_torch_oob_twin import OOBModel\n"
         "from stateright_tpu_torch.analysis import CheckedExecutionError\n"
-        "from stateright_tpu_torch.core import Model, Property\n"
         "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
-        "from stateright_tpu_torch.parallel.tensor_model import (\n"
-        "    BitPacker, TensorBackedModel, TensorModel)\n"
         "c = TwoPhaseSys(3).checker().checked().spawn_gpu(\n"
         "    device='cpu', batch=64).join()\n"
         "assert c.unique_state_count() == 288, c.unique_state_count()\n"
-        "class T(TensorModel):\n"
-        "    width = max_actions = 1\n"
-        "    pk = BitPacker([('n', 3)])\n"
-        "    def __init__(self, m): self.model = m\n"
-        "    def init_rows(self): return np.zeros((1, 1), np.uint64)\n"
-        "    def encode_state(self, s): return (int(s),)\n"
-        "    def decode_state(self, r): return int(r[0])\n"
-        "    def property_masks(self, rows):\n"
-        "        return torch.ones((rows.shape[0], 1), dtype=torch.bool)\n"
-        "    def step_rows(self, rows):\n"
-        "        n = self.pk.get(rows, 'n')\n"
-        "        s = rows.clone(); s[..., 0] = torch.tensor([1, 2, 3, 4])[n]\n"
-        "        return s[:, None, :], (n < 7)[:, None]\n"
-        "class M(TensorBackedModel, Model):\n"
-        "    def tensor_model(self): return T(self)\n"
-        "    def init_states(self): return [0]\n"
-        "    def actions(self, s): return [0] if s < 7 else []\n"
-        "    def next_state(self, s, a): return s + 1\n"
-        "    def properties(self):\n"
-        "        return [Property.always('ok', lambda m, s: True)]\n"
         "try:\n"
-        "    M().checker().checked().spawn_gpu(device='cpu', batch=8).join()\n"
+        "    OOBModel().checker().checked().spawn_gpu(device='cpu',\n"
+        "                                             batch=8).join()\n"
         "    raise SystemExit('no error')\n"
         "except CheckedExecutionError as e:\n"
         "    assert e.state == 4, e\n"

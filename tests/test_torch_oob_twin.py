@@ -1,6 +1,7 @@
 """The out-of-range gather twin of the JAX package's sanitizer tests
 (``tests/test_sanitizer.py:64-80``) in the port, for the checked-mode
-tests on the CPU (``test_torch_checked.py``) and on the card
+tests on the CPU (``test_torch_checked.py``, the ``checked`` case of
+``test_torch_engine.py``'s isolation test) and on the card
 (``test_torch_gpu.py``).  This file imports no JAX."""
 
 import numpy as np
@@ -43,19 +44,6 @@ class OOBTwin(TensorModel):
         succ = rows.clone()
         succ[..., 0] = tbl[c]
         return succ[:, None, :], (c < 7)[:, None]
-
-
-class _Counter:
-    """The object model: a counter 0..7."""
-
-    def init_states(self):
-        return [0]
-
-    def actions(self, s):
-        return [0] if s < 7 else []
-
-    def next_state(self, s, a):
-        return s + 1
 
 
 class Counter:

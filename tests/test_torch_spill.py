@@ -384,6 +384,62 @@ def test_kill_and_resume_mid_spill_both_ways():
         TwoPhaseSys(5).checker().spawn_gpu(device="cpu", resume=snap2)
 
 
+def _eviction_boundary_generations(root) -> list:
+    """Every autosave generation under ``root`` taken at a table-full sync
+    (the status of the eviction boundary), oldest first."""
+    from stateright_tpu_torch.checkpoint import list_generations
+
+    out = []
+    for g in list_generations(str(root)):
+        with np.load(os.path.join(g["path"], "snapshot.npz"),
+                     allow_pickle=False) as z:
+            snap = {k: z[k] for k in z.files}
+        if int(snap["status"]) == 2:  # table full
+            out.append(snap)
+    return out
+
+
+def test_resume_at_each_eviction_boundary_both_ways(tmp_path):
+    """An autosave at every host sync keeps the snapshots taken at the
+    evicting syncs themselves (status table-full, served before the
+    eviction): the first has an empty store, a later one a store that
+    grows there.  Each resumes, evicting as the run did, to the
+    uninterrupted run's final tables, queue and store in the port, and to
+    its totals in the JAX engine."""
+    jb, pb = budgets(5, 1 << 13)
+    with device_bytes(pb):
+        TwoPhaseSys(5).checker().spill().autosave(
+            tmp_path, every_secs=0.0, keep=1 << 20).spawn_gpu(
+            device="cpu", **KW).join()
+    snaps = _eviction_boundary_generations(tmp_path)
+    full = port_spill_5()
+    assert len(snaps) == full.spill_status()["evictions"] >= 2
+    assert int(snaps[0]["spill_base"]) == 0
+    assert int(snaps[-1]["spill_base"]) > 0
+    fs = full.final_snapshot()
+    tail = int(fs["tail"])
+    for snap in snaps:
+        with device_bytes(pb):
+            r = TwoPhaseSys(5).checker().spill().spawn_gpu(
+                device="cpu", resume=snap, spill_bloom_bits=BLOOM,
+                steps_per_call=KW["steps_per_call"]).join()
+        assert r.unique_state_count() == full.unique_state_count()
+        assert r.state_count() == full.state_count()
+        assert sorted(r.discoveries()) == sorted(full.discoveries())
+        rs = r.final_snapshot()
+        assert int(rs["tail"]) == tail
+        for k in ("table_fp", "table_parent", "spill_fp", "spill_parent"):
+            np.testing.assert_array_equal(rs[k], fs[k], err_msg=k)
+        for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+            np.testing.assert_array_equal(rs[k][:tail], fs[k][:tail],
+                                          err_msg=k)
+        with device_bytes(jb):
+            jr = JaxSys(5).checker().spill().spawn_tpu(
+                sync=True, resume=snap, spill_bloom_bits=BLOOM)
+        assert jr.unique_state_count() == full.unique_state_count()
+        assert jr.state_count() == full.state_count()
+
+
 def test_port_resumes_a_jax_mid_spill_snapshot():
     import time
 
