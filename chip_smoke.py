@@ -190,6 +190,33 @@ and read just after:
  - the dispatched operations a step at 2pc-7 and paxos-3 with each flag
    off and on.
 
+The supervisor, the fault layer and the audit, last, each leg's launch
+counts reset just before it and read just after:
+
+ - ``supervise_2pc7_kill``: ``TwoPhaseSys(7)`` under ``supervise`` on the
+   card, autosaving at every sync into a temp dir, killed by a
+   ``host_sync`` fault at sync 8 of 18: one restart (``preemption``), the
+   ``fault`` and ``restart`` records, and 296,448 with the plain 2pc-7
+   leg's state count, discoveries, table bytes and queue rows; the
+   restart's seconds from the failure to the resumed run's first block;
+ - ``supervise_oom_real``: in a child process (``--oom-child``), so no
+   other leg sees the limit, 2pc-7 at batch 512 under
+   ``torch.cuda.set_per_process_memory_fraction`` set between the memory
+   ledger's footprint of the last table rung and its growth's transient:
+   a real ``torch.OutOfMemoryError`` classified ``oom``, the spill tier
+   armed under a pinned budget, at least one eviction, 296,448; the child
+   prints one JSON line, every trial wall in it;
+ - ``supervise_sigkill``: ``python -m
+   stateright_tpu_torch.models.two_phase_commit supervise 7 --autosave=D
+   --runs=R --every=0 --fault-plan=P`` dies by SIGKILL at sync 8;
+   ``python -m stateright_tpu_torch.models._cli status D`` prints the
+   heartbeat it left; the same command without the plan resumes, archives
+   the parent's stub and ends at 296,448 with its ``parent_run_id``; and
+   ``compare PARENT CHILD --registry=R --expect=IDENTICAL`` exits 0;
+ - ``audit``: the fleet audit is clean, and the light preflight's host
+   seconds per spawn at 2pc-7, paxos-3 and single-copy-4, uncached and
+   cached.
+
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
 only rows an unflagged main path gives it (``init_rows`` in its record),
 and the ``total`` record gives each phase's wall seconds.
@@ -213,7 +240,10 @@ and the checked and spill legs' under ``at_checked_2pc7``,
 inject's own launches beside them as ``inject_launches``, and for
 ``bucket_plan`` and ``insert_commit`` the inject cells' records, with the
 inject's launches, under ``at_spill_2pc7_inject`` and
-``at_spill_paxos3_inject``)
+``at_spill_paxos3_inject``; and the supervisor's and the audit's legs'
+under ``at_supervise_2pc7_kill``, ``at_supervise_oom_real``,
+``at_supervise_sigkill``, the resumed run's, the killed run's being lost
+with its process, and ``at_audit``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -222,6 +252,7 @@ CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -230,6 +261,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -265,7 +297,7 @@ from stateright_tpu_torch.models.orl import ORL_UNIQUE, orl_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import LEADER, raft_model
 from stateright_tpu_torch.models import two_phase_commit
-from stateright_tpu_torch.models._cli import with_step_flags
+from stateright_tpu_torch.models._cli import fleet_audit, with_step_flags
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
@@ -276,11 +308,13 @@ from stateright_tpu_torch.parallel.tensor_model import (
 )
 from stateright_tpu_torch.parallel.wavefront import GpuChecker, _Engine
 from stateright_tpu_torch.profile_run import host_sync_counts
+from stateright_tpu_torch.supervisor import supervise
 from stateright_tpu_torch.telemetry.diff import (
     IDENTICAL, PERF_ONLY, diff_reports,
 )
 from stateright_tpu_torch.telemetry.memory import device_memory_stats
 from stateright_tpu_torch.telemetry.report import VOLATILE_KEYS
+from stateright_tpu_torch.testing.faults import Fault, FaultPlan
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # the card's non-tensor-core rate (67 TFLOP/s fp32), standing in for its
@@ -332,6 +366,19 @@ CKPT_EVERY_SECS = 0.5
 CKPT_KEEP = 2
 CKPT_AT_UNIQUE = 100_000
 TPC7_UNIQUE = 296_448
+# the supervised 2pc-7 legs: the host sync (of 18 at the default
+# capacities) that the kill fires at, mid-run
+SUPERVISE_KILL_AT = 8
+# where between a rung's footprint and its growth's transient the OOM leg
+# puts its wall, in the order tried, and its batch: the spill tier's
+# pending and inject buffers grow with the batch, and at the default 2,048
+# the armed tier's own buffers outweigh the growth it replaces at 2pc-7
+# (65.4 MB against 26.8 MB at the 2^20 rung, the allocator's bound).  At
+# batch 512 the degraded run peaked at 53.5 MB allocated against the
+# growth's 58.7 MB, and walls at 0.75 and 0.5 of the gap stopped it with
+# a second OOM (chip_smoke's first run on an H100): 0.9 goes first
+OOM_WALL_SHARES = (0.9, 0.75, 0.5)
+OOM_BATCH = 512
 # the telemetry legs: the JAX package's bench configuration of the
 # recorder (bench.py:767-771, without the roofline), the bounded paxos-3
 # runs that count operations a step, and the sync count's paxos-3 runs
@@ -1999,6 +2046,395 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
     return legs, cells
 
 
+# -- the supervisor, the fault layer and the audit ----------------------------
+
+
+class StampedPlan(FaultPlan):
+    """A fault plan that notes when its fault fired (the start of a
+    restart's seconds)."""
+
+    failed_at: Optional[float] = None
+
+    def _fire(self, site, recorder=None, **ctx):
+        try:
+            super()._fire(site, recorder=recorder, **ctx)
+        except BaseException:
+            self.failed_at = time.monotonic()
+            raise
+
+
+def first_block_secs(checker, failed_at: float) -> float:
+    """Seconds from a failure to the end of the resumed run's first block:
+    its second ``step`` record (the first is the resume's own sync, before
+    any block), on the recorder's clock."""
+    rec = checker.flight_recorder
+    steps = rec.records("step")
+    if len(steps) < 2:
+        raise AssertionError("the resumed run ran no block")
+    return steps[1]["t"] - rec.rel(failed_at)
+
+
+def supervise_kill_leg(dev, smi: str, ref7: dict, n: int = 7,
+                       kill_at: int = SUPERVISE_KILL_AT) -> dict:
+    """``supervise_2pc7_kill``: 2pc-7 under ``supervise`` on the card,
+    autosaving every sync into a temp dir, killed by a ``host_sync`` fault;
+    it must restart once (``preemption``) and end with the plain 2pc-7
+    leg's counts, discoveries, table bytes and queue rows.  Returns the
+    leg's launches."""
+    plan = StampedPlan([Fault(site="host_sync", action="kill",
+                              at=kill_at)])
+    recorders = []  # each attempt's recorder: the fault record is the first's
+
+    def spawn(b, resume=None, **kw):
+        c = b.spawn_gpu(resume=resume, **kw)
+        recorders.append(c.flight_recorder)
+        return c
+
+    with tempfile.TemporaryDirectory(prefix="supervise-2pc7-") as root:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with plan:
+            res = supervise(TwoPhaseSys(n).checker().telemetry(),
+                            autosave_dir=root, every_secs=0.0,
+                            max_restarts=2, sleep=lambda s: None,
+                            spawn=spawn, device=dev)
+        torch.cuda.synchronize()
+        sec = time.monotonic() - t0
+        launches = kernel_launches()
+        gens = len(ckpt.list_generations(root))
+    c = res.checker
+    restart = c.flight_recorder.records("restart")
+    fault = recorders[0].records("fault")
+    same, tail = same_snapshots(c.final_snapshot(), ref7["snap"])
+    out = {
+        "unique": c.unique_state_count(), "states": c.state_count(),
+        "restarts": res.restarts,
+        "attempts": [a.outcome for a in res.attempts],
+        "fired": plan.fired, "fault_records": fault,
+        "restart_records": restart,
+        "resumed_from_gen": res.attempts[-1].resumed_from_gen,
+        "restart_secs": first_block_secs(c, plan.failed_at),
+        "sec": sec, "plain_sec": ref7["sec"], "generations_left": gens,
+        "tables_and_queue_identical": same, "tail": tail,
+        "device": str(c.device), "launches": launches, "card": smi}
+    emit("supervise_2pc7_kill", out)
+    print(f"supervise_2pc7_kill: restart took {out['restart_secs']:.3f} s "
+          f"from the failure to the resumed run's first block ({smi})",
+          flush=True)
+    if not (plan.fired and res.restarts == 1 and restart
+            and restart[0]["reason"] == "preemption"):
+        raise AssertionError(f"supervise_2pc7_kill: {out}")
+    if c.device.type != torch.device(dev).type or not (
+            0 < res.attempts[-1].resumed_from_gen):
+        raise AssertionError("supervise_2pc7_kill: not resumed on the card "
+                             "from a mid-run generation")
+    if (c.unique_state_count(), c.state_count()) != (ref7["unique"],
+                                                    ref7["states"]):
+        raise AssertionError(f"supervise_2pc7_kill: {out['unique']} / "
+                             f"{out['states']}")
+    if not same or c.discovery_fps() != ref7["disc"]:
+        raise AssertionError("supervise_2pc7_kill: the resumed run differs "
+                             "from the plain 2pc-7 leg")
+    if [(r["site"], r["at"]) for r in fault] != [("host_sync", kill_at)]:
+        raise AssertionError(f"supervise_2pc7_kill: fault records {fault}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"supervise_2pc7_kill: a kernel never launched: "
+                             f"{launches}")
+    return launches
+
+
+def oom_child(n: int = 7, device: str = "cuda") -> int:
+    """``supervise_oom_real``, run in a process of its own (the allocator
+    limit must not reach any other leg), at batch :data:`OOM_BATCH`.  A
+    first, unlimited 2pc-7 run finds the last table growth and its
+    capacities; the port's memory
+    ledger gives that rung's footprint (the allocator's bound) and the
+    growth's transient; ``torch.cuda.set_per_process_memory_fraction``
+    puts a wall between the two; and 2pc-7 under ``supervise`` must then
+    meet a real ``torch.OutOfMemoryError``, classify it ``oom``, arm the
+    spill tier, evict and end with the first run's counts.  The allocator
+    keeps tensors of 1-10 MB in 20 MB segments, so at these sizes a wall's
+    effect is known only to a segment: the leg tries the walls of
+    :data:`OOM_WALL_SHARES` of the gap in turn, and reports every trial
+    with the measured peaks; it passes when one trial does all of the
+    above.
+    Prints one JSON line."""
+    from stateright_tpu_torch.parallel.wavefront import (
+        _STATUS_TABLE_FULL as TABLE_FULL,
+    )
+    from stateright_tpu_torch.telemetry.memory import (
+        alloc_bytes,
+        transient_block,
+    )
+
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    if dev.type == "cuda":
+        _cuda.library()
+    regrow = GpuChecker._regrow
+    seen = {}
+
+    def probe(self, carry, cap, qcap, batch, status, cand, at=None,
+              evict=False):
+        if at != "growth" or status != TABLE_FULL:
+            return regrow(self, carry, cap, qcap, batch, status, cand,
+                          at=at, evict=evict)
+        torch.cuda.synchronize(dev)
+        pre = torch.cuda.max_memory_allocated(dev)
+        out = regrow(self, carry, cap, qcap, batch, status, cand, at=at,
+                     evict=evict)
+        torch.cuda.synchronize(dev)
+        spec = self._memory_spec_fn()
+        before = self._memory_caps(cap, qcap, batch, cand)
+        after = self._memory_caps(out[0], out[1], batch, cand)
+        seen.update(cap=cap, pre=pre,
+                    post=torch.cuda.max_memory_allocated(dev),
+                    footprint=alloc_bytes(spec(before)),
+                    transient=transient_block(spec, before, after)[
+                        "transient_alloc_bytes"])
+        return out
+
+    GpuChecker._regrow = probe
+    try:
+        g = TwoPhaseSys(n).checker().spawn_gpu(device=dev,
+                                               batch=OOM_BATCH).join()
+    finally:
+        GpuChecker._regrow = regrow
+    unique, states = g.unique_state_count(), g.state_count()
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    low, high = seen["footprint"], seen["transient"]
+    result = {"n": n, "growth_from_cap": seen["cap"],
+              "ledger_footprint_alloc_bytes": low,
+              "ledger_transient_alloc_bytes": high,
+              "measured_peak_before_growth": seen["pre"],
+              "measured_peak_across_growth": seen["post"],
+              "device_bytes": total, "trials": []}
+    ok = False
+    for share in OOM_WALL_SHARES:
+        wall = int(low + share * (high - low))
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.set_per_process_memory_fraction(wall / total, dev)
+        reset_launches()
+        trial = {"share": share, "wall_bytes": wall,
+                 "fraction": wall / total}
+        with tempfile.TemporaryDirectory(prefix="supervise-oom-") as root:
+            t0 = time.monotonic()
+            try:
+                res = supervise(TwoPhaseSys(n).checker().telemetry(),
+                                autosave_dir=root, every_secs=0.0,
+                                max_restarts=2, sleep=lambda s: None,
+                                batch=OOM_BATCH,
+                                **({} if dev.type == "cuda"
+                                   else {"device": dev}))
+            except Exception as e:  # noqa: BLE001 - the trial's result
+                trial["error"] = f"{type(e).__name__}: {e}"
+                res = None
+            torch.cuda.synchronize(dev)
+            trial["sec"] = time.monotonic() - t0
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        if res is not None:
+            c, first = res.checker, res.attempts[0]
+            trial.update({
+                "unique": c.unique_state_count(), "states": c.state_count(),
+                "restarts": res.restarts, "degradations": res.degradations,
+                "attempts": [a.outcome for a in res.attempts],
+                "first_error": first.error,
+                "evictions": (c.spill_status() or {}).get("evictions", 0),
+                "peak_allocated": torch.cuda.max_memory_allocated(dev),
+                "peak_reserved": torch.cuda.max_memory_reserved(dev),
+                "launches": kernel_launches(), "device": str(c.device)})
+            trial["ok"] = bool(
+                first.outcome == "oom" and res.restarts == 1
+                and (first.error or "").startswith("OutOfMemoryError")
+                and len(res.degradations) == 1
+                and res.degradations[0].startswith("spill_armed(budget=")
+                and trial["evictions"] >= 1 and c.device.type == dev.type
+                and (c.unique_state_count(), c.state_count()) == (unique,
+                                                                  states)
+                and all(v > 0 for v in trial["launches"].values()))
+            del c, res
+        gc.collect()
+        torch.cuda.empty_cache()
+        result["trials"].append(trial)
+        if trial.get("ok"):
+            ok = True
+            result.update({k: trial[k] for k in (
+                "wall_bytes", "fraction", "unique", "states", "restarts",
+                "degradations", "first_error", "evictions", "launches",
+                "sec")})
+            break
+    result["ok"] = ok
+    print(json.dumps({"supervise_oom_real": result}), flush=True)
+    return 0 if ok else 1
+
+
+def supervise_oom_leg(smi: str) -> dict:
+    """Run :func:`oom_child` in a child process and read its JSON line;
+    the leg fails unless the child says ok.  Returns its launches."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--oom-child"], capture_output=True, text=True,
+                         timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith('{"supervise_oom_real"')]
+    if not lines:
+        raise AssertionError(f"supervise_oom_real: no result (exit "
+                             f"{out.returncode}): {out.stderr[-4000:]}")
+    result = json.loads(lines[-1])["supervise_oom_real"]
+    result["card"] = smi
+    result["child_exit"] = out.returncode
+    emit("supervise_oom_real", result)
+    if out.returncode != 0 or not result.get("ok"):
+        raise AssertionError(f"supervise_oom_real failed: {result}; "
+                             f"{out.stderr[-4000:]}")
+    return result["launches"]
+
+
+# the supervise verb, run as ``python -m`` would run it, with the kernel
+# launch counts printed at exit (they are lost with a SIGKILLed process)
+VERB_RUNNER = (
+    "import atexit, json, runpy, sys\n"
+    "from stateright_tpu_torch.ops import buckets, cand_prep, hashing, "
+    "insert_commit\n"
+    "ks = (cand_prep.cand_prep, hashing.row_hash, buckets.bucket_plan, "
+    "insert_commit.insert_commit)\n"
+    "atexit.register(lambda: print(json.dumps({'launches': {k.__name__: "
+    "k.launches for k in ks}})))\n"
+    "sys.argv = ['two_phase_commit'] + sys.argv[1:]\n"
+    "runpy.run_module('stateright_tpu_torch.models.two_phase_commit', "
+    "run_name='__main__', alter_sys=True)\n"
+)
+
+
+def supervise_sigkill_leg(smi: str, n: int = 7, kill_at: int =
+                          SUPERVISE_KILL_AT, extra=()) -> dict:
+    """``supervise_sigkill``: the ``supervise`` verb SIGKILLed by a fault
+    plan at a mid-run host sync; ``_cli status`` prints the heartbeat it
+    left; the same command without the plan resumes, archives the dead
+    parent's stub and ends at 296,448 with a ``parent_run_id``; ``compare
+    PARENT CHILD --expect=IDENTICAL`` exits 0.  Returns the resumed run's
+    launches."""
+    def run(*args, module=None, timeout=300):
+        cmd = ([sys.executable, "-c", VERB_RUNNER] if module is None
+               else [sys.executable, "-m", module])
+        return subprocess.run([*cmd, *args], capture_output=True, text=True,
+                              timeout=timeout)
+
+    with tempfile.TemporaryDirectory(prefix="supervise-sigkill-") as tmp:
+        auto, runs = os.path.join(tmp, "auto"), os.path.join(tmp, "runs")
+        plan = os.path.join(tmp, "plan.json")
+        with open(plan, "w") as f:
+            json.dump(FaultPlan([Fault(site="host_sync", action="sigkill",
+                                       at=kill_at)]).to_json(), f)
+        args = ["supervise", str(n), f"--autosave={auto}", f"--runs={runs}",
+                "--every=0", *extra]
+        t0 = time.monotonic()
+        dead = run(*args, f"--fault-plan={plan}")
+        dead_s = time.monotonic() - t0
+        status = run("status", auto,
+                     module="stateright_tpu_torch.models._cli", timeout=120)
+        parent = ckpt.latest_generation(auto)[1]
+        t1 = time.monotonic()
+        done = run(*args)
+        done_s = time.monotonic() - t1
+        line = [ln for ln in done.stdout.splitlines()
+                if ln.startswith("supervised:")]
+        launches = [json.loads(ln)["launches"] for ln in done.stdout.splitlines()
+                    if ln.startswith('{"launches"')]
+        child = line[-1].split("run_id=")[1].split()[0] if line else None
+        cmp = run("compare", parent["run_id"], str(child),
+                  f"--registry={runs}", "--expect=IDENTICAL",
+                  module="stateright_tpu_torch.models.two_phase_commit",
+                  timeout=120)
+    out = {"killed_exit": dead.returncode, "killed_sec": dead_s,
+           "status_exit": status.returncode,
+           "status": status.stdout.strip().splitlines(),
+           "parent_run_id": parent["run_id"],
+           "parent_totals": parent["totals"], "resumed_exit":
+               done.returncode, "resumed_sec": done_s,
+           "resumed": line[-1] if line else None,
+           "compare_exit": cmp.returncode,
+           "compare": cmp.stdout.strip().splitlines()[:3],
+           "launches": launches[-1] if launches else None, "card": smi}
+    emit("supervise_sigkill", out)
+    if dead.returncode != -9:
+        raise AssertionError(f"supervise_sigkill: the run did not die by "
+                             f"SIGKILL: {out} {dead.stderr[-3000:]}")
+    if status.returncode != 0 or not any(
+            w in status.stdout for w in ("RUNNING", "DEAD")):
+        raise AssertionError(f"supervise_sigkill: status: {out}")
+    if done.returncode != 0 or not line or not (
+            f"unique={TPC7_UNIQUE} " in line[-1]
+            and "done=True" in line[-1]
+            and f"parent_run_id={parent['run_id']}" in line[-1]):
+        raise AssertionError(f"supervise_sigkill: the resume: {out} "
+                             f"{done.stderr[-3000:]}")
+    if cmp.returncode != 0:
+        raise AssertionError(f"supervise_sigkill: compare: {out} "
+                             f"{cmp.stdout[-3000:]}")
+    if not launches or not all(v > 0 for k, v in launches[-1].items()
+                               if k != "row_hash"):
+        raise AssertionError(f"supervise_sigkill: the resumed run's "
+                             f"launches: {launches}")
+    return launches[-1]
+
+
+def audit_leg(smi: str) -> dict:
+    """``audit``: the port's fleet audit is clean, and the light preflight
+    a spawn runs takes these seconds, uncached (a fresh configuration) and
+    cached (a respawn)."""
+    from stateright_tpu_torch.analysis import audit as audit_mod
+
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.monotonic()
+    rc = fleet_audit(stream=buf)
+    fleet_s = time.monotonic() - t0
+    per_spawn = {}
+    for name, build in (("2pc7", lambda: TwoPhaseSys(7)),
+                        ("paxos3", lambda: paxos_model(3)),
+                        ("singlecopy4", lambda: single_copy_model(4))):
+        audit_mod._SHARED_REPORTS.clear()
+        b = build().checker()
+        t1 = time.monotonic()
+        b._preflight_audit()
+        cold = time.monotonic() - t1
+        t2 = time.monotonic()
+        for _ in range(100):
+            build().checker()._preflight_audit()
+        per_spawn[name] = {"uncached_secs": cold,
+                           "cached_secs": (time.monotonic() - t2) / 100}
+    out = {"fleet_exit": rc, "fleet_secs": fleet_s,
+           "fleet": buf.getvalue().strip().splitlines()[-1],
+           "preflight_secs_per_spawn": per_spawn,
+           "launches": kernel_launches(), "card": smi}
+    emit("audit", out)
+    for name, v in per_spawn.items():
+        print(f"audit: light preflight {name}: {v['uncached_secs']:.6f} s "
+              f"uncached, {v['cached_secs']:.6f} s cached per spawn ({smi})",
+              flush=True)
+    if rc != 0 or out["fleet"] != "audit fleet: CLEAN":
+        raise AssertionError(f"audit: the fleet is not clean: "
+                             f"{buf.getvalue()[-3000:]}")
+    return out["launches"]
+
+
+def supervise_phases(dev, smi: str, ref7: dict) -> dict:
+    """The four legs of the supervisor and the audit, each timed into
+    ``PHASES``; returns each leg's launches."""
+    out = {"supervise_2pc7_kill": supervise_kill_leg(dev, smi, ref7)}
+    lap("supervise_2pc7_kill")
+    out["supervise_oom_real"] = supervise_oom_leg(smi)
+    lap("supervise_oom_real")
+    out["supervise_sigkill"] = supervise_sigkill_leg(smi)
+    lap("supervise_sigkill")
+    out["audit"] = audit_leg(smi)
+    lap("audit")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2062,9 +2498,10 @@ def main() -> int:
         raise AssertionError("2pc-7: unique count is not 296,448")
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel never launched on 2pc-7: {launches}")
-    # what the checked and spill 2pc-7 legs must give
-    ref7 = {"sec": g7_s, "states": g7.state_count(), "steps": g7.steps_run,
-            "disc": g7.discovery_fps()}
+    # what the checked, spill and supervised 2pc-7 legs must give
+    ref7 = {"sec": g7_s, "unique": g7.unique_state_count(),
+            "states": g7.state_count(), "steps": g7.steps_run,
+            "disc": g7.discovery_fps(), "snap": g7.final_snapshot()}
     lap("2pc7")
 
     # -- 2pc-10, target-bounded ----------------------------------------------
@@ -2186,6 +2623,7 @@ def main() -> int:
     lap("auto_2pc7")
     launches_orl, kernels_orl = orl_phase(dev, smi)
     lap("orl")
+    launches_sup = supervise_phases(dev, smi, ref7)
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
@@ -2221,6 +2659,10 @@ def main() -> int:
         for tag, leg in (("at_checkpoint_sc4", launches_ckpt),
                          ("at_auto_2pc7", launches_auto)):
             entry[tag] = {"launches": leg[name]}
+        # the supervisor and the audit (supervise_sigkill: the resumed
+        # run's, the killed run's being lost with its process)
+        for leg, ls in launches_sup.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
         entry["at_orl"] = dict(
             {key: kernels_orl[name][key] for key in KERNEL_KEYS
              if key not in ("name", "route", "source", "replaces",
@@ -2270,4 +2712,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(oom_child() if sys.argv[1:] == ["--oom-child"] else main())

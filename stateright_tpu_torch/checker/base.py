@@ -4,10 +4,10 @@ The port's counterpart of ``stateright_tpu/checker/base.py``:
 ``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
 ``visitor``, ``timeout``, ``autosave``, the telemetry options
 (``telemetry``, ``cartography``, ``memory_ledger``, ``report``, ``runs``)
-and the GPU engine's ``prededup``, ``checked`` and ``spill`` (``mxu`` and
-``skip_audit`` are accepted for parity and have no effect), and spawns the
-host
-checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
+and the GPU engine's ``prededup``, ``checked`` and ``spill`` (``mxu`` is
+accepted for parity and has no effect), the static audit (``audit``,
+``skip_audit``: the preflight that ``spawn_gpu`` runs), and spawns the
+host checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
 :meth:`CheckerBuilder.spawn_mp_bfs`), the GPU wavefront engine
 (:meth:`CheckerBuilder.spawn_gpu`) and the engine chosen by a bounded host
 probe (:meth:`CheckerBuilder.spawn_auto`); ``Checker`` is the result
@@ -26,6 +26,9 @@ from typing import Callable, Optional, Sequence
 from ..core import Expectation, Model, Property
 from .path import Path
 from .visitor import CheckerVisitor, FnVisitor
+
+# the process-wide switch of the spawn preflight audit
+ENV_SKIP_AUDIT = "STATERIGHT_TPU_SKIP_AUDIT"
 
 # States processed per lock round, as in the reference's job market
 # (reference ``bfs.rs:120``, ``dfs.rs:126``).
@@ -55,6 +58,8 @@ class CheckerBuilder:
         self.report_path: Optional[str] = None
         # the run registry's root; None = the STATERIGHT_TPU_RUN_DIR knob
         self.run_dir: Optional[str] = None
+        # skip_audit(): no preflight audit on spawn_gpu
+        self._audit_skip = False
 
     def symmetry(self) -> "CheckerBuilder":
         """Dedup on symmetry-class representatives; states must define
@@ -283,11 +288,53 @@ class CheckerBuilder:
         self.checked_mode = bool(enabled)
         return self
 
+    # -- the static preflight audit (analysis/; JAX checker/base.py:
+    # 589-640) -----------------------------------------------------------------
+
+    def audit(self, *, deep: bool = True):
+        """Run the static auditor over the model and return its
+        :class:`~stateright_tpu_torch.analysis.AuditReport`: the
+        actor-handler lint and the config-drift checks (the JAX audit's
+        jaxpr passes are not in the port; ``analysis/audit.py``).
+        ``deep=True`` adds the bounded closure-domain probe and the
+        fresh-twin drift re-resolve."""
+        from ..analysis import audit_model
+
+        return audit_model(self.model, deep=deep)
+
     def skip_audit(self) -> "CheckerBuilder":
-        """Accepted for parity with the JAX builder (``checker/base.py:
-        601``), without effect: the port has no spawn preflight audit to
-        skip until the ROADMAP item "the analysis stack" ports it."""
+        """Turn off the preflight audit that :meth:`spawn_gpu` runs, for
+        this builder (to reproduce a flagged defect on the card, or when a
+        rule misfires); ``STATERIGHT_TPU_SKIP_AUDIT=1`` turns it off for
+        the process."""
+        self._audit_skip = True
         return self
+
+    def _preflight_audit(self) -> None:
+        """The light audit before any buffer is allocated: errors abort
+        (:class:`~stateright_tpu_torch.analysis.AuditError`), warnings
+        print once per model.  Cached by configuration signature, so a
+        respawn pays a dictionary lookup.  An exception inside the audit
+        never masks the engine's own, more specific, error."""
+        if self._audit_skip or os.environ.get(ENV_SKIP_AUDIT) == "1":
+            return
+        from ..analysis import AuditError, Severity, audit_model
+
+        try:
+            report = audit_model(self.model, deep=False)
+        except Exception:  # noqa: BLE001 - see the docstring
+            return
+        if report.errors:
+            raise AuditError(
+                report, context=f"spawn_gpu({type(self.model).__name__})")
+        if report.warnings and not getattr(self.model,
+                                           "_audit_warn_printed", False):
+            try:
+                object.__setattr__(self.model, "_audit_warn_printed", True)
+            except Exception:  # noqa: BLE001 - __slots__ models
+                pass
+            print(report.format(min_severity=Severity.WARNING),
+                  file=sys.stderr)
 
     def spill(self, enabled: bool = True) -> "CheckerBuilder":
         """Arm the spill tier on the GPU engine (``spill/``; JAX
@@ -428,9 +475,12 @@ class CheckerBuilder:
         runs every kernel's plain PyTorch version.  ``resume`` takes a
         snapshot from either engine (``convert.py``); ``queue_capacity``
         sets the queue's first high-water mark (JAX ``spawn_tpu``'s); the
-        ``spill_*`` knobs size the tier of :meth:`spill`."""
+        ``spill_*`` knobs size the tier of :meth:`spill`.  The light
+        preflight audit (:meth:`audit`) runs first, before any buffer is
+        allocated; :meth:`skip_audit` turns it off."""
         from ..parallel.wavefront import GpuChecker
 
+        self._preflight_audit()
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
             steps_per_call=steps_per_call, device=device, resume=resume,

@@ -1,10 +1,9 @@
 """Crash-safe autosave checkpoints: rotating snapshot generations.
 
-The port's own copy of ``stateright_tpu/checkpoint.py:42-312``; its
-atomic npz and json writes are ``telemetry/_atomic.py``'s, the port's
-one write discipline.  Left out, for the ROADMAP item "fault injection
-and the supervisor": the fault-injection seam (``testing/faults.py``),
-the stub run report and the progress heartbeat.
+The port's own copy of ``stateright_tpu/checkpoint.py``; its atomic npz
+and json writes are ``telemetry/_atomic.py``'s, the port's one write
+discipline.  A generation write first fires the fault layer's
+``snapshot_write`` seam (``testing/faults.py``; JAX ``checkpoint.py:121``).
 
 The GPU engine's whole run state is a host-serializable snapshot dict
 (``GpuChecker.checkpoint()``, ``convert.carry_to_snapshot``, in the JAX
@@ -27,6 +26,16 @@ from garbage.  Rotation keeps the newest ``keep`` complete generations;
 pruning deletes older ones only after a newer complete generation exists,
 so there is always at least one resumable state on disk once the first
 save lands.
+
+The manifest also carries the run's identity and progress (``run_id``,
+``config``, the report's canonical config block, the totals and each
+property's discovery flag), so the supervisor can archive a **stub
+report** (:func:`stub_report_doc`) for a run that was killed before it
+archived itself: the run registry then holds the parent of the resumed
+run, and the lineage diff can check the chain (``supervisor.py``).  Next
+to the generations, :class:`ProgressHeartbeat` keeps ``progress.json``,
+the live progress that ``python -m stateright_tpu_torch.models._cli
+status DIR`` reads, SIGKILLed runs included (:func:`read_progress`).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from typing import Optional
 import numpy as np
 
 from .telemetry._atomic import atomic_write_json, atomic_write_npz
+from .testing import faults
 
 CKPT_V = 1
 
@@ -122,6 +132,7 @@ def save_generation(
     point), then prune to the newest ``keep`` complete generations.
     Returns the generation directory.  Raises ``OSError`` on a write
     failure, with the earlier generations untouched."""
+    faults.fire("snapshot_write", gen=gen)
     gen_dir = os.path.join(root, f"gen-{gen:06d}")
     os.makedirs(gen_dir, exist_ok=True)
     atomic_write_npz(os.path.join(gen_dir, "snapshot.npz"), snap)
@@ -301,3 +312,134 @@ class AutosaveService:
         if age is not None:
             out["last_checkpoint_age_secs"] = round(age, 3)
         return out
+
+
+def stub_report_doc(manifest: dict) -> Optional[dict]:
+    """A registry-archivable report document rebuilt from an autosave
+    manifest: the parent record of a run that was killed before it could
+    archive itself (``RunRegistry.record_doc``; JAX ``checkpoint.py:
+    314-342``).  The totals carry ``done: false`` and ``interrupted:
+    true``: this is a checkpoint of a run in flight, labelled as such.
+    None when the manifest carries no run id or config."""
+    from .telemetry.report import REPORT_V
+
+    if not manifest.get("run_id") or not manifest.get("config"):
+        return None
+    totals = dict(manifest.get("totals") or {})
+    totals["done"] = False
+    totals["interrupted"] = True
+    doc = {
+        "generated_at": manifest.get("written_at"),
+        "run_id": manifest["run_id"],
+        "v": REPORT_V,
+        "model": manifest.get("model"),
+        "engine": manifest.get("engine"),
+        "config": manifest["config"],
+        "totals": totals,
+        "properties": list(manifest.get("properties") or []),
+    }
+    if manifest.get("parent_run_id"):
+        doc["parent_run_id"] = manifest["parent_run_id"]
+    return doc
+
+
+# -- the live progress heartbeat ------------------------------------------------
+
+PROGRESS_V = 1
+PROGRESS_FILE = "progress.json"
+
+# a "running" heartbeat older than every_secs times this factor means the
+# writer is gone (SIGKILLed) or wedged: the verdict ``status`` prints
+STALE_FACTOR = 5.0
+
+
+class ProgressHeartbeat:
+    """Atomic ``progress.json`` writer next to the autosave generations
+    (JAX ``checkpoint.py:357-417``).
+
+    The engine beats it at every host sync that reaches its autosave seam
+    (throttled to ``every_secs``), so ``python -m
+    stateright_tpu_torch.models._cli status DIR`` can tail any headless
+    run, one that was SIGKILLed too: the file keeps the last counters and
+    a wall-clock ``ts``, and a stale ``ts`` on a ``running`` status is the
+    post-mortem.  Every write is atomic (``telemetry/_atomic.py``), and a
+    failed write drops the beat and keeps the run: liveness reporting
+    must never kill the run it reports on."""
+
+    def __init__(self, root: str, every_secs: float = 1.0,
+                 meta: Optional[dict] = None):
+        self.path = os.path.join(str(root), PROGRESS_FILE)
+        self.every_secs = float(every_secs)
+        self.meta = dict(meta or {})
+        self._clock: Optional[float] = None
+        self.beats = 0
+
+    def beat(self, recorder=None, status: str = "running",
+             force: bool = False) -> bool:
+        """One heartbeat (dropped unless due or ``force``).  The payload
+        samples the recorder's last step record and health snapshot, host
+        values already in hand: no device work.  Returns True when a
+        write landed."""
+        now = time.monotonic()
+        if not force and self._clock is not None:
+            if now - self._clock < self.every_secs:
+                return False
+        self._clock = now
+        doc = {
+            "v": PROGRESS_V,
+            "status": str(status),
+            "ts": round(time.time(), 3),
+            "every_secs": self.every_secs,
+            **self.meta,
+        }
+        if recorder is not None:
+            step = recorder.last_step()
+            if step is not None:
+                for k in ("states", "unique", "dt", "queue", "frontier",
+                          "load_factor", "depth"):
+                    if step.get(k) is not None:
+                        doc[k] = step[k]
+                doc["steps"] = recorder.kind_count("step")
+            health = recorder.health()
+            for k in ("phase", "stalled", "stall_reason",
+                      "ewma_states_per_sec", "eta_secs", "oom_risk"):
+                if health.get(k) is not None:
+                    doc[k] = health[k]
+        try:
+            atomic_write_json(self.path, doc)
+        except Exception:  # noqa: BLE001 - liveness reporting must never
+            return False  # kill the run it reports on
+        self.beats += 1
+        return True
+
+
+def read_progress(run_dir: str) -> Optional[dict]:
+    """Parse ``<run_dir>/progress.json`` and attach the liveness verdict:
+    ``fresh`` (the writer beat recently), ``age_secs`` and ``verdict``,
+    ``running``, ``done`` or ``failed`` from the file, or ``dead`` when a
+    ``running`` heartbeat went stale (the writer was SIGKILLed or
+    wedged).  None when no heartbeat exists (JAX ``checkpoint.py:
+    420-446``)."""
+    path = os.path.join(str(run_dir), PROGRESS_FILE)
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None
+    if not isinstance(doc, dict):
+        return None
+    out = dict(doc)
+    ts = doc.get("ts")
+    if isinstance(ts, (int, float)):
+        age = max(time.time() - float(ts), 0.0)
+        out["age_secs"] = round(age, 3)
+        every = float(doc.get("every_secs") or 1.0)
+        out["fresh"] = age <= max(every * STALE_FACTOR, 5.0)
+    else:
+        out["fresh"] = False
+    status = str(doc.get("status") or "running")
+    if status == "running" and not out["fresh"]:
+        out["verdict"] = "dead"
+    else:
+        out["verdict"] = status
+    return out

@@ -29,6 +29,16 @@ PyTorch path instead of the CUDA device, and ``--batch=N`` sets their
 rows per device step.  The other verbs and flags
 (``explore``, ``spawn``, ``--por``, ``--prewarm``) come with the modules
 they drive.  ``capacity --spill`` plans with the spill tier armed.
+
+Every model takes ``audit`` (the static audit of its ``_audit_models``
+configurations, deep tier, exit 1 on an error finding; JAX
+``make_audit_cmd``), and 2pc and paxos take ``supervise`` (a supervised
+GPU run: autosave, retry with backoff, resume; ``supervisor.py``, JAX
+``_cli.py:1494-1584``; :func:`pop_supervise_opts` lists its flags).
+``python -m stateright_tpu_torch.models._cli`` is the fleet entry:
+``status RUN_DIR`` (the progress heartbeat of a headless run, JAX
+``_cli.py:1810-1870``) and ``audit [MODULE...]`` (every model's
+audit)
 """
 
 from __future__ import annotations
@@ -410,9 +420,17 @@ def compare_verb(args: list, opts: dict, stream=None) -> int:
     return 1 if d["verdict"] == DIVERGENT else 0
 
 
+def supervised(model, flags=(), opts=None, sopts=None):
+    """The ``supervise`` verb's spawn: :func:`run_supervised` on the
+    model's builder with the step ``flags``, on the ``--device``/
+    ``--batch`` of ``opts``; returns the supervised run."""
+    b = with_step_flags(model.checker(), flags)
+    return run_supervised(b, sopts or {}, **gpu_kw(opts))
+
+
 def check_main(prog: str, arg_usage: str, argv, build: Callable,
                verbs: dict[str, tuple[Callable, Callable]],
-               max_args: int) -> int:
+               max_args: int, audit: Callable) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
     [--per-channel] [--prededup] [--mxu] [--checked] [--spill] [--watch]
     [--device=cpu]``: build
@@ -420,11 +438,15 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     check it.  ``verbs`` maps each verb the model offers to ``(banner,
     spawn)``: ``banner(args)`` is the line printed first, ``spawn(model)``
     one of this module's spawns.  The step flags, ``--watch`` and
-    ``--device``/``--batch`` are for the GPU verbs (:func:`gpu`, :func:`sym_gpu`); a
-    model with a GPU verb also takes :data:`TELEMETRY_VERBS`.  Exit 1 when
-    a GPU verb finds no device twin, 2 on a usage error."""
+    ``--device``/``--batch`` are for the GPU verbs (:func:`gpu`,
+    :func:`sym_gpu`, :func:`supervised`, which also takes
+    :func:`pop_supervise_opts`' flags); a model with a GPU verb also takes
+    :data:`TELEMETRY_VERBS`.  ``audit`` is the module's ``_audit_models``
+    factory, the ``audit`` verb's configurations.  Exit 1 when a GPU verb
+    finds no device twin or the audit an error, 2 on a usage error."""
     has_gpu = any(sp in (gpu, sym_gpu) for _, sp in verbs.values())
-    names = list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
+    names = (list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
+             + ["audit"])
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
              f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
@@ -435,12 +457,17 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     flags, args = pop_step_flags(args)
     watch, args = pop_watch(args)
     opts, args = pop_values(args)
+    sopts = None
+    if args and args[0] == "supervise" and "supervise" in verbs:
+        sopts, args = pop_supervise_opts(args)
     if has_gpu and args and args[0] == "compare":
         return compare_verb(args[1:], opts)
     if (not args or args[0] not in names or len(args) > 1 + max_args):
         print(usage, file=sys.stderr)
         return 2
     verb, rest = args[0], args[1:]
+    if verb == "audit":
+        return 0 if audit_and_report(audit(rest)) else 1
     if verb in TELEMETRY_VERBS:
         model = apply_encoding(build(rest), per_channel)
         if verb == "capacity":
@@ -451,6 +478,11 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
             model, opts, flags)
         return 0
     banner, spawn = verbs[verb]
+    if spawn is supervised:
+        print(banner(rest))
+        model = apply_encoding(build(rest), per_channel)
+        supervised(model, flags, opts, sopts)
+        return 0
     if (flags or watch or opts) and spawn not in (gpu, sym_gpu):
         print("the step flags, --watch, --device= and --batch= are for the "
               "GPU verbs",
@@ -468,3 +500,197 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
         return 1
     checker.report()
     return 0
+
+
+# -- the audit verbs (analysis/; JAX _cli.py:388-417, :1781-1807) ---------------
+
+
+def audit_and_report(models, stream=None) -> bool:
+    """Audit ``(label, model)`` pairs, deep tier, and print one report
+    each; True iff no error-severity finding anywhere."""
+    from ..analysis import audit_model
+
+    stream = stream or sys.stdout
+    ok = True
+    for label, model in models:
+        report = audit_model(model, deep=True)
+        print(f"--- {label}", file=stream)
+        print(report.format(), file=stream)
+        ok = ok and report.ok
+    return ok
+
+
+def fleet_audit(names=None, stream=None) -> int:
+    """``audit [MODULE...]``: audit every model module of the port (or
+    just ``names``) through its ``_audit_models`` hook; 0 iff clean.  A
+    module without the hook fails the gate, so a new model cannot
+    silently shrink its coverage."""
+    import importlib
+
+    from . import __all__ as all_names
+
+    stream = stream or sys.stdout
+    ok = True
+    for name in names or list(all_names):
+        mod = importlib.import_module(f"stateright_tpu_torch.models.{name}")
+        factory = getattr(mod, "_audit_models", None)
+        if factory is None:
+            print(f"--- {name}: FAILED: no _audit_models hook (add one so "
+                  "the fleet audit covers this model)", file=stream)
+            ok = False
+            continue
+        ok = audit_and_report(factory([]), stream=stream) and ok
+    print("audit fleet: " + ("CLEAN" if ok else "FAILED"), file=stream)
+    return 0 if ok else 1
+
+
+# -- the supervise verb (supervisor.py; JAX _cli.py:1491-1584) --------------------
+
+
+def pop_supervise_opts(rest: list) -> tuple:
+    """Strip the supervise verb's flags: ``(opts, rest)``.  ``opts``
+    carries ``autosave`` (the dir; a temp dir when omitted, printed so the
+    operator can resume), ``every``/``keep`` (the cadence),
+    ``max_restarts``, ``runs`` (the registry dir), ``steps`` (steps per
+    block) and ``fault_plan``/``fault_log`` (a JSON ``FaultPlan`` to
+    install, and where to write its fired trail)."""
+    opts = {
+        "autosave": None, "every": 60.0, "keep": 3, "max_restarts": 5,
+        "runs": None, "fault_plan": None, "fault_log": None, "steps": None,
+    }
+    casts = {"autosave": str, "every": float, "keep": int,
+             "max-restarts": int, "runs": str, "fault-plan": str,
+             "fault-log": str, "steps": int}
+    kept = []
+    for a in rest:
+        name = a[2:].split("=", 1)[0] if a.startswith("--") else None
+        if name in casts and "=" in a:
+            opts[name.replace("-", "_")] = casts[name](a.split("=", 1)[1])
+        else:
+            kept.append(a)
+    return opts, kept
+
+
+def run_supervised(builder, opts: dict, stream=None, **spawn_kw):
+    """Drive one supervised run (``supervisor.supervise``) from a
+    :func:`pop_supervise_opts` config; prints the one-line summary
+    (``supervised: done=... states=... unique=... restarts=...
+    run_id=...``) and returns the ``SupervisedRun``."""
+    from ..supervisor import supervise
+    from ..testing.faults import FaultPlan
+
+    stream = stream or sys.stdout
+    if opts.get("autosave") is None:
+        import tempfile
+
+        opts = dict(opts)
+        opts["autosave"] = tempfile.mkdtemp(
+            prefix="stateright-tpu-torch-autosave-")
+        print(f"supervise: no --autosave=DIR given; checkpointing into "
+              f"{opts['autosave']} (pass the same dir to resume after a "
+              "kill)", file=stream)
+    plan = None
+    if opts.get("fault_plan"):
+        plan = FaultPlan.from_file(opts["fault_plan"]).install()
+    if opts.get("runs"):
+        builder = builder.runs(opts["runs"])
+    # the checkpoint and restart ring records need a recorder
+    if builder.telemetry_opts is None:
+        builder = builder.telemetry()
+    if opts.get("steps"):
+        spawn_kw.setdefault("steps_per_call", int(opts["steps"]))
+    try:
+        res = supervise(
+            builder, autosave_dir=opts["autosave"],
+            every_secs=float(opts.get("every", 60.0)),
+            keep=int(opts.get("keep", 3)),
+            max_restarts=int(opts.get("max_restarts", 5)), **spawn_kw)
+    finally:
+        if plan is not None:
+            plan.uninstall()
+            if opts.get("fault_log"):
+                plan.to_jsonl(opts["fault_log"])
+    c = res.checker
+    parent = c.parent_run_id
+    print(
+        f"supervised: done={c.is_done()} states={c.state_count()} "
+        f"unique={c.unique_state_count()} restarts={res.restarts} "
+        f"run_id={c.run_id}"
+        + (f" parent_run_id={parent}" if parent else "")
+        + (f" degradations={','.join(res.degradations)}"
+           if res.degradations else ""),
+        file=stream,
+    )
+    return res
+
+
+# -- the status verb (checkpoint.read_progress; JAX _cli.py:1810-1870) ----------
+
+
+def fleet_status(argv=None, stream=None) -> int:
+    """``status RUN_DIR``: the progress heartbeat of a headless run (the
+    atomic ``progress.json`` beside its autosave generations), and any
+    per-job heartbeat under ``RUN_DIR/jobs/*/``.  It works post-mortem: a
+    SIGKILLed run leaves its last heartbeat, and a stale ``running``
+    status prints as ``DEAD``.  Exit 0 iff a heartbeat was found."""
+    from ..checkpoint import read_progress
+
+    stream = stream or sys.stdout
+    argv = argv or []
+    if not argv:
+        print("usage: status RUN_DIR", file=stream)
+        return 1
+    root = argv[0]
+
+    def render(tag: str, doc: dict) -> None:
+        bits = [f"--- {tag}: {doc.get('verdict', '?').upper()}"]
+        if doc.get("age_secs") is not None:
+            bits.append(f"age={doc['age_secs']:.1f}s")
+        for k in ("states", "unique", "steps", "frontier", "queue",
+                  "depth", "phase", "ewma_states_per_sec", "eta_secs",
+                  "jobs", "running", "queued", "completed", "preemptions"):
+            v = doc.get(k)
+            if v is None:
+                continue
+            bits.append(f"{k}={len(v) if isinstance(v, list) else v}")
+        if doc.get("stalled"):
+            bits.append(f"STALLED({doc.get('stall_reason') or '?'})")
+        print("  ".join(bits), file=stream)
+
+    found = 0
+    top = read_progress(root)
+    if top is not None:
+        render(root, top)
+        found += 1
+    jobs_dir = os.path.join(root, "jobs")
+    if os.path.isdir(jobs_dir):
+        for name in sorted(os.listdir(jobs_dir)):
+            doc = read_progress(os.path.join(jobs_dir, name))
+            if doc is not None:
+                render(f"jobs/{name}", doc)
+                found += 1
+    if not found:
+        print(f"status: no progress.json under {root} (a run without "
+              "autosave, or not started yet)", file=stream)
+        return 1
+    return 0
+
+
+def main(argv=None) -> int:
+    """``python -m stateright_tpu_torch.models._cli status RUN_DIR |
+    audit [MODULE...]``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "status":
+        return fleet_status(argv[1:])
+    if argv and argv[0] == "audit":
+        return fleet_audit(argv[1:])
+    print("usage: python -m stateright_tpu_torch.models._cli\n"
+          "  status RUN_DIR     the progress heartbeat of a headless run "
+          "(DEAD when a running one went stale)\n"
+          "  audit [MODULE...]  the static audit of every model (exit 1 "
+          "on an error finding)", file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -131,6 +131,13 @@ def dining_model(n: int = 3, network: Optional[Network] = None) -> DiningModel:
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/dining.py``'s hook)."""
+    n = int(rest[0]) if rest else 3
+    return [(f"dining n={n}", dining_model(n))]
+
+
 def main(argv=None) -> int:
     def what(rest):
         return (f"Model checking {int(rest[0]) if rest else 3} dining "
@@ -144,6 +151,7 @@ def main(argv=None) -> int:
             "check-auto": (lambda rest: f"{what(rest)} (auto engine).", auto),
         },
         max_args=1,
+        audit=_audit_models,
     )
 
 

@@ -64,6 +64,13 @@ class Increment(Model):
         ]
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/increment.py``'s hook)."""
+    n = int(rest[0]) if rest else 2
+    return [(f"increment threads={n}", Increment(n))]
+
+
 def main(argv=None) -> int:
     def n(rest):
         return int(rest[0]) if rest else 3
@@ -82,6 +89,7 @@ def main(argv=None) -> int:
                 "engine)."), auto),
         },
         max_args=1,
+        audit=_audit_models,
     )
 
 

@@ -77,6 +77,13 @@ class IncrementLock(Model):
         ]
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/increment_lock.py``'s hook)."""
+    n = int(rest[0]) if rest else 2
+    return [(f"increment_lock threads={n}", IncrementLock(n))]
+
+
 def main(argv=None) -> int:
     def n(rest):
         return int(rest[0]) if rest else 3
@@ -96,6 +103,7 @@ def main(argv=None) -> int:
                 "(auto engine)."), auto),
         },
         max_args=1,
+        audit=_audit_models,
     )
 
 

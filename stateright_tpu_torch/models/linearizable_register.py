@@ -267,6 +267,14 @@ def abd_model(
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/linearizable_register.py``'s hook)."""
+    c = int(rest[0]) if rest else 2
+    return [(f"linearizable_register clients={c} servers=2",
+             abd_model(c, 2))]
+
+
 def main(argv=None) -> int:
     def what(rest):
         return ("Model checking a linearizable register with "
@@ -283,6 +291,7 @@ def main(argv=None) -> int:
                 f"{what(rest)} (auto engine selection)."), auto),
         },
         max_args=2,
+        audit=_audit_models,
     )
 
 

@@ -106,6 +106,12 @@ def orl_model() -> OrlModel:
     )
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``)."""
+    return [("orl", orl_model())]
+
+
 def main(argv=None) -> int:
     what = ("Checking an ordered reliable link (a sender and a receiver "
             "over a lossy network)")
@@ -117,6 +123,7 @@ def main(argv=None) -> int:
                 f"{what} (auto engine selection)."), auto),
         },
         max_args=0,
+        audit=_audit_models,
     )
 
 

@@ -283,8 +283,15 @@ def paxos_model(
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/paxos.py``'s hook)."""
+    c = int(rest[0]) if rest else 2
+    return [(f"paxos clients={c} servers=3", paxos_model(c, 3))]
+
+
 def main(argv=None) -> int:
-    from ._cli import auto, check_main, gpu, host_bfs
+    from ._cli import auto, check_main, gpu, host_bfs, supervised
 
     def what(rest):
         return ("Model checking Single Decree Paxos with "
@@ -297,8 +304,12 @@ def main(argv=None) -> int:
             "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
             "check-auto": (lambda rest: (
                 f"{what(rest)} (auto engine selection)."), auto),
+            "supervise": (lambda rest: (
+                f"{what(rest)} on the GPU, supervised (autosave, retry "
+                "with backoff, resume)."), supervised),
         },
         max_args=1,
+        audit=_audit_models,
     )
 
 

@@ -200,6 +200,20 @@ def vector_clock_model() -> ActorModel:
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (``_cli.fleet_audit``; JAX
+    ``models/quickstart.py``'s hook).  The Lamport clock model carries
+    two pinned AH205 warnings: logical clocks grow without bound, the
+    growing domain the rule exists for (the model itself is bounded by
+    ``within_boundary``, which compiling it for the card would still
+    need as a ``state_bound``)."""
+    return [
+        ("quickstart sliding_puzzle", SlidingPuzzle()),
+        ("quickstart lamport_clocks", clock_model()),
+        ("quickstart vector_clocks", vector_clock_model()),
+    ]
+
+
 def main() -> None:
     path = solve_puzzle()
     moves = path.actions()

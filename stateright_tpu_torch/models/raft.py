@@ -188,6 +188,13 @@ def raft_model(
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/raft.py``'s hook)."""
+    n = int(rest[0]) if rest else 3
+    return [(f"raft servers={n} max_term=2", raft_model(n))]
+
+
 def main(argv=None) -> int:
     def n(rest):
         return int(rest[0]) if rest else 3
@@ -211,6 +218,7 @@ def main(argv=None) -> int:
                 "reduction)."), sym_gpu),
         },
         max_args=2,
+        audit=_audit_models,
     )
 
 

@@ -95,6 +95,13 @@ def single_copy_model(
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/single_copy_register.py``'s hook)."""
+    c = int(rest[0]) if rest else 1
+    return [(f"single_copy_register clients={c}", single_copy_model(c))]
+
+
 def main(argv=None) -> int:
     def what(rest):
         return ("Model checking a single-copy register with "
@@ -111,6 +118,7 @@ def main(argv=None) -> int:
                 f"{what(rest)} (auto engine selection)."), auto),
         },
         max_args=2,
+        audit=_audit_models,
     )
 
 

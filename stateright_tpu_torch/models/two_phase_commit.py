@@ -335,8 +335,23 @@ class TwoPhaseTensor(TensorModel):
         return torch.stack([all_aborted, all_committed, consistent], dim=-1)
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/two_phase_commit.py``'s hook)."""
+    rm_count = int(rest[0]) if rest else 3
+    return [(f"two_phase_commit rm={rm_count}", TwoPhaseSys(rm_count))]
+
+
 def main(argv=None) -> int:
-    from ._cli import auto, check_main, gpu, host_bfs, host_sym_dfs, sym_gpu
+    from ._cli import (
+        auto,
+        check_main,
+        gpu,
+        host_bfs,
+        host_sym_dfs,
+        supervised,
+        sym_gpu,
+    )
 
     def n(rest):
         return int(rest[0]) if rest else 2
@@ -359,8 +374,12 @@ def main(argv=None) -> int:
             "check-sym-gpu": (lambda rest: (
                 f"Checking two phase commit with {n(rest)} RMs on the GPU "
                 "using symmetry reduction."), sym_gpu),
+            "supervise": (lambda rest: (
+                f"Supervised 2PC check with {n(rest)} RMs on the GPU "
+                "(autosave, retry with backoff, resume)."), supervised),
         },
         max_args=1,
+        audit=_audit_models,
     )
 
 

@@ -95,6 +95,14 @@ def wo_register_model(
     return m
 
 
+def _audit_models(rest=()):
+    """The configurations of the static audit (the ``audit`` verb and
+    ``_cli.fleet_audit``; JAX ``models/write_once_register.py``'s hook)."""
+    c = int(rest[0]) if rest else 1
+    return [(f"write_once_register clients={c} servers=2",
+             wo_register_model(c, 2))]
+
+
 def main(argv=None) -> int:
     def build(rest):
         return wo_register_model(
@@ -117,6 +125,7 @@ def main(argv=None) -> int:
                 f"{what(rest)} (auto engine selection)."), auto),
         },
         max_args=3,
+        audit=_audit_models,
     )
 
 

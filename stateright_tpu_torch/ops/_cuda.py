@@ -126,10 +126,22 @@ def build() -> Path:
     return lib
 
 
+class KernelBuildError(RuntimeError):
+    """The kernels could not be built or loaded: no toolkit, a compiler
+    error, a library the loader refuses.  A supervised run treats it as
+    fatal, since a retry builds the same sources."""
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library (built on first call); raises
+    :class:`KernelBuildError` when it cannot be built or loaded."""
+    try:
+        lib = ctypes.CDLL(str(build()))
+    except (OSError, RuntimeError) as e:
+        raise KernelBuildError(
+            f"the CUDA kernels could not be built or loaded: "
+            f"{type(e).__name__}: {e}") from e
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -23,14 +23,24 @@ registry are written at the first :meth:`join` after completion
 (``Checker._maybe_write_report``).  None of it adds a device operation
 to a block, and cartography's few reductions ride the same stats read.
 
-**The checkpoint protocol** (JAX ``parallel/_base.py:606-772``, without
-faults and the heartbeat): the caller thread
-raises a request and waits on an event; the engine thread serves it at
-its next host sync, right after the block's one stats read and before a
-growth event, by building the snapshot itself (the caller never reads a
-device tensor).  A snapshot taken at a growth boundary carries
-``status != OK``, and resume re-applies the growth.  With no request and
-autosave off, the sync adds no device read.
+**The checkpoint protocol** (JAX ``parallel/_base.py:606-772``): the
+caller thread raises a request and waits on an event; the engine thread
+serves it at its next host sync, right after the block's one stats read
+and before a growth event, by building the snapshot itself (the caller
+never reads a device tensor).  A snapshot taken at a growth boundary
+carries ``status != OK``, and resume re-applies the growth.  With no
+request and autosave off, the sync adds no device read.
+
+**Supervision** (JAX ``parallel/_base.py:231-268``, :686-695): the
+supervisor (``supervisor.py``) hands its trail to the run through the
+builder (``_supervise_restarts``, ``_supervise_degradations``: the
+durability block and the autosave manifests carry them) and parents the
+``engine_run`` span under its ``attempt`` span (``_span_ctx``).  With
+autosave armed, a :class:`~..checkpoint.ProgressHeartbeat` beats at every
+host sync that reaches the autosave seam, and once more with the run's
+end (``done`` or ``failed``).  An injected fault at the autosave seam
+(``snapshot_write``) is manufactured process death, not a failed write:
+it reaches the supervisor instead of being accounted as a failure.
 """
 
 from __future__ import annotations
@@ -46,10 +56,16 @@ import torch
 
 from ..checker.base import Checker, CheckerBuilder
 from ..checker.path import Path
-from ..checkpoint import CKPT_V, AutosaveService, resolve_autosave
+from ..checkpoint import (
+    CKPT_V,
+    AutosaveService,
+    ProgressHeartbeat,
+    resolve_autosave,
+)
 from ..fingerprint import MASK64
 from ..ops.hashing import row_hash
 from ..telemetry.spans import span, start_span
+from ..testing.faults import InjectedFault
 
 ENV_PREDEDUP = "STATERIGHT_TPU_PREDEDUP"
 ENV_SPILL = "STATERIGHT_TPU_SPILL"
@@ -70,7 +86,8 @@ class WavefrontChecker(Checker):
 
     def _init_common(self, options: CheckerBuilder) -> None:
         self.model = options.model
-        tensor = self.model._tensor_cached()
+        cached = getattr(self.model, "_tensor_cached", None)
+        tensor = cached() if cached is not None else None
         if tensor is None:
             raise TypeError(
                 f"{type(self.model).__name__} has no tensor form: implement "
@@ -130,13 +147,22 @@ class WavefrontChecker(Checker):
         self._ckpt_out: Optional[dict] = None
         self._ckpt_lock = threading.Lock()
         self._init_telemetry(options)
+        # the supervision trail (supervisor.py), when a supervisor drives
+        # the run
+        self._restarts = int(getattr(options, "_supervise_restarts", 0) or 0)
+        self._degradations = list(
+            getattr(options, "_supervise_degradations", None) or [])
         self._autosave: Optional[AutosaveService] = None
         self._autosave_config: Optional[dict] = None  # build_config, cached
+        self._heartbeat: Optional[ProgressHeartbeat] = None
         aopts = resolve_autosave(options.autosave_opts)
         if aopts is not None:
             self._autosave = AutosaveService(
                 aopts["dir"], aopts["every_secs"], aopts["keep"],
                 recorder=self.flight_recorder)
+            self._heartbeat = ProgressHeartbeat(aopts["dir"], meta={
+                "engine": self._telemetry_tag,
+                "model": type(self.model).__name__, "pid": os.getpid()})
         self._refresh_durability()
         # (snapshot seconds, write seconds) of each autosave generation
         self.autosave_secs: list = []
@@ -163,6 +189,8 @@ class WavefrontChecker(Checker):
         self._cart_depth_base: Optional[np.ndarray] = None
         self._report_path = options.report_path
         self._run_dir = options.run_dir
+        # the supervisor's attempt span parents the engine_run span
+        self._span_parent = getattr(options, "_span_ctx", None)
         self._run_span_ctx = None
         self.flight_recorder = options._make_recorder(self._telemetry_tag)
         if self._spill and self.flight_recorder is not None:
@@ -194,11 +222,14 @@ class WavefrontChecker(Checker):
     def _run_guarded(self) -> None:
         """The run inside its ``engine_run`` span (JAX
         ``parallel/_base.py:374-416``): the span closes, with ``error``
-        set on the exception path, and the profiler stops either way."""
+        set on the exception path, the profiler stops either way, and the
+        heartbeat lands one forced last beat with the run's end (``done``
+        or ``failed``), so ``status`` tells a finished run from a killed
+        one."""
         rec = self.flight_recorder
         sp = None
         if rec is not None:
-            sp = start_span("engine_run")
+            sp = start_span("engine_run", parent=self._span_parent)
             self._run_span_ctx = sp.ctx
             rec.bind_span(sp.ctx.span_id)
         error: Optional[BaseException] = None
@@ -213,6 +244,9 @@ class WavefrontChecker(Checker):
                 sp.end(rec, engine=self._telemetry_tag,
                        error=type(error).__name__ if error else None)
                 rec.bind_span(None)
+            if self._heartbeat is not None:
+                self._heartbeat.beat(rec, status="failed" if error else "done",
+                                     force=True)
             self._done.set()
 
     def _deadline_stop(self) -> None:
@@ -437,7 +471,11 @@ class WavefrontChecker(Checker):
         ``force``: the stop path saves unless this sync already has, so a
         stopped run loses at most the current block); returns whether one
         was written.  A failure never kills the run: ``OSError`` is
-        accounted inside ``save()``, anything else here."""
+        accounted inside ``save()``, anything else here, except an
+        injected fault, which reaches the supervisor.  The heartbeat beats
+        here at every sync (it throttles itself), due or not."""
+        if self._heartbeat is not None:
+            self._heartbeat.beat(self.flight_recorder)
         svc = self._autosave
         if svc is None or not (force or svc.due()):
             return False
@@ -453,6 +491,8 @@ class WavefrontChecker(Checker):
                                                time.monotonic() - t1))
                     written = True
         except Exception as e:  # noqa: BLE001 - see the docstring
+            if isinstance(e, InjectedFault):
+                raise  # manufactured process death, not a write failure
             svc._clock = time.monotonic()  # a failing path must not turn
             # every later sync into a fresh attempt
             svc.note_failure(svc._gen, e)
@@ -490,7 +530,7 @@ class WavefrontChecker(Checker):
                 for i, p in enumerate(self._props)
             ],
             "config": self._autosave_config,
-            "restarts": 0,  # no supervisor restarts a port run yet
+            "restarts": self._restarts,
             "written_at": datetime.datetime.now(datetime.timezone.utc)
             .isoformat(timespec="seconds"),
         }
@@ -499,16 +539,22 @@ class WavefrontChecker(Checker):
         return man
 
     def durability_status(self, live: bool = True) -> Optional[dict]:
-        """The durability block (the cadence, the generations written and
-        failed, the age of the last one), or None when autosave is off.
+        """The durability block (the supervised restarts and degradations;
+        the cadence, the generations written and failed, the age of the
+        last one), or None when the run has neither autosave nor a
+        supervision trail (JAX ``parallel/_base.py:698-722``).
         ``live=False`` is the deterministic subset the run report embeds:
-        the cadence and the kept count."""
+        the restarts, the degradations, the cadence and the kept count."""
         svc = self._autosave
-        if svc is None:
+        if svc is None and not self._restarts and not self._degradations:
             return None
-        auto = (svc.status() if live
-                else {"every_secs": svc.every_secs, "keep": svc.keep})
-        return {"v": CKPT_V, "restarts": 0, "autosave": auto}
+        out: dict = {"v": CKPT_V, "restarts": self._restarts}
+        if self._degradations:
+            out["degradations"] = list(self._degradations)
+        if svc is not None:
+            out["autosave"] = (svc.status() if live else
+                               {"every_secs": svc.every_secs, "keep": svc.keep})
+        return out
 
     def _refresh_durability(self) -> None:
         if self.flight_recorder is not None:

@@ -210,6 +210,9 @@ class CompiledActorTensor(TensorModel):
         # multi-op register workload (put_count >= 2): per-thread op-index
         # history fields and the MultiOpLinHistoryCodec table strategy
         self._multi = not self.general and self._put_count > 1
+        # whether the caller declared a bound: the preflight audit
+        # downgrades a growing-domain finding (AH205) that one already cuts
+        self._has_state_bound = state_bound is not None
         self._state_bound = state_bound or (lambda i, s: True)
         self._env_bound = env_bound or (lambda e: True)
         self._caps = (max_states_per_actor, max_envelopes)

@@ -121,6 +121,13 @@ class TensorBackedModel:
         if tm is self._TENSOR_UNRESOLVED:
             tm = self.tensor_model()
             object.__setattr__(self, "_tensor_model_cache", tm)
+            # the configuration surface at resolution time: the preflight
+            # audit holds the live configuration against it (CF301,
+            # analysis/audit.py; JAX tensor_model.py:125-141)
+            from ..analysis.audit import config_signature
+
+            object.__setattr__(self, "_tensor_config_sig",
+                               config_signature(self))
         object.__setattr__(self, "_tensor_fp_used", True)
         return tm
 

@@ -119,6 +119,11 @@ serves a pending ``checkpoint()`` and the autosave cadence
 (``_base.WavefrontChecker._at_host_sync``), and a stopped run writes one
 forced last generation.  A run resumed from any of these snapshots ends
 with the uninterrupted run's table bytes and queue rows.
+
+**Fault seams** (``testing/faults.py``; JAX wavefront.py:2251, :2306): the
+host loop fires ``host_sync`` at every sync, before the checkpoint seam,
+and ``growth`` first at every growth boundary.  Both are host-side checks
+that read nothing from the device.
 """
 
 from __future__ import annotations
@@ -149,6 +154,7 @@ from ..ops.hashing import EMPTY, EMPTY_U64, row_hash
 from ..ops.insert_commit import QueueAppend, insert_commit
 from ..spill.bloom import bloom_test
 from ..telemetry.spans import span as tel_span
+from ..testing import faults
 from ._base import WavefrontChecker
 
 _STATUS_OK = 0
@@ -1480,6 +1486,7 @@ class GpuChecker(WavefrontChecker):
                     + (_SPILL_STATS_SECTION if self._spill else 0))
         occ_every = int(self._telemetry_opts.get("occupancy_every") or 0)
         syncs = 0
+        hs = 0  # the host-sync ordinal of the fault seam (JAX's ``hs``)
         if rec is not None:
             rec.update_meta(batch=batch, steps_per_call=self._steps)
             if self._spill:
@@ -1545,6 +1552,12 @@ class GpuChecker(WavefrontChecker):
                         extra={"queue_capacity": qcap,
                                "candidate_budget": cand},
                     )
+            # the fault seam (testing/faults.py): a host-side check, inert
+            # with no plan installed; it counts the same syncs as the JAX
+            # engine's (one per pass of this loop, resumes and growths
+            # included)
+            faults.fire("host_sync", recorder=rec, step=hs, unique=unique)
+            hs += 1
             if status == _STATUS_POISON:
                 raise RuntimeError(
                     "poisoned rows reached by the device run: a compiled "
@@ -1577,6 +1590,11 @@ class GpuChecker(WavefrontChecker):
                 ran_block = False
                 continue
             if status != _STATUS_OK:
+                # the fault seam at a growth boundary (table, queue or
+                # budget growth, or a spill eviction): where a device OOM
+                # strikes, the growth transient
+                faults.fire("growth", recorder=rec, status=status,
+                            unique=unique)
                 self.growth_events.append((status, unique))
                 if measure:
                     if peak_from is not None:

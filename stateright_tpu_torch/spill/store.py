@@ -1,9 +1,10 @@
 """Host/disk tiers of the spilled visited set.
 
 The port's own copy of ``stateright_tpu/spill/store.py:36-389``, numpy
-only, without the fault-injection seam of its disk flush (it comes with
-the ROADMAP item "fault injection and the supervisor").
-:class:`SpillStore` is an append-only ``(fingerprint, parent)`` store:
+only.  Its disk flush fires the fault layer's ``spill_flush`` seam
+(``testing/faults.py``; JAX ``store.py:286``) before it writes, so a
+chaos plan can fail it (an ENOSPC there degrades the store to host RAM
+instead of crashing the run).  :class:`SpillStore` is an append-only ``(fingerprint, parent)`` store:
 entries arrive in eviction batches (already unique — they come out of
 the hot table), live first in host-RAM numpy segments, and flush to an
 mmap'd disk segment file when the RAM tier passes its byte budget
@@ -29,6 +30,7 @@ from typing import Optional
 import numpy as np
 
 from ..ops.hashing import EMPTY_U64 as EMPTY, mix64_np
+from ..testing import faults
 
 ENV_HOST_BYTES = "STATERIGHT_TPU_HOST_BYTES"
 
@@ -284,6 +286,7 @@ class SpillStore:
         if n == 0 or self.degraded:
             return
         try:
+            faults.fire("spill_flush", entries=n)
             if self._dir is None:
                 self._dir = tempfile.mkdtemp(prefix="stateright-tpu-torch-spill-")
                 # self-created temp dirs are reclaimed at process exit even

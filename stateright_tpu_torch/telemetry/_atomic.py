@@ -1,9 +1,7 @@
 """Atomic, crash-safe host persistence — the ONE write discipline.
 
-The port's own copy of ``stateright_tpu/telemetry/_atomic.py``, without
-its fault-injection seam (``testing/faults.py``, which comes with the
-ROADMAP item "fault injection and the supervisor").  Every durable
-artifact the port writes (run reports, registry archives, the
+The port's own copy of ``stateright_tpu/telemetry/_atomic.py``.  Every
+durable artifact the port writes (run reports, registry archives, the
 ``index.jsonl`` ledger, autosave snapshot generations, spill-tier disk
 segments) goes through these helpers, so the crash contract lives in one
 place:
@@ -20,6 +18,11 @@ place:
    still tear the LAST line — which is why every ledger reader in this
    package (``registry.RunRegistry.index``) skips unparseable tail
    lines instead of failing: prior records are never lost.
+
+Failure injection: every write here first fires the ``atomic_write``
+seam of the fault layer (``testing/faults.py``; JAX ``_atomic.py:57``,
+:84, :135), once per replace write and once per ledger append, so every
+durable write of the port is fault-testable through one hook.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import io
 import json
 import os
 import tempfile
+
+from ..testing import faults
 
 
 def _fsync_dir(path: str) -> None:
@@ -58,6 +63,7 @@ def atomic_write_stream(path: str, chunks) -> None:
     """:func:`atomic_write_bytes` of an iterable of byte chunks, written
     one by one: the large-payload form (spill disk segments), which never
     holds the whole payload in one buffer."""
+    faults.fire("atomic_write", path=str(path))
     d = os.path.dirname(os.path.abspath(path)) or "."
     fd, tmp = tempfile.mkstemp(
         prefix=os.path.basename(path) + ".", suffix=".tmp", dir=d
@@ -106,6 +112,7 @@ def durable_append_line(path: str, line: str) -> None:
     best-effort (POSIX appends of small writes), and the crash contract
     is completed by the readers: a torn tail line is skipped, prior
     records survive."""
+    faults.fire("atomic_write", path=str(path))
     if not line.endswith("\n"):
         line += "\n"
     # heal a torn tail first: a writer killed mid-append can leave the

@@ -2,8 +2,8 @@
 
 The port's own copy of ``stateright_tpu/telemetry/spans.py``.  In the
 port the engine opens the ``engine_run`` span and its host seams
-(``growth``, ``autosave``); the fleet and supervisor levels come with
-their items.
+(``growth``, ``autosave``) under the supervisor's ``attempt`` span
+(``supervisor.py``); the fleet level comes with its item.
 
 Dapper-style hierarchical spans over the work that hops scheduler →
 supervisor → engine: a **trace** is one fleet run (or one standalone

@@ -366,6 +366,28 @@ ISOLATION_CASES = {
         "assert c.unique_state_count() == 8832, c.unique_state_count()\n"
         "assert c.spill_status()['evictions'] >= 1\n"
     ),
+    # the supervisor (a supervised run killed by a plan and resumed), the
+    # heartbeat and status, and the audit (the builder's, the preflight's
+    # and the fleet's)
+    "supervise-audit": (
+        "import tempfile\n"
+        "from stateright_tpu_torch.checkpoint import read_progress\n"
+        "from stateright_tpu_torch.models._cli import fleet_audit\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.supervisor import supervise\n"
+        "from stateright_tpu_torch.testing.faults import Fault, FaultPlan\n"
+        "d = tempfile.mkdtemp()\n"
+        "with FaultPlan([Fault(site='host_sync', action='kill', at=3)]):\n"
+        "    r = supervise(TwoPhaseSys(3).checker().telemetry(),\n"
+        "                  autosave_dir=d, every_secs=0.0,\n"
+        "                  sleep=lambda s: None, device='cpu', batch=32,\n"
+        "                  steps_per_call=2)\n"
+        "assert r.restarts == 1 and r.unique_state_count() == 288\n"
+        "assert read_progress(d)['verdict'] == 'done'\n"
+        "assert TwoPhaseSys(3).checker().audit().ok\n"
+        "assert fleet_audit(['two_phase_commit', 'paxos', 'quickstart'],\n"
+        "                   stream=open(d + '/audit.txt', 'w')) == 0\n"
+    ),
     # telemetry: the recorder, cartography, the memory ledger, the report
     # and the run registry on the GPU engine and the host BFS
     "telemetry": (
@@ -496,11 +518,22 @@ def sync_free_model(name):
 # "-flags" under .prededup().mxu(), "-cart" under .cartography() (its
 # counters and the queue-derived depth histogram ride the block),
 # "-checked" under .checked() (the guard's flags), "-spill" under .spill()
-# with a device budget that evicts (the Bloom test and the pending append)
+# with a device budget that evicts (the Bloom test and the pending append),
+# "-armed" with a fault plan installed that never fires and autosave and
+# the heartbeat at every sync
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
                     "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
                     "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265,
-                    "2pc-checked": 288, "2pc-spill": 8832}
+                    "2pc-checked": 288, "2pc-spill": 8832, "2pc-armed": 288,
+                    "paxos-armed": 265}
+
+
+def inert_plan():
+    """A fault plan on every site that never fires: the seams run armed."""
+    from stateright_tpu_torch.testing.faults import SITES, Fault, FaultPlan
+
+    return FaultPlan([Fault(site=s, action="kill", at=10 ** 9)
+                      for s in SITES])
 
 
 def spill_budget(model, batch: int, bits: int) -> int:
@@ -520,7 +553,7 @@ def spill_budget(model, batch: int, bits: int) -> int:
 
 
 @pytest.mark.parametrize("name", list(SYNC_FREE_UNIQUE))
-def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
+def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
     """Every block of ``steps_per_call`` steps, post-stop no-ops included,
     runs under a ``TorchDispatchMode`` probe: no operation that reads a
     tensor on the host (``aten._local_scalar_dense`` and kin) is
@@ -529,8 +562,9 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     compiler's mechanical symmetry), and with ``.prededup().mxu()`` for 2pc
     and ``PaxosTensor`` (``window_unique``), and with ``.cartography()``
     for both (the counters, and the depth histogram's bounded search once
-    a block).  The host reads one packed stats tensor per block, outside
-    the block."""
+    a block), and with the fault seams armed by a plan that never fires
+    and autosave and the heartbeat at every sync.  The host reads one
+    packed stats tensor per block, outside the block."""
     from stateright_tpu_torch.parallel import wavefront
 
     blocks = []
@@ -556,6 +590,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     if name.endswith("-checked"):
         b = b.checked()
     kw = {}
+    if name.endswith("-armed"):
+        b = b.autosave(str(tmp_path), every_secs=0.0)
+        monkeypatch.setattr("stateright_tpu_torch.testing.faults._ACTIVE",
+                            inert_plan())
     if name.endswith("-spill"):
         b = b.spill()
         monkeypatch.setenv("STATERIGHT_TPU_DEVICE_BYTES",
@@ -567,6 +605,7 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch):
     assert (c.cartography() is not None) == name.endswith("-cart")
     assert c._prededup == name.endswith("-flags")
     assert c._checked == name.endswith("-checked")
+    assert (c._heartbeat is not None) == name.endswith("-armed")
     if c._spill:
         # blocks ran after an eviction, with deferred candidates appended
         sp = c.spill_status()
@@ -597,15 +636,17 @@ FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
 
 
 @pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
-@pytest.mark.parametrize("explicit", [False, True, "checked", "spill"])
+@pytest.mark.parametrize("explicit", [False, True, "checked", "spill",
+                                      "armed"])
 def test_step_flags_off_dispatch_the_same_operations(name, explicit,
-                                                    monkeypatch):
+                                                    monkeypatch, tmp_path):
     """With ``prededup`` off, unset or turned off explicitly against its
     env knob (and ``mxu``, which has no effect, likewise), and with
     ``checked(False)`` and ``spill(False)`` (the latter against its env
-    knob), every step dispatches exactly the pinned operations: no
-    pre-dedup, no guard, no Bloom test, and no clone of the block per
-    field write."""
+    knob), and with a fault plan installed that never fires and autosave
+    and the heartbeat armed at every sync ("armed"), every step dispatches
+    exactly the pinned operations: no pre-dedup, no guard, no Bloom test,
+    no fault check, and no clone of the block per field write."""
     from stateright_tpu_torch.parallel import wavefront
 
     steps = []
@@ -632,8 +673,13 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     elif explicit == "spill":
         monkeypatch.setenv("STATERIGHT_TPU_SPILL", "1")
         b = b.spill(False)
+    elif explicit == "armed":
+        b = b.autosave(str(tmp_path), every_secs=0.0)
+        monkeypatch.setattr("stateright_tpu_torch.testing.faults._ACTIVE",
+                            inert_plan())
     c = b.spawn_gpu(device="cpu", batch=64, steps_per_call=4).join()
     assert not c._prededup and not c._checked and not c._spill
+    assert (c._heartbeat is not None) == (explicit == "armed")
     assert steps
     assert {sum(ops.values()) for ops in steps} <= FLAGS_OFF_OPS_PER_STEP[name]
     assert all("aten.clone.default" not in ops for ops in steps)

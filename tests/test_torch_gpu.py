@@ -16,7 +16,9 @@ on ``cuda`` against an uninterrupted ``cuda`` run, and checked mode and the
 spill tier: 2pc-5 under ``.spill()`` and a budget that evicts (tables,
 queue rows, store and tallies) and under ``.checked()`` on ``cuda`` against
 ``cpu``, and the out-of-range twin's error on the card with the CUDA
-context still usable after it.
+context still usable after it; a real device OOM, which the supervisor
+classifies as ``oom``, and a supervised 2pc-5 killed at a host sync that
+ends on ``cuda`` with the ``cpu`` run's tables.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -776,3 +778,44 @@ def test_checked_oob_twin_raises_and_the_context_survives(cuda):
     torch.cuda.synchronize(cuda)
     c = TwoPhaseSys(3).checker().spawn_gpu(device=cuda, batch=64).join()
     assert c.unique_state_count() == 288
+
+
+def test_a_real_device_oom_classifies_as_oom(cuda):
+    """An allocation past the card's memory raises the caching allocator's
+    ``torch.OutOfMemoryError``, which the supervisor puts in ``oom``; the
+    card stays usable after it."""
+    from stateright_tpu_torch.supervisor import OOM, classify_failure
+
+    free, total = torch.cuda.mem_get_info(cuda)
+    with pytest.raises(torch.OutOfMemoryError) as exc:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    assert classify_failure(exc.value) == OOM
+    torch.cuda.empty_cache()
+    c = TwoPhaseSys(3).checker().spawn_gpu(device=cuda, batch=64).join()
+    assert c.unique_state_count() == 288
+
+
+def test_supervised_2pc5_killed_at_a_host_sync_ends_on_the_cpu_tables(
+        cuda, tmp_path):
+    """2pc-5 supervised on the card, killed by a plan at its seventh host
+    sync, resumes on the card (never on the CPU) and ends with the table
+    bytes and queue rows of the same supervised run on ``cpu``."""
+    from stateright_tpu_torch.supervisor import supervise
+    from stateright_tpu_torch.testing.faults import Fault, FaultPlan
+
+    runs = {}
+    for dev in (cuda, "cpu"):
+        plan = FaultPlan([Fault(site="host_sync", action="kill", at=6)])
+        with plan:
+            runs[str(dev)] = res = supervise(
+                TwoPhaseSys(5).checker().telemetry(),
+                autosave_dir=str(tmp_path / str(dev).replace(":", "")),
+                every_secs=0.0, max_restarts=2, sleep=lambda s: None,
+                device=dev, batch=64, steps_per_call=2)
+        assert plan.fired and res.restarts == 1
+        assert res.checker.device.type == torch.device(dev).type
+    g, c = runs[str(cuda)], runs["cpu"]
+    assert g.unique_state_count() == c.unique_state_count() == 8832
+    assert g.state_count() == c.state_count() == 58146
+    assert_same_snapshot(g.checker.final_snapshot(),
+                         c.checker.final_snapshot())
