@@ -190,6 +190,31 @@ and read just after:
  - the dispatched operations a step at 2pc-7 and paxos-3 with each flag
    off and on.
 
+Partial-order reduction (``.por()``, through the CLI's ``--por``: the
+footprint pass on the captured step graph, the plan, the ample round and
+the proviso round), right after the per-channel legs, each leg's launch
+counts reset just before it and read just after:
+
+ - ``por_pc_paxos2``: the plan of per-channel paxos-2 (W = 83, A = 82:
+   1,092 independent pairs, conflict sum 4,540, 38 visible actions, two
+   conjuncts, and the digest ``tests/test_torch_por_wide.py`` recomputes
+   from the JAX plan) with its host seconds; the run under
+   ``.por()`` at the JAX pin's capacity and batch (2^15, 256; the reduced
+   count depends on where the batches break): 16,258 unique, 31,435
+   states, the discoveries of a full run at the same capacity and batch
+   (whose wall it is compared with) replayed, "linearizable" never
+   violated, rows reduced; the dispatched operations a step with the flag off and on (the
+   first 8 steps of runs bounded at 4,000); ``ample_mask``'s device time
+   on the next batch of a run bounded at 8,000;
+ - the proviso round that inserts the most in a POR run bounded at 8,000
+   (its inputs kept by :func:`proviso_round`): ``cand_prep``,
+   ``bucket_plan`` and ``insert_commit`` against their plain versions,
+   L2-cold (``at_por_proviso`` in the kernels line);
+ - ``por_2pc7``: 2pc-7 under ``.por()``: nothing reduces, and the tables,
+   queue rows, state count and discoveries are the plain 2pc-7 leg's;
+ - ``por_pc_paxos1``: per-channel paxos-1 under ``.por()`` on ``cuda`` and
+   ``cpu``: 250 / 437, the same tables, queue rows and tallies.
+
 The supervisor, the fault layer and the audit, last, each leg's launch
 counts reset just before it and read just after:
 
@@ -243,7 +268,10 @@ inject's launches, under ``at_spill_2pc7_inject`` and
 ``at_spill_paxos3_inject``; and the supervisor's and the audit's legs'
 under ``at_supervise_2pc7_kill``, ``at_supervise_oom_real``,
 ``at_supervise_sigkill``, the resumed run's, the killed run's being lost
-with its process, and ``at_audit``)
+with its process, and ``at_audit``; and the POR legs' under
+``at_por_pc_paxos2``, ``at_por_2pc7`` and ``at_por_pc_paxos1``, with the
+proviso round's cells for ``cand_prep``, ``bucket_plan`` and
+``insert_commit`` under ``at_por_proviso``)
 and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -344,6 +372,25 @@ P2_PER_CHANNEL = (16_668, 32_971)
 ABD22_PUT2_UNIQUE = 2_980
 WO21 = (71, 97)
 P2_PER_CHANNEL_KW = dict(capacity=1 << 16, batch=512)  # bench.py:886-918
+# partial-order reduction: per-channel paxos-2 under por() (unique,
+# states) at the JAX pin's capacity and batch (tests/test_per_channel.py:
+# 54-61; the reduced count depends on where the batches break, so the
+# plain leg's 2^16 slots and 512 rows give another), its plan as the JAX
+# package derives it (independent pairs, conflict sum, visible actions,
+# conjuncts) and that plan's digest (analysis/independence.plan_digest),
+# which tests/test_torch_por_wide.py recomputes from the JAX plan
+P2_PER_CHANNEL_POR = (16_258, 31_435)
+P2_POR_KW = dict(capacity=1 << 15, batch=256)
+PC_PAXOS2_PLAN = dict(independent_pairs=1_092, conflict_sum=4_540,
+                      visible=38, conjuncts=2)
+PC_PAXOS2_PLAN_DIGEST = "26a0daddf94a1dde"
+# per-channel paxos-1 (unique, states) in full and under por()
+# (tests/test_per_channel.py:49-50)
+P1_PER_CHANNEL = (265, 482)
+P1_PER_CHANNEL_POR = (250, 437)
+POR = ("--por",)  # the step flag of the POR legs (models/_cli.py)
+# the POR operation counts' bound: 8 steps at the leg's batch stay under it
+P2_OPS_TARGET = 4_000
 P2_PER_CHANNEL_KERNEL_TARGET = 8_000
 # symmetry runs (classes, states), as the JAX engine gives them:
 # TwoPhaseSys(n).checker().symmetry().spawn_tpu(sync=True) on the CPU for
@@ -710,6 +757,38 @@ def plan_record(x: dict, cold: bool, stream, sym: bool = False) -> dict:
     )
 
 
+def prep_record(x: dict, cold: bool, stream) -> dict:
+    """``cand_prep`` against its plain version on the batch ``x`` of
+    :func:`next_batch` (or of :func:`proviso_batch`)."""
+    rows, valid = x["krows"], x["cvalid"]
+    pfp, arity, cb, want = x["pfp"], x["arity"], x["cb"], x["prep"]
+    n, w = rows.shape
+    qbuf = PrepBuffers(n, cb, rows.device)
+    got = cand_prep(rows, valid, pfp, arity, cb, out=qbuf)
+    errs = sum(int((g != p).sum()) for g, p in zip(got, want))
+    nv = int(want[4])
+    parents = int(torch.unique(want[2] // arity).numel())
+    # valid lanes read their row, every lane its valid byte, each parent
+    # whose lane is read its fingerprint once; four words per output lane
+    # and the two scalars out
+    q_ms, q_by = bound(nv * w * 8 + n + parents * 8 + cb * 32 + 9,
+                       nv * (w + 2) * 10)
+    return dict(
+        name="cand_prep", route="cuda",
+        source="stateright_tpu_torch/csrc/cand_prep.cu",
+        replaces=("stateright_tpu/parallel/wavefront.py:491 with "
+                  "stateright_tpu/ops/buckets.py:181"),
+        shape=(f"rows int64[{n}, {w}], {nv} valid, budget {cb}, "
+               f"{parents} parents read"),
+        matched=errs == 0, max_abs_err=errs,
+        bound_ms=q_ms, bound_by=q_by, library_ms=None,
+        **timings(lambda: cand_prep(rows, valid, pfp, arity, cb, out=qbuf),
+                  lambda: cand_prep_plain(rows, valid, pfp, arity, cb), cold,
+                  lambda: cand_prep(rows, valid, pfp, arity, cb, qbuf,
+                                    check=False, stream=stream)),
+    )
+
+
 def check_kernels(checker, carry, cold: bool, sym: bool = False,
                   flags=()) -> dict:
     """Each kernel against its plain version on one real batch; returns
@@ -724,33 +803,10 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
     out = {}
 
     # -- cand_prep over the batch's B*A successor (or canonical) rows --------
-    rows, valid = x["krows"], x["cvalid"]
-    pfp, arity, cb, want = x["pfp"], x["arity"], x["cb"], x["prep"]
+    out["cand_prep"] = prep_record(x, cold, stream)
+    rows = x["krows"]
     n, w = rows.shape
-    qbuf = PrepBuffers(n, cb, rows.device)
-    got = cand_prep(rows, valid, pfp, arity, cb, out=qbuf)
-    errs = sum(int((g != p).sum()) for g, p in zip(got, want))
-    nv = int(want[4])
-    parents = int(torch.unique(want[2] // arity).numel())
-    # valid lanes read their row, every lane its valid byte, each parent
-    # whose lane is read its fingerprint once; four words per output lane
-    # and the two scalars out
-    q_ms, q_by = bound(nv * w * 8 + n + parents * 8 + cb * 32 + 9,
-                       nv * (w + 2) * 10)
-    out["cand_prep"] = dict(
-        name="cand_prep", route="cuda",
-        source="stateright_tpu_torch/csrc/cand_prep.cu",
-        replaces=("stateright_tpu/parallel/wavefront.py:491 with "
-                  "stateright_tpu/ops/buckets.py:181"),
-        shape=(f"rows int64[{n}, {w}], {nv} valid, budget {cb}, "
-               f"{parents} parents read"),
-        matched=errs == 0, max_abs_err=errs,
-        bound_ms=q_ms, bound_by=q_by, library_ms=None,
-        **timings(lambda: cand_prep(rows, valid, pfp, arity, cb, out=qbuf),
-                  lambda: cand_prep_plain(rows, valid, pfp, arity, cb), cold,
-                  lambda: cand_prep(rows, valid, pfp, arity, cb, qbuf,
-                                    check=False, stream=stream)),
-    )
+    nv = int(x["prep"][4])
 
     # -- B: row_hash over the same rows (under prededup: the step's own
     # call, on the valid rows before the dedup), and over the run's init
@@ -1072,12 +1128,13 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
 
 
 def ops_per_step(dev, cartography: bool, flags=(),
-                 build=lambda: paxos_model(3)) -> dict:
+                 build=lambda: paxos_model(3), target: int = OPS_TARGET,
+                 **kw) -> dict:
     """Dispatched operations per step, over the first :data:`OPS_STEPS`
-    steps of a run of ``build()`` (default paxos-3) bounded at
-    :data:`OPS_TARGET` with the step ``flags`` on (a ``TorchDispatchMode``
-    count around ``_Engine.step``), and those of the block's stats packing
-    on the run's final carry."""
+    steps of a run of ``build()`` (default paxos-3) bounded at ``target``
+    with the step ``flags`` on (a ``TorchDispatchMode`` count around
+    ``_Engine.step``), and those of the block's stats packing on the run's
+    final carry; ``kw`` goes to ``spawn_gpu``."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from stateright_tpu_torch.parallel import wavefront
@@ -1105,10 +1162,9 @@ def ops_per_step(dev, cartography: bool, flags=(),
 
     wavefront._Engine.step = counted
     try:
-        b = with_step_flags(build().checker().target_states(OPS_TARGET),
-                            flags)
+        b = with_step_flags(build().checker().target_states(target), flags)
         c = (b.cartography() if cartography else b).spawn_gpu(
-            device=dev, steps_per_call=4).join()
+            **dict(dict(device=dev, steps_per_call=4), **kw)).join()
     finally:
         wavefront._Engine.step = step
     probe = Count()
@@ -1446,6 +1502,201 @@ def channel_and_history_phases(dev, smi: str) -> dict:
         if not same:
             raise AssertionError(f"{name}: cuda and cpu disagree")
     return launches
+
+
+@contextlib.contextmanager
+def proviso_round(into: dict):
+    """Keep, in ``into``, the inputs of the POR proviso round (the step's
+    second insert, appended at ``tail + n_new1``) that inserts the most of
+    the runs inside the block: copies of the table after the ample round,
+    of the round's candidate rows, mask, parents and cursors, and of the
+    queue.  The copies are device-to-device and launch no kernel of the
+    four."""
+    run = _Engine._insert_round
+
+    def insert_round(eng, c, krows, kept, fps, tail, cand_rows, ebits,
+                     depths, prep_out, plan_out):
+        second = tail is not c[convert.TAIL]
+        if second:
+            before = dict(
+                tfp=c[convert.TFP].clone(), tpl=c[convert.TPL].clone(),
+                krows=krows.clone(), cvalid=kept.clone(), pfp=fps.clone(),
+                tail=tail.clone(), crows=cand_rows.clone(),
+                ebits=ebits.clone(), depths=depths.clone(),
+                arity=eng.arity, cb=eng.eff_cand, sym=eng.sym,
+                queue=[c[i].clone() for i in (
+                    convert.QROWS, convert.QFP, convert.QEBITS,
+                    convert.QDEPTH)])
+        out = run(eng, c, krows, kept, fps, tail, cand_rows, ebits, depths,
+                  prep_out, plan_out)
+        if second and int(out[2]) > into.get("n_new_kept", 0):
+            into.update(before, n_new_kept=int(out[2]))
+        return out
+
+    _Engine._insert_round = insert_round
+    try:
+        yield into
+    finally:
+        _Engine._insert_round = run
+
+
+def proviso_kernels(kept: dict) -> dict:
+    """``cand_prep``, ``bucket_plan`` and ``insert_commit`` against their
+    plain versions, L2-cold, on the proviso round :func:`proviso_round`
+    kept: its candidate mask through the budget compaction, the stable
+    key sort, the plan on the table the ample round left, and the append
+    after the ample round's rows."""
+    if not kept:
+        raise AssertionError("por: no proviso round inserted anything")
+    k = kept
+    tfp = k["tfp"]
+    prep = cand_prep_plain(k["krows"], k["cvalid"], k["pfp"], k["arity"],
+                           k["cb"])
+    sort = (*sort_prepared(prep[0], prep[1], prep[3], tfp.shape[0] // SLOTS),
+            prep[2], prep[5])
+    plan = bucket_plan_plain(tfp, *sort, generation_order=k["sym"])
+    queue = QueueAppend(*k["queue"], k["tail"], plan[3], k["crows"],
+                        k["ebits"], k["depths"], k["arity"])
+    x = dict(k, prep=prep, sort=sort, plan=plan, queue=queue,
+             n_new=int(plan[4]))
+    if x["n_new"] == 0:
+        raise AssertionError("por: the kept proviso round's plain plan "
+                             "inserts nothing")
+    stream = torch.cuda.current_stream().cuda_stream
+    return {"cand_prep": prep_record(x, True, stream),
+            "bucket_plan": plan_record(x, True, stream, k["sym"]),
+            "insert_commit": commit_record(x, True, stream)}
+
+
+def por_phases(dev, smi: str, ref7: dict) -> tuple:
+    """The partial-order-reduction legs (module docstring); returns each
+    leg's launches and the proviso round's kernel records."""
+    from stateright_tpu_torch.analysis.footprint import conjunct_eval_fn
+    from stateright_tpu_torch.analysis.independence import (
+        plan_digest, por_plan, run_independence,
+    )
+    from stateright_tpu_torch.ops.por import PorConstants, ample_mask
+
+    legs = {}
+    # -- per-channel paxos-2 under por(): the plan, then the run -------------
+    m = per_channel_paxos2()
+    tm = m._tensor_cached()
+    t0 = time.monotonic()
+    rep = run_independence(tm, list(m.properties()))
+    plan = por_plan(tm, list(m.properties()))
+    plan_s = time.monotonic() - t0
+    got = dict(independent_pairs=rep.independent_pairs,
+               conflict_sum=int(plan.conflict.sum()),
+               visible=int(plan.visible.sum()),
+               conjuncts=int(plan.enablers.shape[1]))
+    digest = plan_digest(plan)
+    if ((tm.width, tm.max_actions) != (83, 82) or got != PC_PAXOS2_PLAN
+            or digest != PC_PAXOS2_PLAN_DIGEST):
+        raise AssertionError(f"per-channel paxos-2 plan {got} {digest}: "
+                             f"not {PC_PAXOS2_PLAN} {PC_PAXOS2_PLAN_DIGEST}")
+    # the same twin in full at the same capacity and batch, for the wall
+    gp, gp_s, _, _ = compiled_leg(dev, lambda: m, **P2_POR_KW)
+    if (gp.unique_state_count(), gp.state_count()) != P2_PER_CHANNEL:
+        raise AssertionError(f"per-channel paxos-2: not {P2_PER_CHANNEL}")
+    plain_disc = sorted(gp.discoveries())
+    del gp
+    g, g_s, peak, launches = compiled_leg(dev, lambda: m, flags=POR,
+                                          **P2_POR_KW)
+    paths = check_discoveries(g.model, g, set(plain_disc))
+    g.assert_properties()  # "linearizable" never violated
+    st = g.por_status()
+    rec = dict(leg_record(g, g_s, peak, launches, smi), path_lengths=paths,
+               flags=list(POR), por=st, plan=dict(got, digest=digest),
+               plan_host_sec=plan_s, plain_sec_same_caps=gp_s,
+               **P2_POR_KW)
+    if (g.unique_state_count(), g.state_count()) != P2_PER_CHANNEL_POR:
+        raise AssertionError(f"por per-channel paxos-2: not "
+                             f"{P2_PER_CHANNEL_POR}: {rec}")
+    if not (st["enabled"] and st["rows_reduced"] > 0):
+        raise AssertionError(f"por per-channel paxos-2 reduced nothing: {st}")
+    del g
+    # operations a step, POR off and on, the first steps at the leg's batch
+    ops = {tag: ops_per_step(dev, False, flags, build=lambda: m,
+                             target=P2_OPS_TARGET, **P2_POR_KW)
+           for tag, flags in (("off", ()), ("on", POR))}
+    # a bounded POR run (its proviso rounds' inputs kept; the copies and
+    # the host reads of the kept count are outside every timed leg), then
+    # ample_mask's device time on its next batch
+    kept = {}
+    with proviso_round(kept):
+        gb = with_step_flags(m.checker().target_states(
+            P2_PER_CHANNEL_KERNEL_TARGET), POR).spawn_gpu(**P2_POR_KW).join()
+    kernels = proviso_kernels(kept)
+    del kept
+    carry = gb._final_carry
+    head, tail = int(carry[convert.HEAD]), int(carry[convert.TAIL])
+    batch = gb._batch
+    lanes = torch.arange(batch, device=dev)
+    span = (head + lanes).clamp_(max=carry[convert.QROWS].shape[0] - 1)
+    rows = carry[convert.QROWS][span]
+    _, valid = tm.step_rows(rows)
+    valid = valid & (lanes < tail - head)[:, None]
+    consts, kernel = PorConstants(plan, dev), conjunct_eval_fn(tm)
+    amp = ample_mask(valid, rows, consts, kernel)
+    dev_ms, dev_by, ev_ms = device_ms(
+        lambda: ample_mask(valid, rows, consts, kernel))
+    rec["ample_mask"] = dict(
+        rows=batch, live=int(min(tail - head, batch)),
+        enabled=int(valid.sum()), ample=int(amp.sum()),
+        reduced_rows=int((amp != valid).any(dim=1).sum()),
+        ms=time_ms(lambda: ample_mask(valid, rows, consts, kernel), 20),
+        device_ms=dev_ms, device_ms_by=dev_by, events_device_ms=ev_ms,
+        host_ms=host_ms(lambda: ample_mask(valid, rows, consts, kernel), 20))
+    rec["ops_per_step"] = ops
+    emit("por_pc_paxos2", rec)
+    del gb, carry, rows, valid
+    legs["por_pc_paxos2"] = launches
+
+    # -- 2pc-7 under por(): nothing reduces, the plain leg's tables ----------
+    g, g_s, peak, launches = compiled_leg(dev, lambda: TwoPhaseSys(7),
+                                          flags=POR)
+    same, tail = same_snapshots(ref7["snap"], g.final_snapshot())
+    st = g.por_status()
+    emit("por_2pc7", dict(leg_record(g, g_s, peak, launches, smi),
+                          flags=list(POR), por=st, tail=tail,
+                          plain_sec=ref7["sec"],
+                          tables_and_queue_identical_to_plain=same))
+    if not (same and g.state_count() == ref7["states"]
+            and g.discovery_fps() == ref7["disc"]
+            and st["enabled"] and st["rows_reduced"] == 0
+            and st["candidates_masked"] == 0):
+        raise AssertionError(f"por 2pc-7: not the plain leg's run ({st})")
+    del g
+    legs["por_2pc7"] = launches
+
+    # -- per-channel paxos-1 under por() on cuda and cpu ---------------------
+    def p1(device):
+        return with_step_flags(per_channel_paxos(1).checker(), POR).spawn_gpu(
+            device=device, batch=64).join()
+
+    g, g_s, peak, launches = compiled_leg(
+        dev, lambda: per_channel_paxos(1), flags=POR, batch=64)
+    c = p1("cpu")
+    same, tail = same_tables_and_queue(g, c)
+    emit("por_pc_paxos1", dict(
+        leg_record(g, g_s, peak, launches, smi), flags=list(POR),
+        por=g.por_status(), por_cpu=c.por_status(), tail=tail,
+        unique_cpu=c.unique_state_count(), states_cpu=c.state_count(),
+        tables_and_queue_identical=same))
+    for x in (g, c):
+        if (x.unique_state_count(), x.state_count()) != P1_PER_CHANNEL_POR:
+            raise AssertionError(f"por per-channel paxos-1: not "
+                                 f"{P1_PER_CHANNEL_POR}")
+    if not (same and g.por_status() == c.por_status()):
+        raise AssertionError("por per-channel paxos-1: cuda and cpu disagree")
+    legs["por_pc_paxos1"] = launches
+    return legs, kernels
+
+
+def per_channel_paxos(n: int):
+    m = paxos_model(n)
+    m.per_channel_()
+    return m
 
 
 def symmetry_phases(dev, smi: str) -> dict:
@@ -2596,6 +2847,8 @@ def main() -> int:
 
     launches_p2pc = channel_and_history_phases(dev, smi)
     lap("per_channel_and_histories")
+    launches_por, kernels_por = por_phases(dev, smi, ref7)
+    lap("por")
     # -- kernels at per-channel paxos-2 shapes (W = 83), L2-cold -------------
     gp2 = per_channel_paxos2().checker().target_states(
         P2_PER_CHANNEL_KERNEL_TARGET).spawn_gpu(**P2_PER_CHANNEL_KW).join()
@@ -2633,6 +2886,7 @@ def main() -> int:
                              ("per-channel paxos-2", kernels_p2pc),
                              ("2pc-15 symmetry", kernels_sym),
                              ("orl", kernels_orl),
+                             ("por proviso", kernels_por),
                              *((f"{leg} inject", cell) for leg, cell
                                in kernels_inject.items()))
            for k in ks.values() if not k["matched"]]
@@ -2694,6 +2948,16 @@ def main() -> int:
                      if key not in ("name", "route", "source", "replaces",
                                     "launches")},
                     launches=ls["inject"][name])
+        # partial-order reduction: each leg's launches (the ample and
+        # the proviso rounds), and the proviso round's kernel cells
+        for leg, ls in launches_por.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+        if name in kernels_por:
+            entry["at_por_proviso"] = dict(
+                {key: kernels_por[name][key] for key in KERNEL_KEYS
+                 if key not in ("name", "route", "source", "replaces",
+                                "launches")},
+                launches=launches_por["por_pc_paxos2"][name])
         line.append(entry)
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS

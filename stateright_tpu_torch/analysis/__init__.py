@@ -2,10 +2,16 @@
 dynamic half of the sanitizer, checked execution mode (``sanitizer.py``),
 and the passes that need no traced graph: the audit report
 (``report.py``), the actor-handler lint (``handler_lint.py``) and the
-config-lifecycle rules with the audit driver (``audit.py``).  The graph
-passes come with the ROADMAP item "the analysis stack"."""
+config-lifecycle rules with the audit driver (``audit.py``); and the
+first graph passes, on a kernel captured with ``make_fx``
+(``graph.py``): the footprint pass (``footprint.py``) and the
+independence analysis that plans partial-order reduction
+(``independence.py``).  The other graph passes come with the ROADMAP item
+"the analysis stack"."""
 
 from .audit import audit_model, config_signature
+from .footprint import extract_footprints
+from .independence import por_plan, run_independence
 from .report import AuditError, AuditFinding, AuditReport, Severity
 from .sanitizer import (
     CheckedExecutionError,
@@ -26,5 +32,8 @@ __all__ = [
     "checked_kernels",
     "config_signature",
     "error_flag",
+    "extract_footprints",
     "localize_checked_failure",
+    "por_plan",
+    "run_independence",
 ]

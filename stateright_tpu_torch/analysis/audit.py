@@ -11,9 +11,14 @@ CLI verbs.  Passes:
 
 The JAX audit also runs its jaxpr kernel audit (``run_jaxpr_audit``) and
 the sanitizer's static interval pass (``run_sanitizer``) over the twin.
-The port has neither: both read a traced graph, and the port's graph
-form (``torch.fx`` or ``torch.export``) is the open design of the ROADMAP
-item "the analysis stack".  So no ``JX*`` finding comes from the port.
+The port's graph form is settled: a kernel captured with ``make_fx``
+(``analysis/graph.py``), on which the footprint pass and the
+independence analysis (``footprint.py``, ``independence.py``: ``JX300``
+to ``JX305``) run.  Like the JAX audit, this one does not run them
+(``.por()`` and the ``independence`` verbs do).  The kernel audit, the
+static sanitizer, the cost model and ``row_domain`` are still to be
+ported on that capture, so no other ``JX*`` finding comes from the
+port.
 
 ``deep=True`` adds the expensive passes (the bounded closure-domain probe
 and the fresh-twin drift re-resolve); the ``spawn_gpu`` preflight runs the

@@ -11,8 +11,9 @@ Rule-id namespaces (the JAX package's ``docs/analysis.md`` catalogue):
 
  - ``AH*`` -- actor-handler lint (``analysis/handler_lint.py``)
  - ``CF*`` -- builder/config lifecycle checks (``analysis/audit.py``)
- - ``JX*`` -- the jaxpr passes, which the port does not have yet (the
-   ROADMAP item "the analysis stack": their graph form is open)
+ - ``JX3*`` -- the independence pass (``analysis/independence.py``, on
+   the captured aten graph of ``analysis/graph.py``); the other ``JX*``
+   passes come with the ROADMAP item "the analysis stack"
 """
 
 from __future__ import annotations
@@ -52,20 +53,33 @@ class AuditFinding:
 
 @dataclass
 class AuditReport:
-    """All findings for one model.  (The JAX report also carries the
-    jaxpr passes' metrics, per-row FLOPs and bytes and the sanitizer's
-    summary; the port has no such pass yet.)"""
+    """All findings for one model, and ``metrics``: non-finding
+    diagnostics (the independence summary, ``metrics["independence"]``).
+    (The JAX report's metrics also hold the jaxpr passes' per-row FLOPs
+    and bytes and the sanitizer's summary; the port has no such pass
+    yet.)"""
 
     model: str = ""
     findings: list = field(default_factory=list)
+    metrics: dict = field(default_factory=dict)
 
     def copy(self) -> "AuditReport":
-        """A copy with its own findings list: the process-wide cache hands
-        each model its own report."""
-        return AuditReport(model=self.model, findings=list(self.findings))
+        """A copy with its own findings list and metrics dict: the
+        process-wide cache hands each model its own report."""
+        return AuditReport(model=self.model, findings=list(self.findings),
+                           metrics=dict(self.metrics))
 
     def add(self, rule_id: str, severity: str, location: str, message: str) -> None:
         self.findings.append(AuditFinding(rule_id, severity, location, message))
+
+    def extend(self, findings) -> None:
+        """Append findings, skipping exact duplicates (a cached pass
+        re-extending its findings adds nothing)."""
+        seen = set(self.findings)
+        for f in findings:
+            if f not in seen:
+                self.findings.append(f)
+                seen.add(f)
 
     # -- queries -------------------------------------------------------------
 

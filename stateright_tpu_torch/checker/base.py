@@ -4,7 +4,7 @@ The port's counterpart of ``stateright_tpu/checker/base.py``:
 ``CheckerBuilder`` carries ``symmetry``, ``target_states``, ``threads``,
 ``visitor``, ``timeout``, ``autosave``, the telemetry options
 (``telemetry``, ``cartography``, ``memory_ledger``, ``report``, ``runs``)
-and the GPU engine's ``prededup``, ``checked`` and ``spill`` (``mxu`` is
+and the GPU engine's ``prededup``, ``por``, ``checked`` and ``spill`` (``mxu`` is
 accepted for parity and has no effect), the static audit (``audit``,
 ``skip_audit``: the preflight that ``spawn_gpu`` runs), and spawns the
 host checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs`,
@@ -51,6 +51,8 @@ class CheckerBuilder:
         # decides
         self.prededup_mode: Optional[bool] = None
         self.spill_mode: Optional[bool] = None
+        # partial-order reduction; None = the env knob decides
+        self.por_mode: Optional[bool] = None
         # the GPU engine's checked execution mode
         self.checked_mode = False
         # telemetry (telemetry/): None = off
@@ -257,6 +259,31 @@ class CheckerBuilder:
         kernel).  Default off; env override
         ``STATERIGHT_TPU_PREDEDUP=1``."""
         self.prededup_mode = bool(enabled)
+        return self
+
+    def por(self, enabled: bool = True) -> "CheckerBuilder":
+        """Partial-order reduction on the GPU engine (JAX
+        ``checker/base.py:353-377``): the static independence analysis
+        (``analysis/independence.py``) derives a per-model action x action
+        conflict matrix from footprints at packed-field granularity, read
+        off the twin's captured step graph; the engine then masks each
+        state's enabled-action set down to a minimal conflict-closed
+        **ample subset** (a stubborn-set closure computed on the device,
+        ``ops/por.py``), with a conservative cycle proviso: a state whose
+        ample successors are all duplicates is fully expanded in the same
+        step, as is the first batch after every growth or resume boundary.
+
+        Soundness contract: property verdicts are IDENTICAL to full
+        expansion.  The analysis falls back to full expansion whenever
+        reduction could be unsound: ``eventually`` properties,
+        property-visible actions (an ample set may not hold one),
+        undecidable footprints (conservatively dependent), or a
+        boundary-filtered twin.  Off (the default), or falling back, the
+        step dispatches the same operations as without the flag.  Env
+        override ``STATERIGHT_TPU_POR=1``.  Composes with ``symmetry()``
+        and ``prededup()``; rejected with ``spill()``, as in JAX.  The host
+        checkers ignore the flag."""
+        self.por_mode = bool(enabled)
         return self
 
     def mxu(self, enabled: bool = True, *, coalesce: bool = True,

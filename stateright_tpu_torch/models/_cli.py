@@ -3,10 +3,10 @@
 The port's counterpart of the ``check``, ``check-tpu`` and ``check-auto``
 verbs of ``stateright_tpu/models/_cli.py``'s users: the same positional
 arguments, the ``--per-channel`` flag (``pop_perf``/``apply_encoding``
-there) and, on the GPU verbs, ``--prededup``, ``--mxu``, ``--spill``
-(``pop_perf``/``apply_perf`` there) and ``--checked`` (``pop_checked``
-there; :func:`pop_step_flags`, :func:`with_step_flags`; ``--mxu`` has no
-effect in the port).
+there) and, on the GPU verbs, ``--prededup``, ``--por``, ``--mxu``,
+``--spill`` (``pop_perf``/``apply_perf`` there) and ``--checked``
+(``pop_checked`` there; :func:`pop_step_flags`, :func:`with_step_flags`;
+``--mxu`` has no effect in the port).
 :func:`check_main` is the one dispatcher: each model gives it a table
 from the verbs it offers to their banners and to one of the spawns here:
 :func:`host_bfs` and :func:`host_dfs` (on ``default_threads()``
@@ -27,18 +27,22 @@ verbs take ``--watch`` (a live status line, JAX ``_cli.py:230-370``).
 ``--device=cpu`` runs the GPU verbs and the telemetry verbs on the plain
 PyTorch path instead of the CUDA device, and ``--batch=N`` sets their
 rows per device step.  The other verbs and flags
-(``explore``, ``spawn``, ``--por``, ``--prewarm``) come with the modules
-they drive.  ``capacity --spill`` plans with the spill tier armed.
+(``explore``, ``spawn``, ``--prewarm``) come with the modules they drive.
+``capacity --spill`` plans with the spill tier armed.
 
 Every model takes ``audit`` (the static audit of its ``_audit_models``
 configurations, deep tier, exit 1 on an error finding; JAX
 ``make_audit_cmd``), and 2pc and paxos take ``supervise`` (a supervised
 GPU run: autosave, retry with backoff, resume; ``supervisor.py``, JAX
 ``_cli.py:1494-1584``; :func:`pop_supervise_opts` lists its flags).
+The models JAX gives an ``independence`` verb take it here too (the
+static independence analysis of their ``_audit_models`` configurations:
+the conflict matrix's summary and the JX3xx findings; JAX
+``_cli.py:511-600``, :func:`make_independence_cmd`).
 ``python -m stateright_tpu_torch.models._cli`` is the fleet entry:
 ``status RUN_DIR`` (the progress heartbeat of a headless run, JAX
-``_cli.py:1810-1870``) and ``audit [MODULE...]`` (every model's
-audit)
+``_cli.py:1810-1870``), ``audit [MODULE...]`` (every model's audit) and
+``independence [MODULE...]`` (every model's independence analysis)
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import Callable
+from typing import Callable, Iterable, Optional
 
 PER_CHANNEL_FLAG = "--per-channel"
 WATCH_FLAG = "--watch"
@@ -55,7 +59,7 @@ VALUE_OPTS = ("device", "batch", "out", "chrome", "registry", "expect")
 TELEMETRY_VERBS = ("profile", "report", "capacity", "compare")
 # the GPU engine's step flags: builder method per flag (``mxu`` is
 # accepted for parity with the JAX CLI and has no effect in the port)
-STEP_FLAGS = {"--prededup": "prededup", "--mxu": "mxu",
+STEP_FLAGS = {"--prededup": "prededup", "--por": "por", "--mxu": "mxu",
               "--checked": "checked", "--spill": "spill"}
 
 
@@ -430,10 +434,11 @@ def supervised(model, flags=(), opts=None, sopts=None):
 
 def check_main(prog: str, arg_usage: str, argv, build: Callable,
                verbs: dict[str, tuple[Callable, Callable]],
-               max_args: int, audit: Callable) -> int:
+               max_args: int, audit: Callable,
+               independence: Optional[Callable] = None) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
-    [--per-channel] [--prededup] [--mxu] [--checked] [--spill] [--watch]
-    [--device=cpu]``: build
+    [--per-channel] [--prededup] [--por] [--mxu] [--checked] [--spill]
+    [--watch] [--device=cpu]``: build
     the model from the positional arguments, print the verb's banner and
     check it.  ``verbs`` maps each verb the model offers to ``(banner,
     spawn)``: ``banner(args)`` is the line printed first, ``spawn(model)``
@@ -442,11 +447,14 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     :func:`sym_gpu`, :func:`supervised`, which also takes
     :func:`pop_supervise_opts`' flags); a model with a GPU verb also takes
     :data:`TELEMETRY_VERBS`.  ``audit`` is the module's ``_audit_models``
-    factory, the ``audit`` verb's configurations.  Exit 1 when a GPU verb
-    finds no device twin or the audit an error, 2 on a usage error."""
+    factory, the ``audit`` verb's configurations; ``independence``, the
+    ``independence`` verb (:func:`make_independence_cmd`), where the model
+    has one.  Exit 1 when a GPU verb finds no device twin, the audit an
+    error or the independence verb a malformed matrix, 2 on a usage
+    error."""
     has_gpu = any(sp in (gpu, sym_gpu) for _, sp in verbs.values())
     names = (list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
-             + ["audit"])
+             + ["audit"] + (["independence"] if independence else []))
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
              f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
@@ -468,6 +476,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     verb, rest = args[0], args[1:]
     if verb == "audit":
         return 0 if audit_and_report(audit(rest)) else 1
+    if verb == "independence":
+        return independence(rest, per_channel=per_channel)
     if verb in TELEMETRY_VERBS:
         model = apply_encoding(build(rest), per_channel)
         if verb == "capacity":
@@ -541,6 +551,106 @@ def fleet_audit(names=None, stream=None) -> int:
             continue
         ok = audit_and_report(factory([]), stream=stream) and ok
     print("audit fleet: " + ("CLEAN" if ok else "FAILED"), file=stream)
+    return 0 if ok else 1
+
+
+# -- the independence verb (analysis/independence.py; JAX _cli.py:511-600) -----
+
+
+def independence_and_report(models: Iterable[tuple], stream=None) -> tuple:
+    """The static independence analysis over ``(label, model)`` pairs: one
+    summary line and the JX3xx findings each.  Returns ``(ok, rule_ids)``:
+    ``ok`` iff every model with a twin gives a WELL-FORMED conflict matrix
+    (square, symmetric, dependent diagonal) and no error-severity JX3xx
+    finding fires (the fleet gate's contract)."""
+    import numpy as np
+
+    from ..analysis import Severity
+    from ..analysis.independence import run_independence
+    from ..parallel.tensor_model import twin_or_none
+
+    stream = stream or sys.stdout
+    ok, bad_rules = True, set()
+    for label, model in models:
+        twin = twin_or_none(model)
+        print(f"--- {label}", file=stream)
+        if twin is None:
+            print("independence: no device twin for this configuration "
+                  "(host checkers unaffected)", file=stream)
+            continue
+        rep = run_independence(twin, list(model.properties()))
+        s = rep.summary()
+        c = np.asarray(rep.conflict)
+        well_formed = (
+            c.ndim == 2 and c.shape == (rep.n_actions, rep.n_actions)
+            and bool(np.array_equal(c, c.T)) and bool(c.diagonal().all())
+        )
+        print(
+            f"independence: {s['actions']} action(s), "
+            f"{s['independent_pairs']} independent pair(s), "
+            f"{s['visible_actions']} visible, "
+            f"{s['undecided_actions']} undecided; "
+            f"decomposed={s['decomposed']}"
+            + (f"; encoding={s['encoding']}" if s.get("encoding") else "")
+            + f"; rules fired: {', '.join(s['rules']) or 'none'}",
+            file=stream,
+        )
+        if not well_formed:
+            ok = False
+            print("  MALFORMED conflict matrix", file=stream)
+        for f in rep.findings:
+            print("  " + f.format(), file=stream)
+            if f.severity == Severity.ERROR:
+                ok = False
+                bad_rules.add(f.rule_id)
+    return ok, tuple(sorted(bad_rules))
+
+
+def make_independence_cmd(factory: Callable) -> Callable:
+    """A ``rest -> [(label, model), ...]`` factory (a module's
+    ``_audit_models``) as the ``independence`` verb, ``--per-channel``
+    applied to its models: exit 1 on an error finding or a malformed
+    matrix."""
+
+    def independence(rest: list, per_channel: bool = False,
+                     stream=None) -> int:
+        models = [(label, apply_encoding(m, per_channel))
+                  for label, m in factory(rest)]
+        ok, rules = independence_and_report(models, stream=stream)
+        if not ok:
+            print(f"independence: FAILED ({', '.join(rules) or 'matrix'})",
+                  file=stream or sys.stdout)
+            return 1
+        return 0
+
+    return independence
+
+
+def fleet_independence(names=None, stream=None) -> int:
+    """``independence [MODULE...]``: the analysis over every model module
+    of the port (or just ``names``) through its ``_audit_models`` hook; 0
+    iff every model gives a well-formed matrix and no error finding.  A
+    module without the hook fails the gate, as in :func:`fleet_audit`."""
+    import importlib
+
+    from . import __all__ as all_names
+
+    stream = stream or sys.stdout
+    ok, bad = True, set()
+    for name in names or list(all_names):
+        mod = importlib.import_module(f"stateright_tpu_torch.models.{name}")
+        factory = getattr(mod, "_audit_models", None)
+        if factory is None:
+            print(f"--- {name}: FAILED: no _audit_models hook (add one so "
+                  "the fleet gate covers this model)", file=stream)
+            ok = False
+            continue
+        mok, rules = independence_and_report(factory([]), stream=stream)
+        ok = ok and mok
+        bad.update(rules)
+    verdict = "CLEAN" if ok else (
+        f"FAILED ({', '.join(sorted(bad)) or 'matrix'})")
+    print(f"independence fleet: {verdict}", file=stream)
     return 0 if ok else 1
 
 
@@ -678,17 +788,22 @@ def fleet_status(argv=None, stream=None) -> int:
 
 def main(argv=None) -> int:
     """``python -m stateright_tpu_torch.models._cli status RUN_DIR |
-    audit [MODULE...]``."""
+    audit [MODULE...] | independence [MODULE...]``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "status":
         return fleet_status(argv[1:])
     if argv and argv[0] == "audit":
         return fleet_audit(argv[1:])
+    if argv and argv[0] == "independence":
+        return fleet_independence(argv[1:])
     print("usage: python -m stateright_tpu_torch.models._cli\n"
           "  status RUN_DIR     the progress heartbeat of a headless run "
           "(DEAD when a running one went stale)\n"
           "  audit [MODULE...]  the static audit of every model (exit 1 "
-          "on an error finding)", file=sys.stderr)
+          "on an error finding)\n"
+          "  independence [MODULE...]  the independence analysis of every "
+          "model (exit 1 on a malformed matrix or an error finding)",
+          file=sys.stderr)
     return 2
 
 

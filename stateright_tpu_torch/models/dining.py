@@ -29,7 +29,7 @@ from ..actor import Actor, ActorModel, Id, Network, Out
 from ..actor.device_props import exists_actor, forall_actors
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
-from ._cli import auto, check_main, gpu, host_bfs
+from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
 
 HUNGRY, HAS_LEFT, DONE = 0, 1, 2
 
@@ -152,6 +152,7 @@ def main(argv=None) -> int:
         },
         max_args=1,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

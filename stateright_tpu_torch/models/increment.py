@@ -17,7 +17,13 @@ import sys
 from dataclasses import dataclass, replace
 
 from ..core import Model, Property
-from ._cli import auto, check_main, host_dfs, host_sym_dfs
+from ._cli import (
+    auto,
+    check_main,
+    host_dfs,
+    host_sym_dfs,
+    make_independence_cmd,
+)
 
 
 @dataclass(frozen=True)
@@ -90,6 +96,7 @@ def main(argv=None) -> int:
         },
         max_args=1,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

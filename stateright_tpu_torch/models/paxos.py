@@ -291,7 +291,14 @@ def _audit_models(rest=()):
 
 
 def main(argv=None) -> int:
-    from ._cli import auto, check_main, gpu, host_bfs, supervised
+    from ._cli import (
+        auto,
+        check_main,
+        gpu,
+        host_bfs,
+        make_independence_cmd,
+        supervised,
+    )
 
     def what(rest):
         return ("Model checking Single Decree Paxos with "
@@ -310,6 +317,7 @@ def main(argv=None) -> int:
         },
         max_args=1,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

@@ -75,6 +75,11 @@ class PaxosTensor(TensorModel):
     non-duplicating network (the reference benchmark configuration,
     ``examples/paxos.rs:323-338``)."""
 
+    #: the twin packs the network as ONE sorted slot multiset, so the
+    #: independence pass's JX305 pointer applies: ``per_channel_()`` routes
+    #: to the actor compiler's per-channel layout (JAX paxos_tensor.py:78-82)
+    network_encoding = "slot-multiset"
+
     def __init__(self, model, client_count: int):
         if client_count > MAX_CLIENTS:
             raise ValueError(

@@ -36,7 +36,15 @@ from ..actor import Actor, ActorModel, Id, Network, Out, majority, model_peers
 from ..actor.device_props import exists_actor, forall_actor_pairs
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
-from ._cli import auto, check_main, gpu, host_bfs, host_sym_dfs, sym_gpu
+from ._cli import (
+    auto,
+    check_main,
+    gpu,
+    host_bfs,
+    host_sym_dfs,
+    make_independence_cmd,
+    sym_gpu,
+)
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 
@@ -219,6 +227,7 @@ def main(argv=None) -> int:
         },
         max_args=2,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

@@ -35,7 +35,7 @@ from ..actor.register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, Register
-from ._cli import auto, check_main, gpu, host_bfs
+from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
 
 
 class SingleCopyServer(Actor):
@@ -119,6 +119,7 @@ def main(argv=None) -> int:
         },
         max_args=2,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

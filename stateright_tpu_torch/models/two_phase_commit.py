@@ -349,6 +349,7 @@ def main(argv=None) -> int:
         gpu,
         host_bfs,
         host_sym_dfs,
+        make_independence_cmd,
         supervised,
         sym_gpu,
     )
@@ -380,6 +381,7 @@ def main(argv=None) -> int:
         },
         max_args=1,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

@@ -36,7 +36,7 @@ from ..actor.write_once_register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, WORegister
-from ._cli import auto, check_main, gpu, host_bfs
+from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
 
 
 class WOServer(Actor):
@@ -126,6 +126,7 @@ def main(argv=None) -> int:
         },
         max_args=3,
         audit=_audit_models,
+        independence=make_independence_cmd(_audit_models),
     )
 
 

@@ -3,8 +3,9 @@
 The port's counterpart of ``stateright_tpu/parallel/_base.py``
 (``WavefrontChecker``), cut to the single-device engine: resolve the
 model's tensor twin (and, under ``symmetry()``, check that it has a
-vectorized canonicalizer), resolve ``prededup()`` and ``spill()`` against
-their env knobs and arm the spill tier, take ``checked()``,
+vectorized canonicalizer), resolve ``prededup()``, ``por()`` (its plan,
+or the fallback) and ``spill()`` against their env knobs and arm the
+spill tier, take ``checked()``,
 check that host and device fingerprints agree,
 run the engine on a background thread (exceptions re-raise at
 :meth:`join`), honour the builder's ``timeout`` and :meth:`stop` with a
@@ -68,6 +69,7 @@ from ..telemetry.spans import span, start_span
 from ..testing.faults import InjectedFault
 
 ENV_PREDEDUP = "STATERIGHT_TPU_PREDEDUP"
+ENV_POR = "STATERIGHT_TPU_POR"
 ENV_SPILL = "STATERIGHT_TPU_SPILL"
 
 
@@ -126,8 +128,16 @@ class WavefrontChecker(Checker):
         # (JAX ``parallel/_base.py:145-170``), both resolved before the
         # memory ledger, whose buffers they add to
         self._checked = bool(options.checked_mode)
+        self._resolve_por(options)
         self._spill = resolve_flag(options.spill_mode, ENV_SPILL)
         if self._spill:
+            if self._por:
+                raise NotImplementedError(
+                    "spill mode does not compose with partial-order "
+                    "reduction yet (the POR two-phase insert and the "
+                    "Bloom deferral conflict).  Drop one of "
+                    ".spill()/.por()."
+                )
             self._init_spill()
         self._verify_fingerprint_bridge()
         self._results: Optional[dict] = None
@@ -176,6 +186,68 @@ class WavefrontChecker(Checker):
         self._pre_run_validate()
         self._thread = threading.Thread(target=self._run_guarded, daemon=True)
         self._thread.start()
+
+    def _resolve_por(self, options: CheckerBuilder) -> None:
+        """Partial-order reduction (JAX ``parallel/_base.py:110-143``): the
+        builder wins over ``STATERIGHT_TPU_POR``; the plan
+        (``analysis/independence.por_plan``) is resolved here, and an
+        unusable one (liveness properties, no independent pair, every
+        action visible, a boundary filter) falls back to full expansion,
+        so the step never pays for the ample-set selection.  The fallback
+        prints once per model."""
+        import sys
+
+        self._por_plan = None
+        self._por_fallback: Optional[str] = None
+        self._live_por: Optional[dict] = None
+        self._por = resolve_flag(getattr(options, "por_mode", None), ENV_POR)
+        if not self._por:
+            return
+        from ..analysis.independence import por_plan
+
+        plan = por_plan(self.tensor, self._props)
+        if plan.usable:
+            self._por_plan = plan
+            return
+        self._por = False
+        self._por_fallback = plan.fallback_reason
+        if not getattr(self.model, "_por_warn_printed", False):
+            try:
+                object.__setattr__(self.model, "_por_warn_printed", True)
+            except Exception:  # noqa: BLE001 - __slots__ models
+                pass
+            print("stateright-tpu-torch: por(): falling back to full "
+                  f"expansion -- {plan.fallback_reason}", file=sys.stderr)
+
+    def por_status(self) -> Optional[dict]:
+        """Partial-order-reduction status of this run, or None when
+        ``por()`` was never asked for (JAX ``parallel/_base.py:830-855``):
+        whether reduction is active, the fallback reason when not, the
+        twin's network packing, and the reduced-vs-full tallies (rows
+        expanded with a reduced ample set, proviso-forced full expansions,
+        candidates never generated)."""
+        if not (self._por or self._por_fallback is not None):
+            return None
+        out = {
+            "enabled": bool(self._por),
+            "fallback": self._por_fallback,
+            "encoding": getattr(self.tensor, "network_encoding", None),
+        }
+        if self._results and "por" in self._results:
+            out.update(self._results["por"])
+        elif self._live_por is not None:
+            out.update(self._live_por)
+        return out
+
+    @staticmethod
+    def _por_stats_dict(arr) -> dict:
+        """The packed POR tallies as the JSON-facing dict."""
+        arr = np.asarray(arr).astype(np.int64).reshape(-1)
+        return {
+            "rows_reduced": int(arr[0]),
+            "rows_full_proviso": int(arr[1]),
+            "candidates_masked": int(arr[2]),
+        }
 
     def _init_telemetry(self, options: CheckerBuilder) -> None:
         """The builder's telemetry options (JAX ``parallel/_base.py:

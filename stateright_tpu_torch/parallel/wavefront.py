@@ -2,9 +2,10 @@
 
 The port's counterpart of ``stateright_tpu/parallel/wavefront.py``
 (``_build_engine``, ``_build_inject`` and ``TpuChecker``), single device,
-with symmetry reduction, intra-window pre-dedup (``.prededup()``), search
-cartography (``.cartography()``), checked mode (``.checked()``) and the
-spill tier (``.spill()``); no POR or prewarm.  The engine keeps a
+with symmetry reduction, intra-window pre-dedup (``.prededup()``),
+partial-order reduction (``.por()``), search cartography
+(``.cartography()``), checked mode (``.checked()``) and the spill tier
+(``.spill()``); no prewarm.  The engine keeps a
 device-resident FIFO queue of state rows and
 a bucketized visited table (``ops/buckets.py``), and each step pops a
 batch and
@@ -79,8 +80,27 @@ travels in snapshots as ``cart_depth_base``.  With the flag off the step
 issues none of these operations.
 
 **The carry's optional tail** (:class:`CarryLayout`, JAX wavefront.py:
-300-306) follows its 13 snapshot buffers: the checked error word, the
-spill tail, the cartography counters, each only under its flag.
+300-306) follows its 13 snapshot buffers: the checked error word, the POR
+pair, the spill tail, the cartography counters, each only under its
+flag.
+
+**Partial-order reduction** (``.por()``, JAX wavefront.py:266-277,
+:474-495, :519-545, :608-630): the step masks each row's enabled actions
+to an ample set (``ops/por.ample_mask``, over the plan of
+``analysis/independence.py``; every enabled action while the carry's
+boost word is armed) and inserts those successors; then, in a second
+insert appended after the first's rows, the other successors of every
+reduced row none of whose ample successors was novel (the cycle
+proviso).  Each insert is ``cand_prep``, the sort, ``bucket_plan`` and
+``insert_commit``, the second into a buffer pair of its own so the
+first's ``tgt``, ``sel`` and ``n_new`` survive it.  An overflow in
+either writes the first's and the second's slots back to empty
+(``_Engine._rollback``: an add, no table copy, no host read), so the
+replay after growth sees the same novelty; the state count adds the
+generated successors, and the tallies (rows reduced, proviso
+re-expansions, candidates masked) ride the stats read.  Growths and
+resumes arm the boost.  Off, or falling back (``_base.py``), the step
+issues none of these operations.
 
 **Checked mode** (``.checked()``, JAX wavefront.py:426-458, :690-710):
 the twin's ``property_masks`` and ``step_rows`` run under the guard of
@@ -176,7 +196,8 @@ _STATUS_TELEMETRY_NAMES = {
 }
 
 # Packed stats layout: [head, tail, unique, scount, maxdepth, status, disc...]
-# then, each only when its flag is on, the checked error word, the spill
+# then, each only when its flag is on, the checked error word, the POR
+# tallies [rows_reduced, rows_full_proviso, candidates_masked], the spill
 # section [pend_count, spill_base, deferred, on_device] and the
 # cartography section [depth_hist, action_hist, prop_evals, prop_hits]
 _ST_STATUS = 5
@@ -197,19 +218,25 @@ _SPILL_LEN = 9
 class CarryLayout(NamedTuple):
     """Which optional parts ride the carry after its :data:`BASE`
     snapshot buffers, in the JAX order (wavefront.py:300-306): the checked
-    error word, the spill tail, the cartography counters."""
+    error word, the POR pair (the boost word, int32, and the stats triple,
+    int64[3]), the spill tail, the cartography counters."""
 
     checked: bool = False
     spill: bool = False
     cart: bool = False
+    por: bool = False
 
     @property
     def err(self) -> int:
         return BASE
 
     @property
-    def spill_start(self) -> int:
+    def por_start(self) -> int:
         return BASE + int(self.checked)
+
+    @property
+    def spill_start(self) -> int:
+        return self.por_start + (2 if self.por else 0)
 
     @property
     def cart_start(self) -> int:
@@ -241,11 +268,11 @@ def default_caps(capacity: int = DEFAULT_CAPACITY, batch: int = DEFAULT_BATCH,
 
 def memory_spec_fn(tensor, n_props: int, *, cartography: bool = False,
                    sym: bool = False, cuda: bool = True, checked: bool = False,
-                   spill: Optional[tuple] = None):
+                   spill: Optional[tuple] = None, por: bool = False):
     """``caps -> [BufferSpec]``: the memory ledger's analytic buffers of a
     run of ``tensor`` at the capacities ``caps`` (``telemetry/memory.
     wavefront_specs``); ``spill`` is the tier's ``(bloom_bits,
-    pend_cap)`` when it is armed."""
+    pend_cap)`` when it is armed, ``por`` whether reduction is on."""
     from ..telemetry.memory import wavefront_specs
 
     width, arity = tensor.width, tensor.max_actions
@@ -254,7 +281,7 @@ def memory_spec_fn(tensor, n_props: int, *, cartography: bool = False,
         return wavefront_specs(
             width, arity, n_props, int(caps["cap"]), int(caps["qcap"]),
             int(caps["batch"]), int(caps["cand"]), cartography=cartography,
-            sym=sym, cuda=cuda, checked=checked, spill=spill,
+            sym=sym, cuda=cuda, checked=checked, spill=spill, por=por,
         )
 
     return spec_fn
@@ -278,6 +305,8 @@ def stats_of(carry: list, layout: CarryLayout,
     parts = [torch.stack([carry[i] for i in _STATS_CARRY_ORDER]), carry[DISC]]
     if layout.checked:
         parts.append(carry[layout.err].to(torch.int64).reshape(1))
+    if layout.por:
+        parts.append(carry[layout.por_start + 1])
     if layout.spill:
         sp = layout.spill_start
         parts.append(torch.stack([carry[sp + _SP_PCOUNT], carry[sp + _SP_BASE]]))
@@ -294,6 +323,17 @@ def zero_counters(arity: int, n_props: int, device) -> list:
     counters restart at zero, JAX wavefront.py:2129-2139)."""
     return [torch.zeros(s, dtype=torch.int64, device=device)
             for s in cart_carry_shapes(arity, n_props)]
+
+
+def qalloc_of(qcap: int, m: int, spill: Optional[tuple] = None,
+              por: bool = False) -> int:
+    """The queue's rows for a high-water mark ``qcap`` and ``m`` candidate
+    lanes a step (JAX wavefront.py:266-277): one window of ``m`` rows past
+    the mark, two under POR (the proviso round appends after the ample
+    round), or the spill inject's ``pend_cap`` rows when wider."""
+    if por:
+        return qcap + 2 * m
+    return qcap + (max(spill[1], m) if spill else m)
 
 
 def stats_host(carry_np: list, mid: np.ndarray,
@@ -325,20 +365,20 @@ class _Engine:
                  device, sym: bool = False, prededup: bool = False,
                  removed: Optional[torch.Tensor] = None,
                  cartography: bool = False, checked: bool = False,
-                 spill: Optional[tuple] = None):
+                 spill: Optional[tuple] = None, por=None):
         self.tensor, self.props = tensor, props
         self.cap, self.qcap, self.batch, self.steps = cap, qcap, batch, steps
         self.target, self.device, self.sym = target, device, sym
         self.cart, self.checked, self.spill = cartography, checked, spill
-        self.layout = CarryLayout(checked, spill is not None, cartography)
-        self.key = (cap, qcap, batch, cand, sym, cartography, checked, spill)
+        self.por = por is not None
+        self.layout = CarryLayout(checked, spill is not None, cartography,
+                                  self.por)
+        self.key = (cap, qcap, batch, cand, sym, cartography, checked, spill,
+                    self.por)
         self.width, self.arity = tensor.width, tensor.max_actions
         self.m = batch * self.arity
         self.eff_cand = min(cand, self.m) if cand else self.m
-        # the queue over-allocates one batch's candidates past the
-        # high-water mark, or the inject's pend_cap rows when it is wider
-        # (JAX wavefront.py:272-277)
-        self.qalloc = qcap + (max(spill[1], self.m) if spill else self.m)
+        self.qalloc = qalloc_of(qcap, self.m, spill, self.por)
         self.prededup = prededup
         # under prededup, a device count of the lanes it took out
         self.removed = removed
@@ -370,14 +410,33 @@ class _Engine:
             self.palloc = self.pend_cap + self.m
             # a step's pending window, added to the pending cursor
             self.pend_lanes = torch.arange(self.m, device=device)
+        if self.por:
+            from ..analysis.footprint import conjunct_eval_fn
+            from ..ops.por import PorConstants
+
+            # the plan's tensors and the guard-conjunct kernel (JAX
+            # wavefront.py:316-320); the proviso round's lane positions
+            self.por_consts = PorConstants(por, device)
+            self.conj_kernel = conjunct_eval_fn(tensor)
+            if self.conj_kernel is not None:
+                # the capture at this batch, outside any step
+                self.conj_kernel.build(batch, device)
+            self.cand_lanes = torch.arange(self.eff_cand, device=device)
         # the insert's own buffers (validated here, so the step launches
-        # unchecked) and the stream its kernels go to; under spill also
-        # the inject's plan buffers
+        # unchecked) and the stream its kernels go to; under POR a second
+        # pair for the proviso round, whose launches must leave the ample
+        # round's tgt, sel and n_new as they were; under spill the
+        # inject's plan buffers
         self.prep_out = self.plan_out = self.stream = self.inject_out = None
+        self.prep_out2 = self.plan_out2 = None
         if self.device.type == "cuda":
             self.prep_out = PrepBuffers(self.m, self.eff_cand, self.device)
             self.plan_out = PlanBuffers(self.eff_cand, self.device, sym)
             self.stream = _cuda.stream_of(self.plan_out.tgt)
+            if self.por:
+                self.prep_out2 = PrepBuffers(self.m, self.eff_cand,
+                                             self.device)
+                self.plan_out2 = PlanBuffers(self.eff_cand, self.device, sym)
             if spill:
                 self.inject_out = PlanBuffers(self.pend_cap, self.device, sym)
 
@@ -421,7 +480,7 @@ class _Engine:
 
     def step(self, c: list) -> list:
         """Pop one batch, expand, dedup+insert, append novel rows."""
-        batch, arity, m, width = self.batch, self.arity, self.m, self.width
+        batch, m, width = self.batch, self.m, self.width
         head, tail, unique = c[HEAD], c[TAIL], c[UNIQUE]
         status, disc = c[STATUS], c[DISC]
         go = (status == _STATUS_OK) & (tail > head) & ~self.all_discovered(disc)
@@ -471,6 +530,10 @@ class _Engine:
         # while the queue keeps the original rows
         krows = (self.tensor.representative_rows(succ).reshape(m, -1)
                  .contiguous() if self.sym else cand_rows)
+        if self.por:
+            return self._step_por(c, go, rows, valid, live, masks, krows,
+                                  cand_rows, fps, ebits, depths, n_avail,
+                                  disc, maxdepth)
         cvalid = kept = valid.reshape(m)
         if self.prededup or self.spill:
             # the successors' fingerprints before the budget compaction
@@ -488,26 +551,12 @@ class _Engine:
                                             + _SP_BLOOM], fph,
                                           self.spill_bits)
                 kept = kept & ~maybe
-        # the engine built every input itself: the kernels run unchecked
-        pfp, ppl, cidx, key, n_valid, coverflow = cand_prep(
-            krows, kept, fps, arity, self.eff_cand,
-            self.prep_out, check=False, stream=self.stream,
-        )
+        _, _, n_new, n_valid, toverflow, coverflow = self._insert_round(
+            c, krows, kept, fps, tail, cand_rows, ebits, depths,
+            self.prep_out, self.plan_out)
         # the state count adds every generated state, repeats and deferred
         # candidates included
         n_gen = cvalid.sum() if (self.prededup or self.spill) else n_valid
-        sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
-                                                self.cap // SLOTS)
-        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
-            c[TFP], sfp, spl, bucket, order, cidx, coverflow, self.plan_out,
-            generation_order=self.sym, check=False, stream=self.stream,
-        )
-        insert_commit(
-            c[TFP], c[TPL], tgt, cfp, cpl, n_new,
-            QueueAppend(c[QROWS], c[QFP], c[QEBITS], c[QDEPTH], tail, sel,
-                        cand_rows, ebits, depths, arity),
-            check=False, stream=self.stream,
-        )
 
         # any overflow means the batch wrote nothing durable: cursors and
         # counters stay so it replays after the host grows
@@ -524,13 +573,25 @@ class _Engine:
             if self.spill:  # the deferred lanes were not taken out
                 removed = removed - n_def
             self.removed.add_(torch.where(overflow, 0, removed))
+        return self._finish_step(c, go, rows, live, masks, valid, overflow,
+                                 toverflow, coverflow, head, tail, unique,
+                                 scount, disc, maxdepth)
+
+    def _finish_step(self, c, go, rows, live, masks, gen_mask, overflow,
+                     toverflow, coverflow, head, tail, unique, scount, disc,
+                     maxdepth) -> list:
+        """The step's counters and status: cartography's tallies of the
+        generated successors ``gen_mask``, the growth triggers, the spill
+        stop and the poison status, then the cursors into the carry."""
+        m, status = self.m, c[STATUS]
         if self.cart:
             # the state count's replay rule: an overflowed batch counts
             # nothing (the depth histogram reads the queue, which an
             # overflowed insert did not append to)
             d_evals, d_hits = prop_tally_delta(live, masks, len(self.props))
             cs = self.layout.cart_start
-            for i, d in enumerate((action_hist_delta(valid), d_evals, d_hits)):
+            for i, d in enumerate((action_hist_delta(gen_mask), d_evals,
+                                   d_hits)):
                 c[cs + i] = c[cs + i] + torch.where(overflow, 0, d)
         # clean-boundary growth triggers (table target load <= 25%); under
         # spill the trigger reads HOT occupancy (JAX wavefront.py:652-660)
@@ -561,6 +622,110 @@ class _Engine:
         c[HEAD], c[TAIL], c[UNIQUE], c[SCOUNT] = head, tail, unique, scount
         c[DISC], c[MAXDEPTH], c[STATUS] = disc, maxdepth, status
         return c
+
+    def _insert_round(self, c, krows, kept, fps, tail, cand_rows, ebits,
+                      depths, prep_out, plan_out):
+        """One insert of the candidate lanes ``kept``: ``cand_prep``, the
+        key sort, ``bucket_plan``, and ``insert_commit`` with the queue
+        append at ``tail``.  The engine built every input itself, so the
+        kernels run unchecked.  Returns ``(tgt, sel, n_new, n_kept,
+        toverflow, coverflow)``, ``n_kept`` the count of ``kept``."""
+        pfp, ppl, cidx, key, n_kept, coverflow = cand_prep(
+            krows, kept, fps, self.arity, self.eff_cand, prep_out,
+            check=False, stream=self.stream,
+        )
+        sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
+                                                self.cap // SLOTS)
+        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
+            c[TFP], sfp, spl, bucket, order, cidx, coverflow, plan_out,
+            generation_order=self.sym, check=False, stream=self.stream,
+        )
+        insert_commit(
+            c[TFP], c[TPL], tgt, cfp, cpl, n_new,
+            QueueAppend(c[QROWS], c[QFP], c[QEBITS], c[QDEPTH], tail, sel,
+                        cand_rows, ebits, depths, self.arity),
+            check=False, stream=self.stream,
+        )
+        return tgt, sel, n_new, n_kept, toverflow, coverflow
+
+    def _rollback(self, c, overflow, tgt, n_new) -> None:
+        """Undo one insert round's table writes when the step overflowed
+        (JAX keeps the pre-step table and selects it, wavefront.py:519-520,
+        :608-611; here the rounds wrote in place): the slots of the round's
+        first ``n_new`` lanes get ``EMPTY`` and the empty payload 0 back,
+        by an add, so the stale lanes past ``n_new`` (in-range, possibly
+        repeating a live slot) add 0.  No host read, no table copy."""
+        undo = overflow & (self.cand_lanes < n_new)
+        idx = torch.where(undo, tgt, 0)
+        fp = c[TFP].index_select(0, idx)
+        pl = c[TPL].index_select(0, idx)
+        c[TFP].index_add_(0, idx, torch.where(undo, EMPTY - fp, 0))
+        c[TPL].index_add_(0, idx, torch.where(undo, -pl, 0))
+
+    def _step_por(self, c, go, rows, valid, live, masks, krows, cand_rows,
+                  fps, ebits, depths, n_avail, disc, maxdepth) -> list:
+        """The insert of a step under POR (JAX wavefront.py:474-495,
+        :519-545, :608-630): the ample round inserts the ample successors
+        (every enabled one while the boost word is armed); a row whose
+        ample successors were all duplicates is reduced and gets its
+        other successors inserted in a proviso round, appended after the
+        first round's rows.  An overflow in either round undoes both, so
+        the replay after growth sees the same novelty verdicts."""
+        from ..ops.por import ample_mask, candidate_novelty
+
+        batch, arity, m = self.batch, self.arity, self.m
+        ps = self.layout.por_start
+        boost, pstats = c[ps], c[ps + 1]
+        head, tail, unique = c[HEAD], c[TAIL], c[UNIQUE]
+        amp = ample_mask(valid, rows, self.por_consts, self.conj_kernel)
+        amp = torch.where(boost > 0, valid, amp)
+        if self.prededup:
+            # one hash of every valid successor serves both rounds' windows
+            fph = row_hash(krows, valid.reshape(m))
+
+            def kept_of(mask):
+                return window_unique(torch.where(mask.reshape(m), fph,
+                                                 EMPTY)) != EMPTY
+        else:
+            def kept_of(mask):
+                return mask.reshape(m)
+        tgt1, sel1, n_new1, kept1, tovf1, covf1 = self._insert_round(
+            c, krows, kept_of(amp), fps, tail, cand_rows, ebits, depths,
+            self.prep_out, self.plan_out)
+        # the conservative cycle proviso: a reduced row none of whose ample
+        # successors was novel expands its other successors too
+        novel = candidate_novelty(m, sel1, n_new1)
+        reduced_row = (valid & ~amp).any(dim=1)
+        fresh_row = novel.reshape(batch, arity).any(dim=1)
+        need_full = reduced_row & ~fresh_row
+        v2 = valid & ~amp & need_full[:, None]
+        tgt2, _, n_new2, kept2, tovf2, covf2 = self._insert_round(
+            c, krows, kept_of(v2), fps, tail + n_new1, cand_rows, ebits,
+            depths, self.prep_out2, self.plan_out2)
+        toverflow = tovf1 | tovf2
+        coverflow = covf1 | covf2
+        overflow = toverflow | coverflow
+        self._rollback(c, overflow, tgt1, n_new1)
+        self._rollback(c, overflow, tgt2, n_new2)
+        n_new = torch.where(overflow, 0, n_new1 + n_new2)
+        head = torch.where(overflow, head, head + torch.clamp(n_avail, max=batch))
+        tail = tail + n_new
+        unique = unique + n_new
+        gen_mask = amp | v2
+        n_gen = gen_mask.sum()
+        scount = torch.where(overflow, c[SCOUNT], c[SCOUNT] + n_gen)
+        d_por = torch.stack([(reduced_row & ~need_full).sum(),
+                             need_full.sum(), valid.sum() - n_gen])
+        c[ps + 1] = pstats + torch.where(overflow, 0, d_por)
+        # a committed batch consumes the boundary boost; a replayed
+        # (overflowed) one, or a step after the stop, keeps it armed
+        c[ps] = torch.where(go & ~overflow, 0, boost)
+        if self.prededup:
+            self.removed.add_(torch.where(overflow, 0,
+                                          n_gen - kept1 - kept2))
+        return self._finish_step(c, go, rows, live, masks, gen_mask, overflow,
+                                 toverflow, coverflow, head, tail, unique,
+                                 scount, disc, maxdepth)
 
     def _defer(self, c, maybe, fph, cand_rows, fps, ebits, depths, cvalid,
                overflow):
@@ -635,6 +800,9 @@ class _Engine:
         ]
         if self.checked:
             carry.append(torch.zeros((), dtype=torch.bool, device=dev))
+        if self.por:
+            # boost 0: the init batch is not a growth or resume boundary
+            carry += por_tail(0, dev)
         if self.spill:
             # an all-zero filter (nothing spilled, nothing defers), empty
             # pending buffers, spill base 0
@@ -685,6 +853,14 @@ class _Engine:
         c[TAIL], c[UNIQUE], c[STATUS] = tail, unique, status
         c[sp + _SP_PCOUNT] = torch.zeros_like(c[sp + _SP_PCOUNT])
         return c, torch.stack([n_new, tovf.to(torch.int64)])
+
+
+def por_tail(boost: int, device) -> list:
+    """The POR pair of the carry (JAX wavefront.py:809-812, :2117-2122):
+    the boost word (1 arms one fully expanded batch, as at a growth or a
+    resume) and the zeroed tallies."""
+    return [torch.tensor(boost, dtype=torch.int32, device=device),
+            torch.zeros((3,), dtype=torch.int64, device=device)]
 
 
 def spill_tail(bits: int, palloc: int, width: int, device,
@@ -788,7 +964,8 @@ class GpuChecker(WavefrontChecker):
 
     @property
     def _layout(self) -> CarryLayout:
-        return CarryLayout(self._checked, self._spill, self._cartography)
+        return CarryLayout(self._checked, self._spill, self._cartography,
+                           self._por)
 
     def _engine(self, cap, qcap, batch, cand) -> _Engine:
         return _Engine(self.tensor, self._props, cap, qcap, batch,
@@ -796,7 +973,8 @@ class GpuChecker(WavefrontChecker):
                        sym=self._symmetry is not None,
                        prededup=self._prededup, removed=self._removed,
                        cartography=self._cartography, checked=self._checked,
-                       spill=self._spill_cfg if self._spill else None)
+                       spill=self._spill_cfg if self._spill else None,
+                       por=self._por_plan if self._por else None)
 
     def _pre_run_validate(self) -> None:
         if self._resume is not None:
@@ -805,8 +983,8 @@ class GpuChecker(WavefrontChecker):
     def _qalloc(self, qcap: int, batch: int) -> int:
         """The queue's rows at these capacities, as the engine allocates
         them (JAX ``_qalloc``, wavefront.py:1939-1948)."""
-        m = batch * self.tensor.max_actions
-        return qcap + (max(self._spill_cfg[1], m) if self._spill else m)
+        return qalloc_of(qcap, batch * self.tensor.max_actions,
+                         self._spill_cfg if self._spill else None, self._por)
 
     # -- memory-ledger hooks (telemetry/memory.py) ---------------------------
 
@@ -815,7 +993,7 @@ class GpuChecker(WavefrontChecker):
             self.tensor, len(self._props), cartography=self._cartography,
             sym=self._symmetry is not None, cuda=self.device.type == "cuda",
             checked=self._checked,
-            spill=self._spill_cfg if self._spill else None,
+            spill=self._spill_cfg if self._spill else None, por=self._por,
         )
 
     def _memory_caps(self, cap=None, qcap=None, batch=None, cand=None) -> dict:
@@ -836,7 +1014,7 @@ class GpuChecker(WavefrontChecker):
         kernels' outputs and scratch).  What the ledger's analytic bytes
         are held against."""
         from ..telemetry.memory import (
-            _CARRY_NAMES, _CART_NAMES, _SPILL_NAMES,
+            _CARRY_NAMES, _CART_NAMES, _POR_NAMES, _SPILL_NAMES,
         )
 
         self.join()
@@ -844,6 +1022,8 @@ class GpuChecker(WavefrontChecker):
         out = dict(zip(_CARRY_NAMES, c[:BASE]))
         if lay.checked:
             out["checked_err"] = c[lay.err]
+        if lay.por:
+            out.update(zip(_POR_NAMES, c[lay.por_start:lay.spill_start]))
         if lay.spill:
             out.update(zip(_SPILL_NAMES, c[lay.spill_start:lay.cart_start]))
         out.update(zip(_CART_NAMES, c[lay.cart_start:]))
@@ -854,6 +1034,8 @@ class GpuChecker(WavefrontChecker):
                 out["checked_init_row"] = eng.init_row
             if eng.spill:
                 out["pend_lanes"] = eng.pend_lanes
+            if eng.por:
+                out["por_cand_lanes"] = eng.cand_lanes
             for pre, buf, names in (
                 ("prep", eng.prep_out,
                  ("fp", "payload", "cidx", "key", "n_valid",
@@ -862,6 +1044,12 @@ class GpuChecker(WavefrontChecker):
                  ("tgt", "cfp", "cpl", "sel", "n_new", "overflow",
                   "scratch", "stage")),
                 ("inject", eng.inject_out,
+                 ("tgt", "cfp", "cpl", "sel", "n_new", "overflow",
+                  "scratch", "stage")),
+                ("prep2", eng.prep_out2,
+                 ("fp", "payload", "cidx", "key", "n_valid",
+                  "cand_overflow", "scratch")),
+                ("plan2", eng.plan_out2,
                  ("tgt", "cfp", "cpl", "sel", "n_new", "overflow",
                   "scratch", "stage")),
             ):
@@ -901,6 +1089,7 @@ class GpuChecker(WavefrontChecker):
             depth_hist=dh, action_hist=ah, prop_evals=pe, prop_hits=ph,
             prop_names=[pr.name for pr in self._props],
             states=states, unique=unique,
+            por=self._live_por if self._por else None,
         )
         self._live_cart = snap
         if self.flight_recorder is not None:
@@ -1425,6 +1614,10 @@ class GpuChecker(WavefrontChecker):
         if self._checked:
             carry.append(torch.zeros((), dtype=torch.bool,
                                      device=self.device))
+        if self._por:
+            # a resume is a boundary: one fully expanded batch (boost 1);
+            # the tallies restart at zero (JAX wavefront.py:2117-2122)
+            carry += por_tail(1, self.device)
         if self._spill:
             carry += self._spill_resume_tail(snap, batch)
         if self._cartography:
@@ -1481,8 +1674,10 @@ class GpuChecker(WavefrontChecker):
                     cap *= 2  # guarantee progress on a clustered init set
 
         disc_len = max(len(self._props), 1)
-        mid_off = _ST_DISC + disc_len  # the checked word, the spill section
-        cart_off = (mid_off + int(self._checked)
+        # the checked word, the POR tallies, the spill section
+        mid_off = _ST_DISC + disc_len
+        por_off = mid_off + int(self._checked)
+        cart_off = (por_off + (3 if self._por else 0)
                     + (_SPILL_STATS_SECTION if self._spill else 0))
         occ_every = int(self._telemetry_opts.get("occupancy_every") or 0)
         syncs = 0
@@ -1518,6 +1713,9 @@ class GpuChecker(WavefrontChecker):
             )
             disc = stats[_ST_DISC:mid_off].view(np.uint64)
             self._live = (scount, unique, maxdepth)
+            if self._por:
+                self._live_por = self._por_stats_dict(
+                    stats[por_off:por_off + 3])
             pend_live = spilled_live = 0
             if self._spill:
                 sp = stats[cart_off - _SPILL_STATS_SECTION:cart_off]
@@ -1645,6 +1843,11 @@ class GpuChecker(WavefrontChecker):
                             carry_np, stats[mid_off:cart_off],
                             stats[cart_off + DEPTH_BINS:] if cart
                             else stats[:0])
+                if self._por:
+                    # a growth is a boundary: arm one fully expanded batch
+                    # (JAX wavefront.py:2333-2335)
+                    carry[lay.por_start] = torch.ones(
+                        (), dtype=torch.int32, device=self.device)
                 secs = time.perf_counter() - t0
                 self.growth_secs.append(secs)
                 self._stage("growth", secs)
@@ -1702,6 +1905,8 @@ class GpuChecker(WavefrontChecker):
             "disc": np.asarray(disc),
             "depth": maxdepth,
         }
+        if self._por and self._live_por is not None:
+            self._results["por"] = dict(self._live_por)
         if self._spill:
             from ..spill import SPILL_V
 

@@ -133,6 +133,8 @@ _CARRY_NAMES = (
     "head", "tail", "unique", "scount", "disc", "maxdepth", "status",
 )
 _CART_NAMES = ("cart_action_hist", "cart_prop_evals", "cart_prop_hits")
+# the POR pair of the carry (JAX telemetry/memory.py:125-150's names)
+_POR_NAMES = ("por_boost", "por_stats")
 # the spill tier's carry tail, under the JAX ledger's names (JAX
 # telemetry/memory.py:148-151)
 _SPILL_NAMES = ("spill_bloom", "spill_base", "pend_fp", "pend_rows",
@@ -143,25 +145,28 @@ _SPILL_NAMES = ("spill_bloom", "spill_base", "pend_fp", "pend_rows",
 def wavefront_specs(
     width: int, arity: int, n_props: int, cap: int, qcap: int, batch: int,
     cand: int, *, cartography: bool = False, sym: bool = False,
-    cuda: bool = True, checked: bool = False, spill=None,
+    cuda: bool = True, checked: bool = False, spill=None, por: bool = False,
 ) -> list:
     """Per-buffer specs of the GPU engine's device-resident buffers at
     these capacities: the carry (``_Engine.init``; the queue is
-    over-allocated by one batch's candidates, or by the spill inject's
-    ``pend_cap`` rows when wider), the checked error word, the spill tail
+    over-allocated by one batch's candidates, two under ``por``, or by the
+    spill inject's ``pend_cap`` rows when wider), the checked error word,
+    the POR pair (the boost word and the tallies), the spill tail
     (``spill`` is the tier's ``(bloom_bits, pend_cap)``; the host and disk
     tiers are what the budget is traded against and do not count), the
     cartography counters, the engine's own index buffers, and on ``cuda``
     the kernels' outputs and scratch (``PrepBuffers(m, eff_cand)``,
-    ``PlanBuffers(eff_cand, sym)``, and under spill the inject's
-    ``PlanBuffers(pend_cap, sym)``).  On the CPU the plain versions
-    allocate per call, so nothing else stays resident."""
+    ``PlanBuffers(eff_cand, sym)``, under POR a second pair for the
+    proviso round, and under spill the inject's ``PlanBuffers(pend_cap,
+    sym)``).  On the CPU the plain versions allocate per call, so nothing
+    else stays resident.  (A POR plan's few ``A x A`` constants are the
+    plan's, not the capacities', and are not counted.)"""
     from ..ops.buckets import PLAN_TILE
     from ..ops.cand_prep import PREP_TILE
 
     i64, i32 = np.int64, np.int32
     m = batch * arity
-    qalloc = qcap + (max(spill[1], m) if spill else m)
+    qalloc = qcap + (2 * m if por else max(spill[1], m) if spill else m)
     cb = min(cand, m) if cand else m
     p = max(n_props, 1)
     shapes = (
@@ -172,6 +177,9 @@ def wavefront_specs(
     specs = [BufferSpec(n, s, d) for n, (s, d) in zip(_CARRY_NAMES, shapes)]
     if checked:
         specs.append(BufferSpec("checked_err", (), np.bool_))
+    if por:
+        specs += [BufferSpec("por_boost", (), i32),
+                  BufferSpec("por_stats", (3,), i64)]
     if spill:
         bits, pend_cap = spill
         palloc = pend_cap + m
@@ -188,15 +196,19 @@ def wavefront_specs(
         specs.append(BufferSpec("checked_init_row", (width,), i64))
     if spill:
         specs.append(BufferSpec("pend_lanes", (m,), i64))
+    if por:
+        specs.append(BufferSpec("por_cand_lanes", (cb,), i64))
     if cuda:
-        specs += [BufferSpec(f"prep_{n}", (cb,), i64)
-                  for n in ("fp", "payload", "cidx", "key")]
-        specs += [
-            BufferSpec("prep_n_valid", (), i64),
-            BufferSpec("prep_cand_overflow", (), np.bool_),
-            BufferSpec("prep_scratch", (2 + -(-m // PREP_TILE),), i64),
-        ]
-        plans = [("plan", cb)] + ([("inject", spill[1])] if spill else [])
+        for pre in ("prep", "prep2") if por else ("prep",):
+            specs += [BufferSpec(f"{pre}_{n}", (cb,), i64)
+                      for n in ("fp", "payload", "cidx", "key")]
+            specs += [
+                BufferSpec(f"{pre}_n_valid", (), i64),
+                BufferSpec(f"{pre}_cand_overflow", (), np.bool_),
+                BufferSpec(f"{pre}_scratch", (2 + -(-m // PREP_TILE),), i64),
+            ]
+        plans = ([("plan", cb)] + ([("plan2", cb)] if por else [])
+                 + ([("inject", spill[1])] if spill else []))
         for pre, n in plans:
             specs += [BufferSpec(f"{pre}_{k}", (n,), i64)
                       for k in ("tgt", "cfp", "cpl", "sel")]

@@ -323,6 +323,15 @@ def build_report(checker) -> dict:
         mem = mem_fn(live=False)
         if mem is not None:
             out["memory"] = mem
+    # partial-order reduction (JAX report.py:285-293): the network
+    # encoding, the fallback reason when reduction is off, and the
+    # reduced-vs-full tallies, count-derived for a fixed model and
+    # configuration, so the block stays as deterministic as the cartography
+    por_fn = getattr(checker, "por_status", None)
+    if callable(por_fn):
+        por = por_fn()
+        if por is not None:
+            out["por"] = por
     # spill tier (spill/): count-derived for a fixed model, configuration
     # and budget (evictions fire at deterministic growth boundaries and the
     # Bloom words are a function of the spilled set), so the block stays
@@ -457,6 +466,31 @@ def render_markdown(report: dict, rec=None) -> str:
             lines.append(
                 "- largest buffers: "
                 + ", ".join(f"{k}={fmt_bytes(v)}" for k, v in top)
+            )
+    por = report.get("por")
+    if por:
+        lines += ["", "## Partial-order reduction", ""]
+        enc = por.get("encoding")
+        lines.append(
+            f"- network encoding: **{enc or 'model-specific twin'}**"
+            + (
+                "" if enc != "slot-multiset" else
+                " (delivery writes are message DATA here — re-compile "
+                "with per_channel_() for real reduction; JX305)"
+            )
+        )
+        if por.get("enabled"):
+            lines.append(
+                f"- rows expanded with a reduced ample set: "
+                f"**{por.get('rows_reduced', 0)}** "
+                f"({por.get('candidates_masked', 0)} candidates never "
+                f"generated; {por.get('rows_full_proviso', 0)} "
+                "proviso-forced full re-expansions)"
+            )
+        else:
+            lines.append(
+                f"- reduction fell back to full expansion: "
+                f"{por.get('fallback')}"
             )
     sp = report.get("spill")
     if sp:

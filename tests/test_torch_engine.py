@@ -366,6 +366,25 @@ ISOLATION_CASES = {
         "assert c.unique_state_count() == 8832, c.unique_state_count()\n"
         "assert c.spill_status()['evictions'] >= 1\n"
     ),
+    # partial-order reduction: the footprint pass on the captured graph,
+    # the plan, the engine's ample and proviso rounds, the fallback
+    "por": (
+        "from stateright_tpu_torch.models.paxos import paxos_model\n"
+        "from stateright_tpu_torch.models.dining import dining_model\n"
+        "from stateright_tpu_torch.testing.por_fixtures import WorkersSys\n"
+        "w = WorkersSys(7).checker().por().spawn_gpu(device='cpu',\n"
+        "                                            batch=64).join()\n"
+        "assert (w.unique_state_count(), w.state_count()) == (15, 15)\n"
+        "pc = paxos_model(1)\n"
+        "pc.per_channel_()\n"
+        "pc = pc.checker().por().prededup().spawn_gpu(device='cpu',\n"
+        "                                             batch=64).join()\n"
+        "assert pc.unique_state_count() == 250, pc.unique_state_count()\n"
+        "assert pc.por_status()['rows_full_proviso'] == 22\n"
+        "d = dining_model(3).checker().por().spawn_gpu(device='cpu',\n"
+        "                                              batch=64).join()\n"
+        "assert d.por_status()['enabled'] is False\n"
+    ),
     # the supervisor (a supervised run killed by a plan and resumed), the
     # heartbeat and status, and the audit (the builder's, the preflight's
     # and the fleet's)
@@ -508,7 +527,7 @@ def sync_free_model(name):
     if name == "raft-sym":
         return raft_model(3), CompiledActorTensor
     m = paxos_model(1)
-    if name == "per-channel":
+    if name.startswith("per-channel"):
         m.per_channel_()
         return m, CompiledActorTensor
     return m, PaxosTensor
@@ -520,8 +539,10 @@ def sync_free_model(name):
 # "-checked" under .checked() (the guard's flags), "-spill" under .spill()
 # with a device budget that evicts (the Bloom test and the pending append),
 # "-armed" with a fault plan installed that never fires and autosave and
-# the heartbeat at every sync
+# the heartbeat at every sync, "-por" under .por() (the ample mask, its
+# conjunct kernel, the proviso round and the rollback)
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
+                    "per-channel-por": 250,
                     "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
                     "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265,
                     "2pc-checked": 288, "2pc-spill": 8832, "2pc-armed": 288,
@@ -589,6 +610,8 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
         b = b.cartography()
     if name.endswith("-checked"):
         b = b.checked()
+    if name.endswith("-por"):
+        b = b.por()
     kw = {}
     if name.endswith("-armed"):
         b = b.autosave(str(tmp_path), every_secs=0.0)
@@ -605,6 +628,7 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
     assert (c.cartography() is not None) == name.endswith("-cart")
     assert c._prededup == name.endswith("-flags")
     assert c._checked == name.endswith("-checked")
+    assert c._por == name.endswith("-por")
     assert (c._heartbeat is not None) == name.endswith("-armed")
     if c._spill:
         # blocks ran after an eviction, with deferred candidates appended
@@ -637,7 +661,7 @@ FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
 
 @pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
 @pytest.mark.parametrize("explicit", [False, True, "checked", "spill",
-                                      "armed"])
+                                      "armed", "por"])
 def test_step_flags_off_dispatch_the_same_operations(name, explicit,
                                                     monkeypatch, tmp_path):
     """With ``prededup`` off, unset or turned off explicitly against its
@@ -673,13 +697,55 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     elif explicit == "spill":
         monkeypatch.setenv("STATERIGHT_TPU_SPILL", "1")
         b = b.spill(False)
+    elif explicit == "por":
+        monkeypatch.setenv("STATERIGHT_TPU_POR", "1")
+        b = b.por(False)
     elif explicit == "armed":
         b = b.autosave(str(tmp_path), every_secs=0.0)
         monkeypatch.setattr("stateright_tpu_torch.testing.faults._ACTIVE",
                             inert_plan())
     c = b.spawn_gpu(device="cpu", batch=64, steps_per_call=4).join()
     assert not c._prededup and not c._checked and not c._spill
+    assert not c._por and c.por_status() is None
     assert (c._heartbeat is not None) == (explicit == "armed")
     assert steps
     assert {sum(ops.values()) for ops in steps} <= FLAGS_OFF_OPS_PER_STEP[name]
     assert all("aten.clone.default" not in ops for ops in steps)
+
+
+def test_por_fallback_dispatches_the_same_operations(monkeypatch):
+    """A ``.por()`` run that falls back to full expansion (dining: an
+    ``eventually`` property) dispatches, step for step, exactly the
+    operations of the run without the flag, and reports the fallback."""
+    from stateright_tpu_torch.models.dining import dining_model
+    from stateright_tpu_torch.parallel import wavefront
+
+    steps = []
+    step = wavefront._Engine.step
+
+    def counted(self, c):
+        probe = OpCount()
+        with probe:
+            out = step(self, c)
+        steps.append(probe.ops)
+        return out
+
+    monkeypatch.setattr(wavefront._Engine, "step", counted)
+    # one model, so one twin: the first run's first step builds the
+    # twin's lazy constants, and the two compared runs find them built
+    m = dining_model(3)
+    runs = []
+    for por in (False, False, True):
+        steps.clear()
+        b = m.checker()
+        c = (b.por() if por else b).spawn_gpu(device="cpu", batch=64,
+                                              steps_per_call=4).join()
+        runs.append((c, list(steps)))
+    _, (off, off_steps), (fb, fb_steps) = runs
+    assert not fb._por
+    st = fb.por_status()
+    assert st["enabled"] is False and "eventually" in st["fallback"]
+    assert off.por_status() is None
+    assert (fb.unique_state_count(), fb.state_count()) == (
+        off.unique_state_count(), off.state_count())
+    assert fb_steps == off_steps

@@ -18,7 +18,11 @@ queue rows, store and tallies) and under ``.checked()`` on ``cuda`` against
 ``cpu``, and the out-of-range twin's error on the card with the CUDA
 context still usable after it; a real device OOM, which the supervisor
 classifies as ``oom``, and a supervised 2pc-5 killed at a host sync that
-ends on ``cuda`` with the ``cpu`` run's tables.
+ends on ``cuda`` with the ``cpu`` run's tables; and partial-order
+reduction: ``.por()`` runs on ``cuda`` against ``cpu`` (per-channel
+paxos-1 plain, with queue growth and with the rollback, ``WorkersSys(7)``,
+``ToggleSys``, 2pc-5 under symmetry and prededup) and the proviso round's
+three insert kernels against their plain versions.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -819,3 +823,122 @@ def test_supervised_2pc5_killed_at_a_host_sync_ends_on_the_cpu_tables(
     assert g.state_count() == c.state_count() == 58146
     assert_same_snapshot(g.checker.final_snapshot(),
                          c.checker.final_snapshot())
+
+
+# -- partial-order reduction ---------------------------------------------------
+
+
+def per_channel_paxos(n):
+    m = paxos_model(n)
+    m.per_channel_()
+    return m
+
+
+@pytest.mark.parametrize("name,kw,counts", [
+    ("pc-paxos1", dict(batch=64), (250, 437)),
+    # queue growth (a boost at each boundary) and a candidate budget at
+    # which a proviso round overflows after its ample round committed
+    ("pc-paxos1-grow", dict(capacity=1 << 8, batch=16), (256, 452)),
+    ("pc-paxos1-budget", dict(capacity=1 << 12, batch=64, cand=24),
+     (250, 438)),
+    ("workers7", dict(batch=64), (15, 15)),
+    ("toggle", dict(batch=64), (4, 6)),
+    ("2pc5-sym-prededup", dict(batch=64), None),
+])
+def test_por_table_and_queue_identical_on_cuda_and_cpu(cuda, name, kw,
+                                                       counts):
+    """``.por()`` on ``cuda`` against ``cpu``: the ample mask, its conjunct
+    kernel captured on the card, the proviso round's second set of kernel
+    buffers and the rollback give the same counts, tables, queue rows and
+    tallies; the ledger's analytic bytes (both rounds' buffers) equal the
+    live tensors' on the card."""
+    from stateright_tpu_torch.testing.por_fixtures import ToggleSys, WorkersSys
+
+    build = {"pc-paxos1": lambda: per_channel_paxos(1),
+             "pc-paxos1-grow": lambda: per_channel_paxos(1),
+             "pc-paxos1-budget": lambda: per_channel_paxos(1),
+             "workers7": lambda: WorkersSys(7), "toggle": ToggleSys,
+             "2pc5-sym-prededup": lambda: TwoPhaseSys(5)}[name]
+
+    def run(device):
+        b = build().checker().por()
+        if name.endswith("sym-prededup"):
+            b = b.symmetry().prededup()
+        return b.spawn_gpu(device=device, **kw).join()
+
+    g, c = run(cuda), run("cpu")
+    assert g._por and c._por
+    assert (g.unique_state_count(), g.state_count()) == (
+        c.unique_state_count(), c.state_count())
+    if counts is not None:
+        assert (g.unique_state_count(), g.state_count()) == counts
+    assert g.growth_events == c.growth_events
+    assert g.por_status() == c.por_status()
+    assert_same_snapshot(g.final_snapshot(), c.final_snapshot())
+    live = {n: t.nbytes for n, t in g.live_buffers().items()}
+    assert live == {s.name: s.nbytes
+                    for s in g._memory_spec_fn()(g._memory_caps())}
+    assert any(n.startswith("plan2_") for n in live)
+
+
+def test_por_proviso_round_kernels_match_plain(cuda):
+    """The proviso round of a per-channel paxos-1 step on the card: its
+    inputs kept at the first round that inserts, then ``cand_prep``,
+    ``bucket_plan`` and ``insert_commit`` against their plain versions on
+    them (a copy of the table after the ample round, the append at
+    ``tail + n_new1``)."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    kept = {}
+    run = wavefront._Engine._insert_round
+
+    def keep(self, c, krows, kept_mask, fps, tail, cand_rows, ebits, depths,
+             prep_out, plan_out):
+        second = tail is not c[convert.TAIL]  # the append after round 1
+        if second and not kept:
+            snap = dict(tfp=c[convert.TFP].clone(), tpl=c[convert.TPL].clone(),
+                        krows=krows.clone(), kept=kept_mask.clone(),
+                        fps=fps.clone(), tail=tail.clone(),
+                        rows=cand_rows.clone(), ebits=ebits.clone(),
+                        depths=depths.clone(), arity=self.arity,
+                        cb=self.eff_cand, nb=self.cap // SLOTS,
+                        queue=[c[i].clone() for i in (
+                            convert.QROWS, convert.QFP, convert.QEBITS,
+                            convert.QDEPTH)])
+        out = run(self, c, krows, kept_mask, fps, tail, cand_rows, ebits,
+                  depths, prep_out, plan_out)
+        if second and not kept and int(out[2]) > 0:
+            kept.update(snap)
+        return out
+
+    wavefront._Engine._insert_round = keep
+    try:
+        per_channel_paxos(1).checker().por().spawn_gpu(device=cuda,
+                                                       batch=64).join()
+    finally:
+        wavefront._Engine._insert_round = run
+    assert kept, "no proviso round inserted anything"
+    k = kept
+    got = cand_prep(k["krows"], k["kept"], k["fps"], k["arity"], k["cb"])
+    want = cand_prep_plain(k["krows"], k["kept"], k["fps"], k["arity"],
+                           k["cb"])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    sort = (*sort_prepared(want[0], want[1], want[3], k["nb"]), want[2],
+            want[5])
+    gplan = bucket_plan(k["tfp"], *sort)
+    wplan = bucket_plan_plain(k["tfp"], *sort)
+    n_new = int(wplan[4])
+    assert n_new > 0 and int(gplan[4]) == n_new
+    for a, b in zip(gplan[:4], wplan[:4]):
+        assert torch.equal(a[:n_new], b[:n_new])
+    tables = [(k["tfp"].clone(), k["tpl"].clone()) for _ in range(2)]
+    queues = [QueueAppend(*[q.clone() for q in k["queue"]], k["tail"],
+                          wplan[3], k["rows"], k["ebits"], k["depths"],
+                          k["arity"]) for _ in range(2)]
+    plan = (*wplan[:3], wplan[4])  # the slots, fingerprints, payloads, count
+    insert_commit(*tables[0], *plan, queues[0])
+    insert_commit_plain(*tables[1], *plan, queues[1])
+    for a, b in zip(tables[0] + tuple(queues[0][:4]),
+                    tables[1] + tuple(queues[1][:4])):
+        assert torch.equal(a, b)
