@@ -126,9 +126,9 @@ cartography counters in the step), right after the plain paxos legs, each
 leg's launch counts reset just before it and read just after:
 
  - ``telemetry_paxos3``: paxos-3 complete under ``.telemetry(capacity=
-   2048, cartography=True, memory=True).report(PATH).runs(DIR)`` (the
-   JAX package's bench configuration, ``bench.py:767-771``, without the
-   roofline): 1,194,428 / 2,420,477; ``sum(depth_hist) == unique``,
+   2048, cartography=True, memory=True, roofline=True).report(PATH)
+   .runs(DIR)`` (the JAX package's bench configuration,
+   ``bench.py:767-771``): 1,194,428 / 2,420,477; ``sum(depth_hist) == unique``,
    ``sum(action_hist) == states - 1`` and every property evaluated
    ``unique`` times; the memory ledger's analytic bytes equal to the live
    tensors' ``nbytes`` at the final rung, and each growth's forecast
@@ -143,6 +143,14 @@ leg's launch counts reset just before it and read just after:
    (bounded paxos-3 runs); then the same bounded paxos-3 run with
    telemetry on at two block lengths under ``torch.profiler``: one
    ``cudaStreamSynchronize`` a block;
+ - ``roofline_paxos3``: that run's roofline ledger
+   (``telemetry/roofline.py``): the spec taken from the card's name (the
+   env override unset), each stage's static bytes and FLOPs a step and
+   the side of its ridge, the achieved share of the memory and FLOP
+   ceilings from the recorder's device seconds, and the ``property`` and
+   ``expand`` stages' own shares from the twin's kernels timed on a
+   batch of the run's queue; the counts are the plain leg's, and the
+   dispatched operations a step are equal with the roofline on and off;
  - ``telemetry_2pc7``: 2pc-7 with ``.report()`` twice on ``cuda`` and
    once on ``cpu``: the two ``cuda`` bodies byte-equal outside
    ``VOLATILE_KEYS``, and the ``cpu``/``cuda`` pair diffing
@@ -165,7 +173,7 @@ and read just after:
    ``cpu``: 16,668 / 32,971, identical table bytes and queue rows (no
    false flag through ``PaxosTensor``'s gathers);
  - ``checked_oob``: the JAX sanitizer tests' out-of-range twin under
-   ``.checked()`` raises ``CheckedExecutionError`` naming state 4 and
+   ``.skip_audit().checked()`` (the preflight would refuse it) raises ``CheckedExecutionError`` naming state 4 and
    "out-of-bounds", and a 2pc-3 run afterwards in the same process still
    gives 288: no device-side assert fired;
  - ``spill_2pc7``: the JAX acceptance run (``tests/test_spill.py:
@@ -238,13 +246,21 @@ counts reset just before it and read just after:
    heartbeat it left; the same command without the plan resumes, archives
    the parent's stub and ends at 296,448 with its ``parent_run_id``; and
    ``compare PARENT CHILD --registry=R --expect=IDENTICAL`` exits 0;
- - ``audit``: the fleet audit is clean, and the light preflight's host
-   seconds per spawn at 2pc-7, paxos-3 and single-copy-4, uncached and
-   cached.
+ - ``audit``: the fleet audit and the fleet sanitizer are clean, and
+   the light preflight's host seconds per spawn (the kernel audit, the
+   static sanitizer, the handler lint and the config rules) at 2pc-7,
+   paxos-3, single-copy-4 and per-channel paxos-2, uncached and cached;
+ - ``preflight_oob``: the out-of-range twin spawned on ``cuda`` without
+   ``skip_audit()``: the preflight raises ``AuditError`` naming JX201
+   before any kernel launches (every count 0), and a 2pc-3 run
+   afterwards in the same process gives 288.
 
 Each kernel cell also holds ``row_hash`` on that model's init rows, the
 only rows an unflagged main path gives it (``init_rows`` in its record),
-and the ``total`` record gives each phase's wall seconds.
+and the ``total`` record gives each phase's wall seconds.  Each bound is
+the kernel's count (``analysis/costmodel.py::kernel_cost``, the count the
+cost model charges the stages) over the card's rates in
+``telemetry/roofline.py``'s spec table (H100 SXM).
 
 Any failure raises (non-zero exit).  The second-to-last line of standard
 output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
@@ -268,7 +284,8 @@ inject's launches, under ``at_spill_2pc7_inject`` and
 ``at_spill_paxos3_inject``; and the supervisor's and the audit's legs'
 under ``at_supervise_2pc7_kill``, ``at_supervise_oom_real``,
 ``at_supervise_sigkill``, the resumed run's, the killed run's being lost
-with its process, and ``at_audit``; and the POR legs' under
+with its process, ``at_audit`` and ``at_preflight_oob`` (all 0); and
+the POR legs' under
 ``at_por_pc_paxos2``, ``at_por_2pc7`` and ``at_por_pc_paxos1``, with the
 proviso round's cells for ``cand_prep``, ``bucket_plan`` and
 ``insert_commit`` under ``at_por_proviso``)
@@ -325,11 +342,14 @@ from stateright_tpu_torch.models.orl import ORL_UNIQUE, orl_model
 from stateright_tpu_torch.models.paxos import paxos_model
 from stateright_tpu_torch.models.raft import LEADER, raft_model
 from stateright_tpu_torch.models import two_phase_commit
-from stateright_tpu_torch.models._cli import fleet_audit, with_step_flags
+from stateright_tpu_torch.models._cli import (
+    fleet_audit, fleet_sanitize, with_step_flags,
+)
 from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.models.write_once_register import wo_register_model
-from stateright_tpu_torch.analysis import CheckedExecutionError
+from stateright_tpu_torch.analysis import AuditError, CheckedExecutionError
+from stateright_tpu_torch.analysis.costmodel import kernel_cost
 from stateright_tpu_torch.core import Model, Property
 from stateright_tpu_torch.parallel.tensor_model import (
     BitPacker, TensorBackedModel, TensorModel,
@@ -342,12 +362,18 @@ from stateright_tpu_torch.telemetry.diff import (
 )
 from stateright_tpu_torch.telemetry.memory import device_memory_stats
 from stateright_tpu_torch.telemetry.report import VOLATILE_KEYS
+from stateright_tpu_torch.telemetry.roofline import (
+    ENV_DEVICE_SPEC, spec_for_name,
+)
 from stateright_tpu_torch.testing.faults import Fault, FaultPlan
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
-# the card's non-tensor-core rate (67 TFLOP/s fp32), standing in for its
-# integer rate, which the data sheet does not list
-OPS_PER_S = 67e12
+# the bound's rates: the H100 SXM entry of the roofline's spec table
+# (NVIDIA data sheet): device memory 3.35e12 B/s, and the card's
+# non-tensor-core rate (67 TFLOP/s fp32) standing in for its integer rate,
+# which the data sheet does not list
+H100_SXM = spec_for_name("NVIDIA H100 SXM")
+HBM_BYTES_PER_S = H100_SXM["hbm_bytes_per_sec"]
+OPS_PER_S = H100_SXM["vpu_peak"]
 TPC10_TARGET = 4_000_000
 PAXOS3_UNIQUE = 1_194_428  # the JAX engine's complete paxos-3 count
 PAXOS3_STATES = 2_420_477
@@ -430,7 +456,8 @@ OOM_BATCH = 512
 # recorder (bench.py:767-771, without the roofline), the bounded paxos-3
 # runs that count operations a step, and the sync count's paxos-3 runs
 # (a table that holds them with no growth event)
-TELEMETRY_KW = dict(capacity=2048, cartography=True, memory=True)
+TELEMETRY_KW = dict(capacity=2048, cartography=True, memory=True,
+                    roofline=True)
 OPS_TARGET = 20_000
 OPS_STEPS = 8
 P3_SYNC_TARGET = 100_000
@@ -600,6 +627,8 @@ def host_ms(fn, iters: int = 200) -> float:
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least milliseconds for ``nbytes`` and ``ops`` on the card: the
+    larger of the two times, and which one it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -730,14 +759,11 @@ def plan_record(x: dict, cold: bool, stream, sym: bool = False) -> dict:
     live = sfp != EMPTY
     nlive = int(live.sum())
     lines = int(torch.unique(bucket[live]).numel())
-    # every lane reads its fingerprint; live lanes their bucket index and
-    # each distinct line once; novel lanes their payload, order (and cidx)
-    # entries and write four words; the flags in and out.  Generation
-    # order moves the same bytes in and out (its staging area is the
-    # kernel's own scratch)
-    per_novel = 8 * (2 if cidx is None else 3) + 32
-    p_ms, p_by = bound(m * 8 + nlive * 8 + lines * SLOTS * 8
-                       + planned * per_novel + 1 + 9, nlive * SLOTS * 2)
+    # the kernel's count (costmodel.kernel_rw): generation order moves the
+    # same bytes in and out (its staging area is the kernel's own scratch)
+    p_ms, p_by = bound(*kernel_cost("bucket_plan", {
+        "lanes": m, "valid": nlive, "lines": lines, "novel": planned,
+        "cidx": cidx is not None}))
     return dict(
         name="bucket_plan_generation_order" if sym else "bucket_plan",
         route="cuda", source="stateright_tpu_torch/csrc/bucket_plan.cu",
@@ -768,11 +794,9 @@ def prep_record(x: dict, cold: bool, stream) -> dict:
     errs = sum(int((g != p).sum()) for g, p in zip(got, want))
     nv = int(want[4])
     parents = int(torch.unique(want[2] // arity).numel())
-    # valid lanes read their row, every lane its valid byte, each parent
-    # whose lane is read its fingerprint once; four words per output lane
-    # and the two scalars out
-    q_ms, q_by = bound(nv * w * 8 + n + parents * 8 + cb * 32 + 9,
-                       nv * (w + 2) * 10)
+    q_ms, q_by = bound(*kernel_cost("cand_prep", {
+        "lanes": n, "width": w, "valid": nv, "budget": cb,
+        "parents": parents}))
     return dict(
         name="cand_prep", route="cuda",
         source="stateright_tpu_torch/csrc/cand_prep.cu",
@@ -817,7 +841,7 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
         init = checker.tensor.representative_rows(init).contiguous()
     ni, wi = init.shape
     got_i, want_i = row_hash(init), row_hash_plain(init)
-    bi_ms, bi_by = bound(ni * wi * 8 + ni * 8, ni * (wi + 1) * 10)
+    bi_ms, bi_by = bound(*kernel_cost("row_hash", {"rows": ni, "width": wi}))
     init_record = dict(
         shape=f"init rows int64[{ni}, {wi}]",
         matched=bool(torch.equal(got_i, want_i)),
@@ -828,9 +852,8 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
     hvalid = x["hvalid"]
     nh = int(hvalid.sum())
     got, want = row_hash(rows, hvalid), row_hash_plain(rows, hvalid)
-    # every lane reads its valid byte and writes its fingerprint; only the
-    # valid lanes read their row (invalid ones return before it)
-    b_ms, b_by = bound(nh * w * 8 + n + n * 8, nh * (w + 1) * 10)
+    b_ms, b_by = bound(*kernel_cost("row_hash", {"rows": n, "width": w,
+                                                 "valid": nh}))
     out["row_hash"] = dict(
         name="row_hash", route="cuda",
         source="stateright_tpu_torch/csrc/row_hash.cu",
@@ -880,16 +903,14 @@ def commit_record(x: dict, cold: bool, stream) -> dict:
                                                     pt + tuple(pq[:4])))
     width = x["crows"].shape[1]  # the queue keeps the successor rows
     parents = int(torch.unique(sel[:nn] // q.arity).numel())
-    # plan lanes, count and tail in; parents' ebits and depth; the rows;
-    # 16 table bytes and a queue row (8W + 16 bytes) out per novel lane
-    c_ms, c_by = bound(nn * 32 + 16 + parents * 8 + nn * 8 * width
-                       + nn * 16 + nn * (8 * width + 16), 0)
+    c_ms, c_by = bound(*kernel_cost("insert_commit", {
+        "novel": nn, "width": width, "parents": parents}))
     return dict(
         name="insert_commit", route="cuda",
         source="stateright_tpu_torch/csrc/insert_commit.cu",
         replaces="stateright_tpu/ops/pallas_insert.py:85",
-        shape=(f"cand {tgt.shape[0]}, n_new {nn}, table {tfp.shape[0]} slots, "
-               f"queue {q.fps.shape[0]} rows"),
+        shape=(f"cand {tgt.shape[0]}, n_new {nn} ({parents} parents), "
+               f"table {tfp.shape[0]} slots, queue {q.fps.shape[0]} rows"),
         matched=c_err == 0, max_abs_err=c_err,
         bound_ms=c_ms, bound_by=c_by, library_ms=None,
         **timings(lambda: insert_commit(*kt, tgt, wfp, wpl, n_new_t, kq),
@@ -1129,7 +1150,7 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
 
 def ops_per_step(dev, cartography: bool, flags=(),
                  build=lambda: paxos_model(3), target: int = OPS_TARGET,
-                 **kw) -> dict:
+                 roofline: bool = False, **kw) -> dict:
     """Dispatched operations per step, over the first :data:`OPS_STEPS`
     steps of a run of ``build()`` (default paxos-3) bounded at ``target``
     with the step ``flags`` on (a ``TorchDispatchMode`` count around
@@ -1163,6 +1184,8 @@ def ops_per_step(dev, cartography: bool, flags=(),
     wavefront._Engine.step = counted
     try:
         b = with_step_flags(build().checker().target_states(target), flags)
+        if roofline:
+            b = b.roofline()
         c = (b.cartography() if cartography else b).spawn_gpu(
             **dict(dict(device=dev, steps_per_call=4), **kw)).join()
     finally:
@@ -1239,16 +1262,20 @@ def telemetry_phases(dev, smi: str, p3_ref) -> dict:
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"a kernel never launched: {launches}")
     with open(report) as f:
-        if json.load(f)["totals"]["unique"] != PAXOS3_UNIQUE:
-            raise AssertionError("telemetry paxos-3: report totals")
-    del c
+        body = json.load(f)
+    if body["totals"]["unique"] != PAXOS3_UNIQUE:
+        raise AssertionError("telemetry paxos-3: report totals")
     lap("telemetry_paxos3")
+    roofline_leg(dev, smi, c, body, launches, off, on)
+    del c
+    lap("roofline_paxos3")
 
     # -- one stream sync a block with telemetry on ----------------------------
     sync_runs = {}
     for spc in SYNC_STEPS_PER_CALL:
         def run(spc=spc):
-            return (paxos_model(3).checker().telemetry(**TELEMETRY_KW)
+            return (paxos_model(3).checker()
+                    .telemetry(**dict(TELEMETRY_KW, roofline=False))
                     .target_states(P3_SYNC_TARGET)
                     .spawn_gpu(capacity=P3_SYNC_CAPACITY,
                                steps_per_call=spc).join())
@@ -1335,6 +1362,76 @@ def telemetry_phases(dev, smi: str, p3_ref) -> dict:
         raise AssertionError("2pc-7 profile: unique count")
     lap("profile_2pc7")
     return legs
+
+
+def roofline_leg(dev, smi: str, c, body: dict, launches: dict, off: dict,
+                 on: dict) -> None:
+    """``roofline_paxos3`` (module docstring), on the telemetry leg's
+    paxos-3 run ``c`` (its report ``body``, its ``launches``, and the
+    operations a step with cartography off and on, ``off``/``on``)."""
+    if os.environ.get(ENV_DEVICE_SPEC):
+        raise AssertionError(f"{ENV_DEVICE_SPEC} is set: the leg reads the "
+                             "card's own spec")
+    roof = c.roofline()
+    if roof is None:
+        raise AssertionError("roofline paxos-3: no ledger")
+    spec, verdicts = roof.get("device_spec"), roof["verdicts"]
+    name = torch.cuda.get_device_name(dev)
+    if spec is None or spec["src"] != "device" or spec != spec_for_name(name):
+        raise AssertionError(f"roofline paxos-3: spec {spec} for {name}")
+    # the twin's two kernels, timed on the first batch of the final queue:
+    # their device time (the profiler's, else CUDA events behind a busy
+    # stream), and the events figure beside it
+    tensor, batch = c.tensor, int(roof["batch"])
+    rows = c._final_carry[convert.QROWS][:batch].contiguous()
+    timed = {"property": device_ms(lambda: tensor.property_masks(rows)),
+             "expand": device_ms(lambda: tensor.step_rows(rows))}
+    stage_ms = {k: v[0] for k, v in timed.items()}
+    stages = {}
+    for st, v in roof["stages"].items():
+        nbytes = v["bytes_read"] + v["bytes_written"]
+        entry = {"bytes": nbytes, "flops": v["flops"],
+                 "intensity": v.get("intensity"),
+                 "verdict": verdicts[st]["verdict"],
+                 "ridge": verdicts[st].get("ridge"),
+                 "ridge_kind": verdicts[st].get("ridge_kind")}
+        if st in stage_ms:
+            sec = stage_ms[st] / 1e3
+            entry["ms"], entry["ms_by"], entry["events_ms"] = timed[st]
+            entry["achieved_bytes_per_sec"] = nbytes / sec
+            entry["frac_of_hbm_ceiling"] = (nbytes / sec
+                                            / spec["hbm_bytes_per_sec"])
+            entry["frac_of_flops_ceiling"] = (v["flops"] / sec
+                                              / spec["vpu_peak"])
+        stages[st] = entry
+    roof_on = ops_per_step(dev, True, roofline=True)
+    out = {"spec": spec, "card": smi, "batch": batch,
+           "totals": roof["totals"], "stages": stages,
+           "achieved": roof.get("achieved"),
+           "reconciliation": roof["reconciliation"],
+           "report_block_is_static": "device_spec" not in body["roofline"],
+           "unique": c.unique_state_count(), "states": c.state_count(),
+           "ops_per_step_roofline_off": on, "ops_per_step_roofline_on":
+           roof_on, "ops_per_step_plain": off, "launches": launches,
+           "candidates": [{k: x[k] for k in ("rank", "stage", "op", "bytes",
+                                             "rule")}
+                          for x in roof["mxu_candidates"]]}
+    emit("roofline_paxos3", out)
+    for st, e in stages.items():
+        print(f"roofline paxos-3 {st}: {e['bytes']} bytes, {e['flops']} "
+              f"FLOPs a step, {e['verdict']}"
+              + (f", {100 * e['frac_of_hbm_ceiling']:.4f}% of memory"
+                 if "ms" in e else "") + f" ({smi})", flush=True)
+    if (c.unique_state_count(), c.state_count()) != (PAXOS3_UNIQUE,
+                                                     PAXOS3_STATES):
+        raise AssertionError("roofline paxos-3: counts")
+    if (roof_on["ops_per_step"], roof_on["stats_ops_per_block"]) != (
+            on["ops_per_step"], on["stats_ops_per_block"]):
+        raise AssertionError(f"roofline on: {roof_on} operations, off: {on}")
+    if not roof["reconciliation"]["ok"] or not out["report_block_is_static"]:
+        raise AssertionError(f"roofline paxos-3: {roof['reconciliation']}")
+    if roof.get("achieved") is None or set(verdicts) != set(stages):
+        raise AssertionError(f"roofline paxos-3: {roof.get('achieved')}")
 
 
 def leg_record(checker, sec: float, peak: int, launches: dict,
@@ -2134,7 +2231,7 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
 
     # -- checked_oob: the out-of-range twin raises; the context survives -----
     try:
-        OOBModel().checker().checked().spawn_gpu(
+        OOBModel().checker().skip_audit().checked().spawn_gpu(
             batch=8, capacity=1 << 10).join()
     except CheckedExecutionError as e:
         err = e
@@ -2633,20 +2730,25 @@ def supervise_sigkill_leg(smi: str, n: int = 7, kill_at: int =
 
 
 def audit_leg(smi: str) -> dict:
-    """``audit``: the port's fleet audit is clean, and the light preflight
-    a spawn runs takes these seconds, uncached (a fresh configuration) and
-    cached (a respawn)."""
+    """``audit``: the port's fleet audit and fleet sanitizer are clean,
+    and the light preflight a spawn runs (the kernel audit and the static
+    sanitizer included) takes these seconds, uncached (a fresh
+    configuration) and cached (a respawn)."""
     from stateright_tpu_torch.analysis import audit as audit_mod
 
-    buf = io.StringIO()
+    buf, sbuf = io.StringIO(), io.StringIO()
     reset_launches()
     t0 = time.monotonic()
     rc = fleet_audit(stream=buf)
     fleet_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    src = fleet_sanitize(stream=sbuf)
+    sanitize_s = time.monotonic() - t0
     per_spawn = {}
     for name, build in (("2pc7", lambda: TwoPhaseSys(7)),
                         ("paxos3", lambda: paxos_model(3)),
-                        ("singlecopy4", lambda: single_copy_model(4))):
+                        ("singlecopy4", lambda: single_copy_model(4)),
+                        ("paxos2_per_channel", per_channel_paxos2)):
         audit_mod._SHARED_REPORTS.clear()
         b = build().checker()
         t1 = time.monotonic()
@@ -2659,6 +2761,8 @@ def audit_leg(smi: str) -> dict:
                            "cached_secs": (time.monotonic() - t2) / 100}
     out = {"fleet_exit": rc, "fleet_secs": fleet_s,
            "fleet": buf.getvalue().strip().splitlines()[-1],
+           "sanitize_exit": src, "sanitize_secs": sanitize_s,
+           "sanitize": sbuf.getvalue().strip().splitlines()[-1],
            "preflight_secs_per_spawn": per_spawn,
            "launches": kernel_launches(), "card": smi}
     emit("audit", out)
@@ -2669,7 +2773,36 @@ def audit_leg(smi: str) -> dict:
     if rc != 0 or out["fleet"] != "audit fleet: CLEAN":
         raise AssertionError(f"audit: the fleet is not clean: "
                              f"{buf.getvalue()[-3000:]}")
+    if src != 0 or out["sanitize"] != "sanitize fleet: CLEAN":
+        raise AssertionError(f"sanitize: the fleet is not clean: "
+                             f"{sbuf.getvalue()[-3000:]}")
     return out["launches"]
+
+
+def preflight_oob_leg(smi: str) -> dict:
+    """``preflight_oob``: the out-of-range twin spawned on the card with
+    the preflight on is refused with JX201 before any launch, and the
+    process's CUDA context serves a 2pc-3 run after it."""
+    reset_launches()
+    try:
+        OOBModel().checker().spawn_gpu(batch=8, capacity=1 << 10).join()
+    except AuditError as e:
+        err = e
+    else:
+        raise AssertionError("preflight: the out-of-range twin was spawned")
+    launches = kernel_launches()
+    torch.cuda.synchronize()
+    after = TwoPhaseSys(3).checker().spawn_gpu().join()
+    out = {"rule_ids": list(err.rule_ids),
+           "finding": [f.format() for f in err.report.errors],
+           "launches": launches,
+           "unique_2pc3_after": after.unique_state_count(), "card": smi}
+    emit("preflight_oob", out)
+    if "JX201" not in err.rule_ids or any(launches.values()):
+        raise AssertionError(f"preflight OOB: {out}")
+    if after.unique_state_count() != 288:
+        raise AssertionError("2pc-3 after the refused twin: not 288")
+    return launches
 
 
 def supervise_phases(dev, smi: str, ref7: dict) -> dict:
@@ -2683,6 +2816,8 @@ def supervise_phases(dev, smi: str, ref7: dict) -> dict:
     lap("supervise_sigkill")
     out["audit"] = audit_leg(smi)
     lap("audit")
+    out["preflight_oob"] = preflight_oob_leg(smi)
+    lap("preflight_oob")
     return out
 
 

@@ -1,24 +1,25 @@
 """Audit driver: resolve a model's device twin, run every pass, cache.
 
-The port's own copy of ``stateright_tpu/analysis/audit.py``, without the
-jaxpr passes.  ``audit_model(model)`` is the one entry point behind
+The port's own copy of ``stateright_tpu/analysis/audit.py``.
+``audit_model(model)`` is the one entry point behind
 ``CheckerBuilder.audit()``, the ``spawn_gpu`` preflight and the ``audit``
-CLI verbs.  Passes:
+and ``sanitize`` CLI verbs.  Passes:
 
  - the actor-handler lint (``handler_lint``) when the model is an actor
    system;
+ - the kernel audit (``kernel_audit.py``: ``JX000``-``JX107``) and the
+   sanitizer's static interval pass (``sanitizer.py``: ``JX200``-
+   ``JX205``) over the twin's kernels, in both tiers as JAX runs them
+   (JAX :331-336): ``JX201``/``JX202`` are exactly what the preflight
+   must abort on, since an out-of-range index ends the CUDA context;
  - the config-lifecycle checks (``CF*``, below).
 
-The JAX audit also runs its jaxpr kernel audit (``run_jaxpr_audit``) and
-the sanitizer's static interval pass (``run_sanitizer``) over the twin.
-The port's graph form is settled: a kernel captured with ``make_fx``
-(``analysis/graph.py``), on which the footprint pass and the
-independence analysis (``footprint.py``, ``independence.py``: ``JX300``
-to ``JX305``) run.  Like the JAX audit, this one does not run them
-(``.por()`` and the ``independence`` verbs do).  The kernel audit, the
-static sanitizer, the cost model and ``row_domain`` are still to be
-ported on that capture, so no other ``JX*`` finding comes from the
-port.
+The kernel passes walk the twin's kernels captured with ``make_fx``
+(``analysis/graph.py``, cached on the twin), the capture the footprint
+pass, the independence analysis (``JX300``-``JX305``, run by ``.por()``
+and the ``independence`` verbs, not by the audit) and the cost model
+(``JX400``-``JX402``, the ``costmodel`` verb and
+``.telemetry(roofline=True)``) share.
 
 ``deep=True`` adds the expensive passes (the bounded closure-domain probe
 and the fresh-twin drift re-resolve); the ``spawn_gpu`` preflight runs the
@@ -45,7 +46,9 @@ import dataclasses
 import numpy as np
 
 from .handler_lint import run_handler_lint
+from .kernel_audit import run_kernel_audit
 from .report import AuditReport, Severity
+from .sanitizer import run_sanitizer
 
 _SIMPLE = (int, float, str, bool, bytes, tuple, frozenset, type(None))
 
@@ -277,13 +280,18 @@ _SHARED_REPORTS: dict = {}
 _SHARED_REPORTS_MAX = 512
 
 
-def audit_model(model, *, deep: bool = False) -> AuditReport:
+def audit_model(model, *, deep: bool = False, tensor=None,
+                share: bool = True) -> AuditReport:
     """Run every static-analysis pass over ``model`` and return the
-    :class:`AuditReport`.  Reports are cached on the model and in a
-    process-wide config-keyed cache (invalidated by configuration changes
-    via :func:`config_signature`), so the spawn-path preflight is free on
-    respawns and on same-config re-creations.  A deep report serves a
-    light request too."""
+    :class:`AuditReport` (JAX :274).  Reports are cached on the model and
+    in a process-wide config-keyed cache (invalidated by configuration
+    changes via :func:`config_signature`), so the spawn-path preflight is
+    free on respawns and on same-config re-creations.  A deep report
+    serves a light request too.  ``tensor`` overrides twin resolution (a
+    one-off probe of a bare twin, never cached); ``share=False`` keeps
+    the report out of the process-wide cache.  The report is also
+    ``model._audit_report``, which the run report's ``audit`` and
+    ``sanitizer`` blocks read."""
     sig = config_signature(model)
     drifted = (
         hasattr(model, "_tensor_model_cache")
@@ -291,21 +299,25 @@ def audit_model(model, *, deep: bool = False) -> AuditReport:
     )
     cached = getattr(model, "_audit_report_cache", None)
     if (cached is not None and cached[0] == sig and (cached[1] or not deep)
-            and not drifted):
+            and tensor is None and not drifted):
         return cached[2]
-    if not drifted:
+    if share and tensor is None and not drifted:
         hit = _SHARED_REPORTS.get(sig)
         if hit is not None and (hit[0] or not deep):
             report = hit[1].copy()  # the cached one stays pristine
             try:
                 object.__setattr__(model, "_audit_report_cache",
                                    (sig, hit[0], report))
+                object.__setattr__(model, "_audit_report", report)
             except Exception:  # noqa: BLE001 - __slots__ models
                 pass
             return report
 
     report = AuditReport(model=type(model).__name__)
-    twin, fresh_twin = _resolve_twin(model, report, sig=sig)
+    if tensor is not None:
+        twin, fresh_twin = tensor, True
+    else:
+        twin, fresh_twin = _resolve_twin(model, report, sig=sig)
 
     # actor systems: handler lint (AH*); the AH205 severity depends on
     # whether the compiled twin already declares a state_bound
@@ -318,17 +330,24 @@ def audit_model(model, *, deep: bool = False) -> AuditReport:
         )
 
     if twin is not None:
-        # (JAX runs run_jaxpr_audit and run_sanitizer here: module
-        # docstring)
+        run_kernel_audit(twin, report, model=model, deep=deep)
+        # the value-level pass runs in the light tier too: JX201/JX202 are
+        # the class the spawn preflight exists to abort on
+        run_sanitizer(twin, report, model=model)
         _check_config_drift(
             model, twin, report, deep and not fresh_twin, sig=sig
         )
 
+    if tensor is not None:
+        # an override twin's findings must never be served for the
+        # model's real twin (the spawn preflight included)
+        return report
     try:
         object.__setattr__(model, "_audit_report_cache", (sig, deep, report))
+        object.__setattr__(model, "_audit_report", report)
     except Exception:  # noqa: BLE001 - __slots__ models: skip caching
         pass
-    if not drifted:
+    if share and not drifted:
         if len(_SHARED_REPORTS) >= _SHARED_REPORTS_MAX:
             _SHARED_REPORTS.clear()
         _SHARED_REPORTS[sig] = (deep, report.copy())

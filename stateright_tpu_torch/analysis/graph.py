@@ -10,12 +10,17 @@ The port's counterpart of the JAX package's tracing helpers: the
 in-place ``clamp_`` becomes ``clamp``, an indexed write a ``*_scatter``)
 and every value is one node.  In an fx graph a node is its own producer:
 ``node.target`` and ``node.args`` are the JAX equation's primitive and
-invars.
+invars, and ``node.users`` the consumers.  What the walks share
+(``footprint.py``, ``kernel_audit.py``, ``interval.py``, ``sanitizer.py``
+and ``costmodel.py``): :func:`walk_back` through :data:`TRANSPARENT`
+(JAX ``walk_transparent``), :func:`literal_value` (JAX
+``IVal.const(x.val)`` of a literal) and :func:`capture_fresh`, a second
+capture past the cache (the retrace diff of ``JX104``).
 
 The capture runs on real tensors, not abstract values: the rows are the
 twin's init rows, tiled to the batch.  As in JAX (``footprint.py:1131``),
-``init_rows()`` and one eager ``step_rows`` run first, outside the
-capture, so a twin that builds its device constants lazily builds them as
+``init_rows()`` and one eager ``step_rows`` (and ``property_masks``) run
+first, outside the capture, so a twin that builds its device constants lazily builds them as
 real tensors (a constant built inside the capture would be a traced
 value, cached on the twin).  The graphs are cached per twin, kernel, batch
 and device.
@@ -23,6 +28,7 @@ and device.
 
 from __future__ import annotations
 
+import contextlib
 import operator
 from typing import Optional
 
@@ -125,6 +131,34 @@ class Graph:
         return None
 
 
+def walk_back(x, ops=TRANSPARENT, depth: int = 8):
+    """Follow shape-only operations back from ``x`` (JAX
+    ``walk_transparent``): the first node that is not one of ``ops``."""
+    for _ in range(depth):
+        if not isinstance(x, torch.fx.Node) or op_name(x) not in ops:
+            return x
+        x = x.args[0]
+    return x
+
+
+def literal_value(x) -> Optional[int]:
+    """The exact integer of a literal: a Python int or bool argument, or a
+    node that fills its shape with one (``full``, ``zeros``,
+    ``scalar_tensor``, ...); None for anything else (a float fill too)."""
+    if isinstance(x, bool):
+        return int(x)
+    if isinstance(x, int):
+        return x
+    v = fill_value(x) if isinstance(x, torch.fx.Node) else None
+    if isinstance(v, bool):
+        return int(v)
+    if isinstance(v, int) or (isinstance(v, float) and v.is_integer()
+                              and dtype_of(x) is not None
+                              and not dtype_of(x).is_floating_point):
+        return int(v)
+    return None
+
+
 def _tile_rows(init: np.ndarray, batch: int, width: int) -> np.ndarray:
     init = np.asarray(init, np.uint64).reshape(-1, width)
     if init.shape[0] == 0:
@@ -152,7 +186,12 @@ class _InplaceOps(torch.overrides.TorchFunctionMode):
 def capture(fn, *args) -> torch.fx.GraphModule:
     """``fn(*args)`` as an aten graph: ``make_fx`` over ``functionalize``
     (the bound method goes through a lambda: ``make_fx`` counts a bound
-    method's ``self`` as an argument)."""
+    method's ``self`` as an argument).  A host read of a tensor value
+    (``.item()``, ``bool()`` of a tensor) is recorded in the graph as
+    ``aten._local_scalar_dense`` rather than refused, so the kernel audit
+    can name it (``JX101``)."""
+    import inspect
+
     from torch.fx.experimental.proxy_tensor import make_fx
     from torch.func import functionalize
 
@@ -160,18 +199,62 @@ def capture(fn, *args) -> torch.fx.GraphModule:
         with _InplaceOps():
             return fn(*a)
 
-    return make_fx(functionalize(run, remove="mutations"))(*args)
+    kw = {}
+    if "_error_on_data_dependent_ops" in inspect.signature(
+            make_fx).parameters:
+        kw["_error_on_data_dependent_ops"] = False
+    traced = make_fx(functionalize(run, remove="mutations"), **kw)
+    with _one_fake_mode():
+        return traced(*args)
+
+
+@contextlib.contextmanager
+def _one_fake_mode():
+    """One ``FakeTensorMode`` for every node's ``meta['val']``: without an
+    ambient one, ``make_fx`` builds a new mode per value it records, about
+    half of a capture's time.  The same graph and metadata either way;
+    a torch without these hooks captures the slow way."""
+    try:
+        from torch._guards import TracingContext, tracing
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        ctx = tracing(TracingContext(FakeTensorMode(
+            allow_fallback_kernels=True)))
+    except Exception:  # noqa: BLE001 - the private hooks moved: no-op
+        ctx = contextlib.nullcontext()
+    with ctx:
+        yield
 
 
 def example_rows(tensor, batch: int, device="cpu") -> torch.Tensor:
     """``batch`` rows for a capture: the twin's init rows, tiled (int64
     bit patterns on ``device``).  Calls ``init_rows()`` and one eager
-    ``step_rows`` on them, outside any capture."""
+    ``step_rows`` and ``property_masks`` on them, outside any capture, so
+    constants a kernel builds at its first call exist before the capture
+    (else the first capture holds a ``lift_fresh_copy`` the second does
+    not, and the retrace diff would call the kernel unstable)."""
     width = int(tensor.width)
     rows_np = _tile_rows(tensor.init_rows(), batch, width)
     rows = torch.from_numpy(rows_np.view(np.int64).copy()).to(device)
     tensor.step_rows(rows)
+    if callable(getattr(tensor, "property_masks", None)):
+        try:
+            tensor.property_masks(rows)
+        except Exception:  # noqa: BLE001 - its own capture reports it
+            pass
     return rows
+
+
+def capture_fresh(tensor, kernel: str, batch: int = 4,
+                  device="cpu") -> Graph:
+    """The twin's ``kernel`` captured anew, past :func:`graph_of`'s cache
+    (the second capture of the retrace diff, ``JX104``)."""
+    rows = example_rows(tensor, batch, device)
+    fn = getattr(tensor, kernel)
+    if kernel == "boundary_rows":
+        succ, _ = tensor.step_rows(rows)
+        return Graph(capture(fn, succ))
+    return Graph(capture(fn, rows))
 
 
 def graph_of(tensor, kernel: str, batch: int = 4, device="cpu") -> Graph:
@@ -189,12 +272,5 @@ def graph_of(tensor, kernel: str, batch: int = 4, device="cpu") -> Graph:
     key = (kernel, int(batch), str(torch.device(device)))
     g = cache.get(key)
     if g is None:
-        rows = example_rows(tensor, batch, device)
-        fn = getattr(tensor, kernel)
-        if kernel == "boundary_rows":
-            succ, _ = tensor.step_rows(rows)
-            g = Graph(capture(fn, succ))
-        else:
-            g = Graph(capture(fn, rows))
-        cache[key] = g
+        g = cache[key] = capture_fresh(tensor, kernel, batch, device)
     return g

@@ -1,9 +1,11 @@
 """Structured audit results: findings, severities and the report surface.
 
 The port's own copy of ``stateright_tpu/analysis/report.py``.  Every
-static-analysis pass (``handler_lint``, the config drift check) produces
-:class:`AuditFinding` values; :class:`AuditReport` gathers them per model
-with run-quality metrics.  The report is the one artifact shared by the
+static-analysis pass (``kernel_audit``, ``sanitizer``, ``handler_lint``,
+the config drift check, and for callers that fold them in, the
+independence analysis and the cost model) produces :class:`AuditFinding`
+values; :class:`AuditReport` gathers them per model with their metrics
+(per-row FLOPs and bytes, the sanitizer summary).  The report is the one artifact shared by the
 ``spawn_gpu`` preflight (errors abort before any buffer is allocated),
 ``CheckerBuilder.audit()`` and the ``audit`` CLI verbs.
 
@@ -11,9 +13,13 @@ Rule-id namespaces (the JAX package's ``docs/analysis.md`` catalogue):
 
  - ``AH*`` -- actor-handler lint (``analysis/handler_lint.py``)
  - ``CF*`` -- builder/config lifecycle checks (``analysis/audit.py``)
- - ``JX3*`` -- the independence pass (``analysis/independence.py``, on
-   the captured aten graph of ``analysis/graph.py``); the other ``JX*``
-   passes come with the ROADMAP item "the analysis stack"
+ - ``JX0*``/``JX1*`` -- the kernel audit (``analysis/kernel_audit.py``)
+ - ``JX2*`` -- the static sanitizer (``analysis/sanitizer.py``)
+ - ``JX3*`` -- the independence pass (``analysis/independence.py``)
+ - ``JX4*`` -- the cost model's tensor-core candidates
+   (``analysis/costmodel.py``)
+
+The ``JX*`` passes walk the captured aten graph of ``analysis/graph.py``.
 """
 
 from __future__ import annotations
@@ -54,10 +60,10 @@ class AuditFinding:
 @dataclass
 class AuditReport:
     """All findings for one model, and ``metrics``: non-finding
-    diagnostics (the independence summary, ``metrics["independence"]``).
-    (The JAX report's metrics also hold the jaxpr passes' per-row FLOPs
-    and bytes and the sanitizer's summary; the port has no such pass
-    yet.)"""
+    diagnostics -- per-kernel FLOPs/bytes (``metrics["step_rows"]``,
+    ``["property_masks"]``), the sanitizer summary
+    (``metrics["sanitizer"]``), and where folded in, the independence and
+    cost-model summaries."""
 
     model: str = ""
     findings: list = field(default_factory=list)
@@ -73,13 +79,23 @@ class AuditReport:
         self.findings.append(AuditFinding(rule_id, severity, location, message))
 
     def extend(self, findings) -> None:
-        """Append findings, skipping exact duplicates (a cached pass
-        re-extending its findings adds nothing)."""
+        """Append findings, skipping exact duplicates: several passes and
+        cache re-extends fold into one report without repeating a
+        finding."""
         seen = set(self.findings)
         for f in findings:
             if f not in seen:
                 self.findings.append(f)
                 seen.add(f)
+
+    def merge(self, other: "AuditReport") -> "AuditReport":
+        """Fold another pass's report into this one: findings dedupe (see
+        :meth:`extend`), metrics merge without overwriting this report's
+        entries.  Returns self."""
+        self.extend(other.findings)
+        for k, v in other.metrics.items():
+            self.metrics.setdefault(k, v)
+        return self
 
     # -- queries -------------------------------------------------------------
 
@@ -119,7 +135,18 @@ class AuditReport:
             f"audit {self.model}: {len(self.errors)} error(s), "
             f"{len(self.warnings)} warning(s), {len(self.infos)} info"
         )
-        return "\n".join([head] + ["  " + f.format() for f in shown])
+        lines = [head] + ["  " + f.format() for f in shown]
+        if "step_rows" in self.metrics:
+            m = self.metrics["step_rows"]
+            lines.append(
+                "  perf: step_rows ~{flops:.0f} flops/row, "
+                "~{bytes:.0f} bytes/row, {eqns} operations".format(
+                    flops=m.get("flops_per_row", 0.0),
+                    bytes=m.get("bytes_per_row", 0.0),
+                    eqns=m.get("eqns", 0),
+                )
+            )
+        return "\n".join(lines)
 
 
 class AuditError(RuntimeError):

@@ -134,10 +134,11 @@ class CheckerBuilder:
         cartography: bool = False,
         memory: bool = False,
         memory_every: int = 32,
+        roofline: bool = False,
     ) -> "CheckerBuilder":
         """Attach a flight recorder to the spawned checker
         (``stateright_tpu_torch/telemetry/``; JAX ``checker/base.py:
-        103-228``, without ``roofline``).
+        103-228``).
 
         Every strategy then streams structured records into a bounded ring
         (``capacity`` records) exposed as ``checker.flight_recorder``: the
@@ -162,11 +163,21 @@ class CheckerBuilder:
         ``cartography=True`` folds the search-cartography counters into
         the device step (``ops/cartography.py``): the one option that adds
         device work, a few reductions a step riding the same stats read.
+        ``roofline=True`` attaches the roofline cost ledger
+        (``telemetry/roofline.py`` over ``analysis/costmodel.py``): each
+        stage's FLOPs and bytes (the twin's captured kernels walked, the
+        hand-written kernels' counts), the kernels' counts beside the walks
+        of their plain versions, memory- or compute-bound verdicts where
+        the card has a spec, and the JX4xx candidates.  Host-side only:
+        the step dispatches the same operations.  It surfaces as
+        ``checker.roofline()``, the run report's ``roofline`` block and
+        the ``costmodel`` verb.
 
         Telemetry off (the default) is exactly the engine without it: no
         recorder, and the step dispatches the same operations.  Flags
         implied earlier (``report()``, ``cartography()``,
-        ``memory_ledger()``) stay on when this is called again."""
+        ``memory_ledger()``, ``roofline()``) stay on when this is called
+        again."""
         if not enabled:
             self.telemetry_opts = None
             return self
@@ -182,6 +193,7 @@ class CheckerBuilder:
             "cartography": bool(cartography) or bool(prev.get("cartography")),
             "memory": bool(memory) or implied_mem,
             "memory_every": int(every if every is not None else memory_every),
+            "roofline": bool(roofline) or bool(prev.get("roofline")),
         }
         return self
 
@@ -206,6 +218,17 @@ class CheckerBuilder:
             self.telemetry()
         self.telemetry_opts["memory"] = True
         self.telemetry_opts.setdefault("memory_every", 32)
+        return self
+
+    def roofline(self, enabled: bool = True) -> "CheckerBuilder":
+        """Attach the roofline cost ledger (``telemetry/roofline.py``): a
+        ``.telemetry(roofline=True)`` shorthand that keeps an existing
+        telemetry config (JAX ``checker/base.py:256``)."""
+        if not enabled:
+            return self
+        if self.telemetry_opts is None:
+            self.telemetry()
+        self.telemetry_opts["roofline"] = True
         return self
 
     def report(self, path: str) -> "CheckerBuilder":
@@ -321,10 +344,10 @@ class CheckerBuilder:
     def audit(self, *, deep: bool = True):
         """Run the static auditor over the model and return its
         :class:`~stateright_tpu_torch.analysis.AuditReport`: the
-        actor-handler lint and the config-drift checks (the JAX audit's
-        jaxpr passes are not in the port; ``analysis/audit.py``).
-        ``deep=True`` adds the bounded closure-domain probe and the
-        fresh-twin drift re-resolve."""
+        actor-handler lint, the kernel audit, the static sanitizer and the
+        config-drift checks (``analysis/audit.py``).  ``deep=True`` adds
+        the bounded closure-domain probe, the second capture of
+        ``property_masks`` and the fresh-twin drift re-resolve."""
         from ..analysis import audit_model
 
         return audit_model(self.model, deep=deep)

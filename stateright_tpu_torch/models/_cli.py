@@ -32,7 +32,10 @@ rows per device step.  The other verbs and flags
 
 Every model takes ``audit`` (the static audit of its ``_audit_models``
 configurations, deep tier, exit 1 on an error finding; JAX
-``make_audit_cmd``), and 2pc and paxos take ``supervise`` (a supervised
+``make_audit_cmd``), ``sanitize`` (their static sanitizer, exit 1 on a
+JX2xx error; JAX ``make_sanitize_cmd``) and ``costmodel`` (their roofline
+cost ledger at batch 2,048, ``--out=F`` for the JSON blocks; JAX
+``make_costmodel_cmd``), and 2pc and paxos take ``supervise`` (a supervised
 GPU run: autosave, retry with backoff, resume; ``supervisor.py``, JAX
 ``_cli.py:1494-1584``; :func:`pop_supervise_opts` lists its flags).
 The models JAX gives an ``independence`` verb take it here too (the
@@ -41,8 +44,9 @@ the conflict matrix's summary and the JX3xx findings; JAX
 ``_cli.py:511-600``, :func:`make_independence_cmd`).
 ``python -m stateright_tpu_torch.models._cli`` is the fleet entry:
 ``status RUN_DIR`` (the progress heartbeat of a headless run, JAX
-``_cli.py:1810-1870``), ``audit [MODULE...]`` (every model's audit) and
-``independence [MODULE...]`` (every model's independence analysis)
+``_cli.py:1810-1870``), ``audit [MODULE...]`` (every model's audit),
+``independence [MODULE...]`` (every model's independence analysis),
+``sanitize [MODULE...]`` and ``costmodel [MODULE...]``.
 """
 
 from __future__ import annotations
@@ -454,7 +458,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     error."""
     has_gpu = any(sp in (gpu, sym_gpu) for _, sp in verbs.values())
     names = (list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
-             + ["audit"] + (["independence"] if independence else []))
+             + ["audit", "sanitize", "costmodel"]
+             + (["independence"] if independence else []))
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
              f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
@@ -476,6 +481,17 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     verb, rest = args[0], args[1:]
     if verb == "audit":
         return 0 if audit_and_report(audit(rest)) else 1
+    if verb == "sanitize":
+        ok, rules = sanitize_and_report(audit(rest))
+        if not ok:
+            print(f"sanitize: FAILED ({', '.join(rules)})")
+        return 0 if ok else 1
+    if verb == "costmodel":
+        out = opts.get("out")
+        if not costmodel_and_report(audit(rest), out=out):
+            print("costmodel: FAILED")
+            return 1
+        return 0
     if verb == "independence":
         return independence(rest, per_channel=per_channel)
     if verb in TELEMETRY_VERBS:
@@ -530,27 +546,181 @@ def audit_and_report(models, stream=None) -> bool:
     return ok
 
 
-def fleet_audit(names=None, stream=None) -> int:
-    """``audit [MODULE...]``: audit every model module of the port (or
-    just ``names``) through its ``_audit_models`` hook; 0 iff clean.  A
-    module without the hook fails the gate, so a new model cannot
-    silently shrink its coverage."""
+def _fleet(names, stream, each) -> bool:
+    """Run ``each(factory_models, stream) -> ok`` over every model module
+    (or just ``names``) through its ``_audit_models`` hook; a module
+    without the hook fails the gate."""
     import importlib
 
     from . import __all__ as all_names
 
-    stream = stream or sys.stdout
     ok = True
     for name in names or list(all_names):
         mod = importlib.import_module(f"stateright_tpu_torch.models.{name}")
         factory = getattr(mod, "_audit_models", None)
         if factory is None:
             print(f"--- {name}: FAILED: no _audit_models hook (add one so "
-                  "the fleet audit covers this model)", file=stream)
+                  "the fleet gate covers this model)", file=stream)
             ok = False
             continue
-        ok = audit_and_report(factory([]), stream=stream) and ok
+        ok = each(factory([]), stream) and ok
+    return ok
+
+
+def fleet_audit(names=None, stream=None) -> int:
+    """``audit [MODULE...]``: audit every model module of the port (or
+    just ``names``) through its ``_audit_models`` hook; 0 iff clean.  A
+    module without the hook fails the gate, so a new model cannot
+    silently shrink its coverage."""
+    stream = stream or sys.stdout
+    ok = _fleet(names, stream,
+                lambda models, st: audit_and_report(models, stream=st))
     print("audit fleet: " + ("CLEAN" if ok else "FAILED"), file=stream)
+    return 0 if ok else 1
+
+
+# -- the sanitize verbs (analysis/sanitizer.py; JAX _cli.py:422-511) -----------
+
+
+def sanitize_and_report(models: Iterable[tuple], stream=None,
+                        deep: bool = False) -> tuple:
+    """The static sanitizer's view over ``(label, model)`` pairs: one
+    summary line and the JX2xx findings each.  Returns ``(ok, rule_ids)``:
+    ``ok`` iff no error-severity JX2xx finding anywhere.  The light audit
+    tier suffices: the sanitizer runs in it."""
+    from ..analysis import Severity, audit_model
+
+    stream = stream or sys.stdout
+    ok, bad_rules = True, set()
+    for label, model in models:
+        report = audit_model(model, deep=deep)
+        summary = (report.metrics or {}).get("sanitizer")
+        findings = [f for f in report.findings if f.rule_id.startswith("JX2")]
+        errors = [f for f in findings if f.severity == Severity.ERROR]
+        print(f"--- {label}", file=stream)
+        if summary is None:
+            print("sanitize: no device twin for this configuration (host "
+                  "checkers unaffected)", file=stream)
+        else:
+            rules = ", ".join(summary.get("rules") or []) or "none"
+            print(f"sanitize: {summary['sites']} indexed site(s) -- "
+                  f"{summary['proved']} proved in range, "
+                  f"{summary['undecided']} undecided (checked-mode "
+                  f"candidates); rules fired: {rules}", file=stream)
+        for f in findings:
+            print("  " + f.format(), file=stream)
+        if errors:
+            ok = False
+            bad_rules.update(f.rule_id for f in errors)
+    return ok, tuple(sorted(bad_rules))
+
+
+def fleet_sanitize(names=None, stream=None) -> int:
+    """``sanitize [MODULE...]``: the static sanitizer over every model
+    module (JAX ``fleet_sanitize``); 0 iff no JX2xx error anywhere."""
+    stream = stream or sys.stdout
+    bad: set = set()
+
+    def each(models, stream):
+        ok, rules = sanitize_and_report(models, stream=stream)
+        bad.update(rules)
+        return ok
+
+    ok = _fleet(names, stream, each)
+    verdict = "CLEAN" if ok else f"FAILED ({', '.join(sorted(bad))})"
+    print(f"sanitize fleet: {verdict}", file=stream)
+    return 0 if ok else 1
+
+
+# -- the costmodel verbs (analysis/costmodel.py; JAX _cli.py:797-953) ----------
+
+# the capacities the verb prices a step at (JAX _COSTMODEL_CAP/_BATCH)
+COSTMODEL_CAP = 1 << 16
+COSTMODEL_BATCH = 2048
+
+
+def costmodel_and_report(models: Iterable[tuple], stream=None,
+                         out=None) -> bool:
+    """The roofline cost ledger over ``(label, model)`` pairs: per-stage
+    FLOPs/bytes with op classes and intensity, verdicts where the card
+    has a spec, the kernels' counts beside their plain walks, and the
+    JX4xx findings.  ``out`` collects the blocks into a JSON file.  True
+    iff every twin-bearing configuration gave a well-formed ledger whose
+    kernels reconcile (twin-less models are named and skipped)."""
+    import json
+
+    from ..analysis.costmodel import wavefront_costs
+    from ..parallel.tensor_model import twin_or_none
+    from ..telemetry.memory import fmt_bytes
+    from ..telemetry.roofline import classify_stages, device_spec
+
+    stream = stream or sys.stdout
+    spec = device_spec()
+    ok = True
+    blocks = []
+    for label, model in models:
+        print(f"--- {label}", file=stream)
+        twin = twin_or_none(model)
+        if twin is None:
+            print("costmodel: no device twin for this configuration (host "
+                  "checkers have no device pipeline)", file=stream)
+            continue
+        try:
+            rep = wavefront_costs(twin, COSTMODEL_CAP, COSTMODEL_CAP // 2,
+                                  COSTMODEL_BATCH)
+        except Exception as e:  # noqa: BLE001 - a verdict, not a crash
+            ok = False
+            print(f"costmodel: ledger failed: {type(e).__name__}: {e}",
+                  file=stream)
+            continue
+        if rep is None:
+            ok = False
+            print("costmodel: twin kernels did not capture (see the kernel "
+                  "audit)", file=stream)
+            continue
+        static, recon = rep.static_block(), rep.recon_block()
+        verdicts = classify_stages(static, spec)
+        print(f"costmodel: {len(static['stages'])} stage(s), "
+              f"{static['totals']['flops']:,} FLOPs / "
+              f"{fmt_bytes(static['totals']['bytes'])} per step (batch "
+              f"{static['batch']}); kernel reconciliation: "
+              + ("ok" if recon["ok"] else "FAILED"), file=stream)
+        for name, st in static["stages"].items():
+            v = verdicts.get(name, {})
+            extra = (f" -- {v['verdict']}"
+                     if v.get("verdict") not in (None, "unknown") else "")
+            print(f"  {name:>13}: {st['flops']:>12,} FLOPs  "
+                  f"{fmt_bytes(st['bytes_read'] + st['bytes_written']):>9}  "
+                  f"AI={st.get('intensity', '-')}" + extra, file=stream)
+        for f in rep.findings:
+            print("  " + f.format(), file=stream)
+        if not recon["ok"]:
+            ok = False
+            for stage, ks in recon["stages"].items():
+                for k, v in ks.items():
+                    if not v.get("ok"):
+                        print(f"  RECONCILE {stage}/{k}: "
+                              f"{v.get('bytes_ratio', v.get('problem'))}",
+                              file=stream)
+        blocks.append({"label": label, **static, "reconciliation": recon,
+                       **({"device_spec": spec} if spec else {}),
+                       "verdicts": verdicts})
+    if out:
+        with open(out, "w") as f:
+            json.dump({"v": blocks[0]["v"] if blocks else 1,
+                       "configs": blocks}, f, indent=1)
+            f.write("\n")
+    return ok
+
+
+def fleet_costmodel(names=None, stream=None) -> int:
+    """``costmodel [MODULE...]``: the cost ledger over every model module
+    (JAX ``fleet_costmodel``); 0 iff every twin-bearing configuration
+    gave a well-formed, reconciling ledger."""
+    stream = stream or sys.stdout
+    ok = _fleet(names, stream,
+                lambda models, st: costmodel_and_report(models, stream=st))
+    print("costmodel fleet: " + ("OK" if ok else "FAILED"), file=stream)
     return 0 if ok else 1
 
 
@@ -631,23 +801,15 @@ def fleet_independence(names=None, stream=None) -> int:
     of the port (or just ``names``) through its ``_audit_models`` hook; 0
     iff every model gives a well-formed matrix and no error finding.  A
     module without the hook fails the gate, as in :func:`fleet_audit`."""
-    import importlib
-
-    from . import __all__ as all_names
-
     stream = stream or sys.stdout
-    ok, bad = True, set()
-    for name in names or list(all_names):
-        mod = importlib.import_module(f"stateright_tpu_torch.models.{name}")
-        factory = getattr(mod, "_audit_models", None)
-        if factory is None:
-            print(f"--- {name}: FAILED: no _audit_models hook (add one so "
-                  "the fleet gate covers this model)", file=stream)
-            ok = False
-            continue
-        mok, rules = independence_and_report(factory([]), stream=stream)
-        ok = ok and mok
+    bad: set = set()
+
+    def each(models, stream):
+        ok, rules = independence_and_report(models, stream=stream)
         bad.update(rules)
+        return ok
+
+    ok = _fleet(names, stream, each)
     verdict = "CLEAN" if ok else (
         f"FAILED ({', '.join(sorted(bad)) or 'matrix'})")
     print(f"independence fleet: {verdict}", file=stream)
@@ -788,7 +950,8 @@ def fleet_status(argv=None, stream=None) -> int:
 
 def main(argv=None) -> int:
     """``python -m stateright_tpu_torch.models._cli status RUN_DIR |
-    audit [MODULE...] | independence [MODULE...]``."""
+    audit [MODULE...] | independence [MODULE...] | sanitize [MODULE...] |
+    costmodel [MODULE...]``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "status":
         return fleet_status(argv[1:])
@@ -796,13 +959,21 @@ def main(argv=None) -> int:
         return fleet_audit(argv[1:])
     if argv and argv[0] == "independence":
         return fleet_independence(argv[1:])
+    if argv and argv[0] == "sanitize":
+        return fleet_sanitize(argv[1:])
+    if argv and argv[0] == "costmodel":
+        return fleet_costmodel(argv[1:])
     print("usage: python -m stateright_tpu_torch.models._cli\n"
           "  status RUN_DIR     the progress heartbeat of a headless run "
           "(DEAD when a running one went stale)\n"
           "  audit [MODULE...]  the static audit of every model (exit 1 "
           "on an error finding)\n"
           "  independence [MODULE...]  the independence analysis of every "
-          "model (exit 1 on a malformed matrix or an error finding)",
+          "model (exit 1 on a malformed matrix or an error finding)\n"
+          "  sanitize [MODULE...]  the static sanitizer over every model "
+          "(exit 1 on a JX2xx error)\n"
+          "  costmodel [MODULE...]  the roofline cost ledger of every model "
+          "(exit 1 on a malformed or non-reconciling ledger)",
           file=sys.stderr)
     return 2
 

@@ -278,6 +278,22 @@ class WavefrontChecker(Checker):
                 recorder=self.flight_recorder,
                 every=int(opts.get("memory_every") or 0),
             )
+        # the roofline cost ledger (telemetry/roofline.py over
+        # analysis/costmodel.py): host-side analysis of the captured
+        # kernels and the kernels' counts, built here at spawn so the
+        # snapshot exists before the first poll; the step dispatches the
+        # same operations either way
+        self._roofline_ledger = None
+        if self.flight_recorder is not None and opts.get("roofline"):
+            from ..telemetry.roofline import RooflineLedger
+
+            try:
+                self._roofline_ledger = RooflineLedger(
+                    self._telemetry_tag, self._roofline_cost_fn(),
+                    recorder=self.flight_recorder,
+                    device=getattr(self, "device", None))
+            except Exception:  # noqa: BLE001 - accounting never breaks
+                self._roofline_ledger = None  # a run
         self._preflight_capacity_guard()
         self._profiler = None
         if self.flight_recorder is not None and opts.get("profile_steps"):
@@ -386,6 +402,28 @@ class WavefrontChecker(Checker):
         if transferred:
             rec.add_bytes(d2h=table_fp.nbytes)
         rec.record("occupancy", at=at, **occupancy_stats(table_fp))
+
+    def _roofline_cost_fn(self):  # engine-specific
+        """``() -> CostReport | None``, the engine's cost model at its
+        capacities."""
+        raise NotImplementedError
+
+    def roofline(self, live: bool = True) -> Optional[dict]:
+        """The roofline ledger's block (``telemetry/roofline.py``; JAX
+        ``parallel/_base.py:478``), or None without
+        ``.telemetry(roofline=True)`` (or when a kernel did not capture).
+        ``live=False`` is the deterministic static block the run report
+        embeds; the default adds the reconciliation, the card's spec and
+        verdicts and, once the recorder attributes device seconds, the
+        achieved share."""
+        led = getattr(self, "_roofline_ledger", None)
+        if led is None or not led.ok:
+            return None
+        if not live:
+            return led.static_block()
+        rec = self.flight_recorder
+        stages = rec.stages() if rec is not None else None
+        return led.live_block(stages, self.unique_state_count())
 
     def memory(self, live: bool = True) -> Optional[dict]:
         """Latest memory-ledger snapshot (``telemetry/memory.py``), or None

@@ -10,8 +10,9 @@ rows; the device half is plain PyTorch on int64 bit patterns
 network packings are here: the global slot multiset and the per-channel layout
 (``per_channel``), and the mechanical symmetry of the general fragment
 (``representative_rows``/``representative_key``, built on demand), and
-the ``OrderedReliableLink`` hint of the cap errors (:func:`_orl_hint`).
-What waits: ``row_domain``.
+the ``OrderedReliableLink`` hint of the cap errors (:func:`_orl_hint`),
+and the declared value bounds the static sanitizer seeds from
+(:meth:`CompiledActorTensor.row_domain`).
 
 It compiles Python actor handlers into table-driven ``step_rows`` for two
 fragments (reference transition semantics: ``src/actor/model.rs:187-306``):
@@ -1395,6 +1396,37 @@ class CompiledActorTensor(TensorModel):
         if self.ordered:
             return slot_send_ordered(slots, code, cst["env_pair"], enable)
         return slot_send(slots, code, enable, set_semantics=self.dup)
+
+    def row_domain(self):
+        """Declared value bounds for the static sanitizer
+        (``analysis/sanitizer.py``; JAX ``actor_compiler.py:1421``).
+
+        The compiled row's fields are bound by their UNIVERSES, not their
+        bit widths: ``a{i}`` holds a state code ``< len(states[i])``, and
+        each network slot word is either ``EMPTY`` or ``code << COUNT_BITS
+        | count`` with ``code`` below the envelope count (per channel: the
+        channel's own largest code).  That is what lets the interval pass
+        prove every ``trans[sc * ne + ecode]`` table gather in range."""
+        from .tensor_model import RowDomain
+
+        bounds = {
+            f"a{i}": max(0, len(self._states[i]) - 1)
+            for i in range(self.n_actors)
+        }
+        dom = RowDomain.from_packer(self.pk, field_bounds=bounds,
+                                    width=self.width)
+        if self.per_channel:
+            for ci, codes in enumerate(self._ch_codes):
+                hi = (int(codes.max()) << COUNT_BITS) | COUNT_MASK
+                base = self.pw + self._ch_base[ci]
+                for w in range(base, base + self._ch_cap[ci]):
+                    dom.declare_word(w, hi, may_empty=True)
+            return dom
+        max_code = max(0, len(self._envs) - 1)
+        slot_hi = (max_code << COUNT_BITS) | COUNT_MASK
+        for w in range(self.pw, self.width):
+            dom.declare_word(w, slot_hi, may_empty=True)
+        return dom
 
     def step_rows(self, rows: torch.Tensor):
         """``int64[B, W] -> (int64[B, A, W], bool[B, A])`` under the active

@@ -132,6 +132,106 @@ class TensorBackedModel:
         return tm
 
 
+class RowDomain:
+    """Declared value bounds for a tensor row encoding: the seed of the
+    sanitizer's interval pass (``analysis/interval.py``); the port's copy
+    of ``stateright_tpu/parallel/tensor_model.py:145-230``.
+
+    A twin that defines ``row_domain() -> RowDomain`` tells the static
+    sanitizer what each row word (and each packed field) can hold; without
+    it the pass falls back to field *widths* discovered from a
+    :class:`BitPacker` attribute, which is correct but looser (a 3-bit
+    field bounding 5 state codes proves ``< 8``, not ``< 5``).  Sentinel
+    words (``EMPTY``-when-free network slots) declare ``may_empty`` so the
+    domain is ``[0, hi] ∪ {EMPTY}`` rather than collapsing to top.  Bounds
+    are unsigned, as in JAX: ``EMPTY`` is held as 2^64 - 1, and
+    :meth:`words_ival` gives the int64 bit patterns the port's kernels see
+    (``EMPTY`` is -1 there) with ``signed=True``.
+    """
+
+    _EMPTY = (1 << 64) - 1
+
+    def __init__(self, width: int):
+        self.width = int(width)
+        # per word: (hi, may_empty); None = top (nothing declared)
+        self._words: list = [None] * self.width
+        # (word, off, bits) -> hi for packed-field refinement
+        self._fields: dict = {}
+
+    def declare_word(self, word: int, hi: int,
+                     may_empty: bool = False) -> "RowDomain":
+        self._words[word] = (int(hi), bool(may_empty))
+        return self
+
+    def declare_field(self, word: int, off: int, bits: int,
+                      hi: int) -> "RowDomain":
+        """Bound bits ``[off, off+bits)`` of ``word`` to ``[0, hi]``
+        (tighter than the field width when the domain doesn't fill it)."""
+        self._fields[(int(word), int(off), int(bits))] = int(hi)
+        return self
+
+    @classmethod
+    def from_packer(cls, packer: "BitPacker",
+                    field_bounds: Optional[dict] = None,
+                    width: Optional[int] = None) -> "RowDomain":
+        """Word + field bounds from a :class:`BitPacker` layout; optional
+        ``field_bounds`` (name -> hi) tighten individual fields below
+        their width.  ``width`` over-allocates for rows with a non-packed
+        tail (network slot words), which stays undeclared (top) until
+        ``declare_word``."""
+        dom = cls(width or packer.width)
+        word_hi = [0] * packer.width
+        for name, (word, off, bits) in packer.layout.items():
+            hi = (1 << bits) - 1
+            if field_bounds and name in field_bounds:
+                hi = min(hi, int(field_bounds[name]))
+            dom.declare_field(word, off, bits, hi)
+            word_hi[word] |= hi << off
+        for w, hi in enumerate(word_hi):
+            dom.declare_word(w, hi)
+        return dom
+
+    # -- interpreter-facing --------------------------------------------------
+
+    def field_hi(self, word: int, off: int, bits: int) -> Optional[int]:
+        return self._fields.get((int(word), int(off), int(bits)))
+
+    def words_ival(self, start: int, limit: int, signed: bool = False):
+        """IVal covering words ``[start, limit)`` (a last-axis slice of the
+        input rows): join of the declared word bounds, with the EMPTY
+        sentinel carried as an exact outlier; single-word slices keep field
+        provenance.  ``signed``: as the int64 bit patterns (a bound at or
+        above 2^63 is the int64 hull, ``EMPTY`` the point -1)."""
+        from dataclasses import replace
+
+        from ..analysis.interval import IVal
+
+        top = (IVal(-(1 << 63), (1 << 63) - 1) if signed
+               else IVal(0, self._EMPTY))
+        his, empty = [], False
+        for w in range(start, min(limit, self.width)):
+            decl = self._words[w]
+            if decl is None:
+                return top  # an undeclared word: top
+            hi, me = decl
+            his.append(hi)
+            empty = empty or me
+        if not his:
+            return top
+        hi = max(his)
+        if signed and hi >= 1 << 63:
+            return top
+        sentinel = -1 if signed else self._EMPTY
+        out = IVal(
+            0, hi,
+            frozenset({sentinel}) if empty and hi < self._EMPTY
+            else frozenset(),
+        )
+        if limit - start == 1:
+            out = replace(out, word=start, shift=0)
+        return out
+
+
 class FieldWriter:
     """Packed-field write accumulator over a :class:`BitPacker` block: the
     JAX writer's coalesced mode

@@ -996,6 +996,20 @@ class GpuChecker(WavefrontChecker):
             spill=self._spill_cfg if self._spill else None, por=self._por,
         )
 
+    def _roofline_cost_fn(self):
+        """The cost model at THIS engine's spawn capacities
+        (``analysis/costmodel.wavefront_costs``, cached on the twin): the
+        roofline ledger's source (JAX wavefront.py:1131)."""
+        from ..analysis.costmodel import wavefront_costs
+
+        tensor, cap, qcap = self.tensor, self._cap, self._qcap
+        batch, cand, sym = self._batch, self._cand, self._symmetry is not None
+
+        def cost_fn():
+            return wavefront_costs(tensor, cap, qcap, batch, cand, sym=sym)
+
+        return cost_fn
+
     def _memory_caps(self, cap=None, qcap=None, batch=None, cand=None) -> dict:
         batch = self._batch if batch is None else batch
         return {

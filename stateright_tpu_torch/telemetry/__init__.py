@@ -4,10 +4,11 @@ The port's counterpart of ``stateright_tpu/telemetry/``: its own copy of
 every host-only module (the port imports nothing of the JAX package), and
 the two device-facing ones rebuilt on PyTorch: the memory ledger
 (``memory.py``: the GPU engine's carry AND its kernels' resident scratch,
-``torch.cuda.memory_stats``) and the scoped profiler (``profile.py``:
-``torch.profiler``).  Left for later items: ``roofline.py`` (with the cost
-model), the fleet's and the Explorer's metric consumers, and the sharded
-engine's extras.
+``torch.cuda.memory_stats``), the scoped profiler (``profile.py``:
+``torch.profiler``) and the roofline view (``roofline.py``: the cost
+model's stages against the card's spec, matched on its name).  Left for
+later items: the fleet's and the Explorer's metric consumers, and the
+sharded engine's extras.
 
 Pieces:
 

@@ -2,7 +2,9 @@
 families, rendered in Prometheus text exposition for ``GET /metrics``.
 
 The port's own copy of ``stateright_tpu/telemetry/metrics.py``, with the
-engine families; the fleet's families and the Explorer's ``/metrics``
+engine families and the roofline block (:func:`roofline_families`: each
+stage's static FLOPs, bytes and intensity, published off the roofline
+ledger's ``roofline`` record); the fleet's families and the Explorer's ``/metrics``
 endpoint come with the ROADMAP item "the service layers".
 
 The bus is the LIVE aggregation layer over telemetry the engines already
@@ -361,5 +363,31 @@ def engine_families(bus: MetricsBus) -> dict:
             "stateright_shard_imbalance",
             "mesh per-shard load imbalance (max/mean)",
             ENGINE_LABELS,
+        ),
+    }
+
+
+ROOFLINE_LABELS = ENGINE_LABELS + ("stage",)
+
+
+def roofline_families(bus: MetricsBus) -> dict:
+    """The roofline block: the cost model's per-stage static counts for
+    one step (``telemetry/roofline.py``), published once at spawn off
+    the ``roofline`` record."""
+    return {
+        "flops": bus.gauge(
+            "stateright_roofline_stage_flops",
+            "static FLOPs per step of one pipeline stage",
+            ROOFLINE_LABELS,
+        ),
+        "bytes": bus.gauge(
+            "stateright_roofline_stage_bytes",
+            "static bytes moved per step by one pipeline stage",
+            ROOFLINE_LABELS,
+        ),
+        "intensity": bus.gauge(
+            "stateright_roofline_stage_intensity",
+            "static arithmetic intensity (FLOPs per byte) of one stage",
+            ROOFLINE_LABELS,
         ),
     }

@@ -2,7 +2,7 @@
 
 The port's own copy of ``stateright_tpu/telemetry/recorder.py``.  The
 schema keeps every record kind and feature block of the JAX package (the
-``sweep``/``fleet``/``roofline`` producers are not ported yet), so a JSONL
+``sweep``/``fleet`` producers are not ported yet), so a JSONL
 written by either package reads in the other.
 
 Record schema (every record):
@@ -181,10 +181,25 @@ class FlightRecorder:
     def _publish_record_unlocked(self, kind: str, rec: dict) -> None:
         """Non-step families sampled off ring records that already
         happen: occupancy gauges off ``occupancy`` records, the mesh
-        shard-imbalance gauge off ``mesh`` records (docs/mesh.md)."""
-        if self._bus is None or kind not in ("occupancy", "mesh"):
+        shard-imbalance gauge off ``mesh`` records (docs/mesh.md), the
+        roofline block off the ``roofline`` record."""
+        if self._bus is None or kind not in ("occupancy", "mesh",
+                                             "roofline"):
             return
         try:
+            if kind == "roofline":
+                from .metrics import roofline_families
+
+                rf = roofline_families(self._bus)
+                labels = self._engine_labels(rec.get("engine"))
+                for stage, v in (rec.get("stages") or {}).items():
+                    fl, by = int(v.get("flops", 0)), int(v.get("bytes", 0))
+                    rf["flops"].set(fl, stage=stage, **labels)
+                    rf["bytes"].set(by, stage=stage, **labels)
+                    if by:
+                        rf["intensity"].set(round(fl / by, 6), stage=stage,
+                                            **labels)
+                return
             fam = self._engine_fams()
             labels = self._engine_labels()
             if kind == "occupancy" and rec.get("load_factor") is not None:

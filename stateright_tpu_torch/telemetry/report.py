@@ -6,9 +6,11 @@ differences: :func:`build_config` names the device from the checker's own
 ``"cpu"`` otherwise) and never imports ``jax``; and the port's GPU engine
 reports itself as ``gpu-wavefront`` (:func:`engine_tag`), so a JAX report
 and a port report of the same instance share a ``config_key`` apart from
-the engine and device aspects.  The ``audit``/``sanitizer`` blocks wait
-for the port's static analysis, and the ``roofline`` block for its cost
-model.
+the engine and device aspects.  The ``roofline`` block is the cost
+model's static block (``analysis/costmodel.py``: walks of the captured
+kernels and the hand-written kernels' counts), and the ``audit`` and
+``sanitizer`` blocks summarize ``model._audit_report``, which the
+``spawn_gpu`` preflight leaves (JAX report.py:274-284, :337-351).
 
 ``write_report(checker, path)`` renders one completed check into a JSON
 document at ``path`` plus a sibling markdown rendering (``path`` with the
@@ -323,6 +325,16 @@ def build_report(checker) -> dict:
         mem = mem_fn(live=False)
         if mem is not None:
             out["memory"] = mem
+    # roofline cost ledger (telemetry/roofline.py): the DETERMINISTIC
+    # static block only -- per-stage FLOPs/bytes, op classes, per-action
+    # attribution, the tensor-core candidates.  The kernels' counts beside
+    # their plain walks, the card's spec and the achieved share stay out of
+    # the JSON body; the markdown carries the latter two
+    roof_fn = getattr(checker, "roofline", None)
+    if callable(roof_fn):
+        roof = roof_fn(live=False)
+        if roof is not None:
+            out["roofline"] = roof
     # partial-order reduction (JAX report.py:285-293): the network
     # encoding, the fallback reason when reduction is off, and the
     # reduced-vs-full tallies, count-derived for a fixed model and
@@ -375,6 +387,22 @@ def build_report(checker) -> dict:
         out["final_phase"] = (
             "done" if done else rec.health().get("phase")
         )
+    audit = getattr(model, "_audit_report", None)
+    if audit is not None:
+        out["audit"] = {
+            "ok": audit.ok,
+            "errors": len(audit.errors),
+            "warnings": len(audit.warnings),
+            "rules": sorted({f.rule_id for f in audit.findings}),
+        }
+        sanitizer = (audit.metrics or {}).get("sanitizer")
+        if sanitizer is not None:
+            out["sanitizer"] = {
+                k: sanitizer.get(k)
+                for k in ("sites", "proved", "undecided", "rules")
+            }
+            out["sanitizer"]["checked_run"] = bool(
+                getattr(checker, "_checked", False))
     return out
 
 
@@ -392,11 +420,13 @@ def _hist_lines(values, label_of) -> list:
     ]
 
 
-def render_markdown(report: dict, rec=None) -> str:
+def render_markdown(report: dict, rec=None, roofline_live=None) -> str:
     """Human rendering of a report body.  ``rec`` (the run's live
     FlightRecorder) adds the WALL-CLOCK section — stage attribution,
     throughput and the live device memory — which is deliberately absent
-    from the JSON body (it varies run to run)."""
+    from the JSON body (it varies run to run).  ``roofline_live``
+    (``checker.roofline()``'s default view) adds the card's spec, the
+    stage verdicts and the achieved estimate."""
     t = report.get("totals", {})
     lines = [
         f"# Run report — {report.get('model')} ({report.get('engine')})",
@@ -467,6 +497,31 @@ def render_markdown(report: dict, rec=None) -> str:
                 "- largest buffers: "
                 + ", ".join(f"{k}={fmt_bytes(v)}" for k, v in top)
             )
+    roof = report.get("roofline")
+    if roof:
+        from .memory import fmt_bytes
+
+        lines += ["", "## Roofline (static cost model)", ""]
+        lines.append(
+            f"- per-step analytic totals: **{roof['totals'].get('flops'):,}"
+            f" FLOPs**, **{fmt_bytes(roof['totals'].get('bytes'))} moved**"
+            + (f" (intensity {roof['totals']['intensity']} FLOPs/byte)"
+               if roof["totals"].get("intensity") is not None else ""))
+        lines += ["", "| stage | FLOPs | bytes | intensity | top class |",
+                  "|---|---|---|---|---|"]
+        for name, st in (roof.get("stages") or {}).items():
+            classes = st.get("classes") or {}
+            top = max(classes, key=lambda k: classes[k]["bytes"],
+                      default="-") if classes else "-"
+            lines.append(
+                f"| {name} | {st.get('flops'):,} | "
+                f"{fmt_bytes(st.get('bytes_read', 0) + st.get('bytes_written', 0))}"
+                f" | {st.get('intensity', '-')} | {top} |")
+        for c in (roof.get("mxu_candidates") or [])[:4]:
+            lines.append(
+                f"- tensor-core candidate #{c['rank']}: `{c['op']}` in "
+                f"`{c['stage']}` moving {fmt_bytes(c['bytes'])}/step "
+                f"({c['rule']})")
     por = report.get("por")
     if por:
         lines += ["", "## Partial-order reduction", ""]
@@ -588,6 +643,20 @@ def render_markdown(report: dict, rec=None) -> str:
                 f"- `{g.get('status')}` at unique={g.get('unique')} "
                 f"({caps})"
             )
+    audit = report.get("audit")
+    if audit:
+        lines += ["", "## Audit / sanitizer", "",
+                  f"- audit: {'CLEAN' if audit['ok'] else 'ERRORS'} "
+                  f"({audit['errors']} error(s), {audit['warnings']} "
+                  f"warning(s); rules: "
+                  f"{', '.join(audit['rules']) or 'none'})"]
+        san = report.get("sanitizer")
+        if san:
+            lines.append(
+                f"- sanitizer: {san.get('sites')} indexed site(s), "
+                f"{san.get('proved')} proved in range, "
+                f"{san.get('undecided')} undecided; checked run: "
+                f"{san.get('checked_run')}")
     if rec is not None:
         # everything below varies run to run — markdown only, never JSON
         lines += ["", "## Wall clock (non-deterministic)", ""]
@@ -602,6 +671,33 @@ def render_markdown(report: dict, rec=None) -> str:
         if stages:
             for k, v in stages.items():
                 lines.append(f"- {k}: {v}")
+        # the roofline's wall-clock half (telemetry/roofline.py): the
+        # card's spec, per-stage verdicts and the achieved estimate
+        roofl = roofline_live or (
+            rec.roofline() if hasattr(rec, "roofline") else None)
+        if roofl:
+            spec = roofl.get("device_spec")
+            if spec:
+                lines.append(
+                    f"- roofline device spec: {spec.get('name')} "
+                    f"(tensor-core peak {spec.get('mxu_peak'):.3g} FLOP/s, "
+                    f"CUDA-core peak {spec.get('vpu_peak'):.3g} FLOP/s, "
+                    f"memory {spec.get('hbm_bytes_per_sec'):.3g} B/s; "
+                    f"{spec.get('src')})")
+            verdicts = roofl.get("verdicts") or {}
+            bound = [f"{k}={v['verdict']}" for k, v in verdicts.items()
+                     if v.get("verdict") != "unknown"]
+            if bound:
+                lines.append("- stage roofline verdicts: " + ", ".join(bound))
+            ach = roofl.get("achieved")
+            if ach:
+                bits = [f"{ach['bytes_per_sec']:.3g} B/s",
+                        f"{ach['flops_per_sec']:.3g} FLOP/s"]
+                if ach.get("frac_of_hbm_ceiling") is not None:
+                    bits.append(f"{100 * ach['frac_of_hbm_ceiling']:.2f}% of "
+                                "the memory ceiling")
+                lines.append("- achieved (est., device time): "
+                             + ", ".join(bits))
         live = rec.memory()
         if live and (live.get("device") or live.get("budget_bytes")):
             from .memory import fmt_bytes
@@ -669,6 +765,8 @@ def write_report(checker, path: str) -> dict:
     atomic_write_json(path, doc)
     md_path = os.path.splitext(path)[0] + ".md"
     rec = getattr(checker, "flight_recorder", None)
+    roof_fn = getattr(checker, "roofline", None)
+    roofline_live = roof_fn() if callable(roof_fn) else None
     # the live durability view (generation counts, checkpoint age) rides
     # the markdown like the rest of the wall-clock data
     md_body = dict(body)
@@ -679,6 +777,6 @@ def write_report(checker, path: str) -> dict:
             md_body["durability"] = live_dur
     atomic_write_text(
         md_path,
-        render_markdown(md_body, rec=rec),
+        render_markdown(md_body, rec=rec, roofline_live=roofline_live),
     )
     return body

@@ -15,8 +15,9 @@ counterparts of ``tests/test_analysis.py:305-560``), tolerance 0:
    ``STATERIGHT_TPU_SKIP_AUDIT=1`` turn it off;
  - the ``audit`` verbs.
 
-The JAX audit's jaxpr passes (``JX*``) have no port counterpart yet;
-their findings are left out of every comparison."""
+The kernel passes' findings (``JX*``) are compared in
+``test_torch_kernel_audit.py`` and ``test_torch_sanitizer_static.py``;
+here they are left out of every comparison."""
 
 import random  # noqa: F401 - referenced by a linted handler below
 import time  # noqa: F401 - referenced by a linted handler below

@@ -118,12 +118,13 @@ def test_unchecked_oob_twin_raises_index_error_on_the_cpu():
     """The recorded difference from the JAX package: without
     ``.checked()`` the port adds no clamp, so the twin's out-of-range
     gather raises torch's ``IndexError`` (JAX clamps and ends silently at
-    5 of 8 states)."""
+    5 of 8 states).  Both runs skip the preflight, which refuses the twin
+    (JX201) in both packages."""
     j = JaxOOBModel().checker().skip_audit().spawn_tpu(
         sync=True, batch=8, capacity=1 << 10)
     assert j.unique_state_count() == 5
-    c = OOBModel().checker().spawn_gpu(device="cpu", batch=8,
-                                       capacity=1 << 10)
+    c = OOBModel().checker().skip_audit().spawn_gpu(device="cpu", batch=8,
+                                                    capacity=1 << 10)
     with pytest.raises(IndexError, match="out of bounds"):
         c.join()
 

@@ -341,8 +341,8 @@ ISOLATION_CASES = {
         "    device='cpu', batch=64).join()\n"
         "assert c.unique_state_count() == 288, c.unique_state_count()\n"
         "try:\n"
-        "    OOBModel().checker().checked().spawn_gpu(device='cpu',\n"
-        "                                             batch=8).join()\n"
+        "    OOBModel().checker().skip_audit().checked().spawn_gpu(\n"
+        "        device='cpu', batch=8).join()\n"
         "    raise SystemExit('no error')\n"
         "except CheckedExecutionError as e:\n"
         "    assert e.state == 4, e\n"

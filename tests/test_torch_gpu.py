@@ -770,13 +770,14 @@ def test_checked_oob_twin_raises_and_the_context_survives(cuda):
     """The out-of-range twin under ``.checked()`` on the card raises
     ``CheckedExecutionError`` naming state 4: the guard clamped the gather,
     so no device-side assert fired, and a 2pc-3 run on the card afterwards
-    still gives 288."""
+    still gives 288.  ``skip_audit()``: the preflight would refuse the
+    twin (JX201) before the run."""
     from test_torch_oob_twin import OOBModel
 
     from stateright_tpu_torch.analysis import CheckedExecutionError
 
     with pytest.raises(CheckedExecutionError) as exc:
-        OOBModel().checker().checked().spawn_gpu(
+        OOBModel().checker().skip_audit().checked().spawn_gpu(
             device=cuda, batch=8, capacity=1 << 10).join()
     assert exc.value.state == 4 and "out-of-bounds" in str(exc.value)
     torch.cuda.synchronize(cuda)
