@@ -112,9 +112,9 @@ after the plain paxos legs:
    1,194,428 unique, 2,420,477 states and the plain leg's discoveries,
    with the share of valid lanes the pre-dedup took out and the launches
    per step;
- - paxos-2 and per-channel paxos-2 (``capacity=1 << 16``, ``batch=512``)
-   under the flag on ``cuda`` and ``cpu``: identical table bytes and
-   queue rows ``[0, tail)``;
+ - paxos-2 complete and per-channel paxos-2 (``capacity=1 << 16``,
+   ``batch=512``) bounded at 4,000 unique, under the flag on ``cuda`` and
+   ``cpu``: identical table bytes and queue rows ``[0, tail)``;
  - 2pc-7 under ``.symmetry().prededup()`` on ``cuda`` and ``cpu``: 2,326 /
    19,758, identical likewise;
  - the paxos-3 kernel cell's batch again as a prededup step gives it
@@ -288,8 +288,31 @@ with its process, ``at_audit`` and ``at_preflight_oob`` (all 0); and
 the POR legs' under
 ``at_por_pc_paxos2``, ``at_por_2pc7`` and ``at_por_pc_paxos1``, with the
 proviso round's cells for ``cand_prep``, ``bucket_plan`` and
-``insert_commit`` under ``at_por_proviso``)
-and the last line is ``{"ok": true, "device": {...}}``.  Everything printed is
+``insert_commit`` under ``at_por_proviso``, and the sweep legs' under
+``at_sweep_2pc7_seeds``, ``at_sweep_paxos_family`` and ``at_sweep_lifted``;
+then two more entries, ``cand_prep_namespace`` and ``insert_commit_tags``,
+the sweep's kernel modes, with the 2pc-7 seed sweep's launches)
+and the last line is ``{"ok": true, "device": {...}}``.
+
+The sweep legs (``stateright_tpu_torch/sweep/``; each leg's launch counts
+reset just before it and read just after), last:
+
+ - ``sweep_2pc7_seeds``: ``TwoPhaseSys(7)`` under 8 table seeds in one
+   table (``.sweep(spec).spawn_gpu()``, batch 16,384, a 2^24-slot table):
+   2,371,584 unique, every member at the plain 2pc-7 leg's unique and
+   state counts and discovery names, every member's traces replayed
+   through the object model; the wall against 8 times the plain leg's,
+   operations a step over the first 8 steps, growth events, peak memory;
+   ``cand_prep``'s namespace mode and ``insert_commit``'s tag column
+   against their plain versions on its first inserting batch;
+ - ``sweep_paxos_family``: ``python -m stateright_tpu_torch.models.paxos
+   sweep 8`` on ``cuda`` (8 instances over 2 cohorts, at 265 / 482 / 13
+   and 2,378 / 8,197 / 14), and ``sweep_family(4)`` on ``cuda`` and
+   ``cpu`` with equal tables, queue rows and instance tags;
+ - ``sweep_lifted``: the bounded-counter cohort, bounds 1-8, on ``cuda``
+   and ``cpu``: one unified cohort, ``(b + 1)^2`` unique and depth ``2b``
+   per member, equal tables, and the ``vmap`` fallback warnings the lifted
+   cohort raised on ``cuda``.  Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -417,6 +440,10 @@ P1_PER_CHANNEL_POR = (250, 437)
 POR = ("--por",)  # the step flag of the POR legs (models/_cli.py)
 # the POR operation counts' bound: 8 steps at the leg's batch stay under it
 P2_OPS_TARGET = 4_000
+# the per-channel paxos-2 prededup leg's bound on cuda and cpu (the cut
+# that makes room for the sweep legs: the cpu run of the complete space
+# took 71 s of host time beside an H100)
+P2_PREDEDUP_PC_TARGET = 4_000
 P2_PER_CHANNEL_KERNEL_TARGET = 8_000
 # symmetry runs (classes, states), as the JAX engine gives them:
 # TwoPhaseSys(n).checker().symmetry().spawn_tpu(sync=True) on the CPU for
@@ -1094,17 +1121,23 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
     del g
 
     # -- paxos-2 in both packings, prededup, on cuda and cpu -----------------
+    # the per-channel leg is bounded at P2_PREDEDUP_PC_TARGET: its cpu run
+    # of the complete space took 71 s, and its complete counts are the
+    # per-channel leg's (per_channel_and_histories, cuda and cpu) and the
+    # hand-written packing's here; bounded, it still holds cuda = cpu
     leg_launches = {}
-    for name, build, kw in (
-        ("paxos2_prededup", lambda: paxos_model(2), dict(batch=256)),
+    for name, build, kw, target in (
+        ("paxos2_prededup", lambda: paxos_model(2), dict(batch=256), None),
         ("paxos2_per_channel_prededup", per_channel_paxos2,
-         P2_PER_CHANNEL_KW),
+         P2_PER_CHANNEL_KW, P2_PREDEDUP_PC_TARGET),
     ):
         g, g_s, peak, leg_launches[name] = compiled_leg(
-            dev, build, flags=PREDEDUP, **kw)
+            dev, build, flags=PREDEDUP, target=target, **kw)
         t0 = time.monotonic()
-        c = with_step_flags(build().checker(), PREDEDUP).spawn_gpu(
-            device="cpu", **kw).join()
+        cb = with_step_flags(build().checker(), PREDEDUP)
+        if target is not None:
+            cb = cb.target_states(target)
+        c = cb.spawn_gpu(device="cpu", **kw).join()
         c_s = time.monotonic() - t0
         same, tail = same_tables_and_queue(g, c)
         paths = check_discoveries(g.model, g, {"value chosen"})
@@ -1116,9 +1149,13 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
                         network_encoding=getattr(g.tensor, "network_encoding",
                                                  "hand-written"),
                         prededup_removed=g.prededup_removed(),
-                        prededup_removed_cpu=c.prededup_removed(), **kw))
+                        prededup_removed_cpu=c.prededup_removed(),
+                        target=target, **kw))
         for x in (g, c):  # paxos-2's counts are the same in both packings
-            if (x.unique_state_count(), x.state_count()) != P2_PER_CHANNEL:
+            if target is not None:
+                if x.unique_state_count() < target:
+                    raise AssertionError(f"{name}: stopped short of {target}")
+            elif (x.unique_state_count(), x.state_count()) != P2_PER_CHANNEL:
                 raise AssertionError(f"{name}: not {P2_PER_CHANNEL}")
         if not same or g.prededup_removed() != c.prededup_removed():
             raise AssertionError(f"{name}: cuda and cpu disagree")
@@ -1453,17 +1490,21 @@ def leg_record(checker, sec: float, peak: int, launches: dict,
             "card": smi}
 
 
-def compiled_leg(dev, build, sym: bool = False, flags=(), **kw):
+def compiled_leg(dev, build, sym: bool = False, flags=(), target=None,
+                 **kw):
     """One ``spawn_gpu(**kw)`` run of ``build()``'s model (under
-    ``.symmetry()`` with ``sym``, with the step ``flags`` on) with the
-    launch counts reset just before it and read just after; returns the
-    checker, its wall seconds (the twin's host-side compile included),
-    peak device memory and launches."""
+    ``.symmetry()`` with ``sym``, with the step ``flags`` on, bounded at
+    ``target`` unique states when given) with the launch counts reset
+    just before it and read just after; returns the checker, its wall
+    seconds (the twin's host-side compile included), peak device memory
+    and launches."""
     reset_launches()
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     builder = build().checker()
+    if target is not None:
+        builder = builder.target_states(target)
     if sym:
         builder = builder.symmetry()
     builder = with_step_flags(builder, flags)
@@ -2821,6 +2862,357 @@ def supervise_phases(dev, smi: str, ref7: dict) -> dict:
     return out
 
 
+# the sweep legs (stateright_tpu_torch/sweep/): 2pc-7 under 8 table seeds
+# in one table, at a batch 8 times the plain leg's (the same steps, each
+# eight members wide), and a candidate budget that takes a step's valid
+# lanes; the paxos family; the lifted bounded-counter cohort
+SWEEP_SEEDS = 8
+SWEEP_2PC7_KW = dict(capacity=1 << 24, batch=1 << 14, cand=1 << 18)
+SWEEP_OPS_TARGET = 20_000
+SWEEP_PAXOS_KW = dict(capacity=1 << 14, batch=256)
+SWEEP_BOUNDS = (1, 2, 3, 4, 5, 6, 7, 8)
+SWEEP_LIFTED_KW = dict(capacity=1 << 12, batch=32, steps_per_call=4)
+FALLBACK_WARNING = "have not yet implemented the batching rule for "
+
+
+def seed_spec(n: int = 7, target=None):
+    """2pc-``n`` under :data:`SWEEP_SEEDS` table seeds (seed 0 first)."""
+    from stateright_tpu_torch.sweep import SweepInstance, SweepSpec
+
+    return SweepSpec([
+        SweepInstance(f"2pc{n}-seed{i}", TwoPhaseSys(n),
+                      params={"rm": n, "seed": i}, seed=i, target=target)
+        for i in range(SWEEP_SEEDS)])
+
+
+@contextlib.contextmanager
+def first_sweep_insert(into: dict):
+    """Keep, in ``into``, the inputs of the sweep step's first
+    ``cand_prep`` (namespace mode) and ``insert_commit`` (tag column): the
+    first step inserts the init rows' successors, so it is an inserting
+    batch.  Device-to-device copies taken before each launch (the commit
+    writes the table and the queue in place); no host read."""
+    from stateright_tpu_torch.sweep import engine
+
+    prep, commit = engine.cand_prep, engine.insert_commit
+
+    def keep_prep(rows, valid, pfps, arity, cb, out=None, **kw):
+        if "prep" not in into:
+            ns = kw["ns"]
+            into["prep"] = dict(rows=rows.clone(), valid=valid.clone(),
+                                pfps=pfps.clone(), arity=arity, cb=cb,
+                                ns=type(ns)(ns.tags.clone(), ns.low.clone(),
+                                            ns.xor.clone(), ns.bits))
+        return prep(rows, valid, pfps, arity, cb, out, **kw)
+
+    def keep_commit(tfp, tpl, tgt, cfp, cpl, n_new, queue=None, **kw):
+        if "commit" not in into:
+            into["commit"] = dict(
+                tfp=tfp.clone(), tpl=tpl.clone(), tgt=tgt.clone(),
+                cfp=cfp.clone(), cpl=cpl.clone(), n_new=n_new.clone(),
+                queue=queue._replace(**{
+                    k: getattr(queue, k).clone()
+                    for k in ("rows", "fps", "ebits", "depths", "tail", "sel",
+                              "src_rows", "parent_ebits", "parent_depths",
+                              "tags", "parent_tags")}))
+        return commit(tfp, tpl, tgt, cfp, cpl, n_new, queue, **kw)
+
+    engine.cand_prep, engine.insert_commit = keep_prep, keep_commit
+    try:
+        yield into
+    finally:
+        engine.cand_prep, engine.insert_commit = prep, commit
+
+
+def sweep_kernels(kept: dict, k: int) -> dict:
+    """``cand_prep`` in its namespace mode and ``insert_commit`` with the
+    tag column against their plain versions on the first inserting batch
+    of ``sweep_2pc7_seeds`` (``k`` members), L2-warm as the step finds
+    them, each with its bound from ``kernel_cost``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    x = kept["prep"]
+    rows, valid, pfps, arity, cb, ns = (x[n] for n in (
+        "rows", "valid", "pfps", "arity", "cb", "ns"))
+    n, w = rows.shape
+    qbuf = PrepBuffers(n, cb, rows.device)
+    got = cand_prep(rows, valid, pfps, arity, cb, out=qbuf, ns=ns)
+    want = cand_prep_plain(rows, valid, pfps, arity, cb, ns)
+    errs = sum(int((g != p).sum()) for g, p in zip(got, want))
+    nv = int(want[4])
+    parents = int(torch.unique(want[2][:nv] // arity).numel())
+    q_ms, q_by = bound(*kernel_cost("cand_prep", {
+        "lanes": n, "width": w, "valid": nv, "budget": cb,
+        "parents": parents, "ns": k}))
+    out = {"cand_prep_namespace": dict(
+        name="cand_prep_namespace", route="cuda",
+        source="stateright_tpu_torch/csrc/cand_prep.cu",
+        replaces=("stateright_tpu/sweep/engine.py:234 (ns_hash of row_hash) "
+                  "with stateright_tpu/ops/buckets.py:181"),
+        shape=(f"rows int64[{n}, {w}], {nv} valid, budget {cb}, "
+               f"{parents} parents, {k} instance tags"),
+        matched=errs == 0, max_abs_err=errs,
+        bound_ms=q_ms, bound_by=q_by, library_ms=None,
+        **timings(lambda: cand_prep(rows, valid, pfps, arity, cb, out=qbuf,
+                                    ns=ns),
+                  lambda: cand_prep_plain(rows, valid, pfps, arity, cb, ns),
+                  False,
+                  lambda: cand_prep(rows, valid, pfps, arity, cb, qbuf,
+                                    check=False, stream=stream, ns=ns)))}
+    x = kept["commit"]
+    q = x["queue"]
+    nn = int(x["n_new"])
+    plan = (x["tgt"], x["cfp"], x["cpl"], x["n_new"])
+
+    def copy():
+        return ((x["tfp"].clone(), x["tpl"].clone()),
+                q._replace(rows=q.rows.clone(), fps=q.fps.clone(),
+                           ebits=q.ebits.clone(), depths=q.depths.clone(),
+                           tags=q.tags.clone()))
+
+    (kt, kq), (pt, pq) = copy(), copy()
+    insert_commit(*kt, *plan, kq)
+    insert_commit_plain(*pt, *plan, pq)
+    c_err = sum(int((a != b).sum()) for a, b in zip(
+        kt + tuple(kq[:4]) + (kq.tags,), pt + tuple(pq[:4]) + (pq.tags,)))
+    parents = int(torch.unique(q.sel[:nn] // q.arity).numel())
+    c_ms, c_by = bound(*kernel_cost("insert_commit", {
+        "novel": nn, "width": q.rows.shape[1], "parents": parents,
+        "tags": True}))
+    out["insert_commit_tags"] = dict(
+        name="insert_commit_tags", route="cuda",
+        source="stateright_tpu_torch/csrc/insert_commit.cu",
+        replaces=("stateright_tpu/ops/pallas_insert.py:85 with "
+                  "stateright_tpu/sweep/engine.py:250"),
+        shape=(f"cand {x['tgt'].shape[0]}, n_new {nn} ({parents} parents), "
+               f"table {x['tfp'].shape[0]} slots, queue {q.fps.shape[0]} "
+               "rows, tag column"),
+        matched=c_err == 0, max_abs_err=c_err,
+        bound_ms=c_ms, bound_by=c_by, library_ms=None,
+        **timings(lambda: insert_commit(*kt, *plan, kq),
+                  lambda: insert_commit_plain(*pt, *plan, pq), False,
+                  lambda: insert_commit(*kt, *plan, kq, check=False,
+                                        stream=stream)))
+    return out
+
+
+def sweep_ops_per_step(dev) -> dict:
+    """Dispatched operations per sweep step over the first
+    :data:`OPS_STEPS` steps (a ``TorchDispatchMode`` count around
+    ``_SweepEngine.step``) of the 2pc-7 seed family with every member's
+    target at :data:`SWEEP_OPS_TARGET`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from stateright_tpu_torch.sweep import engine
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = []
+    step = engine._SweepEngine.step
+
+    def counted(self, c):
+        if len(counts) >= OPS_STEPS:
+            return step(self, c)
+        probe = Count()
+        with probe:
+            out = step(self, c)
+        counts.append(probe.n)
+        return out
+
+    engine._SweepEngine.step = counted
+    try:
+        spec = seed_spec(7, target=SWEEP_OPS_TARGET)
+        spec.instances[0].model.checker().sweep(spec).spawn_gpu(
+            device=dev, steps_per_call=4, **SWEEP_2PC7_KW).join()
+    finally:
+        engine._SweepEngine.step = step
+    return {"ops_per_step": sum(counts) / len(counts),
+            "ops_steps": len(counts)}
+
+
+@contextlib.contextmanager
+def stderr_lines(into: list):
+    """The process's standard error lines written inside the block (the
+    file descriptor, so C++ warnings are caught), copied back after."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile(mode="w+b") as tmp:
+        os.dup2(tmp.fileno(), 2)
+        try:
+            yield into
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            tmp.seek(0)
+            text = tmp.read().decode(errors="replace")
+            sys.stderr.write(text)
+            into.extend(text.splitlines())
+
+
+def same_sweep_state(a: dict, b: dict) -> bool:
+    """Two sweep snapshots' tables, per-instance counters, and queue rows
+    ``[0, tail)`` with their tags, equal."""
+    tail = int(a["tail"])
+    return (all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                for k in ("table_fp", "table_parent", "unique_k", "scount_k",
+                          "disc", "maxdepth_k", "tail"))
+            and all(np.array_equal(np.asarray(a[k])[:tail],
+                                   np.asarray(b[k])[:tail])
+                    for k in ("q_rows", "q_fp", "q_tag", "q_ebits",
+                              "q_depth")))
+
+
+def sweep_phases(dev, smi: str, ref7: dict) -> tuple:
+    """The sweep legs: ``sweep_2pc7_seeds`` (2pc-7 under 8 seeds in one
+    table: every member at the plain 2pc-7 leg's counts and discoveries,
+    traces replayed; wall against 8 times the plain leg's, operations a
+    step, growth events, peak memory), ``sweep_paxos_family`` (the
+    ``paxos sweep 8`` verb on ``cuda``; ``sweep_family(4)`` on ``cuda``
+    and ``cpu``, equal) and ``sweep_lifted`` (the bounded-counter cohort
+    on ``cuda`` and ``cpu``, one unified cohort, equal, with the ``vmap``
+    fallback warnings it raised).  Returns each leg's launches and the
+    two kernel-mode cells."""
+    from stateright_tpu_torch.models import paxos
+    from stateright_tpu_torch.testing.sweep_fixtures import (
+        bounded_counter_spec,
+    )
+
+    launches = {}
+    # -- sweep_2pc7_seeds ----------------------------------------------------
+    spec = seed_spec(7)
+    kept: dict = {}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with first_sweep_insert(kept):
+        c = spec.instances[0].model.checker().sweep(spec).spawn_gpu(
+            **SWEEP_2PC7_KW).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches["sweep_2pc7_seeds"] = kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    members = {}
+    for inst in spec.instances:
+        r = c.results[inst.key]
+        paths = c.instance_discoveries(inst.key)
+        for name, path in paths.items():
+            if not inst.model.property_by_name(name).condition(
+                    inst.model, path.final_state()):
+                raise AssertionError(f"{inst.key} {name}: replayed path "
+                                     "does not satisfy it")
+        members[inst.key] = dict(unique=r.unique, states=r.states,
+                                 depth=r.max_depth,
+                                 path_lengths={k: len(v)
+                                               for k, v in paths.items()})
+        if (r.unique, r.states) != (ref7["unique"], ref7["states"]) or (
+                set(paths) != set(ref7["disc"])):
+            raise AssertionError(f"sweep_2pc7_seeds: {inst.key} at "
+                                 f"{members[inst.key]}, not the plain "
+                                 "2pc-7 leg's")
+    ops = sweep_ops_per_step(dev)
+    emit("sweep_2pc7_seeds", {
+        "instances": SWEEP_SEEDS, "cohorts": len(c.cohorts),
+        "engine_compiles": c.engine_compiles,
+        "unique": c.unique_state_count(), "states": c.state_count(),
+        "sec": sec, "sec_plain_2pc7": ref7["sec"],
+        "wall_over_8x_plain": sec / (SWEEP_SEEDS * ref7["sec"]),
+        "states_per_sec": c.state_count() / sec,
+        "cohort_build_sec": c.cohort_build_secs, "steps": c.steps_run,
+        "growth_events": c.growth_events, "peak_device_mib": peak / 2**20,
+        "launches": launches["sweep_2pc7_seeds"], "members": members,
+        **ops, **SWEEP_2PC7_KW, "card": smi})
+    if c.unique_state_count() != SWEEP_SEEDS * TPC7_UNIQUE:
+        raise AssertionError("sweep_2pc7_seeds: not 8 x 296,448 unique")
+    if not all(v > 0 for k, v in launches["sweep_2pc7_seeds"].items()):
+        raise AssertionError(f"a kernel never launched in the sweep: "
+                             f"{launches['sweep_2pc7_seeds']}")
+    kernels = sweep_kernels(kept, SWEEP_SEEDS)
+    del c, kept
+
+    # -- sweep_paxos_family --------------------------------------------------
+    reset_launches()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = paxos.main(["sweep", "8"])
+    verb_sec = time.monotonic() - t0
+    launches["sweep_paxos_family"] = kernel_launches()
+    out = buf.getvalue()
+    print(out, end="")
+    lines = [ln.strip() for ln in out.splitlines() if ": unique=" in ln]
+    pins = {False: "unique=265 states=482 depth=13",
+            True: "unique=2378 states=8197 depth=14"}
+    ok_lines = len(lines) == 8 and all(
+        pins["lossy" in ln.split(":")[0]] in ln for ln in lines)
+    snaps, secs = [], []
+    for d in (dev, "cpu"):
+        t0 = time.monotonic()
+        spec = paxos.sweep_family(4)
+        pc = spec.instances[0].model.checker().sweep(spec).spawn_gpu(
+            device=d, **SWEEP_PAXOS_KW).join()
+        secs.append(time.monotonic() - t0)
+        snaps.append(pc.final_snapshot())
+    same = same_sweep_state(*snaps)
+    emit("sweep_paxos_family", {
+        "verb_rc": rc, "verb_sec": verb_sec, "verb_lines": lines,
+        "summary": [ln for ln in out.splitlines() if ln.startswith("sweep:")],
+        "family4_sec_cuda": secs[0], "family4_sec_cpu": secs[1],
+        "family4_tables_queue_tags_identical": same,
+        "launches": launches["sweep_paxos_family"], "card": smi})
+    if rc != 0 or "8 instances over 2 cohort(s)" not in out or not ok_lines:
+        raise AssertionError(f"sweep_paxos_family: the verb printed {out!r}")
+    if not same:
+        raise AssertionError("sweep_paxos_family: cuda and cpu disagree")
+
+    # -- sweep_lifted --------------------------------------------------------
+    reset_launches()
+    warn: list = []
+    snaps, res, secs = [], [], []
+    for d in (dev, "cpu"):
+        spec = bounded_counter_spec(SWEEP_BOUNDS)
+        t0 = time.monotonic()
+        with stderr_lines(warn if d is dev else []):
+            lc = spec.instances[0].model.checker().sweep(spec).spawn_gpu(
+                device=d, **SWEEP_LIFTED_KW).join()
+        secs.append(time.monotonic() - t0)
+        co = lc.cohorts
+        if not (len(co) == 1 and co[0].unified and co[0].lifted > 0):
+            raise AssertionError(f"sweep_lifted: not one unified cohort on {d}")
+        for b in SWEEP_BOUNDS:
+            r = lc.results[f"bc-b{b}"]
+            if (r.unique, r.max_depth) != ((b + 1) ** 2, 2 * b):
+                raise AssertionError(f"sweep_lifted: bc-b{b} on {d} at "
+                                     f"{(r.unique, r.max_depth)}")
+        snaps.append(lc.final_snapshot())
+        res.append({k: (r.unique, r.states, r.max_depth)
+                    for k, r in lc.results.items()})
+        if d is dev:
+            launches["sweep_lifted"] = kernel_launches()
+            lifted = co[0].lifted
+    fallbacks = [ln for ln in warn if FALLBACK_WARNING in ln]
+    ops = sorted({ln.split(FALLBACK_WARNING)[1].split(".")[0]
+                  for ln in fallbacks})
+    same = same_sweep_state(*snaps) and res[0] == res[1]
+    emit("sweep_lifted", {
+        "bounds": list(SWEEP_BOUNDS), "lifted_inputs": lifted,
+        "members": res[0], "sec_cuda": secs[0], "sec_cpu": secs[1],
+        "tables_queue_tags_identical": same,
+        "vmap_fallback_warnings": len(fallbacks), "vmap_fallback_ops": ops,
+        "launches": launches["sweep_lifted"], **SWEEP_LIFTED_KW,
+        "card": smi})
+    if not same:
+        raise AssertionError("sweep_lifted: cuda and cpu disagree")
+    return launches, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3012,6 +3404,8 @@ def main() -> int:
     launches_orl, kernels_orl = orl_phase(dev, smi)
     lap("orl")
     launches_sup = supervise_phases(dev, smi, ref7)
+    launches_sweep, kernels_sweep = sweep_phases(dev, smi, ref7)
+    lap("sweep")
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
@@ -3022,6 +3416,7 @@ def main() -> int:
                              ("2pc-15 symmetry", kernels_sym),
                              ("orl", kernels_orl),
                              ("por proviso", kernels_por),
+                             ("sweep_2pc7_seeds", kernels_sweep),
                              *((f"{leg} inject", cell) for leg, cell
                                in kernels_inject.items()))
            for k in ks.values() if not k["matched"]]
@@ -3093,7 +3488,18 @@ def main() -> int:
                  if key not in ("name", "route", "source", "replaces",
                                 "launches")},
                 launches=launches_por["por_pc_paxos2"][name])
+        # the sweep legs: every kernel of the main path runs there too
+        for leg, ls in launches_sweep.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
         line.append(entry)
+    # the sweep's two kernel modes, each as a kernel of its own: launches
+    # are the 2pc-7 seed sweep's (every cand_prep and insert_commit launch
+    # of a sweep is in that mode)
+    for mode, base in (("cand_prep_namespace", "cand_prep"),
+                       ("insert_commit_tags", "insert_commit")):
+        line.append(dict({key: kernels_sweep[mode][key] for key in KERNEL_KEYS
+                          if key != "launches"},
+                         launches=launches_sweep["sweep_2pc7_seeds"][base]))
     gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
     line.append(dict({key: gen[key] for key in KERNEL_KEYS
                       if key != "launches"},

@@ -452,7 +452,11 @@ def kernel_rw(name: str, s: dict) -> tuple:
     ``valid`` nv, ``budget`` cb, ``parents`` p): the valid lanes read
     their row (8w each), every lane its valid byte, each parent read its
     fingerprint once (8); four words per output lane and the two scalars
-    out (9).  About ten operations per word folded, plus two a lane.
+    out (9).  About ten operations per word folded, plus two a lane.  In
+    a sweep's namespace mode (``ns`` K, the instance count): each parent's
+    int32 tag (4) and the two K-word tables (16K) in, and 25 operations
+    more per valid lane (the namespace, ``unmix64``, the remap and the
+    key's second mix).
 
     ``row_hash`` (``csrc/row_hash.cu``; ``rows`` n, ``width`` w, ``valid``
     nh or None for no mask): the hashed rows in, a fingerprint per row
@@ -470,7 +474,8 @@ def kernel_rw(name: str, s: dict) -> tuple:
     w, ``parents`` p): the plan lanes (slot, fingerprint, payload, sel)
     and count and tail in, each parent's ebits and depth, the novel rows;
     the table's two words and a queue row (8w + 16 bytes) out per novel
-    lane.  It only moves data.
+    lane.  It only moves data.  With a sweep's tag column (``tags``
+    true): each parent's tag in (4) and a tag out per novel lane (4).
 
     ``sort`` (``torch.sort`` in ``ops/cand_prep.py::sort_prepared``;
     ``lanes`` n): the keys in, sorted keys and the permutation out;
@@ -478,7 +483,9 @@ def kernel_rw(name: str, s: dict) -> tuple:
     if name == "cand_prep":
         n, w, nv = s["lanes"], s["width"], s["valid"]
         cb, p = s["budget"], s["parents"]
-        return nv * w * 8 + n + p * 8, cb * 32 + 9, nv * (w + 2) * 10
+        k = s.get("ns") or 0
+        read = nv * w * 8 + n + p * 8 + (p * 4 + k * 16 if k else 0)
+        return read, cb * 32 + 9, nv * (w + 2) * 10 + (nv * 25 if k else 0)
     if name == "row_hash":
         n, w, nh = s["rows"], s["width"], s.get("valid")
         if nh is None:
@@ -505,9 +512,11 @@ def insert_commit_parts(s: dict) -> dict:
     ``_insert_kernel``'s write: the dedup-insert stage) and the queue half
     (the append: the queue stage), each ``(read, written)``."""
     nn, w, p = s["novel"], s["width"], s["parents"]
+    t = 4 if s.get("tags") else 0  # a sweep's tag column
     return {
         "table": (nn * 24 + 8, nn * 16),
-        "queue": (nn * 8 + 8 + p * 8 + nn * 8 * w, nn * (8 * w + 16)),
+        "queue": (nn * 8 + 8 + p * (8 + t) + nn * 8 * w,
+                  nn * (8 * w + 16 + t)),
     }
 
 

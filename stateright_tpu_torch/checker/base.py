@@ -13,7 +13,9 @@ host checkers (:meth:`CheckerBuilder.spawn_bfs`, :meth:`CheckerBuilder.spawn_dfs
 probe (:meth:`CheckerBuilder.spawn_auto`); ``Checker`` is the result
 surface (counts, discoveries, assertions, and the ``Done. states=..``
 report line, the flight recorder, the run identity and the run report).
-The sweep and service options come with their slices.
+``sweep`` (JAX :521) routes ``spawn_gpu`` to the sweep engine
+(``sweep/engine.py``) for a whole model family; the service options come
+with their slice.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ class CheckerBuilder:
         self.por_mode: Optional[bool] = None
         # the GPU engine's checked execution mode
         self.checked_mode = False
+        # mxu() is accepted without effect; a sweep refuses it, as JAX's
+        self.mxu_mode: Optional[bool] = None
+        # a hyper-batched instance sweep (sweep/); None = the env knob
+        # STATERIGHT_TPU_SWEEP decides, on models with a sweep_family
+        self.sweep_spec = None
         # telemetry (telemetry/): None = off
         self.telemetry_opts: Optional[dict] = None
         self.report_path: Optional[str] = None
@@ -318,6 +325,24 @@ class CheckerBuilder:
         (``coalesce``), the queue append already writes only the novel rows
         (``slim_queue``), and ``csrc/bucket_plan.cu``'s ballots give the
         probe's two counts without a product (``probe``)."""
+        self.mxu_mode = bool(enabled)
+        return self
+
+    def sweep(self, spec) -> "CheckerBuilder":
+        """Check a whole model family in one GPU run (``sweep/``; JAX
+        ``checker/base.py:521``): ``spec`` is a
+        :class:`~stateright_tpu_torch.sweep.SweepSpec` of instances
+        (lossiness flags, bounds, table seeds), and :meth:`spawn_gpu`
+        returns a :class:`~stateright_tpu_torch.sweep.engine.SweepChecker`.
+        Instances group into shape cohorts, each one program over a shared
+        visited table whose fingerprints are namespaced per instance, so
+        each instance's counts, verdicts and traces are those of its own
+        sequential run.  With no sweep asked for, ``spawn_gpu`` builds
+        exactly the plain engine.  Env: ``STATERIGHT_TPU_SWEEP=N`` on
+        models that define ``sweep_family(N)``.  A sweep takes telemetry,
+        cartography, report, runs, timeout and per-instance targets; it
+        refuses checked, por, spill, mxu, symmetry, prededup and autosave."""
+        self.sweep_spec = spec
         return self
 
     def checked(self, enabled: bool = True) -> "CheckerBuilder":
@@ -527,9 +552,21 @@ class CheckerBuilder:
         sets the queue's first high-water mark (JAX ``spawn_tpu``'s); the
         ``spill_*`` knobs size the tier of :meth:`spill`.  The light
         preflight audit (:meth:`audit`) runs first, before any buffer is
-        allocated; :meth:`skip_audit` turns it off."""
-        from ..parallel.wavefront import GpuChecker
+        allocated; :meth:`skip_audit` turns it off.
 
+        Under :meth:`sweep` (or ``STATERIGHT_TPU_SWEEP``) this returns the
+        sweep engine instead (JAX ``spawn_tpu`` :767-813), after one audit
+        per distinct shape signature of the family; the ``spill_*`` knobs
+        do not apply there."""
+        from ..parallel.wavefront import GpuChecker
+        from ..sweep import resolve_sweep_spec
+
+        spec = resolve_sweep_spec(self.sweep_spec, self.model)
+        if spec is not None:
+            return self._spawn_sweep(
+                spec, capacity=capacity, batch=batch, cand=cand,
+                steps_per_call=steps_per_call, device=device, resume=resume,
+                queue_capacity=queue_capacity)
         self._preflight_audit()
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
@@ -537,6 +574,31 @@ class CheckerBuilder:
             queue_capacity=queue_capacity, spill_bloom_bits=spill_bloom_bits,
             spill_dir=spill_dir, spill_host_bytes=spill_host_bytes,
         )
+
+
+    def _spawn_sweep(self, spec, **kw) -> "Checker":
+        """Audit once per distinct shape of the family (the cohort key:
+        twin class, row layout, properties), since same-shape members
+        share kernels, then spawn the sweep engine."""
+        from ..sweep.cohort import shape_signature
+        from ..sweep.engine import SweepChecker
+
+        seen = set()
+        for inst in spec.instances:
+            try:
+                sig = shape_signature(inst)
+            except Exception:  # noqa: BLE001 - a twin's failure surfaces
+                sig = id(inst)  # in its own audit below
+            if sig in seen:
+                continue
+            seen.add(sig)
+            saved = self.model
+            self.model = inst.model
+            try:
+                self._preflight_audit()
+            finally:
+                self.model = saved
+        return SweepChecker(self, spec, **kw)
 
 
 class Checker:

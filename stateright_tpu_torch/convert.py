@@ -1,5 +1,12 @@
 """Carry the JAX engine's state across: snapshots in, snapshots out.
 
+A sweep snapshot (``stateright_tpu``'s ``SweepChecker._carry_to_snapshot``,
+``sweep/engine.py``) has the keys of :data:`SWEEP_SNAPSHOT_KEYS`, with the
+instance tags (``q_tag``) and per-instance counters, plus the manifest
+keys ``cohort``, ``engine``, ``model_sig``, ``sweep_done`` and, with
+cartography, ``cart_depth_base``; :func:`sweep_carry_to_arrays` and
+:func:`sweep_carry_from_arrays` carry it across both ways.
+
 A JAX-engine snapshot (``stateright_tpu``'s
 ``TpuChecker._carry_to_snapshot``) is a dict of numpy arrays under
 ``SNAPSHOT_KEYS`` — ``uint64`` tables and queue, ``uint32`` queue ebits
@@ -35,6 +42,23 @@ _NP_DTYPES = (
 _SIGNED = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
 
 
+# the sweep engine's carry (the JAX sweep engine's ``_TFP.._STATUS``,
+# stateright_tpu/sweep/engine.py:77-79) and its snapshot keys
+(S_TFP, S_TPL, S_QROWS, S_QFP, S_QTAG, S_QEBITS, S_QDEPTH, S_HEAD, S_TAIL,
+ S_UNIQK, S_SCNTK, S_DISC, S_MAXDK, S_STATUS) = range(14)
+SWEEP_SNAPSHOT_KEYS = (
+    "table_fp", "table_parent", "q_rows", "q_fp", "q_tag", "q_ebits",
+    "q_depth", "head", "tail", "unique_k", "scount_k", "disc",
+    "maxdepth_k", "status",
+)
+SWEEP_QUEUE = (S_QROWS, S_QFP, S_QTAG, S_QEBITS, S_QDEPTH)
+_SWEEP_NP_DTYPES = (
+    np.uint64, np.uint64, np.uint64, np.uint64, np.uint32, np.uint32,
+    np.uint32, np.int32, np.int32, np.int64, np.int64, np.uint64, np.int32,
+    np.int32,
+)
+
+
 def signed_tensor(arr: np.ndarray, device) -> torch.Tensor:
     """A fresh tensor (never sharing the caller's memory: the engine
     updates its carry in place) holding ``arr``'s bits."""
@@ -48,24 +72,26 @@ def signed_tensor(arr: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def repad_queue(carry_np: list, qalloc: int) -> None:
+def repad_queue(carry_np: list, qalloc: int, queue=QUEUE,
+                fp_index: int = QFP) -> None:
     """Pad (EMPTY/0 fill) or truncate the numpy queue buffers to ``qalloc``
-    rows, in place (``stateright_tpu``'s ``_repad_queue``)."""
-    for i in QUEUE:
+    rows, in place (``stateright_tpu``'s ``_repad_queue``); ``queue`` and
+    ``fp_index`` name the buffers of another layout (the sweep's)."""
+    for i in queue:
         arr = np.asarray(carry_np[i])
         if arr.shape[0] < qalloc:
             pad_shape = (qalloc - arr.shape[0],) + arr.shape[1:]
-            fill = np.iinfo(arr.dtype).max if i == QFP else 0
+            fill = np.iinfo(arr.dtype).max if i == fp_index else 0
             arr = np.concatenate([arr, np.full(pad_shape, fill, arr.dtype)])
         carry_np[i] = arr[:qalloc]
 
 
-def carry_to_arrays(carry: list) -> list:
+def carry_to_arrays(carry: list, dtypes=_NP_DTYPES) -> list:
     """The port's carry as numpy arrays in the JAX layout and dtypes."""
     out = []
-    for t, dt in zip(carry, _NP_DTYPES):
+    for t, dt in zip(carry, dtypes):
         arr = t.detach().cpu().numpy()
-        if arr.ndim:
+        if arr.ndim and arr.dtype.itemsize == np.dtype(dt).itemsize:
             arr = arr.view(dt)  # same width: int64 -> uint64, int32 -> uint32
         else:
             arr = np.asarray(arr).astype(dt)
@@ -139,3 +165,25 @@ def cart_depth_base(snap: dict) -> Optional[np.ndarray]:
     ``sum(depth_hist) == unique``."""
     base = snap.get("cart_depth_base")
     return None if base is None else np.array(base, np.int64)
+
+
+def sweep_carry_to_arrays(carry: list) -> list:
+    """The sweep engine's carry as numpy arrays in the JAX sweep layout
+    (a fresh copy: never the engine's own memory)."""
+    arrs = carry_to_arrays(carry[:len(SWEEP_SNAPSHOT_KEYS)], _SWEEP_NP_DTYPES)
+    if carry[S_TFP].device.type == "cpu":
+        arrs = [np.array(a, copy=True) for a in arrs]
+    return arrs
+
+
+def sweep_carry_from_arrays(arrs: list, device,
+                            qalloc: Optional[int] = None) -> list:
+    """Numpy arrays in the JAX sweep layout -> the sweep engine's carry on
+    ``device`` (scalars and per-instance counters int64), queue buffers
+    re-padded to ``qalloc`` rows (default: as given)."""
+    arrs = [np.asarray(a) for a in arrs]
+    if qalloc is not None:
+        repad_queue(arrs, qalloc, SWEEP_QUEUE, S_QFP)
+    out = [signed_tensor(a, device) for a in arrs]
+    out[S_MAXDK] = out[S_MAXDK].to(torch.int64)
+    return out

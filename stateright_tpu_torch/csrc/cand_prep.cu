@@ -16,6 +16,17 @@
 //   payload = pfps[i / arity]   (the parent's fingerprint)
 //   cidx    = i
 //   key     = bucket_key(fp) ^ 2^63 (signed order = unsigned key order)
+// In the namespace mode of a sweep (`ptags` not null), a valid lane's
+// fingerprint is namespaced before it is keyed or written, as the JAX sweep
+// step's `ns_hash(row_hash(succ), ...)` (stateright_tpu/sweep/engine.py:
+// 234-238, stateright_tpu/ops/hashing.py:86): with t = ptags[i / arity],
+//   key = ((mix64(fp) ^ ns_xor[t]) & ~low) | (ns_low[t] & low)
+//   fp  = unmix64(key), 0 and EMPTY remapped to GAMMA
+// with low = 2^bits - 1, and the lane's sort key is bucket_key of that
+// namespaced fp (it differs from `key` after the remap).  The kernel
+// computes mix64(fp) for the key anyway, so the mode costs a few register
+// operations, one 4-byte tag and two table words per valid lane; with
+// null tables the launch is the plain one.
 // Output lanes [n_valid, CB) take what the JAX compaction gives them:
 // fp EMPTY, key EMPTY ^ 2^63, cidx M-1, payload pfps[(M-1) / arity].
 // The last CTA writes n_valid and cand_overflow = n_valid > CB.
@@ -66,8 +77,9 @@ __global__ void __launch_bounds__(kTile) cand_prep_kernel(
     long long* __restrict__ pl_out, long long* __restrict__ cidx_out,
     long long* __restrict__ key_out, long long* __restrict__ n_valid,
     bool* __restrict__ cand_overflow, unsigned long long* __restrict__ scratch,
-    long long m, long long cb, int width, int arity, int in_tiles,
-    int all_tiles) {
+    const int* __restrict__ ptags, const unsigned long long* __restrict__ ns_low,
+    const unsigned long long* __restrict__ ns_xor, int bits, long long m,
+    long long cb, int width, int arity, int in_tiles, int all_tiles) {
   __shared__ int s_tile;
   __shared__ int s_last;
   __shared__ Scan s_warp[kWarps];
@@ -85,6 +97,14 @@ __global__ void __launch_bounds__(kTile) cand_prep_kernel(
     const bool v = i < m && valid[i] != 0;
     unsigned long long fp = kEmpty;
     if (v) fp = row_fingerprint(rows + i * (long long)width, width);
+    if (v && ptags != nullptr) {
+      const int tag = ptags[i / arity];
+      const unsigned long long low = (1ULL << bits) - 1ULL;
+      const unsigned long long nkey =
+          ((mix64(fp) ^ ns_xor[tag]) & ~low) | (ns_low[tag] & low);
+      const unsigned long long h = unmix64(nkey);
+      fp = (h == 0ULL || h == kEmpty) ? kGamma : h;
+    }
     const Scan incl = block_scan<kWarps>(Scan{0u, 0u, v ? 1u : 0u}, s_warp);
     if (warp == 0) {
       const Scan excl = look_back(state, tile, s_warp[kWarps - 1]);
@@ -137,7 +157,9 @@ __global__ void __launch_bounds__(kTile) cand_prep_kernel(
 extern "C" int srt_cand_prep(const void* rows, const void* valid,
                              const void* pfps, void* fp, void* payload,
                              void* cidx, void* key, void* n_valid,
-                             void* cand_overflow, void* scratch, int64_t m,
+                             void* cand_overflow, void* scratch,
+                             const void* ptags, const void* ns_low,
+                             const void* ns_xor, int bits, int64_t m,
                              int64_t cb, int width, int arity, void* stream) {
   const long long in_tiles = (m + kTile - 1) / kTile;
   const long long all_tiles = in_tiles + (cb + kTile - 1) / kTile;
@@ -145,7 +167,9 @@ extern "C" int srt_cand_prep(const void* rows, const void* valid,
       (const unsigned long long*)rows, (const unsigned char*)valid,
       (const long long*)pfps, (long long*)fp, (long long*)payload,
       (long long*)cidx, (long long*)key, (long long*)n_valid,
-      (bool*)cand_overflow, (unsigned long long*)scratch, (long long)m,
-      (long long)cb, width, arity, (int)in_tiles, (int)all_tiles);
+      (bool*)cand_overflow, (unsigned long long*)scratch, (const int*)ptags,
+      (const unsigned long long*)ns_low, (const unsigned long long*)ns_xor,
+      bits, (long long)m, (long long)cb, width, arity, (int)in_tiles,
+      (int)all_tiles);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,10 @@
 //    candidate row sel[j], its fingerprint cfp[j], and its parent's ebits
 //    and depth + 1, read at parent sel[j] / arity, so the engine makes no
 //    per-candidate copies of the parents' lanes.
+//  - tag column of a sweep (skipped when `qtag` is null): row tail + j also
+//    gets its parent's instance tag, qtag[r] = ptag[sel[j] / arity] (the
+//    JAX sweep step's `q_tag` update, stateright_tpu/sweep/engine.py:
+//    250-252).
 // Lanes at or past *n_new write nothing.
 //
 // Bound on an H100: memory traffic, and at the engine's shapes the launch
@@ -41,7 +45,8 @@ __global__ void insert_commit_kernel(
     int* __restrict__ qebits, int* __restrict__ qdepth,
     const long long* __restrict__ tail, const long long* __restrict__ sel,
     const long long* __restrict__ crows, const int* __restrict__ pebits,
-    const int* __restrict__ pdepth, int width, int arity) {
+    const int* __restrict__ pdepth, int* __restrict__ qtag,
+    const int* __restrict__ ptag, int width, int arity) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m || j >= *n_new) return;
   const long long f = cfp[j];
@@ -55,6 +60,7 @@ __global__ void insert_commit_kernel(
   qfp[r] = f;
   qebits[r] = pebits[p];
   qdepth[r] = pdepth[p] + 1;
+  if (qtag != nullptr) qtag[r] = ptag[p];
   const long long* src = crows + s * width;
   long long* dst = qrows + r * width;
   for (int w = 0; w < width; ++w) dst[w] = src[w];
@@ -68,7 +74,8 @@ extern "C" int srt_insert_commit(void* tfp, void* tpl, const void* tgt,
                                  void* qfp, void* qebits, void* qdepth,
                                  const void* tail, const void* sel,
                                  const void* crows, const void* pebits,
-                                 const void* pdepth, int width, int arity,
+                                 const void* pdepth, void* qtag,
+                                 const void* ptag, int width, int arity,
                                  void* stream) {
   const int threads = 256;
   const long long blocks = (m + threads - 1) / threads;
@@ -77,7 +84,7 @@ extern "C" int srt_insert_commit(void* tfp, void* tpl, const void* tgt,
       (const long long*)cfp, (const long long*)cpl, (const long long*)n_new,
       (long long)m, (long long*)qrows, (long long*)qfp, (int*)qebits,
       (int*)qdepth, (const long long*)tail, (const long long*)sel,
-      (const long long*)crows, (const int*)pebits, (const int*)pdepth, width,
-      arity);
+      (const long long*)crows, (const int*)pebits, (const int*)pdepth,
+      (int*)qtag, (const int*)ptag, width, arity);
   return (int)cudaGetLastError();
 }

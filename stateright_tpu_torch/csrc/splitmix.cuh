@@ -25,6 +25,17 @@ __device__ __forceinline__ unsigned long long mix64(unsigned long long h) {
   return h;
 }
 
+// The exact inverse of mix64 (the host's `fingerprint.unmix64`): undo each
+// xorshift and multiply by the multipliers' inverses mod 2^64, in reverse.
+__device__ __forceinline__ unsigned long long unmix64(unsigned long long h) {
+  h ^= (h >> 31) ^ (h >> 62);
+  h *= 0x319642B2D24D8EC3ULL;  // kM2^-1 mod 2^64
+  h ^= (h >> 27) ^ (h >> 54);
+  h *= 0x96DE1B173F119089ULL;  // kM1^-1 mod 2^64
+  h ^= (h >> 30) ^ (h >> 60);
+  return h;
+}
+
 __device__ __forceinline__ unsigned long long row_fingerprint(
     const unsigned long long* __restrict__ row, int width) {
   unsigned long long h = kSeed;

@@ -3,8 +3,10 @@
 
 The port's own copy of ``stateright_tpu/fingerprint.py`` (the splitmix64
 constants, ``mix64``/``fold64``/``hash_words`` and the structural
-``fingerprint``); the sweep namespacing helpers stay behind until the sweep
-slice.  The device row hash (``ops/hashing.py`` and ``csrc/row_hash.cu``)
+``fingerprint``) and of its sweep namespacing helpers (``unmix64``,
+``sweep_ns_bits``, ``ns_fingerprint``, JAX ``fingerprint.py:212-270``): the
+host mirror and bit-level oracle of the device ``ops/hashing.ns_hash`` and
+of ``cand_prep``'s namespace mode.  The device row hash (``ops/hashing.py`` and ``csrc/row_hash.cu``)
 must equal :func:`hash_words` bit for bit.
 
 The reference derives state identity from a seeded 64-bit hash with fixed keys so
@@ -209,3 +211,70 @@ def fingerprint(obj: Any) -> int:
     """State fingerprint: nonzero stable 64-bit digest (reference
     ``src/lib.rs:303-311`` uses NonZeroU64; hash_words already avoids 0)."""
     return stable_hash(obj)
+
+
+# ---------------------------------------------------------------------------
+# Fingerprint namespacing (hyper-batched instance sweeps, ``sweep/``; JAX
+# ``stateright_tpu/fingerprint.py:212-270``)
+# ---------------------------------------------------------------------------
+
+# Fixed seed of the sweep table-seed scrambles, distinct from
+# FINGERPRINT_SEED and as stable across processes.
+SWEEP_NS_SEED = 0x53574545504E5331  # b"SWEEPNS1"
+
+# the splitmix64 multipliers' inverses mod 2^64 (unmix64)
+_SM_M1_INV = pow(_SM_M1, -1, 1 << 64)
+_SM_M2_INV = pow(_SM_M2, -1, 1 << 64)
+
+
+def unmix64(h: int) -> int:
+    """Exact inverse of :func:`mix64` (splitmix64 is a bijection): undo
+    each xorshift (``y ^ y >> r ^ y >> 2r ...`` until the shift leaves the
+    word) and multiply by the inverse multipliers, in reverse order."""
+    h &= MASK64
+    h = h ^ (h >> 31) ^ (h >> 62)
+    h = (h * _SM_M2_INV) & MASK64
+    h = h ^ (h >> 27) ^ (h >> 54)
+    h = (h * _SM_M1_INV) & MASK64
+    h = h ^ (h >> 30) ^ (h >> 60)
+    return h
+
+
+def sweep_ns_bits(n_instances: int) -> int:
+    """How many LOW bits of the table sort key ``mix64(fp)`` carry a sweep
+    instance's tag: sweep-wide (from the spec's size, never the cohort
+    split), so cohort grouping never changes an instance's fingerprints.
+    Two states of one instance collide when the top ``64 - bits`` key bits
+    agree: the 2^-64 class relaxed to 2^-(64-bits)."""
+    return max(1, (max(int(n_instances), 2) - 1).bit_length())
+
+
+def sweep_ns_xor(seed: int) -> int:
+    """The high-bit scramble of a sweep instance's table ``seed`` (0 for
+    an unseeded instance), as :func:`ns_fingerprint` applies it."""
+    if not seed:
+        return 0
+    return mix64(fold64(SWEEP_NS_SEED, int(seed) & MASK64))
+
+
+def ns_fingerprint(fp: int, tag: int, seed: int, bits: int) -> int:
+    """Namespace a fingerprint for sweep instance ``tag``: replace the LOW
+    ``bits`` bits of the sort key ``mix64(fp)`` with the tag and invert the
+    mixer.  Order-preserving: within one instance the sort key keeps the
+    sequential run's high-bit order (the same bucket, the same relative
+    candidate order), which is what keeps a seed-0 member's traces those of
+    its sequential run; across instances the tags make the keys, and so
+    the fingerprints, disjoint.  ``seed != 0`` also XORs the key's high
+    bits (a table-seed fuzz; trace parity with the sequential run is given
+    up there).  The reserved values 0 and 2^64-1 remap like
+    :func:`hash_words`.  Equal bit for bit to the device
+    ``ops/hashing.ns_hash_plain`` and ``cand_prep``'s namespace mode: sweep
+    traces match host states to table entries through this function."""
+    low = (1 << bits) - 1
+    key = mix64(fp & MASK64)
+    key ^= sweep_ns_xor(seed) & ~low & MASK64
+    key = (key & ~low & MASK64) | (tag & low)
+    h = unmix64(key)
+    if h == 0 or h == MASK64:
+        h = _SM_GAMMA
+    return h

@@ -38,6 +38,10 @@ cost ledger at batch 2,048, ``--out=F`` for the JSON blocks; JAX
 ``make_costmodel_cmd``), and 2pc and paxos take ``supervise`` (a supervised
 GPU run: autosave, retry with backoff, resume; ``supervisor.py``, JAX
 ``_cli.py:1494-1584``; :func:`pop_supervise_opts` lists its flags).
+2pc and paxos take ``sweep [N]`` (their default family, ``sweep_family(N)``,
+in one GPU run: one line per instance and the summary line; JAX
+``make_sweep_cmd``, :func:`pop_sweep_opts` lists its flags, and
+``--device=cpu`` runs it on the plain path).
 The models JAX gives an ``independence`` verb take it here too (the
 static independence analysis of their ``_audit_models`` configurations:
 the conflict matrix's summary and the JX3xx findings; JAX
@@ -439,7 +443,8 @@ def supervised(model, flags=(), opts=None, sopts=None):
 def check_main(prog: str, arg_usage: str, argv, build: Callable,
                verbs: dict[str, tuple[Callable, Callable]],
                max_args: int, audit: Callable,
-               independence: Optional[Callable] = None) -> int:
+               independence: Optional[Callable] = None,
+               sweep: Optional[Callable] = None) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
     [--per-channel] [--prededup] [--por] [--mxu] [--checked] [--spill]
     [--watch] [--device=cpu]``: build
@@ -452,14 +457,16 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     :func:`pop_supervise_opts`' flags); a model with a GPU verb also takes
     :data:`TELEMETRY_VERBS`.  ``audit`` is the module's ``_audit_models``
     factory, the ``audit`` verb's configurations; ``independence``, the
-    ``independence`` verb (:func:`make_independence_cmd`), where the model
-    has one.  Exit 1 when a GPU verb finds no device twin, the audit an
+    ``independence`` verb (:func:`make_independence_cmd`), and ``sweep``,
+    the ``sweep`` verb (:func:`make_sweep_cmd`), where the model has them.
+    Exit 1 when a GPU verb finds no device twin, the audit an
     error or the independence verb a malformed matrix, 2 on a usage
     error."""
     has_gpu = any(sp in (gpu, sym_gpu) for _, sp in verbs.values())
     names = (list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
              + ["audit", "sanitize", "costmodel"]
-             + (["independence"] if independence else []))
+             + (["independence"] if independence else [])
+             + (["sweep"] if sweep else []))
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
              f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
@@ -473,6 +480,12 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     sopts = None
     if args and args[0] == "supervise" and "supervise" in verbs:
         sopts, args = pop_supervise_opts(args)
+    if sweep is not None and args and args[0] == "sweep":
+        swopts, rest = pop_sweep_opts(args[1:])
+        if len(rest) > 1:
+            print(usage, file=sys.stderr)
+            return 2
+        return sweep(rest, dict(opts, **swopts))
     if has_gpu and args and args[0] == "compare":
         return compare_verb(args[1:], opts)
     if (not args or args[0] not in names or len(args) > 1 + max_args):
@@ -794,6 +807,63 @@ def make_independence_cmd(factory: Callable) -> Callable:
         return 0
 
     return independence
+
+
+def pop_sweep_opts(rest: list) -> tuple:
+    """The ``sweep`` verb's own flags (JAX ``_cli.py:1043``; ``--batch=``
+    and ``--device=`` are :data:`VALUE_OPTS`): ``(opts, rest)`` with
+    ``runs`` (the registry directory), ``steps`` and ``capacity``, only
+    those given."""
+    names = {"--runs=": ("runs", str), "--steps=": ("steps", int),
+             "--capacity=": ("capacity", int)}
+    opts = {}
+    kept = []
+    for a in rest:
+        for pre, (name, conv) in names.items():
+            if a.startswith(pre):
+                opts[name] = conv(a[len(pre):])
+                break
+        else:
+            kept.append(a)
+    return opts, kept
+
+
+def make_sweep_cmd(family: Callable, default_n: int = 8) -> Callable:
+    """A model's ``sweep`` verb (JAX ``_cli.py:1062``): build its default
+    family (``family(N)``, a ``SweepSpec``), run it as one GPU sweep with
+    cartography, and print one line per instance and the cohort summary.
+    ``--device=cpu`` runs it on the plain path."""
+
+    def cmd(rest: list, opts: Optional[dict] = None) -> int:
+        opts = opts or {}
+        n = int(rest[0]) if rest else default_n
+        spec = family(n)
+        print(f"Sweeping {len(spec.instances)} instances in one GPU run.")
+        b = (spec.instances[0].model.checker().telemetry(cartography=True)
+             .sweep(spec))
+        if opts.get("runs"):
+            b = b.runs(opts["runs"])
+        kw = {"device": opts.get("device")}
+        for opt, arg in (("batch", "batch"), ("steps", "steps_per_call"),
+                         ("capacity", "capacity")):
+            if opts.get(opt):
+                kw[arg] = int(opts[opt])
+        c = b.spawn_gpu(**kw).join()
+        for inst in spec.instances:
+            r = c.results[inst.key]
+            disc = ",".join(sorted(r.chains)) or "-"
+            print(f"  {inst.key}: unique={r.unique} states={r.states} "
+                  f"depth={r.max_depth} discoveries=[{disc}]")
+        print(f"sweep: {len(spec.instances)} instances over "
+              f"{len(c.cohorts)} cohort(s), {c.engine_compiles} engine "
+              f"compile(s), total unique={c.unique_state_count()} "
+              f"states={c.state_count()}")
+        if opts.get("runs"):
+            print(f"sweep: registered {len(spec.instances)} instance "
+                  f"record(s) under sweep_id={c.run_id} in {opts['runs']}")
+        return 0
+
+    return cmd
 
 
 def fleet_independence(names=None, stream=None) -> int:

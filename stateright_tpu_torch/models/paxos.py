@@ -290,6 +290,29 @@ def _audit_models(rest=()):
     return [(f"paxos clients={c} servers=3", paxos_model(c, 3))]
 
 
+def sweep_family(n: int = 8):
+    """The paxos default sweep (JAX ``paxos.py:314``; the ``sweep`` verb and
+    ``STATERIGHT_TPU_SWEEP``): ``n`` single-client instances alternating
+    network lossiness.  The lossless members run the hand-written twin, the
+    lossy ones each its own compiled twin, so the sweep spans two shape
+    cohorts; mixed table seeds widen the fuzz.  Every member must give its
+    own sequential counts: 265 / 482 lossless, 2,378 / 8,197 lossy."""
+    from ..sweep import SweepInstance, SweepSpec
+
+    insts = []
+    for i in range(max(1, int(n))):
+        lossy = bool(i % 2)
+        m = paxos_model(1, 3)
+        if lossy:
+            m.lossy_network(True)
+        insts.append(SweepInstance(
+            f"paxos1-{'lossy-' if lossy else ''}i{i}", m,
+            params={"clients": 1, "lossy": lossy, "seed": i // 2},
+            seed=i // 2,
+        ))
+    return SweepSpec(insts)
+
+
 def main(argv=None) -> int:
     from ._cli import (
         auto,
@@ -297,6 +320,7 @@ def main(argv=None) -> int:
         gpu,
         host_bfs,
         make_independence_cmd,
+        make_sweep_cmd,
         supervised,
     )
 
@@ -318,6 +342,7 @@ def main(argv=None) -> int:
         max_args=1,
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
+        sweep=make_sweep_cmd(sweep_family),
     )
 
 

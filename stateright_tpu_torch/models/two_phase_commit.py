@@ -78,6 +78,11 @@ class TwoPhaseSys(TensorBackedModel, Model):
     def tensor_model(self) -> "TwoPhaseTensor":
         return TwoPhaseTensor(self)
 
+    def sweep_family(self, n: int = 8):
+        """The default sweep of ``STATERIGHT_TPU_SWEEP=N`` (JAX
+        ``two_phase_commit.py:98``): the module's :func:`sweep_family`."""
+        return sweep_family(n)
+
     def init_states(self):
         n = self.rm_count
         return [
@@ -342,6 +347,21 @@ def _audit_models(rest=()):
     return [(f"two_phase_commit rm={rm_count}", TwoPhaseSys(rm_count))]
 
 
+def sweep_family(n: int = 8):
+    """The 2pc default sweep (JAX ``two_phase_commit.py:425``; the ``sweep``
+    verb and ``STATERIGHT_TPU_SWEEP``): ``n`` rm=3 instances under
+    distinct table seeds, the same dynamics in disjoint namespaces, one
+    shape cohort; a table-seed fuzz whose members must all give the
+    sequential 288 / 1,146."""
+    from ..sweep import SweepInstance, SweepSpec
+
+    return SweepSpec([
+        SweepInstance(f"2pc3-seed{i}", TwoPhaseSys(3),
+                      params={"rm": 3, "seed": i}, seed=i)
+        for i in range(max(1, int(n)))
+    ])
+
+
 def main(argv=None) -> int:
     from ._cli import (
         auto,
@@ -350,6 +370,7 @@ def main(argv=None) -> int:
         host_bfs,
         host_sym_dfs,
         make_independence_cmd,
+        make_sweep_cmd,
         supervised,
         sym_gpu,
     )
@@ -382,6 +403,7 @@ def main(argv=None) -> int:
         max_args=1,
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
+        sweep=make_sweep_cmd(sweep_family),
     )
 
 

@@ -49,11 +49,13 @@ _SIGNATURES = {
     "srt_bucket_plan": (_P,) * 15 + (_I64, _P),
     # tfp, tpl, tgt, cfp, cpl, n_new, m, then the queue half (all null
     # for a table-only commit): qrows, qfp, qebits, qdepth, tail, sel,
-    # crows, pebits, pdepth, width, arity; stream
-    "srt_insert_commit": (_P,) * 6 + (_I64,) + (_P,) * 9 + (_I32, _I32, _P),
+    # crows, pebits, pdepth, then the tag column (both null without it):
+    # qtag, ptag; width, arity; stream
+    "srt_insert_commit": (_P,) * 6 + (_I64,) + (_P,) * 11 + (_I32, _I32, _P),
     # rows, valid, pfps, fp, payload, cidx, key, n_valid, cand_overflow,
-    # scratch, m, cb, width, arity, stream
-    "srt_cand_prep": (_P,) * 10 + (_I64, _I64, _I32, _I32, _P),
+    # scratch, then the namespace mode (null tables: off): ptags, ns_low,
+    # ns_xor, bits; m, cb, width, arity, stream
+    "srt_cand_prep": (_P,) * 13 + (_I32, _I64, _I64, _I32, _I32, _P),
 }
 
 

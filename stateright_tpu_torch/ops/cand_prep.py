@@ -12,6 +12,12 @@ lane order, to the front of a ``CB``-wide buffer and gives each its
 fingerprint, its parent's fingerprint (the payload), its lane index
 (``cidx``) and its sort key; see :func:`cand_prep_plain` for every lane.
 
+In a sweep (``sweep/engine.py``) the prep takes a :class:`Namespace`: each
+valid lane's fingerprint is namespaced by its parent's instance tag
+(``ops/hashing.ns_hash_plain``) before it is keyed and compacted, the
+JAX sweep step's ``ns_hash(row_hash(succ), ...)``.  Without one (the
+plain engine) the launch and its bytes are unchanged.
+
 It always compacts, even at ``CB == M``: the sorted valid prefix, and so
 the tables and the queue, come out the same as without compaction.
 
@@ -22,16 +28,30 @@ is the stable key sort that follows it in the engine.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
 from . import _cuda
 from .buckets import bucket_key
-from .hashing import EMPTY, SIGN, row_hash_plain
+from .hashing import EMPTY, SIGN, ns_hash_plain, row_hash_plain
 
 PREP_TILE = 256  # input (or output) lanes per CTA of csrc/cand_prep.cu
 
 
-def cand_prep_plain(rows, valid, pfps, arity: int, cb: int):
+class Namespace(NamedTuple):
+    """The namespace mode of :func:`cand_prep`: lane ``i``'s fingerprint
+    is ``ns_hash(fp, low[t], xor[t], bits)`` with ``t = tags[i // arity]``
+    (``ops/hashing.ns_hash_plain``)."""
+
+    tags: torch.Tensor  # int32[B]: the parents' instance tags
+    low: torch.Tensor  # int64[K]: each tag's low key bits (its global tag)
+    xor: torch.Tensor  # int64[K]: each tag's high-bit seed scramble
+    bits: int
+
+
+def cand_prep_plain(rows, valid, pfps, arity: int, cb: int,
+                    ns: Optional[Namespace] = None):
     """Plain PyTorch version: ``row_hash_plain``, the JAX budget compaction
     and ``bucket_key``, composed.  ``rows`` int64[M, W], ``valid`` bool[M],
     ``pfps`` int64[M // arity].  Returns ``(fp, payload, cidx, key,
@@ -40,10 +60,15 @@ def cand_prep_plain(rows, valid, pfps, arity: int, cb: int):
     ``pfps[i // arity]`` and ``bucket_key(fp) ^ SIGN`` (unsigned key order
     as signed order), and later lanes EMPTY, ``pfps[(M-1) // arity]``,
     ``M - 1`` and ``EMPTY ^ SIGN``; then the 0-d int64 count of valid lanes
-    and the 0-d flag ``n_valid > CB``."""
+    and the 0-d flag ``n_valid > CB``.  With ``ns`` each valid lane's
+    fingerprint is namespaced first, and the key is taken from it."""
     m = rows.shape[0]
     dev = rows.device
     fp = row_hash_plain(rows, valid)
+    if ns is not None:
+        t = ns.tags.to(torch.int64).repeat_interleave(arity)
+        fp = torch.where(valid, ns_hash_plain(fp, ns.low[t], ns.xor[t],
+                                              ns.bits), EMPTY)
     vsum = torch.cumsum(valid.to(torch.int32), 0, dtype=torch.int32)
     n_valid = vsum[m - 1].to(torch.int64)
     # index of the j-th valid lane = first position where the running
@@ -82,15 +107,17 @@ class PrepBuffers:
 
 
 def cand_prep(rows, valid, pfps, arity: int, cb: int,
-              out: PrepBuffers = None, *, check: bool = True, stream=None):
+              out: PrepBuffers = None, *, check: bool = True, stream=None,
+              ns: Optional[Namespace] = None):
     """:func:`cand_prep_plain`'s function; CUDA tensors launch
-    ``csrc/cand_prep.cu`` once, into ``out`` (allocated here when None).
+    ``csrc/cand_prep.cu`` once, into ``out`` (allocated here when None);
+    ``ns`` turns on the namespace mode of a sweep.
     The outputs are ``out``'s tensors: the next launch into the same
     buffers overwrites them.  ``check=False`` skips the argument checks:
     only for a caller that built the inputs itself (the engine).
     ``stream``: the raw CUDA stream (default: the current one)."""
     if rows.device.type != "cuda":
-        return cand_prep_plain(rows, valid, pfps, arity, cb)
+        return cand_prep_plain(rows, valid, pfps, arity, cb, ns)
     m = rows.shape[0]
     dev = rows.device
     if check:
@@ -103,13 +130,24 @@ def cand_prep(rows, valid, pfps, arity: int, cb: int,
         if out is not None and (out.m, out.cb, out.device) != (m, cb, dev):
             raise ValueError(f"out: buffers for {out.m} lanes, budget "
                              f"{out.cb}, on {out.device}")
+        if ns is not None:
+            _cuda.require(ns.tags, "tags", torch.int32, 1, dev,
+                          pfps.shape[0])
+            _cuda.require(ns.low, "low", torch.int64, 1, dev)
+            _cuda.require(ns.xor, "xor", torch.int64, 1, dev,
+                          ns.low.shape[0])
+            if not 1 <= ns.bits <= 63:
+                raise ValueError(f"ns.bits: {ns.bits}, want 1..63")
     if out is None:
         out = PrepBuffers(m, cb, dev)
     if stream is None:
         stream = _cuda.stream_of(rows)
+    nsargs = ((None, None, None, 0) if ns is None else
+              (ns.tags.data_ptr(), ns.low.data_ptr(), ns.xor.data_ptr(),
+               ns.bits))
     _cuda.check("cand_prep", _cuda.library().srt_cand_prep(
         rows.data_ptr(), valid.data_ptr(), pfps.data_ptr(), *out.ptrs,
-        m, cb, rows.shape[1], arity, stream,
+        *nsargs, m, cb, rows.shape[1], arity, stream,
     ))
     cand_prep.launches += 1
     return out.outputs

@@ -22,7 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fingerprint import FINGERPRINT_SEED, _SM_GAMMA, _SM_M1, _SM_M2
+from ..fingerprint import (
+    _SM_GAMMA, _SM_M1, _SM_M1_INV, _SM_M2, _SM_M2_INV, FINGERPRINT_SEED,
+)
 from . import _cuda
 
 
@@ -36,6 +38,9 @@ GAMMA = to_i64(_SM_GAMMA)
 M1 = to_i64(_SM_M1)
 M2 = to_i64(_SM_M2)
 SEED = to_i64(FINGERPRINT_SEED)
+# unmix64's multipliers: the inverses of M1 and M2 mod 2^64, wrapped
+M1_INV = to_i64(_SM_M1_INV)
+M2_INV = to_i64(_SM_M2_INV)
 SIGN = -(1 << 63)  # the top bit: ``x ^ SIGN`` sorts int64 in unsigned order
 
 # Empty-slot sentinel of the device hash tables: 2^64 - 1 as int64.
@@ -60,6 +65,33 @@ def mix64(h: torch.Tensor) -> torch.Tensor:
     h = h * M2
     h = h ^ lshr(h, 31)
     return h
+
+
+def unmix64(h: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of :func:`mix64` over int64 bit patterns (JAX
+    ``ops/hashing.py:75``; host mirror ``fingerprint.unmix64``)."""
+    h = h ^ lshr(h, 31) ^ lshr(h, 62)
+    h = h * M2_INV
+    h = h ^ lshr(h, 27) ^ lshr(h, 54)
+    h = h * M1_INV
+    h = h ^ lshr(h, 30) ^ lshr(h, 60)
+    return h
+
+
+def ns_hash_plain(fps: torch.Tensor, ns_low: torch.Tensor,
+                  ns_xor: torch.Tensor, bits: int) -> torch.Tensor:
+    """Namespace fingerprints for a sweep (JAX ``ops/hashing.py:86``,
+    ``ns_hash``): the LOW ``bits`` bits of the sort key ``mix64(fp)``
+    become the lane's instance tag ``ns_low``, the high bits are XORed with
+    its table-seed scramble ``ns_xor`` (0 for an unseeded instance), and
+    the mixer is inverted; 0 and EMPTY remap to GAMMA, as in
+    :func:`row_hash_plain`.  Per lane; the tensors broadcast.  Host mirror:
+    ``fingerprint.ns_fingerprint``.  ``cand_prep``'s namespace mode is this
+    function fused into the kernel."""
+    low = (1 << bits) - 1
+    key = ((mix64(fps) ^ ns_xor) & ~low) | (ns_low & low)
+    h = unmix64(key)
+    return torch.where((h == 0) | (h == EMPTY), GAMMA, h)
 
 
 def mix64_np(h) -> np.ndarray:

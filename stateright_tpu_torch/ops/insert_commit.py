@@ -28,7 +28,9 @@ from . import _cuda
 class QueueAppend(NamedTuple):
     """The queue half of a commit: candidate ``sel[j]`` (an index into
     ``src_rows``) goes to queue row ``tail + j``, with its parent's lanes
-    read at ``sel[j] // arity``."""
+    read at ``sel[j] // arity``.  A sweep's queue adds the tag column:
+    ``tags[tail + j] = parent_tags[sel[j] // arity]`` (both None: no
+    column, the plain engine's launch)."""
 
     rows: torch.Tensor  # int64[Q, W] queue rows, updated in place
     fps: torch.Tensor  # int64[Q]
@@ -40,6 +42,8 @@ class QueueAppend(NamedTuple):
     parent_ebits: torch.Tensor  # int32[B]
     parent_depths: torch.Tensor  # int32[B]
     arity: int
+    tags: Optional[torch.Tensor] = None  # int32[Q]: a sweep's instance tags
+    parent_tags: Optional[torch.Tensor] = None  # int32[B]
 
 
 def insert_write_plain(tfp, tpl, tgt, cfp, cpl, n_new):
@@ -67,6 +71,8 @@ def insert_commit_plain(tfp, tpl, tgt, cfp, cpl, n_new,
         queue.fps[dst] = cfp[live]
         queue.ebits[dst] = queue.parent_ebits[p]
         queue.depths[dst] = queue.parent_depths[p] + 1
+        if queue.tags is not None:
+            queue.tags[dst] = queue.parent_tags[p]
     return tfp, tpl
 
 
@@ -96,6 +102,11 @@ def _check(tfp, tpl, tgt, cfp, cpl, n_new, queue) -> None:
     if queue.src_rows.shape != (b * queue.arity, width):
         raise ValueError(f"src_rows: shape {tuple(queue.src_rows.shape)}, "
                          f"expected ({b * queue.arity}, {width})")
+    if (queue.tags is None) != (queue.parent_tags is None):
+        raise ValueError("tags and parent_tags: give both or neither")
+    if queue.tags is not None:
+        _cuda.require(queue.tags, "tags", i32, 1, dev, q)
+        _cuda.require(queue.parent_tags, "parent_tags", i32, 1, dev, b)
 
 
 def insert_commit(tfp, tpl, tgt, cfp, cpl, n_new,
@@ -118,15 +129,18 @@ def insert_commit(tfp, tpl, tgt, cfp, cpl, n_new,
         if stream is None:
             stream = _cuda.stream_of(tfp)
         if queue is None:
-            qargs = (None,) * 9 + (0, 1)
+            qargs = (None,) * 11 + (0, 1)
         else:
+            tagged = queue.tags is not None
             qargs = (
                 queue.rows.data_ptr(), queue.fps.data_ptr(),
                 queue.ebits.data_ptr(), queue.depths.data_ptr(),
                 queue.tail.data_ptr(), queue.sel.data_ptr(),
                 queue.src_rows.data_ptr(), queue.parent_ebits.data_ptr(),
-                queue.parent_depths.data_ptr(), queue.rows.shape[1],
-                queue.arity,
+                queue.parent_depths.data_ptr(),
+                queue.tags.data_ptr() if tagged else None,
+                queue.parent_tags.data_ptr() if tagged else None,
+                queue.rows.shape[1], queue.arity,
             )
         _cuda.check("insert_commit", _cuda.library().srt_insert_commit(
             tfp.data_ptr(), tpl.data_ptr(), tgt.data_ptr(), cfp.data_ptr(),

@@ -381,9 +381,10 @@ def diff_reports(
             # same quantity, equal only when append windows never
             # straddle BFS levels, so depth-profile parity is not gated
             # across a sweep pair (docs/sweep.md)
-            sweep_pair = "sweep" in (
-                (a_s.get("config") or {}).get("engine"),
-                (b_s.get("config") or {}).get("engine"),
+            # (the JAX sweep's engine is "sweep", the port's "gpu-sweep")
+            sweep_pair = any(
+                str((x.get("config") or {}).get("engine")).endswith("sweep")
+                for x in (a_s, b_s)
             )
             cart_drift = (
                 cart.get("match") is False

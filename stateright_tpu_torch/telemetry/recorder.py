@@ -2,8 +2,10 @@
 
 The port's own copy of ``stateright_tpu/telemetry/recorder.py``.  The
 schema keeps every record kind and feature block of the JAX package (the
-``sweep``/``fleet`` producers are not ported yet), so a JSONL
-written by either package reads in the other.
+``fleet`` producer is not ported yet; the sweep engine, ``sweep/engine.py``,
+writes the ``sweep`` records ``cohort_compile``, ``instance_done`` and
+``summary`` with the JAX fields), so a JSONL written by either package
+reads in the other.
 
 Record schema (every record):
 

@@ -407,6 +407,22 @@ ISOLATION_CASES = {
         "assert fleet_audit(['two_phase_commit', 'paxos', 'quickstart'],\n"
         "                   stream=open(d + '/audit.txt', 'w')) == 0\n"
     ),
+    # sweeps: a seed-only family (member 0's kernels) and a lifted cohort
+    # (the unified graph under vmap), the CLI verb's spawn path
+    "sweep": (
+        "from stateright_tpu_torch.models.two_phase_commit import (\n"
+        "    TwoPhaseSys, sweep_family)\n"
+        "from stateright_tpu_torch.testing.sweep_fixtures import (\n"
+        "    bounded_counter_spec)\n"
+        "c = TwoPhaseSys(3).checker().sweep(sweep_family(2)).spawn_gpu(\n"
+        "    device='cpu', capacity=1 << 12, batch=64).join()\n"
+        "assert c.unique_state_count() == 576, c.unique_state_count()\n"
+        "spec = bounded_counter_spec([1, 2, 3])\n"
+        "s = spec.instances[0].model.checker().sweep(spec).spawn_gpu(\n"
+        "    device='cpu', capacity=1 << 12, batch=32).join()\n"
+        "assert s.cohorts[0].lifted > 0\n"
+        "assert [r.unique for r in s.results.values()] == [4, 9, 16]\n"
+    ),
     # telemetry: the recorder, cartography, the memory ledger, the report
     # and the run registry on the GPU engine and the host BFS
     "telemetry": (
@@ -635,6 +651,43 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
         sp = c.spill_status()
         assert sp["evictions"] >= 1 and sp["deferred"] > 0
     assert c.unique_state_count() == SYNC_FREE_UNIQUE[name]
+    assert len(blocks) > 2
+    assert blocks == [[]] * len(blocks)
+
+
+@pytest.mark.parametrize("name", ["seed-2pc", "lifted-cart"])
+def test_sweep_blocks_dispatch_no_host_read(name, monkeypatch):
+    """The sweep engine's blocks under the same probe: per-instance first
+    hits, ``done_of``, the counters' ``index_add``, the namespace mode and
+    the tag column, and a lifted cohort's ``vmap`` over the unified graph
+    (with cartography's per-instance counters), read nothing on the host;
+    the host reads one packed stats tensor per block, outside it."""
+    from stateright_tpu_torch.models.two_phase_commit import sweep_family
+    from stateright_tpu_torch.sweep import engine
+    from stateright_tpu_torch.testing.sweep_fixtures import (
+        bounded_counter_spec,
+    )
+
+    blocks = []
+    run = engine._SweepEngine.run
+
+    def probed(self, carry):
+        probe = SyncProbe()
+        with probe:
+            out = run(self, carry)
+        blocks.append(probe.hits)
+        return out
+
+    monkeypatch.setattr(engine._SweepEngine, "run", probed)
+    if name == "seed-2pc":
+        spec, kw, want = sweep_family(3), dict(batch=32), [288] * 3
+        b = spec.instances[0].model.checker()
+    else:
+        spec, kw = bounded_counter_spec([2, 3, 4]), dict(batch=8)
+        want = [9, 16, 25]
+        b = spec.instances[0].model.checker().cartography()
+    c = b.sweep(spec).spawn_gpu(device="cpu", steps_per_call=4, **kw).join()
+    assert [r.unique for r in c.results.values()] == want
     assert len(blocks) > 2
     assert blocks == [[]] * len(blocks)
 

@@ -66,6 +66,7 @@ from stateright_tpu_torch.ops.cand_prep import (
     sort_prepared,
 )
 from stateright_tpu_torch.ops.hashing import (
+    GAMMA as GAMMA_I64,
     ROW_HASH_MAX_WIDTH,
     row_hash,
     row_hash_plain,
@@ -943,3 +944,122 @@ def test_por_proviso_round_kernels_match_plain(cuda):
     for a, b in zip(tables[0] + tuple(queues[0][:4]),
                     tables[1] + tuple(queues[1][:4])):
         assert torch.equal(a, b)
+
+
+# -- the sweep's kernel modes: cand_prep's namespace, insert_commit's tags ---
+
+
+def ns_case(case, rng, rows, arity):
+    """A sweep namespace for ``rows`` (``[B * arity, W]``): per-parent tags
+    over ``k`` instances, their low-bit tags and seed scrambles; "remap"
+    makes lane 0 namespace onto 0 (and so GAMMA)."""
+    from stateright_tpu_torch.fingerprint import mix64, sweep_ns_xor
+    from stateright_tpu_torch.ops.cand_prep import Namespace
+
+    b = rows.shape[0] // arity
+    k = {"k_1": 1, "k_1000": 1000}.get(case, 8)
+    bits = max(1, (k - 1).bit_length())
+    tags = rng.integers(0, k, b).astype(np.int32)
+    low = np.arange(k, dtype=np.uint64)
+    xor = np.asarray([sweep_ns_xor(int(s)) for s in rng.integers(0, 9, k)],
+                     np.uint64)
+    if case == "remap":
+        h0 = int(row_hash_plain(rows[:1])[0]) & ((1 << 64) - 1)
+        tags[0] = 0
+        low[0] = np.uint64(0)
+        xor[0] = np.uint64(mix64(h0) & ~((1 << bits) - 1))
+    return Namespace(torch.from_numpy(tags), i64(low), i64(xor), bits)
+
+
+NS_CASES = ["m_1", "m_257", "many_tiles", "n_valid_cb_plus_1", "k_1",
+            "k_1000", "remap"]
+
+
+@pytest.mark.parametrize("case", NS_CASES)
+def test_cand_prep_namespace_mode_matches_plain(cuda, case):
+    """The namespace mode, every output lane and both scalars bit for bit,
+    on random shapes and on a lane whose namespaced key remaps."""
+    from stateright_tpu_torch.ops.cand_prep import Namespace
+
+    rng = np.random.default_rng(100 + NS_CASES.index(case))
+    base = case if case in PREP_CASES else "cb_is_m"
+    rows, valid, pfps, arity, cb = prep_case(base, rng)
+    if case == "remap":
+        valid[0] = True
+    ns = ns_case(case, rng, rows, arity)
+    want = cand_prep_plain(rows, valid, pfps, arity, cb, ns)
+    if case == "remap":
+        assert int(want[0][0]) == int(GAMMA_I64)
+    cns = Namespace(*(x.to(cuda) for x in ns[:3]), ns.bits)
+    args = [x.to(cuda) for x in (rows, valid, pfps)]
+    out = PrepBuffers(rows.shape[0], cb, cuda)
+    for _ in range(2):
+        got = [x.cpu() for x in cand_prep(*args, arity, cb, out=out, ns=cns)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    # the mode off on the same buffers is the plain launch again
+    plain = cand_prep_plain(rows, valid, pfps, arity, cb)
+    got = [x.cpu() for x in cand_prep(*args, arity, cb, out=out)]
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_new,m", [(3000, 4096), (0, 4096), (1, 1)])
+def test_insert_commit_tag_column_matches_plain(cuda, n_new, m):
+    rng = np.random.default_rng(7)
+    nslots, arity, width, q, tail = 1 << 14, 4, 2, 9000, 123
+    b = -(-m // arity)
+    tfp, tpl = rand_i64(rng, nslots), rand_i64(rng, nslots)
+    tgt = torch.full((m,), nslots, dtype=torch.int64)
+    tgt[:n_new] = torch.from_numpy(rng.choice(nslots, n_new, replace=False))
+    cfp, cpl = rand_i64(rng, m), rand_i64(rng, m)
+    n = torch.tensor(n_new)
+
+    def i32(lo, hi, size):
+        return torch.from_numpy(rng.integers(lo, hi, size).astype(np.int32))
+
+    queue = QueueAppend(
+        rand_i64(rng, q, width), rand_i64(rng, q), i32(0, 99, q),
+        i32(0, 99, q), torch.tensor(tail), torch.from_numpy(rng.permutation(m)),
+        rand_i64(rng, b * arity, width), i32(-99, 99, b), i32(0, 99, b),
+        arity, tags=i32(-5, 5, q), parent_tags=i32(0, 1000, b))
+    cq = QueueAppend(*(x.to(cuda) if torch.is_tensor(x) else x
+                       for x in queue))
+    queue = QueueAppend(*(x.clone() if torch.is_tensor(x) else x
+                          for x in queue))
+    pf, pp = insert_commit_plain(tfp.clone(), tpl.clone(), tgt, cfp, cpl, n,
+                                 queue)
+    kf, kp = insert_commit(*(t.to(cuda) for t in (tfp, tpl, tgt, cfp, cpl, n)),
+                           cq)
+    torch.cuda.synchronize()
+    assert torch.equal(kf.cpu(), pf) and torch.equal(kp.cpu(), pp)
+    for g, w in zip(cq[:4] + (cq.tags,), queue[:4] + (queue.tags,)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("family", ["2pc-seeds", "lifted"])
+def test_sweep_tables_identical_on_cuda_and_cpu(cuda, family):
+    """A seed-only sweep and the lifted cohort: the final tables, queue
+    rows, tags and per-instance counters equal on both devices."""
+    from stateright_tpu_torch.models.two_phase_commit import sweep_family
+    from stateright_tpu_torch.testing.sweep_fixtures import (
+        bounded_counter_spec,
+    )
+
+    spec_of = {"2pc-seeds": lambda: sweep_family(4),
+               "lifted": lambda: bounded_counter_spec([1, 2, 3, 4])}[family]
+    snaps = []
+    for dev in (cuda, "cpu"):
+        spec = spec_of()
+        c = spec.instances[0].model.checker().sweep(spec).spawn_gpu(
+            device=dev, capacity=1 << 12, batch=64).join()
+        snaps.append(c.final_snapshot())
+    g, c = snaps
+    tail = int(c["tail"])
+    for k in ("table_fp", "table_parent", "unique_k", "scount_k", "disc",
+              "maxdepth_k", "tail"):
+        assert np.array_equal(np.asarray(g[k]), np.asarray(c[k])), k
+    for k in ("q_rows", "q_fp", "q_tag", "q_ebits", "q_depth"):
+        assert np.array_equal(np.asarray(g[k])[:tail],
+                              np.asarray(c[k])[:tail]), k
