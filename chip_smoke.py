@@ -107,11 +107,14 @@ The pre-dedup (``.prededup()``, through the CLI's ``--prededup``; each
 leg's launch counts reset just before it and read just after), right
 after the plain paxos legs:
 
- - ``paxos3_prededup``: paxos-3 complete under ``.prededup()`` (the
-   dedup's ``row_hash`` launch every step, ``window_unique``):
-   1,194,428 unique, 2,420,477 states and the plain leg's discoveries,
-   with the share of valid lanes the pre-dedup took out and the launches
-   per step;
+ - ``paxos3_prededup``: paxos-3 under ``.prededup()`` (the dedup's
+   ``row_hash`` launch every step, ``window_unique``), bounded at 600,000
+   unique (its complete counts are the plain paxos-3 leg's and the
+   telemetry leg's): the plain leg's discoveries, the share of valid lanes
+   the pre-dedup took out and the launches per step; then, against the
+   plain run bounded at the same target that the paxos-3 kernel cells
+   take their batch from, the same unique and state counts, steps, table
+   bytes and queue rows;
  - paxos-2 complete and per-channel paxos-2 (``capacity=1 << 16``,
    ``batch=512``) bounded at 4,000 unique, under the flag on ``cuda`` and
    ``cpu``: identical table bytes and queue rows ``[0, tail)``;
@@ -289,7 +292,9 @@ the POR legs' under
 ``at_por_pc_paxos2``, ``at_por_2pc7`` and ``at_por_pc_paxos1``, with the
 proviso round's cells for ``cand_prep``, ``bucket_plan`` and
 ``insert_commit`` under ``at_por_proviso``, and the sweep legs' under
-``at_sweep_2pc7_seeds``, ``at_sweep_paxos_family`` and ``at_sweep_lifted``;
+``at_sweep_2pc7_seeds``, ``at_sweep_paxos_family`` and ``at_sweep_lifted``,
+and the service legs' under ``at_explorer_2pc7``, ``at_fleet_canned`` and
+``at_fleet_2pc7_pack`` (summed over the fleet's slots);
 then two more entries, ``cand_prep_namespace`` and ``insert_commit_tags``,
 the sweep's kernel modes, with the 2pc-7 seed sweep's launches)
 and the last line is ``{"ok": true, "device": {...}}``.
@@ -312,7 +317,34 @@ reset just before it and read just after), last:
  - ``sweep_lifted``: the bounded-counter cohort, bounds 1-8, on ``cuda``
    and ``cpu``: one unified cohort, ``(b + 1)^2`` unique and depth ``2b``
    per member, equal tables, and the ``vmap`` fallback warnings the lifted
-   cohort raised on ``cuda``.  Everything printed is
+   cohort raised on ``cuda``.
+
+The service legs (``explorer.py``, ``fleet/``; each leg's launch counts
+reset just before it and read just after, a fleet's summed over its
+slots), after the sweep legs:
+
+ - ``explorer_2pc7``: 2pc-7 served by the Explorer
+   (``.telemetry(metrics=True, cartography=True).serve(addr,
+   strategy="gpu")``, the plain 2pc-7 leg's spawn arguments) while a
+   client polls ``/.status``, ``/.metrics`` and ``/metrics`` about 20
+   times a second until the run is done: the plain leg's counts and
+   launches, both agreement paths answered by ``/.states`` with 200, no
+   poll past the 5 s snapshot timeout; the wall against the plain leg's,
+   the polls, the ``/.status`` latency (median, maximum) and the seconds
+   to the first live discovery;
+ - ``fleet_canned``: ``python -m stateright_tpu_torch.models._cli fleet``
+   in process (six tenants over two slots, the stall injected into 2pc-5
+   at step 5): every tenant at its pin, one packed cohort of three, one
+   preemption, the lineage ``IDENTICAL``, exit 0;
+ - ``fleet_2pc7_pack``: two slots; four packable ``TwoPhaseSys(7)``
+   tenants in one cohort on the sweep engine (a 2^23-slot table, batch
+   16,384), each at the plain 2pc-7 leg's counts, beside
+   a paxos-2 singleton that a stall at its fifth step preempts and that
+   resumes once at 16,668 / 32,971, its parent and child comparing
+   ``IDENTICAL``; the wall against the sum of the plain legs' walls (four
+   2pc-7, one paxos-2), the seconds to resume and the launches.
+
+Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
 """
@@ -402,6 +434,10 @@ PAXOS3_UNIQUE = 1_194_428  # the JAX engine's complete paxos-3 count
 PAXOS3_STATES = 2_420_477
 # the step flag of the prededup legs (models/_cli.py's STEP_FLAGS)
 PREDEDUP = ("--prededup",)
+# the bound of the plain paxos-3 run whose batch the kernel cells take, and
+# of the paxos-3 prededup leg (the cut that pays for the service legs: the
+# complete prededup run took 19.71 s, and the plain paxos-3 and telemetry
+# legs pin the complete counts), which must stop where the plain run does
 PAXOS3_KERNEL_TARGET = 600_000
 # the JAX engine's complete counts (unique, states) of the compiled models
 SC4 = (400_233, 731_789)
@@ -1087,14 +1123,18 @@ def paxos_phases(dev, smi: str) -> tuple:
 
 
 def flag_phases(dev, smi: str, p3_ref) -> tuple:
-    """The pre-dedup on the card: paxos-3 under ``.prededup()`` complete,
-    with the plain leg's counts and discoveries ``p3_ref``; paxos-2 and
+    """The pre-dedup on the card: paxos-3 under ``.prededup()`` bounded at
+    :data:`PAXOS3_KERNEL_TARGET`, with the plain leg's discoveries
+    ``p3_ref``; paxos-2 and
     per-channel paxos-2 under the flag on ``cuda`` and ``cpu``; 2pc-7
     under ``.symmetry().prededup()`` on both.  Returns each leg's
-    launches."""
-    # -- paxos-3, complete, prededup: the slice's main path ------------------
+    launches, and the paxos-3 leg's counts and final snapshot, which the
+    plain run bounded at the same target must equal
+    (:func:`check_prededup_stop`)."""
+    # -- paxos-3, prededup, bounded --------------------------------------------
     g, g_s, peak, launches = compiled_leg(dev, lambda: paxos_model(3),
-                                          flags=PREDEDUP)
+                                          flags=PREDEDUP,
+                                          target=PAXOS3_KERNEL_TARGET)
     paths = check_discoveries(g.model, g, {"value chosen"})
     g.assert_properties()  # "linearizable" never violated
     removed = g.prededup_removed()
@@ -1107,11 +1147,10 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
                                   for k, v in launches.items()},
                discoveries_identical=(g.discovery_fps() == p3_ref[0]
                                       and paths == p3_ref[1]))
+    rec["target"] = PAXOS3_KERNEL_TARGET
     emit("paxos3_prededup", rec)
-    if (g.unique_state_count(), g.state_count()) != (PAXOS3_UNIQUE,
-                                                     PAXOS3_STATES):
-        raise AssertionError("paxos-3 prededup: not "
-                             f"{(PAXOS3_UNIQUE, PAXOS3_STATES)}")
+    p3f_stop = {"unique": g.unique_state_count(), "states": g.state_count(),
+                "steps": g.steps_run, "snapshot": g.final_snapshot()}
     if not rec["discoveries_identical"]:
         raise AssertionError("paxos-3 prededup: discoveries differ from the "
                              "plain leg's")
@@ -1182,7 +1221,25 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
         raise AssertionError("2pc-7 symmetry prededup: cuda and cpu disagree")
     if sym_launches["bucket_plan"] != 2 * sym_launches["insert_commit"]:
         raise AssertionError(f"2pc-7 symmetry prededup: {sym_launches}")
-    return launches, leg_launches, sym_launches
+    return launches, leg_launches, sym_launches, p3f_stop
+
+
+def check_prededup_stop(plain, stop: dict, smi: str) -> None:
+    """The paxos-3 prededup leg against the plain run bounded at the same
+    target: the same unique and state counts, steps, table bytes, cursors
+    and queue rows (the pre-dedup takes out only lanes the insert would
+    have found again)."""
+    same, tail = same_snapshots(plain.final_snapshot(), stop["snapshot"])
+    got = (stop["unique"], stop["states"], stop["steps"])
+    want = (plain.unique_state_count(), plain.state_count(), plain.steps_run)
+    emit("paxos3_prededup_vs_plain", {
+        "target": PAXOS3_KERNEL_TARGET, "prededup": list(got),
+        "plain": list(want), "tail": tail,
+        "tables_and_queue_identical": same, "card": smi})
+    if got != want or not same:
+        raise AssertionError(f"paxos-3 prededup stopped at {got} with "
+                             f"identical tables {same}, the plain run at "
+                             f"{want}")
 
 
 def ops_per_step(dev, cartography: bool, flags=(),
@@ -3213,6 +3270,258 @@ def sweep_phases(dev, smi: str, ref7: dict) -> tuple:
     return launches, kernels
 
 
+# the service legs (explorer.py, fleet/): the Explorer over the plain
+# 2pc-7 leg's run with a client polling every endpoint; the canned fleet
+# verb; four packable 2pc-7 tenants in one cohort beside a paxos-2
+# singleton that an injected stall preempts
+EXPLORER_POLL_SECS = 0.05  # a round of three endpoints at about 20 Hz
+SNAPSHOT_TIMEOUT_SECS = 5.0  # live_discoveries' checkpoint wait
+PACK_2PC7_JOBS = 4
+# the cohort's table holds its 4 x 296,448 unique without a growth event
+PACK_2PC7_KW = dict(capacity=1 << 23, batch=1 << 14)
+PACK_PAXOS2_KW = dict(capacity=1 << 12, batch=256, steps_per_call=8)
+PACK_STALL_AT = 5  # the paxos-2 job's step record the stall lands on
+PAXOS2 = (16_668, 32_971)
+# the fleet verb's tenants (unique, states): JAX tests/test_fleet.py's
+# pins and the models' own
+FLEET_CANNED_PINS = {"2pc-a": (288, 1_146), "2pc-b": (288, 1_146),
+                     "2pc-c": (288, 1_146), "2pc-4": (1_568, 8_258),
+                     "2pc-5": (8_832, 58_146), "paxos-1": (265, 482)}
+
+
+def _http(addr: str, path: str) -> tuple:
+    """``(status, body bytes, milliseconds)`` of one GET."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(f"http://{addr}{path}") as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.monotonic() - t0) * 1e3
+
+
+def _sync(device) -> None:
+    if torch.device(device or "cuda").type == "cuda":
+        torch.cuda.synchronize()
+
+
+def explorer_leg(smi: str, ref7: dict, device=None) -> dict:
+    """``explorer_2pc7``: 2pc-7 served with ``.telemetry(metrics=True,
+    cartography=True)`` and ``strategy="gpu"`` at the plain leg's spawn
+    arguments, a client polling ``/.status``, ``/.metrics`` and
+    ``/metrics`` about 20 times a second until the run is done: the plain
+    leg's counts and launches, both agreement paths through ``/.states``,
+    no poll past the snapshot timeout; the wall against the plain leg's,
+    the polls, the ``/.status`` latency and the seconds to the first live
+    discovery."""
+    from stateright_tpu_torch.explorer import serve
+
+    reset_launches()
+    _sync(device)
+    t0 = time.monotonic()
+    server = serve(
+        TwoPhaseSys(7).checker().telemetry(metrics=True, cartography=True),
+        "localhost:0", block=False, strategy="gpu",
+        **({} if device is None else {"device": device}))
+    status_ms, other_ms, codes = [], [], set()
+    first_disc = None
+    first_live = False
+    sec = None
+    try:
+        while True:
+            done = server.checker.is_done()
+            if done and sec is None:
+                sec = time.monotonic() - t0
+            for path in ("/.status", "/.metrics", "/metrics"):
+                code, body, ms = _http(server.addr, path)
+                codes.add(code)
+                if path != "/.status":
+                    other_ms.append(ms)
+                    continue
+                status_ms.append(ms)
+                st = json.loads(body)
+                if first_disc is None and any(
+                        d for _, _, d in st["properties"]):
+                    first_disc = time.monotonic() - t0
+                    first_live = not st["done"]
+            if done:
+                break
+            time.sleep(EXPLORER_POLL_SECS)
+        c = server.checker.join()
+        _sync(device)
+        launches = kernel_launches()
+        st = json.loads(_http(server.addr, "/.status")[1])
+        disc = {n: d for _, n, d in st["properties"] if d is not None}
+        views = {n: _http(server.addr, f"/.states/{d}")[0]
+                 for n, d in disc.items()}
+        metrics_text = _http(server.addr, "/metrics")[1].decode()
+    finally:
+        server.shutdown()
+    out = {
+        "unique": c.unique_state_count(), "states": c.state_count(),
+        "sec": sec, "sec_plain_2pc7": ref7["sec"],
+        "wall_over_plain": sec / ref7["sec"],
+        "polls": len(status_ms) + len(other_ms), "status_polls":
+        len(status_ms), "status_ms_median": float(np.median(status_ms)),
+        "status_ms_max": max(status_ms), "other_ms_max": max(other_ms),
+        "http_codes": sorted(codes),
+        "first_discovery_sec": first_disc,
+        "first_discovery_live": first_live, "states_views": views,
+        "metrics_states_total": next(
+            (ln for ln in metrics_text.splitlines()
+             if ln.startswith("stateright_states_total{")), None),
+        "launches": launches, "launches_plain_2pc7": ref7["launches"],
+        "card": smi}
+    emit("explorer_2pc7", out)
+    if (out["unique"], out["states"]) != (ref7["unique"], ref7["states"]):
+        raise AssertionError(f"explorer_2pc7: {out['unique']} / "
+                             f"{out['states']}, not the plain leg's")
+    if set(views) != {"abort agreement", "commit agreement"} or set(
+            views.values()) != {200}:
+        raise AssertionError(f"explorer_2pc7: discovery views {views}")
+    if max(status_ms + other_ms) > SNAPSHOT_TIMEOUT_SECS * 1e3:
+        raise AssertionError("explorer_2pc7: a poll outlasted the snapshot "
+                             "timeout")
+    if codes != {200}:
+        raise AssertionError(f"explorer_2pc7: poll codes {codes}")
+    if launches != ref7["launches"]:
+        raise AssertionError(f"explorer_2pc7: launches {launches} != the "
+                             f"plain leg's {ref7['launches']}")
+    return launches
+
+
+def _resume_secs(rec, key: str) -> Optional[float]:
+    """Seconds from the job's ``preempt`` record to its ``resume``."""
+    t = {r["event"]: r["t"] for r in rec.records("job")
+         if r.get("key") == key and r["event"] in ("preempt", "resume")}
+    return (t["resume"] - t["preempt"]) if len(t) == 2 else None
+
+
+def fleet_canned_leg(smi: str, device=None) -> dict:
+    """``fleet_canned``: the ``fleet`` verb in process (JAX's six tenants
+    over two slots, the stall in 2pc-5 at step 5): every pin, one packed
+    cohort of three, the preempted job's lineage ``IDENTICAL``, exit 0."""
+    from stateright_tpu_torch.models._cli import canned_fleet
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    buf = io.StringIO()
+    reset_launches()
+    _sync(device)
+    t0 = time.monotonic()
+    rc, res = canned_fleet([f"--root={root}"] + (
+        [] if device is None else [f"--device={device}"]), stream=buf)
+    _sync(device)
+    sec = time.monotonic() - t0
+    launches = kernel_launches()
+    text = buf.getvalue()
+    print(text, end="")
+    jobs = {r.key: r for r in res.results.values()}
+    out = {"rc": rc, "sec": sec, "fleet_secs": res.secs,
+           "completed": res.completed, "preemptions": res.preemptions,
+           "engine_compiles": res.engine_compiles, "packed": res.packed,
+           "jobs": {k: [r.unique, r.states, r.preemptions, r.slot,
+                        round(r.secs, 3)] for k, r in jobs.items()},
+           "resume_secs_2pc5": _resume_secs(res.recorder, "2pc-5"),
+           "lineage_identical": "IDENTICAL (contract: lineage)" in text,
+           "launches": launches, "card": smi}
+    emit("fleet_canned", out)
+    wrong = {k: (jobs[k].unique, jobs[k].states)
+             for k, pin in FLEET_CANNED_PINS.items()
+             if (jobs[k].unique, jobs[k].states) != pin}
+    if rc != 0 or wrong or res.preemptions != 1 or not out[
+            "lineage_identical"]:
+        raise AssertionError(f"fleet_canned: rc {rc}, off the pins {wrong}, "
+                             f"{res.preemptions} preemption(s)")
+    if [len(p["jobs"]) for p in res.packed] != [3]:
+        raise AssertionError(f"fleet_canned: packed {res.packed}")
+    return launches
+
+
+def fleet_pack_leg(smi: str, ref7: dict, device=None) -> dict:
+    """``fleet_2pc7_pack``: two slots; four packable 2pc-7 tenants form one
+    cohort on the sweep engine, each at the plain leg's counts, while a
+    paxos-2 singleton is stall-preempted and resumes once, its lineage
+    ``IDENTICAL``; the wall against the sum of the plain legs' walls, the
+    engine builds, the seconds to resume, the launches summed over both
+    slots."""
+    from stateright_tpu_torch.fleet import (
+        FleetSpec, Job, PreemptionPlan, run_fleet,
+    )
+    from stateright_tpu_torch.models._cli import compare_reports_cmd
+
+    runs = tempfile.mkdtemp(prefix="chip-smoke-fleet-runs-")
+    jobs = [Job(key=f"2pc7-{i}", packable=True, build=lambda: TwoPhaseSys(
+                7).checker().runs(runs), **PACK_2PC7_KW)
+            for i in range(PACK_2PC7_JOBS)]
+    jobs.append(Job(key="paxos-2", build=lambda: paxos_model(
+        2).checker().runs(runs), **PACK_PAXOS2_KW))
+    reset_launches()
+    _sync(device)
+    t0 = time.monotonic()
+    res = run_fleet(FleetSpec(jobs=jobs, slots=2),
+                    root=tempfile.mkdtemp(prefix="chip-smoke-pool-"),
+                    preemption=PreemptionPlan({"paxos-2": PACK_STALL_AT}),
+                    stream=sys.stdout, device=device)
+    _sync(device)
+    sec = time.monotonic() - t0
+    launches = kernel_launches()
+    px = res["paxos-2"]
+    buf = io.StringIO()
+    rc = compare_reports_cmd([px.parent_run_id or "-", px.run_id or "-",
+                              f"--registry={runs}", "--expect=IDENTICAL"],
+                             buf) if px.parent_run_id else 1
+    plain = PACK_2PC7_JOBS * ref7["sec"] + RECORD["paxos2"]["sec_cuda"]
+    cohort_builds = [p["engine_compiles"] for p in res.packed]
+    out = {"sec": sec, "fleet_secs": res.secs, "sum_plain_sec": plain,
+           "wall_over_sum_plain": sec / plain,
+           "packed": res.packed, "engine_compiles": res.engine_compiles,
+           "cohort_engine_builds": cohort_builds,
+           "preemptions": res.preemptions,
+           "jobs": {r.key: [r.unique, r.states, r.preemptions, r.slot,
+                            round(r.secs, 3)] for r in res.results.values()},
+           "resume_secs_paxos2": _resume_secs(res.recorder, "paxos-2"),
+           "lineage_rc": rc,
+           "lineage_identical": "IDENTICAL (contract: lineage)"
+           in buf.getvalue(),
+           "launches": launches, **{f"pack_{k}": v for k, v in
+                                    PACK_2PC7_KW.items()}, "card": smi}
+    emit("fleet_2pc7_pack", out)
+    wrong = [r.key for r in res.results.values() if r.key != "paxos-2"
+             and (r.unique, r.states) != (ref7["unique"], ref7["states"])]
+    if res.completed != len(jobs) or wrong:
+        raise AssertionError(f"fleet_2pc7_pack: off the plain leg {wrong}, "
+                             f"{res.completed} completed")
+    if [len(p["jobs"]) for p in res.packed] != [PACK_2PC7_JOBS]:
+        raise AssertionError(f"fleet_2pc7_pack: packed {res.packed}")
+    if (px.unique, px.states) != PAXOS2 or px.preemptions != 1:
+        raise AssertionError(f"fleet_2pc7_pack: paxos-2 at "
+                             f"{(px.unique, px.states)} after "
+                             f"{px.preemptions} preemption(s)")
+    if rc != 0 or not out["lineage_identical"]:
+        raise AssertionError(f"fleet_2pc7_pack: lineage {buf.getvalue()}")
+    # the cohort's builds (one per candidate-budget rung: the fleet hands
+    # a packed cohort only its members' capacity and batch, as JAX's does)
+    # and one per spawn of the singleton (the preempted attempt, the resume)
+    if res.engine_compiles != sum(cohort_builds) + 2:
+        raise AssertionError(f"fleet_2pc7_pack: engine builds "
+                             f"{res.engine_compiles} (cohort {cohort_builds})")
+    return launches
+
+
+def service_phases(smi: str, ref7: dict, device=None) -> dict:
+    """The three service legs; returns each one's launches."""
+    out = {"explorer_2pc7": explorer_leg(smi, ref7, device)}
+    lap("explorer_2pc7")
+    out["fleet_canned"] = fleet_canned_leg(smi, device)
+    lap("fleet_canned")
+    out["fleet_2pc7_pack"] = fleet_pack_leg(smi, ref7, device)
+    lap("fleet_2pc7_pack")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3279,7 +3588,8 @@ def main() -> int:
     # what the checked, spill and supervised 2pc-7 legs must give
     ref7 = {"sec": g7_s, "unique": g7.unique_state_count(),
             "states": g7.state_count(), "steps": g7.steps_run,
-            "disc": g7.discovery_fps(), "snap": g7.final_snapshot()}
+            "disc": g7.discovery_fps(), "snap": g7.final_snapshot(),
+            "launches": launches}
     lap("2pc7")
 
     # -- 2pc-10, target-bounded ----------------------------------------------
@@ -3316,7 +3626,8 @@ def main() -> int:
     p3_ref = paxos_phases(dev, smi)
     lap("paxos2_and_paxos3")
     launches_tel = telemetry_phases(dev, smi, p3_ref)
-    launches_p3f, launches_p2f, launches_sym7f = flag_phases(dev, smi, p3_ref)
+    launches_p3f, launches_p2f, launches_sym7f, p3f_stop = flag_phases(
+        dev, smi, p3_ref)
     lap("step_flags")
     launches_cs, kernels_inject = checked_spill_phases(dev, smi, ref7,
                                                        p3_ref)
@@ -3324,6 +3635,8 @@ def main() -> int:
     # .prededup() step gives it (the queue holds the same rows with the
     # flag on or off) ---------------------------------------------------------
     gp, _ = timed_run(3, target=PAXOS3_KERNEL_TARGET, model=paxos_model)
+    check_prededup_stop(gp, p3f_stop, smi)
+    del p3f_stop
     kernels_p3 = check_kernels(gp, gp._final_carry, cold=True)
     for name, k in kernels_p3.items():
         emit(f"kernel_{name}_paxos3", k)
@@ -3406,6 +3719,7 @@ def main() -> int:
     launches_sup = supervise_phases(dev, smi, ref7)
     launches_sweep, kernels_sweep = sweep_phases(dev, smi, ref7)
     lap("sweep")
+    launches_svc = service_phases(smi, ref7)
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
@@ -3490,6 +3804,10 @@ def main() -> int:
                 launches=launches_por["por_pc_paxos2"][name])
         # the sweep legs: every kernel of the main path runs there too
         for leg, ls in launches_sweep.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+        # the service legs: the served run, and the fleets (launches summed
+        # over both slots)
+        for leg, ls in launches_svc.items():
             entry[f"at_{leg}"] = {"launches": ls[name]}
         line.append(entry)
     # the sweep's two kernel modes, each as a kernel of its own: launches

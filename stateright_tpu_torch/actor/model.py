@@ -2,8 +2,8 @@
 (reference ``src/actor/model.rs``, ``src/actor/model_state.rs``).
 
 The port's own copy of ``stateright_tpu/actor/model.py``, with the
-symmetry ``ActorModelState.representative``; the sequence-diagram
-``as_svg`` comes with the slice that uses it.
+symmetry ``ActorModelState.representative`` and the sequence-diagram
+``as_svg`` that the Explorer's ``/.states`` views carry.
 
 ``cfg`` is an arbitrary config value, ``history`` an auxiliary history kept
 TLA-style alongside the system (e.g. a linearizability tester); both are
@@ -125,6 +125,15 @@ class _Draft:
 
 def _default_boundary(cfg, state) -> bool:
     return True
+
+
+def _xml_escape(text: str) -> str:
+    return (
+        text.replace("&", "&amp;")
+        .replace("<", "&lt;")
+        .replace(">", "&gt;")
+        .replace("'", "&apos;")
+    )
 
 
 class ActorModel(Model):
@@ -314,6 +323,107 @@ class ActorModel(Model):
                 draft.is_timer_set[index] = True
             elif isinstance(c, CancelTimer):
                 draft.is_timer_set[index] = False
+
+    def as_svg(self, path) -> Optional[str]:
+        """Sequence diagram for an actor-system trace (JAX
+        ``stateright_tpu/actor/model.py:343-442``; reference
+        ``src/actor/model.rs:384-475``): a vertical timeline per actor,
+        an arrow per delivery from its send time to its delivery time, a
+        circle per timeout, and message labels drawn last so they sit on
+        top.  Send times are recovered by re-running the (pure) handlers
+        along the path, exactly as the reference does."""
+        entries = path.into_vec()  # [(state, action|None), ...]
+        if not entries:
+            return None
+        actor_count = len(entries[-1][0].actor_states)
+
+        def plot(x: int, y: int) -> tuple[int, int]:
+            return x * 100, y * 30
+
+        svg_w, svg_h = plot(actor_count, len(entries))
+        svg_w += 300  # extra width for event labels, as in the reference
+        out = [
+            f"<svg version='1.1' baseProfile='full' "
+            f"width='{svg_w}' height='{svg_h}' "
+            f"viewBox='-20 -20 {svg_w + 20} {svg_h + 20}' "
+            f"xmlns='http://www.w3.org/2000/svg'>",
+            "<defs><marker class='svg-event-shape' id='arrow' "
+            "markerWidth='12' markerHeight='10' refX='12' refY='5' "
+            "orient='auto'><polygon points='0 0, 12 5, 0 10' />"
+            "</marker></defs>",
+        ]
+        for index in range(actor_count):
+            x1, y1 = plot(index, 0)
+            x2, y2 = plot(index, len(entries))
+            out.append(
+                f"<line x1='{x1}' y1='{y1}' x2='{x2}' y2='{y2}' "
+                "class='svg-actor-timeline' />"
+            )
+            out.append(
+                f"<text x='{x1}' y='{y1}' class='svg-actor-label'>"
+                f"{index}</text>"
+            )
+
+        def track_sends(handler_id: Id, cmds, time: int) -> None:
+            for c in cmds:
+                if isinstance(c, Send):
+                    send_time[(handler_id, c.dst, c.msg)] = time
+
+        # Arrows for deliveries, circles for timeouts.  ``time`` is the row
+        # the action lands on (the action at entry i produces entry i+1).
+        send_time: dict = {}
+        for i, (state, action) in enumerate(entries):
+            time = i + 1
+            if isinstance(action, Deliver):
+                src_time = send_time.get((action.src, action.dst, action.msg), 0)
+                x1, y1 = plot(int(action.src), src_time)
+                x2, y2 = plot(int(action.dst), time)
+                out.append(
+                    f"<line x1='{x1}' x2='{x2}' y1='{y1}' y2='{y2}' "
+                    "marker-end='url(#arrow)' class='svg-event-line' />"
+                )
+                index = int(action.dst)
+                if index < len(state.actor_states):
+                    cmds = Out()
+                    self.actors[index].on_msg(
+                        Id(index),
+                        state.actor_states[index],
+                        action.src,
+                        action.msg,
+                        cmds,
+                    )
+                    track_sends(Id(index), cmds.commands, time)
+            elif isinstance(action, Timeout):
+                index = int(action.id)
+                x, y = plot(index, time)
+                out.append(
+                    f"<circle cx='{x}' cy='{y}' r='10' "
+                    "class='svg-event-shape' />"
+                )
+                if index < len(state.actor_states):
+                    cmds = Out()
+                    self.actors[index].on_timeout(
+                        Id(index), state.actor_states[index], cmds
+                    )
+                    track_sends(Id(index), cmds.commands, time)
+
+        # Event labels drawn last so they render over the shapes.
+        for i, (_state, action) in enumerate(entries):
+            time = i + 1
+            if isinstance(action, Deliver):
+                x, y = plot(int(action.dst), time)
+                out.append(
+                    f"<text x='{x}' y='{y}' class='svg-event-label'>"
+                    f"{_xml_escape(repr(action.msg))}</text>"
+                )
+            elif isinstance(action, Timeout):
+                x, y = plot(int(action.id), time)
+                out.append(
+                    f"<text x='{x}' y='{y}' class='svg-event-label'>"
+                    "Timeout</text>"
+                )
+        out.append("</svg>")
+        return "".join(out)
 
     def format_action(self, action) -> str:
         return repr(action)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import contextlib
 import operator
+import threading
 from typing import Optional
 
 import numpy as np
@@ -183,13 +184,19 @@ class _InplaceOps(torch.overrides.TorchFunctionMode):
         return self._NAMED.get(func, func)(*args, **(kwargs or {}))
 
 
+# ``make_fx`` keeps process-wide tracing state (the fx patcher), so two
+# threads must not capture at once: the fleet's slots spawn engines, each
+# with its own preflight capture, in parallel
+_CAPTURE_LOCK = threading.RLock()
+
+
 def capture(fn, *args) -> torch.fx.GraphModule:
     """``fn(*args)`` as an aten graph: ``make_fx`` over ``functionalize``
     (the bound method goes through a lambda: ``make_fx`` counts a bound
     method's ``self`` as an argument).  A host read of a tensor value
     (``.item()``, ``bool()`` of a tensor) is recorded in the graph as
     ``aten._local_scalar_dense`` rather than refused, so the kernel audit
-    can name it (``JX101``)."""
+    can name it (``JX101``).  One capture runs at a time in the process."""
     import inspect
 
     from torch.fx.experimental.proxy_tensor import make_fx
@@ -204,7 +211,7 @@ def capture(fn, *args) -> torch.fx.GraphModule:
             make_fx).parameters:
         kw["_error_on_data_dependent_ops"] = False
     traced = make_fx(functionalize(run, remove="mutations"), **kw)
-    with _one_fake_mode():
+    with _CAPTURE_LOCK, _one_fake_mode():
         return traced(*args)
 
 

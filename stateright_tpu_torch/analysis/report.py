@@ -148,6 +148,27 @@ class AuditReport:
             )
         return "\n".join(lines)
 
+    def to_json(self) -> dict:
+        """A JSON-safe dict for the Explorer's ``/.status`` and tooling
+        (JAX ``analysis/report.py:153``)."""
+        return {
+            "model": self.model,
+            "ok": self.ok,
+            "errors": len(self.errors),
+            "warnings": len(self.warnings),
+            "infos": len(self.infos),
+            "findings": [
+                {
+                    "rule_id": f.rule_id,
+                    "severity": f.severity,
+                    "location": f.location,
+                    "message": f.message,
+                }
+                for f in self.findings
+            ],
+            "metrics": self.metrics,
+        }
+
 
 class AuditError(RuntimeError):
     """Preflight audit found errors; raised by ``spawn_gpu`` before any

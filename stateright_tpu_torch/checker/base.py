@@ -14,8 +14,10 @@ probe (:meth:`CheckerBuilder.spawn_auto`); ``Checker`` is the result
 surface (counts, discoveries, assertions, and the ``Done. states=..``
 report line, the flight recorder, the run identity and the run report).
 ``sweep`` (JAX :521) routes ``spawn_gpu`` to the sweep engine
-(``sweep/engine.py``) for a whole model family; the service options come
-with their slice.
+(``sweep/engine.py``) for a whole model family, and ``serve`` (JAX
+:833-845) spawns a check and serves the Explorer over it
+(``explorer.py``).  The builder is also what the fleet's job factories
+return (``fleet/``).
 """
 
 from __future__ import annotations
@@ -142,6 +144,7 @@ class CheckerBuilder:
         memory: bool = False,
         memory_every: int = 32,
         roofline: bool = False,
+        metrics: bool = False,
     ) -> "CheckerBuilder":
         """Attach a flight recorder to the spawned checker
         (``stateright_tpu_torch/telemetry/``; JAX ``checker/base.py:
@@ -165,8 +168,14 @@ class CheckerBuilder:
         a ``memory`` record at each rung change and every
         ``memory_every`` syncs; on ``cuda`` it also measures each
         growth's allocation peak from the process's peak counters, which
-        it reads and never resets).  The JAX option ``metrics=`` waits
-        for a reader of the metrics bus (the Explorer's ``/.metrics``).
+        it reads and never resets).  ``metrics=True`` attaches the
+        process-wide metrics bus (``telemetry/metrics.py``): the recorder
+        publishes the engine families (states/s, frontier size, table load,
+        dedup rate, step-time histogram) from the values each host sync
+        already read, and the Explorer serves them as Prometheus text on
+        ``GET /metrics``.  ``STATERIGHT_TPU_METRICS=1`` is the env form.
+        Host-side only: the step dispatches the same operations and the
+        step records are the same.
         ``cartography=True`` folds the search-cartography counters into
         the device step (``ops/cartography.py``): the one option that adds
         device work, a few reductions a step riding the same stats read.
@@ -201,6 +210,7 @@ class CheckerBuilder:
             "memory": bool(memory) or implied_mem,
             "memory_every": int(every if every is not None else memory_every),
             "roofline": bool(roofline) or bool(prev.get("roofline")),
+            "metrics": bool(metrics) or bool(prev.get("metrics")),
         }
         return self
 
@@ -271,9 +281,15 @@ class CheckerBuilder:
             return None
         from ..telemetry import FlightRecorder
 
+        metrics = None
+        if self.telemetry_opts.get("metrics"):
+            from ..telemetry import default_bus
+
+            metrics = default_bus()
         return FlightRecorder(
             capacity=self.telemetry_opts["capacity"],
             meta={"engine": engine, "model": type(self.model).__name__},
+            metrics=metrics,
         )
 
     def prededup(self, enabled: bool = True) -> "CheckerBuilder":
@@ -542,6 +558,7 @@ class CheckerBuilder:
         spill_bloom_bits: Optional[int] = None,
         spill_dir: Optional[str] = None,
         spill_host_bytes: Optional[int] = None,
+        sync: bool = False,
     ) -> "Checker":
         """Wavefront BFS on the GPU (``parallel/wavefront.py``).
 
@@ -552,7 +569,9 @@ class CheckerBuilder:
         sets the queue's first high-water mark (JAX ``spawn_tpu``'s); the
         ``spill_*`` knobs size the tier of :meth:`spill`.  The light
         preflight audit (:meth:`audit`) runs first, before any buffer is
-        allocated; :meth:`skip_audit` turns it off.
+        allocated; :meth:`skip_audit` turns it off.  ``sync=True`` runs the
+        engine on the caller's thread and returns the finished checker
+        (JAX ``spawn_tpu(sync=True)``).
 
         Under :meth:`sweep` (or ``STATERIGHT_TPU_SWEEP``) this returns the
         sweep engine instead (JAX ``spawn_tpu`` :767-813), after one audit
@@ -566,15 +585,27 @@ class CheckerBuilder:
             return self._spawn_sweep(
                 spec, capacity=capacity, batch=batch, cand=cand,
                 steps_per_call=steps_per_call, device=device, resume=resume,
-                queue_capacity=queue_capacity)
+                queue_capacity=queue_capacity, sync=sync)
         self._preflight_audit()
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
             steps_per_call=steps_per_call, device=device, resume=resume,
             queue_capacity=queue_capacity, spill_bloom_bits=spill_bloom_bits,
             spill_dir=spill_dir, spill_host_bytes=spill_host_bytes,
+            sync=sync,
         )
 
+    def serve(self, addr: str = "localhost:3000", strategy: str = "bfs",
+              **spawn_kw):
+        """Spawn a check and serve the Explorer web UI over it (reference
+        ``checker.rs:108-114``; JAX ``checker/base.py:833-845``).
+        ``strategy="gpu"`` browses a GPU wavefront run (JAX's ``"tpu"``);
+        with it, extra keyword arguments pass through to ``spawn_gpu``
+        (``device="cpu"`` runs the plain PyTorch path).  ``block=False``
+        returns the running server."""
+        from ..explorer import serve
+
+        return serve(self, addr, strategy=strategy, **spawn_kw)
 
     def _spawn_sweep(self, spec, **kw) -> "Checker":
         """Audit once per distinct shape of the family (the cohort key:

@@ -172,6 +172,14 @@ class Path(Generic[State, Action]):
     def actions(self) -> list[Action]:
         return [a for _, a in self._pairs if a is not None]
 
+    def into_vec(self) -> list[tuple[State, Optional[Action]]]:
+        return list(self._pairs)
+
+    def encode(self, model) -> str:
+        """``/``-joined fingerprints, as the Explorer's URLs use them
+        (reference ``path.rs:160-165``)."""
+        return "/".join(str(model.fingerprint_state(s)) for s, _ in self._pairs)
+
     def __len__(self) -> int:
         return len(self._pairs)
 

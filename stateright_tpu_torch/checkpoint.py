@@ -375,11 +375,12 @@ class ProgressHeartbeat:
         self.beats = 0
 
     def beat(self, recorder=None, status: str = "running",
-             force: bool = False) -> bool:
+             force: bool = False, **extra) -> bool:
         """One heartbeat (dropped unless due or ``force``).  The payload
         samples the recorder's last step record and health snapshot, host
-        values already in hand: no device work.  Returns True when a
-        write landed."""
+        values already in hand: no device work.  ``extra`` fields land in
+        the document as they are (the fleet's pool tallies).  Returns
+        True when a write landed."""
         now = time.monotonic()
         if not force and self._clock is not None:
             if now - self._clock < self.every_secs:
@@ -405,6 +406,7 @@ class ProgressHeartbeat:
                       "ewma_states_per_sec", "eta_secs", "oom_risk"):
                 if health.get(k) is not None:
                     doc[k] = health[k]
+        doc.update({k: v for k, v in extra.items() if v is not None})
         try:
             atomic_write_json(self.path, doc)
         except Exception:  # noqa: BLE001 - liveness reporting must never

@@ -26,9 +26,11 @@ registry run ids, ``--registry=DIR``, ``--expect=VERDICT``).  The GPU
 verbs take ``--watch`` (a live status line, JAX ``_cli.py:230-370``).
 ``--device=cpu`` runs the GPU verbs and the telemetry verbs on the plain
 PyTorch path instead of the CUDA device, and ``--batch=N`` sets their
-rows per device step.  The other verbs and flags
-(``explore``, ``spawn``, ``--prewarm``) come with the modules they drive.
-``capacity --spill`` plans with the spill tier armed.
+rows per device step.  The models JAX gives an ``explore`` verb take it
+here too: ``explore [N] [ADDRESS]`` serves the Explorer over a host BFS of
+the model (:func:`explore`; JAX e.g. ``two_phase_commit.py:499-503``).
+The other verbs and flags (``spawn``, ``--prewarm``) come with the modules
+they drive.  ``capacity --spill`` plans with the spill tier armed.
 
 Every model takes ``audit`` (the static audit of its ``_audit_models``
 configurations, deep tier, exit 1 on an error finding; JAX
@@ -48,9 +50,16 @@ the conflict matrix's summary and the JX3xx findings; JAX
 ``_cli.py:511-600``, :func:`make_independence_cmd`).
 ``python -m stateright_tpu_torch.models._cli`` is the fleet entry:
 ``status RUN_DIR`` (the progress heartbeat of a headless run, JAX
-``_cli.py:1810-1870``), ``audit [MODULE...]`` (every model's audit),
+``_cli.py:1810-1870``), ``runs [DIR]`` (the run registry, campaign jobs
+and sweep members grouped; JAX ``fleet_runs`` :1117), ``fleet`` (the
+canned six-tenant fleet with one injected preemption and the lineage
+audit; JAX ``fleet_schedule`` :1347), ``campaign [2pc|paxos]`` (a
+parameter grid as a fleet campaign with its ledger; JAX
+``fleet_campaign`` :1425), ``audit [MODULE...]`` (every model's audit),
 ``independence [MODULE...]`` (every model's independence analysis),
-``sanitize [MODULE...]`` and ``costmodel [MODULE...]``.
+``sanitize [MODULE...]`` and ``costmodel [MODULE...]``.  ``fleet`` and
+``campaign`` take :func:`_pop_fleet_opts`' flags, ``--device=cpu``
+among them.
 """
 
 from __future__ import annotations
@@ -122,6 +131,17 @@ def host_sym_dfs(model):
 
 def auto(model):
     return model.checker().threads(default_threads()).spawn_auto()
+
+
+def explore_addr(rest: list) -> str:
+    """The ``explore`` verb's address: its second positional argument."""
+    return rest[1] if len(rest) > 1 else "localhost:3000"
+
+
+def explore(model, addr: str = "localhost:3000"):
+    """The ``explore`` verb: serve the Explorer over a host BFS of
+    ``model`` on ``addr`` (blocks; JAX ``CheckerBuilder.serve``)."""
+    return model.checker().serve(addr)
 
 
 def gpu(model, flags=(), opts=None, watch=False):
@@ -432,6 +452,13 @@ def compare_verb(args: list, opts: dict, stream=None) -> int:
     return 1 if d["verdict"] == DIVERGENT else 0
 
 
+def compare_reports_cmd(rest: list, stream=None) -> int:
+    """``compare A B [--registry=DIR] [--expect=VERDICT]`` from one argument
+    list (JAX ``compare_reports_cmd``): :func:`compare_verb`."""
+    opts, args = pop_values(list(rest))
+    return compare_verb(args, opts, stream)
+
+
 def supervised(model, flags=(), opts=None, sopts=None):
     """The ``supervise`` verb's spawn: :func:`run_supervised` on the
     model's builder with the step ``flags``, on the ``--device``/
@@ -459,6 +486,9 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     factory, the ``audit`` verb's configurations; ``independence``, the
     ``independence`` verb (:func:`make_independence_cmd`), and ``sweep``,
     the ``sweep`` verb (:func:`make_sweep_cmd`), where the model has them.
+    A verb whose spawn is :func:`explore` takes ``[N] [ADDRESS]``: the
+    model from its first positional argument, the address from the
+    second.
     Exit 1 when a GPU verb finds no device twin, the audit an
     error or the independence verb a malformed matrix, 2 on a usage
     error."""
@@ -488,6 +518,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
         return sweep(rest, dict(opts, **swopts))
     if has_gpu and args and args[0] == "compare":
         return compare_verb(args[1:], opts)
+    if args and args[0] in verbs and verbs[args[0]][1] is explore:
+        max_args = max(max_args, 2)  # explore [N] [ADDRESS]
     if (not args or args[0] not in names or len(args) > 1 + max_args):
         print(usage, file=sys.stderr)
         return 2
@@ -517,6 +549,16 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
             model, opts, flags)
         return 0
     banner, spawn = verbs[verb]
+    if spawn is explore:
+        if flags or watch or opts or len(rest) > 2:
+            print(usage, file=sys.stderr)
+            return 2
+        line = banner(rest)
+        if line:
+            print(line)
+        model = apply_encoding(build(rest[:1]), per_channel)
+        explore(model, explore_addr(rest))
+        return 0
     if spawn is supervised:
         print(banner(rest))
         model = apply_encoding(build(rest), per_channel)
@@ -966,6 +1008,399 @@ def run_supervised(builder, opts: dict, stream=None, **spawn_kw):
     return res
 
 
+# -- the run registry verb (telemetry/registry.py) ---------------------------
+
+
+def fleet_runs(args: Optional[list] = None, stream=None) -> int:
+    """``runs [DIR]``: list the persistent run registry — one line per
+    archived run (id, config_key, model/engine, headline) plus the
+    per-config trend summary the Explorer's dashboard draws (JAX
+    ``_cli.py:1117``)."""
+    from ..telemetry.registry import RunRegistry, resolve_run_dir
+
+    stream = stream or sys.stdout
+    args = list(args or [])
+    root = resolve_run_dir(args[0] if args else None)
+    if root is None:
+        print(
+            "runs: no registry configured (pass DIR or set "
+            "STATERIGHT_TPU_RUN_DIR)",
+            file=stream,
+        )
+        return 2
+    reg = RunRegistry(root)
+    recs = reg.index()
+    if not recs:
+        print(f"runs: registry at {root} is empty", file=stream)
+        return 0
+
+    def line(r, indent: str = "") -> None:
+        h = r.get("headline") or {}
+        bits = [
+            indent + str(r.get("run_id")),
+            str(r.get("config_key") or "-"),
+            f"{r.get('model')}/{r.get('engine')}",
+            f"unique={h.get('unique')}",
+            f"done={h.get('done')}",
+        ]
+        if r.get("instance_key"):
+            bits.insert(1, f"[{r['instance_key']}]")
+        elif r.get("job_key"):
+            bits.insert(1, f"[{r['job_key']}]")
+        if h.get("states_per_sec") is not None:
+            bits.append(f"{h['states_per_sec']}/s")
+        if r.get("leg"):
+            bits.append(f"leg={r['leg']}")
+        if r.get("parent_run_id"):
+            bits.append(f"parent={r['parent_run_id']}")
+        bits.append(str(r.get("generated_at") or ""))
+        print("  ".join(bits), file=stream)
+
+    # sweep members group under one header row with a per-instance
+    # verdict strip ('*' = at least one discovery, '.' = none), in the
+    # ledger's append order; campaign jobs group the same way and win
+    # when a record carries both tags
+    # (a packed cohort member is a sweep instance owned by a campaign)
+    groups: list = []
+    by_group: dict = {}
+    for r in recs:
+        if r.get("campaign_id"):
+            gid = ("campaign", r["campaign_id"], "job")
+        elif r.get("sweep_id"):
+            gid = ("sweep", r["sweep_id"], "instance")
+        else:
+            groups.append(r)
+            continue
+        g = by_group.get(gid)
+        if g is None:
+            g = by_group[gid] = {
+                "kind": gid[0], "id": gid[1], "noun": gid[2],
+                "members": [],
+            }
+            groups.append(g)
+        g["members"].append(r)
+    for g in groups:
+        if "members" not in g:
+            line(g)
+            continue
+        strip = "".join(
+            "*" if (m.get("headline") or {}).get("discoveries") else "."
+            for m in g["members"]
+        )
+        print(
+            f"{g['kind']} {g['id']}  {len(g['members'])} {g['noun']}(s)"
+            f"  verdicts [{strip}]",
+            file=stream,
+        )
+        for m in g["members"]:
+            line(m, indent="  ")
+    trends = reg.trends(recs)
+    print(
+        f"runs: {len(recs)} archived over {len(trends)} config(s) at "
+        f"{root}",
+        file=stream,
+    )
+    for key, series in sorted(trends.items()):
+        if len(series) > 1:
+            u = [s.get("unique") for s in series]
+            print(
+                f"  trend {key}: {len(series)} runs, unique "
+                f"{u[0]} -> {u[-1]}",
+                file=stream,
+            )
+    return 0
+
+
+# -- fleet / campaign verbs (fleet/; JAX _cli.py:1218-1491) -------------------
+
+
+def _pop_fleet_opts(rest: list, defaults: dict) -> tuple:
+    """Strip the fleet/campaign verbs' shared flags: ``(opts, rest)``.
+    ``--slots``/``--budget``/``--spill``/``--no-pack`` shape the pool,
+    ``--root`` hosts autosaves + artifacts, ``--runs`` the registry,
+    ``--every`` the autosave cadence, ``--stall=KEY@STEP`` the
+    deterministic preemption injection (``--stall=none`` disables), and
+    ``--device=cpu`` runs every job on the plain PyTorch path (the
+    port's; default ``cuda``)."""
+    opts = dict(defaults)
+    kept = []
+    for a in rest:
+        if a.startswith("--slots="):
+            opts["slots"] = int(a[len("--slots="):])
+        elif a.startswith("--budget="):
+            opts["budget"] = int(a[len("--budget="):])
+        elif a == "--spill":
+            opts["spill"] = True
+        elif a == "--no-pack":
+            opts["pack"] = False
+        elif a.startswith("--root="):
+            opts["root"] = a[len("--root="):]
+        elif a.startswith("--runs="):
+            opts["runs"] = a[len("--runs="):]
+        elif a.startswith("--every="):
+            opts["every"] = float(a[len("--every="):])
+        elif a.startswith("--stall="):
+            opts["stall"] = a[len("--stall="):]
+        elif a.startswith("--max-restarts="):
+            opts["max_restarts"] = int(a[len("--max-restarts="):])
+        elif a.startswith("--id="):
+            opts["id"] = a[len("--id="):]
+        elif a.startswith("--grid="):
+            opts["grid"] = a[len("--grid="):]
+        elif a.startswith("--device="):
+            opts["device"] = a[len("--device="):]
+        else:
+            kept.append(a)
+    return opts, kept
+
+
+def _canned_fleet_jobs(runs_dir: Optional[str]) -> list:
+    """The ``fleet`` verb's six-tenant workload (JAX ``_cli.py:1254``):
+    three packable TwoPhaseSys(3) jobs (one cohort, one engine build), a
+    TwoPhaseSys(4) and a TwoPhaseSys(5) singleton, and a paxos
+    single-client job: mixed shapes over one pool."""
+    from ..checker.base import CheckerBuilder
+    from ..fleet import Job
+    from .paxos import paxos_model
+    from .two_phase_commit import TwoPhaseSys
+
+    def twopc(n):
+        def build():
+            b = CheckerBuilder(TwoPhaseSys(n))
+            return b.runs(runs_dir) if runs_dir else b
+        return build
+
+    def paxos():
+        def build():
+            b = CheckerBuilder(paxos_model(1))
+            return b.runs(runs_dir) if runs_dir else b
+        return build
+
+    return [
+        Job(key="2pc-a", build=twopc(3), packable=True,
+            capacity=1 << 12, batch=256, params={"rm": 3}),
+        Job(key="2pc-b", build=twopc(3), packable=True,
+            capacity=1 << 12, batch=256, params={"rm": 3}),
+        Job(key="2pc-c", build=twopc(3), packable=True,
+            capacity=1 << 12, batch=256, params={"rm": 3}),
+        Job(key="2pc-4", build=twopc(4),
+            capacity=1 << 13, batch=256, params={"rm": 4}),
+        Job(key="2pc-5", build=twopc(5), priority=1,
+            capacity=1 << 14, batch=512, params={"rm": 5}),
+        Job(key="paxos-1", build=paxos(),
+            capacity=1 << 12, batch=256, params={"clients": 1}),
+    ]
+
+
+def _print_job_results(res, stream) -> None:
+    """One grep-able line per job result (the CI smoke's contract)."""
+    from ..fleet import COMPLETED
+
+    for r in res.results.values():
+        bits = [f"fleet job {r.key}: status={r.status}",
+                f"decision={r.decision}"]
+        if r.status == COMPLETED:
+            bits += [f"unique={r.unique}", f"states={r.states}",
+                     f"depth={r.max_depth}"]
+        if r.cohort:
+            bits.append(f"cohort={r.cohort}")
+        if r.preemptions:
+            bits.append(f"preemptions={r.preemptions}")
+        if r.run_id:
+            bits.append(f"run_id={r.run_id}")
+        if r.parent_run_id:
+            bits.append(f"parent_run_id={r.parent_run_id}")
+        if r.reason:
+            bits.append(f"reason={r.reason}")
+        print("  ".join(bits), file=stream)
+
+
+def _audit_lineage(res, runs_dir: Optional[str], stream) -> int:
+    """Exactly-once audit: every preempted-then-completed job must
+    compare IDENTICAL against its yielded parent (``contract:
+    lineage``); returns the worst compare exit code."""
+    from ..fleet import COMPLETED
+
+    rc = 0
+    for r in res.results.values():
+        if not (r.preemptions and r.status == COMPLETED):
+            continue
+        if not (runs_dir and r.run_id and r.parent_run_id):
+            print(
+                f"fleet lineage {r.key}: UNVERIFIABLE (no registry or "
+                "run ids; pass --runs=DIR)",
+                file=stream,
+            )
+            rc = rc or 1
+            continue
+        print(
+            f"fleet lineage {r.key}: parent={r.parent_run_id} "
+            f"child={r.run_id}",
+            file=stream,
+        )
+        code = compare_reports_cmd(
+            [r.parent_run_id, r.run_id, f"--registry={runs_dir}",
+             "--expect=IDENTICAL"],
+            stream=stream,
+        )
+        rc = rc or code
+    return rc
+
+
+def fleet_schedule(args: Optional[list] = None, stream=None) -> int:
+    """The ``fleet`` verb: canned multi-tenant chaos smoke — six mixed
+    2pc/paxos jobs over a simulated N-slot pool with one injected
+    stall-preemption.  Every job must complete with its
+    pinned counts and the preempted job's resume must compare IDENTICAL
+    against its yielded parent (the line CI greps for ``contract:
+    lineage``).  Exit 0 iff all jobs completed and lineage verified.
+    JAX ``_cli.py:1347``; ``--device=cpu`` runs the jobs on the plain
+    PyTorch path."""
+    return canned_fleet(args, stream)[0]
+
+
+def canned_fleet(args: Optional[list] = None, stream=None) -> tuple:
+    """The ``fleet`` verb's body: ``(exit code, FleetResult)``, the
+    result None when the arguments were refused."""
+    import tempfile
+
+    from ..fleet import FleetSpec, PreemptionPlan, run_fleet
+
+    stream = stream or sys.stdout
+    opts, rest = _pop_fleet_opts(list(args or []), {
+        "slots": 2, "budget": None, "spill": False, "pack": True,
+        "root": None, "runs": None, "every": 0.0, "stall": "2pc-5@5",
+        "max_restarts": 2, "device": None,
+    })
+    if rest:
+        print(f"fleet: unknown argument(s) {rest}", file=stream)
+        return 2, None
+    root = opts["root"] or tempfile.mkdtemp(
+        prefix="stateright-tpu-torch-fleet-")
+    runs_dir = opts["runs"] or os.path.join(root, "runs")
+    jobs = _canned_fleet_jobs(runs_dir)
+    spec = FleetSpec(
+        jobs=jobs, slots=opts["slots"],
+        slot_budget_bytes=opts["budget"], spill=opts["spill"],
+        pack=opts["pack"], max_restarts=opts["max_restarts"],
+    )
+    plan = None
+    if opts["stall"] and opts["stall"] != "none":
+        key, _, step = opts["stall"].partition("@")
+        plan = PreemptionPlan({key: int(step or 3)})
+        print(
+            f"fleet: injecting a stall-preemption into {key} at step "
+            f"{int(step or 3)}",
+            file=stream,
+        )
+    print(
+        f"fleet: {len(jobs)} job(s) over {spec.slots} slot(s) "
+        f"(pack={spec.pack}, spill={spec.spill}, root={root})",
+        file=stream,
+    )
+    res = run_fleet(
+        spec, root=root, preemption=plan, every_secs=opts["every"],
+        stream=stream, device=opts["device"],
+    )
+    _print_job_results(res, stream)
+    print(
+        f"fleet: completed={res.completed} failed={res.failed} "
+        f"refused={res.refused} preemptions={res.preemptions} "
+        f"engine_compiles={res.engine_compiles} "
+        f"packed={sum(len(p['jobs']) for p in res.packed)} "
+        f"secs={res.secs:.1f}",
+        file=stream,
+    )
+    rc = 0 if (res.failed == 0 and res.refused == 0) else 1
+    return rc or _audit_lineage(res, runs_dir, stream), res
+
+
+#: the campaign verb's named model factories: name -> (factory, default
+#: grid).  Factories take grid-point params as keyword arguments.
+_CAMPAIGN_FACTORIES = {
+    "2pc": (
+        lambda rm=3: __import__(
+            "stateright_tpu_torch.models.two_phase_commit",
+            fromlist=["TwoPhaseSys"],
+        ).TwoPhaseSys(rm),
+        {"rm": [3, 4]},
+    ),
+    "paxos": (
+        lambda clients=1: __import__(
+            "stateright_tpu_torch.models.paxos", fromlist=["paxos_model"],
+        ).paxos_model(clients),
+        {"clients": [1]},
+    ),
+}
+
+
+def fleet_campaign(args: Optional[list] = None, stream=None) -> int:
+    """The ``campaign`` verb: expand a parameter grid into fleet jobs,
+    schedule them over the pool, and write the campaign ledger (JAX
+    ``_cli.py:1425``).  ``campaign 2pc --grid='{"rm":[3,4]}'``
+    checks TwoPhaseSys at both sizes under one campaign id; the ledger
+    (per-job wall-clock, compile accounting, aggregate states/s) lands
+    at ``ROOT/campaign.json``.  Exit 0 iff no job failed."""
+    import json
+    import tempfile
+
+    from ..fleet import LEDGER_NAME, campaign_spec, run_campaign
+
+    stream = stream or sys.stdout
+    opts, rest = _pop_fleet_opts(list(args or []), {
+        "slots": 2, "budget": None, "spill": False, "pack": True,
+        "root": None, "runs": None, "every": 0.0, "stall": None,
+        "max_restarts": 2, "id": None, "grid": None, "device": None,
+    })
+    name = rest[0] if rest else "2pc"
+    if name not in _CAMPAIGN_FACTORIES or len(rest) > 1:
+        print(
+            "usage: campaign [2pc|paxos] [--grid=JSON] [--root=DIR] "
+            "[--runs=DIR] [--slots=N] [--budget=BYTES] [--spill] "
+            "[--no-pack] [--id=CID] [--device=cpu]",
+            file=stream,
+        )
+        return 2
+    factory, grid = _CAMPAIGN_FACTORIES[name]
+    if opts["grid"]:
+        grid = json.loads(opts["grid"])
+    root = opts["root"] or tempfile.mkdtemp(
+        prefix="stateright-tpu-torch-campaign-"
+    )
+    spec = campaign_spec(
+        factory, grid, campaign_id=opts["id"],
+        slots=opts["slots"], slot_budget_bytes=opts["budget"],
+        spill=opts["spill"], pack=opts["pack"],
+        max_restarts=opts["max_restarts"],
+        run_dir=opts["runs"] or os.path.join(root, "runs"),
+    )
+    print(
+        f"campaign {spec.campaign_id}: {len(spec.jobs)} job(s) from "
+        f"grid {json.dumps(grid, sort_keys=True)} over {spec.slots} "
+        f"slot(s) (root={root})",
+        file=stream,
+    )
+    res, ledger = run_campaign(
+        spec, root=root, every_secs=opts["every"], stream=stream,
+        device=opts["device"],
+    )
+    _print_job_results(res, stream)
+    print(
+        f"campaign {spec.campaign_id}: completed={ledger['completed']} "
+        f"failed={ledger['failed']} refused={ledger['refused']} "
+        f"preemptions={ledger['preemptions']} "
+        f"engine_compiles={ledger['engine_compiles']} "
+        f"secs={ledger['secs']} total_states={ledger['total_states']} "
+        f"states_per_sec={ledger['states_per_sec']}",
+        file=stream,
+    )
+    print(
+        f"campaign: ledger written to {os.path.join(root, LEDGER_NAME)}",
+        file=stream,
+    )
+    return 0 if ledger["failed"] == 0 else 1
+
+
 # -- the status verb (checkpoint.read_progress; JAX _cli.py:1810-1870) ----------
 
 
@@ -1020,11 +1455,18 @@ def fleet_status(argv=None, stream=None) -> int:
 
 def main(argv=None) -> int:
     """``python -m stateright_tpu_torch.models._cli status RUN_DIR |
+    runs [DIR] | fleet [FLAGS] | campaign [2pc|paxos] [FLAGS] |
     audit [MODULE...] | independence [MODULE...] | sanitize [MODULE...] |
     costmodel [MODULE...]``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "status":
         return fleet_status(argv[1:])
+    if argv and argv[0] == "runs":
+        return fleet_runs(argv[1:])
+    if argv and argv[0] == "fleet":
+        return fleet_schedule(argv[1:])
+    if argv and argv[0] == "campaign":
+        return fleet_campaign(argv[1:])
     if argv and argv[0] == "audit":
         return fleet_audit(argv[1:])
     if argv and argv[0] == "independence":
@@ -1036,6 +1478,12 @@ def main(argv=None) -> int:
     print("usage: python -m stateright_tpu_torch.models._cli\n"
           "  status RUN_DIR     the progress heartbeat of a headless run "
           "(DEAD when a running one went stale)\n"
+          "  runs [DIR]         the run registry (campaign jobs and sweep "
+          "members grouped)\n"
+          "  fleet [--slots=N] [--root=DIR] [--runs=DIR] [--stall=KEY@STEP] "
+          "[--device=cpu]  the canned six-tenant fleet\n"
+          "  campaign [2pc|paxos] [--grid=JSON] [--device=cpu]  a parameter "
+          "grid as a fleet campaign, with its ledger\n"
           "  audit [MODULE...]  the static audit of every model (exit 1 "
           "on an error finding)\n"
           "  independence [MODULE...]  the independence analysis of every "

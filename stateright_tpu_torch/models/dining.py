@@ -29,7 +29,14 @@ from ..actor import Actor, ActorModel, Id, Network, Out
 from ..actor.device_props import exists_actor, forall_actors
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
-from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
+from ._cli import (
+    auto,
+    check_main,
+    explore,
+    gpu,
+    host_bfs,
+    make_independence_cmd,
+)
 
 HUNGRY, HAS_LEFT, DONE = 0, 1, 2
 
@@ -149,6 +156,7 @@ def main(argv=None) -> int:
             "check": (lambda rest: f"{what(rest)} (host BFS).", host_bfs),
             "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
             "check-auto": (lambda rest: f"{what(rest)} (auto engine).", auto),
+            "explore": (lambda rest: None, explore),
         },
         max_args=1,
         audit=_audit_models,

@@ -18,6 +18,7 @@ from ..core import Model, Property
 from ._cli import (
     auto,
     check_main,
+    explore,
     host_dfs,
     host_sym_dfs,
     make_independence_cmd,
@@ -107,6 +108,7 @@ def main(argv=None) -> int:
             "check-auto": (lambda rest: (
                 f"Model checking increment-lock with {n(rest)} threads "
                 "(auto engine)."), auto),
+            "explore": (lambda rest: None, explore),
         },
         max_args=1,
         audit=_audit_models,

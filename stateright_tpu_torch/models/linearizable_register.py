@@ -40,7 +40,15 @@ from ..actor.register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, Register
-from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
+from ._cli import (
+    auto,
+    check_main,
+    explore,
+    explore_addr,
+    gpu,
+    host_bfs,
+    make_independence_cmd,
+)
 
 
 def Query(req_id):
@@ -289,6 +297,10 @@ def main(argv=None) -> int:
             "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
             "check-auto": (lambda rest: (
                 f"{what(rest)} (auto engine selection)."), auto),
+            "explore": (lambda rest: (
+                "Exploring ABD state space with "
+                f"{int(rest[0]) if rest else 2} clients on "
+                f"{explore_addr(rest)}."), explore),
         },
         max_args=2,
         audit=_audit_models,

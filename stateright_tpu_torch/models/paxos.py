@@ -317,6 +317,8 @@ def main(argv=None) -> int:
     from ._cli import (
         auto,
         check_main,
+        explore,
+        explore_addr,
         gpu,
         host_bfs,
         make_independence_cmd,
@@ -338,6 +340,10 @@ def main(argv=None) -> int:
             "supervise": (lambda rest: (
                 f"{what(rest)} on the GPU, supervised (autosave, retry "
                 "with backoff, resume)."), supervised),
+            "explore": (lambda rest: (
+                "Exploring Paxos state space with "
+                f"{int(rest[0]) if rest else 2} clients on "
+                f"{explore_addr(rest)}."), explore),
         },
         max_args=1,
         audit=_audit_models,

@@ -39,6 +39,7 @@ from ..parallel.tensor_model import TensorBackedModel
 from ._cli import (
     auto,
     check_main,
+    explore,
     gpu,
     host_bfs,
     host_sym_dfs,
@@ -224,6 +225,7 @@ def main(argv=None) -> int:
             "check-sym-gpu": (lambda rest: (
                 f"{what(rest)} on the GPU (mechanical symmetry "
                 "reduction)."), sym_gpu),
+            "explore": (lambda rest: None, explore),
         },
         max_args=2,
         audit=_audit_models,

@@ -35,7 +35,14 @@ from ..actor.register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, Register
-from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
+from ._cli import (
+    auto,
+    check_main,
+    explore,
+    gpu,
+    host_bfs,
+    make_independence_cmd,
+)
 
 
 class SingleCopyServer(Actor):
@@ -116,6 +123,7 @@ def main(argv=None) -> int:
             "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
             "check-auto": (lambda rest: (
                 f"{what(rest)} (auto engine selection)."), auto),
+            "explore": (lambda rest: None, explore),
         },
         max_args=2,
         audit=_audit_models,

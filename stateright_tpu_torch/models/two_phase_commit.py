@@ -366,6 +366,8 @@ def main(argv=None) -> int:
     from ._cli import (
         auto,
         check_main,
+        explore,
+        explore_addr,
         gpu,
         host_bfs,
         host_sym_dfs,
@@ -396,6 +398,9 @@ def main(argv=None) -> int:
             "check-sym-gpu": (lambda rest: (
                 f"Checking two phase commit with {n(rest)} RMs on the GPU "
                 "using symmetry reduction."), sym_gpu),
+            "explore": (lambda rest: (
+                f"Exploring 2PC state space with {n(rest)} RMs on "
+                f"{explore_addr(rest)}."), explore),
             "supervise": (lambda rest: (
                 f"Supervised 2PC check with {n(rest)} RMs on the GPU "
                 "(autosave, retry with backoff, resume)."), supervised),

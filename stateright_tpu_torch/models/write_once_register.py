@@ -36,7 +36,14 @@ from ..actor.write_once_register import (
 from ..core import Expectation
 from ..parallel.tensor_model import TensorBackedModel
 from ..semantics import LinearizabilityTester, WORegister
-from ._cli import auto, check_main, gpu, host_bfs, make_independence_cmd
+from ._cli import (
+    auto,
+    check_main,
+    explore,
+    gpu,
+    host_bfs,
+    make_independence_cmd,
+)
 
 
 class WOServer(Actor):
@@ -123,6 +130,7 @@ def main(argv=None) -> int:
             "check-gpu": (lambda rest: f"{what(rest)} on the GPU.", gpu),
             "check-auto": (lambda rest: (
                 f"{what(rest)} (auto engine selection)."), auto),
+            "explore": (lambda rest: None, explore),
         },
         max_args=3,
         audit=_audit_models,

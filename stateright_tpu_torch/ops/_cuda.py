@@ -16,6 +16,9 @@ unchanged tree loads at once.
 Every C entry point enqueues its kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code, so
 a refused launch (too many threads, a bad pointer) surfaces at the call.
+Each wrapper counts its launches through :func:`count_launch`, under one
+lock, so the counts stay exact when several engines launch from threads
+(the fleet's slots share one card).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -40,6 +44,16 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # C signatures: name -> argtypes (every entry point returns cudaError_t)
+# serializes the wrappers' launch counters (a read-modify-write each)
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add ``n`` to ``wrapper.launches``, exactly under threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += n
+
+
 _SIGNATURES = {
     # rows, valid (nullable), out, n, width, stream
     "srt_row_hash": (_P, _P, _P, _I64, _I32, _P),

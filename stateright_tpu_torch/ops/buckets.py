@@ -294,7 +294,7 @@ def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
         cand_overflow.data_ptr(), *out.ptrs,
         out.stage_ptr, m, stream,
     ))
-    bucket_plan.launches += 1 if out.stage is None else 2
+    _cuda.count_launch(bucket_plan, 1 if out.stage is None else 2)
     return out.outputs
 
 

@@ -149,7 +149,7 @@ def cand_prep(rows, valid, pfps, arity: int, cb: int,
         rows.data_ptr(), valid.data_ptr(), pfps.data_ptr(), *out.ptrs,
         *nsargs, m, cb, rows.shape[1], arity, stream,
     ))
-    cand_prep.launches += 1
+    _cuda.count_launch(cand_prep)
     return out.outputs
 
 

@@ -159,7 +159,7 @@ def row_hash(rows: torch.Tensor, valid=None) -> torch.Tensor:
             flat.data_ptr(), None if vflat is None else vflat.data_ptr(),
             out.data_ptr(), n, width, _cuda.stream_of(rows),
         ))
-        row_hash.launches += 1
+        _cuda.count_launch(row_hash)
     return out.reshape(lead)
 
 

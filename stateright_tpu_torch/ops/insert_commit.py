@@ -146,7 +146,7 @@ def insert_commit(tfp, tpl, tgt, cfp, cpl, n_new,
             tfp.data_ptr(), tpl.data_ptr(), tgt.data_ptr(), cfp.data_ptr(),
             cpl.data_ptr(), n_new.data_ptr(), m, *qargs, stream,
         ))
-        insert_commit.launches += 1
+        _cuda.count_launch(insert_commit)
     return tfp, tpl
 
 

@@ -8,9 +8,13 @@ or the fallback) and ``spill()`` against their env knobs and arm the
 spill tier, take ``checked()``,
 check that host and device fingerprints agree,
 run the engine on a background thread (exceptions re-raise at
-:meth:`join`), honour the builder's ``timeout`` and :meth:`stop` with a
-cooperative stop at the next host sync, serve a live :meth:`checkpoint`
-and the autosave cadence there (``checkpoint.py``), and rebuild discovery
+:meth:`join`), or with ``sync=True`` on the caller's thread (JAX
+``parallel/_base.py:354-361``: the report is written before the spawn
+returns, and an exception raises there), honour the CheckerBuilder's
+``timeout`` and :meth:`stop` with a cooperative stop at the next host
+sync, serve a live :meth:`checkpoint` (the Explorer's
+:meth:`live_discoveries` asks for one) and the autosave cadence there
+(``checkpoint.py``), and rebuild discovery
 traces on the host from the table's parent fingerprints, replayed through
 the object model (``Path.from_fingerprints``, with the class-matching key
 under symmetry).
@@ -86,7 +90,7 @@ class WavefrontChecker(Checker):
 
     _engine_tag = "single"
 
-    def _init_common(self, options: CheckerBuilder) -> None:
+    def _init_common(self, options: CheckerBuilder, sync: bool = False) -> None:
         self.model = options.model
         cached = getattr(self.model, "_tensor_cached", None)
         tensor = cached() if cached is not None else None
@@ -142,6 +146,11 @@ class WavefrontChecker(Checker):
         self._verify_fingerprint_bridge()
         self._results: Optional[dict] = None
         self._live = (0, 0, 0)  # states, unique, maxdepth at the last sync
+        # the discovery fingerprints of the last sync's one stats read
+        # (host numpy), which :meth:`live_discoveries` reads from another
+        # thread; the lock pairs them with ``_live``
+        self._live_disc: Optional[np.ndarray] = None
+        self._live_lock = threading.Lock()
         self._live_cart: Optional[dict] = None
         self._parent_map: Optional[dict[int, int]] = None
         self._run_error: Optional[BaseException] = None
@@ -184,8 +193,17 @@ class WavefrontChecker(Checker):
         # caller errors (a snapshot from another model) raise here, in the
         # caller's thread, not inside the worker
         self._pre_run_validate()
-        self._thread = threading.Thread(target=self._run_guarded, daemon=True)
-        self._thread.start()
+        self._thread: Optional[threading.Thread] = None
+        if sync:
+            self._run_guarded()
+            if self._run_error is not None:
+                err, self._run_error = self._run_error, None
+                raise err
+            self._maybe_write_report()
+        else:
+            self._thread = threading.Thread(target=self._run_guarded,
+                                            daemon=True)
+            self._thread.start()
 
     def _resolve_por(self, options: CheckerBuilder) -> None:
         """Partial-order reduction (JAX ``parallel/_base.py:110-143``): the
@@ -676,7 +694,8 @@ class WavefrontChecker(Checker):
         return self._done.is_set()
 
     def join(self) -> "WavefrontChecker":
-        self._thread.join()
+        if self._thread is not None:
+            self._thread.join()
         if self._run_error is not None:
             raise self._run_error
         self._maybe_write_report()
@@ -753,3 +772,46 @@ class WavefrontChecker(Checker):
             name: Path.from_fingerprints(self.model, self._trace(fp), key=key)
             for name, fp in self.discovery_fps().items()
         }
+
+    def live_discoveries(self, skip: frozenset = frozenset(),
+                         timeout: float = 5.0) -> dict[str, Path]:
+        """The discoveries found so far, without joining (JAX
+        ``parallel/_base.py:973-1030``): the Explorer polls this while the
+        run is in flight.  The discovery fingerprints ride each block's one
+        stats read (``_live_disc``); a discovery's parent chain never
+        changes once written, so one :meth:`checkpoint`, served by the
+        engine thread at its next host sync, gives a table to walk.  The
+        caller never touches a device tensor.  ``skip`` names the
+        properties the caller has rebuilt already (a first discovery never
+        changes): when every recorded one is in it, no checkpoint is taken.
+        ``timeout`` bounds the wait for that checkpoint: a poll that lands
+        in a long block returns ``{}`` and the next poll retries."""
+        if self._done.is_set():
+            return {n: p for n, p in self.discoveries().items()
+                    if n not in skip}
+        with self._live_lock:
+            disc = self._live_disc
+        if disc is None:
+            return {}
+        wanted = [(i, prop) for i, prop in enumerate(self._props)
+                  if prop.name not in skip and int(disc[i]) != 0]
+        if not wanted:
+            return {}
+        try:
+            snap = self.checkpoint(timeout=timeout)
+        except (TimeoutError, RuntimeError):
+            return {}
+        if self._done.is_set():  # finished while the snapshot was taken
+            return {n: p for n, p in self.discoveries().items()
+                    if n not in skip}
+        parents = self._parents_from_table(snap["table_fp"],
+                                           snap["table_parent"])
+        key = self._symmetry_key()
+        out = {}
+        for i, prop in wanted:
+            try:
+                out[prop.name] = Path.from_fingerprints(
+                    self.model, self._walk(parents, int(disc[i])), key=key)
+            except RuntimeError:
+                continue  # the chain raced a growth; the next poll retries
+        return out

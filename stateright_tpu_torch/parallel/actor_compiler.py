@@ -155,8 +155,10 @@ def compile_actor_model(
     *,
     state_bound: Optional[Callable] = None,
     env_bound: Optional[Callable] = None,
+    n_slots: Optional[int] = None,
     max_states_per_actor: int = MAX_STATES_PER_ACTOR,
     max_envelopes: int = MAX_ENVELOPES,
+    max_history_states: int = 2_000_000,
     per_channel: Optional[bool] = None,
     per_channel_depth: Optional[int] = None,
 ) -> "CompiledActorTensor":
@@ -169,7 +171,14 @@ def compile_actor_model(
     poison the row on the device rather than silently diverging.
     ``max_states_per_actor``/``max_envelopes`` cap the closure (a closure
     on course to pass the state cap fails fast, with an estimate; escape
-    hatch ``STATERIGHT_TPU_CLOSURE_ESTIMATE=off``).
+    hatch ``STATERIGHT_TPU_CLOSURE_ESTIMATE=off``).  ``max_history_states``
+    caps the register history codec's joint tester enumeration (JAX
+    ``stateright_tpu/parallel/actor_compiler.py:243``, :255).
+
+    ``n_slots`` sets the slot-multiset width (default ``max(16, 4 *
+    actors)``; JAX :292); the per-channel packing refuses it with a
+    :class:`CompileError` (JAX :271-277), since it sizes each region from
+    its channel's envelope universe.
 
     ``per_channel`` selects the network packing (None: the model's
     ``per_channel_resolved()``): False = the global sorted-slot multiset;
@@ -184,8 +193,10 @@ def compile_actor_model(
         model,
         state_bound=state_bound,
         env_bound=env_bound,
+        n_slots=n_slots,
         max_states_per_actor=max_states_per_actor,
         max_envelopes=max_envelopes,
+        max_history_states=max_history_states,
         per_channel=per_channel,
         per_channel_depth=per_channel_depth,
     )
@@ -197,7 +208,9 @@ class CompiledActorTensor(TensorModel):
     def __init__(self, model: ActorModel, *, state_bound, env_bound,
                  max_states_per_actor: int, max_envelopes: int,
                  per_channel: Optional[bool],
-                 per_channel_depth: Optional[int]):
+                 per_channel_depth: Optional[int],
+                 n_slots: Optional[int] = None,
+                 max_history_states: int = 2_000_000):
         self.model = model
         if per_channel is None:
             per_channel = model.per_channel_resolved()
@@ -253,6 +266,7 @@ class CompiledActorTensor(TensorModel):
                     scripts,
                     NULL_VALUE,
                     tester_factory=tester_factory,
+                    max_states=max_history_states,
                 )
             else:
                 values = [
@@ -270,6 +284,7 @@ class CompiledActorTensor(TensorModel):
                     # write-once record_returns does)
                     None if self._wo else NULL_VALUE,
                     tester_factory=tester_factory,
+                    max_states=max_history_states,
                     write_rets=(("write_ok",), ("write_fail",))
                     if self._wo
                     else (("write_ok",),),
@@ -285,6 +300,12 @@ class CompiledActorTensor(TensorModel):
         self._sym_dev: dict = {}
 
         if self.per_channel:
+            if n_slots is not None:
+                raise CompileError(
+                    "n_slots is a slot-multiset knob; the per-channel "
+                    "layout derives each region's capacity from its "
+                    "channel's envelope universe"
+                )
             self._build_channel_layout()
             self.n_slots = int(sum(self._ch_cap))
             deliver = sum(
@@ -300,7 +321,9 @@ class CompiledActorTensor(TensorModel):
                 #     (never-valid) action column for the engine shapes
             )
         else:
-            self.n_slots = max(16, 4 * self.n_actors)
+            self.n_slots = n_slots if n_slots is not None else max(
+                16, 4 * self.n_actors
+            )
             self.max_actions = self.n_slots * (2 if model.lossy else 1) + (
                 self.n_actors if self._has_timers else 0
             )

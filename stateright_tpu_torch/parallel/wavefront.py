@@ -905,7 +905,8 @@ class GpuChecker(WavefrontChecker):
     tier's Bloom width (default ``STATERIGHT_TPU_SPILL_BLOOM_BITS``, else
     2^23), disk-tier directory and host-tier budget (default
     ``STATERIGHT_TPU_HOST_BYTES``, else half the host's RAM), used under
-    ``.spill()``.
+    ``.spill()``.  ``sync=True`` runs the engine on the caller's thread
+    and returns once it is done.
     """
 
     # the engine's name in telemetry, reports and the run registry (the
@@ -920,7 +921,8 @@ class GpuChecker(WavefrontChecker):
                  queue_capacity: Optional[int] = None,
                  spill_bloom_bits: Optional[int] = None,
                  spill_dir: Optional[str] = None,
-                 spill_host_bytes: Optional[int] = None):
+                 spill_host_bytes: Optional[int] = None,
+                 sync: bool = False):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -960,7 +962,7 @@ class GpuChecker(WavefrontChecker):
         # under prededup, the lanes it took out since this process started
         self._removed = torch.zeros((), dtype=torch.int64,
                                     device=self.device)
-        self._init_common(options)
+        self._init_common(options, sync)
 
     @property
     def _layout(self) -> CarryLayout:
@@ -1726,7 +1728,9 @@ class GpuChecker(WavefrontChecker):
                 int(x) for x in stats[:_ST_DISC]
             )
             disc = stats[_ST_DISC:mid_off].view(np.uint64)
-            self._live = (scount, unique, maxdepth)
+            with self._live_lock:
+                self._live = (scount, unique, maxdepth)
+                self._live_disc = disc.copy()
             if self._por:
                 self._live_por = self._por_stats_dict(
                     stats[por_off:por_off + 3])

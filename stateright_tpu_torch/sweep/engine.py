@@ -377,6 +377,7 @@ class SweepChecker(Checker):
     verdicts and traces are extracted at its cohort's end; with a run
     registry, one record per instance goes in under this sweep's
     ``sweep_id``.  ``device=None`` means ``cuda`` and raises without one.
+    ``sync=True`` runs the cohorts on the caller's thread (JAX :478).
     """
 
     _engine_tag = "sweep"  # the snapshot's engine word, as JAX writes it
@@ -386,7 +387,8 @@ class SweepChecker(Checker):
                  capacity: int = 1 << 17, batch: Optional[int] = None,
                  queue_capacity: Optional[int] = None,
                  steps_per_call: int = 64, cand: Optional[int] = None,
-                 device=None, resume: Optional[dict] = None):
+                 device=None, resume: Optional[dict] = None,
+                 sync: bool = False):
         self._reject_unsupported(options)
         if device is None:
             if not torch.cuda.is_available():
@@ -441,8 +443,17 @@ class SweepChecker(Checker):
             timer = threading.Timer(options.timeout_secs, self._deadline_stop)
             timer.daemon = True
             timer.start()
-        self._thread = threading.Thread(target=self._run_guarded, daemon=True)
-        self._thread.start()
+        self._thread: Optional[threading.Thread] = None
+        if sync:  # JAX :526-531: the caller's thread, report before return
+            self._run_guarded()
+            if self._run_error is not None:
+                err, self._run_error = self._run_error, None
+                raise err
+            self._maybe_write_report()
+        else:
+            self._thread = threading.Thread(target=self._run_guarded,
+                                            daemon=True)
+            self._thread.start()
 
     # -- configuration fences ------------------------------------------------
 
@@ -877,7 +888,8 @@ class SweepChecker(Checker):
         return self._done.is_set()
 
     def join(self) -> "SweepChecker":
-        self._thread.join()
+        if self._thread is not None:
+            self._thread.join()
         if self._run_error is not None:
             raise self._run_error
         self._maybe_write_report()
@@ -977,6 +989,12 @@ class SweepChecker(Checker):
                 doc = identity_doc(view, build_report(view))
                 doc["sweep_id"] = self.run_id
                 doc["instance_key"] = key
+                # a fleet-packed cohort (``fleet/``) tags its members with
+                # the campaign; the instance key is the tenant's job key
+                cid = getattr(self, "_campaign_id", None)
+                if cid:
+                    doc["campaign_id"] = str(cid)
+                    doc["job_key"] = key
                 reg.record_doc(doc)
         except Exception as e:  # noqa: BLE001 - the ledger never breaks a join
             print("stateright-tpu-torch: sweep registry write failed: "

@@ -34,9 +34,9 @@ Pieces:
  - :class:`MetricsBus` (``metrics.py``) — the typed-metrics bus
    (counters/gauges/histograms with labeled families and Prometheus text
    rendering); a recorder publishes to it when built with
-   ``FlightRecorder(metrics=bus)``.  The builder option and the
-   ``STATERIGHT_TPU_METRICS`` switch come with the bus's first reader
-   (the Explorer's ``/.metrics``).
+   ``FlightRecorder(metrics=bus)``, ``.telemetry(metrics=True)`` or
+   ``STATERIGHT_TPU_METRICS=1`` (the process default bus, which the
+   Explorer's ``GET /metrics`` serves).
 
 Enabled per run via ``model.checker().telemetry()``; the recorder then
 hangs off the checker as ``checker.flight_recorder``.  **Overhead

@@ -206,6 +206,24 @@ class HealthTracker:
         }
         return [{"v": HEALTH_V, **e} for e in events]
 
+    def force_stall(self, reason: str = "injected") -> list:
+        """Manufacture a ``stall`` transition (JAX
+        ``telemetry/health.py:206``; deterministic preemption injection,
+        ``fleet.PreemptionPlan`` through the recorder's
+        ``arm_stall_injection`` seam): it flips the flag as detection
+        would, so everything downstream of the transition (the ring
+        record, the live badge, the fleet scheduler's preemption monitor)
+        runs the real path.  The next step record with fresh
+        inserts recomputes the flag and emits the paired
+        ``stall_cleared``, like any detected stall."""
+        if self.stalled and self.stall_reason == reason:
+            return []
+        self.stalled, self.stall_reason = True, str(reason)
+        return [{
+            "v": HEALTH_V, "event": "stall", "phase": self.phase,
+            "reason": str(reason),
+        }]
+
     def mark_spill_degraded(self) -> list:
         """The spill store's disk tier failed (ENOSPC / dead disk): one
         sticky ``spill_degraded`` transition — the run continues with the

@@ -2,15 +2,17 @@
 families, rendered in Prometheus text exposition for ``GET /metrics``.
 
 The port's own copy of ``stateright_tpu/telemetry/metrics.py``, with the
-engine families and the roofline block (:func:`roofline_families`: each
-stage's static FLOPs, bytes and intensity, published off the roofline
-ledger's ``roofline`` record); the fleet's families and the Explorer's ``/metrics``
-endpoint come with the ROADMAP item "the service layers".
+engine families, the fleet's pool families (:func:`fleet_families`, JAX
+:364) and the roofline block (:func:`roofline_families`: each stage's
+static FLOPs, bytes and intensity, published off the roofline ledger's
+``roofline`` record, which the JAX package does not publish).
 
 The bus is the LIVE aggregation layer over telemetry the engines already
 collect at host syncs: :meth:`FlightRecorder.step` publishes the engine
-families (states/s, frontier size, table load, dedup rate) and the
-occupancy hook publishes its gauge.  Samples are taken ONLY at host syncs that already
+families (states/s, frontier size, table load, dedup rate), the
+occupancy hook publishes its gauge, and the fleet scheduler publishes
+pool families (queue depth, slot utilization, preemptions, admission
+outcomes).  Samples are taken ONLY at host syncs that already
 happen — zero extra device round-trips, and with the bus detached
 (the default) the recorder adds nothing (parity pinned by test).
 
@@ -29,11 +31,9 @@ Design rules:
  - **Thread-safe.**  Engines publish from run threads while the HTTP
    handler scrapes; every mutation and render takes the bus lock.
 
-``default_bus()`` is the process-wide registry the JAX Explorer's
-``GET /metrics`` serves.  In the port a recorder publishes to a bus it
-is handed (``FlightRecorder(metrics=bus)``); the builder option and the
-``STATERIGHT_TPU_METRICS`` switch come with the port's first reader of
-the bus.
+``default_bus()`` is the process-wide registry the Explorer's
+``GET /metrics`` serves (``explorer.py``); ``STATERIGHT_TPU_METRICS=1`` (or
+``.telemetry(metrics=True)``) attaches it to a run's recorder.
 """
 
 from __future__ import annotations
@@ -363,6 +363,34 @@ def engine_families(bus: MetricsBus) -> dict:
             "stateright_shard_imbalance",
             "mesh per-shard load imbalance (max/mean)",
             ENGINE_LABELS,
+        ),
+    }
+
+
+def fleet_families(bus: MetricsBus) -> dict:
+    """The fleet scheduler's pool families (JAX ``telemetry/metrics.py:
+    364``), published from :meth:`FlightRecorder.set_fleet` snapshots and
+    the scheduler's admission ticks."""
+    return {
+        "queue": bus.gauge(
+            "stateright_fleet_queue_depth", "jobs waiting for a slot"
+        ),
+        "slots": bus.gauge(
+            "stateright_fleet_slots", "configured pool slots"
+        ),
+        "busy": bus.gauge(
+            "stateright_fleet_slots_busy", "slots running a job now"
+        ),
+        "completed": bus.counter(
+            "stateright_fleet_jobs_completed_total", "jobs completed"
+        ),
+        "preemptions": bus.counter(
+            "stateright_fleet_preemptions_total", "cooperative preemptions"
+        ),
+        "admissions": bus.counter(
+            "stateright_fleet_admissions_total",
+            "admission outcomes by decision",
+            ("decision",),
         ),
     }
 

@@ -2,10 +2,11 @@
 
 The port's own copy of ``stateright_tpu/telemetry/recorder.py``.  The
 schema keeps every record kind and feature block of the JAX package (the
-``fleet`` producer is not ported yet; the sweep engine, ``sweep/engine.py``,
-writes the ``sweep`` records ``cohort_compile``, ``instance_done`` and
-``summary`` with the JAX fields), so a JSONL written by either package
-reads in the other.
+sweep engine, ``sweep/engine.py``, writes the ``sweep`` records
+``cohort_compile``, ``instance_done`` and ``summary``; the fleet scheduler,
+``fleet/scheduler.py``, the ``fleet`` and ``job`` records and the pool
+snapshot of :meth:`FlightRecorder.set_fleet`), so a JSONL written by either
+package reads in the other.
 
 Record schema (every record):
 
@@ -38,7 +39,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 from .health import HealthTracker
 
@@ -68,11 +69,21 @@ class FlightRecorder:
         self.meta = dict(meta or {})
         # live metrics bus (telemetry/metrics.py): None (the default)
         # detaches publication entirely — step() adds nothing, the
-        # parity pin.  ``metrics=`` attaches a bus explicitly; the JAX
-        # package's STATERIGHT_TPU_METRICS=1 and ``.telemetry(metrics=)``
-        # wait for a reader of the bus (the Explorer's ``/.metrics``)
+        # parity pin.  ``metrics=`` attaches a bus explicitly;
+        # STATERIGHT_TPU_METRICS=1 attaches the process default bus.
+        if metrics is None:
+            import os as _os
+
+            if _os.environ.get("STATERIGHT_TPU_METRICS") == "1":
+                from .metrics import default_bus
+
+                metrics = default_bus()
         self._bus = metrics
         self._bus_fams: Optional[dict] = None
+        self._fleet_fams: Optional[dict] = None
+        # monotone-counter baselines for fleet snapshots (set_fleet
+        # publishes deltas of cumulative pool tallies)
+        self._fleet_pub = {"completed": 0, "preemptions": 0}
         # span-structured tracing (telemetry/spans.py): the engine binds
         # its run span here so step/profile records carry its id
         self._bound_span: Optional[str] = None
@@ -126,6 +137,11 @@ class FlightRecorder:
         # the scheduler refreshes it on every placement transition and
         # the Explorer's pool panel reads it off ``/.metrics``
         self._fleet: Optional[dict] = None
+        # in-band stall-injection seam (fleet.PreemptionPlan): called with
+        # the step ordinal inside step(), so a due injection lands its
+        # ``health`` record on the step that crosses the threshold (a
+        # polling injector can lose the race against a short run)
+        self._stall_inject: Optional[Callable[[int], Optional[str]]] = None
 
     # -- metrics bus (telemetry/metrics.py) ----------------------------------
 
@@ -313,6 +329,11 @@ class FlightRecorder:
                 # the SAME host-synced values this record already holds
                 # (zero extra device round-trips; telemetry/metrics.py)
                 self._publish_step_unlocked(rec)
+                if self._stall_inject is not None:
+                    why = self._stall_inject(self._kind_counts["step"])
+                    if why:
+                        for ev in self._health.force_stall(why):
+                            self._append_unlocked("health", ev, t=now)
             return rec
 
     def add(self, counter: str, n: float = 1) -> None:
@@ -430,12 +451,36 @@ class FlightRecorder:
             return dict(self._durability) if self._durability else None
 
     def set_fleet(self, snap: Optional[dict]) -> None:
-        """Replace the latest fleet pool/queue snapshot (slot occupancy +
-        queued/terminal job keys) — the outside-the-ring discipline of the
-        other feature blocks; kept for the schema, its producer and its
-        metric families come with the fleet.  ``None`` clears it."""
+        """Replace the latest fleet pool/queue snapshot (``fleet/``: slot
+        occupancy + queued/terminal job keys) — the outside-the-ring
+        discipline of the other feature blocks — and publish the fleet
+        metric families from it when a bus is attached.  ``None`` clears
+        it."""
         with self._lock:
             self._fleet = dict(snap) if snap else None
+            if self._bus is None or not snap:
+                return
+            try:
+                if self._fleet_fams is None:
+                    # the sibling telemetry module, not the fleet package
+                    # (no engine-side module imports the fleet)
+                    from . import metrics as _metrics
+
+                    self._fleet_fams = _metrics.fleet_families(self._bus)
+                fam = self._fleet_fams
+                fam["queue"].set(len(snap.get("queued") or ()))
+                fam["busy"].set(len(snap.get("running") or ()))
+                if snap.get("slots") is not None:
+                    fam["slots"].set(int(snap["slots"]))
+                # cumulative pool tallies publish as monotone deltas
+                for key in ("completed", "preemptions"):
+                    cur = int(snap.get(key) or 0)
+                    prev = self._fleet_pub[key]
+                    if cur > prev:
+                        fam[key].inc(cur - prev)
+                        self._fleet_pub[key] = cur
+            except Exception as e:  # noqa: BLE001 - never break the pool
+                self._bus_drop(e)
 
     def fleet(self) -> Optional[dict]:
         """Latest fleet pool/queue snapshot, or None when this recorder
@@ -448,6 +493,16 @@ class FlightRecorder:
         novelty rate, EWMA throughput, drain ETA."""
         with self._lock:
             return self._health.snapshot()
+
+    def arm_stall_injection(
+        self, fn: Optional[Callable[[int], Optional[str]]]
+    ) -> None:
+        """Arm the in-band injection seam: ``fn(step_ordinal)`` runs inside
+        every :meth:`step` (under the lock: keep it cheap and free of
+        reentry), and a truthy return forces that reason's stall
+        transition on the same step."""
+        with self._lock:
+            self._stall_inject = fn
 
     def close_run(self, done: bool = True) -> None:
         """Mark the run finished: the health phase transitions to ``done``

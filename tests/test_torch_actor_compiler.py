@@ -471,5 +471,5 @@ def test_check_gpu_verbs_raise_without_a_card(capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_abd.main(["check-gpu", "2", "ordered"])
     assert port_abd.main(["check-gpu", "1", "unordered_duplicating"]) == 1
-    assert port_sc.main(["explore"]) == 2  # a verb that waits
+    assert port_sc.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
     assert "usage" in capsys.readouterr().err

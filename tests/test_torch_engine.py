@@ -423,6 +423,44 @@ ISOLATION_CASES = {
         "assert s.cohorts[0].lifted > 0\n"
         "assert [r.unique for r in s.results.values()] == [4, 9, 16]\n"
     ),
+    # the Explorer over a GPU run with the metrics bus (every endpoint
+    # polled) and over the host BFS, and the fleet: a packed cohort, a
+    # supervised singleton preempted and resumed, the runs verb
+    "explorer": (
+        "import json, urllib.request\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "s = TwoPhaseSys(3).checker().telemetry(metrics=True).serve(\n"
+        "    'localhost:0', strategy='gpu', block=False, device='cpu',\n"
+        "    batch=64, steps_per_call=4)\n"
+        "s.checker.join()\n"
+        "for p in ('/.status', '/.metrics', '/metrics', '/.states/'):\n"
+        "    urllib.request.urlopen(f'http://{s.addr}{p}').read()\n"
+        "st = json.loads(urllib.request.urlopen(\n"
+        "    f'http://{s.addr}/.status').read())\n"
+        "assert st['unique_state_count'] == 288\n"
+        "s.shutdown()\n"
+        "h = TwoPhaseSys(3).checker().serve('localhost:0', block=False)\n"
+        "h.checker.join()\n"
+        "h.shutdown()\n"
+    ),
+    "fleet": (
+        "import io, tempfile\n"
+        "from stateright_tpu_torch.models._cli import fleet_runs\n"
+        "from stateright_tpu_torch.fleet import (FleetSpec, Job,\n"
+        "    PreemptionPlan, run_fleet)\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "d = tempfile.mkdtemp()\n"
+        "def job(key, n, packable):\n"
+        "    return Job(key=key, packable=packable, batch=64,\n"
+        "               build=lambda: TwoPhaseSys(n).checker().runs(d))\n"
+        "r = run_fleet(FleetSpec([job('a', 3, True), job('b', 3, True),\n"
+        "                         job('v', 4, False)], slots=2,\n"
+        "                        campaign_id='c'),\n"
+        "              root=d + '/pool', stream=None, device='cpu',\n"
+        "              preemption=PreemptionPlan({'v': 2}))\n"
+        "assert r.completed == 3 and r['v'].unique == 1568, r.to_json()\n"
+        "assert fleet_runs([d], stream=io.StringIO()) == 0\n"
+    ),
     # telemetry: the recorder, cartography, the memory ledger, the report
     # and the run registry on the GPU engine and the host BFS
     "telemetry": (
@@ -556,13 +594,14 @@ def sync_free_model(name):
 # with a device budget that evicts (the Bloom test and the pending append),
 # "-armed" with a fault plan installed that never fires and autosave and
 # the heartbeat at every sync, "-por" under .por() (the ample mask, its
-# conjunct kernel, the proviso round and the rollback)
+# conjunct kernel, the proviso round and the rollback), "-served" with the
+# metrics bus under a polled Explorer
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
                     "per-channel-por": 250,
                     "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
                     "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265,
                     "2pc-checked": 288, "2pc-spill": 8832, "2pc-armed": 288,
-                    "paxos-armed": 265}
+                    "paxos-armed": 265, "2pc-served": 288}
 
 
 def inert_plan():
@@ -640,7 +679,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
         monkeypatch.setenv("STATERIGHT_TPU_CAPACITY_GUARD", "off")
         kw = dict(capacity=1 << 12, batch=128, queue_capacity=4096,
                   spill_bloom_bits=1 << 14)
-    c = b.spawn_gpu(device="cpu", steps_per_call=4, **kw).join()
+    if name.endswith("-served"):
+        c = served_and_polled(b.telemetry(metrics=True), steps_per_call=4)
+    else:
+        c = b.spawn_gpu(device="cpu", steps_per_call=4, **kw).join()
     assert (c.cartography() is not None) == name.endswith("-cart")
     assert c._prededup == name.endswith("-flags")
     assert c._checked == name.endswith("-checked")
@@ -692,6 +734,27 @@ def test_sweep_blocks_dispatch_no_host_read(name, monkeypatch):
     assert blocks == [[]] * len(blocks)
 
 
+def served_and_polled(builder, **spawn_kw):
+    """``builder``'s GPU run on the CPU under the Explorer, with a client
+    polling ``/.status``, ``/.metrics`` and ``/metrics`` until it is done;
+    returns the joined checker."""
+    import urllib.request
+
+    from stateright_tpu_torch.explorer import serve
+
+    server = serve(builder, "localhost:0", block=False, strategy="gpu",
+                   device="cpu", **spawn_kw)
+    try:
+        while True:
+            done = server.checker.is_done()
+            for path in ("/.status", "/.metrics", "/metrics"):
+                urllib.request.urlopen(f"http://{server.addr}{path}").read()
+            if done:
+                return server.checker.join()
+    finally:
+        server.shutdown()
+
+
 class OpCount(TorchDispatchMode):
     """Counts every dispatched operation by name."""
 
@@ -714,7 +777,7 @@ FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
 
 @pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
 @pytest.mark.parametrize("explicit", [False, True, "checked", "spill",
-                                      "armed", "por"])
+                                      "armed", "por", "served"])
 def test_step_flags_off_dispatch_the_same_operations(name, explicit,
                                                     monkeypatch, tmp_path):
     """With ``prededup`` off, unset or turned off explicitly against its
@@ -723,7 +786,10 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     knob), and with a fault plan installed that never fires and autosave
     and the heartbeat armed at every sync ("armed"), every step dispatches
     exactly the pinned operations: no pre-dedup, no guard, no Bloom test,
-    no fault check, and no clone of the block per field write."""
+    no fault check, and no clone of the block per field write.  "served"
+    runs with the metrics bus attached under the Explorer, whose every
+    endpoint a client polls until the run is done: publication and live
+    discoveries read only what the block's one stats read gave."""
     from stateright_tpu_torch.parallel import wavefront
 
     steps = []
@@ -757,7 +823,12 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
         b = b.autosave(str(tmp_path), every_secs=0.0)
         monkeypatch.setattr("stateright_tpu_torch.testing.faults._ACTIVE",
                             inert_plan())
-    c = b.spawn_gpu(device="cpu", batch=64, steps_per_call=4).join()
+    if explicit == "served":
+        c = served_and_polled(b.telemetry(metrics=True), batch=64,
+                              steps_per_call=4)
+        assert c.flight_recorder.metrics_bus is not None
+    else:
+        c = b.spawn_gpu(device="cpu", batch=64, steps_per_call=4).join()
     assert not c._prededup and not c._checked and not c._spill
     assert not c._por and c.por_status() is None
     assert (c._heartbeat is not None) == (explicit == "armed")

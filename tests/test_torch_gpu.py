@@ -22,7 +22,9 @@ ends on ``cuda`` with the ``cpu`` run's tables; and partial-order
 reduction: ``.por()`` runs on ``cuda`` against ``cpu`` (per-channel
 paxos-1 plain, with queue growth and with the rollback, ``WorkersSys(7)``,
 ``ToggleSys``, 2pc-5 under symmetry and prededup) and the proviso round's
-three insert kernels against their plain versions.
+three insert kernels against their plain versions; and the service layer:
+the Explorer over a 2pc-5 GPU run on ``cuda`` (both discoveries through
+``/.states``) and a packed two-tenant fleet on ``cuda`` against ``cpu``.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -1063,3 +1065,54 @@ def test_sweep_tables_identical_on_cuda_and_cpu(cuda, family):
     for k in ("q_rows", "q_fp", "q_tag", "q_ebits", "q_depth"):
         assert np.array_equal(np.asarray(g[k])[:tail],
                               np.asarray(c[k])[:tail]), k
+
+
+def test_explorer_serves_a_gpu_run_on_cuda(cuda):
+    """2pc-5 served with ``strategy="gpu"`` on the card: 8,832 unique, and
+    both discoveries resolve through ``/.states``."""
+    import json
+    import urllib.request
+
+    from stateright_tpu_torch.explorer import serve
+
+    server = serve(TwoPhaseSys(5).checker().telemetry(metrics=True),
+                   "localhost:0", block=False, strategy="gpu", device=cuda,
+                   batch=32, steps_per_call=1)
+    try:
+        while not server.checker.is_done():
+            with urllib.request.urlopen(f"http://{server.addr}/.status") as r:
+                json.loads(r.read())
+            time.sleep(0.02)
+        server.checker.join()
+        with urllib.request.urlopen(f"http://{server.addr}/.status") as r:
+            st = json.loads(r.read())
+        assert st["unique_state_count"] == 8832 and st["done"] is True
+        disc = {n: d for _, n, d in st["properties"] if d is not None}
+        assert set(disc) == {"abort agreement", "commit agreement"}
+        for encoded in disc.values():
+            with urllib.request.urlopen(
+                    f"http://{server.addr}/.states/{encoded}") as r:
+                assert r.status == 200
+    finally:
+        server.shutdown()
+
+
+def test_packed_fleet_on_cuda_equals_cpu(cuda, tmp_path):
+    """Two packable 2pc-3 tenants in one cohort on the card: the same
+    results as the same fleet on the CPU."""
+    from stateright_tpu_torch.fleet import FleetSpec, Job, run_fleet
+
+    out = []
+    for dev in (cuda, "cpu"):
+        jobs = [Job(key=k, packable=True, capacity=1 << 12, batch=64,
+                    build=lambda: TwoPhaseSys(3).checker())
+                for k in ("a", "b")]
+        res = run_fleet(FleetSpec(jobs=jobs, slots=2),
+                        root=str(tmp_path / str(dev)), stream=None,
+                        device=str(dev))
+        assert res.completed == 2 and len(res.packed) == 1
+        out.append({k: (r.unique, r.states, r.max_depth,
+                        tuple(r.discoveries))
+                    for k, r in res.results.items()})
+    assert out[0] == out[1]
+    assert out[0]["a"][:2] == (288, 1146)

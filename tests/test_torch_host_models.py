@@ -177,5 +177,5 @@ def test_increment_verbs(verb, capsys):
     assert increment_lock.main([verb, "2"]) == 0
     out = capsys.readouterr().out
     assert "Done." in out and "Discovered" not in out
-    assert increment.main(["explore"]) == 2  # a verb that waits
+    assert increment.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
     assert "usage" in capsys.readouterr().err

@@ -309,5 +309,5 @@ def test_check_gpu_verb_raises_without_a_card(capsys):
         pytest.skip("a CUDA device is present: the verb would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_paxos.main(["check-gpu", "1"])
-    assert port_paxos.main(["explore"]) == 2  # a verb that waits
+    assert port_paxos.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
     assert "usage" in capsys.readouterr().err

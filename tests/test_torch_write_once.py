@@ -164,5 +164,5 @@ def test_check_gpu_verb_raises_without_a_card(capsys):
         pytest.skip("a CUDA device is present: the verb would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_wo.main(["check-gpu", "2", "1", "--per-channel"])
-    assert port_wo.main(["explore"]) == 2  # a verb that waits
+    assert port_wo.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
     assert "usage" in capsys.readouterr().err
