@@ -59,8 +59,9 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    (``paxos_model(2).per_channel_()``, ``capacity=1 << 16``, ``batch=512``;
    W = 83, A = 82), complete on ``cuda`` (16,668 unique, 32,971 states,
    "value chosen" replayed, "linearizable" never violated, every kernel
-   launched) and again on ``cpu`` with identical table bytes and queue
-   rows; ABD(2,2,put_count=2) (2,980 unique) and the write-once register
+   launched), and bounded at 4,000 unique on ``cuda`` and ``cpu`` with
+   identical counts, table bytes and queue rows; ABD(2,2,put_count=2)
+   (2,980 unique) and the write-once register
    wo(2,1) (71 unique) on ``cuda`` and ``cpu``, identical likewise;
  - kernels at per-channel paxos-2 shapes (W = 83): the next batch of a run
    bounded at 8,000 unique, L2 flushed before every timed call;
@@ -102,6 +103,31 @@ read just after:
    plain version (L2-cold) on the next batch of a ``cuda`` run bounded at
    60 states (W = 17, 34 actions: a partial batch, as all of that model's
    are).
+
+The sharded engine (``spawn_gpu(devices=N)``, ``parallel/sharded.py``;
+each leg's launch counts reset just before it and read just after), after
+the service legs:
+
+ - ``sharded_2pc7``: ``TwoPhaseSys(7)`` over 8 shards on ``cuda``: the
+   plain 2pc-7 leg's 296,448 unique, state count and discoveries, and its
+   visited set (every parent present); the wall, the growth events, each
+   shard's load and the imbalance summary, the launches (``row_hash``,
+   ``bucket_plan``, ``insert_commit``; ``cand_prep`` is not on this
+   path), and the operations a step at 1, 4 and 8 shards (2pc-7 bounded
+   at 20,000);
+ - the kernel cells of a sharded step: the next step of a 2pc-7 run over
+   8 shards bounded at 100,000 unique, ``row_hash`` on its source batch,
+   ``bucket_plan`` and ``insert_commit``'s table write on its owners'
+   batch, each against its plain version (``at_sharded_2pc7``);
+ - ``sharded_2pc5_parity``: 2pc-5 over 4 shards on ``cuda`` and ``cpu``,
+   equal snapshots (tables and frontiers shard for shard);
+ - ``sharded_paxos3``: paxos-3 (W = 33) over 4 shards bounded at 200,000
+   unique: every fingerprint in the shard ``lshr(fp, 32) % 4``, none
+   twice, every parent present;
+ - ``nccl_one_rank``: an NCCL process group of one rank holding 4 shards
+   (the collectives' path: ``all_to_all_single``, ``all_reduce``,
+   ``all_gather``): 2pc-5 at 8,832.  The machine has one card, and NCCL
+   refuses two ranks on one device, so no leg runs two ranks here.
 
 The pre-dedup (``.prededup()``, through the CLI's ``--prededup``; each
 leg's launch counts reset just before it and read just after), right
@@ -481,6 +507,10 @@ P2_OPS_TARGET = 4_000
 # took 71 s of host time beside an H100)
 P2_PREDEDUP_PC_TARGET = 4_000
 P2_PER_CHANNEL_KERNEL_TARGET = 8_000
+# the per-channel paxos-2 leg's cuda = cpu bound (the cut that makes room
+# for the sharded legs: the cpu run of the complete space took 42.0 s
+# beside an H100; the complete cuda run keeps the 16,668 / 32,971 pin)
+P2_PER_CHANNEL_CPU_TARGET = 4_000
 # symmetry runs (classes, states), as the JAX engine gives them:
 # TwoPhaseSys(n).checker().symmetry().spawn_tpu(sync=True) on the CPU for
 # 2pc-7 and 2pc-15; raft-3 from
@@ -1658,22 +1688,29 @@ def channel_and_history_phases(dev, smi: str) -> dict:
         raise AssertionError("per-channel paxos-2: not the per-channel twin")
     paths = check_discoveries(pg.model, pg, {"value chosen"})
     pg.assert_properties()  # "linearizable" never violated
-    t0 = time.monotonic()
-    pc = per_channel_paxos2().checker().spawn_gpu(
-        device="cpu", **P2_PER_CHANNEL_KW).join()
-    pc_s = time.monotonic() - t0
-    same, tail = same_tables_and_queue(pg, pc)
+    if (pg.unique_state_count(), pg.state_count()) != P2_PER_CHANNEL:
+        raise AssertionError(f"per-channel paxos-2: not {P2_PER_CHANNEL}")
+    # cuda = cpu at a bound (the cut: see P2_PER_CHANNEL_CPU_TARGET)
+    bounded = []
+    for d in (dev, "cpu"):
+        t0 = time.monotonic()
+        bounded.append((per_channel_paxos2().checker().target_states(
+            P2_PER_CHANNEL_CPU_TARGET).spawn_gpu(
+                device=d, **P2_PER_CHANNEL_KW).join(),
+            time.monotonic() - t0))
+    (gb, gb_s), (pc, pc_s) = bounded
+    same, tail = same_tables_and_queue(gb, pc)
+    counts = [(c.unique_state_count(), c.state_count()) for c in (gb, pc)]
     emit("paxos2_per_channel", dict(
         leg_record(pg, pg_s, peak, launches, smi),
-        unique_cpu=pc.unique_state_count(), states_cpu=pc.state_count(),
-        sec_cpu=pc_s, tail=tail, tables_and_queue_identical=same,
-        path_lengths=paths, **P2_PER_CHANNEL_KW))
-    for c in (pg, pc):
-        if (c.unique_state_count(), c.state_count()) != P2_PER_CHANNEL:
-            raise AssertionError(f"per-channel paxos-2: not {P2_PER_CHANNEL}")
-    if not same:
+        cpu_target=P2_PER_CHANNEL_CPU_TARGET, bounded_counts=counts,
+        sec_bounded_cuda=gb_s, sec_cpu=pc_s, tail=tail,
+        tables_and_queue_identical=same, path_lengths=paths,
+        **P2_PER_CHANNEL_KW))
+    if not (same and counts[0] == counts[1]
+            and counts[0][0] >= P2_PER_CHANNEL_CPU_TARGET):
         raise AssertionError("per-channel paxos-2: cuda and cpu disagree")
-    del pg, pc
+    del pg, gb, pc
 
     for name, build, want in (
         ("abd22_put2", lambda: abd_model(2, 2, put_count=2),
@@ -3522,6 +3559,326 @@ def service_phases(smi: str, ref7: dict, device=None) -> dict:
     return out
 
 
+# -- the sharded engine (parallel/sharded.py, spawn_gpu(devices=N)) --------
+
+SHARDED_DEVICES = 8
+TPC7_UNIQUE = 296_448  # the plain 2pc-7 leg's pin
+# the bounded 2pc-7 run whose next step the sharded kernel cells take, and
+# the bound of the runs that count operations a step
+SHARDED_KERNEL_TARGET = 100_000
+SHARDED_OPS_TARGET = 20_000
+SHARDED_OPS_DEVICES = (1, 4, 8)
+SHARDED_PAXOS3_TARGET = 200_000
+NCCL_SHARDS = 4
+
+
+def sharded_ops_per_step(dev, n: int) -> dict:
+    """Dispatched operations per sharded step over ``n`` shards (a
+    ``TorchDispatchMode`` count around ``_ShardedEngine.step``, the first
+    :data:`OPS_STEPS` steps of 2pc-7 bounded at
+    :data:`SHARDED_OPS_TARGET`): the shards are stacked, so the count does
+    not grow with ``n``."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from stateright_tpu_torch.parallel import sharded
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = []
+    step = sharded._ShardedEngine.step
+
+    def counted(self, c):
+        if len(counts) >= OPS_STEPS:
+            return step(self, c)
+        probe = Count()
+        with probe:
+            out = step(self, c)
+        counts.append(probe.n)
+        return out
+
+    sharded._ShardedEngine.step = counted
+    try:
+        TwoPhaseSys(7).checker().target_states(SHARDED_OPS_TARGET).spawn_gpu(
+            n_devices=n, device=dev, steps_per_call=4, sync=True)
+    finally:
+        sharded._ShardedEngine.step = step
+    return {"ops_per_step": sum(counts) / len(counts), "steps": len(counts)}
+
+
+def sharded_batch(c) -> dict:
+    """The next step of a sharded run's final carry, pushed through the
+    step's plain stages (the engine's own route and plan inputs, which
+    launch none of the kernels): the source batch ``row_hash`` takes and
+    the owners' batch ``bucket_plan`` and ``insert_commit`` take."""
+    from stateright_tpu_torch.parallel import sharded
+
+    carry, _, caps = c._final_state
+    # the step the engine would run next: a run stopped at its target sits
+    # near the 25 % load where a whole frontier's inserts would overflow a
+    # bucket, so the table doubles first, as the engine's replay does
+    *caps, carry = c._grow(list(carry), *caps, sharded._TABLE_OVERFLOW)
+    eng = c._engine_for(*caps)
+    rows, fps, ebits = (carry[convert.SH_ROWS], carry[convert.SH_FPS],
+                        carry[convert.SH_EBITS])
+    succ, valid = eng.tensor.step_rows(rows)
+    valid = valid & (fps != EMPTY)[:, None]
+    krows, hvalid = succ.reshape(-1, eng.width), valid.reshape(-1)
+    cand = row_hash_plain(krows, hvalid).view(eng.L, eng.m)
+    recv = eng.route(cand, eng._payload(cand, fps, ebits, succ))[0]
+    inputs, _ = eng.plan_inputs(recv, eng.geo)
+    return dict(krows=krows, hvalid=hvalid, inputs=inputs + (eng.no_cov,),
+                tfp=carry[convert.SH_TFP], tpl=carry[convert.SH_TPL],
+                shards=eng.L, width=eng.width)
+
+
+def sharded_kernels(x: dict, cold: bool = False) -> dict:
+    """``row_hash`` on the sharded source batch, ``bucket_plan`` on the
+    owners' batch (every shard's candidates in one plan) and the table
+    write of ``insert_commit`` (no queue: the sharded engine compacts its
+    frontier from the plan), each against its plain version."""
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    rows, hvalid = x["krows"], x["hvalid"]
+    n, w = rows.shape
+    nh = int(hvalid.sum())
+    got, want = row_hash(rows, hvalid), row_hash_plain(rows, hvalid)
+    b_ms, b_by = bound(*kernel_cost("row_hash", {"rows": n, "width": w,
+                                                 "valid": nh}))
+    out["row_hash"] = dict(
+        name="row_hash", route="cuda",
+        source="stateright_tpu_torch/csrc/row_hash.cu",
+        replaces="stateright_tpu/ops/hashing.py:105",
+        shape=(f"{x['shards']} shards' successor rows int64[{n}, {w}], "
+               f"{nh} valid"),
+        matched=bool(torch.equal(got, want)),
+        max_abs_err=int((got != want).sum()),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **timings(lambda: row_hash(rows, hvalid),
+                  lambda: row_hash_plain(rows, hvalid), cold))
+    tfp, tpl, inputs = x["tfp"], x["tpl"], x["inputs"]
+    sfp, bucket, cidx = inputs[0], inputs[2], inputs[4]
+    m = sfp.shape[0]
+    pbuf = PlanBuffers(m, sfp.device, False)
+    got = bucket_plan(tfp, *inputs, out=pbuf)
+    want = bucket_plan_plain(tfp, *inputs)
+    planned = int((want[0] != tfp.shape[0]).sum())
+    errs = [int((g[:planned] != p[:planned]).sum())
+            for g, p in zip(got[:4], want[:4])]
+    errs += [abs(int(got[4]) - int(want[4])), int(bool(got[5]) != bool(want[5]))]
+    live = sfp != EMPTY
+    nlive = int(live.sum())
+    lines = int(torch.unique(bucket[live]).numel())
+    p_ms, p_by = bound(*kernel_cost("bucket_plan", {
+        "lanes": m, "valid": nlive, "lines": lines, "novel": planned,
+        "cidx": cidx is not None}))
+    out["bucket_plan"] = dict(
+        name="bucket_plan", route="cuda",
+        source="stateright_tpu_torch/csrc/bucket_plan.cu",
+        replaces="stateright_tpu/ops/buckets.py:202",
+        shape=(f"{x['shards']} shards' owner lanes {m} ({nlive} valid, "
+               f"{lines} lines, {planned} novel), table {tfp.shape[0]} "
+               "slots"),
+        matched=sum(errs) == 0, max_abs_err=sum(errs),
+        bound_ms=p_ms, bound_by=p_by, library_ms=None,
+        **timings(lambda: bucket_plan(tfp, *inputs, out=pbuf),
+                  lambda: bucket_plan_plain(tfp, *inputs), cold,
+                  lambda: bucket_plan(tfp, *inputs, out=pbuf, check=False,
+                                      stream=stream)))
+    tgt, cfp, cpl, _, n_new, _ = want
+    nn = int(n_new)
+    if nn == 0:
+        raise AssertionError(f"the sharded owner batch planned nothing "
+                             f"(overflow={bool(want[5])})")
+    kt, pt = (tfp.clone(), tpl.clone()), (tfp.clone(), tpl.clone())
+    insert_commit(*kt, tgt, cfp, cpl, n_new)
+    insert_commit_plain(*pt, tgt, cfp, cpl, n_new)
+    c_err = sum(int((a != b).sum()) for a, b in zip(kt, pt))
+    from stateright_tpu_torch.analysis.costmodel import insert_commit_parts
+
+    r, wr = insert_commit_parts({"novel": nn, "width": x["width"],
+                                 "parents": 0})["table"]
+    c_ms, c_by = bound(r + wr, 0)
+    out["insert_commit"] = dict(
+        name="insert_commit", route="cuda",
+        source="stateright_tpu_torch/csrc/insert_commit.cu",
+        replaces="stateright_tpu/ops/pallas_insert.py:85",
+        shape=(f"{x['shards']} shards' plan {tgt.shape[0]}, n_new {nn}, "
+               f"table {tfp.shape[0]} slots, no queue"),
+        matched=c_err == 0, max_abs_err=c_err,
+        bound_ms=c_ms, bound_by=c_by, library_ms=None,
+        **timings(lambda: insert_commit(*kt, tgt, cfp, cpl, n_new),
+                  lambda: insert_commit_plain(*pt, tgt, cfp, cpl, n_new),
+                  cold,
+                  lambda: insert_commit(*kt, tgt, cfp, cpl, n_new,
+                                        check=False, stream=stream)))
+    return out
+
+
+def shard_loads(c) -> list:
+    """Each shard's occupied table slots (the final table, shard after
+    shard)."""
+    tfp = c._table_np()[0].reshape(c.ndev, -1)
+    return [int(v) for v in (tfp != np.uint64(2 ** 64 - 1)).sum(1)]
+
+
+def sharded_snapshots_equal(a: dict, b: dict) -> tuple:
+    """Two sharded snapshots key for key (the frontier's rows and ebits at
+    its live lanes); returns ``(equal, keys compared)``."""
+    live = np.asarray(a["fps"]) != np.uint64(2 ** 64 - 1)
+    keys = [k for k in a if k != "run_id"]
+    for k in keys:
+        x, y = np.asarray(a[k]), np.asarray(b.get(k))
+        if k in ("rows", "ebits"):
+            x, y = x[live], y[live]
+        if x.shape != y.shape or not np.array_equal(x, y):
+            return False, k
+    return True, len(keys)
+
+
+def sharded_phases(smi: str, ref7: dict, device=None) -> tuple:
+    """The sharded legs: ``sharded_2pc7`` (2pc-7 over 8 shards on the card:
+    the plain leg's 296,448 unique, state count, discoveries and visited
+    set; wall, operations a step at 1, 4 and 8 shards, launches, growth
+    events, shard imbalance) with the kernel cells on the next step of a
+    run bounded at :data:`SHARDED_KERNEL_TARGET`; ``sharded_2pc5_parity``
+    (4 shards on ``cuda`` and on ``cpu``: equal snapshots);
+    ``sharded_paxos3`` (4 shards, bounded at 200,000 unique: every
+    fingerprint in its owner's shard, none twice, every parent present);
+    ``nccl_one_rank`` (one NCCL rank holding 4 shards: 2pc-5 at 8,832).
+    Returns each leg's launches and the kernel cells."""
+    import socket
+
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.ops.cartography import shard_imbalance
+
+    dev = device or "cuda"
+    out = {}
+    # -- sharded_2pc7 -------------------------------------------------------
+    reset_launches()
+    c7, c7_s = timed_run(7, devices=SHARDED_DEVICES, device=dev)
+    launches = out["sharded_2pc7"] = kernel_launches()
+    paths = check_discoveries(c7.model, c7,
+                              {"abort agreement", "commit agreement"})
+    c7.assert_properties()
+    plain = ref7["snap"]
+    pfp = np.asarray(plain["table_fp"])
+    visited_plain = set(pfp[pfp != np.uint64(2 ** 64 - 1)].tolist())
+    parents = c7._parents()
+    same_visited = set(parents) == visited_plain
+    parents_ok = all(p == 0 or p in parents for p in parents.values())
+    loads = shard_loads(c7)
+    ops = {n: sharded_ops_per_step(dev, n) for n in SHARDED_OPS_DEVICES}
+    emit("sharded_2pc7", {
+        "devices": SHARDED_DEVICES, "unique": c7.unique_state_count(),
+        "states": c7.state_count(), "depth": c7.max_depth(), "sec": c7_s,
+        "plain_sec": ref7["sec"], "states_per_sec": c7.state_count() / c7_s,
+        "steps": c7.steps_run, "growth_events": c7.growth_events,
+        "cap_local": c7._cap_local, "fcap_local": c7._fcap_local,
+        "shard_load": loads, "shard_imbalance": shard_imbalance(loads),
+        "visited_equals_plain": same_visited, "parents_present": parents_ok,
+        "path_lengths": paths, "launches": launches,
+        "ops_per_step": {str(n): v for n, v in ops.items()},
+        "card": smi})
+    if (c7.unique_state_count(), c7.state_count()) != (
+            ref7["unique"], ref7["states"]) or ref7["unique"] != TPC7_UNIQUE:
+        raise AssertionError("sharded 2pc-7: counts differ from the plain leg")
+    if set(c7.discovery_fps()) != set(ref7["disc"]):
+        raise AssertionError("sharded 2pc-7: discoveries differ")
+    if not (same_visited and parents_ok):
+        raise AssertionError("sharded 2pc-7: visited set or parents differ")
+    for k in ("row_hash", "bucket_plan", "insert_commit"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sharded 2pc-7: {k} never launched")
+    if launches["cand_prep"]:
+        raise AssertionError("sharded 2pc-7: cand_prep is not on its path")
+    del c7
+    lap("sharded_2pc7")
+    # -- the kernel cells on a sharded step ---------------------------------
+    cb, _ = timed_run(7, target=SHARDED_KERNEL_TARGET,
+                      devices=SHARDED_DEVICES, device=dev)
+    kernels = sharded_kernels(sharded_batch(cb))
+    for name, k in kernels.items():
+        emit(f"kernel_{name}_sharded_2pc7", k)
+    del cb
+    lap("kernels_sharded_2pc7")
+    # -- sharded_2pc5_parity: cuda = cpu ------------------------------------
+    reset_launches()
+    g5, g5_s = timed_run(5, devices=4, device=dev)
+    out["sharded_2pc5_parity"] = kernel_launches()
+    c5 = TwoPhaseSys(5).checker().spawn_gpu(devices=4, device="cpu",
+                                            sync=True)
+    same, keys = sharded_snapshots_equal(g5.final_snapshot(),
+                                         c5.final_snapshot())
+    emit("sharded_2pc5_parity", {
+        "unique_cuda": g5.unique_state_count(),
+        "unique_cpu": c5.unique_state_count(), "sec_cuda": g5_s,
+        "snapshots_equal": same, "keys": keys,
+        "launches": out["sharded_2pc5_parity"], "card": smi})
+    if not (same and g5.unique_state_count() == 8832):
+        raise AssertionError(f"sharded 2pc-5: cuda and cpu differ at {keys}")
+    del g5, c5
+    lap("sharded_2pc5_parity")
+    # -- sharded_paxos3: the shards' structure ------------------------------
+    reset_launches()
+    p3, p3_s = timed_run(3, target=SHARDED_PAXOS3_TARGET, model=paxos_model,
+                         devices=4, device=dev)
+    out["sharded_paxos3"] = kernel_launches()
+    tfp, tpl = p3._table_np()
+    occ = tfp != np.uint64(2 ** 64 - 1)
+    shard = np.repeat(np.arange(4), tfp.size // 4)
+    owner = ((tfp >> np.uint64(32)) % np.uint64(4)).astype(np.int64)
+    fps = tfp[occ]
+    par = tpl[occ]
+    fp_set = set(fps.tolist())
+    in_owner = bool((owner[occ] == shard[occ]).all())
+    no_repeat = len(fp_set) == fps.size == p3.unique_state_count()
+    parents_ok = all(p == 0 or p in fp_set for p in par.tolist())
+    emit("sharded_paxos3", {
+        "target": SHARDED_PAXOS3_TARGET, "unique": p3.unique_state_count(),
+        "states": p3.state_count(), "sec": p3_s,
+        "width": p3.tensor.width, "growth_events": p3.growth_events,
+        "shard_load": shard_loads(p3), "fps_in_owner_shard": in_owner,
+        "no_repeat": no_repeat, "parents_present": parents_ok,
+        "launches": out["sharded_paxos3"], "card": smi})
+    if not (in_owner and no_repeat and parents_ok
+            and p3.unique_state_count() >= SHARDED_PAXOS3_TARGET):
+        raise AssertionError("sharded paxos-3: the shards' structure is wrong")
+    del p3
+    lap("sharded_paxos3")
+    # -- nccl_one_rank: the collectives' path, one rank ---------------------
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if dev != "cpu" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        reset_launches()
+        n1, n1_s = timed_run(5, devices=NCCL_SHARDS, device=dev)
+        out["nccl_one_rank"] = kernel_launches()
+        collectives = n1._xch.dist is not None
+        emit("nccl_one_rank", {
+            "backend": dist.get_backend(), "ranks": dist.get_world_size(),
+            "shards": NCCL_SHARDS, "unique": n1.unique_state_count(),
+            "sec": n1_s, "collectives": collectives,
+            "launches": out["nccl_one_rank"], "card": smi})
+        if not (collectives and n1.unique_state_count() == 8832):
+            raise AssertionError("nccl one rank: 2pc-5 is not 8,832")
+        del n1
+    finally:
+        dist.destroy_process_group()
+    lap("nccl_one_rank")
+    return out, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3720,6 +4077,7 @@ def main() -> int:
     launches_sweep, kernels_sweep = sweep_phases(dev, smi, ref7)
     lap("sweep")
     launches_svc = service_phases(smi, ref7)
+    launches_sh, kernels_sh = sharded_phases(smi, ref7)
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
@@ -3731,6 +4089,7 @@ def main() -> int:
                              ("orl", kernels_orl),
                              ("por proviso", kernels_por),
                              ("sweep_2pc7_seeds", kernels_sweep),
+                             ("sharded 2pc-7", kernels_sh),
                              *((f"{leg} inject", cell) for leg, cell
                                in kernels_inject.items()))
            for k in ks.values() if not k["matched"]]
@@ -3809,6 +4168,16 @@ def main() -> int:
         # over both slots)
         for leg, ls in launches_svc.items():
             entry[f"at_{leg}"] = {"launches": ls[name]}
+        # the sharded engine: each leg's launches, and the cells on a
+        # sharded step (cand_prep is not on its path)
+        for leg, ls in launches_sh.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+        if name in kernels_sh:
+            entry["at_sharded_2pc7"] = dict(
+                {key: kernels_sh[name][key] for key in KERNEL_KEYS
+                 if key not in ("name", "route", "source", "replaces",
+                                "launches")},
+                launches=launches_sh["sharded_2pc7"][name])
         line.append(entry)
     # the sweep's two kernel modes, each as a kernel of its own: launches
     # are the 2pc-7 seed sweep's (every cand_prep and insert_commit launch

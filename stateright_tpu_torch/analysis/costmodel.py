@@ -867,6 +867,74 @@ def wavefront_costs(tensor, cap: int, qcap: int, batch: int,
     return out
 
 
+def sharded_costs(tensor, cap_local: int, fcap_local: int, ndev: int, *,
+                  sym: bool = False, cand_local: Optional[int] = None,
+                  bucket_factor: int = 2) -> Optional[CostReport]:
+    """The sharded engine's cost ledger for one shard's step (JAX
+    ``sharded_costs``, analysis/costmodel.py:1075): the property and
+    expand stages at the shard's frontier width, the ``row_hash`` launch
+    over its candidates, and, where JAX has none (its insert and exchange
+    are collectives its walk does not price), the route (the send
+    buffers' scatter, an index operation on one device) and the owner's
+    insert (the key sort, ``bucket_plan`` and the table half of
+    ``insert_commit`` at the candidate budget), charged from the kernels'
+    counts.  Cached on the twin; None where a kernel does not capture."""
+    width = getattr(tensor, "width", None)
+    arity = getattr(tensor, "max_actions", None)
+    if not isinstance(width, int) or not isinstance(arity, int):
+        return None
+    m = fcap_local * arity
+    bucket_cap = max(64, m * bucket_factor // ndev)
+    cb = min(cand_local or max(64, 4 * fcap_local), ndev * bucket_cap)
+    key = ("sharded", cap_local, fcap_local, ndev, cb, bool(sym))
+    cache = _cost_cache(tensor)
+    if cache is not None and key in cache:
+        return cache[key]
+    scale = fcap_local / CAPTURE_BATCH
+    try:
+        gp = graph_of(tensor, "property_masks", CAPTURE_BATCH)
+        gs = graph_of(tensor, "step_rows", CAPTURE_BATCH)
+    except Exception:  # noqa: BLE001 - the kernel audit's JX000
+        return None
+    stages = {"property": walk_graph(gp, "property", scale),
+              "expand": walk_graph(gs, "expand", scale)}
+    hash_ = StageCost(name="hash")
+    r, w, ops = kernel_rw("row_hash", {"rows": m, "width": width,
+                                       "valid": m})
+    hash_.charge(_kernel_eqn("row_hash", r, w, ops, m))
+    stages["hash"] = hash_
+    route = StageCost(name="route")
+    words = width + 3  # fingerprint, parent, ebits, row
+    route.charge(EqnCost(prim="index_put", op_class="scatter", flops=0,
+                         bytes_read=m * (words + 1) * 8,
+                         bytes_written=m * words * 8, shape=(m, words),
+                         operand_shape=(ndev * bucket_cap, words)))
+    stages["route"] = route
+    dedup = StageCost(name="dedup-insert")
+    r, w, ops = kernel_rw("sort", {"lanes": cb})
+    dedup.charge(_kernel_eqn("sort", r, w, ops, cb))
+    r, w, ops = kernel_rw("bucket_plan", {
+        "lanes": cb, "valid": cb, "novel": cb,
+        "lines": min(cb, max(cap_local // SLOTS, 1))})
+    dedup.charge(_kernel_eqn("bucket_plan", r, w, ops, cb, (cap_local,)))
+    parts = insert_commit_parts({"novel": cb, "width": width,
+                                 "parents": fcap_local})
+    dedup.charge(_kernel_eqn("insert_commit", *parts["table"], 0, cb,
+                             (cap_local,)))
+    stages["dedup-insert"] = dedup
+    candidates = mxu_candidates(stages)
+    out = CostReport(
+        engine="sharded",
+        shapes={"batch": fcap_local, "capacity": cap_local * ndev,
+                "devices": ndev},
+        stages=stages, reconciliation={}, actions=None,
+        candidates=candidates, findings=mxu_findings(candidates, stages),
+    )
+    if cache is not None:
+        cache[key] = out
+    return out
+
+
 def fold_into_report(cost: CostReport, report) -> None:
     """Merge the JX4xx findings and the summary metrics into an
     ``AuditReport`` (JAX ``fold_into_report``): the audit tiers do not run

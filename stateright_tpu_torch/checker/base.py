@@ -551,7 +551,7 @@ class CheckerBuilder:
         capacity: int = 1 << 17,
         batch: int = 1 << 11,
         cand: Optional[int] = None,
-        steps_per_call: int = 64,
+        steps_per_call: Optional[int] = None,
         device=None,
         resume: Optional[dict] = None,
         queue_capacity: Optional[int] = None,
@@ -559,6 +559,11 @@ class CheckerBuilder:
         spill_dir: Optional[str] = None,
         spill_host_bytes: Optional[int] = None,
         sync: bool = False,
+        devices: Optional[int] = None,
+        n_devices: Optional[int] = None,
+        frontier_capacity: int = 1 << 13,
+        bucket_factor: int = 2,
+        cand_factor: int = 4,
     ) -> "Checker":
         """Wavefront BFS on the GPU (``parallel/wavefront.py``).
 
@@ -576,17 +581,44 @@ class CheckerBuilder:
         Under :meth:`sweep` (or ``STATERIGHT_TPU_SWEEP``) this returns the
         sweep engine instead (JAX ``spawn_tpu`` :767-813), after one audit
         per distinct shape signature of the family; the ``spill_*`` knobs
-        do not apply there."""
+        do not apply there.
+
+        ``devices=N`` (or ``n_devices=N``, JAX's spelling) returns the
+        sharded engine (``parallel/sharded.py``) over ``N`` shards, each
+        fingerprint owned by one: ``capacity`` and ``frontier_capacity``
+        are split over the shards, ``bucket_factor`` and ``cand_factor``
+        size the route and the owner's candidate budget, and
+        ``steps_per_call`` defaults to 16 there (JAX ``spawn_tpu``'s);
+        ``devices=1`` is the single-device engine, as in JAX (``n_devices=1``
+        stays sharded).  Without a process group all shards live on
+        ``device``; under an initialized ``torch.distributed`` group each
+        rank holds ``N / ranks`` of them on its own device."""
         from ..parallel.wavefront import GpuChecker
         from ..sweep import resolve_sweep_spec
 
         spec = resolve_sweep_spec(self.sweep_spec, self.model)
         if spec is not None:
+            if n_devices is not None or devices:
+                raise NotImplementedError(
+                    "sweeps run on the single-device engine for now — "
+                    "drop the devices argument")
             return self._spawn_sweep(
                 spec, capacity=capacity, batch=batch, cand=cand,
-                steps_per_call=steps_per_call, device=device, resume=resume,
-                queue_capacity=queue_capacity, sync=sync)
+                steps_per_call=steps_per_call or 64, device=device,
+                resume=resume, queue_capacity=queue_capacity, sync=sync)
         self._preflight_audit()
+        if devices is not None and devices != 1 and n_devices is None:
+            n_devices = devices
+        if n_devices is not None:
+            from ..parallel.sharded import ShardedGpuChecker
+
+            return ShardedGpuChecker(
+                self, n_devices=n_devices, capacity=capacity,
+                frontier_capacity=frontier_capacity,
+                bucket_factor=bucket_factor, cand_factor=cand_factor,
+                sync=sync, steps_per_call=steps_per_call or 16,
+                device=device, resume=resume)
+        steps_per_call = steps_per_call or 64
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
             steps_per_call=steps_per_call, device=device, resume=resume,

@@ -7,6 +7,12 @@ keys ``cohort``, ``engine``, ``model_sig``, ``sweep_done`` and, with
 cartography, ``cart_depth_base``; :func:`sweep_carry_to_arrays` and
 :func:`sweep_carry_from_arrays` carry it across both ways.
 
+A sharded snapshot (``ShardedTpuChecker._carry_to_snapshot``,
+``parallel/sharded.py``) has the keys of :data:`SHARDED_SNAPSHOT_KEYS`
+(the shards' tables and frontiers laid out shard after shard) plus its
+manifest; :func:`sharded_carry_to_arrays` and
+:func:`sharded_carry_from_arrays` carry it across both ways.
+
 A JAX-engine snapshot (``stateright_tpu``'s
 ``TpuChecker._carry_to_snapshot``) is a dict of numpy arrays under
 ``SNAPSHOT_KEYS`` — ``uint64`` tables and queue, ``uint32`` queue ebits
@@ -57,6 +63,41 @@ _SWEEP_NP_DTYPES = (
     np.uint32, np.int32, np.int32, np.int64, np.int64, np.uint64, np.int32,
     np.int32,
 )
+
+
+# the sharded engine's carry (JAX ``_SHARDED_SNAPSHOT_KEYS``,
+# stateright_tpu/parallel/sharded.py:641-644): the shards' tables and
+# frontiers laid out shard after shard, then the replicated scalars; the
+# manifest adds ``more``, ``ndev``, ``cap_local``, ``fcap_local``,
+# ``bucket_factor``, ``cand_factor``, ``engine``, ``model_sig``,
+# ``run_id``, ``footprint_bytes`` and, under their flags, ``por_stats`` and
+# the cartography counters ``cart0``..``cart5``
+(SH_TFP, SH_TPL, SH_ROWS, SH_FPS, SH_EBITS, SH_UNIQUE, SH_SCOUNT, SH_DISC,
+ SH_DEPTH, SH_STATUS) = range(10)
+SHARDED_SNAPSHOT_KEYS = (
+    "table_fp", "table_parent", "rows", "fps", "ebits",
+    "unique", "scount", "disc", "depth", "status",
+)
+SHARDED_NP_DTYPES = (
+    np.uint64, np.uint64, np.uint64, np.uint64, np.uint32, np.int64,
+    np.int64, np.uint64, np.int32, np.int32,
+)
+
+
+def sharded_carry_to_arrays(carry: list) -> list:
+    """The sharded engine's carry (its first ten tensors) as numpy arrays
+    in the JAX layout and dtypes, never sharing the carry's memory."""
+    arrs = carry_to_arrays(carry[:len(SHARDED_SNAPSHOT_KEYS)],
+                           SHARDED_NP_DTYPES)
+    if carry[SH_TFP].device.type == "cpu":
+        arrs = [np.array(a, copy=True) for a in arrs]
+    return arrs
+
+
+def sharded_carry_from_arrays(arrs: list, device) -> list:
+    """Numpy arrays in the JAX sharded layout -> the sharded engine's
+    first ten carry tensors on ``device`` (scalars 0-d int64)."""
+    return [signed_tensor(np.asarray(a), device) for a in arrs]
 
 
 def signed_tensor(arr: np.ndarray, device) -> torch.Tensor:

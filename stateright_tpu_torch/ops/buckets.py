@@ -88,11 +88,13 @@ def window_unique(fps: torch.Tensor) -> torch.Tensor:
     stable sort keeps, so the inserted set, ``sel`` and ``n_new`` do not
     change; only the candidate budget sees fewer lanes.  One stable sort
     in unsigned order, and the first-occurrence flags scattered back (a
-    boolean-mask index would read a count on the host)."""
-    sfp, order = torch.sort(fps ^ SIGN, stable=True)
+    boolean-mask index would read a count on the host).  A ``[K, M]``
+    input is ``K`` windows, each deduplicated on its own (the sharded
+    engine's shards)."""
+    sfp, order = torch.sort(fps ^ SIGN, dim=-1, stable=True)
     first = torch.ones_like(fps, dtype=torch.bool)
-    first[1:] = sfp[1:] != sfp[:-1]
-    keep = torch.zeros_like(first).scatter_(0, order, first)
+    first[..., 1:] = sfp[..., 1:] != sfp[..., :-1]
+    keep = torch.zeros_like(first).scatter_(-1, order, first)
     return torch.where(keep, fps, EMPTY)
 
 

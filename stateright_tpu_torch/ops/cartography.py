@@ -145,8 +145,8 @@ def trim_hist(values) -> list:
 
 def shard_imbalance(loads) -> dict:
     """Imbalance summary over per-shard table loads: max/mean plus their
-    ratio (1.0 = perfectly balanced).  Kept for the snapshot schema; its
-    producer is the sharded engine (the ROADMAP item "multi-GPU")."""
+    ratio (1.0 = perfectly balanced).  The sharded engine
+    (``parallel/sharded.py``) produces it from its per-shard loads."""
     arr = np.asarray(loads, dtype=np.float64).reshape(-1)
     if arr.size == 0:
         return {"max": 0, "mean": 0.0, "ratio": 1.0}

@@ -1,1 +1,2 @@
-"""The GPU wavefront engine and the tensor-twin contract."""
+"""The GPU wavefront engines (single-device and sharded) and the
+tensor-twin contract."""

@@ -1,7 +1,8 @@
 """Host-side surface shared by the port's device wavefront engines.
 
 The port's counterpart of ``stateright_tpu/parallel/_base.py``
-(``WavefrontChecker``), cut to the single-device engine: resolve the
+(``WavefrontChecker``), shared by the single-device and the sharded
+engines (the sharded one refuses ``.spill()``, as JAX's does): resolve the
 model's tensor twin (and, under ``symmetry()``, check that it has a
 vectorized canonicalizer), resolve ``prededup()``, ``por()`` (its plan,
 or the fallback) and ``spill()`` against their env knobs and arm the
@@ -135,6 +136,14 @@ class WavefrontChecker(Checker):
         self._resolve_por(options)
         self._spill = resolve_flag(options.spill_mode, ENV_SPILL)
         if self._spill:
+            if self._engine_tag != "single":
+                raise NotImplementedError(
+                    "spill mode (CheckerBuilder.spill()) is single-device "
+                    "only for now: the sharded engine's visited table is "
+                    "split over its shards and spills with the mesh engine "
+                    "(ROADMAP).  Drop the devices argument, or drop "
+                    ".spill()/--spill/STATERIGHT_TPU_SPILL."
+                )
             if self._por:
                 raise NotImplementedError(
                     "spill mode does not compose with partial-order "

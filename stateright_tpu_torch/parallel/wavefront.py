@@ -243,6 +243,23 @@ class CarryLayout(NamedTuple):
         return self.spill_start + (_SPILL_LEN if self.spill else 0)
 
 
+def resolve_device(device) -> torch.device:
+    """A run's device: ``None`` means ``cuda`` (the current CUDA device)
+    and raises when there is none; the port never falls back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "spawn_gpu(): no CUDA device is available (the port "
+                "never falls back to the CPU; pass device='cpu' to run "
+                "the plain PyTorch path)"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -923,17 +940,7 @@ class GpuChecker(WavefrontChecker):
                  spill_dir: Optional[str] = None,
                  spill_host_bytes: Optional[int] = None,
                  sync: bool = False):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "spawn_gpu(): no CUDA device is available (the port "
-                    "never falls back to the CPU; pass device='cpu' to run "
-                    "the plain PyTorch path)"
-                )
-            device = "cuda"
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         caps = default_caps(capacity, batch, cand, queue_capacity)
         self._cap, self._qcap = caps["cap"], caps["qcap"]
         self._batch, self._cand = caps["batch"], caps["cand"]

@@ -73,7 +73,7 @@ from ..ops.buckets import (
 from ..ops.cand_prep import Namespace, PrepBuffers, cand_prep, sort_prepared
 from ..ops.hashing import EMPTY, ns_hash_plain, row_hash
 from ..ops.insert_commit import QueueAppend, insert_commit
-from ..parallel.wavefront import _i32, _pow2
+from ..parallel.wavefront import _i32, _pow2, resolve_device
 from .cohort import build_cohorts
 from .spec import SWEEP_V
 
@@ -390,16 +390,7 @@ class SweepChecker(Checker):
                  device=None, resume: Optional[dict] = None,
                  sync: bool = False):
         self._reject_unsupported(options)
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "spawn_gpu(): no CUDA device is available (the port "
-                    "never falls back to the CPU; pass device='cpu' to run "
-                    "the plain PyTorch path)")
-            device = "cuda"
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device)
         self.model = options.model
         self.spec = spec
         self._options = options

@@ -222,6 +222,50 @@ def wavefront_specs(
     return specs
 
 
+def sharded_specs(
+    width: int, arity: int, n_props: int, ndev: int,
+    cap_local: int, fcap_local: int,
+    *, cartography: bool = False, por: bool = False,
+) -> list:
+    """Per-buffer specs of the sharded engine's global carry (JAX
+    ``sharded_specs``, telemetry/memory.py:160), under the JAX names and
+    dtypes, so a snapshot's ``footprint_bytes`` is the same in either
+    package: the shards' tables and frontiers, the replicated scalars,
+    the POR pair and the cartography counters (the per-shard load and the
+    route matrix included).  The port's carry keeps its scalars as 0-d
+    int64 and one more, the live frontier count: a few bytes the JAX model
+    does not have."""
+    p = max(n_props, 1)
+    u64 = np.uint64
+    specs = [
+        BufferSpec("table_fp", (ndev * cap_local,), u64),
+        BufferSpec("table_parent", (ndev * cap_local,), u64),
+        BufferSpec("rows", (ndev * fcap_local, width), u64),
+        BufferSpec("fps", (ndev * fcap_local,), u64),
+        BufferSpec("ebits", (ndev * fcap_local,), np.uint32),
+        BufferSpec("unique", (), np.int64),
+        BufferSpec("scount", (), np.int64),
+        BufferSpec("disc", (p,), u64),
+        BufferSpec("depth", (), np.int32),
+        BufferSpec("status", (), np.int32),
+    ]
+    if por:
+        specs += [BufferSpec("por_boost", (), np.int32),
+                  BufferSpec("por_stats", (3,), np.int64)]
+    if cartography:
+        from ..ops.cartography import DEPTH_BINS
+
+        specs += [
+            BufferSpec("cart_depth_hist", (DEPTH_BINS,), np.int64),
+            BufferSpec("cart_action_hist", (max(arity, 1),), np.int64),
+            BufferSpec("cart_prop_evals", (p,), np.int64),
+            BufferSpec("cart_prop_hits", (p,), np.int64),
+            BufferSpec("cart_shard_load", (ndev,), np.int64),
+            BufferSpec("cart_route_matrix", (ndev, ndev), np.int64),
+        ]
+    return specs
+
+
 # -- live device readings ----------------------------------------------------
 
 

@@ -487,11 +487,17 @@ ISOLATION_CASES = {
 
 @pytest.mark.parametrize("family", list(ISOLATION_CASES))
 def test_port_run_loads_neither_jax_nor_the_reference(family):
+    assert_isolated(ISOLATION_CASES[family])
+
+
+def assert_isolated(case: str) -> None:
+    """Run ``case`` in a subprocess on one thread: it passes, and neither
+    ``jax`` nor ``stateright_tpu`` is loaded after it."""
     code = (
         "import sys\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
-        + ISOLATION_CASES[family]
+        + case
         + "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'stateright_tpu.'))\n"
         "       or m == 'stateright_tpu']\n"
@@ -873,3 +879,4 @@ def test_por_fallback_dispatches_the_same_operations(monkeypatch):
     assert (fb.unique_state_count(), fb.state_count()) == (
         off.unique_state_count(), off.state_count())
     assert fb_steps == off_steps
+

@@ -24,7 +24,10 @@ paxos-1 plain, with queue growth and with the rollback, ``WorkersSys(7)``,
 ``ToggleSys``, 2pc-5 under symmetry and prededup) and the proviso round's
 three insert kernels against their plain versions; and the service layer:
 the Explorer over a 2pc-5 GPU run on ``cuda`` (both discoveries through
-``/.states``) and a packed two-tenant fleet on ``cuda`` against ``cpu``.
+``/.states``) and a packed two-tenant fleet on ``cuda`` against ``cpu``;
+and the sharded engine (``spawn_gpu(devices=N)``): 2pc-5, 2pc-4 with
+growth, 2pc-5 under symmetry, prededup and cartography, and ``ToggleSys``
+under POR, each snapshot on ``cuda`` against ``cpu``, shard for shard.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -1116,3 +1119,50 @@ def test_packed_fleet_on_cuda_equals_cpu(cuda, tmp_path):
                     for k, r in res.results.items()})
     assert out[0] == out[1]
     assert out[0]["a"][:2] == (288, 1146)
+
+
+def sharded_snapshots_equal(a: dict, b: dict) -> None:
+    live = np.asarray(a["fps"]) != EMPTY
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if k == "run_id":
+            continue
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if k in ("rows", "ebits"):
+            x, y = x[live], y[live]
+        np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("2pc5", dict(devices=4)),
+    ("2pc4-growth", dict(devices=8, capacity=1 << 8,
+                         frontier_capacity=1 << 5)),
+    ("2pc5-sym-prededup-cart", dict(devices=4)),
+    ("toggle-por", dict(devices=2)),
+])
+def test_sharded_snapshot_identical_on_cuda_and_cpu(cuda, name, kw):
+    """The sharded engine (``spawn_gpu(devices=N)``) on ``cuda`` against
+    ``cpu``: the whole snapshot, shard for shard, and the launches of the
+    kernels on its path (``cand_prep`` is not on it)."""
+    from stateright_tpu_torch.ops.cand_prep import cand_prep
+    from stateright_tpu_torch.ops.hashing import row_hash
+    from stateright_tpu_torch.ops.insert_commit import insert_commit
+    from stateright_tpu_torch.testing.por_fixtures import ToggleSys
+
+    def build():
+        if name == "toggle-por":
+            return ToggleSys().checker().por()
+        b = TwoPhaseSys(4 if "2pc4" in name else 5).checker()
+        if "sym" in name:
+            b = b.symmetry().prededup().cartography()
+        return b
+
+    kernels = (cand_prep, row_hash, bucket_plan, insert_commit)
+    before = [k.launches for k in kernels]
+    g = build().spawn_gpu(device=cuda, sync=True, **kw)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    c = build().spawn_gpu(device="cpu", sync=True, **kw)
+    assert g.growth_events == c.growth_events
+    assert g.cartography() == c.cartography()
+    sharded_snapshots_equal(g.final_snapshot(), c.final_snapshot())
+    assert launched[0] == 0 and all(n > 0 for n in launched[1:]), launched
