@@ -415,6 +415,8 @@ from stateright_tpu_torch.ops.insert_commit import (
     QueueAppend,
     insert_commit,
     insert_commit_plain,
+    insert_commit_window,
+    insert_commit_window_plain,
 )
 from stateright_tpu_torch.actor import Network
 from stateright_tpu_torch.models.dining import HAS_LEFT, dining_model
@@ -3879,6 +3881,425 @@ def sharded_phases(smi: str, ref7: dict, device=None) -> tuple:
     return out, kernels
 
 
+MESH_PIECES = 4  # the mesh legs' pieces, all on the one card
+# the bounded 2pc-7 mesh run whose next step the mesh kernel cells take,
+# the bound of the runs that count operations a step, and the paxos-3
+# mesh leg's bound (the sharded paxos-3 leg's)
+MESH_KERNEL_TARGET = 100_000
+MESH_OPS_TARGET = 20_000
+MESH_PAXOS3_TARGET = 200_000
+# the native legs: seeded register histories (tests/test_torch_native.py's
+# generator) and the compiled-CPU baseline's batch
+NATIVE_SEED, NATIVE_HISTORIES = 42, 400
+BASELINE_BATCH = 1024
+
+
+def mesh_builder(model, dev, pieces: int = MESH_PIECES):
+    """``model.checker().mesh()`` over ``pieces`` pieces on ``dev``."""
+    return model.checker().mesh(devices=[dev] * pieces)
+
+
+def mesh_ops_per_step(dev, pieces: int) -> dict:
+    """Dispatched operations per step of 2pc-7 bounded at
+    :data:`MESH_OPS_TARGET` (the first :data:`OPS_STEPS` steps, a
+    ``TorchDispatchMode`` count around ``_Engine.step``), on a mesh of
+    ``pieces`` pieces (1: the single-device step)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = []
+    step = _Engine.step
+
+    def counted(self, c):
+        if len(counts) >= OPS_STEPS:
+            return step(self, c)
+        probe = Count()
+        with probe:
+            out = step(self, c)
+        counts.append(probe.n)
+        return out
+
+    _Engine.step = counted
+    try:
+        mesh_builder(TwoPhaseSys(7), dev, pieces).target_states(
+            MESH_OPS_TARGET).spawn_gpu(steps_per_call=4, sync=True)
+    finally:
+        _Engine.step = step
+    return {"ops_per_step": sum(counts) / len(counts), "steps": len(counts)}
+
+
+def mesh_batch(c) -> dict:
+    """The next step of a finished mesh run, through the step's plain
+    stages (:func:`next_batch` on the joined carry), then split as the
+    mesh step splits it: the table piece with the most candidates, its
+    run of the sorted lanes (the engine's own ``piece_inputs``), and the
+    queue piece that holds the tail."""
+    from stateright_tpu_torch.parallel.mesh import QUEUE
+
+    eng = c._last_engine
+    fin = c._final_carry
+    x = next_batch(c, c._whole(fin))
+    sfp, spl, bucket, order, cidx, cov = x["sort"]
+    bounds = eng.piece_bounds(bucket)
+    # each piece's live candidates (the live lanes are a prefix of the
+    # sorted order; the dead ones sort into the last piece's run)
+    nlive = int((sfp != EMPTY).sum())
+    runs = (bounds[1:].clamp(max=nlive) - bounds[:-1].clamp(max=nlive)).tolist()
+    k = int(np.argmax(runs))
+    args = eng.piece_inputs(k, bounds, sfp, spl, bucket, order) + (cidx, cov)
+    # the queue piece that takes the most of the rows [tail, tail + n_new)
+    tail, na = int(fin[convert.TAIL]), x["n_new"]
+    q = int(np.argmax([min(tail + na, (j + 1) * eng.qrows)
+                       - max(tail, j * eng.qrows)
+                       for j in range(len(eng.qdevs))]))
+    return dict(x, piece=k, runs=runs, args=args,
+                tfp_k=fin[convert.TFP].parts[k],
+                tpl_k=fin[convert.TPL].parts[k], q=q, qlo=q * eng.qrows,
+                qpiece=[fin[i].parts[q] for i in QUEUE],
+                pieces=len(eng.tdevs))
+
+
+def mesh_kernels(x: dict) -> dict:
+    """``bucket_plan`` and the table half of ``insert_commit`` on one table
+    piece of a mesh step, and ``insert_commit``'s window mode on the queue
+    piece that holds the tail, each against its plain version."""
+    from stateright_tpu_torch.analysis.costmodel import insert_commit_parts
+
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    tfp, tpl, args = x["tfp_k"], x["tpl_k"], x["args"]
+    sfp, bucket = args[0], args[2]
+    m = sfp.shape[0]
+    pbuf = PlanBuffers(m, sfp.device, False)
+    got = bucket_plan(tfp, *args, out=pbuf)
+    want = bucket_plan_plain(tfp, *args)
+    planned = int((want[0] != tfp.shape[0]).sum())
+    errs = [int((g[:planned] != p[:planned]).sum())
+            for g, p in zip(got[:4], want[:4])]
+    errs += [abs(int(got[4]) - int(want[4])),
+             int(bool(got[5]) != bool(want[5]))]
+    live = sfp != EMPTY
+    nlive = int(live.sum())
+    lines = int(torch.unique(bucket[live]).numel())
+    p_ms, p_by = bound(*kernel_cost("bucket_plan", {
+        "lanes": m, "valid": nlive, "lines": lines, "novel": planned,
+        "cidx": True}))
+    where = (f"piece {x['piece']} of {x['pieces']} (runs {x['runs']}), "
+             f"table piece {tfp.shape[0]} slots")
+    out["bucket_plan"] = dict(
+        name="bucket_plan", route="cuda",
+        source="stateright_tpu_torch/csrc/bucket_plan.cu",
+        replaces="stateright_tpu/ops/buckets.py:202",
+        shape=(f"cand {m} ({nlive} valid, {lines} lines, {planned} novel), "
+               + where),
+        matched=sum(errs) == 0, max_abs_err=sum(errs),
+        bound_ms=p_ms, bound_by=p_by, library_ms=None,
+        **timings(lambda: bucket_plan(tfp, *args, out=pbuf),
+                  lambda: bucket_plan_plain(tfp, *args), False,
+                  lambda: bucket_plan(tfp, *args, out=pbuf, check=False,
+                                      stream=stream)))
+    tgt, cfp, cpl, _, n_new, _ = want
+    nn = int(n_new)
+    if nn == 0:
+        raise AssertionError("the mesh piece's batch planned nothing")
+    kt, pt = (tfp.clone(), tpl.clone()), (tfp.clone(), tpl.clone())
+    insert_commit(*kt, tgt, cfp, cpl, n_new)
+    insert_commit_plain(*pt, tgt, cfp, cpl, n_new)
+    c_err = sum(int((a != b).sum()) for a, b in zip(kt, pt))
+    r, wr = insert_commit_parts({"novel": nn, "width": x["crows"].shape[1],
+                                 "parents": 0})["table"]
+    c_ms, c_by = bound(r + wr, 0)
+    out["insert_commit"] = dict(
+        name="insert_commit", route="cuda",
+        source="stateright_tpu_torch/csrc/insert_commit.cu",
+        replaces="stateright_tpu/ops/pallas_insert.py:85",
+        shape=f"plan {tgt.shape[0]}, n_new {nn}, {where}, no queue",
+        matched=c_err == 0, max_abs_err=c_err,
+        bound_ms=c_ms, bound_by=c_by, library_ms=None,
+        **timings(lambda: insert_commit(*kt, tgt, cfp, cpl, n_new),
+                  lambda: insert_commit_plain(*pt, tgt, cfp, cpl, n_new),
+                  False,
+                  lambda: insert_commit(*kt, tgt, cfp, cpl, n_new,
+                                        check=False, stream=stream)))
+    # the window append: the whole step's novel lanes (the whole-table
+    # plan's, in table order, as the merge gives them) into one queue piece
+    plan, q = x["plan"], x["queue"]
+    sel, wfp, n_all = plan[3], plan[1], plan[4]
+    na = int(n_all)
+    qlo, rows = x["qlo"], x["qpiece"][0].shape[0]
+    tail = int(q.tail)
+    lanes = np.arange(na)
+    inside = (tail + lanes >= qlo) & (tail + lanes < qlo + rows)
+    nin = int(inside.sum())
+    par = int(torch.unique(sel[:na][torch.from_numpy(inside).to(sel.device)]
+                           // q.arity).numel())
+
+    def window_queue():
+        return q._replace(rows=x["qpiece"][0].clone(),
+                          fps=x["qpiece"][1].clone(),
+                          ebits=x["qpiece"][2].clone(),
+                          depths=x["qpiece"][3].clone())
+
+    kq, pq = window_queue(), window_queue()
+    insert_commit_window(kq, wfp, n_all, qlo)
+    insert_commit_window_plain(pq, wfp, n_all, qlo)
+    w_err = sum(int((a != b).sum()) for a, b in zip(kq[:4], pq[:4]))
+    w_ms, w_by = bound(*kernel_cost("insert_commit_window", {
+        "lanes": na, "novel": nin, "width": x["crows"].shape[1],
+        "parents": par}))
+    out["insert_commit_window"] = dict(
+        name="insert_commit_window", route="cuda",
+        source="stateright_tpu_torch/csrc/insert_commit.cu",
+        replaces=("stateright_tpu/parallel/wavefront.py:369 (append_novel, "
+                  "on the mesh's queue pieces)"),
+        shape=(f"n_new {na}, {nin} rows in queue piece {x['q']} "
+               f"({rows} rows from {qlo}), tail {tail}"),
+        matched=w_err == 0, max_abs_err=w_err,
+        bound_ms=w_ms, bound_by=w_by, library_ms=None,
+        **timings(lambda: insert_commit_window(kq, wfp, n_all, qlo),
+                  lambda: insert_commit_window_plain(pq, wfp, n_all, qlo),
+                  False,
+                  lambda: insert_commit_window(kq, wfp, n_all, qlo,
+                                               check=False, stream=stream)))
+    return out
+
+
+def mesh_launches() -> dict:
+    return dict(kernel_launches(),
+                insert_commit_window=insert_commit_window.launches)
+
+
+def reset_mesh_launches() -> None:
+    reset_launches()
+    insert_commit_window.launches = 0
+
+
+def native_histories(seed: int, n: int):
+    """Seeded register histories for both testers (the generator of
+    ``tests/test_torch_native.py``)."""
+    import random
+
+    from stateright_tpu_torch.semantics import (
+        LinearizabilityTester, Register, SequentialConsistencyTester,
+    )
+    from stateright_tpu_torch.semantics.register import READ, write
+
+    rng = random.Random(seed)
+    for _ in range(n):
+        for cls in (LinearizabilityTester, SequentialConsistencyTester):
+            t = cls(Register("\0"))
+            threads = list(range(rng.randint(1, 3)))
+            pending = {}
+            register = "\0"
+            for _ in range(rng.randint(0, 8)):
+                th = rng.choice(threads)
+                if th in pending:
+                    op = pending.pop(th)
+                    if op[0] == "write":
+                        register = op[1] if rng.random() < 0.8 else register
+                        t = t.on_return(th, ("write_ok",))
+                    else:
+                        value = (register if rng.random() < 0.6
+                                 else rng.choice("ABC\0"))
+                        t = t.on_return(th, ("read_ok", value))
+                else:
+                    op = write(rng.choice("ABC")) if rng.random() < 0.5 \
+                        else READ
+                    pending[th] = op
+                    t = t.on_invoke(th, op)
+            yield t
+
+
+def udp_register_leg(smi: str) -> None:
+    """``udp_register``: a single-copy register server spawned on a free
+    localhost port answers a put and a get over UDP."""
+    import socket
+
+    from stateright_tpu_torch.actor import Id
+    from stateright_tpu_torch.models._cli import udp_spawn
+    from stateright_tpu_torch.models.single_copy_register import (
+        SingleCopyServer,
+    )
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as p:
+        p.bind(("127.0.0.1", 0))
+        port = p.getsockname()[1]
+    t0 = time.monotonic()
+    handles = udp_spawn([], [(Id.from_addr("127.0.0.1", port),
+                              SingleCopyServer())], background=True)
+    replies = []
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as cs:
+            cs.bind(("127.0.0.1", 0))
+            cs.settimeout(5.0)
+            for req in (["put", 1, "X"], ["get", 2]):
+                cs.sendto(json.dumps(req).encode(), ("127.0.0.1", port))
+                replies.append(json.loads(cs.recvfrom(65536)[0]))
+    finally:
+        for h in handles:
+            h.stop()
+        for h in handles:
+            h.join(2.0)
+    emit("udp_register", {"port": port, "replies": replies,
+                          "sec": time.monotonic() - t0,
+                          "threads_stopped": not any(
+                              h.thread.is_alive() for h in handles),
+                          "card": smi})
+    if replies != [["put_ok", 1], ["get_ok", 2, "X"]]:
+        raise AssertionError(f"udp register: replies {replies}")
+
+
+def mesh_phases(smi: str, ref7: dict, device=None) -> tuple:
+    """The mesh engine's legs (``.mesh()``, ``parallel/mesh.py``; every
+    piece on the one card), then the native and UDP legs:
+
+     - ``mesh_2pc7``: 2pc-7 on :data:`MESH_PIECES` pieces: the plain leg's
+       296,448 unique and state count, discoveries, table bytes and queue
+       rows, every kernel and the window mode launched, the wall beside the
+       plain leg's, and the operations a step at 1 and 4 pieces;
+     - the kernel cells of a mesh step (``at_mesh_2pc7``): the next step of
+       a 2pc-7 mesh run bounded at :data:`MESH_KERNEL_TARGET`, on its
+       busiest table piece and the queue piece at the tail;
+     - ``mesh_2pc5_parity``: 2pc-5 under symmetry on 4 pieces, ``cuda``
+       and ``cpu``: 508 classes, equal snapshots;
+     - ``mesh_paxos3``: paxos-3 (W = 33) on 4 pieces bounded at
+       :data:`MESH_PAXOS3_TARGET`, equal to a plain run bounded there;
+     - ``native_lin``: the native module built with ``g++`` from the
+       port's sources, its verdicts equal to the Python search's;
+     - ``native_baseline_2pc7``: ``compiled_cpu_bfs`` over 2pc-7, complete:
+       the plain leg's counts and its states/s;
+     - ``udp_register``: put and get over UDP.
+
+    Returns each mesh leg's launches and the mesh kernel cells."""
+    dev = device or "cuda"
+    out = {}
+    # -- mesh_2pc7 -----------------------------------------------------------
+    reset_mesh_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    m7 = mesh_builder(TwoPhaseSys(7), dev).spawn_gpu(sync=True)
+    torch.cuda.synchronize()
+    m7_s = time.monotonic() - t0
+    launches = out["mesh_2pc7"] = mesh_launches()
+    paths = check_discoveries(m7.model, m7,
+                              {"abort agreement", "commit agreement"})
+    m7.assert_properties()
+    same, tail = same_snapshots(ref7["snap"], m7.final_snapshot())
+    ops = {n: mesh_ops_per_step(dev, n) for n in (1, MESH_PIECES)}
+    emit("mesh_2pc7", {
+        "pieces": MESH_PIECES, "placement": m7.pieces(),
+        "unique": m7.unique_state_count(), "states": m7.state_count(),
+        "depth": m7.max_depth(), "sec": m7_s, "plain_sec": ref7["sec"],
+        "states_per_sec": m7.state_count() / m7_s, "steps": m7.steps_run,
+        "growth_events": m7.growth_events, "mesh_stats": m7.mesh_stats(),
+        "tables_and_queue_equal_plain": same, "tail": tail,
+        "path_lengths": paths, "launches": launches,
+        "ops_per_step": {str(n): v for n, v in ops.items()}, "card": smi})
+    if (m7.unique_state_count(), m7.state_count()) != (
+            ref7["unique"], ref7["states"]) or ref7["unique"] != TPC7_UNIQUE:
+        raise AssertionError("mesh 2pc-7: counts differ from the plain leg")
+    if set(m7.discovery_fps()) != set(ref7["disc"]) or not same:
+        raise AssertionError("mesh 2pc-7: discoveries, tables or queue "
+                             "differ from the plain leg")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"mesh 2pc-7: a kernel never launched: "
+                             f"{launches}")
+    del m7
+    lap("mesh_2pc7")
+    # -- the kernel cells on a mesh step ---------------------------------------
+    mb = mesh_builder(TwoPhaseSys(7), dev).target_states(
+        MESH_KERNEL_TARGET).spawn_gpu(sync=True)
+    kernels = mesh_kernels(mesh_batch(mb))
+    for name, k in kernels.items():
+        emit(f"kernel_{name}_mesh_2pc7", k)
+    del mb
+    lap("kernels_mesh_2pc7")
+    # -- mesh_2pc5_parity: cuda = cpu under symmetry -----------------------------
+    reset_mesh_launches()
+    g5 = mesh_builder(TwoPhaseSys(5), dev).symmetry().spawn_gpu(sync=True)
+    out["mesh_2pc5_parity"] = mesh_launches()
+    c5 = mesh_builder(TwoPhaseSys(5), "cpu").symmetry().spawn_gpu(sync=True)
+    same5, tail5 = same_snapshots(g5.final_snapshot(), c5.final_snapshot())
+    emit("mesh_2pc5_parity", {
+        "unique_cuda": g5.unique_state_count(),
+        "unique_cpu": c5.unique_state_count(), "tail": tail5,
+        "snapshots_equal": same5, "launches": out["mesh_2pc5_parity"],
+        "card": smi})
+    if not (same5 and g5.unique_state_count() == SYM_2PC5_UNIQUE):
+        raise AssertionError("mesh 2pc-5 symmetry: cuda and cpu differ")
+    del g5, c5
+    lap("mesh_2pc5_parity")
+    # -- mesh_paxos3: equal to the plain run at the same bound -------------------
+    reset_mesh_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    p3 = mesh_builder(paxos_model(3), dev).target_states(
+        MESH_PAXOS3_TARGET).spawn_gpu(sync=True)
+    torch.cuda.synchronize()
+    p3_s = time.monotonic() - t0
+    out["mesh_paxos3"] = mesh_launches()
+    ref3, ref3_s = timed_run(3, target=MESH_PAXOS3_TARGET, model=paxos_model)
+    same3, tail3 = same_snapshots(ref3.final_snapshot(), p3.final_snapshot())
+    emit("mesh_paxos3", {
+        "target": MESH_PAXOS3_TARGET, "unique": p3.unique_state_count(),
+        "states": p3.state_count(), "sec": p3_s, "plain_sec": ref3_s,
+        "width": p3.tensor.width, "growth_events": p3.growth_events,
+        "tables_and_queue_equal_plain": same3, "tail": tail3,
+        "launches": out["mesh_paxos3"], "card": smi})
+    if not (same3 and (p3.unique_state_count(), p3.state_count()) == (
+            ref3.unique_state_count(), ref3.state_count())):
+        raise AssertionError("mesh paxos-3: differs from the plain run")
+    del p3, ref3
+    lap("mesh_paxos3")
+    # -- native_lin: the module built on this machine ----------------------------
+    from stateright_tpu_torch import native
+    from stateright_tpu_torch.native import build as nbuild
+
+    t0 = time.monotonic()
+    path = nbuild.build()  # raises with the compiler's output
+    build_s = time.monotonic() - t0
+    mod = native.load()
+    if mod is None:
+        raise AssertionError("native: built but not loaded")
+    n = bad = 0
+    t0 = time.monotonic()
+    for t in native_histories(NATIVE_SEED, NATIVE_HISTORIES):
+        nat = t._native_verdict()
+        py = t.valid and t.serialized_history() is not None
+        n += 1
+        bad += int(nat is None or nat != py)
+    emit("native_lin", {"module": str(path),
+                        "build_sec": build_s, "histories": n,
+                        "mismatches": bad, "sec": time.monotonic() - t0,
+                        "card": smi})
+    if bad:
+        raise AssertionError(f"native: {bad} verdicts differ from Python")
+    lap("native_lin")
+    # -- native_baseline_2pc7: the compiled-CPU BFS ---------------------------------
+    from stateright_tpu_torch.native.baseline import compiled_cpu_bfs
+
+    base = compiled_cpu_bfs(TwoPhaseSys(7), batch=BASELINE_BATCH)
+    emit("native_baseline_2pc7", dict(
+        base, batch=BASELINE_BATCH, torch_threads=torch.get_num_threads(),
+        gpu_states_per_sec=ref7["states"] / ref7["sec"], card=smi))
+    if base is None or (base["unique"], base["states"]) != (
+            ref7["unique"], ref7["states"]):
+        raise AssertionError(f"native baseline: {base} is not the plain "
+                             "2pc-7 leg's counts")
+    lap("native_baseline_2pc7")
+    udp_register_leg(smi)
+    lap("udp_register")
+    return out, kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4078,6 +4499,7 @@ def main() -> int:
     lap("sweep")
     launches_svc = service_phases(smi, ref7)
     launches_sh, kernels_sh = sharded_phases(smi, ref7)
+    launches_mesh, kernels_mesh = mesh_phases(smi, ref7)
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
@@ -4090,6 +4512,7 @@ def main() -> int:
                              ("por proviso", kernels_por),
                              ("sweep_2pc7_seeds", kernels_sweep),
                              ("sharded 2pc-7", kernels_sh),
+                             ("mesh 2pc-7", kernels_mesh),
                              *((f"{leg} inject", cell) for leg, cell
                                in kernels_inject.items()))
            for k in ks.values() if not k["matched"]]
@@ -4178,6 +4601,16 @@ def main() -> int:
                  if key not in ("name", "route", "source", "replaces",
                                 "launches")},
                 launches=launches_sh["sharded_2pc7"][name])
+        # the mesh engine: each leg's launches, and the cells on one piece
+        # of a mesh step (bucket_plan, insert_commit's table half)
+        for leg, ls in launches_mesh.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+        if name in kernels_mesh:
+            entry["at_mesh_2pc7"] = dict(
+                {key: kernels_mesh[name][key] for key in KERNEL_KEYS
+                 if key not in ("name", "route", "source", "replaces",
+                                "launches")},
+                launches=launches_mesh["mesh_2pc7"][name])
         line.append(entry)
     # the sweep's two kernel modes, each as a kernel of its own: launches
     # are the 2pc-7 seed sweep's (every cand_prep and insert_commit launch
@@ -4191,6 +4624,13 @@ def main() -> int:
     line.append(dict({key: gen[key] for key in KERNEL_KEYS
                       if key != "launches"},
                      launches=launches_sym["bucket_plan"]))
+    # insert_commit's window mode (the mesh's queue pieces): launches are
+    # the complete mesh 2pc-7 leg's
+    win = kernels_mesh["insert_commit_window"]
+    line.append(dict({key: win[key] for key in KERNEL_KEYS
+                      if key != "launches"},
+                     launches=launches_mesh["mesh_2pc7"][
+                         "insert_commit_window"]))
     emit("total", {"seconds": time.monotonic() - start,
                    "phase_seconds": PHASES})
     OUT.parent.mkdir(exist_ok=True)

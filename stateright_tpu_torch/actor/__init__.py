@@ -1,10 +1,12 @@
 """Actor framework (reference L4–L6, ``src/actor.rs`` + ``src/actor/``).
 
-The port's own copy of ``stateright_tpu/actor/__init__.py``, cut to what
-the model checker needs: ids, commands, the ``Out`` buffer, the ``Actor``
-interface, the ``Choice`` combinator (``choice.py``), ``ScriptedActor``
-and the model helpers.  The UDP runtime (``spawn``) and the actors'
-wire serialization come with the service layers.
+The port's own copy of ``stateright_tpu/actor/__init__.py``: ids (an
+index for model checking, an IPv4 socket address for the UDP runtime),
+commands, the ``Out`` buffer, the ``Actor`` interface with its wire
+serialization hooks, the ``Choice`` combinator (``choice.py``),
+``ScriptedActor``, the model helpers and the UDP runtime
+(:func:`~stateright_tpu_torch.actor.spawn.spawn`), which deploys the same
+actor code that was model checked.
 
 An :class:`Actor` is an event-driven state machine: ``on_start`` produces
 the initial state, ``on_msg``/``on_timeout`` react to events by returning an
@@ -41,15 +43,35 @@ __all__ = [
     "Deliver",
     "Drop",
     "Timeout",
+    "spawn",
 ]
 
 
 class Id(int):
-    """Actor identity: an index for model checking
-    (reference ``actor.rs:107-153``)."""
+    """Actor identity: an index for model checking, an IPv4 socket address
+    for the UDP runtime (reference ``actor.rs:107-153``,
+    ``spawn.rs:9-33``)."""
 
     def __repr__(self) -> str:
         return f"Id({int(self)})"
+
+    # -- sockaddr packing (reference ``spawn.rs:9-33``) ----------------------
+
+    @staticmethod
+    def from_addr(ip: str, port: int) -> "Id":
+        parts = [int(p) for p in ip.split(".")]
+        if len(parts) != 4:
+            raise ValueError(f"not an IPv4 address: {ip!r}")
+        v = 0
+        for p in parts:
+            v = (v << 8) | p
+        return Id((v << 16) | port)
+
+    def to_addr(self) -> tuple[str, int]:
+        port = int(self) & 0xFFFF
+        ip_bits = int(self) >> 16
+        ip = ".".join(str((ip_bits >> s) & 0xFF) for s in (24, 16, 8, 0))
+        return ip, port
 
 
 # -- commands (reference ``actor.rs:155-234``) -------------------------------
@@ -126,6 +148,27 @@ class Actor:
     def on_timeout(self, id: Id, state, out: Out):
         return None  # no-op by default
 
+    # -- wire serialization (overridable; used by spawn) ----------------------
+
+    def serialize(self, msg) -> bytes:
+        import json
+
+        return json.dumps(msg).encode()
+
+    def deserialize(self, data: bytes):
+        import json
+
+        def tuplize(v):
+            if isinstance(v, list):
+                return tuple(tuplize(x) for x in v)
+            if isinstance(v, dict):
+                return {k: tuplize(x) for k, x in v.items()}
+            return v
+
+        # JSON arrays become tuples, so wire messages compare equal to the
+        # tuples used in model checking
+        return tuplize(json.loads(data.decode()))
+
 
 @dataclass
 class ScriptedActor(Actor):
@@ -162,4 +205,5 @@ def model_peers(self_ix: int, count: int) -> list[Id]:
 
 from .network import Envelope, Network  # noqa: E402
 from .model import ActorModel, ActorModelState, Deliver, Drop, Timeout  # noqa: E402
+from .spawn import spawn  # noqa: E402
 from .choice import Choice, ChoiceState  # noqa: E402

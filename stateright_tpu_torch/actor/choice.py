@@ -1,8 +1,7 @@
 """Explicit ``Choice`` actor composition (reference ``src/actor.rs:298-426``).
 
-The port's own copy of ``stateright_tpu/actor/choice.py``, without the
-wire-serialization delegates of the UDP runtime (``spawn``, which comes
-with the service layers).
+The port's own copy of ``stateright_tpu/actor/choice.py``, with the
+wire-serialization delegates the UDP runtime (``spawn.py``) calls.
 
 Python's duck typing already lets :class:`~stateright_tpu_torch.actor.ActorModel`
 mix actor classes freely, but that leaves one hole the reference's
@@ -90,3 +89,11 @@ class Choice(Actor):
         self._check_variant(state)
         inner = self.actor.on_timeout(id, state.state, out)
         return None if inner is None else ChoiceState(self.index, inner)
+
+    # -- runtime serde delegates (spawn) -------------------------------------
+
+    def serialize(self, msg) -> bytes:
+        return self.actor.serialize(msg)
+
+    def deserialize(self, data: bytes):
+        return self.actor.deserialize(data)

@@ -477,6 +477,14 @@ def kernel_rw(name: str, s: dict) -> tuple:
     lane.  It only moves data.  With a sweep's tag column (``tags``
     true): each parent's tag in (4) and a tag out per novel lane (4).
 
+    ``insert_commit_window`` (the window mode of ``csrc/insert_commit.cu``,
+    one piece of a queue held in pieces; ``lanes`` n, the step's novel
+    lanes, ``novel`` nn of them in this piece's window, ``width`` w,
+    ``parents`` p of those): every novel lane's fingerprint and the count
+    and tail in, and for the window's lanes their ``sel`` entry, the
+    parents' ebits and depth and the rows; a queue row (8w + 16 bytes) out
+    per window lane.  No table half; it only moves data.
+
     ``sort`` (``torch.sort`` in ``ops/cand_prep.py::sort_prepared``;
     ``lanes`` n): the keys in, sorted keys and the permutation out;
     ``n log2 n`` comparisons."""
@@ -501,6 +509,9 @@ def kernel_rw(name: str, s: dict) -> tuple:
         parts = insert_commit_parts(s)
         return (parts["table"][0] + parts["queue"][0],
                 parts["table"][1] + parts["queue"][1], 0)
+    if name == "insert_commit_window":
+        n, nn, w, p = s["lanes"], s["novel"], s["width"], s["parents"]
+        return n * 8 + 16 + nn * 8 + p * 8 + nn * 8 * w, nn * (8 * w + 16), 0
     if name == "sort":
         n = s["lanes"]
         return n * 8, n * 16, int(n * max(math.log2(max(n, 2)), 1.0))

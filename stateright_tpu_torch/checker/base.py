@@ -71,6 +71,9 @@ class CheckerBuilder:
         self.run_dir: Optional[str] = None
         # skip_audit(): no preflight audit on spawn_gpu
         self._audit_skip = False
+        # the mesh engine; None = the env knob STATERIGHT_TPU_MESH decides
+        self.mesh_mode: Optional[bool] = None
+        self.mesh_devices = None
 
     def symmetry(self) -> "CheckerBuilder":
         """Dedup on symmetry-class representatives; states must define
@@ -427,6 +430,28 @@ class CheckerBuilder:
             print(report.format(min_severity=Severity.WARNING),
                   file=sys.stderr)
 
+    def mesh(self, enabled: bool = True, *,
+             devices=None) -> "CheckerBuilder":
+        """Run ``spawn_gpu`` on the mesh engine (``parallel/mesh.py``;
+        JAX ``checker/base.py:432``): the single-device wavefront program
+        with the visited table and the queue held as row pieces over a
+        device mesh (the table in bucket ranges, so a bucket's owner is a
+        layout fact), counters whole on the lead device.  Counts, verdicts,
+        discovery traces, the final table and queue, and snapshots equal
+        the single-device engine's.  ``devices=N`` bounds the mesh to the
+        first ``N`` visible devices (default: all of them; on
+        ``device="cpu"`` 8 pieces); ``devices=[...]``, a list of devices,
+        places one piece on each and may repeat a device.  Env override
+        ``STATERIGHT_TPU_MESH=1`` (or ``=N``).  The sharded engine keeps
+        its spelling, ``spawn_gpu(devices=N)``, and wins when both are
+        given."""
+        self.mesh_mode = bool(enabled)
+        if devices is None or isinstance(devices, int):
+            self.mesh_devices = devices
+        else:
+            self.mesh_devices = list(devices)
+        return self
+
     def spill(self, enabled: bool = True) -> "CheckerBuilder":
         """Arm the spill tier on the GPU engine (``spill/``; JAX
         ``checker/base.py:457-484``): the visited set becomes a tiered
@@ -583,6 +608,12 @@ class CheckerBuilder:
         per distinct shape signature of the family; the ``spill_*`` knobs
         do not apply there.
 
+        Under :meth:`mesh` (or ``STATERIGHT_TPU_MESH``) this returns the
+        mesh engine (``parallel/mesh.py``) over the builder's devices on
+        ``device``'s platform (JAX ``spawn_tpu`` :764-829); the ``spill_*``
+        knobs do not apply there (the engine refuses ``.spill()``), and a
+        sweep refuses the mesh.
+
         ``devices=N`` (or ``n_devices=N``, JAX's spelling) returns the
         sharded engine (``parallel/sharded.py``) over ``N`` shards, each
         fingerprint owned by one: ``capacity`` and ``frontier_capacity``
@@ -593,15 +624,24 @@ class CheckerBuilder:
         stays sharded).  Without a process group all shards live on
         ``device``; under an initialized ``torch.distributed`` group each
         rank holds ``N / ranks`` of them on its own device."""
+        from ..parallel.partition import resolve_mesh_flag
         from ..parallel.wavefront import GpuChecker
         from ..sweep import resolve_sweep_spec
 
+        mesh_on, mesh_n = resolve_mesh_flag(self.mesh_mode,
+                                            self.mesh_devices)
         spec = resolve_sweep_spec(self.sweep_spec, self.model)
         if spec is not None:
             if n_devices is not None or devices:
                 raise NotImplementedError(
                     "sweeps run on the single-device engine for now — "
                     "drop the devices argument")
+            if mesh_on:
+                raise NotImplementedError(
+                    "sweep x mesh is a queued unlock (ROADMAP): sweeps "
+                    "run on the single-device engine for now — drop "
+                    ".mesh()/--mesh/STATERIGHT_TPU_MESH"
+                )
             return self._spawn_sweep(
                 spec, capacity=capacity, batch=batch, cand=cand,
                 steps_per_call=steps_per_call or 64, device=device,
@@ -619,6 +659,19 @@ class CheckerBuilder:
                 sync=sync, steps_per_call=steps_per_call or 16,
                 device=device, resume=resume)
         steps_per_call = steps_per_call or 64
+        if mesh_on:
+            # an explicit devices/n_devices argument stays the sharded
+            # engine, even with the mesh flag armed (above)
+            from ..parallel.mesh import MeshGpuChecker
+            from ..parallel.partition import build_mesh
+
+            mesh = (build_mesh(devices=mesh_n) if isinstance(mesh_n, list)
+                    else build_mesh(mesh_n, device=device))
+            return MeshGpuChecker(
+                self, mesh=mesh, capacity=capacity, batch=batch, cand=cand,
+                steps_per_call=steps_per_call, resume=resume,
+                queue_capacity=queue_capacity, sync=sync,
+            )
         return GpuChecker(
             self, capacity=capacity, batch=batch, cand=cand,
             steps_per_call=steps_per_call, device=device, resume=resume,

@@ -4,7 +4,8 @@ The port's counterpart of the ``check``, ``check-tpu`` and ``check-auto``
 verbs of ``stateright_tpu/models/_cli.py``'s users: the same positional
 arguments, the ``--per-channel`` flag (``pop_perf``/``apply_encoding``
 there) and, on the GPU verbs, ``--prededup``, ``--por``, ``--mxu``,
-``--spill`` (``pop_perf``/``apply_perf`` there) and ``--checked``
+``--spill``, ``--mesh`` (the mesh engine, ``parallel/mesh.py``;
+``pop_perf``/``apply_perf`` there) and ``--checked``
 (``pop_checked`` there; :func:`pop_step_flags`, :func:`with_step_flags`;
 ``--mxu`` has no effect in the port).
 :func:`check_main` is the one dispatcher: each model gives it a table
@@ -29,8 +30,12 @@ PyTorch path instead of the CUDA device, and ``--batch=N`` sets their
 rows per device step.  The models JAX gives an ``explore`` verb take it
 here too: ``explore [N] [ADDRESS]`` serves the Explorer over a host BFS of
 the model (:func:`explore`; JAX e.g. ``two_phase_commit.py:499-503``).
-The other verbs and flags (``spawn``, ``--prewarm``) come with the modules
-they drive.  ``capacity --spill`` plans with the spill tier armed.
+The models JAX gives a ``spawn`` verb (single-copy register,
+linearizable register, paxos, raft, write-once register) take it here
+too: it deploys the model's server actors on localhost UDP sockets
+(``actor/spawn.py``; :func:`udp_spawn`, JAX ``_cli.py:67``) and blocks.
+``--prewarm`` comes with the module it drives.  ``capacity --spill``
+plans with the spill tier armed.
 
 Every model takes ``audit`` (the static audit of its ``_audit_models``
 configurations, deep tier, exit 1 on an error finding; JAX
@@ -77,7 +82,7 @@ TELEMETRY_VERBS = ("profile", "report", "capacity", "compare")
 # the GPU engine's step flags: builder method per flag (``mxu`` is
 # accepted for parity with the JAX CLI and has no effect in the port)
 STEP_FLAGS = {"--prededup": "prededup", "--por": "por", "--mxu": "mxu",
-              "--checked": "checked", "--spill": "spill"}
+              "--checked": "checked", "--spill": "spill", "--mesh": "mesh"}
 
 
 def pop_per_channel(args: list) -> tuple:
@@ -467,14 +472,29 @@ def supervised(model, flags=(), opts=None, sopts=None):
     return run_supervised(b, sopts or {}, **gpu_kw(opts))
 
 
+def udp_spawn(banner: list, actors: list, background: bool = False):
+    """The ``spawn`` verb: print ``banner`` and one ``Server listening on``
+    line per actor, then run the ``(Id, actor)`` pairs on their UDP
+    sockets (``actor/spawn.py``), blocking until they exit unless
+    ``background``.  Returns the handles."""
+    from ..actor import spawn
+
+    for line in banner:
+        print(line)
+    for id, _ in actors:
+        print(f"  Server listening on {id.to_addr()}")
+    return spawn(actors, background=background)
+
+
 def check_main(prog: str, arg_usage: str, argv, build: Callable,
                verbs: dict[str, tuple[Callable, Callable]],
                max_args: int, audit: Callable,
                independence: Optional[Callable] = None,
-               sweep: Optional[Callable] = None) -> int:
+               sweep: Optional[Callable] = None,
+               udp: Optional[Callable] = None) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
     [--per-channel] [--prededup] [--por] [--mxu] [--checked] [--spill]
-    [--watch] [--device=cpu]``: build
+    [--mesh] [--watch] [--device=cpu]``: build
     the model from the positional arguments, print the verb's banner and
     check it.  ``verbs`` maps each verb the model offers to ``(banner,
     spawn)``: ``banner(args)`` is the line printed first, ``spawn(model)``
@@ -485,7 +505,9 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     :data:`TELEMETRY_VERBS`.  ``audit`` is the module's ``_audit_models``
     factory, the ``audit`` verb's configurations; ``independence``, the
     ``independence`` verb (:func:`make_independence_cmd`), and ``sweep``,
-    the ``sweep`` verb (:func:`make_sweep_cmd`), where the model has them.
+    the ``sweep`` verb (:func:`make_sweep_cmd`), where the model has them;
+    ``udp``, the ``spawn`` verb: ``udp(args)`` is ``(banner lines, [(Id,
+    actor)])``, which :func:`udp_spawn` deploys.
     A verb whose spawn is :func:`explore` takes ``[N] [ADDRESS]``: the
     model from its first positional argument, the address from the
     second.
@@ -496,7 +518,7 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
     names = (list(verbs) + (list(TELEMETRY_VERBS) if has_gpu else [])
              + ["audit", "sanitize", "costmodel"]
              + (["independence"] if independence else [])
-             + (["sweep"] if sweep else []))
+             + (["sweep"] if sweep else []) + (["spawn"] if udp else []))
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
              f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
@@ -524,6 +546,12 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
         print(usage, file=sys.stderr)
         return 2
     verb, rest = args[0], args[1:]
+    if verb == "spawn":
+        if flags or watch or opts:
+            print(usage, file=sys.stderr)
+            return 2
+        udp_spawn(*udp(rest))
+        return 0
     if verb == "audit":
         return 0 if audit_and_report(audit(rest)) else 1
     if verb == "sanitize":

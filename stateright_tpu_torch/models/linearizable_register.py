@@ -283,6 +283,15 @@ def _audit_models(rest=()):
              abd_model(c, 2))]
 
 
+def udp_servers(rest) -> tuple:
+    """The ``spawn`` verb's servers (JAX ``linearizable_register.py``
+    ``spawn_cmd``): two ABD servers on 127.0.0.1:3000 and :3001, each the
+    other's peer."""
+    ids = [Id.from_addr("127.0.0.1", 3000 + i) for i in range(2)]
+    return [], [(i, AbdServer(peers=[p for p in ids if p != i]))
+                for i in ids]
+
+
 def main(argv=None) -> int:
     def what(rest):
         return ("Model checking a linearizable register with "
@@ -305,6 +314,7 @@ def main(argv=None) -> int:
         max_args=2,
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
+        udp=udp_servers,
     )
 
 

@@ -313,6 +313,16 @@ def sweep_family(n: int = 8):
     return SweepSpec(insts)
 
 
+def udp_servers(rest) -> tuple:
+    """The ``spawn`` verb's servers (JAX ``paxos.py`` ``spawn_cmd``): three
+    single-decree Paxos servers on 127.0.0.1:3000 to :3002."""
+    ids = [Id.from_addr("127.0.0.1", 3000 + i) for i in range(3)]
+    banner = ["  A set of servers that implement Single Decree Paxos.",
+              "  You can monitor and interact using tools such as nc."]
+    return banner, [(i, PaxosServer(peer_ids=[p for p in ids if p != i]))
+                    for i in ids]
+
+
 def main(argv=None) -> int:
     from ._cli import (
         auto,
@@ -349,6 +359,7 @@ def main(argv=None) -> int:
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
         sweep=make_sweep_cmd(sweep_family),
+        udp=udp_servers,
     )
 
 

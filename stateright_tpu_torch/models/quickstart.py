@@ -1,7 +1,6 @@
 """Executable quick-start examples: the package's "front page".
 
-The port's own copy of ``stateright_tpu/models/quickstart.py``, without
-``serve_fizzbuzz`` (the Explorer server comes with the service layers).
+The port's own copy of ``stateright_tpu/models/quickstart.py``.
 The reference teaches its API through three doctest-sized specs: a sliding
 puzzle solved by the checker (``src/lib.rs:40-116``), Lamport logical
 clocks as a two-actor system (``src/actor.rs:11-78``), and a served toy
@@ -140,6 +139,12 @@ class FizzBuzz(Model):
                 "reaches the bound", lambda m, s: len(s) == m.max
             )
         ]
+
+
+def serve_fizzbuzz(addr: str = "localhost:3000", block: bool = True):
+    """``FizzBuzz(30).checker().serve(addr)``: the reference's front-page
+    Explorer example (``checker.rs:60-97``; JAX ``quickstart.py:145``)."""
+    return FizzBuzz(30).checker().serve(addr, block=block)
 
 
 # -- vector clocks: detecting concurrency -------------------------------------

@@ -204,6 +204,21 @@ def _audit_models(rest=()):
     return [(f"raft servers={n} max_term=2", raft_model(n))]
 
 
+def udp_servers(rest) -> tuple:
+    """The ``spawn`` verb's cluster (JAX ``raft.py`` ``spawn_cmd``):
+    ``rest`` is ``[N] [BASE_PORT]`` (3 servers from port 3000 by default),
+    with randomized election timeouts of 0.15-0.5 s."""
+    n = int(rest[0]) if rest else 3
+    base = int(rest[1]) if len(rest) > 1 else 3000
+    ids = [Id.from_addr("127.0.0.1", base + i) for i in range(n)]
+    banner = [f"Spawning a {n}-server Raft cluster on 127.0.0.1:"
+              f"{base}..{base + n - 1} (ctrl-c to stop)"]
+    return banner, [(ids[i], RaftServer(peers=[x for x in ids if x != ids[i]],
+                                        cluster=n, max_term=1 << 20,
+                                        timer_range=(0.15, 0.5)))
+                    for i in range(n)]
+
+
 def main(argv=None) -> int:
     def n(rest):
         return int(rest[0]) if rest else 3
@@ -230,6 +245,7 @@ def main(argv=None) -> int:
         max_args=2,
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
+        udp=udp_servers,
     )
 
 

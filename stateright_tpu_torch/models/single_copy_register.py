@@ -109,6 +109,12 @@ def _audit_models(rest=()):
     return [(f"single_copy_register clients={c}", single_copy_model(c))]
 
 
+def udp_servers(rest) -> tuple:
+    """The ``spawn`` verb's server (JAX ``single_copy_register.py``
+    ``spawn_cmd``): one register server on 127.0.0.1:3000."""
+    return [], [(Id.from_addr("127.0.0.1", 3000), SingleCopyServer())]
+
+
 def main(argv=None) -> int:
     def what(rest):
         return ("Model checking a single-copy register with "
@@ -128,6 +134,7 @@ def main(argv=None) -> int:
         max_args=2,
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
+        udp=udp_servers,
     )
 
 

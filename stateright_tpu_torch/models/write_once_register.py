@@ -110,6 +110,12 @@ def _audit_models(rest=()):
              wo_register_model(c, 2))]
 
 
+def udp_servers(rest) -> tuple:
+    """The ``spawn`` verb's server (JAX ``write_once_register.py``
+    ``spawn_cmd``): one write-once register server on 127.0.0.1:3000."""
+    return [], [(Id.from_addr("127.0.0.1", 3000), WOServer())]
+
+
 def main(argv=None) -> int:
     def build(rest):
         return wo_register_model(
@@ -135,6 +141,7 @@ def main(argv=None) -> int:
         max_args=3,
         audit=_audit_models,
         independence=make_independence_cmd(_audit_models),
+        udp=udp_servers,
     )
 
 

@@ -66,6 +66,11 @@ _SIGNATURES = {
     # crows, pebits, pdepth, then the tag column (both null without it):
     # qtag, ptag; width, arity; stream
     "srt_insert_commit": (_P,) * 6 + (_I64,) + (_P,) * 11 + (_I32, _I32, _P),
+    # the window mode (a queue piece): cfp, n_new, m, qrows, qfp, qebits,
+    # qdepth, tail, sel, crows, pebits, pdepth, qlo, qhi, width, arity,
+    # stream
+    "srt_insert_commit_window": (_P, _P, _I64) + (_P,) * 9
+    + (_I64, _I64, _I32, _I32, _P),
     # rows, valid, pfps, fp, payload, cidx, key, n_valid, cand_overflow,
     # scratch, then the namespace mode (null tables: off): ptags, ns_low,
     # ns_xor, bits; m, cb, width, arity, stream

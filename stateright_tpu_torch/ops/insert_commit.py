@@ -14,6 +14,11 @@ On a CUDA tensor :func:`insert_commit` launches ``csrc/insert_commit.cu``
 source).  On a CPU tensor it runs :func:`insert_commit_plain`, which is
 :func:`insert_write_plain` followed by the append.  In the engine this is
 the insert's only write path: there is no switch and no alternative.
+
+:func:`insert_commit_window` is the kernel's window mode, the mesh
+engine's queue append into a queue held in row pieces
+(``parallel/mesh.py``): a null-table launch that writes only the rows of
+one piece, :func:`insert_commit_window_plain` on the CPU.
 """
 
 from __future__ import annotations
@@ -79,14 +84,18 @@ def insert_commit_plain(tfp, tpl, tgt, cfp, cpl, n_new,
 def _check(tfp, tpl, tgt, cfp, cpl, n_new, queue) -> None:
     dev = tfp.device
     nslots, m = tfp.shape[0], tgt.shape[0]
-    i64, i32 = torch.int64, torch.int32
+    i64 = torch.int64
     _cuda.require(tfp, "tfp", i64, 1, dev)
     _cuda.require(tpl, "tpl", i64, 1, dev, nslots)
     for t, name in ((tgt, "tgt"), (cfp, "cfp"), (cpl, "cpl")):
         _cuda.require(t, name, i64, 1, dev, m)
     _cuda.require(n_new, "n_new", i64, 0, dev)
-    if queue is None:
-        return
+    if queue is not None:
+        _check_queue(queue, m, dev)
+
+
+def _check_queue(queue: QueueAppend, m: int, dev) -> None:
+    i64, i32 = torch.int64, torch.int32
     _cuda.require(queue.fps, "fps", i64, 1, dev)
     q = queue.fps.shape[0]
     _cuda.require(queue.rows, "rows", i64, 2, dev, q)
@@ -151,3 +160,63 @@ def insert_commit(tfp, tpl, tgt, cfp, cpl, n_new,
 
 
 insert_commit.launches = 0
+
+
+def insert_commit_window_plain(queue: QueueAppend, cfp, n_new, qlo: int):
+    """The queue half of :func:`insert_commit_plain` into one piece of a
+    queue held in row pieces: ``queue``'s buffers hold the global rows
+    ``[qlo, qlo + len)``, and of the rows ``tail + j`` (``j < n_new``)
+    only those in that window are written, at ``tail + j - qlo``."""
+    lanes = torch.arange(cfp.shape[0], device=cfp.device)
+    qhi = qlo + queue.fps.shape[0]
+    dst = queue.tail + lanes
+    live = (lanes < n_new) & (dst >= qlo) & (dst < qhi)
+    s = queue.sel[live]
+    p = s // queue.arity
+    dst = dst[live] - qlo
+    queue.rows[dst] = queue.src_rows[s]
+    queue.fps[dst] = cfp[live]
+    queue.ebits[dst] = queue.parent_ebits[p]
+    queue.depths[dst] = queue.parent_depths[p] + 1
+
+
+def insert_commit_window(queue: QueueAppend, cfp, n_new, qlo: int, *,
+                         check: bool = True,
+                         stream: Optional[int] = None) -> None:
+    """Append the ``n_new`` novel lanes (``queue.sel``, ``cfp``) at the
+    global queue row ``queue.tail`` into the one piece whose buffers are
+    ``queue``'s and which holds the global rows ``[qlo, qlo + len)``;
+    rows outside the piece are left to the other pieces' launches.  A
+    CUDA piece launches ``csrc/insert_commit.cu`` in its window mode (no
+    table half, no tag column); every input must be on the piece's
+    device.  ``n_new`` and the tail stay on the device."""
+    if queue.fps.device.type != "cuda":
+        insert_commit_window_plain(queue, cfp, n_new, qlo)
+        return
+    if queue.tags is not None:
+        raise ValueError("insert_commit_window: no tag column in the "
+                         "window mode")
+    m = cfp.shape[0]
+    if check:
+        dev = queue.fps.device
+        _cuda.require(cfp, "cfp", torch.int64, 1, dev)
+        _cuda.require(n_new, "n_new", torch.int64, 0, dev)
+        _check_queue(queue, m, dev)
+    if m:
+        if stream is None:
+            stream = _cuda.stream_of(cfp)
+        _cuda.check("insert_commit_window",
+                    _cuda.library().srt_insert_commit_window(
+                        cfp.data_ptr(), n_new.data_ptr(), m,
+                        queue.rows.data_ptr(), queue.fps.data_ptr(),
+                        queue.ebits.data_ptr(), queue.depths.data_ptr(),
+                        queue.tail.data_ptr(), queue.sel.data_ptr(),
+                        queue.src_rows.data_ptr(),
+                        queue.parent_ebits.data_ptr(),
+                        queue.parent_depths.data_ptr(), qlo,
+                        qlo + queue.fps.shape[0], queue.rows.shape[1],
+                        queue.arity, stream))
+        _cuda.count_launch(insert_commit_window)
+
+
+insert_commit_window.launches = 0

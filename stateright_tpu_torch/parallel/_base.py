@@ -139,9 +139,9 @@ class WavefrontChecker(Checker):
             if self._engine_tag != "single":
                 raise NotImplementedError(
                     "spill mode (CheckerBuilder.spill()) is single-device "
-                    "only for now: the sharded engine's visited table is "
-                    "split over its shards and spills with the mesh engine "
-                    "(ROADMAP).  Drop the devices argument, or drop "
+                    f"only for now: the {self._engine_tag} engine's visited "
+                    "table is split over its devices (ROADMAP).  Drop the "
+                    "devices argument or .mesh(), or drop "
                     ".spill()/--spill/STATERIGHT_TPU_SPILL."
                 )
             if self._por:

@@ -508,10 +508,7 @@ class _Engine:
             go &= ~c[self.layout.err]
         n_avail = torch.where(go, tail - head, 0)
         pos = (head + self.lanes).clamp_(max=self.qalloc - 1)
-        rows = c[QROWS][pos]
-        fps = c[QFP][pos]
-        ebits = c[QEBITS][pos]
-        depths = c[QDEPTH][pos]
+        rows, fps, ebits, depths = self._pop(c, pos)
         live = self.lanes < n_avail
 
         if self.checked:
@@ -593,6 +590,12 @@ class _Engine:
         return self._finish_step(c, go, rows, live, masks, valid, overflow,
                                  toverflow, coverflow, head, tail, unique,
                                  scount, disc, maxdepth)
+
+    def _pop(self, c, pos):
+        """The popped window's rows, fingerprints, ebits and depths: the
+        queue rows at ``pos`` (the mesh engine reads them from the queue's
+        pieces)."""
+        return c[QROWS][pos], c[QFP][pos], c[QEBITS][pos], c[QDEPTH][pos]
 
     def _finish_step(self, c, go, rows, live, masks, gen_mask, overflow,
                      toverflow, coverflow, head, tail, unique, scount, disc,
@@ -777,7 +780,11 @@ class _Engine:
         carry = list(carry)
         for _ in range(self.steps):
             carry = self.step(carry)
-        return carry, stats_of(carry, self.layout)
+        return carry, self._stats(carry)
+
+    def _stats(self, carry: list) -> torch.Tensor:
+        """The block's packed stats (:func:`stats_of`)."""
+        return stats_of(carry, self.layout)
 
     def init(self):
         dev, cap, qalloc = self.device, self.cap, self.qalloc
@@ -966,6 +973,7 @@ class GpuChecker(WavefrontChecker):
         self.inject_launches = {"bucket_plan": 0, "insert_commit": 0}
         self._final_carry = None
         self._last_engine: Optional[_Engine] = None
+        self._last_engine_key: Optional[tuple] = None
         # under prededup, the lanes it took out since this process started
         self._removed = torch.zeros((), dtype=torch.int64,
                                     device=self.device)
@@ -1604,13 +1612,24 @@ class GpuChecker(WavefrontChecker):
 
     # -- the host loop ---------------------------------------------------------
 
+    def _engine_key(self, cap, qcap, batch, cand) -> tuple:
+        """What identifies this checker's engine at these capacities
+        (JAX ``_engine_key``; the mesh engine adds its device list)."""
+        return (cap, qcap, batch, cand)
+
     def _engine_for(self, cap, qcap, batch, cand) -> _Engine:
         """The engine of these capacities: the last one when they match,
         else a new one."""
+        key = self._engine_key(cap, qcap, batch, cand)
         eng = self._last_engine
-        if eng is None or eng.key[:4] != (cap, qcap, batch, cand):
+        if eng is None or self._last_engine_key != key:
             eng = self._last_engine = self._engine(cap, qcap, batch, cand)
+            self._last_engine_key = key
         return eng
+
+    def _stats_of(self, carry, layout: CarryLayout, exact: bool = False):
+        """:func:`stats_of` of a carry between blocks."""
+        return stats_of(carry, layout, exact=exact)
 
     def _resume_carry(self, snap: dict, arity: int):
         """A snapshot's carry on the device, with its tail re-seeded and
@@ -1725,7 +1744,7 @@ class GpuChecker(WavefrontChecker):
                 # after a resume, a budget doubling or a spill-tier step:
                 # the exact depth histogram, as the JAX engine's host-side
                 # stats give
-                stats = stats_of(carry, lay, exact=True)
+                stats = self._stats_of(carry, lay, exact=True)
             if isinstance(stats, torch.Tensor):
                 stats = stats.cpu().numpy()  # the block's one host sync
             self._stage("device", time.perf_counter() - t_dev)

@@ -1,9 +1,11 @@
 """Linearizability tester (reference ``src/semantics/linearizability.rs``).
 
-The port's own copy of ``stateright_tpu/semantics/linearizability.py``,
-without its native C++ search (``_native_verdict``, which loads
-``native/linearize.cpp``): :meth:`LinearizabilityTester.is_consistent` goes
-straight to the Python interleaving search, which gives the same verdict.
+The port's own copy of ``stateright_tpu/semantics/linearizability.py``:
+:meth:`LinearizabilityTester.is_consistent` asks the port's native C++
+search (:meth:`LinearizabilityTester._native_verdict`, which loads
+``native/linearize.cpp``) when the spec is a plain register, and the
+Python interleaving search otherwise or when the module is unavailable;
+both give the same verdict.
 
 On each invocation the tester snapshots the index of the last operation
 completed by every *other* thread; a serialization must schedule those
@@ -105,6 +107,9 @@ class LinearizabilityTester(ConsistencyTester):
 
     # -- checking (reference ``linearizability.rs:165-240``) -----------------
 
+    #: real-time prerequisites apply (False in the SC subclass)
+    _REAL_TIME = True
+
     def is_consistent(self) -> bool:
         # keyed by the tester itself: dict equality resolves 64-bit hash
         # collisions exactly
@@ -112,9 +117,73 @@ class LinearizabilityTester(ConsistencyTester):
         if cached is None:
             if len(_VERDICT_CACHE) >= _VERDICT_CACHE_MAX:
                 _VERDICT_CACHE.clear()
-            cached = self.serialized_history() is not None
+            cached = self._native_verdict()
+            if cached is None:
+                cached = self.serialized_history() is not None
             _VERDICT_CACHE[self] = cached
         return cached
+
+    def _native_verdict(self) -> Optional[bool]:
+        """Run the C++ search (``native/linearize.cpp``; JAX
+        ``semantics/linearizability.py:124-190``) when the spec is a plain
+        register and every operation fits the register vocabulary; None
+        means "use the Python search"."""
+        if not self.valid:
+            return False
+        from ..native import load
+        from .register import Register
+
+        mod = load()
+        if mod is None or type(self.init_ref_obj) is not Register:
+            return None
+        threads = sorted(
+            set(self.history_by_thread) | set(self.in_flight_by_thread))
+        tid = {t: i for i, t in enumerate(threads)}
+        valmap: dict = {}
+
+        def vm(v) -> int:
+            if v not in valmap:
+                valmap[v] = len(valmap)
+            return valmap[v]
+
+        def conv(op, ret) -> Optional[tuple]:
+            if op[0] == "write":
+                if ret is not None and ret != ("write_ok",):
+                    return None
+                return (0, vm(op[1]))
+            if op[0] == "read":
+                if ret is None:
+                    return (1, 0)
+                if ret[0] != "read_ok":
+                    return None
+                return (1, vm(ret[1]))
+            return None
+
+        try:
+            init_val = vm(self.init_ref_obj.value)
+            packed = []
+            for t in threads:
+                comp = []
+                for lc, op, ret in self.history_by_thread.get(t, ()):
+                    k = conv(op, ret)
+                    if k is None:
+                        return None
+                    comp.append(
+                        (k[0], k[1], tuple((tid[p], i) for p, i in lc)))
+                infl = self.in_flight_by_thread.get(t)
+                if infl is None:
+                    packed.append((tuple(comp), None))
+                else:
+                    lc, op = infl
+                    k = conv(op, None)
+                    if k is None:
+                        return None
+                    packed.append((tuple(comp), (
+                        k[0], k[1], tuple((tid[p], i) for p, i in lc))))
+        except TypeError:  # unhashable values and the like: Python decides
+            return None
+        return bool(
+            mod.serialize_register(tuple(packed), init_val, self._REAL_TIME))
 
     def serialized_history(self) -> Optional[list]:
         """A legal total order explaining the history, or None."""

@@ -1,8 +1,9 @@
 """Sequential-consistency tester (reference ``src/semantics/sequential_consistency.rs``).
 
 The port's own copy of ``stateright_tpu/semantics/sequential_consistency.py``
-(the port has no native search, so the pure-Python one decides).  The
-recording is the linearizability tester's, but without the real-time
+(the native search runs with its real-time prerequisites off,
+``_REAL_TIME = False``).  The recording is the linearizability tester's,
+but without the real-time
 (happens-before) prerequisites: only per-thread program order must be
 respected by the serialization.  A history can be sequentially consistent
 yet not linearizable (stale reads across threads).
@@ -20,6 +21,8 @@ class SequentialConsistencyTester(LinearizabilityTester):
     snapshots are recorded but ignored during serialization.  The verdict
     cache is keyed by the tester itself, whose equality folds in the
     concrete type, so SC and linearizability verdicts never mix."""
+
+    _REAL_TIME = False  # the native search drops the prerequisites too
 
     def serialized_history(self) -> Optional[list]:
         if not self.valid:

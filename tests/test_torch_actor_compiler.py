@@ -461,7 +461,7 @@ def test_models_without_a_twin_raise():
                       CompiledActorTensor)
 
 
-def test_check_gpu_verbs_raise_without_a_card(capsys):
+def test_check_gpu_verbs_raise_without_a_card(capsys, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the verbs would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -471,5 +471,13 @@ def test_check_gpu_verbs_raise_without_a_card(capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_abd.main(["check-gpu", "2", "ordered"])
     assert port_abd.main(["check-gpu", "1", "unordered_duplicating"]) == 1
-    assert port_sc.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
+    # the spawn verb deploys its server (the UDP runtime, stubbed here so
+    # the verb does not block); an unknown verb prints the usage
+    deployed = []
+    monkeypatch.setattr("stateright_tpu_torch.actor.spawn",
+                        lambda actors, background=True: deployed.append(
+                            (list(actors), background)) or [])
+    assert port_sc.main(["spawn"]) == 0
+    assert len(deployed) == 1 and deployed[0][1] is False
+    assert port_sc.main(["no-such-verb"]) == 2
     assert "usage" in capsys.readouterr().err

@@ -461,6 +461,45 @@ ISOLATION_CASES = {
         "assert r.completed == 3 and r['v'].unique == 1568, r.to_json()\n"
         "assert fleet_runs([d], stream=io.StringIO()) == 0\n"
     ),
+    # the mesh engine on 4 pieces, with cartography and its stats
+    "mesh": (
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "c = TwoPhaseSys(3).checker().mesh(devices=4).cartography().spawn_gpu(\n"
+        "    device='cpu', batch=64).join()\n"
+        "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+        "assert sum(c.mesh_stats()['shard_load']) == 288\n"
+        "assert c.final_snapshot()['engine'] == 'mesh'\n"
+    ),
+    # the UDP runtime: a register server's put and get on localhost
+    "spawn": (
+        "import json, socket\n"
+        "from stateright_tpu_torch.actor import Id, spawn\n"
+        "from stateright_tpu_torch.models.single_copy_register import (\n"
+        "    SingleCopyServer)\n"
+        "s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)\n"
+        "s.bind(('127.0.0.1', 0)); s.settimeout(5.0)\n"
+        "p = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)\n"
+        "p.bind(('127.0.0.1', 0)); port = p.getsockname()[1]; p.close()\n"
+        "h = spawn([(Id.from_addr('127.0.0.1', port), SingleCopyServer())])\n"
+        "s.sendto(json.dumps(['put', 1, 'X']).encode(), ('127.0.0.1', port))\n"
+        "assert json.loads(s.recvfrom(65536)[0]) == ['put_ok', 1]\n"
+        "h[0].stop(); h[0].join(2.0); s.close()\n"
+    ),
+    # the native module: built, the consistency search, the baseline
+    "native": (
+        "from stateright_tpu_torch.native import load\n"
+        "from stateright_tpu_torch.native.baseline import compiled_cpu_bfs\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "from stateright_tpu_torch.semantics import (LinearizabilityTester,\n"
+        "    Register)\n"
+        "from stateright_tpu_torch.semantics.register import READ, write\n"
+        "assert load() is not None\n"
+        "t = LinearizabilityTester(Register('0')).on_invoke(0, write('A'))\n"
+        "t = t.on_return(0, ('write_ok',)).on_invoke(1, READ)\n"
+        "assert t.on_return(1, ('read_ok', 'A'))._native_verdict() is True\n"
+        "r = compiled_cpu_bfs(TwoPhaseSys(3), batch=64)\n"
+        "assert (r['unique'], r['states']) == (288, 1146), r\n"
+    ),
     # telemetry: the recorder, cartography, the memory ledger, the report
     # and the run registry on the GPU engine and the host BFS
     "telemetry": (
@@ -783,11 +822,12 @@ FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
 
 @pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
 @pytest.mark.parametrize("explicit", [False, True, "checked", "spill",
-                                      "armed", "por", "served"])
+                                      "armed", "por", "served", "mesh1"])
 def test_step_flags_off_dispatch_the_same_operations(name, explicit,
                                                     monkeypatch, tmp_path):
     """With ``prededup`` off, unset or turned off explicitly against its
-    env knob (and ``mxu``, which has no effect, likewise), and with
+    env knob (and ``mxu``, which has no effect, likewise), on a one-piece
+    mesh (``.mesh(devices=1)``, "mesh1"), and with
     ``checked(False)`` and ``spill(False)`` (the latter against its env
     knob), and with a fault plan installed that never fires and autosave
     and the heartbeat armed at every sync ("armed"), every step dispatches
@@ -829,6 +869,9 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
         b = b.autosave(str(tmp_path), every_secs=0.0)
         monkeypatch.setattr("stateright_tpu_torch.testing.faults._ACTIVE",
                             inert_plan())
+    elif explicit == "mesh1":
+        # a one-piece mesh is the single-device program: the same step
+        b = b.mesh(devices=1)
     if explicit == "served":
         c = served_and_polled(b.telemetry(metrics=True), batch=64,
                               steps_per_call=4)
@@ -838,6 +881,7 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     assert not c._prededup and not c._checked and not c._spill
     assert not c._por and c.por_status() is None
     assert (c._heartbeat is not None) == (explicit == "armed")
+    assert (c._engine_tag == "mesh") == (explicit == "mesh1")
     assert steps
     assert {sum(ops.values()) for ops in steps} <= FLAGS_OFF_OPS_PER_STEP[name]
     assert all("aten.clone.default" not in ops for ops in steps)

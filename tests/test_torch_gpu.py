@@ -27,7 +27,11 @@ the Explorer over a 2pc-5 GPU run on ``cuda`` (both discoveries through
 ``/.states``) and a packed two-tenant fleet on ``cuda`` against ``cpu``;
 and the sharded engine (``spawn_gpu(devices=N)``): 2pc-5, 2pc-4 with
 growth, 2pc-5 under symmetry, prededup and cartography, and ``ToggleSys``
-under POR, each snapshot on ``cuda`` against ``cpu``, shard for shard.
+under POR, each snapshot on ``cuda`` against ``cpu``, shard for shard;
+and the mesh engine (``.mesh()``, 4 pieces on the card): 2pc-5, 2pc-5
+under symmetry, 2pc-4 with growth and per-channel paxos-1 under POR on
+``cuda`` against 4 pieces on ``cpu``, and ``insert_commit``'s window mode
+against its plain version.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -1166,3 +1170,83 @@ def test_sharded_snapshot_identical_on_cuda_and_cpu(cuda, name, kw):
     assert g.cartography() == c.cartography()
     sharded_snapshots_equal(g.final_snapshot(), c.final_snapshot())
     assert launched[0] == 0 and all(n > 0 for n in launched[1:]), launched
+
+
+@pytest.mark.parametrize("name", ["2pc5", "2pc5-sym", "2pc4-growth",
+                                  "pc-paxos1-por"])
+def test_mesh_snapshot_identical_on_cuda_and_cpu(cuda, name):
+    """The mesh engine (``.mesh()``) with 4 pieces on the card against 4
+    pieces on the CPU: the whole snapshot (tables, cursors, queue rows
+    ``[0, tail)``), the growth events, and the launches of every kernel on
+    its path with ``insert_commit``'s window mode."""
+    from stateright_tpu_torch.ops.cand_prep import cand_prep
+    from stateright_tpu_torch.ops.insert_commit import insert_commit_window
+
+    def build(dev):
+        if name == "pc-paxos1-por":
+            m = paxos_model(1)
+            m.per_channel_()
+            b = m.checker().por()
+        else:
+            b = TwoPhaseSys(4 if "2pc4" in name else 5).checker()
+        b = b.mesh(devices=[dev] * 4)
+        return b.symmetry() if "sym" in name else b
+
+    kw = dict(capacity=1 << 9, batch=128) if "growth" in name else dict(
+        capacity=1 << 12, batch=64)
+    kernels = (cand_prep, bucket_plan, insert_commit, insert_commit_window)
+    before = [k.launches for k in kernels]
+    g = build(cuda).spawn_gpu(sync=True, **kw)
+    launched = [k.launches - b for k, b in zip(kernels, before)]
+    c = build("cpu").spawn_gpu(sync=True, **kw)
+    assert g.growth_events == c.growth_events
+    assert (g.unique_state_count(), g.state_count()) == (
+        c.unique_state_count(), c.state_count())
+    gs, cs = g.final_snapshot(), c.final_snapshot()
+    tail = int(gs["tail"])
+    for k in ("table_fp", "table_parent", "head", "tail", "unique", "scount",
+              "disc"):
+        np.testing.assert_array_equal(np.asarray(gs[k]), np.asarray(cs[k]),
+                                      err_msg=k)
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(gs[k][:tail], cs[k][:tail], err_msg=k)
+    assert all(p == [str(cuda)] * 4 for p in g.pieces().values())
+    assert all(n > 0 for n in launched), launched
+
+
+@pytest.mark.parametrize("n_new,tail,qlo", [(3000, 123, 0), (3000, 123, 2048),
+                                            (0, 0, 0), (1, 4095, 2048),
+                                            (4096, 0, 4096)])
+def test_insert_commit_window_mode_matches_plain(cuda, n_new, tail, qlo):
+    """``insert_commit``'s window mode (a queue piece of 2,048 rows from
+    ``qlo``) against its plain version: the rows of ``[tail, tail + n_new)``
+    that fall in the piece, and nothing else."""
+    from stateright_tpu_torch.ops.insert_commit import (
+        insert_commit_window, insert_commit_window_plain,
+    )
+
+    rng = np.random.default_rng(11)
+    m, arity, width, rows = 4096, 4, 3, 2048
+    b = m // arity
+    cfp = rand_i64(rng, m)
+    n = torch.tensor(n_new)
+
+    def i32(lo, hi, size):
+        return torch.from_numpy(rng.integers(lo, hi, size).astype(np.int32))
+
+    queue = QueueAppend(
+        rand_i64(rng, rows, width), rand_i64(rng, rows), i32(0, 99, rows),
+        i32(0, 99, rows), torch.tensor(tail),
+        torch.from_numpy(rng.permutation(m)), rand_i64(rng, b * arity, width),
+        i32(-99, 99, b), i32(0, 99, b), arity)
+    cq = QueueAppend(*(x.to(cuda) if torch.is_tensor(x) else x
+                       for x in queue))
+    pq = QueueAppend(*(x.clone() if torch.is_tensor(x) else x
+                       for x in queue))
+    before = insert_commit_window.launches
+    insert_commit_window(cq, cfp.to(cuda), n.to(cuda), qlo)
+    insert_commit_window_plain(pq, cfp, n, qlo)
+    torch.cuda.synchronize()
+    assert insert_commit_window.launches == before + 1
+    for g, w in zip(cq[:4], pq[:4]):
+        assert torch.equal(g.cpu(), w)

@@ -304,10 +304,18 @@ def test_configurations_without_a_twin_raise():
         m.lossy_network(True)
 
 
-def test_check_gpu_verb_raises_without_a_card(capsys):
+def test_check_gpu_verb_raises_without_a_card(capsys, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the verb would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_paxos.main(["check-gpu", "1"])
-    assert port_paxos.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
+    # the spawn verb deploys three servers (the UDP runtime, stubbed here
+    # so the verb does not block); an unknown verb prints the usage
+    deployed = []
+    monkeypatch.setattr("stateright_tpu_torch.actor.spawn",
+                        lambda actors, background=True: deployed.append(
+                            (list(actors), background)) or [])
+    assert port_paxos.main(["spawn"]) == 0
+    assert len(deployed[0][0]) == 3 and deployed[0][1] is False
+    assert port_paxos.main(["no-such-verb"]) == 2
     assert "usage" in capsys.readouterr().err

@@ -159,10 +159,18 @@ def test_wo_rejects_put2():
         compile_actor_model(m)
 
 
-def test_check_gpu_verb_raises_without_a_card(capsys):
+def test_check_gpu_verb_raises_without_a_card(capsys, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the verb would run")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_wo.main(["check-gpu", "2", "1", "--per-channel"])
-    assert port_wo.main(["spawn"]) == 2  # a verb that waits (the UDP runtime)
+    # the spawn verb deploys its server (the UDP runtime, stubbed here so
+    # the verb does not block); an unknown verb prints the usage
+    deployed = []
+    monkeypatch.setattr("stateright_tpu_torch.actor.spawn",
+                        lambda actors, background=True: deployed.append(
+                            (list(actors), background)) or [])
+    assert port_wo.main(["spawn"]) == 0
+    assert len(deployed) == 1 and deployed[0][1] is False
+    assert port_wo.main(["no-such-verb"]) == 2
     assert "usage" in capsys.readouterr().err
