@@ -370,6 +370,15 @@ slots), after the sweep legs:
    ``IDENTICAL``; the wall against the sum of the plain legs' walls (four
    2pc-7, one paxos-2), the seconds to resume and the launches.
 
+The sharded, mesh, native and UDP legs follow (:func:`sharded_phases`,
+:func:`mesh_phases`), and last engine prewarm and the compile cache
+(:func:`prewarm_phases`): ``prewarm_2pc7``, 2pc-7 under ``.prewarm()`` at
+the plain leg's defaults, equal to the plain leg with every growth rung
+built by the prewarm thread, each rung's wait beside the cold run's and
+the peak device memory of both; ``compile_cache_2pc3``, a cold ``nvcc``
+build of the kernel library into a fresh directory in one child process
+and a load from it in a second.
+
 Everything printed is
 also written to ``chiprun_out/chip_smoke.json``.  Exits non-zero without a result when no
 CUDA device is available.
@@ -4300,6 +4309,141 @@ def mesh_phases(smi: str, ref7: dict, device=None) -> tuple:
     return out, kernels
 
 
+# the compile cache leg's child: 2pc-3 on the card with the kernel library
+# built into, or loaded from, the directory it is given (the preflight
+# audit, which builds nothing, is skipped: the child's seconds are its
+# import, the card's start and the build or load)
+CACHE_CHILD = """
+import json, sys, time
+t0 = time.monotonic()
+import torch
+from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+from stateright_tpu_torch.ops import _cuda
+from stateright_tpu_torch.parallel.prewarm import compile_counters
+t1 = time.monotonic()
+c = (TwoPhaseSys(3).checker().compile_cache(sys.argv[1]).telemetry()
+     .skip_audit().spawn_gpu(sync=True))
+print(json.dumps({"unique": c.unique_state_count(),
+                  "init": c.flight_recorder.records("compile")[0],
+                  "counters": compile_counters(),
+                  "library": str(_cuda.library_path()),
+                  "import_sec": t1 - t0, "run_sec": time.monotonic() - t1}))
+"""
+
+
+def compile_leg_record(c) -> list:
+    """Each ``compile`` event of a run: its rung, capacities, source, the
+    seconds the run thread waited and the build's seconds."""
+    return [{k: e[k] for k in ("rung", "cap", "qcap", "cand", "source",
+                               "prewarm_ready", "duration", "build_secs")}
+            for e in c.flight_recorder.records("compile")]
+
+
+def peak_run(dev, builder) -> tuple:
+    """``builder.spawn_gpu()`` at the plain leg's defaults, joined, with
+    the launch counts reset just before it and read just after; returns
+    the checker, its wall seconds, the bytes its allocations raised the
+    device's peak above what was live before it, and the launches."""
+    reset_launches()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    c = builder.spawn_gpu().join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    return (c, sec, torch.cuda.max_memory_allocated(dev) - base,
+            kernel_launches())
+
+
+def prewarm_phases(smi: str, ref7: dict) -> dict:
+    """Engine prewarm and the compile cache (``parallel/prewarm.py``):
+
+     - ``prewarm_2pc7``: 2pc-7 ``.prewarm().telemetry()`` at the plain
+       leg's defaults: the plain leg's counts, steps, discoveries, table
+       bytes and queue rows, every growth rung served by the
+       ``stateright-prewarm`` thread (``source="prewarm"``), every kernel
+       launched; each rung's wait (``duration``) and build seconds beside
+       those of the same run built cold (``.telemetry()`` alone), and the
+       wall and the peak device memory of both;
+     - ``compile_cache_2pc3``: 2pc-3 in two child processes over one fresh
+       compile cache directory: the first builds the kernel library with
+       ``nvcc`` (a miss: the init rung's ``source`` is ``fresh``), the
+       second loads it (``persistent``); the seconds of each.
+
+    Returns the prewarm leg's launches."""
+    dev = torch.device("cuda", 0)
+    cold, cold_s, cold_peak, _ = peak_run(
+        dev, TwoPhaseSys(7).checker().telemetry())
+    warm, warm_s, warm_peak, launches = peak_run(
+        dev, TwoPhaseSys(7).checker().prewarm().telemetry())
+    paths = check_discoveries(warm.model, warm,
+                              {"abort agreement", "commit agreement"})
+    same, tail = same_snapshots(ref7["snap"], warm.final_snapshot())
+    rungs = compile_leg_record(warm)
+    counters = warm.flight_recorder.counters()
+    emit("prewarm_2pc7", {
+        "unique": warm.unique_state_count(), "states": warm.state_count(),
+        "steps": warm.steps_run, "growth_events": warm.growth_events,
+        "tables_and_queue_equal_plain": same, "tail": tail,
+        "path_lengths": paths, "rungs": rungs,
+        "cold_rungs": compile_leg_record(cold),
+        "prewarm_scheduled": counters.get("prewarm_scheduled", 0),
+        "prewarm_consumed": counters.get("prewarm_consumed", 0),
+        "compile_secs": warm.flight_recorder.stages()["compile_secs"],
+        "cold_compile_secs": cold.flight_recorder.stages()["compile_secs"],
+        "sec": warm_s, "cold_sec": cold_s, "plain_sec": ref7["sec"],
+        "peak_device_mib": warm_peak / 2**20,
+        "cold_peak_device_mib": cold_peak / 2**20,
+        "launches": launches, "card": smi})
+    if ((warm.unique_state_count(), warm.state_count(), warm.steps_run)
+            != (ref7["unique"], ref7["states"], ref7["steps"])
+            or set(warm.discovery_fps()) != set(ref7["disc"]) or not same):
+        raise AssertionError("prewarm 2pc-7: counts, steps, discoveries, "
+                             "tables or queue differ from the plain leg")
+    if not warm.growth_events or rungs[0]["rung"] != "init" or any(
+            r["source"] != "prewarm" for r in rungs[1:]) or len(rungs) < 2:
+        raise AssertionError(f"prewarm 2pc-7: a growth rung was not "
+                             f"prewarmed: {rungs}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"prewarm 2pc-7: a kernel never launched: "
+                             f"{launches}")
+    del cold, warm
+    lap("prewarm_2pc7")
+    # -- compile_cache_2pc3: a cold nvcc build, then a hit ----------------------
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="srt-compile-cache-") as d:
+        for _ in range(2):
+            out = subprocess.run(
+                [sys.executable, "-c", CACHE_CHILD, d],
+                cwd=Path(__file__).resolve().parent, capture_output=True,
+                text=True, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"compile cache child failed:\n"
+                                     f"{out.stderr[-4000:]}")
+            runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        in_dir = all(Path(r["library"]).parent == Path(d) for r in runs)
+    miss, hit = runs
+    emit("compile_cache_2pc3", {
+        "unique": [r["unique"] for r in runs],
+        "cold_build_secs": miss["init"]["build_secs"],
+        "hit_build_secs": hit["init"]["build_secs"],
+        "sources": [r["init"]["source"] for r in runs],
+        "counters": [r["counters"] for r in runs],
+        "child_import_secs": [r["import_sec"] for r in runs],
+        "child_run_secs": [r["run_sec"] for r in runs],
+        "library_in_dir": in_dir,
+        "card": smi})
+    if not (in_dir and [r["unique"] for r in runs] == [288, 288]
+            and miss["init"]["source"] == "fresh"
+            and miss["counters"]["persistent_cache_misses"] == 1
+            and hit["init"]["source"] == "persistent"
+            and hit["counters"]["persistent_cache_hits"] == 1):
+        raise AssertionError(f"compile cache: not a miss then a hit: {runs}")
+    lap("compile_cache_2pc3")
+    return {"prewarm_2pc7": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4500,6 +4644,7 @@ def main() -> int:
     launches_svc = service_phases(smi, ref7)
     launches_sh, kernels_sh = sharded_phases(smi, ref7)
     launches_mesh, kernels_mesh = mesh_phases(smi, ref7)
+    launches_pw = prewarm_phases(smi, ref7)
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
@@ -4604,6 +4749,9 @@ def main() -> int:
         # the mesh engine: each leg's launches, and the cells on one piece
         # of a mesh step (bucket_plan, insert_commit's table half)
         for leg, ls in launches_mesh.items():
+            entry[f"at_{leg}"] = {"launches": ls[name]}
+        # engine prewarm: the prewarmed 2pc-7 run's launches
+        for leg, ls in launches_pw.items():
             entry[f"at_{leg}"] = {"launches": ls[name]}
         if name in kernels_mesh:
             entry["at_mesh_2pc7"] = dict(

@@ -36,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.prewarm import build_site
+
 # operations whose value needs no input row: a literal of the JAX jaxpr (a
 # Python scalar broadcast to a shape), by a fill value
 _FILLS = {
@@ -196,7 +198,9 @@ def capture(fn, *args) -> torch.fx.GraphModule:
     method's ``self`` as an argument).  A host read of a tensor value
     (``.item()``, ``bool()`` of a tensor) is recorded in the graph as
     ``aten._local_scalar_dense`` rather than refused, so the kernel audit
-    can name it (``JX101``).  One capture runs at a time in the process."""
+    can name it (``JX101``).  One capture runs at a time in the process;
+    its seconds are charged to the calling thread's compile counter
+    (``parallel/prewarm.build_site``)."""
     import inspect
 
     from torch.fx.experimental.proxy_tensor import make_fx
@@ -211,7 +215,7 @@ def capture(fn, *args) -> torch.fx.GraphModule:
             make_fx).parameters:
         kw["_error_on_data_dependent_ops"] = False
     traced = make_fx(functionalize(run, remove="mutations"), **kw)
-    with _CAPTURE_LOCK, _one_fake_mode():
+    with build_site(), _CAPTURE_LOCK, _one_fake_mode():
         return traced(*args)
 
 

@@ -55,6 +55,10 @@ class CheckerBuilder:
         # decides
         self.prededup_mode: Optional[bool] = None
         self.spill_mode: Optional[bool] = None
+        # engine prewarm (None = the env knob decides) and the compile
+        # cache directory (None = the env knob, else the default)
+        self.prewarm_mode: Optional[bool] = None
+        self.compile_cache_dir: Optional[str] = None
         # partial-order reduction; None = the env knob decides
         self.por_mode: Optional[bool] = None
         # the GPU engine's checked execution mode
@@ -294,6 +298,38 @@ class CheckerBuilder:
             meta={"engine": engine, "model": type(self.model).__name__},
             metrics=metrics,
         )
+
+    def prewarm(self, enabled: bool = True) -> "CheckerBuilder":
+        """Growth-stall elision for the single-device GPU engine
+        (``parallel/prewarm.py``; JAX ``checker/base.py:310``): the growth
+        ladder's next capacity rungs are built AHEAD OF TIME on a
+        background thread (``stateright-prewarm``): each rung's engine,
+        its device buffers and, under ``.por()``/``.checked()``, its
+        kernel captures, on the run thread's stream, so a growth boundary
+        swaps in a ready engine instead of blocking the run on a cold
+        build.  Wrong predictions cost one wasted background build and
+        nothing else; the per-boundary wait is recorded in the flight
+        recorder (``compile`` events: ``source="prewarm"``,
+        ``duration``).  Default off (env override
+        ``STATERIGHT_TPU_PREWARM=1``); the search is untouched: the
+        prewarmed engine is the SAME engine, built earlier, and the step
+        dispatches the same operations.  The other engines ignore it."""
+        self.prewarm_mode = bool(enabled)
+        return self
+
+    def compile_cache(self, path: str) -> "CheckerBuilder":
+        """Build the kernel library (``nvcc``) and the native module
+        (``g++``) into, and load them from, ``path`` (``parallel/prewarm.
+        enable_persistent_compile_cache``; JAX ``checker/base.py:341``),
+        so repeated runs in fresh processes skip the compilers.  Applies
+        process-wide at the engine's spawn (last caller wins); a library
+        the process already loaded stays loaded.  Engines are not cached:
+        each owns mutable buffers.  Default ``stateright_tpu_torch/
+        _build/``; env equivalent ``STATERIGHT_TPU_COMPILE_CACHE=DIR``.
+        The first block's ``compile`` event says ``source="persistent"``
+        when the library was loaded from the directory."""
+        self.compile_cache_dir = str(path)
+        return self
 
     def prededup(self, enabled: bool = True) -> "CheckerBuilder":
         """Intra-window candidate pre-dedup on the GPU engine

@@ -4,7 +4,8 @@ The port's counterpart of the ``check``, ``check-tpu`` and ``check-auto``
 verbs of ``stateright_tpu/models/_cli.py``'s users: the same positional
 arguments, the ``--per-channel`` flag (``pop_perf``/``apply_encoding``
 there) and, on the GPU verbs, ``--prededup``, ``--por``, ``--mxu``,
-``--spill``, ``--mesh`` (the mesh engine, ``parallel/mesh.py``;
+``--spill``, ``--mesh`` (the mesh engine, ``parallel/mesh.py``),
+``--prewarm`` and ``--compile-cache=DIR`` (``parallel/prewarm.py``;
 ``pop_perf``/``apply_perf`` there) and ``--checked``
 (``pop_checked`` there; :func:`pop_step_flags`, :func:`with_step_flags`;
 ``--mxu`` has no effect in the port).
@@ -34,8 +35,7 @@ The models JAX gives a ``spawn`` verb (single-copy register,
 linearizable register, paxos, raft, write-once register) take it here
 too: it deploys the model's server actors on localhost UDP sockets
 (``actor/spawn.py``; :func:`udp_spawn`, JAX ``_cli.py:67``) and blocks.
-``--prewarm`` comes with the module it drives.  ``capacity --spill``
-plans with the spill tier armed.
+``capacity --spill`` plans with the spill tier armed.
 
 Every model takes ``audit`` (the static audit of its ``_audit_models``
 configurations, deep tier, exit 1 on an error finding; JAX
@@ -80,9 +80,14 @@ WATCH_FLAG = "--watch"
 VALUE_OPTS = ("device", "batch", "out", "chrome", "registry", "expect")
 TELEMETRY_VERBS = ("profile", "report", "capacity", "compare")
 # the GPU engine's step flags: builder method per flag (``mxu`` is
-# accepted for parity with the JAX CLI and has no effect in the port)
+# accepted for parity with the JAX CLI and has no effect in the port;
+# ``prewarm`` builds growth rungs ahead and leaves the step as it is)
 STEP_FLAGS = {"--prededup": "prededup", "--por": "por", "--mxu": "mxu",
-              "--checked": "checked", "--spill": "spill", "--mesh": "mesh"}
+              "--checked": "checked", "--spill": "spill", "--mesh": "mesh",
+              "--prewarm": "prewarm"}
+# ``--compile-cache=DIR``: the builder's ``compile_cache(DIR)``, which
+# travels with the step flags
+COMPILE_CACHE_FLAG = "--compile-cache="
 
 
 def pop_per_channel(args: list) -> tuple:
@@ -92,11 +97,16 @@ def pop_per_channel(args: list) -> tuple:
     return len(kept) != len(args), kept
 
 
+def _is_step_flag(a: str) -> bool:
+    return a in STEP_FLAGS or a.startswith(COMPILE_CACHE_FLAG)
+
+
 def pop_step_flags(args: list) -> tuple:
-    """``(flags, args without them)``: the :data:`STEP_FLAGS` given, which
-    may stand anywhere after the verb."""
-    flags = [a for a in args if a in STEP_FLAGS]
-    return flags, [a for a in args if a not in STEP_FLAGS]
+    """``(flags, args without them)``: the :data:`STEP_FLAGS` and
+    ``--compile-cache=DIR`` given, which may stand anywhere after the
+    verb."""
+    flags = [a for a in args if _is_step_flag(a)]
+    return flags, [a for a in args if not _is_step_flag(a)]
 
 
 def apply_encoding(model, per_channel: bool):
@@ -177,9 +187,13 @@ def gpu_kw(opts) -> dict:
 
 
 def with_step_flags(builder, flags):
-    """``builder`` with each of the :data:`STEP_FLAGS` in ``flags`` on."""
+    """``builder`` with each of the :data:`STEP_FLAGS` in ``flags`` on, and
+    its compile cache at a ``--compile-cache=DIR``'s directory."""
     for f in flags:
-        builder = getattr(builder, STEP_FLAGS[f])()
+        if f.startswith(COMPILE_CACHE_FLAG):
+            builder = builder.compile_cache(f[len(COMPILE_CACHE_FLAG):])
+        else:
+            builder = getattr(builder, STEP_FLAGS[f])()
     return builder
 
 
@@ -494,7 +508,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
                udp: Optional[Callable] = None) -> int:
     """``python -m stateright_tpu_torch.models.<prog> VERB ARGS
     [--per-channel] [--prededup] [--por] [--mxu] [--checked] [--spill]
-    [--mesh] [--watch] [--device=cpu]``: build
+    [--mesh] [--prewarm] [--compile-cache=DIR] [--watch] [--device=cpu]``:
+    build
     the model from the positional arguments, print the verb's banner and
     check it.  ``verbs`` maps each verb the model offers to ``(banner,
     spawn)``: ``banner(args)`` is the line printed first, ``spawn(model)``
@@ -521,7 +536,8 @@ def check_main(prog: str, arg_usage: str, argv, build: Callable,
              + (["sweep"] if sweep else []) + (["spawn"] if udp else []))
     usage = (f"usage: python -m stateright_tpu_torch.models.{prog} "
              f"{'|'.join(names)} {arg_usage} [{PER_CHANNEL_FLAG}] "
-             f"[{'] ['.join(STEP_FLAGS)}] [{WATCH_FLAG}] [--device=cpu]"
+             f"[{'] ['.join(STEP_FLAGS)}] [{COMPILE_CACHE_FLAG}DIR] "
+             f"[{WATCH_FLAG}] [--device=cpu]"
              + ("  (compare A B [--registry=DIR] [--expect=VERDICT]; "
                 "profile/report [--out=F] [--chrome=F])" if has_gpu else ""))
     per_channel, args = pop_per_channel(
@@ -1001,9 +1017,6 @@ def run_supervised(builder, opts: dict, stream=None, **spawn_kw):
         print(f"supervise: no --autosave=DIR given; checkpointing into "
               f"{opts['autosave']} (pass the same dir to resume after a "
               "kill)", file=stream)
-    plan = None
-    if opts.get("fault_plan"):
-        plan = FaultPlan.from_file(opts["fault_plan"]).install()
     if opts.get("runs"):
         builder = builder.runs(opts["runs"])
     # the checkpoint and restart ring records need a recorder
@@ -1011,7 +1024,13 @@ def run_supervised(builder, opts: dict, stream=None, **spawn_kw):
         builder = builder.telemetry()
     if opts.get("steps"):
         spawn_kw.setdefault("steps_per_call", int(opts["steps"]))
+    # the plan is armed process-wide: it is installed last and uninstalled
+    # whatever happens, so no later run in the process meets its faults
+    plan = (FaultPlan.from_file(opts["fault_plan"]) if opts.get("fault_plan")
+            else None)
     try:
+        if plan is not None:
+            plan.install()
         res = supervise(
             builder, autosave_dir=opts["autosave"],
             every_secs=float(opts.get("every", 60.0)),

@@ -6,7 +6,10 @@ reference's ``src/semantics/linearizability.rs:178-240``), which
 ``semantics/linearizability.py`` calls per state, and the compiled-CPU
 BFS baseline (``bfs.cpp``, ``baseline.py``).  They are host code and
 launch no kernel.  :func:`load` builds the module with ``g++`` at first
-use (``build.py``, into ``stateright_tpu_torch/_build/``) and imports it;
+use (``build.py``, into the compile cache directory,
+``parallel/prewarm.compile_cache_dir``) and imports it, charging the
+build or load to the calling thread (a persistent-cache miss when ``g++``
+ran, a hit when the module was only loaded);
 when the build fails it warns once, as JAX's does, and returns None, and
 the callers use the Python search.  ``python -m
 stateright_tpu_torch.native.build`` builds it and shows the compiler's
@@ -32,12 +35,16 @@ def load() -> Optional[object]:
         return _module
     _attempted = True
     try:
-        from .build import MODULE, build
+        from ..parallel.prewarm import build_site, note_cache
+        from .build import MODULE, build, module_path
 
-        path = build()
-        spec = importlib.util.spec_from_file_location(MODULE, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        with build_site():
+            hit = module_path().exists()
+            path = build()
+            spec = importlib.util.spec_from_file_location(MODULE, path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        note_cache(hit)
         sys.modules.setdefault(MODULE, mod)
         _module = mod
     except Exception as e:  # noqa: BLE001 - any failure: the Python search

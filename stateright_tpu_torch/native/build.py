@@ -5,7 +5,9 @@ The port's own copy of ``stateright_tpu/native/build.py``.  The sources
 beside this file (``linearize.cpp``, which holds the module's init and
 method table, and ``bfs.cpp``, the compiled-CPU BFS baseline) compile
 with ``g++`` into one Python extension, ``_stateright_torch_native``,
-under ``stateright_tpu_torch/_build/`` (never into the package
+under the compile cache directory (``parallel/prewarm.compile_cache_dir``:
+``stateright_tpu_torch/_build/`` unless ``.compile_cache(DIR)`` or
+``STATERIGHT_TPU_COMPILE_CACHE`` moves it; never into the package
 directory).  The build's directory name carries a digest of the sources,
 the flags and the Python headers' path, so an edited source rebuilds and
 an unchanged tree loads at once.  It compiles to a private temporary
@@ -22,8 +24,9 @@ import sys
 import sysconfig
 from pathlib import Path
 
+from ..parallel.prewarm import compile_cache_dir
+
 _DIR = Path(__file__).resolve().parent
-BUILD_DIR = _DIR.parent / "_build"
 MODULE = "_stateright_torch_native"
 SOURCES = ("linearize.cpp", "bfs.cpp")
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
@@ -34,14 +37,15 @@ def _include() -> str:
 
 
 def module_path() -> Path:
-    """``_build/native-<digest>/_stateright_torch_native<EXT_SUFFIX>`` for
-    the current sources, flags and Python headers."""
+    """``<compile cache>/native-<digest>/_stateright_torch_native
+    <EXT_SUFFIX>`` for the current sources, flags and Python headers."""
     h = hashlib.sha256(" ".join(FLAGS + (_include(),)).encode())
     for s in SOURCES:
         h.update(s.encode())
         h.update((_DIR / s).read_bytes())
     ext = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
-    return BUILD_DIR / f"native-{h.hexdigest()[:16]}" / f"{MODULE}{ext}"
+    return (compile_cache_dir() / f"native-{h.hexdigest()[:16]}"
+            / f"{MODULE}{ext}")
 
 
 def build() -> Path:

@@ -8,10 +8,15 @@ includes PyTorch's headers, so a cold build takes seconds, not minutes.
 
 The build runs at first use, never at import (the CPU tests import every
 module of the port on hosts without ``nvcc``).  Each source compiles in its
-own ``nvcc`` process, all started together, into ``_build/`` beside this
-package; the library's file name carries a digest of the sources, the
+own ``nvcc`` process, all started together, into the compile cache
+directory (``parallel/prewarm.compile_cache_dir``: ``_build/`` beside this
+package unless ``.compile_cache(DIR)`` or ``STATERIGHT_TPU_COMPILE_CACHE``
+moves it); the library's file name carries a digest of the sources, the
 headers and the flags, so an edited source or header rebuilds and an
-unchanged tree loads at once.
+unchanged tree loads at once.  The build or load is charged to the thread
+that ran it (``prewarm.build_site``), as a persistent-cache miss when
+``nvcc`` ran and a hit when the library was only loaded; one process
+builds and loads it once, whichever thread asks first.
 
 Every C entry point enqueues its kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code, so
@@ -24,17 +29,18 @@ lock, so the counts stay exact when several engines launch from threads
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Optional
+
+from ..parallel.prewarm import build_site, compile_cache_dir, note_cache
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -118,11 +124,11 @@ def _run_all(cmds: list[list[str]]) -> None:
 
 
 def library_path() -> Path:
-    """``_build/libsrt_kernels-<digest>.so`` for the current sources,
-    headers and flags.  The shared headers (``csrc/*.cuh``) are not
-    compiled alone, but an edit to one changes the digest."""
+    """``<compile cache>/libsrt_kernels-<digest>.so`` for the current
+    sources, headers and flags.  The shared headers (``csrc/*.cuh``) are
+    not compiled alone, but an edit to one changes the digest."""
     digest = _digest(sources() + sorted(CSRC.glob("*.cuh")))
-    return BUILD_DIR / f"libsrt_kernels-{digest}.so"
+    return compile_cache_dir() / f"libsrt_kernels-{digest}.so"
 
 
 def build() -> Path:
@@ -132,9 +138,9 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in srcs]
         _run_all([
             [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
@@ -153,21 +159,36 @@ class KernelBuildError(RuntimeError):
     fatal, since a retry builds the same sources."""
 
 
-@functools.lru_cache(maxsize=None)
+_LIB_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call); raises
-    :class:`KernelBuildError` when it cannot be built or loaded."""
-    try:
-        lib = ctypes.CDLL(str(build()))
-    except (OSError, RuntimeError) as e:
-        raise KernelBuildError(
-            f"the CUDA kernels could not be built or loaded: "
-            f"{type(e).__name__}: {e}") from e
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    :class:`KernelBuildError` when it cannot be built or loaded.  Under
+    one lock, so two threads asking first run ``nvcc`` once and the build
+    is charged to the one that ran it."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        with build_site():
+            try:
+                hit = library_path().exists()
+                lib = ctypes.CDLL(str(build()))
+            except (OSError, RuntimeError) as e:
+                raise KernelBuildError(
+                    f"the CUDA kernels could not be built or loaded: "
+                    f"{type(e).__name__}: {e}") from e
+            note_cache(hit)
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        _LIB = lib
+        return lib
 
 
 def stream_of(t) -> int:

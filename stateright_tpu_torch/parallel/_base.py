@@ -152,6 +152,18 @@ class WavefrontChecker(Checker):
                     ".spill()/.por()."
                 )
             self._init_spill()
+        # engine prewarm and the compile cache (JAX ``parallel/_base.py:
+        # 183-194``): the cache directory is process-wide (the kernel
+        # library and the native module build there); the prewarmer is the
+        # single-device engine's only
+        from .prewarm import ENV_PREWARM, enable_persistent_compile_cache
+
+        self._prewarm = resolve_flag(
+            getattr(options, "prewarm_mode", None), ENV_PREWARM)
+        self._compile_cache_dir = enable_persistent_compile_cache(
+            getattr(options, "compile_cache_dir", None))
+        self._prewarmer = None
+        self._pending_compile_rec = None
         self._verify_fingerprint_bridge()
         self._results: Optional[dict] = None
         self._live = (0, 0, 0)  # states, unique, maxdepth at the last sync
@@ -202,6 +214,12 @@ class WavefrontChecker(Checker):
         # caller errors (a snapshot from another model) raise here, in the
         # caller's thread, not inside the worker
         self._pre_run_validate()
+        if self._prewarm and self._engine_tag == "single":
+            # made once nothing above can refuse the spawn: the worker
+            # thread lives until the run closes it
+            from .prewarm import EnginePrewarmer
+
+            self._prewarmer = EnginePrewarmer()
         self._thread: Optional[threading.Thread] = None
         if sync:
             self._run_guarded()
@@ -337,8 +355,8 @@ class WavefrontChecker(Checker):
     def _run_guarded(self) -> None:
         """The run inside its ``engine_run`` span (JAX
         ``parallel/_base.py:374-416``): the span closes, with ``error``
-        set on the exception path, the profiler stops either way, and the
-        heartbeat lands one forced last beat with the run's end (``done``
+        set on the exception path, the prewarmer closes and the profiler
+        stops either way, and the heartbeat lands one forced last beat with the run's end (``done``
         or ``failed``), so ``status`` tells a finished run from a killed
         one."""
         rec = self.flight_recorder
@@ -353,6 +371,10 @@ class WavefrontChecker(Checker):
         except BaseException as e:  # noqa: BLE001 - re-raised at join()
             self._run_error = error = e
         finally:
+            if self._prewarmer is not None:
+                # the background builder stops with the run (JAX
+                # wavefront.py:2038-2044); an in-flight build finishes
+                self._prewarmer.close()
             if self._profiler is not None:
                 self._profiler.stop()
             if sp is not None:

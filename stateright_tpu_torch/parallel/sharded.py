@@ -99,6 +99,7 @@ from ..ops.insert_commit import insert_commit
 from ..telemetry.spans import span as tel_span
 from ..testing import faults
 from ._base import WavefrontChecker
+from .prewarm import CompileWatch, build_site
 from .wavefront import _pow2, resolve_device
 
 _OK = 0
@@ -871,12 +872,33 @@ class ShardedGpuChecker(WavefrontChecker):
         cand_local = max(64, cf * fcap)
         eng = self._engine_cache
         if eng is None or eng.key != (cap, fcap, bucket_cap, cand_local):
-            eng = self._engine_cache = _ShardedEngine(
-                self.tensor, self._props, self._xch, self.ndev, cap, fcap,
-                bucket_cap, cand_local, self._target, self._steps,
-                self.device, sym=self._symmetry is not None,
-                prededup=self._prededup, cartography=self._cartography,
-                por=self._por_plan if self._por else None)
+            # one compile event per acquisition (JAX sharded.py:1198-1224,
+            # :1356); on cuda the build loads the kernel library, so the
+            # first rung carries its build or load
+            first = eng is None
+            watch = CompileWatch()
+            t0 = time.perf_counter()
+            with build_site():
+                if self.device.type == "cuda":
+                    _cuda.library()
+                eng = self._engine_cache = _ShardedEngine(
+                    self.tensor, self._props, self._xch, self.ndev, cap,
+                    fcap, bucket_cap, cand_local, self._target, self._steps,
+                    self.device, sym=self._symmetry is not None,
+                    prededup=self._prededup, cartography=self._cartography,
+                    por=self._por_plan if self._por else None)
+            secs = round(time.perf_counter() - t0, 6)
+            hit = watch.delta()["persistent_hits"] > 0
+            self._stage("compile", secs)
+            rec = self.flight_recorder
+            if rec is not None:
+                rec.add("compile_cache_misses")
+                rec.record("compile", cap=cap * self.ndev, fcap=fcap,
+                           bucket_cap=bucket_cap, cand=cand_local,
+                           rung="init" if first else "growth",
+                           source="persistent" if hit else "fresh",
+                           cache_hit=hit, prewarm_ready=False,
+                           duration=secs, build_secs=secs)
         return eng
 
     def _tail_from_snapshot(self, snap: dict) -> list:
@@ -991,6 +1013,7 @@ class ShardedGpuChecker(WavefrontChecker):
         t_dev = time.perf_counter()
         while True:  # one pass per engine (growth rebuilds)
             eng = self._engine_for(cap, fcap, bf, cf)
+            t_dev = time.perf_counter()  # the build is the compile stage's
             cand_local = max(64, cf * fcap)
             from_init = False
             if finished is not None:

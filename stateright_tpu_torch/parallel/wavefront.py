@@ -4,8 +4,8 @@ The port's counterpart of ``stateright_tpu/parallel/wavefront.py``
 (``_build_engine``, ``_build_inject`` and ``TpuChecker``), single device,
 with symmetry reduction, intra-window pre-dedup (``.prededup()``),
 partial-order reduction (``.por()``), search cartography
-(``.cartography()``), checked mode (``.checked()``) and the spill tier
-(``.spill()``); no prewarm.  The engine keeps a
+(``.cartography()``), checked mode (``.checked()``), the spill tier
+(``.spill()``) and engine prewarm (``.prewarm()``).  The engine keeps a
 device-resident FIFO queue of state rows and
 a bucketized visited table (``ops/buckets.py``), and each step pops a
 batch and
@@ -144,6 +144,20 @@ with the uninterrupted run's table bytes and queue rows.
 host loop fires ``host_sync`` at every sync, before the checkpoint seam,
 and ``growth`` first at every growth boundary.  Both are host-side checks
 that read nothing from the device.
+
+**Prewarm and compile attribution** (``.prewarm()``, ``.compile_cache()``,
+``parallel/prewarm.py``; JAX wavefront.py:1687-1846, :2046-2075): each
+engine acquisition (:meth:`GpuChecker._engine_for`) records one
+``compile`` event (``rung`` ``init`` or ``growth``, ``source`` ``fresh``,
+``prewarm`` or ``persistent``, ``duration``: the seconds the run thread
+waited) and the ``compile`` stage.  The block that first launches a
+kernel pays the kernel library's build or load and amends the event with
+it.  Under ``.prewarm()`` the host loop schedules, once a growth trigger
+is near or within the next block's reach, the growth ladder's next rungs
+(the table, queue and budget doublings) on the ``stateright-prewarm``
+thread, which builds each exactly as a cold build would, on the run
+thread's stream; a growth boundary then takes the built engine.  The
+step is the same either way.
 """
 
 from __future__ import annotations
@@ -176,6 +190,7 @@ from ..spill.bloom import bloom_test
 from ..telemetry.spans import span as tel_span
 from ..testing import faults
 from ._base import WavefrontChecker
+from .prewarm import CompileWatch, build_site
 
 _STATUS_OK = 0
 _STATUS_QUEUE_FULL = 1
@@ -1617,15 +1632,152 @@ class GpuChecker(WavefrontChecker):
         (JAX ``_engine_key``; the mesh engine adds its device list)."""
         return (cap, qcap, batch, cand)
 
-    def _engine_for(self, cap, qcap, batch, cand) -> _Engine:
+    def _engine_for(self, cap, qcap, batch, cand,
+                    kind: str = "growth") -> _Engine:
         """The engine of these capacities: the last one when they match,
-        else a new one."""
+        else a new one (:meth:`_acquire_engine`; ``kind`` names the rung
+        in its ``compile`` event)."""
         key = self._engine_key(cap, qcap, batch, cand)
         eng = self._last_engine
         if eng is None or self._last_engine_key != key:
-            eng = self._last_engine = self._engine(cap, qcap, batch, cand)
-            self._last_engine_key = key
+            eng = self._acquire_engine(key, cap, qcap, batch, cand, kind)
+            self._last_engine, self._last_engine_key = eng, key
         return eng
+
+    def _build_engine(self, cap, qcap, batch, cand) -> _Engine:
+        """:meth:`_engine`, charged to the calling thread's compile
+        counter (``prewarm.build_site``)."""
+        with build_site():
+            return self._engine(cap, qcap, batch, cand)
+
+    def _acquire_engine(self, key, cap, qcap, batch, cand,
+                        kind: str) -> _Engine:
+        """A new engine, through the prewarmer (a growth rung built ahead
+        of time) or a cold build (JAX ``_engine``, wavefront.py:
+        1687-1787).  The ``compile`` event says which path served the
+        rung and how long the run thread waited for it.  Engines are per
+        checker (each owns mutable buffers), so every acquisition is an
+        engine-cache miss."""
+        rec = self.flight_recorder
+        if rec is not None:
+            rec.add("compile_cache_misses")
+        ev = dict(cap=cap, qcap=qcap, batch=batch, cand=cand, rung=kind)
+        if self._prewarmer is not None:
+            try:
+                taken = self._prewarmer.take(key)
+            except Exception:  # noqa: BLE001 - a failed background build
+                taken = None  # is built cold below
+            if taken is not None:
+                eng, waited, was_ready, job = taken
+                self._pending_compile_rec = None
+                # a ready rung costs ~0 here (the growth stall prewarm
+                # removes); an in-flight one, the rest of its build
+                self._stage("compile", waited)
+                if rec is not None:
+                    rec.record("compile", **ev, source="prewarm",
+                               cache_hit=True, prewarm_ready=was_ready,
+                               duration=round(waited, 6),
+                               build_secs=round(job.compile_secs, 6))
+                    rec.add("prewarm_consumed")
+                self._schedule_prewarm(cap, qcap, batch, cand)
+                return eng
+        t0 = time.perf_counter()
+        eng = self._build_engine(cap, qcap, batch, cand)
+        secs = time.perf_counter() - t0
+        self._stage("compile", secs)
+        if rec is not None:
+            # amended by the first block that pays the kernel library's
+            # build or load (:meth:`_device_call`)
+            self._pending_compile_rec = rec.record(
+                "compile", **ev, source="fresh", cache_hit=False,
+                prewarm_ready=False, duration=round(secs, 6),
+                build_secs=round(secs, 6))
+        return eng
+
+    def _device_call(self, fn, *args):
+        """``fn(*args)`` (an engine's ``init`` or ``run``) and the compile
+        seconds paid inside it: the kernel library's build or load, at the
+        first launch of the process (JAX ``_timed_device_call``,
+        wavefront.py:2046-2075).  Those seconds go to the ``compile``
+        stage and amend the pending ``compile`` event; once a call pays
+        none, the event has converged and stops amending."""
+        watch = CompileWatch()
+        out = fn(*args)
+        d = watch.delta()
+        comp = max(d["compile_secs"], 0.0)
+        self._stage("compile", comp)
+        prev, rec = self._pending_compile_rec, self.flight_recorder
+        if prev is not None and rec is not None:
+            if comp > 0:
+                hit = d["persistent_hits"] > 0
+                rec.amend(prev,
+                          duration=round(prev["duration"] + comp, 6),
+                          build_secs=round(prev["build_secs"] + comp, 6),
+                          cache_hit=hit,
+                          source="persistent" if hit else "fresh")
+            else:
+                self._pending_compile_rec = None
+        return out, comp
+
+    def _maybe_schedule_prewarm(self, cap, qcap, batch, cand, unique: int,
+                                tail: int) -> None:
+        """The prediction gate (JAX wavefront.py:1789-1801): background
+        builds start once a growth trigger approaches, JAX's way (the
+        table at 1/16 load against the 1/4 trigger, the queue tail at half
+        its mark) or within the next block's reach: a block of ``steps``
+        steps appends at most ``steps * cand`` rows, so it can cross the
+        table's 1/4 load or the queue's mark from far below them, and
+        while the budget is under the batch's full width any step can
+        overflow it.  (JAX's gate alone leaves 2pc-7's first three rungs
+        cold at the default 64 steps a block.)  A run whose next block
+        cannot grow builds nothing in the background."""
+        if self._prewarmer is None:
+            return
+        reach = self._steps * cand
+        if (unique * 16 > cap or tail * 2 > qcap
+                or (unique + reach) * 4 > cap or tail + reach > qcap
+                or cand < batch * self.tensor.max_actions):
+            self._schedule_prewarm(cap, qcap, batch, cand)
+
+    def _schedule_prewarm(self, cap, qcap, batch, cand) -> None:
+        """Queue background builds of the growth ladder's next rungs (JAX
+        wavefront.py:1803-1846): the table doubling, the queue doubling,
+        and the candidate-budget doubling with the table it pre-sizes
+        (growth and the budget replay only move capacities along these
+        edges).  Predictions from superseded capacities are pruned.  Each
+        build is exactly the cold build's engine: the same key, buffers
+        and captures, made on the run thread's stream."""
+        if self._prewarmer is None:
+            return
+        arity = self.tensor.max_actions
+        rungs = [(cap * 2, qcap, cand), (cap, qcap * 2, cand)]
+        cand2 = min(cand * 2, batch * arity)
+        if cand2 != cand:
+            nc = cap
+            while cand2 * 4 > nc:  # the budget replay pre-sizes the table
+                nc *= 2
+            rungs.append((nc, qcap, cand2))
+        keys = [self._engine_key(nc_, nq_, batch, ncd_)
+                for nc_, nq_, ncd_ in rungs]
+        self._prewarmer.prune(keys)
+        # the worker allocates and launches nothing on its own stream: an
+        # engine takes the current stream of the thread that builds it,
+        # and the caching allocator ties each buffer to it
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+        for (ncap, nqcap, ncand), key in zip(rungs, keys):
+            if key == self._last_engine_key or self._prewarmer.scheduled(key):
+                continue
+
+            def build(ncap=ncap, nqcap=nqcap, ncand=ncand):
+                if stream is None:
+                    return self._build_engine(ncap, nqcap, batch, ncand)
+                with torch.cuda.stream(stream):
+                    return self._build_engine(ncap, nqcap, batch, ncand)
+
+            if self._prewarmer.schedule(key, build):
+                if self.flight_recorder is not None:
+                    self.flight_recorder.add("prewarm_scheduled")
 
     def _stats_of(self, carry, layout: CarryLayout, exact: bool = False):
         """:func:`stats_of` of a carry between blocks."""
@@ -1705,7 +1857,10 @@ class GpuChecker(WavefrontChecker):
             stats = None
         else:
             while True:
-                carry, stats = self._engine_for(cap, qcap, batch, cand).init()
+                eng = self._engine_for(cap, qcap, batch, cand, kind="init")
+                t_dev = time.perf_counter()
+                (carry, stats), comp = self._device_call(eng.init)
+                t_dev += comp
                 # a table-full init wrote nothing: grow and re-init
                 if int(stats[_ST_STATUS]) != _STATUS_TABLE_FULL:
                     break
@@ -1921,6 +2076,9 @@ class GpuChecker(WavefrontChecker):
             if tail <= head or all_disc or target_hit:
                 break
             engine = self._engine_for(cap, qcap, batch, cand)
+            # after the acquisition: the gate prunes every rung but the
+            # next ones, and a rung built before its boundary is ready
+            self._maybe_schedule_prewarm(cap, qcap, batch, cand, unique, tail)
             if peak_from is not None:
                 self._growth_peak(peak_from, self._memory_caps(
                     cap, qcap, batch, cand), mem_base)
@@ -1928,7 +2086,8 @@ class GpuChecker(WavefrontChecker):
             if self._profiler is not None:
                 self._profiler.maybe_start()
             t_dev = time.perf_counter()
-            carry, stats = engine.run(carry)
+            (carry, stats), comp = self._device_call(engine.run, carry)
+            t_dev += comp
             ran_block = True
             self.steps_run += engine.steps
 

@@ -73,6 +73,7 @@ from ..ops.buckets import (
 from ..ops.cand_prep import Namespace, PrepBuffers, cand_prep, sort_prepared
 from ..ops.hashing import EMPTY, ns_hash_plain, row_hash
 from ..ops.insert_commit import QueueAppend, insert_commit
+from ..parallel.prewarm import CompileWatch, build_site
 from ..parallel.wavefront import _i32, _pow2, resolve_device
 from .cohort import build_cohorts
 from .spec import SWEEP_V
@@ -415,6 +416,7 @@ class SweepChecker(Checker):
                 self.results[inst.key] = InstanceResult(
                     inst, cohort.global_index[t], ci)
         self.engine_compiles = 0
+        self._pending_compile = None  # the compile event a call may amend
         self.growth_events: list = []
         self.steps_run = 0  # device steps issued, post-stop no-ops included
         self._instance_run_ids: dict = {}
@@ -637,18 +639,51 @@ class SweepChecker(Checker):
         cohort = self.cohorts[ci]
         rec = self.flight_recorder
         self.engine_compiles += 1
+        ev = None
         if rec is not None:
-            rec.record("compile", cap=cap, qcap=qcap, batch=batch, cand=cand,
-                       rung=kind, source="fresh", cache_hit=False,
-                       duration=0.0)
+            ev = rec.record("compile", cap=cap, qcap=qcap, batch=batch,
+                            cand=cand, rung=kind, source="fresh",
+                            cache_hit=False, prewarm_ready=False,
+                            duration=0.0, build_secs=0.0)
             rec.record("sweep", v=SWEEP_V, event="cohort_compile", cohort=ci,
                        instances=cohort.K, width=cohort.width,
                        arity=cohort.max_actions,
                        unified=bool(cohort.unified and cohort.K > 1))
-        eng = _SweepEngine(cohort, cap, qcap, batch, self._steps, cand,
-                           self.device, cartography=self._cartography)
+        t0 = time.perf_counter()
+        with build_site():
+            eng = _SweepEngine(cohort, cap, qcap, batch, self._steps, cand,
+                               self.device, cartography=self._cartography)
+        secs = round(time.perf_counter() - t0, 6)
+        if rec is not None:
+            # the measured build (JAX :777); the first block that pays the
+            # kernel library's build or load amends it (:meth:`_call`)
+            rec.amend(ev, duration=secs, build_secs=secs)
+            rec.add("stage_compile_secs", secs)
+        self._pending_compile = ev
         self._engine_cache[key] = eng
         return eng
+
+    def _call(self, fn, *args):
+        """``fn(*args)`` (an engine's ``init`` or ``run``) with the stats
+        on the host; the kernel library's build or load paid inside it
+        amends the pending ``compile`` event (JAX ``_timed_call``)."""
+        watch = CompileWatch()
+        carry, stats = fn(*args)
+        d = watch.delta()
+        prev, rec = self._pending_compile, self.flight_recorder
+        if prev is not None and rec is not None:
+            comp = max(d["compile_secs"], 0.0)
+            rec.add("stage_compile_secs", comp)
+            if comp > 0:
+                hit = d["persistent_hits"] > 0
+                rec.amend(prev,
+                          duration=round(prev["duration"] + comp, 6),
+                          build_secs=round(prev["build_secs"] + comp, 6),
+                          cache_hit=hit,
+                          source="persistent" if hit else "fresh")
+            else:
+                self._pending_compile = None
+        return carry, stats.cpu().numpy()
 
     def _grow(self, carry_np, ci, cap, qcap, batch, status, cand):
         """Clean-boundary growth (JAX ``_grow`` :827): rehash the table on
@@ -734,9 +769,8 @@ class SweepChecker(Checker):
                 carry += cart_zeros(cohort, self.device)
         else:
             while True:
-                carry, stats = self._engine(ci, cap, qcap, batch, cand,
-                                            kind="init").init()
-                stats = stats.cpu().numpy()
+                carry, stats = self._call(self._engine(
+                    ci, cap, qcap, batch, cand, kind="init").init)
                 if int(stats[2]) != _STATUS_TABLE_FULL:
                     break
                 prev = cap
@@ -805,9 +839,10 @@ class SweepChecker(Checker):
             if tail <= head or bool(np.all(self._done_k_np(
                     cohort, disc2, uniq_k))):
                 break
-            carry, stats = self._engine(ci, cap, qcap, batch, cand).run(carry)
+            # the block's one host sync
+            carry, stats = self._call(
+                self._engine(ci, cap, qcap, batch, cand).run, carry)
             self.steps_run += self._steps
-            stats = stats.cpu().numpy()  # the block's one host sync
         self._extract_cohort(ci, carry, uniq_k, scnt_k, maxd_k, disc2, cap,
                              qcap, cand)
 

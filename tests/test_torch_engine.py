@@ -1,9 +1,11 @@
 """The port's wavefront engine (``spawn_gpu`` on ``device="cpu"``, the plain
-PyTorch path) against the JAX package's ``TpuChecker`` on the same
-capacities: counts, discovery fingerprint traces and the final
-visited-table bytes must be equal (tolerance 0), including a run small
-enough to force growth and runs resumed across the two engines'
-snapshots."""
+PyTorch path): the helpers that hold a port run to the JAX package's
+``TpuChecker`` on the same capacities (counts, discovery fingerprint traces
+and the final visited-table bytes equal, tolerance 0), and the standing
+contracts: no import of JAX or the reference, no host read inside a block,
+the pinned operations of a step with the flags off.  The JAX-parity runs
+are in ``test_torch_engine_parity.py`` and the snapshot/resume runs in
+``test_torch_engine_resume.py``, so that the test workers spread them."""
 
 import os
 import subprocess
@@ -17,9 +19,7 @@ import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from fixtures_sweep import BoundedCounterSys as JaxCounterSys
 from stateright_tpu.models.two_phase_commit import TwoPhaseSys as JaxSys
-from stateright_tpu_torch import convert
 from stateright_tpu_torch.core import Model, Property
 from stateright_tpu_torch.models.two_phase_commit import (
     TwoPhaseSys,
@@ -32,6 +32,17 @@ from stateright_tpu_torch.parallel.tensor_model import (
 )
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The port's runs here on one torch thread: their tensors are small,
+    and under several test workers the default thread pool oversubscribes
+    the host's cores many times over.  Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_run(n, builder=None, **kw):
@@ -61,29 +72,6 @@ def assert_same_run(j, t):
     for fp in td:
         if fp:
             assert t._trace(fp) == j._trace(fp)
-
-
-@pytest.mark.parametrize(
-    "n,kw,unique",
-    [
-        (3, {}, 288),
-        (5, {}, 8832),
-        # small enough to force queue and table growth mid-run
-        (3, dict(capacity=1 << 6, batch=1 << 3), 288),
-    ],
-)
-def test_counts_tables_and_traces_match_jax_engine(n, kw, unique):
-    j = jax_run(n, **dict(kw))
-    t = port_run(n, **kw)
-    assert t.unique_state_count() == unique
-    if n == 3:
-        assert t.state_count() == 1146
-    assert_same_run(j, t)
-    assert t.growth_events == j.growth_events
-    if kw:
-        assert t.growth_events and t._cap >= 512
-    assert set(t.discoveries()) == {"abort agreement", "commit agreement"}
-    t.assert_properties()
 
 
 class CounterTensor(TensorModel):
@@ -151,90 +139,14 @@ class CounterSys(TensorBackedModel, Model):
         return CounterTensor(self)
 
 
-def test_cand_full_replays_up_to_full_width_match_jax_engine():
-    """A budget of 6 of a batch's 24 lanes doubles by CAND_FULL replays to
-    12 and then to ``batch * arity``, where the port still compacts (CB ==
-    M): counts, tables, traces, growth events and queue rows ``[0, tail)``
-    equal the JAX engine's, which stops compacting there."""
-    kw = dict(batch=8, cand=6)
-    j = JaxCounterSys(5, 3).checker().spawn_tpu(sync=True, frontier_capacity=8,
-                                                cand=6)
-    t = CounterSys(5, 3).checker().spawn_gpu(device="cpu", **kw).join()
-    assert t.unique_state_count() == 6 ** 3
-    assert t._cand == 8 * 3
-    assert [s for s, _ in t.growth_events].count(3) == 2  # CAND_FULL twice
-    assert_same_run(j, t)
-    assert t.growth_events == j.growth_events
-    js, ts = j.checkpoint(), t.final_snapshot()
-    tail = int(ts["tail"])
-    assert int(js["tail"]) == tail and int(js["head"]) == int(ts["head"])
-    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
-        np.testing.assert_array_equal(np.asarray(ts[k])[:tail],
-                                      np.asarray(js[k])[:tail], err_msg=k)
-
-
-def test_discovery_paths_replay_and_are_shortest():
-    t = port_run(3)
-    cpu = JaxSys(3).checker().spawn_bfs().join()
-    for name in ("abort agreement", "commit agreement"):
-        path = t.discovery(name)
-        model = t.model
-        assert model.property_by_name(name).condition(model, path.final_state())
-        assert len(path) == len(cpu.discovery(name))
-
-
-def test_resume_from_jax_snapshot_finishes_the_space():
-    j = jax_run(5, lambda b: b.target_states(1000))
-    assert 1000 <= j.unique_state_count() < 8832
-    snap = j.checkpoint()
-    keep = {k: np.array(v, copy=True) for k, v in snap.items()
-            if isinstance(v, np.ndarray)}
-    t = TwoPhaseSys(5).checker().spawn_gpu(device="cpu", resume=snap).join()
-    assert t.unique_state_count() == 8832
-    # the caller's snapshot is never written through
-    for k, v in keep.items():
-        np.testing.assert_array_equal(snap[k], v)
-    assert_same_run(jax_run(5), t)
-
-
-def test_jax_engine_resumes_from_port_snapshot():
-    t = port_run(5, lambda b: b.target_states(1000))
-    assert 1000 <= t.unique_state_count() < 8832
-    j = JaxSys(5).checker().spawn_tpu(sync=True, resume=t.final_snapshot())
-    assert j.unique_state_count() == 8832
-
-
-def test_timeout_stops_and_snapshot_resumes():
-    t = port_run(5, lambda b: b.timeout(0.0), steps_per_call=1, batch=1 << 6)
-    assert t.unique_state_count() < 8832
-    r = TwoPhaseSys(5).checker().spawn_gpu(
-        device="cpu", steps_per_call=1, batch=1 << 6, resume=t.final_snapshot()
-    ).join()
-    assert r.unique_state_count() == 8832
-
-
-def test_snapshot_round_trip_is_exact():
-    t = port_run(3, lambda b: b.target_states(100))
-    snap = t.final_snapshot()
-    carry = convert.carry_from_snapshot(snap, "cpu")
-    again = convert.carry_to_snapshot(carry, snap["cap"], snap["qcap"],
-                                      snap["batch"], snap["cand"])
-    for k in convert.SNAPSHOT_KEYS:
-        assert np.asarray(again[k]).dtype == np.asarray(snap[k]).dtype, k
-        np.testing.assert_array_equal(again[k], snap[k])
-
-
-def test_resume_rejects_another_models_snapshot():
-    snap = port_run(3, lambda b: b.target_states(100)).final_snapshot()
-    with pytest.raises(ValueError, match="different model"):
-        TwoPhaseSys(4).checker().spawn_gpu(device="cpu", resume=snap)
-
-
 # One case per model family, each in a subprocess of its own: with the
 # suite on six xdist workers, one subprocess with all eight runs in it,
 # on as many intra-op threads as the machine has cores, took more than
 # its 300 s limit (34 s alone).  Each case runs on one thread, so six of
-# them load six cores, not 48 threads on 8.
+# them load six cores, not 48 threads on 8.  The cases run in
+# ``test_torch_engine_isolation.py`` (the model families) and
+# ``test_torch_engine_isolation_flags.py`` (the flags and services), so
+# that the test workers spread them.
 ISOLATION_CASES = {
     "2pc": (
         "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
@@ -500,6 +412,19 @@ ISOLATION_CASES = {
         "r = compiled_cpu_bfs(TwoPhaseSys(3), batch=64)\n"
         "assert (r['unique'], r['states']) == (288, 1146), r\n"
     ),
+    # engine prewarm with a compile cache directory: the growth rung comes
+    # from the prewarm thread
+    "prewarm": (
+        "import tempfile\n"
+        "from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys\n"
+        "c = TwoPhaseSys(3).checker().prewarm().compile_cache(\n"
+        "    tempfile.mkdtemp()).telemetry().spawn_gpu(\n"
+        "    device='cpu', capacity=1 << 10, batch=8, steps_per_call=1,\n"
+        "    queue_capacity=1 << 12).join()\n"
+        "assert c.unique_state_count() == 288, c.unique_state_count()\n"
+        "ev = c.flight_recorder.records('compile')\n"
+        "assert [e['source'] for e in ev] == ['fresh', 'prewarm'], ev\n"
+    ),
     # telemetry: the recorder, cartography, the memory ledger, the report
     # and the run registry on the GPU engine and the host BFS
     "telemetry": (
@@ -522,11 +447,6 @@ ISOLATION_CASES = {
         "assert b.flight_recorder.summary()['unique'] == 288\n"
     ),
 }
-
-
-@pytest.mark.parametrize("family", list(ISOLATION_CASES))
-def test_port_run_loads_neither_jax_nor_the_reference(family):
-    assert_isolated(ISOLATION_CASES[family])
 
 
 def assert_isolated(case: str) -> None:
@@ -569,25 +489,6 @@ def test_spawn_gpu_without_a_device_raises_when_no_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TwoPhaseSys(3).checker().spawn_gpu()
-
-
-@pytest.mark.parametrize(
-    "n,target",
-    [(5, None), (5, 3000)],  # complete, and stopped with rows still queued
-)
-def test_queue_rows_match_jax_engine(n, target):
-    """Queue rows ``[0, tail)`` (rows, fingerprints, ebits, depths) and the
-    cursors equal the JAX engine's at the same capacities; rows past
-    ``tail`` are scratch in both engines and are not compared."""
-    bound = None if target is None else (lambda b: b.target_states(target))
-    j = jax_run(n, bound).checkpoint()
-    t = port_run(n, bound).final_snapshot()
-    assert int(t["head"]) == int(j["head"]) and int(t["tail"]) == int(j["tail"])
-    tail = int(t["tail"])
-    assert tail > 0 and (target is None or tail > int(t["head"]))
-    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
-        np.testing.assert_array_equal(np.asarray(t[k])[:tail],
-                                      np.asarray(j[k])[:tail], err_msg=k)
 
 
 class SyncProbe(TorchDispatchMode):
@@ -640,13 +541,15 @@ def sync_free_model(name):
 # "-armed" with a fault plan installed that never fires and autosave and
 # the heartbeat at every sync, "-por" under .por() (the ample mask, its
 # conjunct kernel, the proviso round and the rollback), "-served" with the
-# metrics bus under a polled Explorer
+# metrics bus under a polled Explorer, "-prewarm" under .prewarm() with
+# growth (the blocks after it run an engine the prewarm thread built)
 SYNC_FREE_UNIQUE = {"2pc": 288, "paxos": 265, "per-channel": 265,
                     "per-channel-por": 250,
                     "2pc-sym": 94, "raft-sym": 2926, "2pc-flags": 288,
                     "paxos-flags": 265, "2pc-cart": 288, "paxos-cart": 265,
                     "2pc-checked": 288, "2pc-spill": 8832, "2pc-armed": 288,
-                    "paxos-armed": 265, "2pc-served": 288}
+                    "paxos-armed": 265, "2pc-served": 288,
+                    "2pc-prewarm": 288}
 
 
 def inert_plan():
@@ -684,8 +587,9 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
     and ``PaxosTensor`` (``window_unique``), and with ``.cartography()``
     for both (the counters, and the depth histogram's bounded search once
     a block), and with the fault seams armed by a plan that never fires
-    and autosave and the heartbeat at every sync.  The host reads one
-    packed stats tensor per block, outside the block."""
+    and autosave and the heartbeat at every sync, and under ``.prewarm()``
+    across a growth.  The host reads one packed stats tensor per block,
+    outside the block."""
     from stateright_tpu_torch.parallel import wavefront
 
     blocks = []
@@ -724,6 +628,10 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
         monkeypatch.setenv("STATERIGHT_TPU_CAPACITY_GUARD", "off")
         kw = dict(capacity=1 << 12, batch=128, queue_capacity=4096,
                   spill_bloom_bits=1 << 14)
+    if name.endswith("-prewarm"):
+        # growth, whose rungs the prewarm thread builds
+        b = b.prewarm().telemetry()
+        kw = dict(capacity=1 << 10, batch=8, queue_capacity=1 << 12)
     if name.endswith("-served"):
         c = served_and_polled(b.telemetry(metrics=True), steps_per_call=4)
     else:
@@ -733,6 +641,9 @@ def test_engine_blocks_dispatch_no_host_read(name, monkeypatch, tmp_path):
     assert c._checked == name.endswith("-checked")
     assert c._por == name.endswith("-por")
     assert (c._heartbeat is not None) == name.endswith("-armed")
+    if c._prewarm:
+        ev = c.flight_recorder.records("compile")
+        assert c.growth_events and ev[-1]["source"] == "prewarm", ev
     if c._spill:
         # blocks ran after an eviction, with deferred candidates appended
         sp = c.spill_status()
@@ -822,7 +733,8 @@ FLAGS_OFF_OPS_PER_STEP = {"2pc": {455}, "paxos": {1405, 1411},
 
 @pytest.mark.parametrize("name", list(FLAGS_OFF_OPS_PER_STEP))
 @pytest.mark.parametrize("explicit", [False, True, "checked", "spill",
-                                      "armed", "por", "served", "mesh1"])
+                                      "armed", "por", "served", "mesh1",
+                                      "prewarm"])
 def test_step_flags_off_dispatch_the_same_operations(name, explicit,
                                                     monkeypatch, tmp_path):
     """With ``prededup`` off, unset or turned off explicitly against its
@@ -835,7 +747,10 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     no fault check, and no clone of the block per field write.  "served"
     runs with the metrics bus attached under the Explorer, whose every
     endpoint a client polls until the run is done: publication and live
-    discoveries read only what the block's one stats read gave."""
+    discoveries read only what the block's one stats read gave.
+    "prewarm" runs with the prewarm thread up (``tests/
+    test_torch_prewarm.py`` compares a run that grows onto prewarmed
+    engines with the cold run, step for step)."""
     from stateright_tpu_torch.parallel import wavefront
 
     steps = []
@@ -872,6 +787,8 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     elif explicit == "mesh1":
         # a one-piece mesh is the single-device program: the same step
         b = b.mesh(devices=1)
+    elif explicit == "prewarm":
+        b = b.prewarm()
     if explicit == "served":
         c = served_and_polled(b.telemetry(metrics=True), batch=64,
                               steps_per_call=4)
@@ -882,6 +799,7 @@ def test_step_flags_off_dispatch_the_same_operations(name, explicit,
     assert not c._por and c.por_status() is None
     assert (c._heartbeat is not None) == (explicit == "armed")
     assert (c._engine_tag == "mesh") == (explicit == "mesh1")
+    assert c._prewarm == (explicit == "prewarm")
     assert steps
     assert {sum(ops.values()) for ops in steps} <= FLAGS_OFF_OPS_PER_STEP[name]
     assert all("aten.clone.default" not in ops for ops in steps)

@@ -249,3 +249,10 @@ def test_spill_store_degrades_on_enospc_instead_of_crashing(capsys):
     got = np.concatenate([f for f, _ in store.iter_segments()])
     assert got.size == len(store)
     store.close()
+
+
+def test_no_fault_plan_outlives_this_file():
+    """Runs last in the file (the test workers run a file's tests in
+    order, in one process): every plan armed above was disarmed, so no
+    later file's run in the same process meets its faults."""
+    assert faults.active() is None

@@ -1250,3 +1250,106 @@ def test_insert_commit_window_mode_matches_plain(cuda, n_new, tail, qlo):
     assert insert_commit_window.launches == before + 1
     for g, w in zip(cq[:4], pq[:4]):
         assert torch.equal(g.cpu(), w)
+
+
+# -- engine prewarm and the compile cache ---------------------------------------
+
+PREWARM_CAPS = dict(capacity=1 << 10, batch=64, steps_per_call=1,
+                    queue_capacity=1 << 12)
+
+
+def test_prewarmed_engine_launches_on_the_run_threads_stream(cuda,
+                                                             monkeypatch):
+    """An engine the prewarm thread builds holds the stream the run thread
+    launches on (here a side stream the run runs under), never the
+    worker's own; the run equals a plain one on that stream."""
+    import threading
+
+    from stateright_tpu_torch.parallel import prewarm, wavefront
+
+    built = []
+    engine = wavefront.GpuChecker._engine
+
+    def spy(self, cap, qcap, batch, cand):
+        eng = engine(self, cap, qcap, batch, cand)
+        built.append((threading.current_thread().name, eng))
+        return eng
+
+    monkeypatch.setattr(wavefront.GpuChecker, "_engine", spy)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        warm = TwoPhaseSys(5).checker().prewarm().telemetry().spawn_gpu(
+            sync=True, **PREWARM_CAPS)
+        plain = TwoPhaseSys(5).checker().spawn_gpu(sync=True, **PREWARM_CAPS)
+    torch.cuda.synchronize()
+    on_worker = [e for name, e in built
+                 if name == prewarm.PREWARM_THREAD_NAME]
+    assert on_worker and warm.growth_events
+    assert all(e.stream == side.cuda_stream for e in on_worker)
+    assert all(e.stream == side.cuda_stream for _, e in built)
+    rungs = warm.flight_recorder.records("compile")[1:]
+    assert rungs and all(r["source"] == "prewarm" for r in rungs), rungs
+    assert warm.unique_state_count() == plain.unique_state_count() == 8832
+    for a, b in zip(warm._table_np(), plain._table_np()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_prewarmed_2pc5_equals_plain(cuda):
+    warm = TwoPhaseSys(5).checker().prewarm().spawn_gpu(sync=True,
+                                                        **PREWARM_CAPS)
+    plain = TwoPhaseSys(5).checker().spawn_gpu(sync=True, **PREWARM_CAPS)
+    assert warm.growth_events == plain.growth_events != []
+    assert (warm.state_count(), warm.steps_run) == (plain.state_count(),
+                                                    plain.steps_run)
+    for a, b in zip(warm._table_np(), plain._table_np()):
+        np.testing.assert_array_equal(a, b)
+    ws, ps = warm.final_snapshot(), plain.final_snapshot()
+    tail = int(ws["tail"])
+    assert tail == int(ps["tail"])
+    for k in ("q_rows", "q_fp", "q_ebits", "q_depth"):
+        np.testing.assert_array_equal(np.asarray(ws[k])[:tail],
+                                      np.asarray(ps[k])[:tail], err_msg=k)
+    assert warm.discovery_fps() == plain.discovery_fps()
+
+
+CACHE_CHILD = """
+import json, sys
+from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
+from stateright_tpu_torch.ops import _cuda
+from stateright_tpu_torch.parallel.prewarm import compile_counters
+c = TwoPhaseSys(3).checker().compile_cache(sys.argv[1]).telemetry().spawn_gpu(
+    sync=True)
+print(json.dumps({"unique": c.unique_state_count(),
+                  "init": c.flight_recorder.records("compile")[0],
+                  "counters": compile_counters(),
+                  "library": str(_cuda.library_path())}))
+"""
+
+
+def test_compile_cache_round_trip_builds_then_loads(cuda, tmp_path):
+    """Two processes over one fresh directory: the first builds the kernel
+    library with ``nvcc`` (a miss, its seconds on the init rung), the
+    second loads it (``source="persistent"``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    d = str(tmp_path / "cache")
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", CACHE_CHILD, d],
+                             cwd=repo, capture_output=True, text=True,
+                             timeout=600, env=dict(os.environ))
+        assert out.returncode == 0, out.stderr
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    miss, hit = runs
+    assert miss["unique"] == hit["unique"] == 288
+    assert Path(miss["library"]).parent == Path(d)
+    assert miss["init"]["source"] == "fresh" and not miss["init"]["cache_hit"]
+    assert miss["init"]["build_secs"] > 0
+    assert miss["counters"]["persistent_cache_misses"] == 1
+    assert hit["init"]["source"] == "persistent" and hit["init"]["cache_hit"]
+    assert hit["counters"]["persistent_cache_hits"] == 1

@@ -598,3 +598,37 @@ def test_supervise_verb_sigkilled_then_resumed_by_the_same_command(tmp_path):
     assert ckpt.read_progress(str(auto))["verdict"] == "done"
     assert compare_verb([parent, child], {"registry": str(runs),
                                           "expect": "IDENTICAL"}) == 0
+
+
+def test_a_refused_supervise_config_leaves_no_plan_armed(tmp_path):
+    """The supervise verb arms its fault plan process-wide: a config it
+    refuses before the run (a ``--steps`` that is not a number) must not
+    leave the plan installed for the next run in the process."""
+    from stateright_tpu_torch.models._cli import run_supervised
+    from stateright_tpu_torch.testing import faults
+
+    plan = tmp_path / "p.json"
+    plan.write_text(json.dumps(FaultPlan(
+        [Fault(site="host_sync", action="sigkill", at=0)]).to_json()))
+    with pytest.raises(ValueError):
+        run_supervised(TwoPhaseSys(3).checker(),
+                       {"fault_plan": str(plan), "steps": "four",
+                        "autosave": str(tmp_path / "a")},
+                       stream=open(os.devnull, "w"), device="cpu")
+    assert faults.active() is None
+
+
+def test_no_fault_plan_or_run_thread_outlives_this_file():
+    """Runs last in the file (the test workers run a file's tests in
+    order, in one process, before the next file's): no plan stays armed
+    and no engine run thread or prewarm worker is left running, or a later
+    file's run in the same process would meet them."""
+    from stateright_tpu_torch.testing import faults
+
+    assert faults.active() is None
+    left = [t for t in threading.enumerate()
+            if t.name.endswith("(_run_guarded)")
+            or t.name == "stateright-prewarm"]
+    for t in left:
+        t.join(30)
+    assert not [t.name for t in left if t.is_alive()]
