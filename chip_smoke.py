@@ -5,9 +5,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``stateright_tpu_torch/csrc``
-(``cand_prep``, ``row_hash``, ``bucket_plan``, ``insert_commit``), holds
-each against its plain PyTorch version on the card (integer outputs: they
-must be equal on every lane), times both, and drives the port's main path
+(``cand_prep``, ``row_hash``, ``bucket_plan`` with its two entries, the
+fused one of the engines' step, ``bucket_plan_fused``, and the
+pre-gathered one of the sharded engine, ``insert_commit``), holds each
+against its plain PyTorch version on the card (integer outputs: they must
+be equal on every lane), times both, and drives the port's main path
 through the user's entry points, ``TwoPhaseSys(n).checker().spawn_gpu()``
 and ``paxos_model(n).checker().spawn_gpu()``:
 
@@ -66,7 +68,7 @@ and ``paxos_model(n).checker().spawn_gpu()``:
  - kernels at per-channel paxos-2 shapes (W = 83): the next batch of a run
    bounded at 8,000 unique, L2 flushed before every timed call;
  - symmetry reduction (``.symmetry().spawn_gpu()``: canonical keys through
-   ``representative_rows``, ``bucket_plan`` in generation order, two
+   ``representative_rows``, ``bucket_plan_fused`` in generation order, two
    launches a step): 2pc-15 complete on ``cuda`` (654,198 classes,
    10,982,530 states, both agreement discoveries replayed through the
    class-matching walk, ``consistent`` never violated, every kernel
@@ -75,7 +77,7 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    mechanical symmetry) on ``cuda`` and on ``cpu``, with identical table
    bytes and queue rows; the ``two_phase_commit check-sym-gpu 5`` verb
    (508 classes);
- - the generation-order ``bucket_plan`` at 2pc-15 symmetry shapes: the next
+ - the generation-order ``bucket_plan_fused`` at 2pc-15 symmetry shapes: the next
    batch of a 2pc-15 symmetry run bounded at 300,000 classes (canonical
    rows through ``cand_prep``), L2 flushed before every timed call, and the
    table-order plan on the same batch beside it.
@@ -220,7 +222,7 @@ and read just after:
    its tallies, inject calls and wall beside the plain paxos-3 leg's;
  - on the first spill inject of each spill leg's ``cuda`` run that
    inserts something (its inputs kept by :func:`first_inject`: the hot
-   table before it and the ``pend_cap`` lanes), ``bucket_plan`` and
+   table before it and the ``pend_cap`` lanes), ``bucket_plan_fused`` and
    ``insert_commit`` against their plain versions, L2-cold, with their
    times and bounds (``kernel_*_spill_2pc7_inject``,
    ``kernel_*_spill_paxos3_inject``);
@@ -245,7 +247,7 @@ counts reset just before it and read just after:
    on the next batch of a run bounded at 8,000;
  - the proviso round that inserts the most in a POR run bounded at 8,000
    (its inputs kept by :func:`proviso_round`): ``cand_prep``,
-   ``bucket_plan`` and ``insert_commit`` against their plain versions,
+   ``bucket_plan_fused`` and ``insert_commit`` against their plain versions,
    L2-cold (``at_por_proviso`` in the kernels line);
  - ``por_2pc7``: 2pc-7 under ``.por()``: nothing reduces, and the tables,
    queue rows, state count and discoveries are the plain 2pc-7 leg's;
@@ -296,9 +298,7 @@ output is the ``{"kernels": [...]}`` record (2pc-7 shapes, with the 2pc-10
 numbers under ``at_2pc10``, the paxos-3 ones under ``at_paxos3``, the
 single-copy-4 ones, with that run's launches, under ``at_singlecopy4``,
 and the per-channel paxos-2 ones, with that run's launches, under
-``at_paxos2_per_channel``; then one more entry, ``bucket_plan`` in
-generation order at 2pc-15 symmetry shapes, with the 2pc-15 symmetry
-run's launches; every kernel entry also gives the launches of the last
+``at_paxos2_per_channel``; every kernel entry also gives the launches of the last
 three legs under ``at_checkpoint_sc4``, ``at_auto_2pc7`` and ``at_orl``,
 the last with the ORL kernel records beside them, and the prededup legs'
 under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
@@ -308,7 +308,7 @@ under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
 and the checked and spill legs' under ``at_checked_2pc7``,
 ``at_checked_paxos2``, ``at_spill_2pc7`` and ``at_spill_paxos3``, the spill
 inject's own launches beside them as ``inject_launches``, and for
-``bucket_plan`` and ``insert_commit`` the inject cells' records, with the
+``bucket_plan_fused`` and ``insert_commit`` the inject cells' records, with the
 inject's launches, under ``at_spill_2pc7_inject`` and
 ``at_spill_paxos3_inject``; and the supervisor's and the audit's legs'
 under ``at_supervise_2pc7_kill``, ``at_supervise_oom_real``,
@@ -316,14 +316,20 @@ under ``at_supervise_2pc7_kill``, ``at_supervise_oom_real``,
 with its process, ``at_audit`` and ``at_preflight_oob`` (all 0); and
 the POR legs' under
 ``at_por_pc_paxos2``, ``at_por_2pc7`` and ``at_por_pc_paxos1``, with the
-proviso round's cells for ``cand_prep``, ``bucket_plan`` and
+proviso round's cells for ``cand_prep``, ``bucket_plan_fused`` and
 ``insert_commit`` under ``at_por_proviso``, and the sweep legs' under
 ``at_sweep_2pc7_seeds``, ``at_sweep_paxos_family`` and ``at_sweep_lifted``,
 and the service legs' under ``at_explorer_2pc7``, ``at_fleet_canned`` and
 ``at_fleet_2pc7_pack`` (summed over the fleet's slots);
 then two more entries, ``cand_prep_namespace`` and ``insert_commit_tags``,
-the sweep's kernel modes, with the 2pc-7 seed sweep's launches)
-and the last line is ``{"ok": true, "device": {...}}``.
+the sweep's kernel modes, with the 2pc-7 seed sweep's launches; then
+``bucket_plan_fused`` in generation order at 2pc-15 symmetry shapes, with
+the 2pc-15 symmetry run's launches; then the pre-gathered ``bucket_plan``
+entry, the sharded engine's, with the sharded step's cell and the
+sharded legs' launches; the insert's window mode follows)
+and the last line is ``{"ok": true, "device": {...}}``.  The plan a
+step ran before the fused entry (the sort's tail and the pre-gathered
+launch) is timed beside it by ``kernel_ab.py``, not here.
 
 The sweep legs (``stateright_tpu_torch/sweep/``; each leg's launch counts
 reset just before it and read just after), last:
@@ -408,16 +414,19 @@ from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.buckets import (
     SLOTS,
     PlanBuffers,
+    bucket_bits,
     bucket_plan,
+    bucket_plan_fused,
+    bucket_plan_fused_plain,
     bucket_plan_plain,
-    sort_candidates,
+    key_buckets,
+    sort_keys,
     window_unique,
 )
 from stateright_tpu_torch.ops.cand_prep import (
     PrepBuffers,
     cand_prep,
     cand_prep_plain,
-    sort_prepared,
 )
 from stateright_tpu_torch.ops.hashing import EMPTY, row_hash, row_hash_plain
 from stateright_tpu_torch.ops.insert_commit import (
@@ -583,6 +592,7 @@ CHECKED_SYNC_CAND = 1 << 15
 # the kernels a profiled 2pc-7 block must show on the device
 PROFILED_KERNELS = ("cand_prep_kernel", "bucket_plan_kernel",
                     "insert_commit_kernel")
+EMPTY_KEY = (1 << 63) - 1  # an EMPTY lane's sorted key, the largest
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
 # enqueue any call timed here (the plain versions issue some 50 launches)
@@ -738,7 +748,16 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-KERNELS = (cand_prep, row_hash, bucket_plan, insert_commit)
+KERNELS = (cand_prep, row_hash, bucket_plan_fused, bucket_plan,
+           insert_commit)
+# the kernels of the engines' step (and init): the pre-gathered
+# ``bucket_plan`` entry is the sharded engine's alone
+STEP_KERNELS = ("cand_prep", "row_hash", "bucket_plan_fused",
+                "insert_commit")
+
+
+def all_launched(launches: dict, names=STEP_KERNELS) -> bool:
+    return all(launches[k] > 0 for k in names)
 
 
 def kernel_launches() -> dict:
@@ -805,23 +824,23 @@ def next_batch(checker, carry, sym: bool = False, flags=()) -> dict:
     tfp, tpl = carry[convert.TFP], carry[convert.TPL]
     cb = min(cand, m)
     prep = cand_prep_plain(krows, cvalid, pfp, arity, cb)
-    # the engine's order: cand_prep, one stable sort, then the plan
-    sort = (*sort_prepared(prep[0], prep[1], prep[3], tfp.shape[0] // SLOTS),
-            prep[2], prep[5])
-    plan = bucket_plan_plain(tfp, *sort, generation_order=sym)
+    # the engine's order: cand_prep, one stable sort, then the fused plan
+    fused = (prep[0], prep[1], *torch.sort(prep[3], stable=True), prep[2],
+             prep[5])
+    plan = bucket_plan_fused_plain(tfp, *fused, tfp.shape[0] // SLOTS,
+                                   generation_order=sym)
     n_new = int(plan[4])
     if n_new == 0:
         raise AssertionError(f"captured batch wrote nothing (overflow="
-                             f"{bool(plan[5])}, cand_overflow={bool(sort[5])})")
+                             f"{bool(plan[5])}, cand_overflow={bool(prep[5])})")
     queue = QueueAppend(
         carry[convert.QROWS], carry[convert.QFP], carry[convert.QEBITS],
         carry[convert.QDEPTH], carry[convert.TAIL], plan[3], crows,
         carry[convert.QEBITS][span], carry[convert.QDEPTH][span], arity,
     )
     return dict(crows=crows, krows=krows, cvalid=cvalid, hvalid=hvalid,
-                pfp=pfp,
-                arity=arity, cb=cb, prep=prep, tfp=tfp, tpl=tpl, sort=sort, plan=plan,
-                queue=queue, n_new=n_new)
+                pfp=pfp, arity=arity, cb=cb, prep=prep, tfp=tfp, tpl=tpl,
+                fused=fused, plan=plan, queue=queue, n_new=n_new)
 
 
 def timings(kernel, plain, cold: bool, engine=None) -> dict:
@@ -849,41 +868,51 @@ def timings(kernel, plain, cold: bool, engine=None) -> dict:
     return t
 
 
-def plan_record(x: dict, cold: bool, stream, sym: bool = False) -> dict:
-    """``bucket_plan`` (in generation order with ``sym``) against its plain
-    version on the batch ``x`` of :func:`next_batch`."""
-    tfp, sort, want = x["tfp"], x["sort"], x["plan"]
-    sfp, bucket, cidx = sort[0], sort[2], sort[4]
-    pbuf = PlanBuffers(sfp.shape[0], sfp.device, sym)
-    got = bucket_plan(tfp, *sort, out=pbuf, generation_order=sym)
-    m = sfp.shape[0]
-    planned = int((want[0] != tfp.shape[0]).sum())  # novel lanes, blocked or not
-    errs = [int((g[:planned] != p[:planned]).sum()) for g, p in zip(got[:4], want[:4])]
+def plan_errors(got, want, nslots: int) -> tuple[int, int]:
+    """Disagreements of a plan with its plain version (the planned lanes,
+    blocked or not, and both scalars), and the planned count."""
+    planned = int((want[0] != nslots).sum())
+    errs = [int((g[:planned] != p[:planned]).sum())
+            for g, p in zip(got[:4], want[:4])]
     errs += [abs(int(got[4]) - int(want[4])), int(bool(got[5]) != bool(want[5]))]
-    live = sfp != EMPTY
+    return sum(errs), planned
+
+
+def fused_record(x: dict, cold: bool, stream, sym: bool = False) -> dict:
+    """``bucket_plan_fused`` (the engines' plan; in generation order with
+    ``sym``) against its plain version on the batch ``x`` of
+    :func:`next_batch`."""
+    tfp, fused, want = x["tfp"], x["fused"], x["plan"]
+    skey, cidx = fused[2], fused[4]
+    nb = tfp.shape[0] // SLOTS
+    m = skey.shape[0]
+    pbuf = PlanBuffers(m, skey.device, sym)
+    got = bucket_plan_fused(tfp, *fused, nb, out=pbuf, generation_order=sym)
+    err, planned = plan_errors(got, want, tfp.shape[0])
+    live = skey != EMPTY_KEY
     nlive = int(live.sum())
-    lines = int(torch.unique(bucket[live]).numel())
-    # the kernel's count (costmodel.kernel_rw): generation order moves the
-    # same bytes in and out (its staging area is the kernel's own scratch)
-    p_ms, p_by = bound(*kernel_cost("bucket_plan", {
+    lines = int(torch.unique(key_buckets(skey, bucket_bits(nb))[live]).numel())
+    p_ms, p_by = bound(*kernel_cost("bucket_plan_fused", {
         "lanes": m, "valid": nlive, "lines": lines, "novel": planned,
         "cidx": cidx is not None}))
     return dict(
-        name="bucket_plan_generation_order" if sym else "bucket_plan",
+        name=("bucket_plan_fused_generation_order" if sym
+              else "bucket_plan_fused"),
         route="cuda", source="stateright_tpu_torch/csrc/bucket_plan.cu",
         replaces=("stateright_tpu/ops/buckets.py:282" if sym
                   else "stateright_tpu/ops/buckets.py:202"),
         shape=(f"cand {m} ({nlive} valid, {lines} lines, {planned} novel), "
                f"table {tfp.shape[0]} slots"),
-        matched=sum(errs) == 0, max_abs_err=sum(errs),
+        matched=err == 0, max_abs_err=err,
         bound_ms=p_ms, bound_by=p_by, library_ms=None,
-        **timings(lambda: bucket_plan(tfp, *sort, out=pbuf,
-                                      generation_order=sym),
-                  lambda: bucket_plan_plain(tfp, *sort, generation_order=sym),
+        **timings(lambda: bucket_plan_fused(tfp, *fused, nb, out=pbuf,
+                                            generation_order=sym),
+                  lambda: bucket_plan_fused_plain(tfp, *fused, nb,
+                                                  generation_order=sym),
                   cold,
-                  lambda: bucket_plan(tfp, *sort, out=pbuf,
-                                      generation_order=sym, check=False,
-                                      stream=stream)),
+                  lambda: bucket_plan_fused(tfp, *fused, nb, out=pbuf,
+                                            generation_order=sym, check=False,
+                                            stream=stream)),
     )
 
 
@@ -976,11 +1005,12 @@ def check_kernels(checker, carry, cold: bool, sym: bool = False,
         out["row_hash"]["window_unique"] = dict(
             kept=nv, ms=time_ms(lambda: window_unique(fps)))
 
-    # -- bucket_plan over the sorted candidate budget ------------------------
-    out["bucket_plan"] = plan_record(x, cold, stream, sym)
+    # -- the fused plan over the sorted candidate budget -------------------
+    out["bucket_plan_fused"] = fused_record(x, cold, stream, sym)
     if sym:  # what the second launch costs: table order on the same batch
-        tab = dict(x, plan=bucket_plan_plain(x["tfp"], *x["sort"]))
-        out["bucket_plan_table_order"] = plan_record(tab, cold, stream)
+        nb = x["tfp"].shape[0] // SLOTS
+        tab = dict(x, plan=bucket_plan_fused_plain(x["tfp"], *x["fused"], nb))
+        out["bucket_plan_fused_table_order"] = fused_record(tab, cold, stream)
 
     # -- insert_commit of the batch's novel candidates -----------------------
     out["insert_commit"] = commit_record(x, cold, stream)
@@ -1059,27 +1089,29 @@ def first_inject(into: dict):
 
 
 def inject_kernels(kept: dict, leg: str) -> dict:
-    """``bucket_plan`` and ``insert_commit`` against their plain versions,
-    L2-cold, on the inject batch :func:`first_inject` kept: the inject's
-    sort, its plan (generation order under symmetry) and its queue append
-    (arity 1: each lane is its own parent)."""
+    """``bucket_plan_fused`` and ``insert_commit`` against their plain
+    versions, L2-cold, on the inject batch :func:`first_inject` kept: the
+    inject's sort, its plan (generation order under symmetry) and its
+    queue append (arity 1: each lane is its own parent)."""
     if not kept:
         raise AssertionError(f"{leg}: no spill inject inserted anything")
     ifp, irows, ipar, iebt, ipdep = kept["lanes"]
     tfp, sym = kept["tfp"], kept["sym"]
-    sort = sort_candidates(ifp, ipar, tfp.shape[0] // SLOTS)
-    plan = bucket_plan_plain(tfp, *sort, generation_order=sym)
+    fused = (ifp, ipar, *sort_keys(ifp), None,
+             torch.zeros((), dtype=torch.bool, device=ifp.device))
+    plan = bucket_plan_fused_plain(tfp, *fused, tfp.shape[0] // SLOTS,
+                                   generation_order=sym)
     queue = QueueAppend(
         *(torch.zeros(shape, dtype=dt, device=tfp.device)
           for shape, dt in kept["queue"]),
         kept["tail"], plan[3], irows, iebt, ipdep, 1)
-    x = dict(tfp=tfp, tpl=kept["tpl"], sort=sort, plan=plan, queue=queue,
+    x = dict(tfp=tfp, tpl=kept["tpl"], fused=fused, plan=plan, queue=queue,
              crows=irows, n_new=int(plan[4]))
     if x["n_new"] != kept["n_new"]:
         raise AssertionError(f"{leg}: the kept inject inserted "
                              f"{kept['n_new']}, its plain plan {x['n_new']}")
     stream = torch.cuda.current_stream().cuda_stream
-    return {"bucket_plan": plan_record(x, True, stream, sym),
+    return {"bucket_plan_fused": fused_record(x, True, stream, sym),
             "insert_commit": commit_record(x, True, stream)}
 
 
@@ -1157,7 +1189,7 @@ def paxos_phases(dev, smi: str) -> tuple:
     if g3.unique_state_count() != PAXOS3_UNIQUE:
         raise AssertionError(
             f"paxos-3: {g3.unique_state_count()} unique, not {PAXOS3_UNIQUE}")
-    if not all(v > 0 for v in launches3.values()):
+    if not all_launched(launches3):
         raise AssertionError(f"a kernel never launched on paxos-3: {launches3}")
     return g3.discovery_fps(), paths3, {"sec": g3_s, "steps": g3.steps_run,
                                         "peak_device_mib": peak / 2**20}
@@ -1260,7 +1292,7 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
             raise AssertionError(f"2pc-7 symmetry prededup: not {SYM_2PC7}")
     if not same:
         raise AssertionError("2pc-7 symmetry prededup: cuda and cpu disagree")
-    if sym_launches["bucket_plan"] != 2 * sym_launches["insert_commit"]:
+    if sym_launches["bucket_plan_fused"] != 2 * sym_launches["insert_commit"]:
         raise AssertionError(f"2pc-7 symmetry prededup: {sym_launches}")
     return launches, leg_launches, sym_launches, p3f_stop
 
@@ -1394,7 +1426,7 @@ def telemetry_phases(dev, smi: str, p3_ref) -> dict:
             for g in measured):
         raise AssertionError(f"growth forecast below the measured peak: "
                              f"{c.growth_memory}")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"a kernel never launched: {launches}")
     with open(report) as f:
         body = json.load(f)
@@ -1610,7 +1642,7 @@ def compiled_leg(dev, build, sym: bool = False, flags=(), target=None,
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     launches = kernel_launches()
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"a kernel never launched: {launches}")
     return checker, sec, torch.cuda.max_memory_allocated(dev), launches
 
@@ -1784,8 +1816,8 @@ def proviso_round(into: dict):
 
 
 def proviso_kernels(kept: dict) -> dict:
-    """``cand_prep``, ``bucket_plan`` and ``insert_commit`` against their
-    plain versions, L2-cold, on the proviso round :func:`proviso_round`
+    """``cand_prep``, ``bucket_plan_fused`` and ``insert_commit`` against
+    their plain versions, L2-cold, on the proviso round :func:`proviso_round`
     kept: its candidate mask through the budget compaction, the stable
     key sort, the plan on the table the ample round left, and the append
     after the ample round's rows."""
@@ -1795,19 +1827,20 @@ def proviso_kernels(kept: dict) -> dict:
     tfp = k["tfp"]
     prep = cand_prep_plain(k["krows"], k["cvalid"], k["pfp"], k["arity"],
                            k["cb"])
-    sort = (*sort_prepared(prep[0], prep[1], prep[3], tfp.shape[0] // SLOTS),
-            prep[2], prep[5])
-    plan = bucket_plan_plain(tfp, *sort, generation_order=k["sym"])
+    fused = (prep[0], prep[1], *torch.sort(prep[3], stable=True), prep[2],
+             prep[5])
+    plan = bucket_plan_fused_plain(tfp, *fused, tfp.shape[0] // SLOTS,
+                                   generation_order=k["sym"])
     queue = QueueAppend(*k["queue"], k["tail"], plan[3], k["crows"],
                         k["ebits"], k["depths"], k["arity"])
-    x = dict(k, prep=prep, sort=sort, plan=plan, queue=queue,
+    x = dict(k, prep=prep, fused=fused, plan=plan, queue=queue,
              n_new=int(plan[4]))
     if x["n_new"] == 0:
         raise AssertionError("por: the kept proviso round's plain plan "
                              "inserts nothing")
     stream = torch.cuda.current_stream().cuda_stream
     return {"cand_prep": prep_record(x, True, stream),
-            "bucket_plan": plan_record(x, True, stream, k["sym"]),
+            "bucket_plan_fused": fused_record(x, True, stream, k["sym"]),
             "insert_commit": commit_record(x, True, stream)}
 
 
@@ -1953,7 +1986,7 @@ def symmetry_phases(dev, smi: str) -> dict:
     g.assert_properties()  # "consistent" never violated
     # a symmetry step launches bucket_plan twice (plan, then the
     # generation-order compaction), the init's insert too
-    if launches["bucket_plan"] != 2 * launches["insert_commit"]:
+    if launches["bucket_plan_fused"] != 2 * launches["insert_commit"]:
         raise AssertionError(f"2pc-15 symmetry: launches {launches}")
     emit("2pc15_symmetry", dict(
         leg_record(g, g_s, peak, launches, smi), path_lengths=paths,
@@ -2033,7 +2066,7 @@ def checkpoint_phase(dev, smi: str, ref) -> dict:
         torch.cuda.synchronize()
         run_s = time.monotonic() - t0
         launches = kernel_launches()
-        if not all(v > 0 for v in launches.values()):
+        if not all_launched(launches):
             raise AssertionError(f"checkpoint_sc4: a kernel never launched: "
                                  f"{launches}")
         gens = ckpt.list_generations(root)
@@ -2072,7 +2105,7 @@ def checkpoint_phase(dev, smi: str, ref) -> dict:
                 raise AssertionError(f"checkpoint_sc4 ({name}): the resumed "
                                      "run differs from the uninterrupted one")
             if not all(r_launches[k] > 0 for k in
-                       ("cand_prep", "bucket_plan", "insert_commit")):
+                       ("cand_prep", "bucket_plan_fused", "insert_commit")):
                 raise AssertionError(f"checkpoint_sc4 ({name}): a step kernel "
                                      f"never launched: {r_launches}")
             del r
@@ -2130,7 +2163,7 @@ def auto_phase(dev, smi: str) -> dict:
         "card": smi})
     if g.unique_state_count() != TPC7_UNIQUE:
         raise AssertionError(f"auto_2pc7: not {TPC7_UNIQUE}")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"auto_2pc7: a kernel never launched: {launches}")
     if not isinstance(h, BfsChecker) or h.unique_state_count() != 288:
         raise AssertionError("auto 2pc-3: did not finish on the host probe")
@@ -2316,7 +2349,7 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
             or g.state_count() != ref7["states"]
             or g.discovery_fps() != ref7["disc"]):
         raise AssertionError("checked 2pc-7: not the plain leg's run")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"a kernel never launched: {launches}")
     sync_runs = {}
     for spc in SYNC_STEPS_PER_CALL:
@@ -2476,9 +2509,9 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
     if not (resumed_same and resumed_store
             and r.unique_state_count() == TPC7_UNIQUE):
         raise AssertionError("spill 2pc-7: the resumed run differs")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"a kernel never launched: {launches}")
-    if not all(v > 0 for v in g.inject_launches.values()):
+    if not all(g.inject_launches.values()):
         raise AssertionError(f"the inject never ran: {g.inject_launches}")
     del g, c, r, gs, cs, rs
     lap("spill_2pc7")
@@ -2520,7 +2553,7 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
     if sp3["evictions"] < 1 or g3._cap != 1 << 21:
         raise AssertionError(f"spill paxos-3: {sp3['evictions']} evictions, "
                              f"{g3._cap} slots (the budget pins 2^21)")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"a kernel never launched: {launches}")
     del g3
     lap("spill_paxos3")
@@ -2632,7 +2665,7 @@ def supervise_kill_leg(dev, smi: str, ref7: dict, n: int = 7,
                              "from the plain 2pc-7 leg")
     if [(r["site"], r["at"]) for r in fault] != [("host_sync", kill_at)]:
         raise AssertionError(f"supervise_2pc7_kill: fault records {fault}")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"supervise_2pc7_kill: a kernel never launched: "
                              f"{launches}")
     return launches
@@ -2748,7 +2781,7 @@ def oom_child(n: int = 7, device: str = "cuda") -> int:
                 and trial["evictions"] >= 1 and c.device.type == dev.type
                 and (c.unique_state_count(), c.state_count()) == (unique,
                                                                   states)
-                and all(v > 0 for v in trial["launches"].values()))
+                and all_launched(trial["launches"]))
             del c, res
         gc.collect()
         torch.cuda.empty_cache()
@@ -2792,7 +2825,8 @@ VERB_RUNNER = (
     "import atexit, json, runpy, sys\n"
     "from stateright_tpu_torch.ops import buckets, cand_prep, hashing, "
     "insert_commit\n"
-    "ks = (cand_prep.cand_prep, hashing.row_hash, buckets.bucket_plan, "
+    "ks = (cand_prep.cand_prep, hashing.row_hash, "
+    "buckets.bucket_plan_fused, buckets.bucket_plan, "
     "insert_commit.insert_commit)\n"
     "atexit.register(lambda: print(json.dumps({'launches': {k.__name__: "
     "k.launches for k in ks}})))\n"
@@ -2868,8 +2902,8 @@ def supervise_sigkill_leg(smi: str, n: int = 7, kill_at: int =
     if cmp.returncode != 0:
         raise AssertionError(f"supervise_sigkill: compare: {out} "
                              f"{cmp.stdout[-3000:]}")
-    if not launches or not all(v > 0 for k, v in launches[-1].items()
-                               if k != "row_hash"):
+    if not launches or not all_launched(launches[-1], STEP_KERNELS[:1]
+                                        + STEP_KERNELS[2:]):
         raise AssertionError(f"supervise_sigkill: the resumed run's "
                              f"launches: {launches}")
     return launches[-1]
@@ -3236,7 +3270,7 @@ def sweep_phases(dev, smi: str, ref7: dict) -> tuple:
         **ops, **SWEEP_2PC7_KW, "card": smi})
     if c.unique_state_count() != SWEEP_SEEDS * TPC7_UNIQUE:
         raise AssertionError("sweep_2pc7_seeds: not 8 x 296,448 unique")
-    if not all(v > 0 for k, v in launches["sweep_2pc7_seeds"].items()):
+    if not all_launched(launches["sweep_2pc7_seeds"]):
         raise AssertionError(f"a kernel never launched in the sweep: "
                              f"{launches['sweep_2pc7_seeds']}")
     kernels = sweep_kernels(kept, SWEEP_SEEDS)
@@ -3949,27 +3983,25 @@ def mesh_batch(c) -> dict:
     """The next step of a finished mesh run, through the step's plain
     stages (:func:`next_batch` on the joined carry), then split as the
     mesh step splits it: the table piece with the most candidates, its
-    run of the sorted lanes (the engine's own ``piece_inputs``), and the
-    queue piece that holds the tail."""
+    window of the sorted lanes (the engine's own ``piece_bounds``), and
+    the queue piece that holds the tail."""
     from stateright_tpu_torch.parallel.mesh import QUEUE
 
     eng = c._last_engine
     fin = c._final_carry
     x = next_batch(c, c._whole(fin))
-    sfp, spl, bucket, order, cidx, cov = x["sort"]
-    bounds = eng.piece_bounds(bucket)
-    # each piece's live candidates (the live lanes are a prefix of the
-    # sorted order; the dead ones sort into the last piece's run)
-    nlive = int((sfp != EMPTY).sum())
-    runs = (bounds[1:].clamp(max=nlive) - bounds[:-1].clamp(max=nlive)).tolist()
+    bounds = eng.piece_bounds(x["fused"][2])
+    # each piece's live candidates (the EMPTY lanes sort past the last
+    # bound)
+    runs = (bounds[1:] - bounds[:-1]).tolist()
     k = int(np.argmax(runs))
-    args = eng.piece_inputs(k, bounds, sfp, spl, bucket, order) + (cidx, cov)
     # the queue piece that takes the most of the rows [tail, tail + n_new)
     tail, na = int(fin[convert.TAIL]), x["n_new"]
     q = int(np.argmax([min(tail + na, (j + 1) * eng.qrows)
                        - max(tail, j * eng.qrows)
                        for j in range(len(eng.qdevs))]))
-    return dict(x, piece=k, runs=runs, args=args,
+    return dict(x, piece=k, runs=runs, win=bounds[k:k + 2].clone(),
+                boff=k * eng.nbp, nb=x["tfp"].shape[0] // SLOTS,
                 tfp_k=fin[convert.TFP].parts[k],
                 tpl_k=fin[convert.TPL].parts[k], q=q, qlo=q * eng.qrows,
                 qpiece=[fin[i].parts[q] for i in QUEUE],
@@ -3977,44 +4009,45 @@ def mesh_batch(c) -> dict:
 
 
 def mesh_kernels(x: dict) -> dict:
-    """``bucket_plan`` and the table half of ``insert_commit`` on one table
-    piece of a mesh step, and ``insert_commit``'s window mode on the queue
-    piece that holds the tail, each against its plain version."""
+    """``bucket_plan_fused`` (a piece's window) and the table half of
+    ``insert_commit`` on one table piece of a mesh step, and
+    ``insert_commit``'s window mode on the queue piece that holds the
+    tail, each against its plain version."""
     from stateright_tpu_torch.analysis.costmodel import insert_commit_parts
 
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
-    tfp, tpl, args = x["tfp_k"], x["tpl_k"], x["args"]
-    sfp, bucket = args[0], args[2]
-    m = sfp.shape[0]
-    pbuf = PlanBuffers(m, sfp.device, False)
-    got = bucket_plan(tfp, *args, out=pbuf)
-    want = bucket_plan_plain(tfp, *args)
-    planned = int((want[0] != tfp.shape[0]).sum())
-    errs = [int((g[:planned] != p[:planned]).sum())
-            for g, p in zip(got[:4], want[:4])]
-    errs += [abs(int(got[4]) - int(want[4])),
-             int(bool(got[5]) != bool(want[5]))]
-    live = sfp != EMPTY
-    nlive = int(live.sum())
-    lines = int(torch.unique(bucket[live]).numel())
-    p_ms, p_by = bound(*kernel_cost("bucket_plan", {
-        "lanes": m, "valid": nlive, "lines": lines, "novel": planned,
-        "cidx": True}))
+    tfp, tpl, fused = x["tfp_k"], x["tpl_k"], x["fused"]
+    skey = fused[2]
+    win, boff, nb = x["win"], x["boff"], x["nb"]
+    m = skey.shape[0]
+    pbuf = PlanBuffers(m, skey.device, False)
+    got = bucket_plan_fused(tfp, *fused, nb, out=pbuf, win=win, boff=boff)
+    want = bucket_plan_fused_plain(tfp, *fused, nb, win=win, boff=boff)
+    err, planned = plan_errors(got, want, tfp.shape[0])
+    lo, hi = win.tolist()
+    bits = bucket_bits(nb)
+    lines = int(torch.unique(key_buckets(skey[lo:hi], bits)).numel())
+    p_ms, p_by = bound(*kernel_cost("bucket_plan_fused", {
+        "lanes": m, "keys": hi - lo, "valid": hi - lo, "lines": lines,
+        "novel": planned, "cidx": True, "win": True}))
     where = (f"piece {x['piece']} of {x['pieces']} (runs {x['runs']}), "
              f"table piece {tfp.shape[0]} slots")
-    out["bucket_plan"] = dict(
-        name="bucket_plan", route="cuda",
+    out["bucket_plan_fused"] = dict(
+        name="bucket_plan_fused", route="cuda",
         source="stateright_tpu_torch/csrc/bucket_plan.cu",
         replaces="stateright_tpu/ops/buckets.py:202",
-        shape=(f"cand {m} ({nlive} valid, {lines} lines, {planned} novel), "
-               + where),
-        matched=sum(errs) == 0, max_abs_err=sum(errs),
+        shape=(f"cand {m} (window [{lo}, {hi}), {lines} lines, {planned} "
+               "novel), " + where),
+        matched=err == 0, max_abs_err=err,
         bound_ms=p_ms, bound_by=p_by, library_ms=None,
-        **timings(lambda: bucket_plan(tfp, *args, out=pbuf),
-                  lambda: bucket_plan_plain(tfp, *args), False,
-                  lambda: bucket_plan(tfp, *args, out=pbuf, check=False,
-                                      stream=stream)))
+        **timings(lambda: bucket_plan_fused(tfp, *fused, nb, out=pbuf,
+                                            win=win, boff=boff),
+                  lambda: bucket_plan_fused_plain(tfp, *fused, nb, win=win,
+                                                  boff=boff), False,
+                  lambda: bucket_plan_fused(tfp, *fused, nb, out=pbuf,
+                                            win=win, boff=boff, check=False,
+                                            stream=stream)))
     tgt, cfp, cpl, _, n_new, _ = want
     nn = int(n_new)
     if nn == 0:
@@ -4218,7 +4251,7 @@ def mesh_phases(smi: str, ref7: dict, device=None) -> tuple:
     if set(m7.discovery_fps()) != set(ref7["disc"]) or not same:
         raise AssertionError("mesh 2pc-7: discoveries, tables or queue "
                              "differ from the plain leg")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"mesh 2pc-7: a kernel never launched: "
                              f"{launches}")
     del m7
@@ -4405,7 +4438,7 @@ def prewarm_phases(smi: str, ref7: dict) -> dict:
             r["source"] != "prewarm" for r in rungs[1:]) or len(rungs) < 2:
         raise AssertionError(f"prewarm 2pc-7: a growth rung was not "
                              f"prewarmed: {rungs}")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"prewarm 2pc-7: a kernel never launched: "
                              f"{launches}")
     del cold, warm
@@ -4505,7 +4538,7 @@ def main() -> int:
                   "card": smi})
     if g7.unique_state_count() != 296_448:
         raise AssertionError("2pc-7: unique count is not 296,448")
-    if not all(v > 0 for v in launches.values()):
+    if not all_launched(launches):
         raise AssertionError(f"a kernel never launched on 2pc-7: {launches}")
     # what the checked, spill and supervised 2pc-7 legs must give
     ref7 = {"sec": g7_s, "unique": g7.unique_state_count(),
@@ -4534,7 +4567,7 @@ def main() -> int:
         raise AssertionError("2pc-10: stopped short of the target")
     if "consistent" in paths10:
         raise AssertionError("2pc-10: consistent violated")
-    if not all(v > 0 for v in launches10.values()):
+    if not all_launched(launches10):
         raise AssertionError(f"a kernel never launched on 2pc-10: {launches10}")
     lap("2pc10")
 
@@ -4768,10 +4801,19 @@ def main() -> int:
         line.append(dict({key: kernels_sweep[mode][key] for key in KERNEL_KEYS
                           if key != "launches"},
                          launches=launches_sweep["sweep_2pc7_seeds"][base]))
-    gen = kernels_sym["bucket_plan"]  # the new mode, as a kernel of its own
+    # generation order (the symmetry runs' plan), as a kernel of its own
+    gen = kernels_sym["bucket_plan_fused"]
     line.append(dict({key: gen[key] for key in KERNEL_KEYS
                       if key != "launches"},
-                     launches=launches_sym["bucket_plan"]))
+                     launches=launches_sym["bucket_plan_fused"]))
+    # the pre-gathered plan, the sharded engine's: its cell and launches
+    # are the sharded 2pc-7 leg's, and each leg's launches beside them
+    pre = dict({key: kernels_sh["bucket_plan"][key] for key in KERNEL_KEYS
+                if key != "launches"},
+               launches=launches_sh["sharded_2pc7"]["bucket_plan"])
+    for leg, ls in launches_sh.items():
+        pre[f"at_{leg}"] = {"launches": ls["bucket_plan"]}
+    line.append(pre)
     # insert_commit's window mode (the mesh's queue pieces): launches are
     # the complete mesh 2pc-7 leg's
     win = kernels_mesh["insert_commit_window"]

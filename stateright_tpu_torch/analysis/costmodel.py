@@ -13,9 +13,11 @@ has the five JAX stages (JAX ``_stage_fns`` :840-978), with their names:
    are not charged, as JAX's literals and constvars are not);
  - ``hash`` -- ``cand_prep`` (the fused hash, valid mask, budget
    compaction and bucket key);
- - ``dedup-insert`` -- ``sort_prepared``'s ``torch.sort`` (charged as a
-   sort: ``n log2 n`` operations and its bytes) with the tail gathers,
-   ``bucket_plan``, and the table half of ``insert_commit``;
+ - ``dedup-insert`` -- the step's ``torch.sort`` of the keys (charged as
+   a sort: ``n log2 n`` operations and its bytes), ``bucket_plan``'s
+   fused entry (which reads the sorted lanes through the permutation, so
+   the step has no gathers after the sort), and the table half of
+   ``insert_commit``;
  - ``queue`` -- the pop of the batch and the queue half of
    ``insert_commit``.
 
@@ -470,6 +472,14 @@ def kernel_rw(name: str, s: dict) -> tuple:
     novel lanes their payload, order (and map) entries and four output
     words; the flags in and out (10).  Two operations per slot compared.
 
+    ``bucket_plan_fused`` (the fused entry of ``csrc/bucket_plan.cu``,
+    the engines' step; the same counts, and ``keys`` the sorted keys read,
+    ``lanes`` unless a window reads fewer; ``win`` a window's two bounds):
+    the sorted keys, the live lanes their order entry and their
+    fingerprint through it, each line once, the novel lanes their payload
+    (and map) entries and four output words; nothing sorted is
+    materialized (no ``sfp``, ``spl`` or ``bucket`` arrays).
+
     ``insert_commit`` (``csrc/insert_commit.cu``; ``novel`` nn, ``width``
     w, ``parents`` p): the plan lanes (slot, fingerprint, payload, sel)
     and count and tail in, each parent's ebits and depth, the novel rows;
@@ -485,7 +495,7 @@ def kernel_rw(name: str, s: dict) -> tuple:
     parents' ebits and depth and the rows; a queue row (8w + 16 bytes) out
     per window lane.  No table half; it only moves data.
 
-    ``sort`` (``torch.sort`` in ``ops/cand_prep.py::sort_prepared``;
+    ``sort`` (the engines' ``torch.sort`` of ``cand_prep``'s keys;
     ``lanes`` n): the keys in, sorted keys and the permutation out;
     ``n log2 n`` comparisons."""
     if name == "cand_prep":
@@ -504,6 +514,12 @@ def kernel_rw(name: str, s: dict) -> tuple:
         idx_words = 3 if s.get("cidx", True) else 2
         return (m * 8 + live * 8 + lines * SLOTS * 8
                 + nov * 8 * idx_words + 1,
+                nov * 32 + 9, live * SLOTS * 2)
+    if name == "bucket_plan_fused":
+        m, live, lines, nov = s["lanes"], s["valid"], s["lines"], s["novel"]
+        idx_words = 2 if s.get("cidx", True) else 1
+        return (s.get("keys", m) * 8 + live * 16 + lines * SLOTS * 8
+                + nov * 8 * idx_words + 1 + (16 if s.get("win") else 0),
                 nov * 32 + 9, live * SLOTS * 2)
     if name == "insert_commit":
         parts = insert_commit_parts(s)
@@ -539,6 +555,7 @@ def kernel_cost(name: str, shapes: dict) -> tuple:
 
 
 _KERNEL_CLASS = {"cand_prep": "elementwise", "bucket_plan": "gather",
+                 "bucket_plan_fused": "gather",
                  "insert_commit": "scatter", "sort": "sort"}
 
 
@@ -577,12 +594,8 @@ def engine_stages(batch: int, arity: int, width: int, cap: int,
     dedup = StageCost(name="dedup-insert")
     r, w, ops = kernel_rw("sort", sh["sort"])
     dedup.charge(_kernel_eqn("sort", r, w, ops, cb))
-    # the sort's tail: fp[order], payload[order] and the bucket shift
-    dedup.charge(EqnCost(prim="index", op_class="gather", flops=cb,
-                         bytes_read=cb * 8 * 4, bytes_written=cb * 8 * 3,
-                         shape=(cb,), operand_shape=(cb,)))
-    r, w, ops = kernel_rw("bucket_plan", sh["bucket_plan"])
-    dedup.charge(_kernel_eqn("bucket_plan", r, w, ops, cb, (cap,)))
+    r, w, ops = kernel_rw("bucket_plan_fused", sh["bucket_plan"])
+    dedup.charge(_kernel_eqn("bucket_plan_fused", r, w, ops, cb, (cap,)))
     parts = insert_commit_parts(sh["insert_commit"])
     dedup.charge(_kernel_eqn("insert_commit", *parts["table"], 0, cb,
                              (cap,)))
@@ -606,7 +619,7 @@ def plain_walks(tensor, batch: int = 4, cap: int = 256) -> dict:
     """``{kernel: (kernel bytes, plain-walk bytes, kernel ops, plain
     flops)}`` at a small shape on the CPU: the twin's example rows
     expanded, every lane valid, an empty table of ``cap`` slots."""
-    from ..ops.buckets import bucket_plan_plain
+    from ..ops.buckets import bucket_plan_fused_plain, bucket_plan_plain
     from ..ops.cand_prep import cand_prep_plain, sort_prepared
     from ..ops.hashing import EMPTY
     from ..ops.insert_commit import QueueAppend, insert_commit_plain
@@ -646,6 +659,11 @@ def plain_walks(tensor, batch: int = 4, cap: int = 256) -> dict:
         Graph(capture(lambda *a: bucket_plan_plain(*a), tfp, *sort,
                       prep[2], prep[5])),
         {"lanes": m, "valid": m, "lines": lines, "novel": m})
+    skey, order = torch.sort(prep[3], stable=True)
+    rec("bucket_plan_fused",
+        Graph(capture(lambda *a: bucket_plan_fused_plain(*a, nb), tfp,
+                      prep[0], prep[1], skey, order, prep[2], prep[5])),
+        {"lanes": m, "valid": m, "lines": lines, "novel": m})
     qrows = torch.zeros((m + 4, width), dtype=torch.int64)
     qfp = torch.zeros(m + 4, dtype=torch.int64)
     qeb = torch.zeros(m + 4, dtype=torch.int32)
@@ -673,7 +691,8 @@ def reconcile_kernels(walks: dict) -> dict:
     """Per-stage verdicts: each kernel's bytes beside its plain version's
     walk, the ratio inside ``[BYTES_LO, BYTES_HI]`` (module docstring)."""
     stage_of = {"cand_prep": "hash", "sort": "dedup-insert",
-                "bucket_plan": "dedup-insert", "insert_commit": "queue"}
+                "bucket_plan": "dedup-insert",
+                "bucket_plan_fused": "dedup-insert", "insert_commit": "queue"}
     stages: dict = {}
     for name, w in walks.items():
         ratio = w["plain_bytes"] / max(w["kernel_bytes"], 1)

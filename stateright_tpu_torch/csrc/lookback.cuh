@@ -12,9 +12,14 @@
 //    one 64-bit word with release/acquire ordering, first its aggregate,
 //    then its inclusive prefix, and reads 32 predecessors at once, one per
 //    lane, combined with shuffles;
-//  - lets the last CTA to finish (a second ticket) read the last tile's
-//    prefix and zero the scratch for the next launch, so a step needs no
-//    memset.  Zeroing must wait (a barrier) until that read is done.
+//  - lets a tile that needs no prefix (none of its lanes writes at a
+//    scanned position) publish its aggregate and skip the look-back
+//    (`publish_aggregate`); later tiles look back through it;
+//  - lets the last CTA to finish (a second ticket) read the scan's total
+//    with `prefix_through` over the last tile (every tile has published
+//    by then, so it never spins) and zero the scratch for the next
+//    launch, so a step needs no memset.  Zeroing must wait (a barrier)
+//    until that read is done.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -104,19 +109,16 @@ __device__ __forceinline__ Scan block_scan(Scan x, Scan* s_warp) {
   return warp > 0 ? combine(s_warp[warp - 1], x) : x;
 }
 
-// Publishes tile `tile`'s aggregate `agg`, looks back for its exclusive
-// prefix, publishes its inclusive prefix and returns the exclusive one
-// (the same in every lane).  All 32 lanes of one warp call it.
-__device__ __forceinline__ Scan look_back(unsigned long long* state, int tile,
-                                          Scan agg) {
+// The combined value of tiles 0..`top` (the identity for top < 0): one
+// warp reads 32 tile states at once, one per lane, waits for each to be
+// published, and combines them with shuffles, back to the nearest
+// inclusive prefix.  Every lane returns the same value.  All 32 lanes of
+// one warp call it.
+__device__ __forceinline__ Scan prefix_through(
+    const unsigned long long* state, int top) {
   const int lane = threadIdx.x & 31;
-  Scan excl = {0u, 0u, 0u};
-  if (tile == 0) {
-    if (lane == 0) st_release(&state[0], kPrefix | pack(agg));
-    return excl;
-  }
-  if (lane == 0) st_release(&state[tile], kAggregate | pack(agg));
-  for (int top = tile - 1;; top -= 32) {
+  Scan acc = {0u, 0u, 0u};
+  for (;; top -= 32) {
     // lane l waits for tile top - l; before tile 0 is an empty prefix
     const int p = top - lane;
     unsigned long long w = kPrefix;
@@ -133,20 +135,34 @@ __device__ __forceinline__ Scan look_back(unsigned long long* state, int tile,
       const Scan y = shfl_down(x, d);
       if (lane + d <= lim) x = combine(y, x);
     }
-    excl = combine(shfl_from(x, 0), excl);
-    if (prefixes) break;
+    acc = combine(shfl_from(x, 0), acc);
+    if (prefixes) return acc;
   }
+}
+
+// Publishes tile `tile`'s aggregate `agg`, looks back for its exclusive
+// prefix, publishes its inclusive prefix and returns the exclusive one
+// (the same in every lane).  All 32 lanes of one warp call it.
+__device__ __forceinline__ Scan look_back(unsigned long long* state, int tile,
+                                          Scan agg) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) st_release(&state[0], kPrefix | pack(agg));
+    return Scan{0u, 0u, 0u};
+  }
+  if (lane == 0) st_release(&state[tile], kAggregate | pack(agg));
+  const Scan excl = prefix_through(state, tile - 1);
   if (lane == 0) st_release(&state[tile], kPrefix | pack(combine(excl, agg)));
   return excl;
 }
 
-// The inclusive prefix of tile `tile`, once it is published.
-__device__ __forceinline__ Scan wait_prefix(const unsigned long long* state,
-                                            int tile) {
-  unsigned long long w;
-  while (((w = ld_acquire(&state[tile])) >> 62) != 2) {
-  }
-  return unpack(w);
+// Publishes tile `tile`'s aggregate `agg` without looking back: tile 0 as
+// its prefix, any other as an aggregate, which later tiles look back
+// through.  For a tile that never needs its own prefix (none of its lanes
+// writes at a position the scan gives).  One thread calls it.
+__device__ __forceinline__ void publish_aggregate(unsigned long long* state,
+                                                  int tile, Scan agg) {
+  st_release(&state[tile], (tile == 0 ? kPrefix : kAggregate) | pack(agg));
 }
 
 }  // namespace

@@ -35,6 +35,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "cp_async.cuh"
 #include "splitmix.cuh"
 
 namespace {
@@ -42,15 +43,6 @@ namespace {
 constexpr int kMaxTile = 64;
 // the dynamic tile's share of a block's 48 KiB; `keep` takes the rest
 constexpr int kSmemBytes = 48 * 1024 - kMaxTile;
-
-// One 8-byte global-to-shared copy that bypasses the registers: a thread
-// issues all of its copies back to back and waits once.
-__device__ __forceinline__ void cp_async8(unsigned long long* smem,
-                                          const unsigned long long* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
-               "l"(gmem));
-}
 
 __global__ void row_hash_tiled(const unsigned long long* __restrict__ rows,
                                const unsigned char* __restrict__ valid,
@@ -82,8 +74,7 @@ __global__ void row_hash_tiled(const unsigned long long* __restrict__ rows,
       }
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  cp_async_wait_all();
   __syncthreads();
   if (t >= rows_here) return;
   out[r0 + t] = keep[t] ? row_fingerprint(tile + t * stride, width) : kEmpty;

@@ -67,6 +67,10 @@ _SIGNATURES = {
     # tgt, cfp, cpl, sel, n_new, overflow, scratch, stage (nullable: table
     # order; else generation order, two launches), m, stream
     "srt_bucket_plan": (_P,) * 15 + (_I64, _P),
+    # the fused entry: tfp, fp, payload (unsorted), skey, order, cidx
+    # (nullable), cand_overflow, the same outputs, scratch and stage, win
+    # (nullable: the whole batch), bits, boff, m, stream
+    "srt_bucket_plan_fused": (_P,) * 16 + (_I32, _I64, _I64, _P),
     # tfp, tpl, tgt, cfp, cpl, n_new, m, then the queue half (all null
     # for a table-only commit): qrows, qfp, qebits, qdepth, tail, sel,
     # crows, pebits, pdepth, then the tag column (both null without it):

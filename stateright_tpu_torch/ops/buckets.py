@@ -18,13 +18,16 @@ the same table bytes:
    written and ``n_new`` is 0.
 
 Values are int64 bit patterns (``ops/hashing.py``).  The insert runs in
-three stages: :func:`sort_candidates` (compaction and the stable key sort,
-PyTorch; ``torch.argsort`` is not stable by default, and the table and
-traces depend on it, so every sort passes ``stable=True``), then
-:func:`bucket_plan` (membership, occupancy, dedup, ranks, flags and the
-compaction of the novel candidates; on CUDA one launch of
-``csrc/bucket_plan.cu``, two in generation order), then the commit
-(``ops/insert_commit.py``).
+three stages: the budget compaction (:func:`compact_candidates`) and one
+stable ``torch.sort`` of the keys (``torch.argsort`` is not stable by
+default, and the table and traces depend on it, so every sort passes
+``stable=True``), then :func:`bucket_plan_fused` (membership, occupancy,
+dedup, ranks, flags and the compaction of the novel candidates, reading
+the fingerprints and payloads through the sort's permutation; on CUDA one
+launch of ``csrc/bucket_plan.cu``, two in generation order), then the
+commit (``ops/insert_commit.py``).  :func:`bucket_plan` is the same plan
+over inputs the caller sorted itself (:func:`sort_candidates`; the sharded
+engine's per-shard sorts).
 
 The novel candidates are compacted in one of two orders.  Plain runs use
 table order (sorted key order).  Symmetry runs use **generation order**
@@ -36,7 +39,8 @@ in both orders; only the order of the compacted lists changes.
 
 The engine's step takes its first stage from ``ops/cand_prep.py`` instead
 (hash, key and compaction in one launch, then one sort);
-:func:`bucket_insert` serves the init rows and the tests.  Under
+:func:`bucket_insert` serves the init rows, the spill inject's lanes and
+the tests.  Under
 ``.prededup()`` the step first masks a window's repeated fingerprints
 (:func:`window_unique`).  The JAX
 version's data-dependent ``while_loop`` s become full-width passes masked
@@ -51,11 +55,12 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .hashing import EMPTY, EMPTY_U64, SIGN, lshr, mix64, mix64_np
+from .hashing import EMPTY, EMPTY_U64, SIGN, mix64, mix64_np
 from .insert_commit import insert_commit
 
 SLOTS = 16  # fingerprints per bucket (one 128-byte line of 64-bit words)
 PLAN_TILE = 256  # sorted lanes per CTA of csrc/bucket_plan.cu
+PLAN_SCRATCH = 5  # bucket_plan.cu's scratch words before the tile states
 
 
 def bucket_key(fps: torch.Tensor) -> torch.Tensor:
@@ -65,6 +70,23 @@ def bucket_key(fps: torch.Tensor) -> torch.Tensor:
     k = mix64(fps)
     k = torch.where(k == EMPTY, EMPTY - 1, k)
     return torch.where(fps == EMPTY, EMPTY, k)
+
+
+def bucket_bits(nbuckets: int) -> int:
+    """``log2(nbuckets)``: the key bits that name a bucket."""
+    if nbuckets & (nbuckets - 1):
+        raise ValueError("bucket count must be a power of two")
+    return int(nbuckets).bit_length() - 1
+
+
+def key_buckets(skey: torch.Tensor, bits: int) -> torch.Tensor:
+    """The buckets of sorted keys ``skey`` (``bucket_key ^ SIGN``, signed
+    order): the high ``bits`` bits of the unsigned key ``skey ^ SIGN``,
+    which is ``(skey >> s) + 2^(63 - s)`` for the arithmetic shift
+    ``s = 64 - bits``; all 0 at ``bits == 0``."""
+    if bits:
+        return (skey >> (64 - bits)) + (1 << (bits - 1))
+    return torch.zeros_like(skey)
 
 
 def bucket_of(fps, nbuckets: int) -> np.ndarray:
@@ -130,35 +152,53 @@ def bucket_probe_plain(tfp, sfp, bucket):
     return present, base
 
 
-def sort_candidates(fps: torch.Tensor, payloads: torch.Tensor,
-                    nbuckets: int, compact: int = None):
-    """The insert's first half: optional budget compaction, then the stable
-    sort by :func:`bucket_key`.  Returns ``(sfp, spl, bucket, order, cidx,
-    cand_overflow)``: sorted fingerprints and payloads, their buckets, the
-    sort permutation, the compaction index (None when not compacted), and
-    the 0-d budget-overflow flag."""
+def compact_candidates(fps: torch.Tensor, payloads: torch.Tensor,
+                       compact: int = None):
+    """The insert's budget compaction (JAX ``ops/buckets.py:181-194``):
+    with ``compact=CB`` below the lane count, the valid lanes move in lane
+    order to the front of CB lanes and the rest turn EMPTY.  Returns
+    ``(fps, payloads, cidx, cand_overflow)``: the compacted lanes (the
+    inputs when not compacted), the compaction index (None when not
+    compacted) and the 0-d flag "more valid lanes than CB"."""
     dev = fps.device
     m_orig = fps.shape[0]
     cand_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    cidx = None
-    if compact is not None and compact < m_orig:
-        vsum = torch.cumsum((fps != EMPTY).to(torch.int32), 0, dtype=torch.int32)
-        n_valid_orig = vsum[m_orig - 1]
-        cand_overflow = n_valid_orig > compact
-        # index of the j-th valid lane = first position where the running
-        # valid count reaches j+1 (monotone, so a binary search per lane)
-        want = torch.arange(1, compact + 1, dtype=torch.int32, device=dev)
-        cidx = torch.searchsorted(vsum, want, side="left").clamp_(max=m_orig - 1)
-        live = torch.arange(compact, device=dev) < n_valid_orig
-        fps = torch.where(live, fps[cidx], EMPTY)
-        payloads = payloads[cidx]  # dead lanes masked by the EMPTY fp above
-    if nbuckets & (nbuckets - 1):
-        raise ValueError("bucket count must be a power of two")
-    key = bucket_key(fps)
-    # unsigned key order == signed order of key ^ SIGN; stable like jnp.argsort
-    order = torch.argsort(key ^ SIGN, stable=True)
-    bucket = lshr(key[order], 64 - (int(nbuckets).bit_length() - 1))
-    return fps[order], payloads[order], bucket, order, cidx, cand_overflow
+    if compact is None or compact >= m_orig:
+        return fps, payloads, None, cand_overflow
+    vsum = torch.cumsum((fps != EMPTY).to(torch.int32), 0, dtype=torch.int32)
+    n_valid_orig = vsum[m_orig - 1]
+    cand_overflow = n_valid_orig > compact
+    # index of the j-th valid lane = first position where the running
+    # valid count reaches j+1 (monotone, so a binary search per lane)
+    want = torch.arange(1, compact + 1, dtype=torch.int32, device=dev)
+    cidx = torch.searchsorted(vsum, want, side="left").clamp_(max=m_orig - 1)
+    live = torch.arange(compact, device=dev) < n_valid_orig
+    fps = torch.where(live, fps[cidx], EMPTY)
+    payloads = payloads[cidx]  # dead lanes masked by the EMPTY fp above
+    return fps, payloads, cidx, cand_overflow
+
+
+def sort_keys(fps: torch.Tensor):
+    """The stable sort by :func:`bucket_key`: ``(skey, order)``, the keys
+    as ``bucket_key ^ SIGN`` (unsigned key order as signed order; EMPTY
+    lanes last) sorted, and the permutation."""
+    return torch.sort(bucket_key(fps) ^ SIGN, stable=True)
+
+
+def sort_candidates(fps: torch.Tensor, payloads: torch.Tensor,
+                    nbuckets: int, compact: int = None):
+    """The insert's first half in its pre-gathered form: optional budget
+    compaction, then the stable sort by :func:`bucket_key` and the sorted
+    lanes gathered.  Returns ``(sfp, spl, bucket, order, cidx,
+    cand_overflow)``: sorted fingerprints and payloads, their buckets, the
+    sort permutation, the compaction index (None when not compacted), and
+    the 0-d budget-overflow flag: :func:`bucket_plan`'s inputs."""
+    bits = bucket_bits(nbuckets)
+    fps, payloads, cidx, cand_overflow = compact_candidates(fps, payloads,
+                                                            compact)
+    skey, order = sort_keys(fps)
+    return (fps[order], payloads[order], key_buckets(skey, bits), order,
+            cidx, cand_overflow)
 
 
 def plan_writes(sfp, spl, bucket, present, base, nslots: int, cand_overflow,
@@ -215,13 +255,43 @@ def bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
     return tgt, cfp, cpl, sel, n_new, overflow
 
 
+def bucket_plan_fused_plain(tfp, fp, payload, skey, order, cidx,
+                            cand_overflow, nbuckets: int,
+                            generation_order: bool = False, win=None,
+                            boff: int = 0):
+    """Plain version of the fused plan: the sort's tail (``fp[order]``,
+    ``payload[order]`` and the keys' buckets, :func:`key_buckets`) and
+    :func:`bucket_plan_plain`, composed.  ``fp``/``payload`` are the
+    unsorted lanes, ``skey``/``order`` the stable sort of their keys, and
+    ``nbuckets`` the bucket count the keys are cut for.  With ``win`` (a
+    2-word tensor ``lo, hi``) it plans the sorted lanes ``[lo, hi)`` as
+    lanes ``0..`` of a table piece ``tfp`` whose buckets start at
+    ``boff``: the other lanes dead (EMPTY, the piece's last bucket), as
+    the mesh engine's pieces take them."""
+    sfp, spl = fp[order], payload[order]
+    bucket = key_buckets(skey, bucket_bits(nbuckets))
+    if boff:
+        bucket = bucket - boff
+    if win is not None:
+        m = skey.shape[0]
+        idx = win[0] + torch.arange(m, device=skey.device)
+        live = idx < win[1]
+        idx = idx.clamp_(max=m - 1)
+        sfp = torch.where(live, sfp[idx], EMPTY)
+        spl, order = spl[idx], order[idx]
+        bucket = torch.where(live, bucket[idx], tfp.shape[0] // SLOTS - 1)
+    return bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx,
+                             cand_overflow, generation_order)
+
+
 class PlanBuffers:
     """Outputs and scratch of :func:`bucket_plan` for ``m`` sorted lanes on
     one CUDA device, allocated and validated once (the engine keeps one per
-    candidate width).  Zero-filled, so the entries past ``n_new`` that a
-    launch leaves alone stay in-range indices; the kernel's last CTA zeroes
-    the scratch (two tickets, the overflow word, one state word per tile)
-    again for the next launch.
+    candidate width; the fused and the pre-gathered entries take the same
+    buffers).  Zero-filled, so the entries past ``n_new`` that a launch
+    leaves alone stay in-range indices; the kernel's last CTA zeroes the
+    scratch (two tickets, the overflow word, the highest staged position,
+    one state word per tile) again for the next launch.
 
     ``generation_order`` adds the staging area of that mode: three int64
     words (slot, fingerprint, payload) per candidate, indexed by the
@@ -241,7 +311,7 @@ class PlanBuffers:
         )
         self.n_new = torch.zeros((), **i64)
         self.overflow = torch.zeros((), dtype=torch.bool, device=device)
-        self.scratch = torch.zeros(3 + -(-m // PLAN_TILE), **i64)
+        self.scratch = torch.zeros(PLAN_SCRATCH + -(-m // PLAN_TILE), **i64)
         self.generation_order = generation_order
         self.stage = (torch.full((3 * m,), -1, **i64) if generation_order
                       else None)
@@ -254,15 +324,16 @@ class PlanBuffers:
 def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
                 out: PlanBuffers = None, *, generation_order: bool = False,
                 check: bool = True, stream=None):
-    """:func:`bucket_plan_plain`'s function; CUDA tensors launch
-    ``csrc/bucket_plan.cu`` into ``out`` (allocated here when None): once
-    in table order, and with ``generation_order`` twice (the plan, then
-    the compaction in candidate order; the launch count counts both).
-    The outputs are ``out``'s tensors: the next launch into the same
-    buffers overwrites them.  ``check=False`` skips the argument checks:
-    only for a caller that built the inputs itself (the engine, from
-    :func:`sort_candidates`).  ``stream``: the raw CUDA stream (default:
-    the current one)."""
+    """:func:`bucket_plan_plain`'s function over pre-gathered sorted
+    inputs (:func:`sort_candidates`); CUDA tensors launch
+    ``csrc/bucket_plan.cu``'s pre-gathered entry into ``out`` (allocated
+    here when None): once in table order, and with ``generation_order``
+    twice (the plan, then the compaction in candidate order; the launch
+    count counts both).  The outputs are ``out``'s tensors: the next
+    launch into the same buffers overwrites them.  ``check=False`` skips
+    the argument checks: only for a caller that built the inputs itself
+    (the sharded engine, whose shards are sorted apart).  ``stream``: the
+    raw CUDA stream (default: the current one)."""
     if sfp.device.type != "cuda":
         return bucket_plan_plain(tfp, sfp, spl, bucket, order, cidx,
                                  cand_overflow, generation_order)
@@ -303,6 +374,65 @@ def bucket_plan(tfp, sfp, spl, bucket, order, cidx, cand_overflow,
 bucket_plan.launches = 0
 
 
+def bucket_plan_fused(tfp, fp, payload, skey, order, cidx, cand_overflow,
+                      nbuckets: int, out: PlanBuffers = None, *,
+                      generation_order: bool = False, win=None,
+                      boff: int = 0, check: bool = True, stream=None):
+    """:func:`bucket_plan_fused_plain`'s function: the plan straight from
+    ``cand_prep``'s unsorted ``fp``/``payload`` and the key sort's
+    ``skey``/``order``.  CUDA tensors launch ``csrc/bucket_plan.cu``'s
+    fused entry into ``out`` (allocated here when None): once in table
+    order, twice with ``generation_order``, counted in
+    ``bucket_plan_fused.launches``.  ``win`` (a 2-word int64 device
+    tensor) and ``boff`` plan one table piece's window of the sorted
+    lanes (the mesh engine).  ``check=False`` skips the argument checks:
+    only for a caller that built the inputs itself.  ``stream``: the raw
+    CUDA stream (default: the current one)."""
+    if skey.device.type != "cuda":
+        return bucket_plan_fused_plain(tfp, fp, payload, skey, order, cidx,
+                                       cand_overflow, nbuckets,
+                                       generation_order, win, boff)
+    m = skey.shape[0]
+    dev = skey.device
+    bits = bucket_bits(nbuckets)
+    if check:
+        _cuda.require(tfp, "tfp", torch.int64, 1, dev)
+        if tfp.shape[0] % SLOTS:
+            raise ValueError("tfp: not a whole number of buckets")
+        for t, name in ((fp, "fp"), (payload, "payload"), (skey, "skey"),
+                        (order, "order")):
+            _cuda.require(t, name, torch.int64, 1, dev, m)
+        if cidx is not None:
+            _cuda.require(cidx, "cidx", torch.int64, 1, dev, m)
+        _cuda.require(cand_overflow, "cand_overflow", torch.bool, 0, dev)
+        if win is not None:
+            _cuda.require(win, "win", torch.int64, 1, dev, 2)
+        elif boff or tfp.shape[0] != nbuckets * SLOTS:
+            raise ValueError(f"tfp: {tfp.shape[0]} slots for {nbuckets} "
+                             f"buckets at offset {boff}, and no window")
+        if out is not None and (out.m, out.device) != (m, dev):
+            raise ValueError(
+                f"out: buffers for {out.m} lanes on {out.device}")
+    if out is None:
+        out = PlanBuffers(m, dev, generation_order)
+    elif out.generation_order != generation_order:
+        raise ValueError(f"out: buffers for generation_order="
+                         f"{out.generation_order}")
+    if stream is None:
+        stream = _cuda.stream_of(skey)
+    _cuda.check("bucket_plan_fused", _cuda.library().srt_bucket_plan_fused(
+        tfp.data_ptr(), fp.data_ptr(), payload.data_ptr(), skey.data_ptr(),
+        order.data_ptr(), None if cidx is None else cidx.data_ptr(),
+        cand_overflow.data_ptr(), *out.ptrs, out.stage_ptr,
+        None if win is None else win.data_ptr(), bits, boff, m, stream,
+    ))
+    _cuda.count_launch(bucket_plan_fused, 1 if out.stage is None else 2)
+    return out.outputs
+
+
+bucket_plan_fused.launches = 0
+
+
 def bucket_insert(
     table_fp: torch.Tensor,  # int64[nbuckets * SLOTS]; EMPTY = free
     table_payload: torch.Tensor,  # int64[nbuckets * SLOTS]
@@ -327,12 +457,12 @@ def bucket_insert(
     nslots = table_fp.shape[0]
     if nslots % SLOTS:
         raise ValueError(f"table length {nslots} is not a whole number of buckets")
-    sfp, spl, bucket, order, cidx, cand_overflow = sort_candidates(
-        fps, payloads, nslots // SLOTS, compact
-    )
-    tgt, cfp, cpl, sel, n_new, overflow = bucket_plan(
-        table_fp, sfp, spl, bucket, order, cidx, cand_overflow,
-        generation_order=generation_order,
+    fps, payloads, cidx, cand_overflow = compact_candidates(fps, payloads,
+                                                            compact)
+    skey, order = sort_keys(fps)
+    tgt, cfp, cpl, sel, n_new, overflow = bucket_plan_fused(
+        table_fp, fps, payloads, skey, order, cidx, cand_overflow,
+        nslots // SLOTS, generation_order=generation_order,
     )
     insert_commit(table_fp, table_payload, tgt, cfp, cpl, n_new)
     return table_fp, table_payload, sel, n_new, overflow, cand_overflow

@@ -22,8 +22,11 @@ It always compacts, even at ``CB == M``: the sorted valid prefix, and so
 the tables and the queue, come out the same as without compaction.
 
 On a CUDA tensor :func:`cand_prep` launches ``csrc/cand_prep.cu`` once;
-on a CPU tensor it runs :func:`cand_prep_plain`.  :func:`sort_prepared`
-is the stable key sort that follows it in the engine.
+on a CPU tensor it runs :func:`cand_prep_plain`.  The engine then sorts
+the keys once (``torch.sort``) and hands the unsorted lanes with the
+permutation to ``ops/buckets.bucket_plan_fused``; :func:`sort_prepared`
+is the sort with the sorted lanes gathered, that plan's plain
+counterpart.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _cuda
-from .buckets import bucket_key
+from .buckets import bucket_bits, bucket_key, key_buckets
 from .hashing import EMPTY, SIGN, ns_hash_plain, row_hash_plain
 
-PREP_TILE = 256  # input (or output) lanes per CTA of csrc/cand_prep.cu
+PREP_TILE = 1024  # input (or output) lanes per CTA of csrc/cand_prep.cu
+PREP_SCRATCH = 2  # cand_prep.cu's scratch words before the tile states
 
 
 class Namespace(NamedTuple):
@@ -100,7 +104,8 @@ class PrepBuffers:
         )
         self.n_valid = torch.zeros((), **i64)
         self.cand_overflow = torch.zeros((), dtype=torch.bool, device=device)
-        self.scratch = torch.zeros(2 + -(-m // PREP_TILE), **i64)
+        self.scratch = torch.zeros(PREP_SCRATCH + -(-m // PREP_TILE),
+                                   **i64)
         self.outputs = (self.fp, self.payload, self.cidx, self.key,
                         self.n_valid, self.cand_overflow)
         self.ptrs = tuple(t.data_ptr() for t in self.outputs + (self.scratch,))
@@ -157,17 +162,14 @@ cand_prep.launches = 0
 
 
 def sort_prepared(fp, payload, key, nbuckets: int):
-    """The stable sort of :func:`cand_prep`'s lanes by key, as the insert
-    needs them: ``(sfp, spl, bucket, order)``.  One ``torch.sort`` gives
+    """The stable sort of :func:`cand_prep`'s lanes by key, with the
+    sorted lanes gathered: ``(sfp, spl, bucket, order)``, the pre-gathered
+    plan's inputs (``ops/buckets.bucket_plan``).  One ``torch.sort`` gives
     the sorted keys and the permutation; a lane's bucket is the high
-    ``log2(nbuckets)`` bits of its unsigned key ``skey ^ SIGN``, which is
-    ``(skey >> s) + 2^(63 - s)`` for the arithmetic shift ``s``."""
-    if nbuckets & (nbuckets - 1):
-        raise ValueError("bucket count must be a power of two")
-    bits = int(nbuckets).bit_length() - 1
+    ``log2(nbuckets)`` bits of its unsigned key (``key_buckets``).  The
+    engines sort alone and give ``bucket_plan_fused`` the unsorted lanes
+    instead, so these gathers and the shift (the sort's tail) do not run
+    on their step; this composition is its plain counterpart."""
+    bits = bucket_bits(nbuckets)
     skey, order = torch.sort(key, stable=True)
-    if bits:
-        bucket = (skey >> (64 - bits)) + (1 << (bits - 1))
-    else:
-        bucket = torch.zeros_like(skey)
-    return fp[order], payload[order], bucket, order
+    return fp[order], payload[order], key_buckets(skey, bits), order

@@ -24,10 +24,12 @@ this engine places the buffers itself, by the same rules
  - **The insert** (:meth:`MeshEngine._insert_round`): ``cand_prep`` and
    the key sort run once, on the lead device, over the whole batch.
    Sorted by key means sorted by bucket, so each owner's candidates are one
-   contiguous run, found by a ``searchsorted`` of the piece boundaries.
-   Each run, moved to the front of a ``cand``-wide buffer, goes to its
-   piece's device, where ``bucket_plan`` plans it against the piece with
-   the buckets rebased by ``k*nb/D``.  An overflow in any piece blocks the
+   contiguous run, found by a ``searchsorted`` of the sorted keys for the
+   first key of each piece's first bucket.  The unsorted lanes, the
+   sorted keys, the permutation and the run's two bounds go to the
+   piece's device, where ``bucket_plan_fused`` plans the run as a window
+   (its lanes read as lanes ``0..`` of a ``cand``-wide batch) against the
+   piece with the buckets rebased by ``k*nb/D``.  An overflow in any piece blocks the
    commit of all (the counts are zeroed before the write, so nothing is
    written), and each piece's ``insert_commit`` writes its table piece.
    The novel lanes are then merged on the lead device at global queue
@@ -68,8 +70,10 @@ import numpy as np
 import torch
 
 from ..convert import QDEPTH, QEBITS, QFP, QROWS, TFP, TPL
-from ..ops.buckets import SLOTS, PlanBuffers, bucket_of, bucket_plan
-from ..ops.cand_prep import cand_prep, sort_prepared
+from ..ops.buckets import (
+    SLOTS, PlanBuffers, bucket_bits, bucket_of, bucket_plan_fused,
+)
+from ..ops.cand_prep import cand_prep
 from ..ops.hashing import EMPTY, EMPTY_U64
 from ..ops.insert_commit import QueueAppend, insert_commit, insert_commit_window
 from .partition import (
@@ -168,9 +172,16 @@ class MeshEngine(_Engine):
         self.plan_out = _MeshPlan(m, self.tdevs, lead, cuda)
         if self.por:
             self.plan_out2 = _MeshPlan(m, self.tdevs, lead, cuda)
-        # the piece boundaries in buckets, the lanes on each table device,
-        # and each device's stream
-        self.starts = torch.arange(len(self.tdevs) + 1, device=lead) * self.nbp
+        # each table piece's first sorted key (its first bucket's, as
+        # ``bucket_key ^ SIGN``), then the largest key, EMPTY's, which the
+        # last window leaves out (dead lanes either way); the lanes on each
+        # table device, and each device's stream
+        bits = bucket_bits(nb)
+        firsts = [((k * self.nbp) << (64 - bits)) ^ (1 << 63)
+                  for k in range(len(self.tdevs))]
+        self.key_starts = torch.tensor(
+            [f - (1 << 64) if f >> 63 else f for f in firsts]
+            + [(1 << 63) - 1], dtype=torch.int64, device=lead)
         self.cand_lanes_lead = torch.arange(m, device=lead)
         self.piece_lanes = [self.cand_lanes_lead.to(dv) for dv in self.tdevs]
         self.streams = {str(dv): (torch.cuda.current_stream(dv).cuda_stream
@@ -229,28 +240,14 @@ class MeshEngine(_Engine):
                     out[i] = torch.where(mask, v, out[i])
         return tuple(out)
 
-    def piece_bounds(self, bucket):
-        """Each table piece's run of the sorted lanes: ``bounds[k]`` to
-        ``bounds[k + 1]`` (a ``searchsorted`` of the piece boundaries, on
-        the device); None for a whole table."""
+    def piece_bounds(self, skey):
+        """Each table piece's run of the sorted keys ``skey``: lanes
+        ``bounds[k]`` to ``bounds[k + 1]`` (one ``searchsorted``, on the
+        device; the EMPTY lanes past the last bound); None for a whole
+        table."""
         if len(self.tdevs) == 1:
             return None
-        return torch.searchsorted(bucket, self.starts)
-
-    def piece_inputs(self, k: int, bounds, sfp, spl, bucket, order) -> tuple:
-        """Table piece ``k``'s plan inputs: its run of the sorted lanes
-        moved to the front, the rest dead (EMPTY, the piece's last bucket),
-        the buckets rebased to the piece."""
-        if bounds is None:
-            return sfp, spl, bucket, order
-        m = self.eff_cand
-        lo, hi = bounds[k], bounds[k + 1]
-        idx = lo + self.cand_lanes_lead
-        live = idx < hi
-        idx = idx.clamp_(max=m - 1)
-        return (torch.where(live, sfp[idx], EMPTY), spl[idx],
-                torch.where(live, bucket[idx] - k * self.nbp, self.nbp - 1),
-                order[idx])
+        return torch.searchsorted(skey, self.key_starts)
 
     def _insert_round(self, c, krows, kept, fps, tail, cand_rows, ebits,
                       depths, prep_out, plan_out):
@@ -269,19 +266,19 @@ class MeshEngine(_Engine):
             krows, kept, fps, self.arity, m, prep_out, check=False,
             stream=self.stream,
         )
-        sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
-                                                self.cap // SLOTS)
+        skey, order = torch.sort(key, stable=True)
         tfp, tpl = c[TFP], c[TPL]
         plans = []
-        bounds = self.piece_bounds(bucket)
+        bounds = self.piece_bounds(skey)
         for k, dv in enumerate(self.tdevs):
-            args = [a.to(dv) for a in self.piece_inputs(
-                k, bounds, sfp, spl, bucket, order) + (cidx, coverflow)]
+            args = [a.to(dv) for a in (pfp, ppl, skey, order, cidx,
+                                       coverflow)]
+            win = None if bounds is None else bounds[k:k + 2].to(dv)
             with _on(dv):
-                plans.append(bucket_plan(
-                    tfp.parts[k], *args, plan_out.bufs[k],
-                    generation_order=False, check=False,
-                    stream=self.streams[str(dv)]))
+                plans.append(bucket_plan_fused(
+                    tfp.parts[k], *args, self.cap // SLOTS,
+                    plan_out.bufs[k], win=win, boff=k * self.nbp,
+                    check=False, stream=self.streams[str(dv)]))
         # an overflow in any piece blocks every piece's commit
         toverflow = torch.stack([p[5].to(lead) for p in plans]).any()
         committed = []

@@ -16,7 +16,8 @@ batch and
  3. flushes pending ``eventually`` bits at terminal rows;
  4. fingerprints, keys and compacts the successors (kernel
     ``cand_prep``), sorts them by bucket key, and plans the insert (kernel
-    ``bucket_plan``);
+    ``bucket_plan``'s fused entry, which reads the unsorted lanes through
+    the sort's permutation);
  5. writes the novel fingerprints into the table and appends their rows
     at the queue tail (kernel ``insert_commit``).
 
@@ -91,7 +92,7 @@ to an ample set (``ops/por.ample_mask``, over the plan of
 boost word is armed) and inserts those successors; then, in a second
 insert appended after the first's rows, the other successors of every
 reduced row none of whose ample successors was novel (the cycle
-proviso).  Each insert is ``cand_prep``, the sort, ``bucket_plan`` and
+proviso).  Each insert is ``cand_prep``, the sort, ``bucket_plan_fused`` and
 ``insert_commit``, the second into a buffer pair of its own so the
 first's ``tgt``, ``sel`` and ``n_new`` survive it.  An overflow in
 either writes the first's and the second's slots back to empty
@@ -121,7 +122,7 @@ filter may hold to a pending buffer (``_Engine._defer``), and stops the
 block (``spill_sync``) before the buffer can overflow; the table trigger
 reads hot occupancy.  At the next sync the host resolves the pending
 lanes against the store and inserts the novel ones through
-:meth:`_Engine.inject` (``sort_candidates``, ``bucket_plan``,
+:meth:`_Engine.inject` (the key sort, ``bucket_plan_fused``,
 ``insert_commit``); a queue doubling the budget blocks moves the queue's
 tail to a host FIFO, refilled as the queue drains.  Snapshots carry every
 tier.
@@ -176,10 +177,10 @@ from ..convert import (
 from ..core import Expectation
 from ..ops import _cuda
 from ..ops.buckets import (
-    SLOTS, PlanBuffers, bucket_insert, bucket_plan, host_bucket_rehash,
-    lane_compact, sort_candidates, window_unique,
+    SLOTS, PlanBuffers, bucket_insert, bucket_plan_fused,
+    host_bucket_rehash, lane_compact, sort_keys, window_unique,
 )
-from ..ops.cand_prep import PrepBuffers, cand_prep, sort_prepared
+from ..ops.cand_prep import PrepBuffers, cand_prep
 from ..ops.cartography import (
     DEPTH_BINS, action_hist_delta, cart_carry_shapes, prop_tally_delta,
     queue_depth_hist, queue_depth_hist_exact, queue_depth_hist_np, snapshot,
@@ -661,19 +662,19 @@ class _Engine:
     def _insert_round(self, c, krows, kept, fps, tail, cand_rows, ebits,
                       depths, prep_out, plan_out):
         """One insert of the candidate lanes ``kept``: ``cand_prep``, the
-        key sort, ``bucket_plan``, and ``insert_commit`` with the queue
-        append at ``tail``.  The engine built every input itself, so the
+        key sort, ``bucket_plan_fused``, and ``insert_commit`` with the
+        queue append at ``tail``.  The engine built every input itself, so the
         kernels run unchecked.  Returns ``(tgt, sel, n_new, n_kept,
         toverflow, coverflow)``, ``n_kept`` the count of ``kept``."""
         pfp, ppl, cidx, key, n_kept, coverflow = cand_prep(
             krows, kept, fps, self.arity, self.eff_cand, prep_out,
             check=False, stream=self.stream,
         )
-        sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
-                                                self.cap // SLOTS)
-        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
-            c[TFP], sfp, spl, bucket, order, cidx, coverflow, plan_out,
-            generation_order=self.sym, check=False, stream=self.stream,
+        skey, order = torch.sort(key, stable=True)
+        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan_fused(
+            c[TFP], pfp, ppl, skey, order, cidx, coverflow,
+            self.cap // SLOTS, plan_out, generation_order=self.sym,
+            check=False, stream=self.stream,
         )
         insert_commit(
             c[TFP], c[TPL], tgt, cfp, cpl, n_new,
@@ -858,7 +859,7 @@ class _Engine:
         lanes; never rehashed, since under symmetry a fingerprint is the
         canonical row's), rows ``irows``, parents ``ipar``, ebits
         ``iebt`` and parent depths ``ipdep``.  The insert is the step's:
-        the stable key sort, ``bucket_plan`` (generation order under
+        the stable key sort, ``bucket_plan_fused`` (generation order under
         symmetry) and ``insert_commit`` with the queue append, so a Bloom
         false positive that is hot-resident drops out as a duplicate.  It
         bumps ``unique`` and ``tail``, clears ``spill_sync`` and the
@@ -868,11 +869,12 @@ class _Engine:
         c = list(carry)
         sp = self.layout.spill_start
         tail = c[TAIL]
-        sfp, spl, bucket, order, cidx, cov = sort_candidates(
-            ifp, ipar, self.cap // SLOTS)
-        tgt, cfp, cpl, sel, n_new, tovf = bucket_plan(
-            c[TFP], sfp, spl, bucket, order, cidx, cov, self.inject_out,
-            generation_order=self.sym, stream=self.stream,
+        skey, order = sort_keys(ifp)
+        no_cov = torch.zeros((), dtype=torch.bool, device=ifp.device)
+        tgt, cfp, cpl, sel, n_new, tovf = bucket_plan_fused(
+            c[TFP], ifp, ipar, skey, order, None, no_cov,
+            self.cap // SLOTS, self.inject_out, generation_order=self.sym,
+            stream=self.stream,
         )
         insert_commit(
             c[TFP], c[TPL], tgt, cfp, cpl, n_new,
@@ -985,7 +987,7 @@ class GpuChecker(WavefrontChecker):
         self.steps_run = 0  # device steps issued, post-stop no-ops included
         # under spill: inject calls, and the kernel launches they made
         self.inject_calls = 0
-        self.inject_launches = {"bucket_plan": 0, "insert_commit": 0}
+        self.inject_launches = {"bucket_plan_fused": 0, "insert_commit": 0}
         self._final_carry = None
         self._last_engine: Optional[_Engine] = None
         self._last_engine_key: Optional[tuple] = None
@@ -1418,12 +1420,12 @@ class GpuChecker(WavefrontChecker):
             for a, b in zip(lanes, (nfp, nrows, npar, nebt, ndep - 1)):
                 a[:k] = b
             args = [convert.signed_tensor(a, self.device) for a in lanes]
-            launches = (bucket_plan.launches, insert_commit.launches)
+            launches = (bucket_plan_fused.launches, insert_commit.launches)
             carry, io = eng.inject(carry, *args)
             io = io.cpu().numpy()
             self.inject_calls += 1
-            self.inject_launches["bucket_plan"] += (bucket_plan.launches
-                                                    - launches[0])
+            self.inject_launches["bucket_plan_fused"] += (
+                bucket_plan_fused.launches - launches[0])
             self.inject_launches["insert_commit"] += (
                 insert_commit.launches - launches[1])
             if int(io[1]) == 0:

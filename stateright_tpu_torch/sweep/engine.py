@@ -68,9 +68,9 @@ from ..core import Expectation
 from ..fingerprint import MASK64, ns_fingerprint
 from ..ops import _cuda
 from ..ops.buckets import (
-    SLOTS, PlanBuffers, bucket_insert, bucket_plan, host_bucket_rehash,
+    SLOTS, PlanBuffers, bucket_insert, bucket_plan_fused, host_bucket_rehash,
 )
-from ..ops.cand_prep import Namespace, PrepBuffers, cand_prep, sort_prepared
+from ..ops.cand_prep import Namespace, PrepBuffers, cand_prep
 from ..ops.hashing import EMPTY, ns_hash_plain, row_hash
 from ..ops.insert_commit import QueueAppend, insert_commit
 from ..parallel.prewarm import CompileWatch, build_site
@@ -229,11 +229,11 @@ class _SweepEngine:
             self.prep_out, check=False, stream=self.stream,
             ns=Namespace(tags, self.ns_low, self.ns_xor, self.cohort.ns_bits),
         )
-        sfp, spl, bucket, order = sort_prepared(pfp, ppl, key,
-                                                self.cap // SLOTS)
-        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan(
-            c[S_TFP], sfp, spl, bucket, order, cidx, coverflow,
-            self.plan_out, check=False, stream=self.stream,
+        skey, order = torch.sort(key, stable=True)
+        tgt, cfp, cpl, sel, n_new, toverflow = bucket_plan_fused(
+            c[S_TFP], pfp, ppl, skey, order, cidx, coverflow,
+            self.cap // SLOTS, self.plan_out, check=False,
+            stream=self.stream,
         )
         insert_commit(
             c[S_TFP], c[S_TPL], tgt, cfp, cpl, n_new,

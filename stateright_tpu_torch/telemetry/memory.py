@@ -161,8 +161,8 @@ def wavefront_specs(
     sym)``).  On the CPU the plain versions allocate per call, so nothing
     else stays resident.  (A POR plan's few ``A x A`` constants are the
     plan's, not the capacities', and are not counted.)"""
-    from ..ops.buckets import PLAN_TILE
-    from ..ops.cand_prep import PREP_TILE
+    from ..ops.buckets import PLAN_SCRATCH, PLAN_TILE
+    from ..ops.cand_prep import PREP_SCRATCH, PREP_TILE
 
     i64, i32 = np.int64, np.int32
     m = batch * arity
@@ -205,7 +205,8 @@ def wavefront_specs(
             specs += [
                 BufferSpec(f"{pre}_n_valid", (), i64),
                 BufferSpec(f"{pre}_cand_overflow", (), np.bool_),
-                BufferSpec(f"{pre}_scratch", (2 + -(-m // PREP_TILE),), i64),
+                BufferSpec(f"{pre}_scratch",
+                           (PREP_SCRATCH + -(-m // PREP_TILE),), i64),
             ]
         plans = ([("plan", cb)] + ([("plan2", cb)] if por else [])
                  + ([("inject", spill[1])] if spill else []))
@@ -215,7 +216,8 @@ def wavefront_specs(
             specs += [
                 BufferSpec(f"{pre}_n_new", (), i64),
                 BufferSpec(f"{pre}_overflow", (), np.bool_),
-                BufferSpec(f"{pre}_scratch", (3 + -(-n // PLAN_TILE),), i64),
+                BufferSpec(f"{pre}_scratch",
+                           (PLAN_SCRATCH + -(-n // PLAN_TILE),), i64),
             ]
             if sym:
                 specs.append(BufferSpec(f"{pre}_stage", (3 * n,), i64))

@@ -58,13 +58,17 @@ from stateright_tpu_torch.models.single_copy_register import single_copy_model
 from stateright_tpu_torch.models.write_once_register import wo_register_model
 from stateright_tpu_torch.models.two_phase_commit import TwoPhaseSys
 from stateright_tpu_torch.ops.buckets import (
-    PLAN_TILE,
     SLOTS,
     PlanBuffers,
+    bucket_bits,
     bucket_insert,
     bucket_plan,
+    bucket_plan_fused,
+    bucket_plan_fused_plain,
     bucket_plan_plain,
+    compact_candidates,
     sort_candidates,
+    sort_keys,
     window_unique,
 )
 from stateright_tpu_torch.ops.cand_prep import (
@@ -85,7 +89,12 @@ from stateright_tpu_torch.ops.insert_commit import (
     insert_commit,
     insert_commit_plain,
 )
-from test_torch_plan_cases import GEN_CASES, gen_case, in_buckets
+from test_torch_plan_cases import (
+    GEN_CASES,
+    PLAN_CASES,
+    gen_case,
+    plan_case,
+)
 
 pytestmark = pytest.mark.gpu
 EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -136,57 +145,6 @@ def test_row_hash_kernel_widest_row(cuda):
     wide = torch.zeros((2, ROW_HASH_MAX_WIDTH + 1), dtype=torch.int64)
     with pytest.raises(ValueError, match="row_hash"):
         row_hash(wide.to(cuda))
-
-
-def plan_case(case, rng):
-    """(table fp, table payload, candidates, payloads, compact)."""
-    nb, compact = 256, None
-    pre = in_buckets(rng, nb, lambda b: b >= 0, 4 * nb)
-    if case == "segment_spans_3_tiles":
-        # one bucket, one fingerprint 600 times and eleven others: the
-        # bucket's run and the fingerprint's run both cross tile edges
-        nb, pre = 1, in_buckets(rng, 1, lambda b: b >= 0, 4)
-        few = in_buckets(rng, 1, lambda b: b >= 0, 12)
-        fps = np.concatenate([np.repeat(few[:1], 600),
-                              rng.choice(few, 3 * PLAN_TILE - 600)])
-    elif case == "overflow_in_last_tile_only":
-        # 17 novel fingerprints in the last bucket sort to the last tile
-        nb = 64
-        pre = in_buckets(rng, nb, lambda b: b < nb - 1, 2 * nb)
-        others = in_buckets(rng, nb, lambda b: b < nb - 1, 150)
-        fps = np.concatenate([
-            rng.choice(others, 2 * PLAN_TILE + 83),
-            in_buckets(rng, nb, lambda b: b == nb - 1, SLOTS + 1),
-        ])
-    elif case == "cand_overflow":
-        fps = in_buckets(rng, nb, lambda b: b >= 0, 700)
-        compact = 512
-    elif case == "n_new_zero":  # every candidate is in the table
-        fps = rng.choice(pre, 900)
-    elif case == "m_1":
-        fps = in_buckets(rng, nb, lambda b: b >= 0, 1)
-    elif case == "m_tile_plus_1":
-        fps = rng.choice(in_buckets(rng, nb, lambda b: b >= 0, 200),
-                         PLAN_TILE + 1)
-        fps[::5] = EMPTY
-    elif case == "many_tiles":  # far more tiles than resident CTAs
-        nb, pre = 1 << 15, np.empty(0, np.uint64)
-        fps = rng.choice(in_buckets(rng, nb, lambda b: b >= 0, 60_000),
-                         300_000)
-        fps[rng.random(fps.size) < 0.3] = EMPTY
-        compact = 250_000
-    else:
-        raise ValueError(case)
-    tfp = torch.full((nb * SLOTS,), -1, dtype=torch.int64)
-    tpl = torch.zeros_like(tfp)
-    if pre.size:
-        bucket_insert(tfp, tpl, i64(pre), i64(pre))
-    return tfp, tpl, i64(fps), rand_i64(rng, fps.size), compact
-
-
-PLAN_CASES = ["segment_spans_3_tiles", "overflow_in_last_tile_only",
-              "cand_overflow", "n_new_zero", "m_1", "m_tile_plus_1",
-              "many_tiles"]
 
 
 @pytest.mark.parametrize("case", PLAN_CASES)
@@ -255,6 +213,147 @@ def test_bucket_plan_generation_order_kernel_matches_plain(cuda, case):
     tab = bucket_plan_plain(tfp, *inputs)
     assert torch.equal(torch.sort(want[0]).values, torch.sort(tab[0]).values)
     assert torch.equal(torch.sort(want[3][:planned]).values, want[3][:planned])
+
+
+def fused_case(case):
+    """(table fp, the fused entry's inputs, the pre-gathered entry's) of a
+    ``PLAN_CASES`` or ``GEN_CASES`` case."""
+    if case in PLAN_CASES:
+        rng = np.random.default_rng(PLAN_CASES.index(case))
+        tfp, _tpl, fps, payloads, compact = plan_case(case, rng)
+    else:
+        rng = np.random.default_rng(GEN_CASES.index(case))
+        nb, pre, fps, compact = gen_case(case, rng)
+        payloads = rand_i64(rng, fps.size)
+        tfp = torch.full((nb * SLOTS,), -1, dtype=torch.int64)
+        bucket_insert(tfp, torch.zeros_like(tfp), i64(pre), i64(pre))
+        fps = i64(fps)
+    f, pl, cidx, cov = compact_candidates(fps, payloads, compact)
+    fused = (f, pl, *sort_keys(f), cidx, cov)
+    nb = tfp.shape[0] // SLOTS
+    return tfp, fused, sort_candidates(fps, payloads, nb, compact)
+
+
+@pytest.mark.parametrize("gen", [False, True], ids=["table", "generation"])
+@pytest.mark.parametrize("case", PLAN_CASES + GEN_CASES)
+def test_bucket_plan_fused_kernel_matches_plain(cuda, case, gen):
+    """The fused entry against its plain version, twice into the same
+    buffers (the scratch and the staged slots reset), and the
+    pre-gathered entry on the same case: the planned lanes (blocked or
+    not) and both scalars, equal to plain and to each other."""
+    tfp, fused, sort = fused_case(case)
+    nb = tfp.shape[0] // SLOTS
+    want = bucket_plan_fused_plain(tfp, *fused, nb, generation_order=gen)
+    planned = int((want[0] != tfp.shape[0]).sum())
+    dev = [None if x is None else x.to(cuda) for x in fused]
+    out = PlanBuffers(fused[0].shape[0], cuda, generation_order=gen)
+    before = bucket_plan_fused.launches
+    for _ in range(2):
+        got = [x.cpu() for x in bucket_plan_fused(
+            tfp.to(cuda), *dev, nb, out=out, generation_order=gen)]
+        torch.cuda.synchronize()
+        assert int(got[4]) == int(want[4])  # n_new
+        assert bool(got[5]) == bool(want[5])  # overflow
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g[:planned], w[:planned])
+    assert bucket_plan_fused.launches - before == (4 if gen else 2)
+    assert int(out.scratch.abs().sum()) == 0  # left as the launch found it
+    if gen:
+        assert bool((out.stage[:out.m] == -1).all())
+    gathered = [None if x is None else x.to(cuda) for x in sort]
+    pre = [x.cpu() for x in bucket_plan(
+        tfp.to(cuda), *gathered, generation_order=gen)]
+    torch.cuda.synchronize()
+    assert int(pre[4]) == int(want[4]) and bool(pre[5]) == bool(want[5])
+    for g, w in zip(pre[:4], want[:4]):
+        assert torch.equal(g[:planned], w[:planned])
+
+
+@pytest.mark.parametrize("pieces", [2, 4])
+def test_bucket_plan_fused_window_matches_plain(cuda, pieces):
+    """The mesh engine's form: each table piece's window of the sorted
+    lanes, buckets rebased, against the plain window."""
+    tfp, fused, _ = fused_case("many_tiles")
+    nb = tfp.shape[0] // SLOTS
+    nbp = nb // pieces
+    bits = bucket_bits(nb)
+    firsts = [((k * nbp) << (64 - bits)) ^ (1 << 63) for k in range(pieces)]
+    starts = torch.tensor([x - (1 << 64) if x >> 63 else x for x in firsts]
+                          + [(1 << 63) - 1], dtype=torch.int64)
+    bounds = torch.searchsorted(fused[2], starts)
+    dev = [x.to(cuda) for x in fused]
+    out = PlanBuffers(fused[0].shape[0], cuda)
+    for k in range(pieces):
+        part = tfp[k * nbp * SLOTS:(k + 1) * nbp * SLOTS]
+        win = bounds[k:k + 2].clone()
+        want = bucket_plan_fused_plain(part, *fused, nb, win=win,
+                                       boff=k * nbp)
+        planned = int((want[0] != part.shape[0]).sum())
+        assert planned > 0
+        got = [x.cpu() for x in bucket_plan_fused(
+            part.to(cuda), *dev, nb, out=out, win=win.to(cuda),
+            boff=k * nbp)]
+        torch.cuda.synchronize()
+        assert int(got[4]) == int(want[4]) and bool(got[5]) == bool(want[5])
+        for g, w in zip(got[:4], want[:4]):
+            assert torch.equal(g[:planned], w[:planned])
+
+
+def staged_prep_case(width, mask, rng):
+    """(rows, valid, pfps, arity) at ``width`` with a dense, sparse (3 %)
+    or empty mask; M = 1,110 lanes is no multiple of the kernel's tile."""
+    parents, arity = 37, 30
+    m = parents * arity
+    rows = rand_i64(rng, m, width)
+    rows[::9, -1:] = -1
+    rate = {"dense": 1.0, "sparse": 0.03, "empty": 0.0}[mask]
+    valid = torch.from_numpy(rng.random(m) < rate)
+    return rows, valid, rand_i64(rng, parents), arity
+
+
+@pytest.mark.parametrize("budget", ["n_valid", "n_valid_minus_1"])
+@pytest.mark.parametrize("mask", ["dense", "sparse", "empty"])
+@pytest.mark.parametrize("width", [21, 33, 83, 700])
+def test_cand_prep_staged_rows_match_plain(cuda, width, mask, budget):
+    """The staged fold (rows copied to shared memory, in batches where a
+    tile's valid rows do not fit; W = 700 is past a 48 KB tile of 256
+    rows), every output lane and both scalars bit for bit, twice."""
+    assert 1110 % PREP_TILE
+    rng = np.random.default_rng(width * 7 + len(mask))
+    rows, valid, pfps, arity = staged_prep_case(width, mask, rng)
+    nv = int(valid.sum())
+    cb = max(1, nv if budget == "n_valid" else nv - 1)
+    want = cand_prep_plain(rows, valid, pfps, arity, cb)
+    args = [x.to(cuda) for x in (rows, valid, pfps)]
+    out = PrepBuffers(rows.shape[0], cb, cuda)
+    for _ in range(2):
+        got = [x.cpu() for x in cand_prep(*args, arity, cb, out=out)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(want[5]) == (budget == "n_valid_minus_1" and nv > 1)
+
+
+@pytest.mark.parametrize("budget", ["n_valid", "n_valid_minus_1"])
+@pytest.mark.parametrize("mask", ["dense", "sparse", "empty"])
+def test_cand_prep_staged_namespace_mode_matches_plain(cuda, mask, budget):
+    """The namespace mode on staged rows (W = 33), bit for bit."""
+    from stateright_tpu_torch.ops.cand_prep import Namespace
+
+    rng = np.random.default_rng(33 + len(mask))
+    rows, valid, pfps, arity = staged_prep_case(33, mask, rng)
+    nv = int(valid.sum())
+    cb = max(1, nv if budget == "n_valid" else nv - 1)
+    ns = ns_case("k_8", rng, rows, arity)
+    want = cand_prep_plain(rows, valid, pfps, arity, cb, ns)
+    cns = Namespace(*(x.to(cuda) for x in ns[:3]), ns.bits)
+    args = [x.to(cuda) for x in (rows, valid, pfps)]
+    out = PrepBuffers(rows.shape[0], cb, cuda)
+    for _ in range(2):
+        got = [x.cpu() for x in cand_prep(*args, arity, cb, out=out, ns=cns)]
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 def test_bucket_plan_generation_order_at_the_2pc15_symmetry_cell(cuda):
@@ -1194,7 +1293,8 @@ def test_mesh_snapshot_identical_on_cuda_and_cpu(cuda, name):
 
     kw = dict(capacity=1 << 9, batch=128) if "growth" in name else dict(
         capacity=1 << 12, batch=64)
-    kernels = (cand_prep, bucket_plan, insert_commit, insert_commit_window)
+    kernels = (cand_prep, bucket_plan_fused, insert_commit,
+               insert_commit_window)
     before = [k.launches for k in kernels]
     g = build(cuda).spawn_gpu(sync=True, **kw)
     launched = [k.launches - b for k, b in zip(kernels, before)]
