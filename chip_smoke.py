@@ -207,15 +207,16 @@ and read just after:
    ``.skip_audit().checked()`` (the preflight would refuse it) raises ``CheckedExecutionError`` naming state 4 and
    "out-of-bounds", and a 2pc-3 run afterwards in the same process still
    gives 288: no device-side assert fired;
- - ``spill_2pc7``: the JAX acceptance run (``tests/test_spill.py:
-   643-689``: batch 1,024, queue 2^17, a 2^14-bit Bloom filter, blocks of
-   64, cartography and the memory ledger) under a budget of ``tot(2^20)
-   + tot(2^21) - 1`` from the port's own analytic buffers: 296,448 unique
-   with the plain leg's state count and discoveries, at least one
-   eviction, hot + spilled = unique, cartography reconciled; the same run
-   on ``cpu`` (its own budget) with identical tables, queue rows, store
-   and tallies; a live ``checkpoint()`` after the first eviction resumed
-   on ``cuda`` to the uninterrupted run's tables and store;
+ - ``spill_2pc5``: the JAX 2pc-5 spill runs (``tests/test_spill.py:
+   259-296`` and :376-424: capacity 2^12, batch 128, queue 4,096, a
+   2^14-bit Bloom filter, blocks of 8, cartography and the memory ledger)
+   under a budget of ``tot(2^13) + tot(2^14) - 1`` from the port's own
+   analytic buffers: 8,832 / 58,146 (the JAX pins), the plain 2pc-5 leg's
+   state count and discoveries, at least one eviction, hot + spilled =
+   unique, cartography reconciled; the same run on ``cpu`` (its own
+   budget) with identical tables, queue rows, store and tallies; a live
+   ``checkpoint()`` after the first eviction resumed on ``cuda`` to the
+   uninterrupted run's tables and store;
  - ``spill_paxos3``: paxos-3 under ``.spill()`` with a budget that blocks
    the 2^21 -> 2^22 table growth: 1,194,428 / 2,420,477, "value chosen"
    replayed, "linearizable" never violated, at least one eviction, with
@@ -224,7 +225,7 @@ and read just after:
    inserts something (its inputs kept by :func:`first_inject`: the hot
    table before it and the ``pend_cap`` lanes), ``bucket_plan_fused`` and
    ``insert_commit`` against their plain versions, L2-cold, with their
-   times and bounds (``kernel_*_spill_2pc7_inject``,
+   times and bounds (``kernel_*_spill_2pc5_inject``,
    ``kernel_*_spill_paxos3_inject``);
  - the dispatched operations a step at 2pc-7 and paxos-3 with each flag
    off and on.
@@ -306,10 +307,10 @@ under ``at_paxos3_prededup`` (with the prededup kernel cell's records),
 ``at_2pc7_symmetry_prededup``, and the telemetry legs' under
 ``at_telemetry_paxos3``, ``at_telemetry_2pc7`` and ``at_profile_2pc7``,
 and the checked and spill legs' under ``at_checked_2pc7``,
-``at_checked_paxos2``, ``at_spill_2pc7`` and ``at_spill_paxos3``, the spill
+``at_checked_paxos2``, ``at_spill_2pc5`` and ``at_spill_paxos3``, the spill
 inject's own launches beside them as ``inject_launches``, and for
 ``bucket_plan_fused`` and ``insert_commit`` the inject cells' records, with the
-inject's launches, under ``at_spill_2pc7_inject`` and
+inject's launches, under ``at_spill_2pc5_inject`` and
 ``at_spill_paxos3_inject``; and the supervisor's and the audit's legs'
 under ``at_supervise_2pc7_kill``, ``at_supervise_oom_real``,
 ``at_supervise_sigkill``, the resumed run's, the killed run's being lost
@@ -576,14 +577,17 @@ OPS_STEPS = 8
 P3_SYNC_TARGET = 100_000
 P3_SYNC_CAPACITY = 1 << 21
 # checked mode and the spill tier: the step flags (models/_cli.py's
-# STEP_FLAGS), the JAX acceptance run's settings (tests/test_spill.py:
-# 643-689: 2pc-7, batch 1024, queue 2^17, a 2^14-bit Bloom filter, blocks
-# of 64), and paxos-3's queue, sized so it never grows
+# STEP_FLAGS), the JAX 2pc-5 spill tests' settings (tests/test_spill.py:
+# 53-89: capacity 2^12, batch 128, queue 4,096, a 2^14-bit Bloom filter,
+# blocks of 8; the budget admits the 2^13 rung), and paxos-3's queue,
+# sized so it never grows
 CHECKED = ("--checked",)
 SPILL = ("--spill",)
 SPILL_BLOOM = 1 << 14
-SPILL_2PC7_KW = dict(batch=1024, queue_capacity=1 << 17,
-                     spill_bloom_bits=SPILL_BLOOM, steps_per_call=64)
+SPILL_2PC5_KW = dict(capacity=1 << 12, batch=128, queue_capacity=4096,
+                     spill_bloom_bits=SPILL_BLOOM, steps_per_call=8)
+SPILL_2PC5_FIT = 1 << 13
+TPC5 = (8_832, 58_146)  # 2pc-5's unique and total states (the JAX pins)
 SPILL_P3_QCAP = 1 << 20
 SPILL_P3_BLOOM = 1 << 23  # the engine's default width
 # the checked sync count's 2pc-7 runs: a candidate budget no batch of
@@ -2306,20 +2310,20 @@ def spill_budget(model, cuda: bool, fit: int, qcap: int, batch: int,
     return tot(fit) + tot(2 * fit) - 1
 
 
-def spill_2pc7_builder():
-    """2pc-7 under ``.spill()`` with cartography and the memory ledger
+def spill_2pc5_builder():
+    """2pc-5 under ``.spill()`` with cartography and the memory ledger
     (the configuration its budget is computed for: a run without the
     counters would fit the growth by their bytes)."""
-    return (TwoPhaseSys(7).checker().spill()
+    return (TwoPhaseSys(5).checker().spill()
             .telemetry(cartography=True, memory=True))
 
 
 def spill_run(device, budget: int, **kw):
-    """:func:`spill_2pc7_builder`'s run at :data:`SPILL_2PC7_KW` and
+    """:func:`spill_2pc5_builder`'s run at :data:`SPILL_2PC5_KW` and
     ``budget``; joined."""
     with device_bytes(budget):
-        return spill_2pc7_builder().spawn_gpu(
-            device=device, **dict(SPILL_2PC7_KW, **kw)).join()
+        return spill_2pc5_builder().spawn_gpu(
+            device=device, **dict(SPILL_2PC5_KW, **kw)).join()
 
 
 def reconciles(c, n_init: int = 1) -> bool:
@@ -2329,7 +2333,100 @@ def reconciles(c, n_init: int = 1) -> bool:
             and sum(cart["action_hist"]) == c.state_count() - n_init)
 
 
-def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
+def spill_2pc5_leg(dev, smi: str, ref5: dict) -> tuple:
+    """``spill_2pc5`` (module docstring), against the plain 2pc-5 leg's
+    run ``ref5``; returns its launches (the inject's apart, under
+    ``inject``) and its inject kernel cell."""
+    kw5 = SPILL_2PC5_KW
+    budgets = {
+        kind: spill_budget(TwoPhaseSys(5), on_card, SPILL_2PC5_FIT,
+                           kw5["queue_capacity"], kw5["batch"],
+                           cartography=True)
+        for kind, on_card in (("cuda", dev.type == "cuda"), ("cpu", False))}
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with first_inject({}) as kept:
+        g = spill_run(dev, budgets["cuda"])
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = kernel_launches()
+    leg = dict(launches, inject=dict(g.inject_launches))
+    cell = inject_kernels(kept, "spill 2pc-5")
+    del kept
+    sp = g.spill_status()
+    hot = int((g._final_carry[convert.TFP] != EMPTY).sum())
+    live = {n: t.nbytes for n, t in g.live_buffers().items()}
+    spec = {b.name: b.nbytes for b in g._memory_spec_fn()(g._memory_caps())}
+    t0 = time.monotonic()
+    c = spill_run("cpu", budgets["cpu"])
+    c_s = time.monotonic() - t0
+    gs, cs = g.final_snapshot(), c.final_snapshot()
+    same, tail = same_snapshots(gs, cs)
+    same_store = all(np.array_equal(gs[k], cs[k])
+                     for k in ("spill_fp", "spill_parent"))
+    # a live checkpoint after the first eviction, resumed on the card
+    with device_bytes(budgets["cuda"]):
+        running = spill_2pc5_builder().spawn_gpu(device=dev, **SPILL_2PC5_KW)
+        snap = None
+        while not running.is_done():
+            s = running.checkpoint(timeout=600.0)
+            if int(s.get("spill_base", 0)) > 0 and int(s["tail"]) > int(
+                    s["head"]):
+                snap = s
+                break
+        running.stop().join()
+        if snap is None:
+            raise AssertionError("spill 2pc-5: no checkpoint after an "
+                                 "eviction")
+        r = spill_2pc5_builder().spawn_gpu(device=dev, resume=snap,
+                                           **SPILL_2PC5_KW).join()
+    rs = r.final_snapshot()
+    resumed_same, _ = same_snapshots(gs, rs)
+    resumed_store = all(np.array_equal(gs[k], rs[k])
+                        for k in ("spill_fp", "spill_parent"))
+    emit("spill_2pc5", {
+        "unique": g.unique_state_count(), "states": g.state_count(),
+        "sec": sec, "plain_2pc5_sec": ref5["sec"],
+        "wall_over_plain": sec / ref5["sec"], "steps": g.steps_run,
+        "budget_bytes": budgets, "spill": sp, "hot_fps": hot,
+        "inject_calls": g.inject_calls, "launches": leg,
+        "growth_events": g.growth_events, "stages": g.flight_recorder.stages(),
+        "cpu": {"unique": c.unique_state_count(), "sec": c_s,
+                "spill": c.spill_status()},
+        "tables_and_queue_identical": same, "store_identical": same_store,
+        "analytic_equals_live_bytes": live == spec,
+        "resume": {"snap_unique": int(snap["unique"]),
+                   "snap_spill_base": int(snap["spill_base"]),
+                   "unique": r.unique_state_count(),
+                   "tables_and_queue_identical": resumed_same,
+                   "store_identical": resumed_store},
+        "card": smi})
+    if ((g.unique_state_count(), g.state_count()) != TPC5
+            or (ref5["unique"], ref5["states"]) != TPC5
+            or g.discovery_fps() != ref5["disc"]):
+        raise AssertionError("spill 2pc-5: not the plain leg's run")
+    if sp["evictions"] < 1 or hot + sp["spilled_fps"] != TPC5[0]:
+        raise AssertionError(f"spill 2pc-5: tiers do not partition: {sp}")
+    if live != spec:
+        raise AssertionError("spill 2pc-5: analytic bytes are not the live "
+                             "tensors'")
+    if not (reconciles(g) and reconciles(c)):
+        raise AssertionError("spill 2pc-5: cartography does not reconcile")
+    if not (same and same_store and c.spill_status() == sp):
+        raise AssertionError("spill 2pc-5: cuda and cpu disagree")
+    if not (resumed_same and resumed_store
+            and r.unique_state_count() == TPC5[0]):
+        raise AssertionError("spill 2pc-5: the resumed run differs")
+    if not all_launched(launches):
+        raise AssertionError(f"a kernel never launched: {launches}")
+    if not all(g.inject_launches.values()):
+        raise AssertionError(f"the inject never ran: {g.inject_launches}")
+    return leg, cell
+
+
+def checked_spill_phases(dev, smi: str, ref5: dict, ref7: dict,
+                         p3_ref) -> tuple:
     """Checked mode and the spill tier on the card (module docstring);
     returns each leg's launches (the spill legs' inject launches apart,
     under ``inject``) and each spill leg's inject kernel cell."""
@@ -2427,94 +2524,8 @@ def checked_spill_phases(dev, smi: str, ref7: dict, p3_ref) -> tuple:
         raise AssertionError("2pc-3 after the OOB twin: not 288")
     lap("checked_oob")
 
-    # -- spill_2pc7: the JAX acceptance pin, cuda and cpu, and a resume -------
-    kw7 = SPILL_2PC7_KW
-    budgets = {
-        kind: spill_budget(TwoPhaseSys(7), on_card, 1 << 20,
-                           kw7["queue_capacity"], kw7["batch"],
-                           cartography=True)
-        for kind, on_card in (("cuda", dev.type == "cuda"), ("cpu", False))}
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    with first_inject({}) as kept:
-        g = spill_run(dev, budgets["cuda"])
-    torch.cuda.synchronize()
-    sec = time.monotonic() - t0
-    launches = kernel_launches()
-    legs["spill_2pc7"] = dict(launches, inject=dict(g.inject_launches))
-    cells["spill_2pc7"] = inject_kernels(kept, "spill 2pc-7")
-    del kept
-    sp = g.spill_status()
-    hot = int((g._final_carry[convert.TFP] != EMPTY).sum())
-    live = {n: t.nbytes for n, t in g.live_buffers().items()}
-    spec = {b.name: b.nbytes for b in g._memory_spec_fn()(g._memory_caps())}
-    t0 = time.monotonic()
-    c = spill_run("cpu", budgets["cpu"])
-    c_s = time.monotonic() - t0
-    gs, cs = g.final_snapshot(), c.final_snapshot()
-    same, tail = same_snapshots(gs, cs)
-    same_store = all(np.array_equal(gs[k], cs[k])
-                     for k in ("spill_fp", "spill_parent"))
-    # a live checkpoint after the first eviction, resumed on the card
-    with device_bytes(budgets["cuda"]):
-        running = spill_2pc7_builder().spawn_gpu(device=dev, **SPILL_2PC7_KW)
-        snap = None
-        while not running.is_done():
-            s = running.checkpoint(timeout=600.0)
-            if int(s.get("spill_base", 0)) > 0 and int(s["tail"]) > int(
-                    s["head"]):
-                snap = s
-                break
-        running.stop().join()
-        if snap is None:
-            raise AssertionError("spill 2pc-7: no checkpoint after an "
-                                 "eviction")
-        r = spill_2pc7_builder().spawn_gpu(device=dev, resume=snap,
-                                           **SPILL_2PC7_KW).join()
-    rs = r.final_snapshot()
-    resumed_same, _ = same_snapshots(gs, rs)
-    resumed_store = all(np.array_equal(gs[k], rs[k])
-                        for k in ("spill_fp", "spill_parent"))
-    emit("spill_2pc7", {
-        "unique": g.unique_state_count(), "states": g.state_count(),
-        "sec": sec, "plain_2pc7_sec": ref7["sec"],
-        "wall_over_plain": sec / ref7["sec"], "steps": g.steps_run,
-        "budget_bytes": budgets, "spill": sp, "hot_fps": hot,
-        "inject_calls": g.inject_calls, "launches": legs["spill_2pc7"],
-        "growth_events": g.growth_events, "stages": g.flight_recorder.stages(),
-        "cpu": {"unique": c.unique_state_count(), "sec": c_s,
-                "spill": c.spill_status()},
-        "tables_and_queue_identical": same, "store_identical": same_store,
-        "analytic_equals_live_bytes": live == spec,
-        "resume": {"snap_unique": int(snap["unique"]),
-                   "snap_spill_base": int(snap["spill_base"]),
-                   "unique": r.unique_state_count(),
-                   "tables_and_queue_identical": resumed_same,
-                   "store_identical": resumed_store},
-        "card": smi})
-    if (g.unique_state_count() != TPC7_UNIQUE
-            or g.state_count() != ref7["states"]
-            or g.discovery_fps() != ref7["disc"]):
-        raise AssertionError("spill 2pc-7: not the plain leg's run")
-    if sp["evictions"] < 1 or hot + sp["spilled_fps"] != TPC7_UNIQUE:
-        raise AssertionError(f"spill 2pc-7: tiers do not partition: {sp}")
-    if live != spec:
-        raise AssertionError("spill 2pc-7: analytic bytes are not the live "
-                             "tensors'")
-    if not (reconciles(g) and reconciles(c)):
-        raise AssertionError("spill 2pc-7: cartography does not reconcile")
-    if not (same and same_store and c.spill_status() == sp):
-        raise AssertionError("spill 2pc-7: cuda and cpu disagree")
-    if not (resumed_same and resumed_store
-            and r.unique_state_count() == TPC7_UNIQUE):
-        raise AssertionError("spill 2pc-7: the resumed run differs")
-    if not all_launched(launches):
-        raise AssertionError(f"a kernel never launched: {launches}")
-    if not all(g.inject_launches.values()):
-        raise AssertionError(f"the inject never ran: {g.inject_launches}")
-    del g, c, r, gs, cs, rs
-    lap("spill_2pc7")
+    legs["spill_2pc5"], cells["spill_2pc5"] = spill_2pc5_leg(dev, smi, ref5)
+    lap("spill_2pc5")
 
     # -- spill_paxos3: the benchmark model, the 2^21 -> 2^22 growth blocked --
     budget3 = spill_budget(paxos_model(3), dev.type == "cuda", 1 << 21,
@@ -4517,6 +4528,10 @@ def main() -> int:
                   "tables_identical": bool(same), "sec_cuda": g5_s})
     if not (same and g5.unique_state_count() == c5.unique_state_count() == 8832):
         raise AssertionError("2pc-5: cuda and cpu disagree")
+    # what the spill 2pc-5 leg must give
+    ref5 = {"sec": g5_s, "unique": g5.unique_state_count(),
+            "states": g5.state_count(), "disc": g5.discovery_fps()}
+    del g5, c5
     lap("2pc5")
 
     # -- 2pc-7, complete: the main path's launch counts ----------------------
@@ -4540,7 +4555,7 @@ def main() -> int:
         raise AssertionError("2pc-7: unique count is not 296,448")
     if not all_launched(launches):
         raise AssertionError(f"a kernel never launched on 2pc-7: {launches}")
-    # what the checked, spill and supervised 2pc-7 legs must give
+    # what the checked and supervised 2pc-7 legs must give
     ref7 = {"sec": g7_s, "unique": g7.unique_state_count(),
             "states": g7.state_count(), "steps": g7.steps_run,
             "disc": g7.discovery_fps(), "snap": g7.final_snapshot(),
@@ -4584,8 +4599,8 @@ def main() -> int:
     launches_p3f, launches_p2f, launches_sym7f, p3f_stop = flag_phases(
         dev, smi, p3_ref)
     lap("step_flags")
-    launches_cs, kernels_inject = checked_spill_phases(dev, smi, ref7,
-                                                       p3_ref)
+    launches_cs, kernels_inject = checked_spill_phases(dev, smi, ref5,
+                                                       ref7, p3_ref)
     # -- kernels at paxos-3 shapes, L2-cold: plain, and the same batch as a
     # .prededup() step gives it (the queue holds the same rows with the
     # flag on or off) ---------------------------------------------------------

@@ -10,8 +10,10 @@ the first ``n_new`` pairs ``(cfp[j], cpl[j])`` to the distinct table slots
 device tensors, so neither version asks the host for the count.
 
 On a CUDA tensor :func:`insert_commit` launches ``csrc/insert_commit.cu``
-(one thread per lane, both halves in one launch; see the note in the
-source).  On a CPU tensor it runs :func:`insert_commit_plain`, which is
+(both halves in one launch: a CTA takes a tile of :func:`commit_tile`
+novel lanes, one thread a lane for the table and the per-row queue words,
+then copies the tile's rows as one flat span of the queue; see the note in
+the source).  On a CPU tensor it runs :func:`insert_commit_plain`, which is
 :func:`insert_write_plain` followed by the append.  In the engine this is
 the insert's only write path: there is no switch and no alternative.
 
@@ -28,6 +30,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _cuda
+
+
+COMMIT_THREADS = 256  # threads a CTA of csrc/insert_commit.cu
+COMMIT_TILE_WORDS = 1024  # its kTileWords: a tile's row words
+
+
+def commit_tile(width: int) -> int:
+    """Novel lanes a tile of ``csrc/insert_commit.cu`` takes at queue row
+    width ``width`` (0: a table-only launch): ``COMMIT_TILE_WORDS //
+    width`` within ``[1, COMMIT_THREADS]``, as the kernel's
+    ``tile_lanes``."""
+    if width <= 0:
+        return COMMIT_THREADS
+    return max(1, min(COMMIT_THREADS, COMMIT_TILE_WORDS // width))
 
 
 class QueueAppend(NamedTuple):

@@ -86,6 +86,7 @@ from stateright_tpu_torch.ops.hashing import (
 )
 from stateright_tpu_torch.ops.insert_commit import (
     QueueAppend,
+    commit_tile,
     insert_commit,
     insert_commit_plain,
 )
@@ -399,41 +400,113 @@ def test_symmetry_table_and_queue_identical_on_cuda_and_cpu(cuda, name, unique):
         np.testing.assert_array_equal(g[k][:tail], c[k][:tail], err_msg=k)
 
 
-@pytest.mark.parametrize("n_new,m", [(3000, 4096), (0, 4096), (1, 1)])
-@pytest.mark.parametrize("with_queue", [False, True])
-def test_insert_commit_kernel_matches_plain(cuda, n_new, m, with_queue):
-    rng = np.random.default_rng(2)
-    nslots, arity, width, q, tail = 1 << 14, 4, 2, 9000, 123
+# the queue row widths of the commit's card tests: 2pc's 1, 2, the
+# compiled twins' 21, paxos-3's 33, per-channel paxos-2's 83, and 700,
+# whose tiles hold 2 lanes
+COMMIT_WIDTHS = [1, 2, 21, 33, 83, 700]
+# novel counts around a tile of T = commit_tile(width) lanes, in m = 37 T + 3
+# lanes (not a multiple of T); "3000/4096" and "1/1" give m too
+COMMIT_COUNTS = ["0", "1", "T-1", "T", "T+1", "m", "3000/4096", "1/1"]
+
+
+def commit_counts(count: str, width: int) -> tuple:
+    """``(n_new, m)`` of one of :data:`COMMIT_COUNTS` at ``width``."""
+    if "/" in count:
+        n, m = count.split("/")
+        return int(n), int(m)
+    t = commit_tile(width)
+    m = 37 * t + 3
+    return {"0": 0, "1": 1, "T-1": t - 1, "T": t, "T+1": t + 1,
+            "m": m}[count], m
+
+
+def commit_case(rng, m, n_new, width, tail, q, tags=False, arity=4,
+                nslots=1 << 14):
+    """Random commit inputs on the CPU: a table of ``nslots``, ``m`` plan
+    lanes whose first ``n_new`` take distinct slots (the rest point past
+    the table, as dead lanes may), and a queue of ``q`` rows of ``width``
+    words appended at ``tail`` (with a sweep's tag column when ``tags``)."""
+    nslots = max(nslots, 2 * n_new)
     tfp, tpl = rand_i64(rng, nslots), rand_i64(rng, nslots)
     tgt = torch.full((m,), nslots, dtype=torch.int64)
     tgt[:n_new] = torch.from_numpy(rng.choice(nslots, n_new, replace=False))
     cfp, cpl = rand_i64(rng, m), rand_i64(rng, m)
-    n = torch.tensor(n_new)
-    queue = None
-    if with_queue:
-        b = -(-m // arity)
-        queue = QueueAppend(
-            rand_i64(rng, q, width), rand_i64(rng, q),
-            torch.from_numpy(rng.integers(0, 99, q).astype(np.int32)),
-            torch.from_numpy(rng.integers(0, 99, q).astype(np.int32)),
-            torch.tensor(tail), torch.from_numpy(rng.permutation(m)),
-            rand_i64(rng, b * arity, width),
-            torch.from_numpy(rng.integers(-99, 99, b).astype(np.int32)),
-            torch.from_numpy(rng.integers(0, 99, b).astype(np.int32)), arity,
-        )
+    b = -(-m // arity)
+
+    def i32(lo, hi, size):
+        return torch.from_numpy(rng.integers(lo, hi, size).astype(np.int32))
+
+    extra = dict(tags=i32(-5, 5, q), parent_tags=i32(0, 1000, b)) if tags \
+        else {}
+    queue = QueueAppend(
+        rand_i64(rng, q, width), rand_i64(rng, q), i32(0, 99, q),
+        i32(0, 99, q), torch.tensor(tail), torch.from_numpy(rng.permutation(m)),
+        rand_i64(rng, b * arity, width), i32(-99, 99, b), i32(0, 99, b),
+        arity, **extra)
+    return (tfp, tpl, tgt, cfp, cpl, torch.tensor(n_new)), queue
+
+
+def commit_matches_plain(cuda, table, queue) -> None:
+    """``insert_commit`` on the card against ``insert_commit_plain`` on the
+    CPU, each on its own copy: the tables, the queue's four buffers and the
+    tag column, every word (``queue`` None: the table-only launch)."""
+    tfp, tpl, tgt, cfp, cpl, n = table
+    cq = pq = None
+    if queue is not None:
         cq = QueueAppend(*(x.to(cuda) if torch.is_tensor(x) else x
                            for x in queue))
-        queue = QueueAppend(*(x.clone() if torch.is_tensor(x) else x
-                              for x in queue))
+        pq = QueueAppend(*(x.clone() if torch.is_tensor(x) else x
+                           for x in queue))
     pf, pp = insert_commit_plain(tfp.clone(), tpl.clone(), tgt, cfp, cpl, n,
-                                 queue)
+                                 pq)
+    before = insert_commit.launches
     kf, kp = insert_commit(*(t.to(cuda) for t in (tfp, tpl, tgt, cfp, cpl, n)),
-                           cq if with_queue else None)
+                           cq)
     torch.cuda.synchronize()
+    assert insert_commit.launches == before + (tgt.shape[0] > 0)
     assert torch.equal(kf.cpu(), pf) and torch.equal(kp.cpu(), pp)
-    if with_queue:
-        for g, w in zip(cq[:4], queue[:4]):
-            assert torch.equal(g.cpu(), w)
+    if queue is not None:
+        for g, w in zip(cq[:4] + (cq.tags,), pq[:4] + (pq.tags,)):
+            assert (g is None and w is None) or torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("count", COMMIT_COUNTS)
+@pytest.mark.parametrize("width", COMMIT_WIDTHS)
+@pytest.mark.parametrize("with_queue", [False, True])
+def test_insert_commit_kernel_matches_plain(cuda, count, width, with_queue):
+    """Counts around the tile (none, one, a tile less one, a tile, a tile
+    and one, every lane) at every row width, appended at an unaligned
+    tail, with and without the queue half."""
+    n_new, m = commit_counts(count, width)
+    rng = np.random.default_rng(2 + width)
+    tail = 123
+    table, queue = commit_case(rng, m, n_new, width, tail, tail + m + 50)
+    commit_matches_plain(cuda, table, queue if with_queue else None)
+
+
+@pytest.mark.parametrize("width", COMMIT_WIDTHS)
+def test_insert_commit_kernel_rows_end_at_the_queue_end(cuda, width):
+    """The appended rows end at the queue's last row, inside a tile: the
+    last tile's nominal rows reach past the buffer, and its live ones must
+    not."""
+    t = commit_tile(width)
+    m = 5 * t + 3
+    n_new = 3 * t + 1
+    rng = np.random.default_rng(5 + width)
+    q = 1000 + n_new
+    table, queue = commit_case(rng, m, n_new, width, q - n_new, q)
+    commit_matches_plain(cuda, table, queue)
+
+
+@pytest.mark.parametrize("width", [1, 2])
+def test_insert_commit_kernel_more_tiles_than_the_grid(cuda, width):
+    """m = 2^20 lanes with 2^19 novel: far more tiles than the capped
+    grid, so every CTA strides over many."""
+    m, n_new = 1 << 20, 1 << 19
+    rng = np.random.default_rng(17)
+    table, queue = commit_case(rng, m, n_new, width, 77, m + 100,
+                               nslots=1 << 21)
+    commit_matches_plain(cuda, table, queue)
 
 
 def prep_case(case, rng):
@@ -1113,37 +1186,16 @@ def test_cand_prep_namespace_mode_matches_plain(cuda, case):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("n_new,m", [(3000, 4096), (0, 4096), (1, 1)])
-def test_insert_commit_tag_column_matches_plain(cuda, n_new, m):
-    rng = np.random.default_rng(7)
-    nslots, arity, width, q, tail = 1 << 14, 4, 2, 9000, 123
-    b = -(-m // arity)
-    tfp, tpl = rand_i64(rng, nslots), rand_i64(rng, nslots)
-    tgt = torch.full((m,), nslots, dtype=torch.int64)
-    tgt[:n_new] = torch.from_numpy(rng.choice(nslots, n_new, replace=False))
-    cfp, cpl = rand_i64(rng, m), rand_i64(rng, m)
-    n = torch.tensor(n_new)
-
-    def i32(lo, hi, size):
-        return torch.from_numpy(rng.integers(lo, hi, size).astype(np.int32))
-
-    queue = QueueAppend(
-        rand_i64(rng, q, width), rand_i64(rng, q), i32(0, 99, q),
-        i32(0, 99, q), torch.tensor(tail), torch.from_numpy(rng.permutation(m)),
-        rand_i64(rng, b * arity, width), i32(-99, 99, b), i32(0, 99, b),
-        arity, tags=i32(-5, 5, q), parent_tags=i32(0, 1000, b))
-    cq = QueueAppend(*(x.to(cuda) if torch.is_tensor(x) else x
-                       for x in queue))
-    queue = QueueAppend(*(x.clone() if torch.is_tensor(x) else x
-                          for x in queue))
-    pf, pp = insert_commit_plain(tfp.clone(), tpl.clone(), tgt, cfp, cpl, n,
-                                 queue)
-    kf, kp = insert_commit(*(t.to(cuda) for t in (tfp, tpl, tgt, cfp, cpl, n)),
-                           cq)
-    torch.cuda.synchronize()
-    assert torch.equal(kf.cpu(), pf) and torch.equal(kp.cpu(), pp)
-    for g, w in zip(cq[:4] + (cq.tags,), queue[:4] + (queue.tags,)):
-        assert torch.equal(g.cpu(), w)
+@pytest.mark.parametrize("count", ["0", "1", "T+1", "m", "3000/4096",
+                                   "1/1"])
+@pytest.mark.parametrize("width", [1, 2, 33])
+def test_insert_commit_tag_column_matches_plain(cuda, count, width):
+    n_new, m = commit_counts(count, width)
+    rng = np.random.default_rng(7 + width)
+    tail = 123
+    table, queue = commit_case(rng, m, n_new, width, tail, tail + m + 50,
+                               tags=True)
+    commit_matches_plain(cuda, table, queue)
 
 
 @pytest.mark.parametrize("family", ["2pc-seeds", "lifted"])
@@ -1314,19 +1366,38 @@ def test_mesh_snapshot_identical_on_cuda_and_cpu(cuda, name):
     assert all(n > 0 for n in launched), launched
 
 
-@pytest.mark.parametrize("n_new,tail,qlo", [(3000, 123, 0), (3000, 123, 2048),
-                                            (0, 0, 0), (1, 4095, 2048),
-                                            (4096, 0, 4096)])
-def test_insert_commit_window_mode_matches_plain(cuda, n_new, tail, qlo):
+WINDOW_CASES = ["3000/123/0", "3000/123/2048", "0/0/0", "1/4095/2048",
+                "4096/0/4096", "piece_starts_in_a_tile",
+                "piece_ends_in_a_tile", "tail_near_the_piece_end"]
+
+
+def window_case(case: str, t: int, rows: int) -> tuple:
+    """``(n_new, tail, qlo)`` of one of :data:`WINDOW_CASES` for tiles of
+    ``t`` lanes and a piece of ``rows`` rows."""
+    if "/" in case:
+        return tuple(int(v) for v in case.split("/"))
+    if case == "piece_starts_in_a_tile":  # lane 2t + 7 is the piece's first
+        return 3000, 100, 100 + 2 * t + 7
+    if case == "piece_ends_in_a_tile":  # lane 2t + 7 the first past it
+        return 3000, 2500, 2500 + 2 * t + 7 - rows
+    return 3000, 4096 + rows - 5, 4096  # five rows in the piece
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+@pytest.mark.parametrize("width", [1, 3, 33, 83])
+def test_insert_commit_window_mode_matches_plain(cuda, case, width):
     """``insert_commit``'s window mode (a queue piece of 2,048 rows from
     ``qlo``) against its plain version: the rows of ``[tail, tail + n_new)``
-    that fall in the piece, and nothing else."""
+    that fall in the piece, and nothing else; a piece boundary inside a
+    tile of lanes counted from 0 (lane 2T + 7), and a tail five rows before
+    the piece's end."""
     from stateright_tpu_torch.ops.insert_commit import (
         insert_commit_window, insert_commit_window_plain,
     )
 
-    rng = np.random.default_rng(11)
-    m, arity, width, rows = 4096, 4, 3, 2048
+    rng = np.random.default_rng(11 + width)
+    m, arity, rows = 4096, 4, 2048
+    n_new, tail, qlo = window_case(case, commit_tile(width), rows)
     b = m // arity
     cfp = rand_i64(rng, m)
     n = torch.tensor(n_new)

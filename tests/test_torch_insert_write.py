@@ -14,8 +14,12 @@ import jax.numpy as jnp
 import torch
 
 from stateright_tpu.ops.pallas_insert import pallas_scatter_insert
+from stateright_tpu_torch.ops import _cuda
 from stateright_tpu_torch.ops.insert_commit import (
+    COMMIT_THREADS,
+    COMMIT_TILE_WORDS,
     QueueAppend,
+    commit_tile,
     insert_commit,
     insert_commit_plain,
     insert_write_plain,
@@ -77,13 +81,57 @@ def test_plain_write_ignores_lanes_past_n_new():
     np.testing.assert_array_equal(got[tgt[40:100]], tfp[tgt[40:100]])
 
 
-def test_commit_plain_appends_the_written_lanes_to_the_queue():
+def test_commit_tile_is_the_kernels_tile():
+    """``commit_tile``, which the card tests size their tile edges by,
+    reads the constants of ``csrc/insert_commit.cu``: 256 threads a CTA,
+    tiles of 1,024 row words, at least 1 and at most 256 lanes."""
+    import re
+
+    src = (_cuda.CSRC / "insert_commit.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert (const("kThreads"), const("kTileWords")) == (COMMIT_THREADS,
+                                                       COMMIT_TILE_WORDS)
+    got = [commit_tile(w) for w in (0, 1, 4, 5, 21, 33, 83, 700, 2048)]
+    assert got == [256, 256, 256, 204, 48, 31, 12, 1, 1]
+
+
+def jax_append_novel(qrows, qfp, qebits, qdepth, tail, sel, crows, cfp,
+                     cebt, cdep):
+    """The JAX engine's plain ``append_novel``
+    (``stateright_tpu/parallel/wavefront.py:369``): the ``sel`` window of
+    the candidate stack written at ``tail`` by ``dynamic_update_slice``
+    (the rows past ``n_new`` in it are garbage the engine overwrites)."""
+    import jax
+
+    tail = jnp.int32(tail)
+    sel = jnp.asarray(sel)
+    return (
+        jax.lax.dynamic_update_slice(jnp.asarray(qrows),
+                                     jnp.asarray(crows)[sel],
+                                     (tail, jnp.int32(0))),
+        jax.lax.dynamic_update_slice(jnp.asarray(qfp), jnp.asarray(cfp)[sel],
+                                     (tail,)),
+        jax.lax.dynamic_update_slice(jnp.asarray(qebits),
+                                     jnp.asarray(cebt)[sel], (tail,)),
+        jax.lax.dynamic_update_slice(jnp.asarray(qdepth),
+                                     jnp.asarray(cdep)[sel], (tail,)),
+    )
+
+
+@pytest.mark.parametrize("width", [1, 3, 21, 33, 83])
+def test_commit_plain_appends_the_written_lanes_to_the_queue(width):
     """The queue half: row ``tail + j`` gets candidate ``sel[j]``, its
     fingerprint and its parent's ebits and depth + 1 (parent ``sel[j] //
-    arity``), for ``j < n_new`` only; the table half is the Pallas
-    kernel's write, as above."""
-    rng = np.random.default_rng(3)
-    nslots, m, n_new, arity, width, q, tail = 2048, 256, 90, 4, 3, 600, 37
+    arity``), for ``j < n_new`` only, at the engines' row widths (2pc 1,
+    single-copy-4 21, paxos-3 33, per-channel paxos-2 83): the rows
+    ``[tail, tail + n_new)`` equal the JAX engine's ``append_novel`` on the
+    same candidates, and no other row changes; the table half is the
+    Pallas kernel's write, as above."""
+    rng = np.random.default_rng(3 + width)
+    nslots, m, n_new, arity, q, tail = 2048, 256, 90, 4, 600, 37
     tfp, tpl, tgt, cfp, cpl = case(rng, nslots, m, n_new)
     jf, jp = pallas_scatter_insert(
         jnp.asarray(tfp), jnp.asarray(tpl), jnp.asarray(tgt),
@@ -109,6 +157,23 @@ def test_commit_plain_appends_the_written_lanes_to_the_queue():
     np.testing.assert_array_equal(tp.numpy().view(np.uint64), np.asarray(jp))
     rows = slice(tail, tail + n_new)
     s = sel[:n_new]
+    # the JAX engine's per-candidate lanes: each candidate's fingerprint
+    # (the plan gives lane j the one of candidate sel[j]) and its parent's
+    # ebits and depth + 1, broadcast over the parent's arity
+    cand_fp = np.zeros(m, np.uint64)
+    cand_fp[s] = cfp[:n_new]
+    want = jax_append_novel(
+        qrows0, np.full(q, EMPTY, np.uint64), np.zeros(q, np.int32),
+        np.zeros(q, np.int32), tail, sel, src, cand_fp,
+        np.repeat(pebits, arity), np.repeat(pdepth + 1, arity))
+    np.testing.assert_array_equal(queue.rows.numpy()[rows],
+                                  np.asarray(want[0])[rows])
+    np.testing.assert_array_equal(queue.fps.numpy()[rows].view(np.uint64),
+                                  np.asarray(want[1])[rows])
+    np.testing.assert_array_equal(queue.ebits.numpy()[rows],
+                                  np.asarray(want[2])[rows])
+    np.testing.assert_array_equal(queue.depths.numpy()[rows],
+                                  np.asarray(want[3])[rows])
     np.testing.assert_array_equal(queue.rows.numpy()[rows], src[s])
     np.testing.assert_array_equal(queue.fps.numpy()[rows].view(np.uint64),
                                   cfp[:n_new])
