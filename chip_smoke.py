@@ -82,6 +82,25 @@ and ``paxos_model(n).checker().spawn_gpu()``:
    rows through ``cand_prep``), L2 flushed before every timed call, and the
    table-order plan on the same batch beside it.
 
+The block graph (``ops/block_loop.py``, ``csrc/block_loop.cu``): on the
+card every single-device block above is one launch of a CUDA graph whose
+conditional WHILE node the ``block_cond`` kernel stops, so each leg's
+record gives ``steps_executed`` beside ``steps`` (blocks times
+``steps_per_call``) and its block graphs (capture seconds, node counts,
+pool bytes).  ``block_graph``, right after the 2pc-10 kernel cell: for
+2pc-5, paxos-2, 2pc-4 under symmetry, 2pc-5 under ``.prededup()``,
+``.cartography()``, ``.checked()`` and ``.spill()`` (its Bloom words all
+ones, so every candidate defers), per-channel paxos-1 under ``.por()``,
+and 2pc-5 stopped by a target and by a discovery, a complete run (its
+executed and issued steps) and then, from a fresh engine's init carry,
+complete and at capacities that stop on a growth status, block after
+block the graph block against the eager loop ``_Engine._run_steps`` on
+the same carry, bit for bit (every carry entry, the stats and the
+executed steps ``k``), with each leg's capture seconds and the host's
+operations a block on both paths; then ``block_cond`` against its plain
+version on every leg's last carry at every ``k`` (the ``block_cond``
+entry of the kernels line, with the 2pc-7 leg's launches).
+
 The last three legs drive the checkpoint protocol, ``spawn_auto`` and an
 ORL-wrapped system, each with its launch counts reset just before it and
 read just after:
@@ -143,9 +162,10 @@ after the plain paxos legs:
    plain run bounded at the same target that the paxos-3 kernel cells
    take their batch from, the same unique and state counts, steps, table
    bytes and queue rows;
- - paxos-2 complete and per-channel paxos-2 (``capacity=1 << 16``,
-   ``batch=512``) bounded at 4,000 unique, under the flag on ``cuda`` and
-   ``cpu``: identical table bytes and queue rows ``[0, tail)``;
+ - paxos-2 complete under the flag on ``cuda`` and ``cpu``: identical
+   table bytes and queue rows ``[0, tail)``; per-channel paxos-2
+   (``capacity=1 << 16``, ``batch=512``) complete on ``cuda``: 16,668 /
+   32,971;
  - 2pc-7 under ``.symmetry().prededup()`` on ``cuda`` and ``cpu``: 2,326 /
    19,758, identical likewise;
  - the paxos-3 kernel cell's batch again as a prededup step gives it
@@ -187,9 +207,9 @@ leg's launch counts reset just before it and read just after:
    ``VOLATILE_KEYS``, and the ``cpu``/``cuda`` pair diffing
    ``IDENTICAL`` or ``PERF-ONLY`` with no violation;
  - ``profile_2pc7``: 2pc-7 under ``.telemetry(profile_steps=2)`` (blocks
-   of 8 steps): the
-   ``torch.profiler`` trace holds the kernels ``cand_prep_kernel``,
-   ``bucket_plan_kernel`` and ``insert_commit_kernel`` on the device.
+   of 8 steps): the ``torch.profiler`` trace is written and, the blocks
+   being block graphs, traces the CPU only, its ``start`` event giving
+   the reason (``ops.block_loop.CUPTI_FAULT``).
 
 Checked mode and the spill tier (``.checked()``, ``.spill()``), right
 after the pre-dedup legs, each leg's launch counts reset just before it
@@ -429,6 +449,9 @@ from stateright_tpu_torch.ops.cand_prep import (
     cand_prep,
     cand_prep_plain,
 )
+from stateright_tpu_torch.ops.block_loop import (
+    CUPTI_FAULT, block_cond, block_cond_plain,
+)
 from stateright_tpu_torch.ops.hashing import EMPTY, row_hash, row_hash_plain
 from stateright_tpu_torch.ops.insert_commit import (
     QueueAppend,
@@ -466,6 +489,12 @@ from stateright_tpu_torch.telemetry.memory import device_memory_stats
 from stateright_tpu_torch.telemetry.report import VOLATILE_KEYS
 from stateright_tpu_torch.telemetry.roofline import (
     ENV_DEVICE_SPEC, spec_for_name,
+)
+from stateright_tpu_torch.testing.block_legs import (
+    BLOCK_LEGS,
+    BLOCK_TARGET,
+    OpCount,
+    per_channel_paxos,
 )
 from stateright_tpu_torch.testing.faults import Fault, FaultPlan
 
@@ -523,10 +552,6 @@ P1_PER_CHANNEL_POR = (250, 437)
 POR = ("--por",)  # the step flag of the POR legs (models/_cli.py)
 # the POR operation counts' bound: 8 steps at the leg's batch stay under it
 P2_OPS_TARGET = 4_000
-# the per-channel paxos-2 prededup leg's bound on cuda and cpu (the cut
-# that makes room for the sweep legs: the cpu run of the complete space
-# took 71 s of host time beside an H100)
-P2_PREDEDUP_PC_TARGET = 4_000
 P2_PER_CHANNEL_KERNEL_TARGET = 8_000
 # the per-channel paxos-2 leg's cuda = cpu bound (the cut that makes room
 # for the sharded legs: the cpu run of the complete space took 42.0 s
@@ -593,9 +618,6 @@ SPILL_P3_BLOOM = 1 << 23  # the engine's default width
 # the checked sync count's 2pc-7 runs: a candidate budget no batch of
 # theirs overflows, so they never grow
 CHECKED_SYNC_CAND = 1 << 15
-# the kernels a profiled 2pc-7 block must show on the device
-PROFILED_KERNELS = ("cand_prep_kernel", "bucket_plan_kernel",
-                    "insert_commit_kernel")
 EMPTY_KEY = (1 << 63) - 1  # an EMPTY lane's sorted key, the largest
 FLUSH_BYTES = 256 << 20  # rewritten between cold calls: past the 50 MB L2
 # about 2 ms of spinning at the H100's clock: longer than the host takes to
@@ -753,14 +775,17 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 KERNELS = (cand_prep, row_hash, bucket_plan_fused, bucket_plan,
-           insert_commit)
+           insert_commit, block_cond)
 # the kernels of the engines' step (and init): the pre-gathered
 # ``bucket_plan`` entry is the sharded engine's alone
 STEP_KERNELS = ("cand_prep", "row_hash", "bucket_plan_fused",
                 "insert_commit")
+# the single-device engine on the card: its step's kernels and the block
+# graph's cond (the mesh, sweep and sharded engines run the eager loop)
+GRAPH_KERNELS = STEP_KERNELS + ("block_cond",)
 
 
-def all_launched(launches: dict, names=STEP_KERNELS) -> bool:
+def all_launched(launches: dict, names=GRAPH_KERNELS) -> bool:
     return all(launches[k] > 0 for k in names)
 
 
@@ -1220,7 +1245,7 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
                unique_per_sec=g.unique_state_count() / g_s,
                prededup_removed=removed,
                prededup_removed_share=removed / g.state_count(),
-               launches_per_step={k: v / g.steps_run
+               launches_per_step={k: v / g.steps_executed
                                   for k, v in launches.items()},
                discoveries_identical=(g.discovery_fps() == p3_ref[0]
                                       and paths == p3_ref[1]))
@@ -1232,50 +1257,49 @@ def flag_phases(dev, smi: str, p3_ref) -> tuple:
         raise AssertionError("paxos-3 prededup: discoveries differ from the "
                              "plain leg's")
     # the step hashes its candidates once more under prededup
-    if launches["row_hash"] < g.steps_run:
+    if launches["row_hash"] < g.steps_executed:
         raise AssertionError(f"paxos-3 prededup: row_hash {launches}")
     del g
 
-    # -- paxos-2 in both packings, prededup, on cuda and cpu -----------------
-    # the per-channel leg is bounded at P2_PREDEDUP_PC_TARGET: its cpu run
-    # of the complete space took 71 s, and its complete counts are the
-    # per-channel leg's (per_channel_and_histories, cuda and cpu) and the
-    # hand-written packing's here; bounded, it still holds cuda = cpu
+    # -- paxos-2 in both packings, prededup --------------------------------------
+    # the hand-written packing on cuda and cpu; the per-channel packing
+    # complete on cuda alone, against the 16,668 / 32,971 pin (its cpu run,
+    # about 40 s of host time beside an H100, is cut: the per-channel
+    # packing's cuda = cpu tables are the per_channel_and_histories legs')
     leg_launches = {}
-    for name, build, kw, target in (
-        ("paxos2_prededup", lambda: paxos_model(2), dict(batch=256), None),
+    for name, build, kw, on_cpu in (
+        ("paxos2_prededup", lambda: paxos_model(2), dict(batch=256), True),
         ("paxos2_per_channel_prededup", per_channel_paxos2,
-         P2_PER_CHANNEL_KW, P2_PREDEDUP_PC_TARGET),
+         P2_PER_CHANNEL_KW, False),
     ):
         g, g_s, peak, leg_launches[name] = compiled_leg(
-            dev, build, flags=PREDEDUP, target=target, **kw)
-        t0 = time.monotonic()
-        cb = with_step_flags(build().checker(), PREDEDUP)
-        if target is not None:
-            cb = cb.target_states(target)
-        c = cb.spawn_gpu(device="cpu", **kw).join()
-        c_s = time.monotonic() - t0
-        same, tail = same_tables_and_queue(g, c)
+            dev, build, flags=PREDEDUP, **kw)
         paths = check_discoveries(g.model, g, {"value chosen"})
         g.assert_properties()
-        emit(name, dict(leg_record(g, g_s, peak, leg_launches[name], smi),
-                        unique_cpu=c.unique_state_count(),
-                        states_cpu=c.state_count(), sec_cpu=c_s, tail=tail,
-                        tables_and_queue_identical=same, path_lengths=paths,
-                        network_encoding=getattr(g.tensor, "network_encoding",
-                                                 "hand-written"),
-                        prededup_removed=g.prededup_removed(),
-                        prededup_removed_cpu=c.prededup_removed(),
-                        target=target, **kw))
-        for x in (g, c):  # paxos-2's counts are the same in both packings
-            if target is not None:
-                if x.unique_state_count() < target:
-                    raise AssertionError(f"{name}: stopped short of {target}")
-            elif (x.unique_state_count(), x.state_count()) != P2_PER_CHANNEL:
+        rec = dict(leg_record(g, g_s, peak, leg_launches[name], smi),
+                   path_lengths=paths,
+                   network_encoding=getattr(g.tensor, "network_encoding",
+                                            "hand-written"),
+                   prededup_removed=g.prededup_removed(), **kw)
+        runs = [g]
+        if on_cpu:
+            t0 = time.monotonic()
+            c = with_step_flags(build().checker(), PREDEDUP).spawn_gpu(
+                device="cpu", **kw).join()
+            same, tail = same_tables_and_queue(g, c)
+            rec.update(unique_cpu=c.unique_state_count(),
+                       states_cpu=c.state_count(),
+                       sec_cpu=time.monotonic() - t0, tail=tail,
+                       tables_and_queue_identical=same,
+                       prededup_removed_cpu=c.prededup_removed())
+            runs.append(c)
+            if not same or g.prededup_removed() != c.prededup_removed():
+                raise AssertionError(f"{name}: cuda and cpu disagree")
+        emit(name, rec)
+        for x in runs:  # paxos-2's counts are the same in both packings
+            if (x.unique_state_count(), x.state_count()) != P2_PER_CHANNEL:
                 raise AssertionError(f"{name}: not {P2_PER_CHANNEL}")
-        if not same or g.prededup_removed() != c.prededup_removed():
-            raise AssertionError(f"{name}: cuda and cpu disagree")
-        del g, c
+        del g, runs
 
     # -- 2pc-7 under symmetry with prededup, on cuda and cpu ------------------
     g, g_s, peak, sym_launches = compiled_leg(
@@ -1327,18 +1351,7 @@ def ops_per_step(dev, cartography: bool, flags=(),
     with the step ``flags`` on (a ``TorchDispatchMode`` count around
     ``_Engine.step``), and those of the block's stats packing on the run's
     final carry; ``kw`` goes to ``spawn_gpu``."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from stateright_tpu_torch.parallel import wavefront
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
 
     counts = []
     step = wavefront._Engine.step
@@ -1346,7 +1359,7 @@ def ops_per_step(dev, cartography: bool, flags=(),
     def counted(self, c):
         if len(counts) >= OPS_STEPS:
             return step(self, c)
-        probe = Count()
+        probe = OpCount()
         with probe:
             out = step(self, c)
         counts.append(probe.n)
@@ -1361,7 +1374,7 @@ def ops_per_step(dev, cartography: bool, flags=(),
             **dict(dict(device=dev, steps_per_call=4), **kw)).join()
     finally:
         wavefront._Engine.step = step
-    probe = Count()
+    probe = OpCount()
     with probe:
         wavefront.stats_of(c._final_carry, c._layout)
     return {"ops_per_step": sum(counts) / len(counts), "steps": len(counts),
@@ -1505,7 +1518,7 @@ def telemetry_phases(dev, smi: str, p3_ref) -> dict:
         raise AssertionError("2pc-7 reports: unique counts")
     lap("telemetry_2pc7")
 
-    # -- 2pc-7 profiled: the hand-written kernels in the trace ----------------
+    # -- 2pc-7 profiled: a block-graph engine is traced on the CPU only -------
     # (blocks of 8 steps keep the two profiled blocks' trace small)
     reset_launches()
     c = (TwoPhaseSys(7).checker()
@@ -1513,22 +1526,27 @@ def telemetry_phases(dev, smi: str, p3_ref) -> dict:
          .spawn_gpu(steps_per_call=8).join())
     legs["profile_2pc7"] = kernel_launches()
     events = c.flight_recorder.records("profile")
+    start = [e for e in events if e["event"] == "start"]
     stop = [e for e in events if e["event"] == "stop"]
-    if not stop:
+    if not (start and stop):
         raise AssertionError(f"2pc-7 profile: no trace written: {events}")
     with open(stop[0]["trace"]) as f:
         trace = json.load(f)["traceEvents"]
     kernels = [e for e in trace if e.get("cat") == "kernel"]
-    found = {k: sum(k in str(e.get("name")) for e in kernels)
-             for k in PROFILED_KERNELS}
     emit("profile_2pc7", {"unique": c.unique_state_count(),
                           "profiled_steps": stop[0]["profiled_steps"],
+                          "cuda": start[0]["cuda"],
+                          "cuda_off": start[0].get("cuda_off"),
+                          "trace_events": len(trace),
                           "kernel_events": len(kernels),
-                          "events_per_kernel": found,
                           "trace_bytes": os.path.getsize(stop[0]["trace"]),
                           "launches": legs["profile_2pc7"], "card": smi})
-    if not kernels or not all(found.values()):
-        raise AssertionError(f"2pc-7 profile: kernels in the trace {found}")
+    if start[0]["cuda"] or start[0].get("cuda_off") != CUPTI_FAULT:
+        raise AssertionError(f"2pc-7 profile: a block-graph engine traced "
+                             f"on the device: {start[0]}")
+    if kernels or not trace:
+        raise AssertionError(f"2pc-7 profile: {len(trace)} trace events, "
+                             f"{len(kernels)} of them kernels")
     if c.unique_state_count() != TPC7_UNIQUE:
         raise AssertionError("2pc-7 profile: unique count")
     lap("profile_2pc7")
@@ -1615,6 +1633,8 @@ def leg_record(checker, sec: float, peak: int, launches: dict,
             "width": tm.width, "arity": tm.max_actions,
             "table_slots": checker._cap, "cand": checker._cand,
             "steps": checker.steps_run,
+            "steps_executed": checker.steps_executed,
+            "block_graphs": block_graph_summary(checker),
             "growth_events": [
                 {"status": st, "unique": u, "host_sec": g}
                 for (st, u), g in zip(checker.growth_events,
@@ -1790,8 +1810,9 @@ def proviso_round(into: dict):
     the runs inside the block: copies of the table after the ample round,
     of the round's candidate rows, mask, parents and cursors, and of the
     queue.  The copies are device-to-device and launch no kernel of the
-    four."""
-    run = _Engine._insert_round
+    four.  Its blocks run the eager loop (``_Engine._run_steps``), so the
+    step's Python runs every step and the kept count is read there."""
+    run, block = _Engine._insert_round, _Engine.run
 
     def insert_round(eng, c, krows, kept, fps, tail, cand_rows, ebits,
                      depths, prep_out, plan_out):
@@ -1813,10 +1834,11 @@ def proviso_round(into: dict):
         return out
 
     _Engine._insert_round = insert_round
+    _Engine.run = _Engine._run_steps
     try:
         yield into
     finally:
-        _Engine._insert_round = run
+        _Engine._insert_round, _Engine.run = run, block
 
 
 def proviso_kernels(kept: dict) -> dict:
@@ -1973,10 +1995,176 @@ def por_phases(dev, smi: str, ref7: dict) -> tuple:
     return legs, kernels
 
 
-def per_channel_paxos(n: int):
-    m = paxos_model(n)
-    m.per_channel_()
-    return m
+# -- the block graph ---------------------------------------------------------
+
+BLOCK_STEPS = 8  # the block_graph legs' steps_per_call: several blocks a leg
+BLOCK_GROW_CAPS = (1 << 10, 1 << 9, 256)  # (cap, qcap, cand): a growth stop
+
+
+def block_leg(dev, name: str, grow: bool) -> tuple:
+    """One ``block_graph`` leg: a complete ``spawn_gpu`` run (its
+    ``steps_executed``/``steps_run`` and block graphs), then a fresh engine
+    at that run's capacities (``grow``: at :data:`BLOCK_GROW_CAPS`, so the
+    blocks stop on a growth status) whose blocks run from the init carry
+    as the graph block and as the eager loop on a copy, compared bit for
+    bit: every carry entry, the stats and ``k``.  Under ``.spill()`` the
+    Bloom words are all ones, so every candidate defers.  Returns the
+    record and the cond inputs of the first block's carry (a copy: the
+    graph block adopts that carry) and of the last block's."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    build, kw = BLOCK_LEGS[name]
+    t0 = time.monotonic()
+    c = build().spawn_gpu(device=dev, batch=64, steps_per_call=BLOCK_STEPS,
+                          **kw).join()
+    run_s = time.monotonic() - t0
+    eng = (c._engine(BLOCK_GROW_CAPS[0], BLOCK_GROW_CAPS[1], 64,
+                     BLOCK_GROW_CAPS[2]) if grow
+           else c._engine(c._cap, c._qcap, c._batch, c._cand))
+    carry, _ = eng.init()
+    if eng.spill:
+        sp = eng.layout.spill_start + wavefront._SP_BLOOM
+        carry[sp] = torch.full_like(carry[sp], -1)
+    first = eng.cond_inputs(carry)
+    first = first._replace(**{f: getattr(first, f).clone() for f in (
+        "head", "tail", "unique", "status", "disc", "err")
+        if getattr(first, f) is not None})
+    blocks = executed = 0
+    graph_ops, eager_ops, identical = [], [], True
+    while blocks < 400:
+        ref = [t.clone() for t in carry]
+        with OpCount() as oe:
+            want, wstats = eng._run_steps(ref)
+        with OpCount() as og:
+            got, gstats = eng.run(carry)
+        identical &= (len(got) == len(want) and torch.equal(gstats, wstats)
+                      and all(torch.equal(a, b) for a, b in zip(got, want)))
+        k = int(gstats[-1])
+        eng.account(k)
+        if blocks:  # the first graph block holds the warm step and capture
+            graph_ops.append(og.n + 1)  # + the graph's own launch
+            eager_ops.append(oe.n)
+        blocks += 1
+        executed += k
+        carry = got
+        st = gstats[:-1].cpu().numpy()
+        if not k or int(st[wavefront._ST_STATUS]) != 0 or st[1] <= st[0]:
+            break
+    cap = eng.block.record()
+    rec = {"unique": c.unique_state_count(), "states": c.state_count(),
+           "run_sec": run_s, "run_steps_executed": c.steps_executed,
+           "run_steps_run": c.steps_run,
+           "run_block_graphs": block_graph_summary(c),
+           "engine_caps": [eng.cap, eng.qcap, eng.batch, eng.eff_cand],
+           "blocks": blocks, "steps_executed": executed,
+           "steps_run": blocks * eng.steps, "stop_status": int(st[5]),
+           "bit_identical": bool(identical),
+           "host_ops_per_graph_block": (sum(graph_ops) / len(graph_ops)
+                                        if graph_ops else None),
+           "host_ops_per_eager_block": (sum(eager_ops) / len(eager_ops)
+                                        if eager_ops else None),
+           "capture_secs": cap["capture_secs"],
+           "warm_secs": cap["warm_secs"],
+           "instantiate_secs": cap["instantiate_secs"],
+           "graph_nodes": cap["nodes"], "pool_bytes": cap["pool_bytes"]}
+    last = eng.cond_inputs(carry)
+    del c, eng, carry, ref, want, got
+    return rec, (first, last)
+
+
+def block_graph_summary(checker) -> Optional[dict]:
+    """A run's block graphs (``GpuChecker.block_graphs``) in sum: one per
+    engine key, the seconds of their warm steps, captures and
+    instantiations, the node counts and the largest private pool."""
+    gs = getattr(checker, "block_graphs", None)
+    if not gs:
+        return None
+    return {"graphs": len(gs),
+            "warm_secs": sum(g["warm_secs"] for g in gs),
+            "capture_secs": sum(g["capture_secs"] for g in gs),
+            "instantiate_secs": sum(g["instantiate_secs"] for g in gs),
+            "nodes": [g["nodes"] for g in gs],
+            "pool_bytes_max": max(g["pool_bytes"] for g in gs)}
+
+
+def block_cond_cell(xs: list) -> dict:
+    """``srt_block_cond`` against ``block_cond_plain`` on every leg's first
+    and last block's cond inputs at each ``k`` from 0 to the steps, with
+    and without the reset (the largest disagreement in ``go`` or ``k``;
+    the cases with ``go`` true and false counted by the plain version),
+    and the kernel's cell at the first input with ``go`` true: times, its
+    bound and the plain version's."""
+    err = n_go = n_stop = 0
+    timed = None
+    for x in xs:
+        for k0 in range(BLOCK_STEPS + 1):
+            k = torch.tensor([k0], dtype=torch.int64, device=x.head.device)
+            for reset in (False, True):
+                go, k1 = block_cond(x, k, BLOCK_STEPS, reset=reset)
+                pg, pk = block_cond_plain(
+                    x, torch.zeros_like(k) if reset else k, BLOCK_STEPS)
+                err = max(err, int((go.long() - pg.long()).abs().max()),
+                          int((k1 - pk).abs().max()))
+                if bool(pg.all()):
+                    n_go += 1
+                    if timed is None and not reset:
+                        timed = (x, k)
+                else:
+                    n_stop += 1
+    x, k = timed if timed is not None else (xs[0], torch.zeros(
+        1, dtype=torch.int64, device=xs[0].head.device))
+    n_disc = x.disc.numel() if x.disc is not None else 0
+    # each input read once (head, tail, unique, status, disc, err, k), k
+    # and go written once; a compare and an and a term
+    nbytes = 8 * (4 + n_disc + 2) + (1 if x.err is not None else 0) + 1
+    b_ms, b_by = bound(nbytes, 2 * (6 + n_disc))
+    go = bool(block_cond_plain(x, k, BLOCK_STEPS)[0].all())
+    cell = dict(name="block_cond", route="cuda",
+                source="stateright_tpu_torch/csrc/block_loop.cu",
+                replaces="stateright_tpu/parallel/wavefront.py:701",
+                max_abs_err=err, matched=err == 0, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape={"disc": n_disc, "steps": BLOCK_STEPS,
+                       "checked": x.err is not None,
+                       "target": x.target, "k": int(k[0]), "go": go,
+                       "go_true_cases": n_go, "go_false_cases": n_stop})
+    cell.update(timings(lambda: block_cond(x, k, BLOCK_STEPS),
+                        lambda: block_cond_plain(x, k, BLOCK_STEPS),
+                        cold=False))
+    return cell
+
+
+def block_graph_phase(dev, smi: str) -> dict:
+    """``block_graph``: every :data:`BLOCK_LEGS` leg, complete and stopped
+    on growth (:func:`block_leg`), must be bit-identical to the eager
+    loop; then the ``block_cond`` cell.  Returns the cell."""
+    legs, xs = {}, []
+    for name in BLOCK_LEGS:
+        for grow in (False, True):
+            rec, x = block_leg(dev, name, grow)
+            leg = f"{name}_growth" if grow else name
+            legs[leg] = rec
+            xs.extend(x)
+            print(json.dumps({"block_graph_leg": leg, **{
+                k: rec[k] for k in ("steps_executed", "steps_run",
+                                    "run_steps_executed", "run_steps_run",
+                                    "capture_secs", "host_ops_per_graph_block",
+                                    "host_ops_per_eager_block",
+                                    "bit_identical")}}), flush=True)
+    bad = [leg for leg, r in legs.items() if not r["bit_identical"]]
+    cell = block_cond_cell(xs)
+    emit("block_graph", {"legs": legs, "block_cond": cell, "card": smi})
+    if bad:
+        raise AssertionError(f"block graph differs from the eager loop: {bad}")
+    if not cell["matched"]:
+        raise AssertionError(f"block_cond disagrees with plain: {cell}")
+    if not (cell["shape"]["go_true_cases"] and cell["shape"]["go"]):
+        raise AssertionError(f"block_cond: no case with go true: {cell}")
+    if legs["2pc5_target"]["unique"] < BLOCK_TARGET:
+        raise AssertionError("block graph: the target leg stopped short")
+    if legs["2pc5_discovery"]["unique"] >= 8832:
+        raise AssertionError("block graph: no discovery stop")
+    return cell
 
 
 def symmetry_phases(dev, smi: str) -> dict:
@@ -1995,7 +2183,7 @@ def symmetry_phases(dev, smi: str) -> dict:
     emit("2pc15_symmetry", dict(
         leg_record(g, g_s, peak, launches, smi), path_lengths=paths,
         unique_per_sec=g.unique_state_count() / g_s,
-        launches_per_step={k: v / g.steps_run for k, v in launches.items()}))
+        launches_per_step={k: v / g.steps_executed for k, v in launches.items()}))
     if (g.unique_state_count(), g.state_count()) != SYM_2PC15:
         raise AssertionError(f"2pc-15 symmetry: not {SYM_2PC15}")
     del g
@@ -2229,6 +2417,7 @@ class OOBTwin(TensorModel):
 
     def __init__(self, model):
         self.model = model
+        self._tables: dict = {}
 
     def init_rows(self):
         return np.zeros((1, 1), np.uint64)
@@ -2243,10 +2432,19 @@ class OOBTwin(TensorModel):
         return torch.ones((rows.shape[0], 1), dtype=torch.bool,
                           device=rows.device)
 
+    def table(self, device) -> torch.Tensor:
+        """The 4-entry table on ``device``, built at the first step there
+        (a step issues no host-to-device copy, so the block graph can
+        capture it)."""
+        t = self._tables.get(device)
+        if t is None:
+            t = self._tables[device] = torch.tensor(
+                [1, 2, 3, 4], dtype=torch.int64, device=device)
+        return t
+
     def step_rows(self, rows):
         c = self.pk.get(rows, "count")
-        tbl = torch.tensor([1, 2, 3, 4], dtype=torch.int64,
-                           device=rows.device)
+        tbl = self.table(rows.device)
         succ = rows.clone()
         succ[..., 0] = tbl[c]
         return succ[:, None, :], (c < 7)[:, None]
@@ -2696,7 +2894,9 @@ def oom_child(n: int = 7, device: str = "cuda") -> int:
     effect is known only to a segment: the leg tries the walls of
     :data:`OOM_WALL_SHARES` of the gap in turn, and reports every trial
     with the measured peaks; it passes when one trial does all of the
-    above.
+    above.  The ledger's bytes are the carry's and the kernels' buffers;
+    the engine's block graph holds its private pool besides (the largest
+    the first run's graphs reserved), which each wall adds.
     Prints one JSON line."""
     from stateright_tpu_torch.parallel.wavefront import (
         _STATUS_TABLE_FULL as TABLE_FULL,
@@ -2739,6 +2939,7 @@ def oom_child(n: int = 7, device: str = "cuda") -> int:
     finally:
         GpuChecker._regrow = regrow
     unique, states = g.unique_state_count(), g.state_count()
+    pool = max((b["pool_bytes"] for b in g.block_graphs), default=0)
     del g
     gc.collect()
     torch.cuda.empty_cache()
@@ -2749,10 +2950,10 @@ def oom_child(n: int = 7, device: str = "cuda") -> int:
               "ledger_transient_alloc_bytes": high,
               "measured_peak_before_growth": seen["pre"],
               "measured_peak_across_growth": seen["post"],
-              "device_bytes": total, "trials": []}
+              "graph_pool_bytes": pool, "device_bytes": total, "trials": []}
     ok = False
     for share in OOM_WALL_SHARES:
-        wall = int(low + share * (high - low))
+        wall = int(low + share * (high - low)) + pool
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.set_per_process_memory_fraction(wall / total, dev)
         reset_launches()
@@ -3150,18 +3351,7 @@ def sweep_ops_per_step(dev) -> dict:
     :data:`OPS_STEPS` steps (a ``TorchDispatchMode`` count around
     ``_SweepEngine.step``) of the 2pc-7 seed family with every member's
     target at :data:`SWEEP_OPS_TARGET`."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from stateright_tpu_torch.sweep import engine
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
 
     counts = []
     step = engine._SweepEngine.step
@@ -3169,7 +3359,7 @@ def sweep_ops_per_step(dev) -> dict:
     def counted(self, c):
         if len(counts) >= OPS_STEPS:
             return step(self, c)
-        probe = Count()
+        probe = OpCount()
         with probe:
             out = step(self, c)
         counts.append(probe.n)
@@ -3281,7 +3471,7 @@ def sweep_phases(dev, smi: str, ref7: dict) -> tuple:
         **ops, **SWEEP_2PC7_KW, "card": smi})
     if c.unique_state_count() != SWEEP_SEEDS * TPC7_UNIQUE:
         raise AssertionError("sweep_2pc7_seeds: not 8 x 296,448 unique")
-    if not all_launched(launches["sweep_2pc7_seeds"]):
+    if not all_launched(launches["sweep_2pc7_seeds"], STEP_KERNELS):
         raise AssertionError(f"a kernel never launched in the sweep: "
                              f"{launches['sweep_2pc7_seeds']}")
     kernels = sweep_kernels(kept, SWEEP_SEEDS)
@@ -3634,18 +3824,7 @@ def sharded_ops_per_step(dev, n: int) -> dict:
     :data:`OPS_STEPS` steps of 2pc-7 bounded at
     :data:`SHARDED_OPS_TARGET`): the shards are stacked, so the count does
     not grow with ``n``."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
     from stateright_tpu_torch.parallel import sharded
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
 
     counts = []
     step = sharded._ShardedEngine.step
@@ -3653,7 +3832,7 @@ def sharded_ops_per_step(dev, n: int) -> dict:
     def counted(self, c):
         if len(counts) >= OPS_STEPS:
             return step(self, c)
-        probe = Count()
+        probe = OpCount()
         with probe:
             out = step(self, c)
         counts.append(probe.n)
@@ -3958,24 +4137,13 @@ def mesh_ops_per_step(dev, pieces: int) -> dict:
     :data:`MESH_OPS_TARGET` (the first :data:`OPS_STEPS` steps, a
     ``TorchDispatchMode`` count around ``_Engine.step``), on a mesh of
     ``pieces`` pieces (1: the single-device step)."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.n += 1
-            return func(*args, **(kwargs or {}))
-
     counts = []
     step = _Engine.step
 
     def counted(self, c):
         if len(counts) >= OPS_STEPS:
             return step(self, c)
-        probe = Count()
+        probe = OpCount()
         with probe:
             out = step(self, c)
         counts.append(probe.n)
@@ -4262,7 +4430,7 @@ def mesh_phases(smi: str, ref7: dict, device=None) -> tuple:
     if set(m7.discovery_fps()) != set(ref7["disc"]) or not same:
         raise AssertionError("mesh 2pc-7: discoveries, tables or queue "
                              "differ from the plain leg")
-    if not all_launched(launches):
+    if not all_launched(launches, STEP_KERNELS):
         raise AssertionError(f"mesh 2pc-7: a kernel never launched: "
                              f"{launches}")
     del m7
@@ -4499,8 +4667,11 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
+    nvcc = subprocess.run([_cuda._nvcc(), "--version"], check=True,
+                          capture_output=True, text=True, timeout=60)
     emit("card", {"nvidia_smi": smi, "torch": torch.__version__,
                   "cuda": torch.version.cuda,
+                  "nvcc": nvcc.stdout.strip().splitlines()[-1],
                   "name": torch.cuda.get_device_name(0)})
     t0 = time.monotonic()
     _cuda.library()
@@ -4592,6 +4763,10 @@ def main() -> int:
         emit(f"kernel_{name}_2pc10", k)
     del g10
     lap("kernels_2pc10")
+
+    # -- the block graph against the eager loop, and block_cond's cell ------
+    block_cell = block_graph_phase(dev, smi)
+    lap("block_graph")
 
     p3_ref = paxos_phases(dev, smi)
     lap("paxos2_and_paxos3")
@@ -4696,6 +4871,7 @@ def main() -> int:
 
     bad = [f"{k['name']} at {shape}"
            for shape, ks in (("2pc-7", kernels), ("2pc-10", kernels10),
+                             ("block graph", {"block_cond": block_cell}),
                              ("paxos-3", kernels_p3),
                              ("paxos-3 prededup", kernels_p3f),
                              ("single-copy-4", kernels_sc4),
@@ -4808,6 +4984,25 @@ def main() -> int:
                                 "launches")},
                 launches=launches_mesh["mesh_2pc7"][name])
         line.append(entry)
+    # the block loop's cond: the 2pc-7 leg's launches (one a block and one
+    # an executed step), and each single-device leg's beside them
+    cond = dict({key: block_cell[key] for key in KERNEL_KEYS
+                 if key != "launches"}, launches=launches["block_cond"])
+    for tag, ls in (("at_2pc10", launches10),
+                    ("at_singlecopy4", launches_sc4),
+                    ("at_paxos2_per_channel", launches_p2pc),
+                    ("at_2pc15_symmetry", launches_sym),
+                    ("at_paxos3_prededup", launches_p3f),
+                    ("at_checkpoint_sc4", launches_ckpt),
+                    ("at_auto_2pc7", launches_auto),
+                    ("at_orl", launches_orl)):
+        cond[tag] = {"launches": ls["block_cond"]}
+    for group in (launches_p2f, launches_tel, launches_cs, launches_por,
+                  launches_pw):
+        for leg, ls in group.items():
+            if "block_cond" in ls:
+                cond[f"at_{leg}"] = {"launches": ls["block_cond"]}
+    line.append(cond)
     # the sweep's two kernel modes, each as a kernel of its own: launches
     # are the 2pc-7 seed sweep's (every cand_prep and insert_commit launch
     # of a sweep is in that mode)

@@ -23,7 +23,10 @@ returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code, so
 a refused launch (too many threads, a bad pointer) surfaces at the call.
 Each wrapper counts its launches through :func:`count_launch`, under one
 lock, so the counts stay exact when several engines launch from threads
-(the fleet's slots share one card).
+(the fleet's slots share one card).  While a thread captures a CUDA graph
+(:func:`capture_tally`) its wrappers launch nothing: their counts go to
+the capture's tally, which the graph's owner adds once for every replay
+of the captured work (``ops/block_loop.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import os
 import subprocess
 import tempfile
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
@@ -54,10 +58,31 @@ _I32 = ctypes.c_int
 _COUNT_LOCK = threading.Lock()
 
 
+_TLS = threading.local()
+
+
 def count_launch(wrapper, n: int = 1) -> None:
-    """Add ``n`` to ``wrapper.launches``, exactly under threads."""
+    """Add ``n`` to ``wrapper.launches``, exactly under threads; inside
+    :func:`capture_tally` on this thread, to the capture's tally."""
+    tally = getattr(_TLS, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + n
+        return
     with _COUNT_LOCK:
         wrapper.launches += n
+
+
+@contextmanager
+def capture_tally():
+    """Yield ``{wrapper: launches}``, which the wrappers called on this
+    thread fill instead of their counts: a graph capture, which records
+    the launches and runs none of them."""
+    prev = getattr(_TLS, "tally", None)
+    _TLS.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _TLS.tally = prev
 
 
 _SIGNATURES = {
@@ -85,6 +110,18 @@ _SIGNATURES = {
     # scratch, then the namespace mode (null tables: off): ptags, ns_low,
     # ns_xor, bits; m, cb, width, arity, stream
     "srt_cand_prep": (_P,) * 13 + (_I32, _I64, _I64, _I32, _I32, _P),
+    # the block's cond: head, tail, unique, status, disc, n_disc, err
+    # (nullable), target (< 0: none), steps, k, reset, go_out, stream
+    "srt_block_cond": (_P,) * 5 + (_I32, _P, _I64, _I64, _P, _I32, _P, _P),
+    # the block graph around a captured step graph: step, head, tail,
+    # unique, status, disc, n_disc, err, target, steps, k, then the
+    # graph, its instantiation and the step's node count (written)
+    "srt_block_graph_create": (_P,) * 6 + (_I32, _P, _I64, _I64, _P, _P,
+                                           _P, _P),
+    # exec, stream
+    "srt_block_graph_launch": (_P, _P),
+    # graph, exec
+    "srt_block_graph_destroy": (_P, _P),
 }
 
 

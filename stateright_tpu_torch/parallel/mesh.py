@@ -149,6 +149,10 @@ class MeshEngine(_Engine):
     the queue is in pieces (one device, or sizes the mesh does not
     divide), every seam is the single-device engine's."""
 
+    # the eager loop (``_Engine._run_steps``) runs its blocks: the pieces
+    # may sit on several devices, which one captured graph does not span
+    graph_block = False
+
     def __init__(self, *args, mesh: Mesh, **kw):
         super().__init__(*args, **kw)
         d, lead = mesh.size, self.device

@@ -51,14 +51,20 @@ flag off the step issues none of these operations.
 
 Pops are in BFS level order, so parent pointers record shortest paths.
 
-**No host sync per step.**  The JAX engine runs ``steps_per_call`` steps in
-one jitted ``while_loop`` whose ``cond`` stops at a non-OK status, an empty
-queue, all properties discovered, or the target.  Here the cursors,
-counters and status stay on the device and every step computes that same
-``go`` flag there: a step after the stop is a no-op (its lanes are dead,
-so nothing is inserted, and head, tail, counters and status keep their
-values), so a block runs exactly the steps the JAX loop would, and the host
-reads one packed stats tensor per block.  ``lax.dynamic_slice`` at
+**The block loop on the device.**  The JAX engine runs ``steps_per_call``
+steps in one jitted ``while_loop`` whose ``cond`` stops at a non-OK status,
+an empty queue, all properties discovered, the target or a failed check.
+Here the cursors, counters and status stay on the device and every step
+computes that same ``go`` flag there (:meth:`_Engine.go_of`): a step whose
+``go`` is false leaves every carry entry as it was (its lanes are dead, so
+nothing is inserted or deferred, and head, tail, counters and status keep
+their values).  On CUDA a block is one launch of the engine's block graph
+(``ops/block_loop.py``): the step captured once per engine key, inside a
+conditional WHILE node that the ``block_cond`` kernel stops, so no step
+runs after the stop; on the CPU the eager loop (:meth:`_Engine._run_steps`)
+issues every step.  Either way a block does the work the JAX loop does, its
+stats carry the steps it executed, and the host reads one packed stats
+tensor per block.  ``lax.dynamic_slice`` at
 ``head`` becomes an index gather at ``head + arange(batch)``, and the
 append at ``tail`` writes only the ``n_new`` live lanes.  The table and
 queue are updated in place.
@@ -107,8 +113,8 @@ issues none of these operations.
 the twin's ``property_masks`` and ``step_rows`` run under the guard of
 ``analysis/sanitizer.py`` on rows whose dead lanes hold the first init
 row; the flag is ORed into the carry's error word, ``go`` takes ``&
-~err``, so the steps after a failure are no-ops, and the word rides the
-block's stats read.  The host loop then replays the failing window one
+~err``, so the block stops at a failure, and the word rides the block's
+stats read.  The host loop then replays the failing window one
 row at a time and raises ``CheckedExecutionError``.
 
 **The spill tier** (``.spill()``, ``spill/``, JAX wavefront.py:498-511,
@@ -176,6 +182,9 @@ from ..convert import (
 )
 from ..core import Expectation
 from ..ops import _cuda
+from ..ops.block_loop import (
+    CUPTI_FAULT, BlockGraph, CondInputs, block_cond_plain, block_go,
+)
 from ..ops.buckets import (
     SLOTS, PlanBuffers, bucket_insert, bucket_plan_fused,
     host_bucket_rehash, lane_compact, sort_keys, window_unique,
@@ -393,6 +402,9 @@ class _Engine:
     initial carry, :meth:`run` advances it by up to ``steps`` steps, and
     under ``.spill()`` :meth:`inject` inserts a host-verified batch."""
 
+    # on CUDA a block is one launch of the block graph
+    graph_block = True
+
     def __init__(self, tensor, props, cap: int, qcap: int, batch: int,
                  steps: int, target: Optional[int], cand: Optional[int],
                  device, sym: bool = False, prededup: bool = False,
@@ -472,6 +484,9 @@ class _Engine:
                 self.plan_out2 = PlanBuffers(self.eff_cand, self.device, sym)
             if spill:
                 self.inject_out = PlanBuffers(self.pend_cap, self.device, sym)
+        # on CUDA, the block graph (``ops/block_loop.py``), captured at the
+        # first run
+        self.block: Optional[BlockGraph] = None
 
     # -- step pieces ---------------------------------------------------------
 
@@ -511,17 +526,26 @@ class _Engine:
             return torch.zeros((), dtype=torch.bool, device=self.device)
         return (disc != 0).all()
 
+    def cond_inputs(self, c: list) -> CondInputs:
+        """What the block's ``cond`` reads of the carry ``c``."""
+        return CondInputs(c[HEAD], c[TAIL], c[UNIQUE], c[STATUS],
+                          c[DISC] if self.props else None,
+                          c[self.layout.err] if self.checked else None,
+                          self.target)
+
+    def go_of(self, c: list) -> torch.Tensor:
+        """Whether a step of ``c`` does work (0-d bool): JAX's ``cond``
+        (wavefront.py:701-710) without its ``k < steps`` term.  A failed
+        check stops the block (the host raises from it).  A step whose
+        ``go`` is false leaves every carry entry as it was."""
+        return block_go(self.cond_inputs(c))
+
     def step(self, c: list) -> list:
         """Pop one batch, expand, dedup+insert, append novel rows."""
         batch, m, width = self.batch, self.m, self.width
         head, tail, unique = c[HEAD], c[TAIL], c[UNIQUE]
-        status, disc = c[STATUS], c[DISC]
-        go = (status == _STATUS_OK) & (tail > head) & ~self.all_discovered(disc)
-        if self.target is not None:
-            go &= unique < self.target
-        if self.checked:
-            # a failed check stops the block: the host raises from it
-            go &= ~c[self.layout.err]
+        disc = c[DISC]
+        go = self.go_of(c)
         n_avail = torch.where(go, tail - head, 0)
         pos = (head + self.lanes).clamp_(max=self.qalloc - 1)
         rows, fps, ebits, depths = self._pop(c, pos)
@@ -769,20 +793,25 @@ class _Engine:
         pending cursor (JAX wavefront.py:575-607), and count the spill
         tallies.  The writes run even on an overflowed batch; the cursor
         and the tallies then stay, so the replay overwrites the same
-        window.  Returns the 0-d count of deferred lanes."""
+        window.  Only the deferred lanes are written: the window's other
+        lanes get back what they held, so a step that defers nothing (one
+        whose ``go`` is false among them) leaves the buffers as they were.
+        Returns the 0-d count of deferred lanes."""
         sp = self.layout.spill_start
         pcount = c[sp + _SP_PCOUNT]
         didx, dlive, n_def = lane_compact(maybe, self.m)
         n_def = n_def.to(torch.int64)
         parent = torch.div(didx, self.arity, rounding_mode="floor")
         dst = pcount + self.pend_lanes
-        c[sp + _SP_PFP].index_copy_(
-            0, dst, torch.where(dlive, fph.index_select(0, didx), EMPTY))
-        c[sp + _SP_PROWS].index_copy_(0, dst, cand_rows.index_select(0, didx))
-        c[sp + _SP_PPAR].index_copy_(0, dst, fps.index_select(0, parent))
-        c[sp + _SP_PEBT].index_copy_(0, dst, ebits.index_select(0, parent))
-        c[sp + _SP_PDEP].index_copy_(0, dst, depths.index_select(0, parent)
-                                     + 1)
+        for j, src in ((_SP_PFP, fph.index_select(0, didx)),
+                       (_SP_PROWS, cand_rows.index_select(0, didx)),
+                       (_SP_PPAR, fps.index_select(0, parent)),
+                       (_SP_PEBT, ebits.index_select(0, parent)),
+                       (_SP_PDEP, depths.index_select(0, parent) + 1)):
+            buf = c[sp + j]
+            live = dlive[:, None] if src.dim() == 2 else dlive
+            buf.index_copy_(0, dst, torch.where(live, src,
+                                                buf.index_select(0, dst)))
         c[sp + _SP_PCOUNT] = pcount + torch.where(overflow, 0, n_def)
         d_sp = torch.stack([n_def, cvalid.sum() - n_def])
         c[sp + _SP_STATS] = c[sp + _SP_STATS] + torch.where(overflow, 0, d_sp)
@@ -791,12 +820,53 @@ class _Engine:
     # -- programs ------------------------------------------------------------
 
     def run(self, carry: list):
-        """Up to ``steps`` steps (no-ops once the run must stop); returns
-        ``(carry, stats)``."""
+        """One block of up to ``steps`` steps; returns ``(carry, stats)``,
+        ``stats`` the packed stats (:meth:`_stats`) followed by ``k``, the
+        steps the block executed.  On CUDA the block is one launch of the
+        block graph (``ops/block_loop.py``), captured at the first run; on
+        the CPU it is the eager loop :meth:`_run_steps`."""
+        if not self.uses_graph:
+            return self._run_steps(carry)
+        if self.block is None:
+            # the capture is this engine's build, charged to the compile
+            # stage and its event
+            with build_site():
+                self.block = BlockGraph(self, carry)
+        carry, k = self.block.run(carry)
+        return carry, torch.cat([self._stats(carry), k])
+
+    @property
+    def uses_graph(self) -> bool:
+        """Whether a block is a launch of the block graph (on CUDA)."""
+        return self.device.type == "cuda" and self.graph_block
+
+    def _run_steps(self, carry: list):
+        """The block's plain version: ``steps`` steps issued from Python,
+        each after the stop a no-op, with JAX's ``cond`` evaluated before
+        each (:func:`~..ops.block_loop.block_cond_plain`) to count the
+        steps that did work.  Returns what :meth:`run` returns."""
         carry = list(carry)
+        k = torch.zeros(1, dtype=torch.int64, device=self.device)
         for _ in range(self.steps):
+            _, k = block_cond_plain(self.cond_inputs(carry), k, self.steps)
             carry = self.step(carry)
-        return carry, self._stats(carry)
+        return carry, torch.cat([self._stats(carry), k])
+
+    def warm(self, c: list) -> None:
+        """One eager step on ``c`` with its status replaced by a stopped
+        one: ``go`` is false, so the step changes no carry entry, and it
+        builds every per-device cache the step builds at its first call
+        (the compiled twins' tables, the POR gather index), before the
+        block graph's capture."""
+        w = list(c)
+        w[STATUS] = torch.full_like(c[STATUS], _STATUS_QUEUE_FULL)
+        self.step(w)
+
+    def account(self, k: int) -> None:
+        """Count the launches of a graph block that executed ``k`` steps
+        (the eager loop's wrappers counted their own)."""
+        if self.block is not None:
+            self.block.account(k)
 
     def _stats(self, carry: list) -> torch.Tensor:
         """The block's packed stats (:func:`stats_of`)."""
@@ -984,7 +1054,14 @@ class GpuChecker(WavefrontChecker):
         # growth raised the process's peak (the device's peak counters
         # are the caller's and are never reset here)
         self.growth_memory: list = []
-        self.steps_run = 0  # device steps issued, post-stop no-ops included
+        # blocks times steps_per_call (the JAX engine's trip budget), and
+        # the steps the blocks executed (JAX's while_loop trips; on CUDA
+        # the block graph runs no other)
+        self.steps_run = 0
+        self.steps_executed = 0
+        # on CUDA, one entry per engine whose block graph was captured:
+        # its capacities and :meth:`BlockGraph.record`
+        self.block_graphs: list = []
         # under spill: inject calls, and the kernel launches they made
         self.inject_calls = 0
         self.inject_launches = {"bucket_plan_fused": 0, "insert_commit": 0}
@@ -1604,8 +1681,11 @@ class GpuChecker(WavefrontChecker):
     def _growth_peak(self, opened: tuple, after: dict, base: tuple) -> None:
         """Close one growth's memory measurement (memory ledger on cuda).
 
-        ``opened`` is the capacities before the growth and the device's
-        peak counters as it began.  The counters belong to the process and
+        ``opened`` is the capacities before the growth, the device's peak
+        counters as it began and the private pool of the block graph the
+        growth leaves (0 without one): the forecast adds it to both rungs'
+        buffers, a bound on what the released graph still holds.  The
+        counters belong to the process and
         are never reset here, so a growth's own peak is known exactly only
         where it raised them: then it is the new peak, above ``base`` (the
         current bytes as the run began).  Otherwise it was at most the
@@ -1614,11 +1694,16 @@ class GpuChecker(WavefrontChecker):
         (``telemetry/memory.transient_block``)."""
         from ..telemetry.memory import MEMORY_V, transient_block
 
-        before, (req0, alloc0) = opened
+        before, (req0, alloc0), pool = opened
         req1, alloc1 = self._peaks()
+        forecast = transient_block(self._memory_spec_fn(), before, after)
+        if pool:
+            forecast = dict(
+                forecast, graph_pool_bytes=pool,
+                transient_bytes=forecast["transient_bytes"] + pool,
+                transient_alloc_bytes=forecast["transient_alloc_bytes"] + pool)
         entry = {
-            "before": before, "after": after,
-            **transient_block(self._memory_spec_fn(), before, after),
+            "before": before, "after": after, **forecast,
             "peak_requested_bytes": req1 - base[0] if req1 > req0 else None,
             "peak_bytes": alloc1 - base[1] if alloc1 > alloc0 else None,
         }
@@ -1711,12 +1796,17 @@ class GpuChecker(WavefrontChecker):
         prev, rec = self._pending_compile_rec, self.flight_recorder
         if prev is not None and rec is not None:
             if comp > 0:
-                hit = d["persistent_hits"] > 0
+                more = {}
+                if d["persistent_hits"] or d["persistent_misses"]:
+                    # the kernel library's build or load (a block graph's
+                    # capture is no cache lookup)
+                    hit = d["persistent_hits"] > 0
+                    more = dict(cache_hit=hit,
+                                source="persistent" if hit else "fresh")
                 rec.amend(prev,
                           duration=round(prev["duration"] + comp, 6),
                           build_secs=round(prev["build_secs"] + comp, 6),
-                          cache_hit=hit,
-                          source="persistent" if hit else "fresh")
+                          **more)
             else:
                 self._pending_compile_rec = None
         return out, comp
@@ -1832,6 +1922,16 @@ class GpuChecker(WavefrontChecker):
         return cap, qcap, batch, cand, carry
 
     def _run(self) -> None:
+        try:
+            self._run_blocks()
+        finally:
+            if self._last_engine is not None:
+                # a finished or failed run launches no more blocks: its
+                # graph and pool go (a finished run's carry stays in
+                # _final_carry)
+                self._last_engine.block = None
+
+    def _run_blocks(self) -> None:
         cap, qcap, batch = self._cap, self._qcap, self._batch
         arity = self.tensor.max_actions
         cand = min(self._cand, batch * arity)
@@ -1904,6 +2004,12 @@ class GpuChecker(WavefrontChecker):
                 stats = self._stats_of(carry, lay, exact=True)
             if isinstance(stats, torch.Tensor):
                 stats = stats.cpu().numpy()  # the block's one host sync
+            if ran_block:
+                # the steps the block executed ride its stats read
+                k = int(stats[-1])
+                stats = stats[:-1]
+                self.steps_executed += k
+                engine.account(k)
             self._stage("device", time.perf_counter() - t_dev)
             if ran_block and self._profiler is not None:
                 self._profiler.tick()
@@ -1994,13 +2100,20 @@ class GpuChecker(WavefrontChecker):
                 # strikes, the growth transient
                 faults.fire("growth", recorder=rec, status=status,
                             unique=unique)
+                pool = 0
+                if self._last_engine is not None:
+                    # the next block captures anew: the carry the graph
+                    # adopted and its pool go now
+                    blk, self._last_engine.block = self._last_engine.block, None
+                    pool = blk.pool_bytes if blk is not None else 0
+                    del blk
                 self.growth_events.append((status, unique))
                 if measure:
                     if peak_from is not None:
                         self._growth_peak(peak_from, self._memory_caps(
                             cap, qcap, batch, cand), mem_base)
                     peak_from = (self._memory_caps(cap, qcap, batch, cand),
-                                 self._peaks())
+                                 self._peaks(), pool)
                 name = _STATUS_TELEMETRY_NAMES.get(status, str(status))
                 if rec is not None:
                     rec.record("growth", status=name, unique=unique, cap=cap,
@@ -2086,12 +2199,22 @@ class GpuChecker(WavefrontChecker):
                     cap, qcap, batch, cand), mem_base)
                 peak_from = None
             if self._profiler is not None:
-                self._profiler.maybe_start()
+                self._profiler.maybe_start(
+                    CUPTI_FAULT if engine.uses_graph else None)
             t_dev = time.perf_counter()
             (carry, stats), comp = self._device_call(engine.run, carry)
             t_dev += comp
             ran_block = True
             self.steps_run += engine.steps
+            blk = getattr(engine, "block", None)
+            if blk is not None and not blk.reported:
+                blk.reported = True
+                self.block_graphs.append(dict(cap=cap, qcap=qcap,
+                                              batch=batch, cand=cand,
+                                              **blk.record()))
+                if self._mem_ledger is not None:
+                    self._mem_ledger.note_graph_pool(blk.pool_bytes)
+            del blk
 
         if peak_from is not None:
             self._growth_peak(peak_from, self._memory_caps(

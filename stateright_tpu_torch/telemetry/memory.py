@@ -17,7 +17,10 @@ port's own buffers.  Two reconciling views:
    bytes == the live tensors' ``nbytes`` exactly, at every rung.
  - **Live device readings** — :func:`device_memory_stats` on
    ``torch.cuda.memory_stats`` and ``torch.cuda.mem_get_info``; None on
-   the CPU, where every consumer degrades to the analytic path.
+   the CPU, where every consumer degrades to the analytic path.  On CUDA
+   each record's live block also gives the engine's block-graph pool
+   (``graph_pool_bytes``, :meth:`MemoryLedger.note_graph_pool`), which the
+   analytic buffers do not cover.
 
 On top of the ledger:
 
@@ -457,6 +460,15 @@ class MemoryLedger:
         self._observes = 0
         budget, src = device_budget()
         self._budget, self._budget_src = budget, src
+        # bytes of the current engine's block-graph pool (CUDA only)
+        self.graph_pool_bytes: Optional[int] = None
+
+    def note_graph_pool(self, nbytes: int) -> None:
+        """The private pool of the engine's block graph
+        (``ops/block_loop.py``): the step's intermediates, which stay
+        reserved as long as the engine lives.  Each later record's
+        ``device`` block gives it beside the allocator's counters."""
+        self.graph_pool_bytes = int(nbytes)
 
     # -- feeding -------------------------------------------------------------
 
@@ -542,6 +554,8 @@ class MemoryLedger:
         }
         live = device_memory_stats()
         if live is not None:
+            if self.graph_pool_bytes is not None:
+                live["graph_pool_bytes"] = self.graph_pool_bytes
             rec_fields["device"] = live
             # refresh the live view consumers poll (watch/Explorer)
             self._snap = dict(self._snap)

@@ -9,6 +9,10 @@ first block and stops it after ``steps`` host syncs, then writes the
 session as a Chrome trace (``trace-<pid>-<n>.json`` under ``logdir``).
 The trace holds the kernels the blocks launched, by their CUDA names
 (``cand_prep_kernel``, ``bucket_plan_kernel``, ``insert_commit_kernel``).
+An engine whose block is a CUDA graph with a conditional WHILE node
+(``ops/block_loop.py``) is traced on the CPU only: CUPTI's kernel tracing
+faults the device inside such a body (``ops.block_loop.CUPTI_FAULT``),
+and the session's ``start`` event carries that reason as ``cuda_off``.
 
 Failure policy (the JAX package's): profiling must never break a run.  A
 profiler that cannot start or stop, or an unwritable logdir, downgrades
@@ -57,23 +61,29 @@ class ScopedProfiler:
             fields.setdefault("span", sid)
         self.recorder.record("profile", **fields)
 
-    def maybe_start(self) -> None:
+    def maybe_start(self, cuda_off: Optional[str] = None) -> None:
         """Start the session before a block, once: a session that ran its
-        ``steps`` blocks (or failed) is not started again."""
+        ``steps`` blocks (or failed) is not started again.  ``cuda_off``:
+        why the engine's blocks must not be traced on the device (the
+        session traces the CPU only, and its ``start`` event says why);
+        None: CUDA activity too when a CUDA device is present."""
         if self._active or self._failed or self._ticks >= self.steps:
             return
         try:
             import torch
 
             acts = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
+            cuda = torch.cuda.is_available() and cuda_off is None
+            if cuda:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             os.makedirs(self.logdir, exist_ok=True)
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.start()
             self._active = True
+            more = {"cuda_off": cuda_off} if cuda_off is not None else {}
             self._record(
                 event="start", logdir=self.logdir, steps=self.steps,
+                cuda=cuda, **more,
             )
         except Exception as e:  # noqa: BLE001 - profiling never breaks a run
             self._failed = True

@@ -31,7 +31,12 @@ under POR, each snapshot on ``cuda`` against ``cpu``, shard for shard;
 and the mesh engine (``.mesh()``, 4 pieces on the card): 2pc-5, 2pc-5
 under symmetry, 2pc-4 with growth and per-channel paxos-1 under POR on
 ``cuda`` against 4 pieces on ``cpu``, and ``insert_commit``'s window mode
-against its plain version.
+against its plain version; and the block graph (``ops/block_loop.py``):
+``block_cond`` against its plain version, the graph block against the
+eager loop bit for bit block after block (2pc-5, paxos-2, 2pc-4 under
+symmetry, every flag of the single-device engine, the target and
+discovery stops, each complete and stopped by growth), exact launch
+counts, and a run's capture records.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one.  This file imports no JAX (the machine with the
@@ -41,6 +46,7 @@ card has none), so on that machine it runs without the suite's conftest:
 """
 
 import io
+import json
 import time
 
 import numpy as np
@@ -89,6 +95,11 @@ from stateright_tpu_torch.ops.insert_commit import (
     commit_tile,
     insert_commit,
     insert_commit_plain,
+)
+from stateright_tpu_torch.testing.block_legs import (
+    BLOCK_LEGS,
+    BLOCK_TARGET,
+    per_channel_paxos,
 )
 from test_torch_plan_cases import (
     GEN_CASES,
@@ -1011,12 +1022,6 @@ def test_supervised_2pc5_killed_at_a_host_sync_ends_on_the_cpu_tables(
 # -- partial-order reduction ---------------------------------------------------
 
 
-def per_channel_paxos(n):
-    m = paxos_model(n)
-    m.per_channel_()
-    return m
-
-
 @pytest.mark.parametrize("name,kw,counts", [
     ("pc-paxos1", dict(batch=64), (250, 437)),
     # queue growth (a boost at each boundary) and a candidate budget at
@@ -1094,12 +1099,17 @@ def test_por_proviso_round_kernels_match_plain(cuda):
             kept.update(snap)
         return out
 
+    # the blocks run the eager loop, so the step's Python runs every step
+    # (the block graph runs it once, at its capture) and may read the count
+    block = wavefront._Engine.run
     wavefront._Engine._insert_round = keep
+    wavefront._Engine.run = wavefront._Engine._run_steps
     try:
         per_channel_paxos(1).checker().por().spawn_gpu(device=cuda,
                                                        batch=64).join()
     finally:
         wavefront._Engine._insert_round = run
+        wavefront._Engine.run = block
     assert kept, "no proviso round inserted anything"
     k = kept
     got = cand_prep(k["krows"], k["kept"], k["fps"], k["arity"], k["cb"])
@@ -1524,3 +1534,203 @@ def test_compile_cache_round_trip_builds_then_loads(cuda, tmp_path):
     assert miss["counters"]["persistent_cache_misses"] == 1
     assert hit["init"]["source"] == "persistent" and hit["init"]["cache_hit"]
     assert hit["counters"]["persistent_cache_hits"] == 1
+
+
+# -- the block graph (ops/block_loop.py) ----------------------------------------
+
+
+def test_block_cond_kernel_matches_plain(cuda):
+    """``srt_block_cond`` against ``block_cond_plain`` on seeded carries:
+    every term of JAX's ``cond`` (status, queue, discoveries, target,
+    checked word, ``k < steps``), with and without the reset of ``k``."""
+    from stateright_tpu_torch.ops.block_loop import (
+        CondInputs,
+        block_cond,
+        block_cond_plain,
+    )
+
+    rng = np.random.default_rng(22)
+    before = block_cond.launches
+
+    def s(v):
+        return torch.tensor(int(v), dtype=torch.int64, device=cuda)
+
+    for case in range(256):
+        n_disc = int(rng.integers(0, 4))
+        disc = (torch.from_numpy(rng.integers(0, 2, n_disc).astype(np.int64))
+                .to(cuda) if n_disc else None)
+        err = (torch.tensor(bool(rng.integers(0, 2)), device=cuda)
+               if rng.integers(0, 2) else None)
+        target = int(rng.integers(0, 8)) if rng.integers(0, 2) else None
+        x = CondInputs(s(rng.integers(0, 4)), s(rng.integers(0, 4)),
+                       s(rng.integers(0, 8)), s(rng.integers(0, 3) // 2),
+                       disc, err, target)
+        steps = int(rng.integers(1, 5))
+        k = torch.tensor([int(rng.integers(0, 6))], dtype=torch.int64,
+                         device=cuda)
+        reset = bool(rng.integers(0, 2))
+        go, k1 = block_cond(x, k, steps, reset=reset)
+        want_go, want_k = block_cond_plain(
+            x, torch.zeros_like(k) if reset else k, steps)
+        assert torch.equal(go, want_go), case
+        assert torch.equal(k1, want_k), case
+    assert block_cond.launches == before + 256
+
+
+def block_engine(cuda, name: str, steps: int = 8, grow: bool = False):
+    """A fresh CUDA engine of the leg ``name`` and its init carry: at a
+    finished run's capacities (no growth), or at small ones (``grow``:
+    the blocks stop on a growth status).  Under ``.spill()`` the Bloom
+    words are all ones, so every candidate defers and the pending buffer
+    fills."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    build, kw = BLOCK_LEGS[name]
+    c = build().spawn_gpu(device=cuda, batch=64, steps_per_call=steps,
+                          **kw).join()
+    if grow:
+        eng = c._engine(1 << 10, 1 << 9, 64, 256)
+    else:
+        eng = c._engine(c._cap, c._qcap, c._batch, c._cand)
+    carry, _ = eng.init()
+    if eng.spill:
+        sp = eng.layout.spill_start + wavefront._SP_BLOOM
+        carry[sp] = torch.full_like(carry[sp], -1)
+    return c, eng, carry
+
+
+def eager_go_steps(eng, carry) -> int:
+    """The eager loop's steps whose ``go`` was true, on a copy."""
+    c, n = [t.clone() for t in carry], 0
+    for _ in range(eng.steps):
+        n += int(eng.go_of(c))
+        c = eng.step(c)
+    return n
+
+
+@pytest.mark.parametrize("grow", [False, True], ids=["complete", "growth"])
+@pytest.mark.parametrize("name", sorted(BLOCK_LEGS))
+def test_graph_block_equals_the_eager_loop(cuda, name, grow):
+    """Block after block from the init carry, the graph block and the eager
+    loop (``_Engine._run_steps``) on the same carry give the same carry
+    entries, stats and executed steps, bit for bit, and the graph block's
+    ``k`` is the eager loop's count of steps with ``go`` true; the run
+    ends where the host would take over (a growth or spill status, an
+    empty queue, every property discovered, the target)."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    c, eng, carry = block_engine(cuda, name, grow=grow)
+    blocks = stopped = 0
+    while blocks < 200:
+        ref = [t.clone() for t in carry]
+        want_k = eager_go_steps(eng, ref)
+        want, wstats = eng._run_steps(ref)
+        got, gstats = eng.run(carry)
+        assert len(got) == len(want)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert torch.equal(a, b), (name, blocks, i)
+        assert torch.equal(gstats, wstats), (name, blocks)
+        k = int(gstats[-1])
+        assert k == want_k
+        eng.account(k)
+        blocks += 1
+        stopped += k < eng.steps
+        carry = got
+        st = gstats[:-1].cpu().numpy()
+        head, tail, unique, status = (int(st[0]), int(st[1]), int(st[2]),
+                                      int(st[wavefront._ST_STATUS]))
+        if not k or status != 0 or tail <= head:
+            break
+    assert eng.block is not None and blocks > int(grow) - 1
+    assert stopped >= 1
+    if name == "2pc5_target" and not grow:
+        assert unique >= BLOCK_TARGET
+    if name == "2pc5_discovery" and not grow:
+        assert (carry[wavefront.DISC] != 0).all()
+
+
+def test_graph_block_launch_counts_are_exact(cuda):
+    """The wrappers' launch counters after a graph block equal the eager
+    block's per-step launches times the executed steps, and the cond's
+    launches are ``1 + k`` (the block's first evaluation, then one a
+    step); under ``.prededup()`` every step kernel is counted, row_hash
+    included.  The first block (the capture and its warm step) is run
+    before the counters are read."""
+    from stateright_tpu_torch.ops.block_loop import block_cond
+    from stateright_tpu_torch.parallel import wavefront
+
+    wrappers = (cand_prep, row_hash, bucket_plan_fused, insert_commit,
+                block_cond)
+    c, eng, carry = block_engine(cuda, "2pc5_prededup", grow=True)
+    carry, stats = eng.run(carry)
+    eng.account(int(stats[-1]))
+    seen_short = False
+    while True:
+        ref = [t.clone() for t in carry]
+        base = {w: w.launches for w in wrappers}
+        _, wstats = eng._run_steps(ref)
+        eager = {w: w.launches - base[w] for w in wrappers}
+        base = {w: w.launches for w in wrappers}
+        carry, gstats = eng.run(carry)
+        k = int(gstats[-1])
+        eng.account(k)
+        graph = {w: w.launches - base[w] for w in wrappers}
+        assert eager[block_cond] == 0
+        for w in wrappers[:-1]:
+            assert eager[w] % eng.steps == 0
+            assert graph[w] == eager[w] // eng.steps * k, w.__name__
+        assert graph[row_hash] == k and graph[insert_commit] == k
+        assert graph[block_cond] == 1 + k
+        seen_short |= k < eng.steps
+        if int(gstats[wavefront._ST_STATUS]) != 0 or k == 0:
+            break
+    assert seen_short
+
+
+def test_scoped_profiler_traces_a_block_graph_run_on_the_cpu_only(
+        cuda, tmp_path):
+    """``.telemetry(profile_steps=N)`` over every block of paxos-3 (the
+    run whose kernels fault the device under CUPTI in the block graph's
+    WHILE body): the session traces the CPU only, its ``start`` event
+    gives the reason, the trace is written and the run completes."""
+    from stateright_tpu_torch.ops.block_loop import CUPTI_FAULT
+
+    c = (paxos_model(3).checker()
+         .telemetry(profile_steps=1 << 20, profile_dir=str(tmp_path))
+         .spawn_gpu(device=cuda).join())
+    assert c.unique_state_count() == 1_194_428
+    start, stop = c.flight_recorder.records("profile")
+    assert start["cuda"] is False and start["cuda_off"] == CUPTI_FAULT
+    assert stop["event"] == "stop" and stop["profiled_steps"] > 10
+    with open(stop["trace"]) as f:
+        events = json.load(f)["traceEvents"]
+    assert events and not any(e.get("cat") == "kernel" for e in events)
+
+
+def test_block_graph_records_its_capture(cuda):
+    """A run on the card captures one block graph per engine key and
+    records its costs; the eager loop never runs there, and the executed
+    steps are at most the issued ones."""
+    from stateright_tpu_torch.parallel import wavefront
+
+    calls = []
+    eager = wavefront._Engine._run_steps
+
+    def spy(self, carry):
+        calls.append(self.key)
+        return eager(self, carry)
+
+    wavefront._Engine._run_steps = spy
+    try:
+        g = TwoPhaseSys(5).checker().spawn_gpu(
+            device=cuda, capacity=1 << 10, batch=64).join()
+    finally:
+        wavefront._Engine._run_steps = eager
+    assert g.unique_state_count() == 8832
+    assert not calls
+    assert 2 <= len(g.block_graphs) <= len(g.growth_events) + 1
+    for rec in g.block_graphs:
+        assert rec["nodes"] > 0 and rec["capture_secs"] > 0
+        assert rec["pool_bytes"] > 0
+        assert rec["launches_per_step"]["insert_commit"] == 1
+    assert 0 < g.steps_executed < g.steps_run

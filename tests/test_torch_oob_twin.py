@@ -23,9 +23,20 @@ class OOBTwin(TensorModel):
 
     def __init__(self, model):
         self.model = model
+        self._tables: dict = {}
 
     def init_rows(self):
         return np.zeros((1, 1), np.uint64)
+
+    def table(self, device) -> torch.Tensor:
+        """The 4-entry table on ``device``, built at the first step there:
+        a step issues no host-to-device copy, so the engine's block graph
+        can capture it."""
+        t = self._tables.get(device)
+        if t is None:
+            t = self._tables[device] = torch.tensor(
+                [1, 2, 3, 4], dtype=torch.int64, device=device)
+        return t
 
     def encode_state(self, s):
         return (int(s),)
@@ -39,8 +50,7 @@ class OOBTwin(TensorModel):
 
     def step_rows(self, rows):
         c = self.pk.get(rows, "count")
-        tbl = torch.tensor([1, 2, 3, 4], dtype=torch.int64,
-                           device=rows.device)
+        tbl = self.table(rows.device)
         succ = rows.clone()
         succ[..., 0] = tbl[c]
         return succ[:, None, :], (c < 7)[:, None]

@@ -149,6 +149,54 @@ def test_scoped_profiler_writes_a_trace_and_survives_a_broken_one(
     assert ev["event"] == "unavailable" and "no profiler" in ev["error"]
 
 
+def test_scoped_profiler_leaves_cuda_out_with_its_reason(tmp_path,
+                                                         monkeypatch):
+    """A session started with a ``cuda_off`` reason (a block-graph
+    engine's) asks ``torch.profiler`` for CPU activity only, even with a
+    CUDA device present, and its ``start`` event carries the reason; with
+    none it asks for CUDA activity too.  A CPU engine gives no reason."""
+    import torch
+
+    from stateright_tpu_torch.ops.block_loop import CUPTI_FAULT
+    from stateright_tpu_torch.telemetry.profile import ScopedProfiler
+    from stateright_tpu_torch.telemetry.recorder import FlightRecorder
+
+    acts = torch.profiler.ProfilerActivity
+    asked = []
+
+    class Session:
+        def __init__(self, activities):
+            asked.append(list(activities))
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def export_chrome_trace(self, path):
+            with open(path, "w") as f:
+                f.write("{}")
+
+    monkeypatch.setattr(torch.profiler, "profile", Session)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for off in (CUPTI_FAULT, None):
+        rec = FlightRecorder(capacity=64, meta={"engine": "t"})
+        p = ScopedProfiler(str(tmp_path), steps=1, recorder=rec)
+        p.maybe_start(off)
+        p.tick()
+        start, stop = rec.records("profile")
+        assert (start["event"], stop["event"]) == ("start", "stop")
+        assert start["cuda"] is (off is None)
+        assert start.get("cuda_off") == off
+    assert asked == [[acts.CPU], [acts.CPU, acts.CUDA]]
+    monkeypatch.undo()
+    c = port_run(lambda b: b.telemetry(profile_steps=1,
+                                       profile_dir=str(tmp_path)))
+    start = c.flight_recorder.records("profile")[0]
+    assert start["cuda"] is False and "cuda_off" not in start
+
+
 def test_metrics_bus_families_cap_and_prometheus_text():
     bus = MetricsBus(max_series=2)
     c = bus.counter("srt_states_total", "states", ("engine",))
